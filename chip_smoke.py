@@ -11,16 +11,25 @@ Phases (each fails loudly: a failure exits non-zero and the final
 1. Card, power limit, torch/CUDA versions; builds every kernel from the
    sources in the checkout (one ``nvcc`` per source, started together).
 2. Each kernel against its plain PyTorch version at the shapes the
-   llama-2-7b decode path gives it, in float32 (atol 1e-4) and bfloat16
-   (atol 1e-3, rtol 1e-2), plus its bfloat16 time beside its bound.
-3. The engine against a plain reference on a small input: llama-2-7b's
-   width cut to 2 layers, float32, greedy tokens through the engine (the
-   kernel in every layer) against argmax of a full-sequence forward.
-4. The main path: serves llama-2-7b-chat (bf16, full width and depth,
-   random weights from seed 0) through the port's aiohttp
-   ``/v1/completions`` (4 concurrent requests, one streamed) plus one
-   ``ignore_eos`` engine request, and checks through the launch counts
-   that every layer of every decode step went through the kernel.
+   llama-2-7b paths give it, plus its time beside its plain version, its
+   bound and a one-call PyTorch yardstick where one exists:
+   #1 paged decode attention (bf16/f32 pools) and #2 its int8-pool path,
+   in float32 (atol 1e-4) and bfloat16 (atol 1e-3, rtol 1e-2); #3 the
+   packed-int4 matmul at every projection shape, M = 1, 8, 128 and 1024,
+   float32 out atol 1e-4 * max|ref|, rtol 1e-4, bf16 out rtol 1e-2.
+3. The engines on a small input: llama-2-7b's width cut to 2 layers,
+   float32 (TF32 off). bf16 path: greedy tokens through the engine (#1 in
+   every layer) against argmax of a full-sequence forward. Quantized
+   path (int4_awq weights, int8 KV pool): greedy tokens through the
+   engine on the card (#2 and #3 on every call) against the same engine
+   on the CPU with the same parameters (the plain versions).
+4. The main paths: serves llama-2-7b-chat (full width and depth, random
+   weights from seed 0) through the port's aiohttp ``/v1/completions``
+   (4 concurrent requests, one streamed) plus one ``ignore_eos`` engine
+   request, once in bf16 and once with int4_awq weights over an int8 KV
+   pool, and checks through the launch counts (set to 0 just before each
+   path, read just after) that every layer of every decode step, and
+   every projection, went through the path's kernels.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -56,50 +65,78 @@ def card_line() -> str:
 
 
 def time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call from CUDA events after warm-up."""
-    for _ in range(warmup):
-        fn()
+    """Mean milliseconds per call of device time: after warm-up, ``iters``
+    calls are captured in one CUDA graph and the replay is timed with CUDA
+    events, so the host's time to issue each call (tens of microseconds in
+    a Python wrapper, more than a small kernel's own time) is not counted.
+    ``fn`` may be a list of calls, taken in turn (on copies of the inputs,
+    so that a weight smaller than the 50 MB L2 cache is read cold, as the
+    decode step reads it)."""
+    fns = fn if isinstance(fn, list) else [fn]
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
 # ------------------------------------------------------------ kernel phase
 
-def check_paged_attention(torch, dev, dtype):
+def check_paged_attention(torch, dev, dtype, quant: bool = False):
     """The paged decode kernel against its plain version at llama-2-7b
     decode shapes: B=8, H=KV=32, hd=128, page=128, layer 1 of an L=2
-    pool, lengths covering 0, page-1, page, page+1 and long contexts.
+    pool, lengths covering 0, page-1, page, page+1 and long contexts. q
+    and cur_k/cur_v are in ``dtype``; the pools too (#1), or, under
+    ``quant`` (#2), int8 pools with bf16 scale pools made by
+    ``quantize_rows`` from random rows.
 
     Tolerances, from the kernel's measured error: float32 atol 1e-4 (fp32
     accumulation in another order than the plain einsum; a dropped or
     extra row shifts a 3000-token slot's output by ~1e-3), bfloat16
     atol 1e-3 with rtol 1e-2 (both sides accumulate in fp32; the rtol
     covers one bf16 ulp on the large outputs of the length-0/1 slots).
-    Returns the kernel's row of the result line for bfloat16 (timed
-    against its plain version and bound), None for float32."""
+    The appended rows must be bit copies of cur_k/cur_v (#2: equal
+    ``quantize_rows(cur)``, rows and scales), and no other pool or scale
+    byte may change apart from the trash page 0. Returns the kernel's row
+    of the result line for bfloat16 (timed against its plain version and
+    bound), None for float32."""
+    from generativeaiexamples_tpu_torch.ops.kv_quant import quantize_rows
     from generativeaiexamples_tpu_torch.ops.paged_attention import (
-        paged_attention_decode, paged_attention_decode_plain)
+        paged_attention_decode, paged_attention_decode_plain,
+        paged_attention_decode_quant_plain)
 
     B, H, KV, hd, page, L = 8, 32, 32, 128, 128, 2
     lengths = [0, 1, 127, 128, 129, 1000, 2047, 3000]
     W = max(-(-(n + 1) // page) for n in lengths)
     N = 1 + B * W
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(1 if quant else 0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.float32).to(dtype)
+                           dtype=torch.float32)
 
-    q = randn(B, H, hd)
-    pk0, pv0 = randn(L, N, KV, page, hd), randn(L, N, KV, page, hd)
-    ck, cv = randn(B, KV, hd), randn(B, KV, hd)
+    q = randn(B, H, hd).to(dtype)
+    if quant:
+        (pk, ks), (pv, vs) = (quantize_rows(randn(L, N, KV, page, hd))
+                              for _ in range(2))
+        pools = (pk, pv, ks, vs)
+    else:
+        pools = (randn(L, N, KV, page, hd).to(dtype),
+                 randn(L, N, KV, page, hd).to(dtype))
+    ck, cv = randn(B, KV, hd).to(dtype), randn(B, KV, hd).to(dtype)
     table = (1 + torch.arange(B * W, device=dev, dtype=torch.int32)
              ).reshape(B, W)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -109,86 +146,116 @@ def check_paged_attention(torch, dev, dtype):
     off = torch.where(live, lens % page, torch.zeros_like(lens)).to(
         torch.int32)
     layer = 1
+    name = "paged_attention_decode" + ("_int8" if quant else "")
 
-    pk, pv = pk0.clone(), pv0.clone()
-    out = paged_attention_decode(q, pk, pv, table, lens, ck, cv, wp, off,
-                                 layer)
-    rk, rv = pk0.clone(), pv0.clone()
-    ref = paged_attention_decode_plain(q, rk, rv, table, lens, ck, cv, wp,
-                                       off, layer)
+    def kernel(p):
+        scales = {"pool_ks": p[2], "pool_vs": p[3]} if quant else {}
+        return paged_attention_decode(q, p[0], p[1], table, lens, ck, cv, wp,
+                                      off, layer, **scales)
+
+    def plain(p):
+        if quant:
+            return paged_attention_decode_quant_plain(
+                q, p[0], p[1], table, lens, ck, cv, wp, off, layer,
+                pool_ks=p[2], pool_vs=p[3])
+        return paged_attention_decode_plain(q, p[0], p[1], table, lens, ck,
+                                            cv, wp, off, layer)
+
+    new = [t.clone() for t in pools]
+    out = kernel(new)
+    ref_pools = [t.clone() for t in pools]
+    ref = plain(ref_pools)
     torch.cuda.synchronize()
     if out.shape != (B, H, hd) or out.dtype != dtype:
-        fail(f"paged_attention_decode output {tuple(out.shape)} {out.dtype}")
+        fail(f"{name} output {tuple(out.shape)} {out.dtype}")
     if not torch.isfinite(out.float()).all():
-        fail("paged_attention_decode output is not finite")
+        fail(f"{name} output is not finite")
     err = (out.float() - ref.float()).abs().max().item()
     atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (1e-3, 1e-2)
     if not torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol):
-        fail(f"paged_attention_decode ({dtype}) disagrees with its plain "
-             f"version: max abs err {err} (atol {atol}, rtol {rtol})")
+        fail(f"{name} ({dtype}) disagrees with its plain version: max abs "
+             f"err {err} (atol {atol}, rtol {rtol})")
 
     def bits(t):
-        return t.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+        if t.dtype in (torch.bfloat16, torch.float32):
+            return t.view(torch.int16 if t.dtype == torch.bfloat16
+                          else torch.int32)
+        return t
 
-    # The appended rows are bit copies of cur_k/cur_v, and every other
-    # pool byte is unchanged apart from the trash page 0.
-    touched = torch.zeros((L, N, KV, page), dtype=torch.bool, device=dev)
+    # The appended rows (and scales), and no other byte outside page 0.
     idx = live.nonzero()[:, 0]
-    touched[layer, wp[idx].long(), :, off[idx].long()] = True
+    at = (layer, wp[idx].long(), slice(None), off[idx].long())
+    if quant:
+        (wk, wks), (wv, wvs) = quantize_rows(ck[idx]), quantize_rows(cv[idx])
+        wants = (wk, wv, wks, wvs)
+    else:
+        wants = (ck[idx], cv[idx])
+    touched = torch.zeros((L, N, KV, page), dtype=torch.bool, device=dev)
+    touched[at] = True
     touched[layer, 0] = True
-    for name, new, old, cur in (("K", pk, pk0, ck), ("V", pv, pv0, cv)):
-        if not torch.equal(bits(new[layer, wp[idx].long(), :,
-                                    off[idx].long()]), bits(cur[idx])):
-            fail(f"appended {name} rows are not bit copies of cur_{name}")
-        keep = ~touched[..., None].expand_as(new)
-        if not torch.equal(bits(new)[keep], bits(old)[keep]):
-            fail(f"kernel changed {name} pool bytes outside the append")
+    for what, got, old, want in zip(("K rows", "V rows", "K scales",
+                                     "V scales"), new, pools, wants):
+        if not torch.equal(bits(got[at]), bits(want)):
+            fail(f"{name}: appended {what} are not "
+                 f"{'quantize_rows(cur)' if quant else 'bit copies of cur'}")
+        keep = ~touched
+        if got.dim() == 5:
+            keep = keep[..., None].expand_as(got)
+        if not torch.equal(bits(got)[keep], bits(old)[keep]):
+            fail(f"{name} changed {what} bytes outside the append")
 
-    # The kernel reads no row at or past a slot's length: poisoning those
-    # rows (and the trash page) with NaN leaves the output bit-identical.
-    poison_k, poison_v = pk0.clone(), pv0.clone()
+    # The kernel reads no row (or scale) at or past a slot's length:
+    # poisoning those and the trash page (NaN rows; under int8, 127-rows
+    # and NaN scales) leaves the output bit-identical.
+    poison = [t.clone() for t in pools]
+    fills = (127, 127, float("nan"), float("nan")) if quant else (
+        float("nan"), float("nan"))
     rows = torch.arange(W * page, device=dev)
     for b, n in enumerate(lengths):
         dead = (rows >= n).reshape(W, page)
-        for t in (poison_k, poison_v):
-            view = t[layer, table[b].long()]            # (W, KV, page, hd)
-            view[dead[:, None, :].expand(W, KV, page)] = float("nan")
+        for t, fill in zip(poison, fills):
+            view = t[layer, table[b].long()]
+            view[dead[:, None, :].expand(W, KV, page)] = fill
             t[layer, table[b].long()] = view
-    poison_k[layer, 0] = float("nan")
-    poison_v[layer, 0] = float("nan")
-    out_p = paged_attention_decode(q, poison_k, poison_v, table, lens, ck,
-                                   cv, wp, off, layer)
+            t[layer, 0] = fill
+    out_p = kernel(poison)
     torch.cuda.synchronize()
     if not torch.equal(bits(out_p), bits(out)):
-        fail("paged_attention_decode read rows at or past a slot's length")
-    del poison_k, poison_v
+        fail(f"{name} read rows at or past a slot's length")
+    del poison
     if dtype == torch.float32:
-        say(f"kernel paged_attention_decode float32: max_abs_err={err} "
-            f"(atol {atol}); appends bit-exact, no row past a length read")
+        say(f"kernel {name} float32: max_abs_err={err} (atol {atol}); "
+            f"appends bit-exact, no row past a length read")
         return None
 
-    ms = time_cuda(torch, lambda: paged_attention_decode(
-        q, pk, pv, table, lens, ck, cv, wp, off, layer), iters=50)
-    plain_ms = time_cuda(torch, lambda: paged_attention_decode_plain(
-        q, rk, rv, table, lens, ck, cv, wp, off, layer), iters=5, warmup=1)
-    esize = 2
+    ms = time_cuda(torch, lambda: kernel(new), iters=50)
+    plain_ms = time_cuda(torch, lambda: plain(ref_pools), iters=5, warmup=1)
+    e = 2
     live_rows = sum(lengths)
-    nbytes = (2 * live_rows * KV * hd * esize      # K and V rows read once
-              + 2 * B * H * hd * esize             # q in, out
-              + 4 * B * KV * hd * esize            # cur_k/v in, append out
-              + B * W * 4 + 3 * B * 4)             # table, lengths, wp, off
+    if quant:
+        nbytes = (2 * live_rows * KV * hd          # int8 K and V rows
+                  + 2 * live_rows * KV * 2         # their bf16 scales
+                  + 2 * B * KV * hd * e            # cur_k/cur_v in
+                  + 2 * B * KV * (hd + 2))         # appended rows, scales
+    else:
+        nbytes = (2 * live_rows * KV * hd * e      # K and V rows read once
+                  + 4 * B * KV * hd * e)           # cur_k/v in, append out
+    nbytes += (2 * B * H * hd * e                  # q in, out
+               + B * W * 4 + 3 * B * 4)            # table, lengths, wp, off
     flops = 2 * 2 * (live_rows + B) * H * hd       # QK^T and PV
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / BF16_FLOPS * 1e3
-    say(f"kernel paged_attention_decode: max_abs_err={err} ms={ms} "
-        f"plain_ms={plain_ms} bound_ms={max(bytes_ms, flops_ms)} "
-        f"({nbytes} bytes, {flops} flops) library_ms=null (no single "
-        f"PyTorch call computes paged attention with the in-place append)")
+    say(f"kernel {name}: max_abs_err={err} ms={ms} plain_ms={plain_ms} "
+        f"bound_ms={max(bytes_ms, flops_ms)} ({nbytes} bytes, {flops} "
+        f"flops) library_ms=null (no single PyTorch call computes paged "
+        f"attention{' over int8 pages' if quant else ''} with the in-place "
+        f"append)")
     return {
-        "name": "paged_attention_decode",
+        "name": name,
         "route": "cuda",
         "source": "generativeaiexamples_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "generativeaiexamples_tpu/ops/paged_attention.py:82",
+        "replaces": ("generativeaiexamples_tpu/ops/paged_attention.py:"
+                     + ("338" if quant else "82")),
         "launches": 0,
         "max_abs_err": err,
         "ms": ms,
@@ -197,6 +264,150 @@ def check_paged_attention(torch, dev, dtype):
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": None,
     }
+
+
+def int4_library_ms(torch, dev, M, K, N, group, iters):
+    """One PyTorch call computing a group-quantized int4 product of the
+    same shape: ``aten._weight_int4pack_mm`` after
+    ``_convert_weight_to_int4pack`` (bf16 x; asymmetric uint4 with
+    (scale, zero) pairs, so a different weight format on random data).
+    Timed as a yardstick only; the port never calls it. Returns (ms or
+    None, reason)."""
+    try:
+        packed_in = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8,
+                                  device=dev)
+        packed = torch.ops.aten._convert_weight_to_int4pack(packed_in, 8)
+        sz = torch.rand((K // group, N, 2), device=dev).to(torch.bfloat16)
+        x = torch.randn((M, K), device=dev).to(torch.bfloat16)
+        ms = time_cuda(torch, lambda: torch.ops.aten._weight_int4pack_mm(
+            x, packed, group, sz), iters=iters)
+        return ms, "aten._weight_int4pack_mm"
+    except (AttributeError, RuntimeError, NotImplementedError) as exc:
+        return None, f"aten._weight_int4pack_mm unavailable: {exc}"[:200]
+
+
+def check_int4_matmul(torch, dev):
+    """The packed-int4 kernel against its plain version at every
+    projection shape of llama-2-7b, (K, N) in {(4096, 4096), (4096, 11008),
+    (11008, 4096), (4096, 32000)}, M in {1, 8, 128, 1024} (the logits row,
+    decode, the commonest prefill bucket, the largest one), per channel and
+    group 128, x bf16 and float32, out x's dtype and float32.
+
+    Tolerances (both sides sum in fp32 from identical inputs, in another
+    order): float32 out atol 1e-4 * max|ref|, rtol 1e-4; bf16 out rtol 1e-2
+    (one bf16 ulp is 2^-8 relative) with the same atol for outputs near
+    zero. Then times the kernel (bf16 x, group 128, the served format) at
+    each shape beside its plain version, its bound, the library yardstick
+    and a dense bf16 ``torch.mm`` of the dequantized weight. Returns the
+    kernel's row of the result line, at the decode step's w_gate shape
+    (M = 8, K = 4096, N = 11008)."""
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
+        int4_matmul, int4_matmul_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    row = row_err = None
+    for K, N in shapes:
+        w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        leaves = {0: quant.quantize_tensor(w, 4),
+                  128: quant.quantize_tensor_grouped(w, 128)}
+        del w
+        for M in (1, 8, 128, 1024):
+            x32 = torch.randn((M, K), generator=gen, device=dev)
+            for group, leaf in leaves.items():
+                scale = leaf["gscale"] if group else leaf["scale"]
+                for x in (x32, x32.to(torch.bfloat16)):
+                    for out_dtype in {x.dtype, torch.float32}:
+                        got = int4_matmul(x, leaf["q4"], scale,
+                                          out_dtype=out_dtype)
+                        ref = int4_matmul_plain(x, leaf["q4"], scale,
+                                                out_dtype=out_dtype)
+                        torch.cuda.synchronize()
+                        if got.shape != (M, N) or got.dtype != out_dtype:
+                            fail(f"int4_matmul output {tuple(got.shape)} "
+                                 f"{got.dtype}")
+                        peak = ref.float().abs().max().item()
+                        err = (got.float() - ref.float()).abs().max().item()
+                        rtol = 1e-4 if out_dtype == torch.float32 else 1e-2
+                        if not (torch.isfinite(got.float()).all()
+                                and torch.allclose(got.float(), ref.float(),
+                                                   atol=1e-4 * peak,
+                                                   rtol=rtol)):
+                            fail(f"int4_matmul M={M} K={K} N={N} "
+                                 f"group={group} x={x.dtype} "
+                                 f"out={out_dtype} disagrees with its plain "
+                                 f"version: max abs err {err} (max|ref| "
+                                 f"{peak})")
+                        worst[out_dtype] = max(worst[out_dtype],
+                                               err / max(peak, 1e-30))
+                        if (M, K, N, group, x.dtype, out_dtype) == (
+                                8, 4096, 11008, 128, torch.bfloat16,
+                                torch.bfloat16):
+                            row_err = err
+        say(f"kernel int4_matmul K={K} N={N}: M=1, 8, 128, 1024 x "
+            f"per-channel, "
+            f"group 128 x bf16/f32 in and out agree with the plain version")
+
+        # Timing: the served format (bf16 x, group 128), out bf16 (f32 for
+        # the lm_head, as the logits path calls it).
+        leaf = leaves[128]
+        out_dtype = torch.float32 if N == 32000 else torch.bfloat16
+        wbytes = leaf["q4"].numel() + 4 * leaf["gscale"].numel()
+        copies = 1 + (120 << 20) // wbytes      # > L2 over the cycle
+        q4s = [leaf["q4"].clone() for _ in range(copies)]
+        dense = quant.dequantize(leaf, torch.bfloat16)
+        for M in (1, 8, 1024):
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            iters = 20 if M == 1024 else 200
+            ms = time_cuda(torch, [
+                (lambda q4=q4: int4_matmul(x, q4, leaf["gscale"],
+                                           out_dtype=out_dtype))
+                for q4 in q4s], iters=iters)
+            plain_ms = time_cuda(torch, lambda: int4_matmul_plain(
+                x, leaf["q4"], leaf["gscale"], out_dtype=out_dtype),
+                iters=3, warmup=1)
+            lib_ms, lib_note = int4_library_ms(torch, dev, M, K, N, 128,
+                                               iters)
+            dense_ms = time_cuda(torch, lambda: torch.mm(x, dense),
+                                 iters=iters)
+            nbytes = (K // 2 * N + 4 * (K // 128) * N + M * K * 2
+                      + M * N * (4 if out_dtype == torch.float32 else 2))
+            flops = 2 * M * K * N
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            flops_ms = flops / BF16_FLOPS * 1e3
+            bound = max(bytes_ms, flops_ms)
+            by = "bytes" if bytes_ms >= flops_ms else "operations"
+            say(f"kernel int4_matmul M={M} K={K} N={N} group=128: ms={ms} "
+                f"plain_ms={plain_ms} bound_ms={bound} ({by}; {nbytes} "
+                f"bytes, {flops} flops) library_ms={lib_ms} ({lib_note}) "
+                f"dense_bf16_mm_ms={dense_ms}")
+            if (M, K, N) == (8, 4096, 11008):
+                row = {
+                    "name": "int4_matmul",
+                    "route": "cuda",
+                    "source":
+                        "generativeaiexamples_tpu_torch/csrc/int4_matmul.cu",
+                    "replaces":
+                        "generativeaiexamples_tpu/ops/int4_matmul.py:83",
+                    "launches": 0,
+                    "max_abs_err": row_err,
+                    "ms": ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound,
+                    "bound_by": by,
+                    "library_ms": lib_ms,
+                }
+        del q4s, dense, leaves
+        torch.cuda.empty_cache()
+    say(f"kernel int4_matmul: worst error over all cases relative to "
+        f"max|ref|: float32 out {worst[torch.float32]}, bf16 out "
+        f"{worst[torch.bfloat16]}; max abs err at the row's case (M=8, "
+        f"K=4096, N=11008, group 128, bf16) {row['max_abs_err']}")
+    return row
 
 
 # ------------------------------------------------------------- model check
@@ -255,6 +466,78 @@ def check_model(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def check_model_quant(torch, dev) -> None:
+    """The quantized path's engine on the card against the same engine on
+    the CPU: llama-2-7b's full width cut to 2 layers, float32 weights from
+    seed 0 quantized on the card to int4_awq (group 128), an int8 KV pool,
+    TF32 off. The card engine runs kernels #2 and #3 on every call; the
+    CPU engine runs their plain versions on the same parameters, moved
+    there, so the reference is independent of both kernels. Greedy tokens
+    for prompts of 40, 125 and 300 tokens (plus bos), 8 new tokens each,
+    must be equal."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
+                                                       SamplingParams)
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import int4_matmul
+    from generativeaiexamples_tpu_torch.ops.paged_attention import \
+        paged_attention_decode
+    from generativeaiexamples_tpu_torch.ops.quant import quantize_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(LLAMA2_7B, num_layers=2)
+    params = quantize_params(
+        llama.init_params(cfg, seed=0, dtype=torch.float32, device=dev),
+        "int4_awq", group_size=128)
+    ecfg = EngineConfig(max_slots=4, max_input_length=512,
+                        max_output_length=16, prefill_buckets=(128, 512),
+                        dtype="float32", kv_pool_tokens=None, kv_quant="int8")
+    n_new = 8
+    prompts = [[1] + [3 + (7 * i + j) % 256 for i in range(n)]
+               for j, n in ((0, 40), (1, 125), (2, 300))]
+
+    def greedy(engine):
+        with engine:
+            streams = [engine.submit(p, SamplingParams(
+                max_tokens=n_new, top_k=1, ignore_eos=True))
+                for p in prompts]
+            for s in streams:
+                s.text()
+            return [s.token_ids for s in streams]
+
+    t0 = time.monotonic()
+    paged_attention_decode.int8_launches = 0
+    int4_matmul.launches = 0
+    got = greedy(Engine(params, cfg, ByteTokenizer(), ecfg, device=dev))
+    n8, n4 = paged_attention_decode.int8_launches, int4_matmul.launches
+    if n8 <= 0 or n4 <= 0:
+        fail(f"quantized engine on the card launched int8 attention {n8} "
+             f"and int4 matmul {n4} times")
+    t_card = time.monotonic() - t0
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    want = greedy(Engine(to_cpu(params), cfg, ByteTokenizer(), ecfg,
+                         device="cpu"))
+    for p, a, b in zip(prompts, got, want):
+        if len(a) != n_new or a != b:
+            fail(f"quantized engine greedy tokens on the card {a} differ "
+                 f"from the CPU engine's {b} (prompt of {len(p)})")
+    say(f"model check: 2-layer llama-2-7b width, float32, int4_awq weights, "
+        f"int8 KV pool: card engine greedy tokens (int8 attention "
+        f"{n8} launches, int4 matmul {n4}) equal the CPU engine's for "
+        f"prompts of {[len(p) for p in prompts]} tokens (card "
+        f"{t_card:.1f} s, CPU {time.monotonic() - t0 - t_card:.1f} s)")
+    del params
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- serve phase
 
 def serve_app(app):
@@ -307,15 +590,22 @@ def post(url: str, body: dict, timeout: float = 300) -> str:
         return resp.read().decode()
 
 
-def serve(torch, dev, card: str) -> dict:
-    """The main path: llama-2-7b-chat at full width and depth, bf16 random
-    weights made on the card from seed 0, served through the port's
-    aiohttp /v1/completions. Returns the paged kernel's launch count over
-    the run."""
+def serve(torch, dev, card: str, quantization: str = "",
+          kv_quant: str = "") -> dict:
+    """A main path: llama-2-7b-chat at full width and depth, bf16 random
+    weights made on the card from seed 0 (quantized there to
+    ``quantization``, over a ``kv_quant`` pool), served through the port's
+    aiohttp /v1/completions. Every kernel count is set to 0 just before
+    the counted requests and read just after; each kernel of the path
+    must have run once per layer per decode step (attention) or once per
+    projection per forward (int4), and the other path's kernels not at
+    all. Returns the counts and the steps."""
     from concurrent.futures import ThreadPoolExecutor
 
     from generativeaiexamples_tpu_torch.engine import (EngineConfig,
                                                        SamplingParams)
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import int4_matmul
     from generativeaiexamples_tpu_torch.ops.paged_attention import \
         paged_attention_decode
     from generativeaiexamples_tpu_torch.serving.model_server import (
@@ -325,17 +615,17 @@ def serve(torch, dev, card: str) -> dict:
     ecfg = EngineConfig(max_slots=8, max_input_length=1024,
                         max_output_length=64, prefill_buckets=(128, 512, 1024),
                         page_size=128, kv_pool_tokens=8 * (1024 + 64),
-                        dtype="bfloat16")
+                        dtype="bfloat16", kv_quant=kv_quant)
     engine, name = build_services("llama-2-7b-chat", engine_cfg=ecfg, seed=0,
-                                  device=dev)
+                                  device=dev, quantization=quantization)
     torch.cuda.synchronize()
     mcfg = engine.model_cfg
-    n_params = sum(t.numel() for t in [engine.params["embed"],
-                                       engine.params["lm_head"],
-                                       *engine.params["layers"].values()])
-    say(f"serve: {name} L={mcfg.num_layers} D={mcfg.hidden_size} "
+    mode = f"{quantization or 'bf16'} weights, {kv_quant or 'bf16'} KV"
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in llama.param_tensors(engine.params))
+    say(f"serve [{mode}]: {name} L={mcfg.num_layers} D={mcfg.hidden_size} "
         f"H={mcfg.num_heads} KV={mcfg.num_kv_heads} hd={mcfg.head_dim} "
-        f"V={mcfg.vocab_size}, {n_params / 1e9:.2f} B bf16 params, pool "
+        f"V={mcfg.vocab_size}, {n_bytes / 1e9:.2f} GB of weights, pool "
         f"{engine.stats['pool_pages']} pages of {ecfg.page_size}, built in "
         f"{time.monotonic() - t0:.1f} s")
     base, stop_server = serve_app(create_server_app(engine, name))
@@ -352,8 +642,11 @@ def serve(torch, dev, card: str) -> dict:
                                         "temperature": 0})
 
         steps0 = engine.stats["decode_steps"]
+        prefills0 = engine.stats["prefills"]
         tok0 = engine.stats["tokens_generated"]
         paged_attention_decode.launches = 0
+        paged_attention_decode.int8_launches = 0
+        int4_matmul.launches = 0
         t1 = time.monotonic()
         with ThreadPoolExecutor(len(bodies)) as pool:
             outs = list(pool.map(
@@ -364,8 +657,12 @@ def serve(torch, dev, card: str) -> dict:
                                SamplingParams(max_tokens=32, ignore_eos=True,
                                               temperature=0))
         stream.text()
-        launches = paged_attention_decode.launches
+        counts = {"paged_attention_decode": paged_attention_decode.launches,
+                  "paged_attention_decode_int8":
+                      paged_attention_decode.int8_launches,
+                  "int4_matmul": int4_matmul.launches}
         steps = engine.stats["decode_steps"] - steps0
+        prefills = engine.stats["prefills"] - prefills0
         torch.cuda.synchronize()
     finally:
         stop_server()
@@ -386,23 +683,37 @@ def serve(torch, dev, card: str) -> dict:
                 fail(f"request {i}: {n} completion tokens")
         if finish not in ("length", "eos", "stop"):
             fail(f"request {i}: finish_reason {finish!r}")
-        say(f"serve: request {i} ({len(body['prompt']) + 1} prompt tokens, "
+        say(f"serve [{mode}]: request {i} ({len(body['prompt']) + 1} prompt "
+            f"tokens, "
             f"stream={body['stream']}): finish_reason={finish}")
     if len(stream.token_ids) != 32 or stream.finish_reason != "length":
         fail(f"ignore_eos request gave {len(stream.token_ids)} tokens, "
              f"finish {stream.finish_reason!r}")
     if not all(0 <= t < mcfg.vocab_size for t in stream.token_ids):
         fail("ignore_eos request produced out-of-vocab ids")
-    if steps <= 0 or launches != mcfg.num_layers * steps:
-        fail(f"paged kernel launched {launches} times over {steps} decode "
-             f"steps; expected {mcfg.num_layers} per step")
+    # Attention: one launch per layer per decode step, of the pool's
+    # kind. int4: one per projection (7 per layer) plus the lm_head, per
+    # decode step and per prefill (which projects only its last row).
+    L = mcfg.num_layers
+    attn = "paged_attention_decode_int8" if kv_quant else \
+        "paged_attention_decode"
+    want = {"paged_attention_decode": 0, "paged_attention_decode_int8": 0,
+            "int4_matmul": 0}
+    want[attn] = L * steps
+    if quantization in ("int4", "int4_awq"):
+        want["int4_matmul"] = (7 * L + 1) * (steps + prefills)
+    if steps <= 0 or prefills <= 0 or counts != want:
+        fail(f"[{mode}] kernel launches {counts} over {steps} decode steps "
+             f"and {prefills} prefills; expected {want}")
     decode_s = stream.finish_time - stream.first_token_time
-    say(f"serve: {len(bodies)} concurrent /v1/completions in {wall:.3f} s, "
-        f"{tokens_http} tokens ({tokens_http / wall:.1f} tok/s aggregate); "
-        f"single ignore_eos request: TTFT {stream.ttft_ms:.1f} ms, decode "
-        f"{31 / decode_s:.1f} tok/s; paged kernel launches {launches} = "
-        f"{mcfg.num_layers} layers x {steps} decode steps [{card}]")
-    return {"launches": launches, "decode_steps": steps}
+    say(f"serve [{mode}]: {len(bodies)} concurrent /v1/completions in "
+        f"{wall:.3f} s, {tokens_http} tokens ({tokens_http / wall:.1f} tok/s "
+        f"aggregate); single ignore_eos request: TTFT {stream.ttft_ms:.1f} "
+        f"ms, decode {31 / decode_s:.1f} tok/s; launches {counts} over "
+        f"{steps} decode steps and {prefills} prefills [{card}]")
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": counts, "decode_steps": steps, "prefills": prefills}
 
 
 def main() -> int:
@@ -432,10 +743,20 @@ def main() -> int:
 
     check_paged_attention(torch, dev, torch.float32)
     kernels = [check_paged_attention(torch, dev, torch.bfloat16)]
+    check_paged_attention(torch, dev, torch.float32, quant=True)
+    kernels.append(check_paged_attention(torch, dev, torch.bfloat16,
+                                         quant=True))
     torch.cuda.empty_cache()
+    kernels.append(check_int4_matmul(torch, dev))
     check_model(torch, dev)
-    run = serve(torch, dev, card)
-    kernels[0]["launches"] = run["launches"]
+    check_model_quant(torch, dev)
+    # Each path's kernels take their launch counts from that path's run.
+    bf16 = serve(torch, dev, card)
+    quantized = serve(torch, dev, card, quantization="int4_awq",
+                      kv_quant="int8")
+    for row in kernels:
+        run = bf16 if row["name"] == "paged_attention_decode" else quantized
+        row["launches"] = run["launches"][row["name"]]
 
     say(json.dumps({"kernels": kernels}))
     say(card)

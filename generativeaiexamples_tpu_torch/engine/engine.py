@@ -38,7 +38,10 @@ import torch
 from ..models import llama
 from ..models.configs import LlamaConfig
 from ..models.tokenizer import Tokenizer
+from ..ops import int4_matmul
+from ..ops.kv_quant import quantize_rows
 from ..ops.paged_attention import kernel_supported
+from ..ops.quant import is_grouped, is_quantized
 from ..ops.sampling import (NEG_INF, apply_repetition_penalty, mask_words,
                             pack_mask, pack_mask_np, sample, seen_mask,
                             set_token_bits, unpack_mask)
@@ -71,6 +74,10 @@ class EngineConfig:
     kv_pool_tokens: Union[int, str, None] = "auto"
     # Decode steps per round: one host transfer per round.
     steps_per_round: int = 8
+    # KV-cache quantization: "" (pool in `dtype`) or "int8" (per-row
+    # symmetric int8 pools + bf16 scale pools, ops/kv_quant.py): about
+    # half the bytes per cached token, so "auto" fits ~2x the pages.
+    kv_quant: str = ""
 
     def __post_init__(self) -> None:
         if self.page_size <= 0:
@@ -78,6 +85,9 @@ class EngineConfig:
         if self.dtype not in _DTYPES:
             raise ConfigError(f"dtype={self.dtype!r} not supported; use one "
                               f"of {sorted(_DTYPES)}")
+        if self.kv_quant not in ("", "int8"):
+            raise ConfigError(f"kv_quant={self.kv_quant!r} not supported; "
+                              f"use '' or 'int8'")
         if self.max_slots < 1 or self.steps_per_round < 1:
             raise ConfigError("max_slots and steps_per_round must be >= 1")
         if not (self.kv_pool_tokens is None or self.kv_pool_tokens == "auto"
@@ -221,13 +231,8 @@ class Engine:
             {page_up(min(b, cfg.max_input_length))
              for b in cfg.prefill_buckets}
             | {page_up(cfg.max_input_length)}))
-        if self.device.type == "cuda" and not kernel_supported(
-                page, model_cfg.num_heads, model_cfg.num_kv_heads,
-                model_cfg.head_dim):
-            raise ConfigError(
-                f"the paged decode kernel does not take heads "
-                f"{model_cfg.num_heads}/{model_cfg.num_kv_heads}, head_dim "
-                f"{model_cfg.head_dim}, page {page}")
+        if self.device.type == "cuda":
+            self._check_kernel_geometry()
 
         self._n_pages = 1 + self._resolve_pool_pages()
         self._free_pages = list(range(1, self._n_pages))
@@ -251,10 +256,45 @@ class Engine:
             "requests": 0, "prefills": 0, "decode_rounds": 0,
             "decode_steps": 0, "tokens_generated": 0, "rejected_full": 0}
 
+    def _check_kernel_geometry(self) -> None:
+        """On the card every decode layer launches the paged kernel and
+        every int4 projection the int4 kernel: refuse, before any pool is
+        allocated, a geometry either kernel does not take, and GPTQ zero
+        points (``gbias``), which the int4 kernel does not apply."""
+        m, page = self.model_cfg, self.cfg.page_size
+        if not kernel_supported(page, m.num_heads, m.num_kv_heads,
+                                m.head_dim):
+            raise ConfigError(
+                f"the paged decode kernel does not take heads "
+                f"{m.num_heads}/{m.num_kv_heads}, head_dim {m.head_dim}, "
+                f"page {page}")
+        leaves = dict(self.params["layers"])
+        if "lm_head" in self.params:
+            leaves["lm_head"] = self.params["lm_head"]
+        for name, w in leaves.items():
+            if not (is_quantized(w) and "q4" in w):
+                continue
+            if "gbias" in w:
+                raise ConfigError(
+                    f"{name}: int4 weights with GPTQ zero points (gbias) "
+                    f"are not served by the int4 kernel")
+            K, N = 2 * w["q4"].shape[-2], w["q4"].shape[-1]
+            group = K // w["gscale"].shape[-2] if is_grouped(w) else 0
+            if not int4_matmul.supported(K, N, group):
+                raise ConfigError(f"{name}: the int4 kernel does not take "
+                                  f"K={K}, N={N}, group {group}")
+
     # -------------------------------------------------------------- sizing
 
-    def _kv_bytes_per_token(self) -> int:
+    def _kv_bytes_per_token(self, pooled: bool = True) -> int:
+        """KV bytes per cached token. ``pooled``: bytes in the page pool
+        (int8 rows plus one bf16 scale each under kv_quant); False: the
+        dense bytes of a prefill bucket's KV, which stays in the compute
+        dtype until the insert quantizes it (sizing the prefill reserve
+        with pooled bytes would under-reserve by ~2x under kv_quant)."""
         m = self.model_cfg
+        if pooled and self.cfg.kv_quant:
+            return m.num_layers * m.num_kv_heads * 2 * (m.head_dim + 2)
         return (2 * m.num_layers * m.num_kv_heads * m.head_dim
                 * torch.finfo(self._dtype).bits // 8)
 
@@ -273,7 +313,7 @@ class Engine:
         # and activations).
         free, _ = torch.cuda.mem_get_info(self.device)
         m, S = self.model_cfg, self._buckets[-1]
-        reserve = (2 * S * self._kv_bytes_per_token()
+        reserve = (2 * S * self._kv_bytes_per_token(pooled=False)
                    + 4 * m.hidden_size * m.vocab_size
                    + 64 * S * m.hidden_size + (512 << 20))
         pages = int(0.9 * (free - reserve)) // (
@@ -291,7 +331,8 @@ class Engine:
         return {
             "cache": llama.init_paged_kv_cache(
                 self.model_cfg, self._n_pages, self.cfg.page_size,
-                self._dtype, device=dev),
+                self._dtype, device=dev,
+                quantized=self.cfg.kv_quant == "int8"),
             "table": z(B, self._pmax),
             "pos": z(B), "last_token": z(B), "remaining": z(B),
             "active": z(B, dtype=torch.bool),
@@ -369,9 +410,12 @@ class Engine:
                 req: _Request, banned: torch.Tensor) -> None:
         """Scatter a prefilled bucket into the slot's pages and arm the
         slot. Page-table entries past the allocated extent are 0, so the
-        bucket's overhang lands in the trash page. The pool and the slot
-        state are updated in place (the reference returned a new state
-        from a donated jit)."""
+        bucket's overhang lands in the trash page. Under an int8 pool the
+        bucket is quantized per row with ``quantize_rows``, one layer at a
+        time (a small float32 transient), so inserted rows are
+        bit-identical to rows the decode kernel appends. The pool and the
+        slot state are updated in place (the reference returned a new
+        state from a donated jit)."""
         mcfg, st, dev = self.model_cfg, self._state, self.device
         page, L = self.cfg.page_size, mcfg.num_layers
         sp = req.params
@@ -383,10 +427,17 @@ class Engine:
         dest = row_t[:nb].long()
         # (L, 1, S, KV, hd) -> (L, nb, KV, page, hd): KV heads ahead of the
         # page dim, the pool's layout.
+        cache = st["cache"]
         for name, new in (("k", k_new), ("v", v_new)):
             blocks = new.reshape(L, nb, page, mcfg.num_kv_heads,
                                  mcfg.head_dim).transpose(2, 3)
-            st["cache"][name][:, dest] = blocks.to(st["cache"][name].dtype)
+            if not llama.kv_cache_quantized(cache):
+                cache[name][:, dest] = blocks.to(cache[name].dtype)
+                continue
+            for i in range(L):
+                rows, scales = quantize_rows(blocks[i])
+                cache[name][i, dest] = rows
+                cache[name + "s"][i, dest] = scales
         eos = int(self.tokenizer.eos_id)
         eos_ok = not sp.ignore_eos
         remaining = req.eff_max - 1

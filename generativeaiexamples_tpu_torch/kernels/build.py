@@ -25,7 +25,8 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
 
 # Kernel name -> source file under csrc/.
-SOURCES = {"paged_attention": "paged_attention.cu"}
+SOURCES = {"paged_attention": "paged_attention.cu",
+           "int4_matmul": "int4_matmul.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -54,15 +54,63 @@ def _expected_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+_QUANT_KEYS = {"q", "q4", "scale", "gscale", "gbias", "pre_scale"}
+
+
+def _leaf(a: Any, device: torch.device, dtype: torch.dtype) -> Any:
+    """A raw leaf cast to ``dtype``, or a quantized dict leaf
+    (``ops/quant.py``) with its int8 ``q``/``q4`` and float32 scales kept
+    as they are."""
+    if not isinstance(a, Mapping):
+        return _to_tensor(a, device, dtype)
+    keys = set(a)
+    if (keys - _QUANT_KEYS or len(keys & {"q", "q4"}) != 1
+            or len(keys & {"scale", "gscale"}) != 1):
+        raise ConfigError(f"unknown quantized leaf layout {sorted(keys)}")
+    return {k: _to_tensor(v, device, torch.int8 if k in ("q", "q4")
+                          else torch.float32) for k, v in a.items()}
+
+
+def _check_leaf(name: str, leaf: Any, shape: tuple[int, ...]) -> None:
+    """``leaf`` is a raw ``shape`` tensor or a quantized leaf of it."""
+    if not isinstance(leaf, dict):
+        if tuple(leaf.shape) != shape:
+            raise ConfigError(f"{name}: shape {tuple(leaf.shape)} != "
+                              f"{shape} for this config")
+        return
+    *lead, K, N = shape
+    lead = tuple(lead)
+    q = leaf.get("q", leaf.get("q4"))
+    want_q = lead + ((K, N) if "q" in leaf else (K // 2, N))
+    ok = tuple(q.shape) == want_q and ("q" in leaf or K % 2 == 0)
+    if "scale" in leaf:
+        ok = ok and tuple(leaf["scale"].shape) == lead + (N,)
+    else:
+        gs = leaf["gscale"]
+        G = gs.shape[-2] if gs.dim() >= 2 else 0
+        ok = ok and G > 0 and K % G == 0 and tuple(gs.shape) == lead + (G, N)
+        if "gbias" in leaf:
+            ok = ok and leaf["gbias"].shape == gs.shape
+    if "pre_scale" in leaf:
+        ok = ok and tuple(leaf["pre_scale"].shape) == lead + (K,)
+    if not ok:
+        shapes = {k: tuple(v.shape) for k, v in leaf.items()}
+        raise ConfigError(f"{name}: quantized leaf {shapes} does not "
+                          f"quantize a {shape} weight")
+
+
 def params_from_numpy(tree: Mapping[str, Any],
                       device: Union[str, torch.device] = "cuda",
                       dtype: torch.dtype = torch.bfloat16,
                       cfg: Optional[LlamaConfig] = None) -> dict[str, Any]:
     """numpy parameter tree -> the port's parameter dict on ``device``.
 
-    Every leaf is cast to ``dtype``. Keys outside the llama-2 family
-    (biases, experts, layernorm offsets, quantized leaves) are refused
-    rather than dropped. With ``cfg`` every shape is checked too."""
+    Raw leaves are cast to ``dtype``. Quantized projection leaves (the
+    reference's ``quantize_params`` output: int8 ``q``/``q4`` and float32
+    ``scale``/``gscale``/``gbias``/``pre_scale``) keep their dtypes, bit
+    for bit. Keys outside the llama-2 family (biases, experts, layernorm
+    offsets) are refused rather than dropped. With ``cfg`` every shape is
+    checked too."""
     dev = torch.device(device)
     layers_in = tree.get("layers")
     if not isinstance(layers_in, Mapping):
@@ -74,14 +122,17 @@ def params_from_numpy(tree: Mapping[str, Any],
         raise ConfigError(
             f"parameter tree is not a llama-2 layout: unexpected "
             f"{sorted(extra | top_extra)}, missing {sorted(missing)}")
+    for name in ("embed", "final_norm", "attn_norm", "mlp_norm"):
+        leaf = tree[name] if name in tree else layers_in[name]
+        if isinstance(leaf, Mapping):
+            raise ConfigError(f"{name} cannot be a quantized leaf")
     out: dict[str, Any] = {
         "embed": _to_tensor(tree["embed"], dev, dtype),
-        "layers": {k: _to_tensor(layers_in[k], dev, dtype)
-                   for k in _LAYER_KEYS},
+        "layers": {k: _leaf(layers_in[k], dev, dtype) for k in _LAYER_KEYS},
         "final_norm": _to_tensor(tree["final_norm"], dev, dtype),
     }
     if "lm_head" in tree:
-        out["lm_head"] = _to_tensor(tree["lm_head"], dev, dtype)
+        out["lm_head"] = _leaf(tree["lm_head"], dev, dtype)
     if cfg is not None:
         flat = {"embed": out["embed"], "final_norm": out["final_norm"],
                 **{f"layers/{k}": v for k, v in out["layers"].items()}}
@@ -92,7 +143,5 @@ def params_from_numpy(tree: Mapping[str, Any],
             raise ConfigError(f"parameter leaves {sorted(flat)} do not match "
                               f"the config's {sorted(want)}")
         for k, shape in want.items():
-            if tuple(flat[k].shape) != shape:
-                raise ConfigError(f"{k}: shape {tuple(flat[k].shape)} != "
-                                  f"{shape} for this config")
+            _check_leaf(k, flat[k], shape)
     return out

@@ -15,6 +15,10 @@ forward is ``x @ W``:
   final_norm:  (D,)
   lm_head:     (D, V)          (absent when embeddings are tied)
 
+After ``ops.quant.quantize_params`` each projection and ``lm_head`` is a
+dict leaf of the same stacked shape (``ops/quant.py``), and every
+``x @ W`` goes through ``ops.quant.matmul``.
+
 The reference scans over stacked layers; here a Python loop walks them
 (``layer_params``), and KV caches and the paged pool are updated in place
 where the reference threaded them through its scan carry.
@@ -22,11 +26,12 @@ where the reference threaded them through its scan carry.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Iterator, Optional, Union
 
 import torch
 
 from ..ops.attention import gqa_attention
+from ..ops.kv_quant import SCALE_DTYPE
 from ..ops.paged_attention import paged_attention_decode
 from ..ops.quant import matmul as qmm
 from ..ops.quant import matmul_f32 as qmm_f32
@@ -36,7 +41,7 @@ from ..utils.errors import ConfigError
 from .configs import LlamaConfig
 
 Params = dict[str, Any]
-KVCache = dict[str, torch.Tensor]  # {"k": ..., "v": ...}
+KVCache = dict[str, torch.Tensor]  # {"k", "v"[, "ks", "vs"]}
 
 
 def check_supported(cfg: LlamaConfig) -> None:
@@ -95,9 +100,22 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     return params
 
 
-def layer_params(params: Params, i: int) -> dict[str, torch.Tensor]:
-    """Layer ``i``'s slice of the stacked layer tensors (views)."""
-    return {k: v[i] for k, v in params["layers"].items()}
+def layer_params(params: Params, i: int) -> dict[str, Any]:
+    """Layer ``i``'s slice of the stacked layer leaves (views). A
+    quantized leaf is sliced leaf by leaf: ``{"q4": (L, K/2, N),
+    "gscale": (L, G, N)}`` becomes ``{"q4": (K/2, N), "gscale": (G, N)}``."""
+    return {k: ({n: t[i] for n, t in v.items()} if isinstance(v, dict)
+                else v[i])
+            for k, v in params["layers"].items()}
+
+
+def param_tensors(tree: Any) -> Iterator[torch.Tensor]:
+    """Every tensor of a parameter tree, quantized dict leaves included."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from param_tensors(v)
+    else:
+        yield tree
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -111,29 +129,44 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
 
 def init_paged_kv_cache(cfg: LlamaConfig, n_pages: int, page_size: int,
                         dtype: torch.dtype = torch.bfloat16,
-                        device: Union[str, torch.device] = "cpu") -> KVCache:
+                        device: Union[str, torch.device] = "cpu",
+                        quantized: bool = False) -> KVCache:
     """Block-pool KV cache {"k","v"}: (L, n_pages, KV, page, hd), the
     reference's layout (KV heads ahead of the page dim, so one kv head's
     page is a contiguous (page, hd) tile). Page 0 is the trash page:
-    writes for inactive slots and prefill-bucket overhang land there."""
+    writes for inactive slots and prefill-bucket overhang land there.
+
+    ``quantized``: int8 pools plus bf16 per-row scale pools "ks"/"vs"
+    shaped (L, n_pages, KV, page) (``ops/kv_quant.py``), about half the
+    bytes per cached token."""
     shape = (cfg.num_layers, n_pages, cfg.num_kv_heads, page_size,
              cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if not quantized:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.zeros(shape[:4], dtype=SCALE_DTYPE, device=device),
+            "vs": torch.zeros(shape[:4], dtype=SCALE_DTYPE, device=device)}
 
 
-def _dense_mlp(x: torch.Tensor, lp: dict[str, torch.Tensor]) -> torch.Tensor:
+def kv_cache_quantized(kv_cache: KVCache) -> bool:
+    """Whether a paged pool carries int8 rows and scale pools."""
+    return "ks" in kv_cache
+
+
+def _dense_mlp(x: torch.Tensor, lp: dict[str, Any]) -> torch.Tensor:
     gate = torch.nn.functional.silu(qmm(x, lp["w_gate"]))
     return qmm(gate * qmm(x, lp["w_up"]), lp["w_down"])
 
 
-def block_norm(x: torch.Tensor, lp: dict[str, torch.Tensor], key: str,
+def block_norm(x: torch.Tensor, lp: dict[str, Any], key: str,
                cfg: LlamaConfig) -> torch.Tensor:
     """The per-block normalization (rmsnorm for this family)."""
     return rmsnorm(x, lp[key], cfg.rms_norm_eps)
 
 
-def decoder_layer(h: torch.Tensor, lp: dict[str, torch.Tensor],
+def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
                   cfg: LlamaConfig, positions: torch.Tensor,
                   inv_freq: torch.Tensor,
                   kv_valid_len: Optional[torch.Tensor],
@@ -231,20 +264,27 @@ def apply_decode_paged(params: Params, cfg: LlamaConfig,
 
     Each layer calls ``ops.paged_attention.paged_attention_decode`` once:
     the Hopper kernel on CUDA tensors, the plain gather version (the
-    reference's ``_gathered_window`` path) on CPU tensors. The pool is
-    updated in place. Returns (logits (B, 1, V) float32, kv_cache)."""
+    reference's ``_gathered_window`` path) on CPU tensors. Under an int8
+    pool (``kv_cache_quantized``) the scale pools go along and the current
+    K/V pass in the compute dtype: the kernel quantizes its appended row.
+    The pool is updated in place. Returns (logits (B, 1, V) float32,
+    kv_cache)."""
     h = params["embed"][tokens.long()]
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 cfg.rope_scaling_factor, device=h.device)
     lengths = positions[:, 0].to(torch.int32)
     pool_k, pool_v = kv_cache["k"], kv_cache["v"]
+    quant = kv_cache_quantized(kv_cache)
+    cur_dtype = h.dtype if quant else pool_k.dtype
+    scales = ({"pool_ks": kv_cache["ks"], "pool_vs": kv_cache["vs"]}
+              if quant else {})
     for i in range(cfg.num_layers):
         def attend(q, k, v, i=i):
             attn = paged_attention_decode(
                 q[:, 0].contiguous(), pool_k, pool_v, block_table, lengths,
-                k[:, 0].to(pool_k.dtype).contiguous(),
-                v[:, 0].to(pool_v.dtype).contiguous(), write_page,
-                write_offset, i)
+                k[:, 0].to(cur_dtype).contiguous(),
+                v[:, 0].to(cur_dtype).contiguous(), write_page,
+                write_offset, i, **scales)
             return attn[:, None]
         h = decoder_layer(h, layer_params(params, i), cfg, positions,
                           inv_freq, None, attend=attend)

@@ -1,14 +1,19 @@
 """Paged GQA decode attention + KV append: the Hopper kernel's wrapper and
-its plain PyTorch version.
+its plain PyTorch versions.
 
-``paged_attention_decode`` replaces the reference's Pallas kernel
+``paged_attention_decode`` replaces the reference's Pallas kernels
 (``generativeaiexamples_tpu/ops/paged_attention.py``
-``paged_attention_decode``). On a CUDA tensor it launches the hand-written
-kernel in ``csrc/paged_attention.cu`` (built at first use by
-``kernels/build.py``) or raises; it takes the plain version only for CPU
+``paged_attention_decode`` and, when the scale pools are given,
+``_paged_attention_decode_quant``). On a CUDA tensor it launches the
+hand-written kernel in ``csrc/paged_attention.cu`` (built at first use by
+``kernels/build.py``) or raises; it takes a plain version only for CPU
 tensors. ``paged_attention_decode_plain`` mirrors the reference's
-``paged_attention_decode_reference`` plus the append; the CPU tests use
-it, and the card check compares the kernel with it.
+``paged_attention_decode_reference`` plus the append;
+``paged_attention_decode_quant_plain`` runs the same attention over
+windows dequantized by ``kv_quant.dequantize_rows`` (the reference's
+``_gathered_window``) and appends ``kv_quant.quantize_rows`` of the
+current row. The CPU tests use them, and the card check compares the
+kernel with them.
 
 The pools are updated IN PLACE (the reference aliased them through the
 pallas_call and threaded them through its layer scan carry).
@@ -17,20 +22,24 @@ pallas_call and threaded them through its layer scan carry).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+
+from .kv_quant import SCALE_DTYPE, dequantize_rows, quantize_rows
 
 NEG = -1e30
 
 # Kernel gate on Hopper (the TPU gate of 128-aligned head_dim/page is a
 # Mosaic tiling rule and does not apply): G query heads per kv head live
 # in registers (G <= 8), each lane holds up to 8 head-dim elements
-# (hd <= 256), GQA needs H % KV == 0.
+# (hd <= 256), GQA needs H % KV == 0. The int8-pool path has the same
+# gate.
 MAX_GROUP = 8
 MAX_HEAD_DIM = 256
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
-_fn = None
+_fns: dict[str, object] = {}
 
 
 def kernel_supported(page: int, num_heads: int, num_kv_heads: int,
@@ -43,7 +52,7 @@ def kernel_supported(page: int, num_heads: int, num_kv_heads: int,
 
 
 def _check_args(q, pool_k, pool_v, block_table, lengths, cur_k, cur_v,
-                write_page, write_offset, layer) -> None:
+                write_page, write_offset, layer, pool_ks, pool_vs) -> None:
     """Shape/dtype/device checks shared by both paths."""
     if q.dim() != 3 or pool_k.dim() != 5:
         raise ValueError(f"q must be (B, H, hd) and pools (L, N, KV, page, "
@@ -62,17 +71,35 @@ def _check_args(q, pool_k, pool_v, block_table, lengths, cur_k, cur_v,
                     ("write_offset", write_offset)):
         if t.shape != (B,):
             raise ValueError(f"{name} must be ({B},); got {tuple(t.shape)}")
+    if pool_v.dtype != pool_k.dtype:
+        raise ValueError("pool_k and pool_v dtypes differ")
+    quant = pool_ks is not None
+    if quant != (pool_vs is not None):
+        raise ValueError("pass both scale pools (pool_ks, pool_vs) or none")
+    if not quant and pool_k.dtype == torch.int8:
+        raise ValueError("int8 pools need their scale pools")
+    # Under int8 pools the current K/V come in q's dtype (the append
+    # quantizes them); otherwise in the pool dtype.
+    cur_dtype = q.dtype if quant else pool_k.dtype
     for name, t in (("cur_k", cur_k), ("cur_v", cur_v)):
         if t.shape != (B, KV, hd):
             raise ValueError(f"{name} must be ({B}, {KV}, {hd}); got "
                              f"{tuple(t.shape)}")
-        if t.dtype != pool_k.dtype:
-            raise ValueError(f"{name} dtype {t.dtype} != pool dtype "
+        if t.dtype != cur_dtype:
+            raise ValueError(f"{name} dtype {t.dtype} != {cur_dtype}")
+    tensors = [q, pool_k, pool_v, block_table, lengths, cur_k, cur_v,
+               write_page, write_offset]
+    if quant:
+        if pool_k.dtype != torch.int8:
+            raise ValueError(f"scale pools need int8 pools; got "
                              f"{pool_k.dtype}")
-    if pool_v.dtype != pool_k.dtype:
-        raise ValueError("pool_k and pool_v dtypes differ")
-    devs = {t.device for t in (q, pool_k, pool_v, block_table, lengths,
-                               cur_k, cur_v, write_page, write_offset)}
+        for name, t in (("pool_ks", pool_ks), ("pool_vs", pool_vs)):
+            if t.shape != (L, N, KV, page) or t.dtype != SCALE_DTYPE:
+                raise ValueError(f"{name} must be {SCALE_DTYPE} "
+                                 f"{(L, N, KV, page)}; got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+        tensors += [pool_ks, pool_vs]
+    devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"all tensors must share one device; got {devs}")
     if not 0 <= int(layer) < L:
@@ -80,7 +107,8 @@ def _check_args(q, pool_k, pool_v, block_table, lengths, cur_k, cur_v,
 
 
 def _check_kernel_args(q, pool_k, pool_v, block_table, lengths, cur_k,
-                       cur_v, write_page, write_offset) -> None:
+                       cur_v, write_page, write_offset, pool_ks,
+                       pool_vs) -> None:
     """What the CUDA kernel additionally requires; raises otherwise."""
     B, H, hd = q.shape
     _, _, KV, page, _ = pool_k.shape
@@ -89,11 +117,17 @@ def _check_kernel_args(q, pool_k, pool_v, block_table, lengths, cur_k,
             f"geometry H={H} KV={KV} hd={hd} page={page} is outside the "
             f"kernel gate (H % KV == 0, H/KV <= {MAX_GROUP}, "
             f"hd <= {MAX_HEAD_DIM}, page >= 1)")
-    if q.dtype not in _KERNEL_DTYPES or q.dtype != pool_k.dtype:
+    quant = pool_ks is not None
+    if q.dtype not in _KERNEL_DTYPES or not (quant or q.dtype == pool_k.dtype):
         raise ValueError(f"kernel takes bfloat16 or float32 q and pools of "
-                         f"one dtype; got q {q.dtype}, pool {pool_k.dtype}")
-    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
-                    ("cur_k", cur_k), ("cur_v", cur_v)):
+                         f"q's dtype or int8; got q {q.dtype}, pool "
+                         f"{pool_k.dtype}")
+    named = [("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
+             ("cur_k", cur_k), ("cur_v", cur_v), ("lengths", lengths),
+             ("write_page", write_page), ("write_offset", write_offset)]
+    if quant:
+        named += [("pool_ks", pool_ks), ("pool_vs", pool_vs)]
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in (("block_table", block_table), ("lengths", lengths),
@@ -104,33 +138,34 @@ def _check_kernel_args(q, pool_k, pool_v, block_table, lengths, cur_k,
     if block_table.stride(1) != 1:
         raise ValueError("block_table rows must be contiguous (a column "
                          "slice of a wider table is fine)")
-    for name, t in (("lengths", lengths), ("write_page", write_page),
-                    ("write_offset", write_offset)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
 
 
-def _kernel():
-    """The C entry point, built and loaded at first use."""
-    global _fn
-    if _fn is None:
+def _kernel(quant: bool):
+    """The C entry point (full-precision or int8 pools), built and loaded
+    at first use."""
+    name = "paged_attention_decode_int8" if quant else "paged_attention_decode"
+    fn = _fns.get(name)
+    if fn is None:
         from ..kernels import build
-        fn = build.load("paged_attention").paged_attention_decode
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+        fn = getattr(build.load("paged_attention"), name)
+        n_pools = 4 if quant else 2
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (1 + n_pools + 1)
                        + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def paged_attention_decode(q: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, block_table: torch.Tensor,
                            lengths: torch.Tensor, cur_k: torch.Tensor,
                            cur_v: torch.Tensor, write_page: torch.Tensor,
-                           write_offset: torch.Tensor,
-                           layer: int) -> torch.Tensor:
+                           write_offset: torch.Tensor, layer: int, *,
+                           pool_ks: Optional[torch.Tensor] = None,
+                           pool_vs: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """GQA decode attention + KV append over a paged pool, one query token
     per slot.
 
@@ -141,73 +176,126 @@ def paged_attention_decode(q: torch.Tensor, pool_k: torch.Tensor,
                                         (rows may be a column slice)
     lengths:      (B,) int32            cached tokens per slot (the current
                                         token is NOT in the pool)
-    cur_k/cur_v:  (B, KV, hd)           current token's K/V, pool dtype
+    cur_k/cur_v:  (B, KV, hd)           current token's K/V: pool dtype, or
+                                        q's dtype under int8 pools (the
+                                        append quantizes them)
     write_page:   (B,) int32            physical page for the new row
                                         (page 0 = trash, inactive slots)
     write_offset: (B,) int32            row within that page
     layer:        int                   which layer to read and write
+    pool_ks/vs:   (L, N, KV, page) bf16 OPTIONAL per-row scales: their
+                                        presence switches to int8 pools
+                                        (``ops/kv_quant.py``); the append
+                                        writes the new row's scale
     Returns the attention output (B, H, hd) in q's dtype, scaled by
-    1/sqrt(hd). CPU tensors take the plain version; CUDA tensors launch
-    the kernel (or raise)."""
+    1/sqrt(hd). CPU tensors take a plain version; CUDA tensors launch
+    the kernel (or raise). The int8 path counts its launches in
+    ``paged_attention_decode.int8_launches``, the other in ``.launches``."""
     _check_args(q, pool_k, pool_v, block_table, lengths, cur_k, cur_v,
-                write_page, write_offset, layer)
+                write_page, write_offset, layer, pool_ks, pool_vs)
+    quant = pool_ks is not None
     if q.device.type == "cpu":
+        if quant:
+            return paged_attention_decode_quant_plain(
+                q, pool_k, pool_v, block_table, lengths, cur_k, cur_v,
+                write_page, write_offset, layer, pool_ks=pool_ks,
+                pool_vs=pool_vs)
         return paged_attention_decode_plain(
             q, pool_k, pool_v, block_table, lengths, cur_k, cur_v,
             write_page, write_offset, layer)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_kernel_args(q, pool_k, pool_v, block_table, lengths, cur_k,
-                       cur_v, write_page, write_offset)
+                       cur_v, write_page, write_offset, pool_ks, pool_vs)
     B, H, hd = q.shape
     _, N, KV, page, _ = pool_k.shape
     out = torch.empty_like(q)
+    pools = [pool_k.data_ptr(), pool_v.data_ptr()]
+    if quant:
+        pools += [pool_ks.data_ptr(), pool_vs.data_ptr()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(
-            _KERNEL_DTYPES[q.dtype], q.data_ptr(), pool_k.data_ptr(),
-            pool_v.data_ptr(), block_table.data_ptr(),
-            block_table.stride(0), lengths.data_ptr(), cur_k.data_ptr(),
-            cur_v.data_ptr(), write_page.data_ptr(), write_offset.data_ptr(),
-            out.data_ptr(), B, KV, H // KV, hd, N, page, int(layer),
-            hd ** -0.5, stream)
+        err = _kernel(quant)(
+            _KERNEL_DTYPES[q.dtype], q.data_ptr(), *pools,
+            block_table.data_ptr(), block_table.stride(0),
+            lengths.data_ptr(), cur_k.data_ptr(), cur_v.data_ptr(),
+            write_page.data_ptr(), write_offset.data_ptr(), out.data_ptr(),
+            B, KV, H // KV, hd, N, page, int(layer), hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_decode kernel launch failed "
                            f"with CUDA error {err}")
-    paged_attention_decode.launches += 1
+    if quant:
+        paged_attention_decode.int8_launches += 1
+    else:
+        paged_attention_decode.launches += 1
     return out
 
 
-# Kernel launches since the count was last set to 0 (CPU calls don't count).
+# Kernel launches since the counts were last set to 0, full-precision and
+# int8 pools apart (CPU calls don't count).
 paged_attention_decode.launches = 0
+paged_attention_decode.int8_launches = 0
 
 
-def paged_attention_decode_plain(q, pool_k, pool_v, block_table, lengths,
-                                 cur_k, cur_v, write_page, write_offset,
-                                 layer: int) -> torch.Tensor:
-    """Plain PyTorch version: the reference oracle's gather formulation
-    (identical masking/softmax semantics, float32 math) followed by the
-    in-place append of the current row."""
+def _attend_plain(q, kg, vg, lengths, cur_k, cur_v) -> torch.Tensor:
+    """The reference oracle's gather formulation over float32 windows
+    kg/vg (B, W, KV, page, hd): masking, softmax with the current token
+    folded in, float32 math. Returns (B, H, hd) float32."""
     B, H, hd = q.shape
-    _, _, KV, page, _ = pool_k.shape
-    W = block_table.shape[1]
+    _, W, KV, page, _ = kg.shape
     G = H // KV
     scale = hd ** -0.5
-    tbl = block_table.long()
-    kg = pool_k[layer][tbl].transpose(2, 3).reshape(B, W * page, KV, hd)
-    vg = pool_v[layer][tbl].transpose(2, 3).reshape(B, W * page, KV, hd)
+    kg = kg.transpose(2, 3).reshape(B, W * page, KV, hd)
+    vg = vg.transpose(2, 3).reshape(B, W * page, KV, hd)
     qg = q.reshape(B, KV, G, hd).float()
-    scores = torch.einsum("bkgd,btkd->bkgt", qg, kg.float()) * scale
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, kg) * scale
     tpos = torch.arange(W * page, device=q.device)[None, None, None, :]
     scores = torch.where(tpos < lengths[:, None, None, None], scores,
                          torch.full_like(scores, NEG))
     s_cur = torch.einsum("bkgd,bkd->bkg", qg, cur_k.float()) * scale
     probs = torch.softmax(torch.cat([scores, s_cur[..., None]], dim=-1),
                           dim=-1)
-    vg_all = torch.cat([vg.float(), cur_v.float()[:, None]], dim=1)
+    vg_all = torch.cat([vg, cur_v.float()[:, None]], dim=1)
     out = torch.einsum("bkgt,btkd->bkgd", probs, vg_all)
+    return out.reshape(B, H, hd)
+
+
+def paged_attention_decode_plain(q, pool_k, pool_v, block_table, lengths,
+                                 cur_k, cur_v, write_page, write_offset,
+                                 layer: int) -> torch.Tensor:
+    """Plain PyTorch version over full-precision pools: the reference
+    oracle's gather formulation followed by the in-place append of the
+    current row."""
+    tbl = block_table.long()
+    out = _attend_plain(q, pool_k[layer][tbl].float(),
+                        pool_v[layer][tbl].float(), lengths, cur_k, cur_v)
     # The append lands after the reads (the row at `lengths` is masked
     # above anyway); inactive slots all write the trash page 0.
     pool_k[layer, write_page.long(), :, write_offset.long()] = cur_k
     pool_v[layer, write_page.long(), :, write_offset.long()] = cur_v
-    return out.reshape(B, H, hd).to(q.dtype)
+    return out.to(q.dtype)
+
+
+def paged_attention_decode_quant_plain(q, pool_k, pool_v, block_table,
+                                       lengths, cur_k, cur_v, write_page,
+                                       write_offset, layer: int, *,
+                                       pool_ks: torch.Tensor,
+                                       pool_vs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version over int8 pools: the same attention over
+    windows dequantized to float32 by ``dequantize_rows`` (the current
+    token folds in unquantized), then the append of ``quantize_rows`` of
+    cur_k/cur_v and their scales at (layer, write_page, :, write_offset).
+    No other pool or scale byte changes."""
+    tbl = block_table.long()
+    kg = dequantize_rows(pool_k[layer][tbl], pool_ks[layer][tbl],
+                         torch.float32)
+    vg = dequantize_rows(pool_v[layer][tbl], pool_vs[layer][tbl],
+                         torch.float32)
+    out = _attend_plain(q, kg, vg, lengths, cur_k, cur_v)
+    wp, off = write_page.long(), write_offset.long()
+    for pool, scales, cur in ((pool_k, pool_ks, cur_k),
+                              (pool_v, pool_vs, cur_v)):
+        rows, s = quantize_rows(cur)
+        pool[layer, wp, :, off] = rows
+        scales[layer, wp, :, off] = s
+    return out.to(q.dtype)

@@ -2,16 +2,19 @@
 
     python -m generativeaiexamples_tpu_torch.tools.profile_decode \\
         [--model llama-2-7b-chat] [--slots 8] [--prompt-len 512] \\
-        [--steps 8] [--rounds 4] [--trace decode_trace.json]
+        [--steps 8] [--rounds 4] [--trace decode_trace.json] \\
+        [--quantization int4_awq] [--kv-quant int8]
 
-Builds the port's engine (random bf16 weights from ``--seed``), fills
+Builds the port's engine (random bf16 weights from ``--seed``, quantized
+on the device with ``--quantization``, over a ``--kv-quant`` pool), fills
 every slot with a ``--prompt-len`` prompt, and drives the serve loop's
 ``_step`` on this thread: after a warm-up round it times ``--rounds``
 decode rounds of ``--steps`` steps with the host clock (each round ends
 in a device->host read of its tokens), then traces one more round with
 ``torch.profiler`` and attributes its device time by kernel. Prints the
 step time beside its weight-and-KV byte bound, the device's busy share
-of the traced round, and the top kernels; the last line is one JSON
+of the traced round, the port's kernels (paged attention, int4 matmul)
+with their launches, and the top kernels; the last line is one JSON
 object. Runs on the card; ``--device cpu`` rehearses the tool itself
 at a small ``--model`` (its times are then CPU times, not the card's).
 """
@@ -46,7 +49,10 @@ def _kernel_times(prof) -> dict[str, tuple[float, int]]:
 
 def main(argv=None) -> int:
     from ..engine import EngineConfig, SamplingParams
+    from ..models import llama
+    from ..ops.int4_matmul import int4_matmul
     from ..ops.paged_attention import paged_attention_decode
+    from ..ops.quant import MODES
     from ..serving.model_server import build_services
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -59,15 +65,18 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default="",
                     help="write the traced round's chrome trace here")
+    ap.add_argument("--quantization", default="", choices=["", *MODES])
+    ap.add_argument("--kv-quant", default="", choices=["", "int8"])
     args = ap.parse_args(argv)
 
     n_new = (args.rounds + 3) * args.steps + 1
     ecfg = EngineConfig(max_slots=args.slots,
                         max_input_length=max(args.prompt_len, 128),
                         max_output_length=n_new, steps_per_round=args.steps,
-                        kv_pool_tokens=None)
+                        kv_pool_tokens=None, kv_quant=args.kv_quant)
     engine, model_name = build_services(args.model, engine_cfg=ecfg,
-                                  seed=args.seed, device=args.device)
+                                        seed=args.seed, device=args.device,
+                                        quantization=args.quantization)
     cuda = engine.device.type == "cuda"
 
     def sync():
@@ -98,6 +107,8 @@ def main(argv=None) -> int:
     step_ms = wall / steps * 1e3
 
     paged_attention_decode.launches = 0
+    paged_attention_decode.int8_launches = 0
+    int4_matmul.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -106,25 +117,29 @@ def main(argv=None) -> int:
         sync()
         traced_s = time.perf_counter() - t1
     traced_steps = engine.stats["decode_steps"] - steps0 - steps
-    launches = paged_attention_decode.launches
+    launches = {"paged_attention": paged_attention_decode.launches
+                + paged_attention_decode.int8_launches,
+                "int4_matmul": int4_matmul.launches}
     if args.trace:
         prof.export_chrome_trace(args.trace)
     kernels = _kernel_times(prof)
     device_us = sum(us for us, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    paged_us = sum(us for name, (us, _) in kernels.items()
-                   if "paged_decode" in name)
+    # Device time of the port's own kernels, by kernel function name
+    # (csrc/paged_attention.cu; csrc/int4_matmul.cu's two paths).
+    ours = {"paged_attention": ("paged_decode_kernel",),
+            "int4_matmul": ("int4_gemv_kernel", "int4_matmul_kernel")}
+    ours_us = {k: sum(us for name, (us, _) in kernels.items()
+                      if any(sym in name for sym in syms))
+               for k, syms in ours.items()}
     # The profiler slows the host several-fold, so the traced round's own
     # busy share understates the device's; its device time per step over
     # the untraced step time is the estimate that holds for serving.
     busy_ms_step = device_us / 1e3 / max(traced_steps, 1)
 
-    param_bytes = sum(t.numel() * t.element_size() for t in
-                      [engine.params["embed"], engine.params.get("lm_head"),
-                       *engine.params["layers"].values()]
-                      if t is not None)
-    kv_token = (2 * mcfg.num_layers * mcfg.num_kv_heads * mcfg.head_dim
-                * engine.params["embed"].element_size())
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in llama.param_tensors(engine.params))
+    kv_token = engine._kv_bytes_per_token()
     ctx = args.prompt_len + (args.rounds + 2) * args.steps
     # Weights are read once per step (the embedding table only for the B
     # rows looked up); each slot's live KV once.
@@ -138,28 +153,34 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip() if cuda else "cpu"
     engine.stop()
 
-    print(f"{model_name} on {card}: {args.slots} slots, context ~{ctx} tokens, "
-          f"{args.steps} steps per round")
+    mode = (f"{args.quantization or 'bf16'} weights, "
+            f"{args.kv_quant or 'bf16'} KV")
+    print(f"{model_name} [{mode}] on {card}: {args.slots} slots, context "
+          f"~{ctx} tokens, {args.steps} steps per round")
     print(f"decode step {step_ms:.2f} ms (host clock over {steps} steps) vs "
           f"byte bound {bound_ms:.2f} ms ({step_bytes / 1e9:.2f} GB/step); "
           f"{args.slots * 1e3 / step_ms:.1f} tok/s aggregate")
     print(f"traced round: {traced_s * 1e3:.1f} ms wall (profiler on), "
           f"device {device_us / 1e3:.1f} ms over {traced_steps} steps = "
           f"{busy_ms_step:.2f} ms/step, busy share of an untraced step "
-          f"{busy_ms_step / step_ms:.1%}; paged kernel "
-          f"{paged_us / 1e3 / max(traced_steps, 1):.2f} ms/step over "
-          f"{launches} launches")
+          f"{busy_ms_step / step_ms:.1%}")
+    for k, us in ours_us.items():
+        print(f"  {k}: {us / 1e3 / max(traced_steps, 1):.2f} ms/step over "
+              f"{launches[k]} launches")
     for name, (us, n) in top:
         print(f"  {us / 1e3:9.2f} ms  {n:6d}x  {name[:90]}")
     print(json.dumps({
-        "model": model_name, "card": card, "slots": args.slots, "context": ctx,
+        "model": model_name, "quantization": args.quantization,
+        "kv_quant": args.kv_quant, "card": card, "slots": args.slots,
+        "context": ctx,
         "steps_per_round": args.steps, "step_ms": step_ms,
         "step_bound_ms": bound_ms, "traced_round_ms": traced_s * 1e3,
         "traced_steps": traced_steps,
         "device_ms_per_step": busy_ms_step,
         "device_busy_share": busy_ms_step / step_ms,
-        "paged_kernel_ms_per_step": paged_us / 1e3 / max(traced_steps, 1),
-        "paged_kernel_launches": launches,
+        "kernel_ms_per_step": {k: us / 1e3 / max(traced_steps, 1)
+                               for k, us in ours_us.items()},
+        "kernel_launches": launches,
         "top_device_ops": [{"name": name[:120], "ms": us / 1e3, "count": n}
                            for name, (us, n) in top]}))
     return 0

@@ -148,3 +148,197 @@ def test_logits_matmul_bf16_operands_f32_result(dev, transposed):
     ref = torch.matmul(x.float(), w.float())
     assert out.dtype == torch.float32 and out.shape == (2, 4, 32000)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------- int8 pools
+#
+# The int8-pool path of the paged kernel against its plain version.
+# Tolerances as above; the appended int8 rows and bf16 scales must equal
+# the plain version's ``quantize_rows`` bit for bit, and no other pool or
+# scale byte may change apart from the trash page 0. Rows at or past each
+# length, and their scales, are then poisoned: the kernel must never read
+# them.
+
+QUANT_CASES = [
+    # (H, KV, hd, page, lengths, q dtype)
+    (8, 8, 128, 16, [0, 1, 15, 16, 17, 40], torch.float32),     # G = 1
+    (8, 4, 64, 16, [33, 0, 31, 2], torch.float32),              # G = 2
+    (16, 4, 64, 128, [1, 127, 128, 129], torch.float32),        # G = 4
+    (32, 4, 128, 128, [300, 0, 129], torch.bfloat16),           # G = 8
+    (32, 32, 128, 128, [0, 127, 128, 129, 700], torch.bfloat16),
+    (16, 16, 64, 16, [7, 8, 9, 0], torch.bfloat16),             # hd 64
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,hd,page,lengths,dtype", QUANT_CASES)
+def test_int8_kernel_matches_plain(dev, H, KV, hd, page, lengths, dtype):
+    from generativeaiexamples_tpu_torch.ops.kv_quant import quantize_rows
+    args = _setup(dev, H=H, KV=KV, hd=hd, page=page, lengths=lengths,
+                  dtype=dtype)
+    q, pk, pv, table, lens, ck, cv, wp, off = args
+    (kq, ks), (vq, vs) = quantize_rows(pk), quantize_rows(pv)
+    layer = 1
+    pools = [kq.clone(), vq.clone(), ks.clone(), vs.clone()]
+    before = tpa.paged_attention_decode.int8_launches
+    out = tpa.paged_attention_decode(q, pools[0], pools[1], table, lens, ck,
+                                     cv, wp, off, layer, pool_ks=pools[2],
+                                     pool_vs=pools[3])
+    assert tpa.paged_attention_decode.int8_launches == before + 1
+    ref_pools = [kq.clone(), vq.clone(), ks.clone(), vs.clone()]
+    ref = tpa.paged_attention_decode_quant_plain(
+        q, ref_pools[0], ref_pools[1], table, lens, ck, cv, wp, off, layer,
+        pool_ks=ref_pools[2], pool_vs=ref_pools[3])
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    atol, rtol = (1e-4, 0) if dtype == torch.float32 else (1e-3, 1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    live = (lens > 0).nonzero()[:, 0]
+    touched = torch.zeros(pk.shape[:4], dtype=torch.bool, device=dev)
+    touched[layer, 0] = True
+    touched[layer, wp[live].long(), :, off[live].long()] = True
+    idx = (layer, wp[live].long(), slice(None), off[live].long())
+    for new, want, old in zip(pools, ref_pools, (kq, vq, ks, vs)):
+        if new.dtype == torch.bfloat16:
+            new, want, old = (t.view(torch.int16) for t in (new, want, old))
+        assert torch.equal(new[idx], want[idx])
+        keep = ~touched
+        if new.dim() == 5:
+            keep = keep[..., None].expand_as(new)
+        assert torch.equal(new[keep], old[keep])
+    # Rows at or past each length hold 127 and NaN scales (the trash page
+    # too): the output stays bit-identical, so none of them was read.
+    rows = torch.arange(table.shape[1] * page, device=dev)
+    for b, n in enumerate(lengths):
+        dead = (rows >= n).reshape(-1, page)
+        for t, fill in ((kq, 127), (vq, 127), (ks, float("nan")),
+                        (vs, float("nan"))):
+            view = t[layer, table[b].long()]
+            view[dead[:, None, :].expand(view.shape[:3])] = fill
+            t[layer, table[b].long()] = view
+            t[layer, 0] = fill
+    out_p = tpa.paged_attention_decode(q, kq, vq, table, lens, ck, cv, wp,
+                                       off, layer, pool_ks=ks, pool_vs=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(out_p, out)
+
+
+# ---------------------------------------------------------- int4 matmul
+#
+# The int4 kernel against its plain version (float32 sums on both sides
+# from identical inputs): float32 out atol 1e-4 * max|ref|, rtol 1e-4;
+# bf16 out rtol 1e-2 (one bf16 ulp is 2^-8 relative) with an atol of one
+# bf16 ulp of max|ref| for outputs near zero.
+
+INT4_CASES = [
+    # (M, K, N, group: 0 = per channel). M <= 8 with N % 4 == 0 takes the
+    # split-K GEMV path (split when K has enough groups); the rest, and
+    # any M > 8, the tiled path.
+    (1, 256, 96, 0), (3, 256, 96, 32), (33, 512, 200, 64),
+    (8, 384, 130, 128), (1, 4096, 4096, 128), (33, 11008, 64, 128),
+    (100, 96, 33, 32), (8, 250, 77, 0), (8, 250, 96, 0),
+    (5, 11008, 512, 128), (3, 4096, 1024, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,group", INT4_CASES)
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_int4_kernel_matches_plain(dev, M, K, N, group, x_dtype, out_dtype):
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(M * 7 + K + N)
+    w = (torch.randn(K, N, generator=g) * 0.05).to(dev)
+    leaf = (quant.quantize_tensor_grouped(w, group) if group
+            else quant.quantize_tensor(w, 4))
+    scale = leaf["gscale"] if group else leaf["scale"]
+    x = torch.randn(M, K, generator=g).to(x_dtype).to(dev)
+    before = ti4.int4_matmul.launches
+    got = ti4.int4_matmul(x, leaf["q4"], scale, out_dtype=out_dtype)
+    assert ti4.int4_matmul.launches == before + 1
+    ref = ti4.int4_matmul_plain(x, leaf["q4"], scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    peak = ref.float().abs().max().item()
+    if out_dtype == torch.float32:
+        atol, rtol = 1e-4 * peak, 1e-4
+    else:
+        atol, rtol = peak * 2 ** -8, 1e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_int4_split_k_leaves_scratch_reusable(dev):
+    """Split-K launches of different shapes in a row (the counters must be
+    back at 0 after each) give the same result as one at a time."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    g = torch.Generator().manual_seed(3)
+    cases = []
+    for K, N in ((4096, 4096), (11008, 512), (4096, 1024)):
+        w = (torch.randn(K, N, generator=g) * 0.05).to(dev)
+        leaf = quant.quantize_tensor_grouped(w, 128)
+        x = torch.randn(8, K, generator=g).to(torch.bfloat16).to(dev)
+        cases.append((x, leaf["q4"], leaf["gscale"]))
+    first = [ti4.int4_matmul(*c) for c in cases]
+    again = [ti4.int4_matmul(*c) for c in cases for _ in range(3)][::3]
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _, counters = ti4._scratch[(x.device, stream)]
+    assert not counters.any()
+
+
+@pytest.mark.cuda
+def test_int4_split_k_streams_keep_their_own_scratch(dev):
+    """Split-K launches queued on two streams at once each use their own
+    workspace and counters, and agree with launches on one stream."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    g = torch.Generator().manual_seed(4)
+    K, N = 4096, 11008
+    leaf = quant.quantize_tensor_grouped(
+        (torch.randn(K, N, generator=g) * 0.05).to(dev), 128)
+    xs = [torch.randn(8, K, generator=g).to(torch.bfloat16).to(dev)
+          for _ in range(2)]
+    want = [ti4.int4_matmul(x, leaf["q4"], leaf["gscale"]) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in xs]
+    got = [[] for _ in xs]
+    for _ in range(20):
+        for x, s, out in zip(xs, streams, got):
+            with torch.cuda.stream(s):
+                out.append(ti4.int4_matmul(x, leaf["q4"], leaf["gscale"]))
+    torch.cuda.synchronize()
+    for w, outs in zip(want, got):
+        for o in outs:
+            assert torch.equal(o, w)
+    pairs = [ti4._scratch[(xs[0].device, s.cuda_stream)] for s in streams]
+    assert pairs[0][0].data_ptr() != pairs[1][0].data_ptr()
+    assert not any(c.any() for _, c in pairs)
+
+
+@pytest.mark.cuda
+def test_int4_kernel_leading_dims_and_quant_matmul(dev):
+    """``quant.matmul`` sends an int4 leaf on the card through the kernel
+    (AWQ pre_scale folded into x), and refuses GPTQ zero points."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    from generativeaiexamples_tpu_torch.utils.errors import ConfigError
+    g = torch.Generator().manual_seed(1)
+    w = (torch.randn(256, 64, generator=g) * 0.05).to(dev)
+    leaf = dict(quant.quantize_tensor_grouped(w, 64))
+    leaf["pre_scale"] = torch.rand(256, generator=g).to(dev) + 0.5
+    x = torch.randn(2, 3, 256, generator=g).to(dev)
+    before = ti4.int4_matmul.launches
+    got = quant.matmul(x, leaf)
+    assert ti4.int4_matmul.launches == before + 1
+    ref = quant._grouped_matmul(x, quant._unpack4(leaf["q4"]), leaf)
+    assert got.shape == (2, 3, 64)
+    torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(),
+                               rtol=1e-4)
+    leaf["gbias"] = torch.zeros_like(leaf["gscale"])
+    with pytest.raises(ConfigError, match="gbias"):
+        quant.matmul(x, leaf)

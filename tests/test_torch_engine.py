@@ -52,6 +52,21 @@ def engine(jax_params):
         yield eng
 
 
+@pytest.fixture(scope="module")
+def quant_engine(jax_params):
+    """int4_awq weights (group 32: LLAMA_TINY's F = 352 is not a multiple
+    of 128) over an int8 KV pool, from the same numpy parameters as the
+    JAX side."""
+    from generativeaiexamples_tpu.ops.quant import quantize_params
+    jqp = quantize_params(jax_params, "int4_awq", 32)
+    params = params_from_numpy(jax.tree.map(np.asarray, jqp), "cpu",
+                               torch.float32, cfg=CFG)
+    eng = Engine(params, CFG, ByteTokenizer(),
+                 EngineConfig(**ENGINE_KW, kv_quant="int8"), device="cpu")
+    with eng:
+        yield eng, jqp
+
+
 def _greedy(n):
     return SamplingParams(max_tokens=n, top_k=1, ignore_eos=True)
 
@@ -78,6 +93,52 @@ def test_greedy_tokens_match_jax_engine(engine, jax_params):
     assert [o[1] for o in ours] == [t[1] for t in theirs]
     assert ours == theirs
     assert all(len(o[1]) == n for o, n in zip(ours, lens))
+
+
+def test_quantized_greedy_tokens_match_jax_engine(quant_engine):
+    """kv_quant="int8" plus int4_awq weights: the port's greedy tokens
+    equal the JAX engine's on the same quantized parameters (the JAX
+    prefix cache is off: under int8 KV a reused prefix is read back
+    dequantized, which the port does not model)."""
+    from generativeaiexamples_tpu.engine import Engine as JEngine
+    from generativeaiexamples_tpu.engine import EngineConfig as JConfig
+    from generativeaiexamples_tpu.engine import SamplingParams as JParams
+    from generativeaiexamples_tpu.models.configs import LLAMA_TINY as JCFG
+    from generativeaiexamples_tpu.models.tokenizer import \
+        ByteTokenizer as JTok
+
+    engine, jqp = quant_engine
+    assert engine._state["cache"]["k"].dtype == torch.int8
+    lens = [12, 7, 20, 3, 9]
+    tok = engine.tokenizer
+    streams = [engine.submit(tok.encode(p), _greedy(n))
+               for p, n in zip(PROMPTS, lens)]
+    ours = [(s.text(), s.token_ids, s.finish_reason) for s in streams]
+    jcfg = JConfig(**ENGINE_KW, kv_quant="int8", prefix_cache=False)
+    with JEngine(jqp, JCFG, JTok(), jcfg) as jeng:
+        jstreams = [jeng.submit(tok.encode(p),
+                                JParams(max_tokens=n, top_k=1,
+                                        ignore_eos=True))
+                    for p, n in zip(PROMPTS, lens)]
+        theirs = [(s.text(), s.token_ids, s.finish_reason) for s in jstreams]
+    assert [o[1] for o in ours] == [t[1] for t in theirs]
+    assert ours == theirs
+
+
+def test_kv_quant_config_and_pool_bytes(quant_engine):
+    """int8 pools count L*KV*2*(hd + 2) bytes a token (rows plus one bf16
+    scale each); the prefill reserve keeps the dense compute-dtype bytes."""
+    engine, _ = quant_engine
+    m = CFG
+    assert engine._kv_bytes_per_token() == (
+        m.num_layers * m.num_kv_heads * 2 * (m.head_dim + 2))
+    assert engine._kv_bytes_per_token(pooled=False) == (
+        2 * m.num_layers * m.num_kv_heads * m.head_dim * 4)
+    cache = engine._state["cache"]
+    assert cache["ks"].dtype == torch.bfloat16
+    assert cache["ks"].shape == cache["k"].shape[:4]
+    with pytest.raises(ConfigError, match="kv_quant"):
+        EngineConfig(kv_quant="int4")
 
 
 def test_more_requests_than_slots_all_finish(engine):
@@ -203,7 +264,48 @@ def test_completions_round_trip():
             health = json.loads(resp.read())
         assert health["status"] == "ok"
         assert health["engine"]["requests"] == 2
+        assert health["quantization"] == "" and health["kv_quant"] == ""
     engine.stop()
+
+
+def test_completions_round_trip_int4_awq_int8_pool():
+    """/v1/completions through ``build_services(quantization="int4_awq")``
+    over an int8 pool (JSON and SSE), and /health reports both modes."""
+    from conftest import serve_app
+
+    engine, name = build_services(
+        "llama-tiny", engine_cfg=EngineConfig(**ENGINE_KW, kv_quant="int8"),
+        seed=1, device="cpu", quantization="int4_awq")
+    # LLAMA_TINY's F = 352 takes the largest group dividing it: 32.
+    w_down = engine.params["layers"]["w_down"]
+    assert set(w_down) == {"q4", "gscale"}
+    assert w_down["gscale"].shape == (CFG.num_layers, 352 // 32, 128)
+    with serve_app(create_server_app(engine, name)) as base:
+        def post(body):
+            req = urllib.request.Request(
+                base + "/v1/completions", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.read().decode()
+
+        body = {"prompt": "quantized hello", "max_tokens": 5,
+                "temperature": 0}
+        out = json.loads(post(body))
+        choice = out["choices"][0]
+        assert out["usage"]["completion_tokens"] <= 5
+        events = [ln[len("data: "):]
+                  for ln in post({**body, "stream": True}).splitlines()
+                  if ln.startswith("data: ")]
+        assert events[-1] == "[DONE]"
+        assert "".join(json.loads(e)["choices"][0]["text"]
+                       for e in events[:-1]) == choice["text"]
+        with urllib.request.urlopen(base + "/health", timeout=30) as resp:
+            health = json.loads(resp.read())
+        assert health["quantization"] == "int4_awq"
+        assert health["kv_quant"] == "int8"
+    engine.stop()
+    with pytest.raises(ValueError, match="quantization"):
+        build_services("llama-tiny", device="cpu", quantization="fp4")
 
 
 def test_port_imports_no_jax():

@@ -125,3 +125,82 @@ def test_apply_decode_paged_matches_jax(params):
     # Page 0 is the trash page: only the inactive slot wrote it.
     for name in ("k", "v"):
         _close(tcache[name][:, 1:], np.asarray(jcache[name])[:, 1:])
+
+
+@pytest.mark.parametrize("mode,group", [("int8", 128), ("int4_awq", 32)])
+def test_convert_carries_quantized_params_bit_for_bit(params, mode, group):
+    """A JAX ``quantize_params`` tree carries over with its int8 and
+    float32 leaves unchanged (LLAMA_TINY's F = 352 takes group 32)."""
+    from generativeaiexamples_tpu.ops.quant import quantize_params
+    _, jp, _ = params
+    jq = jax.tree.map(np.asarray, quantize_params(jp, mode, group))
+    tq = params_from_numpy(jq, "cpu", torch.float32, cfg=CFG)
+    for key in ("wq", "w_down"):
+        for leaf, arr in jq["layers"][key].items():
+            t = tq["layers"][key][leaf]
+            assert t.dtype == (torch.int8 if leaf in ("q", "q4")
+                               else torch.float32)
+            np.testing.assert_array_equal(t.numpy(), arr)
+    for leaf, arr in jq["lm_head"].items():
+        np.testing.assert_array_equal(tq["lm_head"][leaf].numpy(), arr)
+    # A leaf whose reduction rows were cut does not fit the config.
+    bad = dict(jq["layers"]["wq"])
+    ikey = "q" if mode == "int8" else "q4"
+    bad[ikey] = bad[ikey][:, :-2]
+    with pytest.raises(ConfigError):
+        params_from_numpy({**jq, "layers": {**jq["layers"], "wq": bad}},
+                          "cpu", cfg=CFG)
+
+
+def test_apply_decode_paged_int8_pool_int4_awq_matches_jax(params):
+    """One paged decode step with int4_awq weights over an int8 pool (the
+    plain versions on the CPU; the JAX side takes its gather path):
+    logits at the file's tolerance, the live rows and scales of both pools
+    unchanged and the appended rows and scales bit-equal."""
+    from generativeaiexamples_tpu.ops.kv_quant import quantize_rows
+    from generativeaiexamples_tpu.ops.quant import quantize_params
+    _, jp, _ = params
+    jqp = quantize_params(jp, "int4_awq", 32)
+    tqp = params_from_numpy(jax.tree.map(np.asarray, jqp), "cpu",
+                            torch.float32, cfg=CFG)
+    rng = np.random.default_rng(4)
+    page, W = 16, 3
+    lengths = np.array([5, 0, 16, 33], np.int32)    # slot 1 inactive
+    B = len(lengths)
+    N = 1 + B * W
+    shape = (CFG.num_layers, N, CFG.num_kv_heads, page, CFG.head_dim)
+    kq, ks = quantize_rows(jnp.asarray(rng.standard_normal(shape),
+                                       jnp.float32))
+    vq, vs = quantize_rows(jnp.asarray(rng.standard_normal(shape),
+                                       jnp.float32))
+    jcache = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    table = (1 + np.arange(B * W)).reshape(B, W).astype(np.int32)
+    live = lengths > 0
+    wp = np.where(live, table[np.arange(B), lengths // page], 0
+                  ).astype(np.int32)
+    off = np.where(live, lengths % page, 0).astype(np.int32)
+    tokens = rng.integers(0, CFG.vocab_size, (B, 1)).astype(np.int32)
+    pos = lengths[:, None]
+
+    def bits(a):
+        a = np.array(a)
+        return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+    tcache = {k: torch.from_numpy(bits(v).copy()) for k, v in jcache.items()}
+    for k in ("ks", "vs"):
+        tcache[k] = tcache[k].view(torch.bfloat16)
+    assert tllama.kv_cache_quantized(tcache)
+    tl, tcache = tllama.apply_decode_paged(
+        tqp, CFG, torch.from_numpy(tokens), torch.from_numpy(pos), tcache,
+        torch.from_numpy(table), torch.from_numpy(wp), torch.from_numpy(off))
+    jl, jnew = jllama.apply_decode_paged(
+        jqp, CFG, jnp.asarray(tokens), jnp.asarray(pos), jcache,
+        jnp.asarray(table), jnp.asarray(lengths + 1), jnp.asarray(wp),
+        jnp.asarray(off), use_kernel=False)
+    _close(tl, jl)
+    # Page 0 is the trash page: only the inactive slot wrote it.
+    for name in ("k", "v", "ks", "vs"):
+        got = tcache[name]
+        got = got.view(torch.int16) if got.dtype == torch.bfloat16 else got
+        np.testing.assert_array_equal(got.numpy()[:, 1:],
+                                      bits(jnew[name])[:, 1:])

@@ -172,3 +172,165 @@ def test_kernel_gate():
     assert not tpa.kernel_supported(128, 64, 4, 128)    # G = 16 > 8
     assert not tpa.kernel_supported(128, 8, 8, 512)     # hd > 256
     assert not tpa.kernel_supported(0, 8, 8, 64)        # empty page
+
+
+# ---------------------------------------------------------- int8 pools
+#
+# Pools are made by the JAX package's ``quantize_rows`` from random rows
+# and fed to both packages. Tolerances: atol 1e-5 against
+# ``paged_attention_decode_reference`` on the dequantized pools (both
+# float32 gather formulations over the same dequantized values); against
+# the JAX int8 Pallas kernel in interpret mode, atol 1e-5 and rtol 1e-5:
+# with float32 q its dots run in float32 too, and it folds the row scales
+# after q.k and into p before p.v, which moves the result by a few float32
+# ulps, far inside the 2e-2 the JAX package's own int8 kernel test uses.
+# Appends are compared bit for bit on the appended row and its scale; the
+# Pallas kernel rewrites the write page's whole scale block (a TPU lane
+# rule), so dead lanes are not compared with it.
+
+
+def _setup_quant(H, lengths, seed=0):
+    from generativeaiexamples_tpu.ops.kv_quant import quantize_rows
+    q, pk, pv, table, lens, ck, cv, wp, off = _setup(H, lengths, seed)
+    kq, ks = quantize_rows(jnp.asarray(pk))
+    vq, vs = quantize_rows(jnp.asarray(pv))
+    pools = [np.array(a) for a in (kq, vq)]
+    scales = [np.array(a).view(np.int16) for a in (ks, vs)]
+    return q, pools, scales, table, lens, ck, cv, wp, off
+
+
+def _bf16(a):
+    return torch.from_numpy(a.copy()).view(torch.bfloat16)
+
+
+def _run_quant_plain(args):
+    q, (kq, vq), (ks, vs), table, lens, ck, cv, wp, off = args
+    tk, tv = _t(kq.copy()), _t(vq.copy())
+    tks, tvs = _bf16(ks), _bf16(vs)
+    out = tpa.paged_attention_decode(
+        _t(q), tk, tv, _t(table), _t(lens), _t(ck), _t(cv), _t(wp), _t(off),
+        LAYER, pool_ks=tks, pool_vs=tvs)
+    return (out.numpy(), tk.numpy(), tv.numpy(),
+            tks.view(torch.int16).numpy(), tvs.view(torch.int16).numpy())
+
+
+def _check_quant_pools(new, args, want_k, want_ks, want_v, want_vs):
+    """Live rows and their scales keep their bytes; the appended row and
+    its scale equal the wanted ones; the other layer is untouched."""
+    q, (kq, vq), (ks, vs), table, lens, ck, cv, wp, off = args
+    nk, nv, nks, nvs = new
+    for b, n in enumerate(lens):
+        for t in range(n):
+            p, r = table[b, t // page], t % page
+            for got, before in ((nk, kq), (nv, vq), (nks, ks), (nvs, vs)):
+                np.testing.assert_array_equal(got[LAYER, p, :, r],
+                                              before[LAYER, p, :, r])
+        if n == 0:
+            continue
+        w, o = wp[b], off[b]
+        np.testing.assert_array_equal(nk[LAYER, w, :, o], want_k[b])
+        np.testing.assert_array_equal(nks[LAYER, w, :, o], want_ks[b])
+        np.testing.assert_array_equal(nv[LAYER, w, :, o], want_v[b])
+        np.testing.assert_array_equal(nvs[LAYER, w, :, o], want_vs[b])
+    for got, before in ((nk, kq), (nv, vq), (nks, ks), (nvs, vs)):
+        np.testing.assert_array_equal(got[1 - LAYER], before[1 - LAYER])
+
+
+def _jax_rows(cur):
+    from generativeaiexamples_tpu.ops.kv_quant import quantize_rows
+    rows, s = quantize_rows(jnp.asarray(cur))
+    return np.asarray(rows), np.asarray(s).view(np.int16)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_quant_plain_matches_reference_on_dequantized_pools(case):
+    from generativeaiexamples_tpu.ops.kv_quant import dequantize_rows
+    H, lengths = CASES[case]
+    args = _setup_quant(H, lengths)
+    q, (kq, vq), (ks, vs), table, lens, ck, cv, wp, off = args
+    out, *new = _run_quant_plain(args)
+    deq = [np.asarray(dequantize_rows(
+        jnp.asarray(p[LAYER]), jnp.asarray(s[LAYER].view(jnp.bfloat16)),
+        jnp.float32)) for p, s in ((kq, ks), (vq, vs))]
+    ref = jpa.paged_attention_decode_reference(
+        jnp.asarray(q), jnp.asarray(deq[0]), jnp.asarray(deq[1]),
+        jnp.asarray(table), jnp.asarray(lens), jnp.asarray(ck),
+        jnp.asarray(cv))
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-5, rtol=0)
+    (wk, wks), (wv, wvs) = _jax_rows(ck), _jax_rows(cv)
+    _check_quant_pools(new, args, wk, wks, wv, wvs)
+
+
+@pytest.mark.parametrize("case", ["page_edges_g2", "inactive_mid_batch",
+                                  "mha_g1"])
+def test_quant_plain_matches_pallas_kernel(case):
+    H, lengths = CASES[case]
+    args = _setup_quant(H, lengths, seed=1)
+    q, (kq, vq), (ks, vs), table, lens, ck, cv, wp, off = args
+    out, *new = _run_quant_plain(args)
+    jout, jk, jv, jks, jvs = jpa.paged_attention_decode(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(table),
+        jnp.asarray(lens), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(wp),
+        jnp.asarray(off), jnp.asarray([LAYER], jnp.int32),
+        pool_ks=jnp.asarray(ks.view(jnp.bfloat16)),
+        pool_vs=jnp.asarray(vs.view(jnp.bfloat16)), interpret=True)
+    np.testing.assert_allclose(out, np.asarray(jout), atol=1e-5, rtol=1e-5)
+    # The appended rows and scales equal the Pallas kernel's, and both
+    # equal the JAX quantize_rows of cur_k/cur_v.
+    jk, jv = np.asarray(jk), np.asarray(jv)
+    jks, jvs = (np.asarray(a).view(np.int16) for a in (jks, jvs))
+    idx = (LAYER, wp, slice(None), off)
+    (wk, wks), (wv, wvs) = _jax_rows(ck), _jax_rows(cv)
+    live = lens > 0
+    for mine, theirs in ((jk[idx], wk), (jks[idx], wks), (jv[idx], wv),
+                         (jvs[idx], wvs)):
+        np.testing.assert_array_equal(mine[live], theirs[live])
+    _check_quant_pools(new, args, jk[idx], jks[idx], jv[idx], jvs[idx])
+
+
+def test_quant_plain_leaves_other_bytes_alone():
+    """Apart from the appended rows and scales (and the trash page), the
+    int8 plain version changes no pool or scale byte."""
+    args = _setup_quant(8, [15, 0, 33, 16])
+    q, (kq, vq), (ks, vs), table, lens, ck, cv, wp, off = args
+    _, nk, nv, nks, nvs = _run_quant_plain(args)
+    touched = np.zeros(kq.shape[:4], bool)
+    touched[LAYER, 0] = True
+    for b in np.flatnonzero(lens > 0):
+        touched[LAYER, wp[b], :, off[b]] = True
+    for got, before in ((nk, kq), (nv, vq)):
+        np.testing.assert_array_equal(got[~touched], before[~touched])
+    for got, before in ((nks, ks), (nvs, vs)):
+        np.testing.assert_array_equal(got[~touched], before[~touched])
+
+
+def test_quant_cpu_calls_do_not_count_as_launches():
+    before = (tpa.paged_attention_decode.launches,
+              tpa.paged_attention_decode.int8_launches)
+    _run_quant_plain(_setup_quant(8, [5, 9]))
+    assert (tpa.paged_attention_decode.launches,
+            tpa.paged_attention_decode.int8_launches) == before
+
+
+def test_quant_wrapper_rejects_bad_arguments():
+    q, (kq, vq), (ks, vs), table, lens, ck, cv, wp, off = _setup_quant(
+        8, [5, 9])
+    base = [_t(q), _t(kq), _t(vq), _t(table), _t(lens), _t(ck), _t(cv),
+            _t(wp), _t(off), LAYER]
+    scales = {"pool_ks": _bf16(ks), "pool_vs": _bf16(vs)}
+    with pytest.raises(ValueError, match="scale pools"):
+        tpa.paged_attention_decode(*base)                  # int8, no scales
+    with pytest.raises(ValueError, match="both scale pools"):
+        tpa.paged_attention_decode(*base, pool_ks=scales["pool_ks"])
+    bad_cur = list(base)
+    bad_cur[5] = _t(ck).to(torch.int8)                     # cur in pool dtype
+    with pytest.raises(ValueError, match="cur_k dtype"):
+        tpa.paged_attention_decode(*bad_cur, **scales)
+    with pytest.raises(ValueError, match="pool_ks"):
+        tpa.paged_attention_decode(
+            *base, pool_ks=scales["pool_ks"].float(),
+            pool_vs=scales["pool_vs"])
+    with pytest.raises(ValueError, match="pool_vs"):
+        tpa.paged_attention_decode(
+            *base, pool_ks=scales["pool_ks"],
+            pool_vs=scales["pool_vs"][..., :-1])
