@@ -15,8 +15,11 @@ Phases (each fails loudly: a failure exits non-zero and the final
    bound and a one-call PyTorch yardstick where one exists:
    #1 paged decode attention (bf16/f32 pools) and #2 its int8-pool path,
    in float32 (atol 1e-4) and bfloat16 (atol 1e-3, rtol 1e-2); #3 the
-   packed-int4 matmul at every projection shape, M = 1, 8, 128 and 1024,
-   float32 out atol 1e-4 * max|ref|, rtol 1e-4, bf16 out rtol 1e-2.
+   packed-int4 matmul at every projection shape, M = 1, 3, 8, 128 and
+   1024 (each call checked to take the path ``_path`` names: tensor
+   cores for bf16 x at M <= 8, the fp32 GEMV for float32 x, the tiled
+   path for M > 8), float32 out atol 1e-4 * max|ref|, rtol 1e-4, bf16 out
+   rtol 1e-2.
 3. The engines on a small input: llama-2-7b's width cut to 2 layers,
    float32 (TF32 off). bf16 path: greedy tokens through the engine (#1 in
    every layer) against argmax of a full-sequence forward. Quantized
@@ -29,7 +32,9 @@ Phases (each fails loudly: a failure exits non-zero and the final
    request, once in bf16 and once with int4_awq weights over an int8 KV
    pool, and checks through the launch counts (set to 0 just before each
    path, read just after) that every layer of every decode step, and
-   every projection, went through the path's kernels.
+   every projection, went through the path's kernels (#3 by path: every
+   decode projection and every prefill's lm_head row on tensor cores,
+   the prefill projections on the tiled path).
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -43,6 +48,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM float32 peak outside tensor cores
 
 
 def fail(msg: str) -> None:
@@ -289,21 +295,26 @@ def int4_library_ms(torch, dev, M, K, N, group, iters):
 def check_int4_matmul(torch, dev):
     """The packed-int4 kernel against its plain version at every
     projection shape of llama-2-7b, (K, N) in {(4096, 4096), (4096, 11008),
-    (11008, 4096), (4096, 32000)}, M in {1, 8, 128, 1024} (the logits row,
-    decode, the commonest prefill bucket, the largest one), per channel and
-    group 128, x bf16 and float32, out x's dtype and float32.
+    (11008, 4096), (4096, 32000)}, M in {1, 3, 8, 128, 1024} (the logits
+    row, a partly filled decode batch, a full one, the commonest prefill
+    bucket, the largest one), per channel and group 128, x bf16 and
+    float32, out x's dtype and float32. Every call must launch the path
+    ``_path`` names, which at these shapes is the tensor-core path for bf16
+    x at M <= 8, the fp32 GEMV for float32 x at M <= 8 and the tiled path
+    above.
 
     Tolerances (both sides sum in fp32 from identical inputs, in another
     order): float32 out atol 1e-4 * max|ref|, rtol 1e-4; bf16 out rtol 1e-2
     (one bf16 ulp is 2^-8 relative) with the same atol for outputs near
     zero. Then times the kernel (bf16 x, group 128, the served format) at
-    each shape beside its plain version, its bound, the library yardstick
-    and a dense bf16 ``torch.mm`` of the dequantized weight. Returns the
-    kernel's row of the result line, at the decode step's w_gate shape
-    (M = 8, K = 4096, N = 11008)."""
+    each shape and M in {1, 8, 1024} beside its plain version, its bound,
+    the library yardstick and a dense bf16 ``torch.mm`` of the dequantized
+    weight, and the GEMV (float32 x) at M = 8 on w_gate. Returns the
+    kernel's row of the result line: the tensor-core path at the decode
+    step's w_gate shape (M = 8, K = 4096, N = 11008)."""
     from generativeaiexamples_tpu_torch.ops import quant
     from generativeaiexamples_tpu_torch.ops.int4_matmul import (
-        int4_matmul, int4_matmul_plain)
+        _path, int4_matmul, int4_matmul_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     shapes = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
@@ -315,14 +326,24 @@ def check_int4_matmul(torch, dev):
         leaves = {0: quant.quantize_tensor(w, 4),
                   128: quant.quantize_tensor_grouped(w, 128)}
         del w
-        for M in (1, 8, 128, 1024):
+        for M in (1, 3, 8, 128, 1024):
             x32 = torch.randn((M, K), generator=gen, device=dev)
             for group, leaf in leaves.items():
                 scale = leaf["gscale"] if group else leaf["scale"]
                 for x in (x32, x32.to(torch.bfloat16)):
+                    path = ("tile" if M > 8 else
+                            "tc" if x.dtype == torch.bfloat16 else "gemv")
+                    if _path(M, K, N, group or K, x.dtype) != path:
+                        fail(f"int4_matmul M={M} K={K} N={N} x={x.dtype} "
+                             f"would not take the {path!r} path")
                     for out_dtype in {x.dtype, torch.float32}:
+                        before = int4_matmul.launches_by_path[path]
                         got = int4_matmul(x, leaf["q4"], scale,
                                           out_dtype=out_dtype)
+                        if int4_matmul.launches_by_path[path] != before + 1:
+                            fail(f"int4_matmul M={M} K={K} N={N} "
+                                 f"x={x.dtype} did not launch the "
+                                 f"{path!r} path")
                         ref = int4_matmul_plain(x, leaf["q4"], scale,
                                                 out_dtype=out_dtype)
                         torch.cuda.synchronize()
@@ -336,7 +357,7 @@ def check_int4_matmul(torch, dev):
                                 and torch.allclose(got.float(), ref.float(),
                                                    atol=1e-4 * peak,
                                                    rtol=rtol)):
-                            fail(f"int4_matmul M={M} K={K} N={N} "
+                            fail(f"int4_matmul [{path}] M={M} K={K} N={N} "
                                  f"group={group} x={x.dtype} "
                                  f"out={out_dtype} disagrees with its plain "
                                  f"version: max abs err {err} (max|ref| "
@@ -347,21 +368,26 @@ def check_int4_matmul(torch, dev):
                                 8, 4096, 11008, 128, torch.bfloat16,
                                 torch.bfloat16):
                             row_err = err
-        say(f"kernel int4_matmul K={K} N={N}: M=1, 8, 128, 1024 x "
-            f"per-channel, "
-            f"group 128 x bf16/f32 in and out agree with the plain version")
+        say(f"kernel int4_matmul K={K} N={N}: M=1, 3, 8 (tc for bf16 x, "
+            f"gemv for f32 x), 128, 1024 (tile) x per-channel, group 128 x "
+            f"bf16/f32 in and out agree with the plain version")
 
         # Timing: the served format (bf16 x, group 128), out bf16 (f32 for
-        # the lm_head, as the logits path calls it).
+        # the lm_head, as the logits path calls it); and the GEMV, which
+        # float32 x takes, at M = 8 on w_gate.
         leaf = leaves[128]
         out_dtype = torch.float32 if N == 32000 else torch.bfloat16
         wbytes = leaf["q4"].numel() + 4 * leaf["gscale"].numel()
         copies = 1 + (120 << 20) // wbytes      # > L2 over the cycle
         q4s = [leaf["q4"].clone() for _ in range(copies)]
         dense = quant.dequantize(leaf, torch.bfloat16)
-        for M in (1, 8, 1024):
-            x = torch.randn((M, K), generator=gen, device=dev).to(
-                torch.bfloat16)
+        runs = [(1, torch.bfloat16), (8, torch.bfloat16),
+                (1024, torch.bfloat16)]
+        if (K, N) == (4096, 11008):
+            runs.append((8, torch.float32))
+        for M, x_dtype in runs:
+            x = torch.randn((M, K), generator=gen, device=dev).to(x_dtype)
+            path = _path(M, K, N, 128, x_dtype)
             iters = 20 if M == 1024 else 200
             ms = time_cuda(torch, [
                 (lambda q4=q4: int4_matmul(x, q4, leaf["gscale"],
@@ -370,22 +396,27 @@ def check_int4_matmul(torch, dev):
             plain_ms = time_cuda(torch, lambda: int4_matmul_plain(
                 x, leaf["q4"], leaf["gscale"], out_dtype=out_dtype),
                 iters=3, warmup=1)
+            xb = x.to(torch.bfloat16)
             lib_ms, lib_note = int4_library_ms(torch, dev, M, K, N, 128,
                                                iters)
-            dense_ms = time_cuda(torch, lambda: torch.mm(x, dense),
+            dense_ms = time_cuda(torch, lambda: torch.mm(xb, dense),
                                  iters=iters)
-            nbytes = (K // 2 * N + 4 * (K // 128) * N + M * K * 2
+            nbytes = (K // 2 * N + 4 * (K // 128) * N
+                      + M * K * x.element_size()
                       + M * N * (4 if out_dtype == torch.float32 else 2))
             flops = 2 * M * K * N
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            flops_ms = flops / BF16_FLOPS * 1e3
+            flops_ms = flops / (BF16_FLOPS if x_dtype == torch.bfloat16
+                                else F32_FLOPS) * 1e3
             bound = max(bytes_ms, flops_ms)
             by = "bytes" if bytes_ms >= flops_ms else "operations"
-            say(f"kernel int4_matmul M={M} K={K} N={N} group=128: ms={ms} "
-                f"plain_ms={plain_ms} bound_ms={bound} ({by}; {nbytes} "
-                f"bytes, {flops} flops) library_ms={lib_ms} ({lib_note}) "
+            lib_x = "" if x_dtype == torch.bfloat16 else " (bf16 x)"
+            say(f"kernel int4_matmul [{path}] M={M} K={K} N={N} group=128 "
+                f"x={str(x_dtype)[6:]}: ms={ms} plain_ms={plain_ms} "
+                f"bound_ms={bound} ({by}; {nbytes} bytes, {flops} flops) "
+                f"library_ms={lib_ms}{lib_x} ({lib_note}) "
                 f"dense_bf16_mm_ms={dense_ms}")
-            if (M, K, N) == (8, 4096, 11008):
+            if (M, K, N, path) == (8, 4096, 11008, "tc"):
                 row = {
                     "name": "int4_matmul",
                     "route": "cuda",
@@ -393,6 +424,7 @@ def check_int4_matmul(torch, dev):
                         "generativeaiexamples_tpu_torch/csrc/int4_matmul.cu",
                     "replaces":
                         "generativeaiexamples_tpu/ops/int4_matmul.py:83",
+                    "path": path,
                     "launches": 0,
                     "max_abs_err": row_err,
                     "ms": ms,
@@ -406,7 +438,7 @@ def check_int4_matmul(torch, dev):
     say(f"kernel int4_matmul: worst error over all cases relative to "
         f"max|ref|: float32 out {worst[torch.float32]}, bf16 out "
         f"{worst[torch.bfloat16]}; max abs err at the row's case (M=8, "
-        f"K=4096, N=11008, group 128, bf16) {row['max_abs_err']}")
+        f"K=4096, N=11008, group 128, bf16, tc) {row['max_abs_err']}")
     return row
 
 
@@ -474,7 +506,9 @@ def check_model_quant(torch, dev) -> None:
     CPU engine runs their plain versions on the same parameters, moved
     there, so the reference is independent of both kernels. Greedy tokens
     for prompts of 40, 125 and 300 tokens (plus bos), 8 new tokens each,
-    must be equal."""
+    must be equal. The card engine's float32 activations take #3's fp32
+    GEMV at decode (and for each prefill's lm_head row) and the tiled path
+    for the prefill projections, never the tensor-core path."""
     from dataclasses import replace
 
     from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
@@ -511,11 +545,21 @@ def check_model_quant(torch, dev) -> None:
     t0 = time.monotonic()
     paged_attention_decode.int8_launches = 0
     int4_matmul.launches = 0
-    got = greedy(Engine(params, cfg, ByteTokenizer(), ecfg, device=dev))
+    int4_matmul.launches_by_path = dict.fromkeys(
+        int4_matmul.launches_by_path, 0)
+    engine = Engine(params, cfg, ByteTokenizer(), ecfg, device=dev)
+    got = greedy(engine)
     n8, n4 = paged_attention_decode.int8_launches, int4_matmul.launches
-    if n8 <= 0 or n4 <= 0:
+    by_path = dict(int4_matmul.launches_by_path)
+    steps, prefills = (engine.stats["decode_steps"],
+                       engine.stats["prefills"])
+    per_forward = 7 * cfg.num_layers + 1
+    want = {"tc": 0, "gemv": per_forward * steps + prefills,
+            "tile": (per_forward - 1) * prefills}
+    if n8 <= 0 or n4 <= 0 or steps <= 0 or by_path != want:
         fail(f"quantized engine on the card launched int8 attention {n8} "
-             f"and int4 matmul {n4} times")
+             f"and int4 matmul {n4} times, by path {by_path} over {steps} "
+             f"decode steps and {prefills} prefills; expected {want}")
     t_card = time.monotonic() - t0
 
     def to_cpu(tree):
@@ -531,7 +575,8 @@ def check_model_quant(torch, dev) -> None:
                  f"from the CPU engine's {b} (prompt of {len(p)})")
     say(f"model check: 2-layer llama-2-7b width, float32, int4_awq weights, "
         f"int8 KV pool: card engine greedy tokens (int8 attention "
-        f"{n8} launches, int4 matmul {n4}) equal the CPU engine's for "
+        f"{n8} launches, int4 matmul {n4}: {by_path}) equal the CPU "
+        f"engine's for "
         f"prompts of {[len(p) for p in prompts]} tokens (card "
         f"{t_card:.1f} s, CPU {time.monotonic() - t0 - t_card:.1f} s)")
     del params
@@ -647,6 +692,8 @@ def serve(torch, dev, card: str, quantization: str = "",
         paged_attention_decode.launches = 0
         paged_attention_decode.int8_launches = 0
         int4_matmul.launches = 0
+        int4_matmul.launches_by_path = dict.fromkeys(
+            int4_matmul.launches_by_path, 0)
         t1 = time.monotonic()
         with ThreadPoolExecutor(len(bodies)) as pool:
             outs = list(pool.map(
@@ -661,6 +708,7 @@ def serve(torch, dev, card: str, quantization: str = "",
                   "paged_attention_decode_int8":
                       paged_attention_decode.int8_launches,
                   "int4_matmul": int4_matmul.launches}
+        by_path = dict(int4_matmul.launches_by_path)
         steps = engine.stats["decode_steps"] - steps0
         prefills = engine.stats["prefills"] - prefills0
         torch.cuda.synchronize()
@@ -693,27 +741,36 @@ def serve(torch, dev, card: str, quantization: str = "",
         fail("ignore_eos request produced out-of-vocab ids")
     # Attention: one launch per layer per decode step, of the pool's
     # kind. int4: one per projection (7 per layer) plus the lm_head, per
-    # decode step and per prefill (which projects only its last row).
+    # decode step and per prefill (which projects only its last row). By
+    # #3's path (bf16 x): a decode step's 8 slots and a prefill's lm_head
+    # row on tensor cores, a prefill's bucket rows on the tiled path.
     L = mcfg.num_layers
     attn = "paged_attention_decode_int8" if kv_quant else \
         "paged_attention_decode"
     want = {"paged_attention_decode": 0, "paged_attention_decode_int8": 0,
             "int4_matmul": 0}
     want[attn] = L * steps
+    want_path = {"tc": 0, "gemv": 0, "tile": 0}
     if quantization in ("int4", "int4_awq"):
         want["int4_matmul"] = (7 * L + 1) * (steps + prefills)
-    if steps <= 0 or prefills <= 0 or counts != want:
-        fail(f"[{mode}] kernel launches {counts} over {steps} decode steps "
-             f"and {prefills} prefills; expected {want}")
+        want_path = {"tc": (7 * L + 1) * steps + prefills, "gemv": 0,
+                     "tile": 7 * L * prefills}
+    if (steps <= 0 or prefills <= 0 or counts != want
+            or by_path != want_path):
+        fail(f"[{mode}] kernel launches {counts} (int4 by path {by_path}) "
+             f"over {steps} decode steps and {prefills} prefills; expected "
+             f"{want} ({want_path})")
     decode_s = stream.finish_time - stream.first_token_time
     say(f"serve [{mode}]: {len(bodies)} concurrent /v1/completions in "
         f"{wall:.3f} s, {tokens_http} tokens ({tokens_http / wall:.1f} tok/s "
         f"aggregate); single ignore_eos request: TTFT {stream.ttft_ms:.1f} "
-        f"ms, decode {31 / decode_s:.1f} tok/s; launches {counts} over "
-        f"{steps} decode steps and {prefills} prefills [{card}]")
+        f"ms, decode {31 / decode_s:.1f} tok/s; launches {counts} (int4 "
+        f"by path {by_path}) over {steps} decode steps and {prefills} "
+        f"prefills [{card}]")
     del engine
     torch.cuda.empty_cache()
-    return {"launches": counts, "decode_steps": steps, "prefills": prefills}
+    return {"launches": counts, "by_path": by_path, "decode_steps": steps,
+            "prefills": prefills}
 
 
 def main() -> int:
@@ -756,7 +813,8 @@ def main() -> int:
                       kv_quant="int8")
     for row in kernels:
         run = bf16 if row["name"] == "paged_attention_decode" else quantized
-        row["launches"] = run["launches"][row["name"]]
+        row["launches"] = (run["by_path"][row["path"]] if "path" in row
+                           else run["launches"][row["name"]])
 
     say(json.dumps({"kernels": kernels}))
     say(card)

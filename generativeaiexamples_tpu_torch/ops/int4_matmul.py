@@ -4,15 +4,24 @@ version.
 ``int4_matmul`` replaces the reference's Pallas kernel
 (``generativeaiexamples_tpu/ops/int4_matmul.py`` ``int4_matmul``): it
 computes ``x @ unpack(q4) * scale`` without materializing the unpacked
-weight. On a CUDA tensor it launches the hand-written kernel in
-``csrc/int4_matmul.cu`` (built at first use by ``kernels/build.py``) or
-raises; it takes the plain version only for CPU tensors.
-``int4_matmul_plain`` unpacks the nibbles and computes what
-``ops/quant.py``'s XLA-style branches compute: a float32 dot with the
-per-channel scale after it, or per-group float32 partial dots times their
-scales (``_grouped_matmul``). The kernel sums in float32 too, so it is
-held to the plain version, not to the reference kernel's bf16 rounding
-of each dequantized weight.
+weight. On a CUDA tensor it launches one of the three paths of
+``csrc/int4_matmul.cu`` (built at first use by ``kernels/build.py``), the
+one ``_path`` names from the shape and x's dtype, or raises; it takes the
+plain version only for CPU tensors. The paths:
+
+- ``"tc"``: decode (M <= 8) with bfloat16 x, on tensor cores;
+- ``"gemv"``: decode with float32 x (or a bf16 shape the tensor-core
+  path refuses), split-K fp32 on CUDA cores;
+- ``"tile"``: everything else (prefill), a tiled fp32 product.
+
+Each launch adds one to ``int4_matmul.launches`` and to its path's entry
+of ``int4_matmul.launches_by_path``. ``int4_matmul_plain`` unpacks the
+nibbles and computes what ``ops/quant.py``'s XLA-style branches compute:
+a float32 dot with the per-channel scale after it, or per-group float32
+partial dots times their scales (``_grouped_matmul``). Every path sums in
+float32 too (the tensor-core path multiplies bf16 x by weights that are
+exact in bf16), so the kernel is held to the plain version, not to the
+reference kernel's bf16 rounding of each dequantized weight.
 """
 
 from __future__ import annotations
@@ -24,10 +33,16 @@ import torch
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _INT32_MAX = 2 ** 31 - 1
-# The decode path's split-K scratch (csrc/int4_matmul.cu): up to 16
-# fp32 partials of an (M <= 8, N) output, and one counter per 128-column
-# tile. The kernel leaves the counters at 0.
-_MAX_SPLIT, _GEMV_MAX_M, _GEMV_COLS = 16, 8, 128
+# Path codes of the C entry point.
+_PATHS = {"tc": 0, "gemv": 1, "tile": 2}
+# The "gemv" path's split-K scratch (csrc/int4_matmul.cu): up to 16 fp32
+# partials of an (M <= 8, N) output, and one counter per 128-column tile.
+# The kernel leaves the counters at 0. (The "tc" path reduces within a
+# thread-block cluster and needs none.)
+_MAX_SPLIT, _DECODE_MAX_M, _GEMV_COLS = 16, 8, 128
+# The "tc" path's groups: a multiple of this many reduction rows (its
+# 128-row stages then lie in one group each).
+_TC_GROUP = 128
 
 _fn = None
 # (device, stream handle) -> (workspace, counters).
@@ -43,7 +58,7 @@ def _gemv_scratch(device: torch.device, stream: int, N: int
     its own pair, since the kernel's last-block reduction and counter
     reset assume no other launch uses the pair meanwhile. PyTorch takes
     its streams from a fixed pool, so the pairs are few."""
-    floats = _MAX_SPLIT * _GEMV_MAX_M * N
+    floats = _MAX_SPLIT * _DECODE_MAX_M * N
     tiles = -(-N // _GEMV_COLS)
     ws, counters = _scratch.get((device, stream), (None, None))
     if ws is None or ws.numel() < floats or counters.numel() < tiles:
@@ -64,6 +79,25 @@ def supported(K: int, N: int, group_size: int = 0) -> bool:
     if K < 2 or K % 2 or N < 1:
         return False
     return group_size == 0 or (group_size > 0 and K % group_size == 0)
+
+
+def _path(M: int, K: int, N: int, group: int, x_dtype: torch.dtype) -> str:
+    """The kernel path for an (M, K) x (K, N) product with scales per
+    ``group`` reduction rows (``group == K``: per channel). Decode shapes
+    (M <= 8) with bf16 x go to the tensor cores when k16 steps tile K
+    (``K % 16 == 0``), 16-byte copies tile a q4 row (``N % 16 == 0``) and
+    the scales are per channel or per groups of a multiple of 128 rows;
+    other decode shapes to the fp32 GEMV (float32 x keeps full
+    precision: tensor cores would round it to TF32), which needs ``N % 4
+    == 0`` and an even group; the rest to the tiled path, which takes any
+    shape."""
+    if M <= _DECODE_MAX_M:
+        if (x_dtype == torch.bfloat16 and K % 16 == 0 and N % 16 == 0
+                and (group == K or group % _TC_GROUP == 0)):
+            return "tc"
+        if N % 4 == 0 and group % 2 == 0:
+            return "gemv"
+    return "tile"
 
 
 def _check_args(x, q4, scale, out_dtype) -> None:
@@ -101,7 +135,7 @@ def _kernel():
     if _fn is None:
         from ..kernels import build
         fn = build.load("int4_matmul").int4_matmul
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
                        + [ctypes.c_longlong, ctypes.c_void_p]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -121,7 +155,7 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
                reduction rows (AWQ), float32
     out_dtype: bfloat16 or float32 (default: x's dtype)
     Returns (..., N). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (or raise)."""
+    launch the kernel path ``_path`` names (or raise)."""
     _check_args(x, q4, scale, out_dtype)
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q4, scale, out_dtype=out_dtype)
@@ -143,26 +177,47 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
     if max(M * K, K2 * N, M * N, G * N) > _INT32_MAX:
         raise ValueError(f"M={M} K={K} N={N} overflows the kernel's 32-bit "
                          f"offsets")
+    path = _path(M, K, N, K // G, x.dtype)
     q4c, sc = q4.contiguous(), scale.contiguous()
+    if path != "tile":
+        # The decode paths load q4 as 4-byte words; the "tc" path copies
+        # 16-byte pieces of q4, x and the scales. A small x is realigned;
+        # a weight or its scales are not copied.
+        align = 16 if path == "tc" else 4
+        if q4c.data_ptr() % align or (path == "tc" and sc.data_ptr() % 16):
+            raise ValueError(f"the {path!r} path needs q4 (and, on tensor "
+                             f"cores, the scales) on a {align}-byte "
+                             f"boundary")
+        if x2.data_ptr() % 16:
+            x2 = x2.clone()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M:
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            ws, counters = _gemv_scratch(x.device, stream, N)
+            ws = counters = None
+            if path == "gemv":
+                ws, counters = _gemv_scratch(x.device, stream, N)
             err = _kernel()(
-                _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[out_dtype],
-                x2.data_ptr(), q4c.data_ptr(), sc.data_ptr(), out.data_ptr(),
-                ws.data_ptr(), ws.numel(), counters.data_ptr(),
-                counters.numel(), M, K, N, K // G, stream)
+                _PATHS[path], _KERNEL_DTYPES[x.dtype],
+                _KERNEL_DTYPES[out_dtype], x2.data_ptr(), q4c.data_ptr(),
+                sc.data_ptr(), out.data_ptr(),
+                ws.data_ptr() if ws is not None else None,
+                ws.numel() if ws is not None else 0,
+                counters.data_ptr() if counters is not None else None,
+                counters.numel() if counters is not None else 0,
+                M, K, N, K // G, stream)
         if err != 0:
-            raise RuntimeError(f"int4_matmul kernel launch failed with CUDA "
-                               f"error {err}")
+            raise RuntimeError(f"int4_matmul {path!r} path launch failed "
+                               f"with CUDA error {err}")
         int4_matmul.launches += 1
+        int4_matmul.launches_by_path[path] += 1
     return out.reshape(*lead, N)
 
 
-# Kernel launches since the count was last set to 0 (CPU calls don't count).
+# Kernel launches since the count was last set to 0, in all and by path
+# (CPU calls don't count).
 int4_matmul.launches = 0
+int4_matmul.launches_by_path = {path: 0 for path in _PATHS}
 
 
 def int4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,

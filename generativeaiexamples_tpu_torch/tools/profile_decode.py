@@ -109,6 +109,8 @@ def main(argv=None) -> int:
     paged_attention_decode.launches = 0
     paged_attention_decode.int8_launches = 0
     int4_matmul.launches = 0
+    int4_matmul.launches_by_path = dict.fromkeys(
+        int4_matmul.launches_by_path, 0)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -120,15 +122,17 @@ def main(argv=None) -> int:
     launches = {"paged_attention": paged_attention_decode.launches
                 + paged_attention_decode.int8_launches,
                 "int4_matmul": int4_matmul.launches}
+    int4_by_path = dict(int4_matmul.launches_by_path)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     kernels = _kernel_times(prof)
     device_us = sum(us for us, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     # Device time of the port's own kernels, by kernel function name
-    # (csrc/paged_attention.cu; csrc/int4_matmul.cu's two paths).
+    # (csrc/paged_attention.cu; csrc/int4_matmul.cu's three paths).
     ours = {"paged_attention": ("paged_decode_kernel",),
-            "int4_matmul": ("int4_gemv_kernel", "int4_matmul_kernel")}
+            "int4_matmul": ("int4_mma_kernel", "int4_gemv_kernel",
+                            "int4_matmul_kernel")}
     ours_us = {k: sum(us for name, (us, _) in kernels.items()
                       if any(sym in name for sym in syms))
                for k, syms in ours.items()}
@@ -166,7 +170,8 @@ def main(argv=None) -> int:
           f"{busy_ms_step / step_ms:.1%}")
     for k, us in ours_us.items():
         print(f"  {k}: {us / 1e3 / max(traced_steps, 1):.2f} ms/step over "
-              f"{launches[k]} launches")
+              f"{launches[k]} launches"
+              + (f" {int4_by_path}" if k == "int4_matmul" else ""))
     for name, (us, n) in top:
         print(f"  {us / 1e3:9.2f} ms  {n:6d}x  {name[:90]}")
     print(json.dumps({
@@ -181,6 +186,7 @@ def main(argv=None) -> int:
         "kernel_ms_per_step": {k: us / 1e3 / max(traced_steps, 1)
                                for k, us in ours_us.items()},
         "kernel_launches": launches,
+        "int4_launches_by_path": int4_by_path,
         "top_device_ops": [{"name": name[:120], "ms": us / 1e3, "count": n}
                            for name, (us, n) in top]}))
     return 0

@@ -232,9 +232,10 @@ def test_int8_kernel_matches_plain(dev, H, KV, hd, page, lengths, dtype):
 # bf16 ulp of max|ref| for outputs near zero.
 
 INT4_CASES = [
-    # (M, K, N, group: 0 = per channel). M <= 8 with N % 4 == 0 takes the
-    # split-K GEMV path (split when K has enough groups); the rest, and
-    # any M > 8, the tiled path.
+    # (M, K, N, group: 0 = per channel). M <= 8 with N % 4 == 0 takes a
+    # split-K decode path (split when K has enough chunks): tensor cores
+    # for bf16 x when K and the group are multiples of 16, else the fp32
+    # GEMV; the rest, and any M > 8, the tiled path (``_path``).
     (1, 256, 96, 0), (3, 256, 96, 32), (33, 512, 200, 64),
     (8, 384, 130, 128), (1, 4096, 4096, 128), (33, 11008, 64, 128),
     (100, 96, 33, 32), (8, 250, 77, 0), (8, 250, 96, 0),
@@ -256,12 +257,20 @@ def test_int4_kernel_matches_plain(dev, M, K, N, group, x_dtype, out_dtype):
             else quant.quantize_tensor(w, 4))
     scale = leaf["gscale"] if group else leaf["scale"]
     x = torch.randn(M, K, generator=g).to(x_dtype).to(dev)
+    path = ti4._path(M, K, N, group or K, x_dtype)
     before = ti4.int4_matmul.launches
+    by_path = dict(ti4.int4_matmul.launches_by_path)
     got = ti4.int4_matmul(x, leaf["q4"], scale, out_dtype=out_dtype)
     assert ti4.int4_matmul.launches == before + 1
+    by_path[path] += 1
+    assert ti4.int4_matmul.launches_by_path == by_path
     ref = ti4.int4_matmul_plain(x, leaf["q4"], scale, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert got.dtype == out_dtype and got.shape == (M, N)
+    _assert_int4_close(got, ref, out_dtype)
+
+
+def _assert_int4_close(got, ref, out_dtype):
     peak = ref.float().abs().max().item()
     if out_dtype == torch.float32:
         atol, rtol = 1e-4 * peak, 1e-4
@@ -271,38 +280,87 @@ def test_int4_kernel_matches_plain(dev, M, K, N, group, x_dtype, out_dtype):
                                rtol=rtol)
 
 
+TC_CASES = [
+    # (M, K, N, group: 0 = per channel), all on the tensor-core path.
+    (1, 4096, 4096, 128), (3, 4096, 11008, 128),     # odd M: empty slots
+    (5, 11008, 4096, 0), (7, 4096, 1024, 0),
+    (3, 4096, 208, 128),     # N = 208: a ragged last 128-column slab
+    (5, 1024, 208, 128),     # two groups in each block's split-K range
+    (7, 1536, 80, 384),      # groups straddle the split-K ranges
+    (1, 208, 16, 0),         # one partial slab, a ragged last stage
+]
+
+
 @pytest.mark.cuda
-def test_int4_split_k_leaves_scratch_reusable(dev):
-    """Split-K launches of different shapes in a row (the counters must be
-    back at 0 after each) give the same result as one at a time."""
+@pytest.mark.parametrize("M,K,N,group", TC_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int4_tensor_core_path_matches_plain(dev, M, K, N, group, out_dtype):
+    """The tensor-core path (bf16 x, M <= 8) against the plain version:
+    odd M, a ragged last column slab, group boundaries inside a split-K
+    range and groups that span two ranges."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    assert ti4._path(M, K, N, group or K, torch.bfloat16) == "tc"
+    g = torch.Generator().manual_seed(M * 11 + K + N)
+    w = (torch.randn(K, N, generator=g) * 0.05).to(dev)
+    leaf = (quant.quantize_tensor_grouped(w, group) if group
+            else quant.quantize_tensor(w, 4))
+    scale = leaf["gscale"] if group else leaf["scale"]
+    x = torch.randn(M, K, generator=g).to(torch.bfloat16).to(dev)
+    before = ti4.int4_matmul.launches_by_path["tc"]
+    got = ti4.int4_matmul(x, leaf["q4"], scale, out_dtype=out_dtype)
+    assert ti4.int4_matmul.launches_by_path["tc"] == before + 1
+    ref = ti4.int4_matmul_plain(x, leaf["q4"], scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert torch.isfinite(got.float()).all()
+    _assert_int4_close(got, ref, out_dtype)
+
+
+# The two split-K decode paths and the x dtype that selects each.
+SPLIT_K_PATHS = [("tc", torch.bfloat16), ("gemv", torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,x_dtype", SPLIT_K_PATHS)
+def test_int4_split_k_leaves_scratch_reusable(dev, path, x_dtype):
+    """Split-K launches of different shapes in a row give the same result
+    as one at a time (on the GEMV path the counters must be back at 0
+    after each; the tensor-core path reduces within a cluster)."""
     from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
     g = torch.Generator().manual_seed(3)
     cases = []
     for K, N in ((4096, 4096), (11008, 512), (4096, 1024)):
         w = (torch.randn(K, N, generator=g) * 0.05).to(dev)
         leaf = quant.quantize_tensor_grouped(w, 128)
-        x = torch.randn(8, K, generator=g).to(torch.bfloat16).to(dev)
+        x = torch.randn(8, K, generator=g).to(x_dtype).to(dev)
+        assert ti4._path(8, K, N, 128, x_dtype) == path
         cases.append((x, leaf["q4"], leaf["gscale"]))
+    before = ti4.int4_matmul.launches_by_path[path]
     first = [ti4.int4_matmul(*c) for c in cases]
+    assert ti4.int4_matmul.launches_by_path[path] == before + len(cases)
     again = [ti4.int4_matmul(*c) for c in cases for _ in range(3)][::3]
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _, counters = ti4._scratch[(x.device, stream)]
-    assert not counters.any()
+    if path == "gemv":   # the tensor-core path reduces within a cluster
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _, counters = ti4._scratch[(x.device, stream)]
+        assert not counters.any()
 
 
 @pytest.mark.cuda
-def test_int4_split_k_streams_keep_their_own_scratch(dev):
-    """Split-K launches queued on two streams at once each use their own
-    workspace and counters, and agree with launches on one stream."""
+@pytest.mark.parametrize("path,x_dtype", SPLIT_K_PATHS)
+def test_int4_split_k_streams_keep_their_own_scratch(dev, path, x_dtype):
+    """Split-K launches queued on two streams at once agree with launches
+    on one stream (on the GEMV path each stream has its own workspace and
+    counters; the tensor-core path keeps no state between launches)."""
     from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
     g = torch.Generator().manual_seed(4)
     K, N = 4096, 11008
+    assert ti4._path(8, K, N, 128, x_dtype) == path
     leaf = quant.quantize_tensor_grouped(
         (torch.randn(K, N, generator=g) * 0.05).to(dev), 128)
-    xs = [torch.randn(8, K, generator=g).to(torch.bfloat16).to(dev)
+    xs = [torch.randn(8, K, generator=g).to(x_dtype).to(dev)
           for _ in range(2)]
     want = [ti4.int4_matmul(x, leaf["q4"], leaf["gscale"]) for x in xs]
     torch.cuda.synchronize()
@@ -316,9 +374,11 @@ def test_int4_split_k_streams_keep_their_own_scratch(dev):
     for w, outs in zip(want, got):
         for o in outs:
             assert torch.equal(o, w)
-    pairs = [ti4._scratch[(xs[0].device, s.cuda_stream)] for s in streams]
-    assert pairs[0][0].data_ptr() != pairs[1][0].data_ptr()
-    assert not any(c.any() for _, c in pairs)
+    if path == "gemv":   # the tensor-core path needs no scratch
+        pairs = [ti4._scratch[(xs[0].device, s.cuda_stream)]
+                 for s in streams]
+        assert pairs[0][0].data_ptr() != pairs[1][0].data_ptr()
+        assert not any(c.any() for _, c in pairs)
 
 
 @pytest.mark.cuda

@@ -297,6 +297,45 @@ def test_int4_cpu_calls_do_not_count_and_bad_args_raise():
                                                    t["gscale"])))
 
 
+def test_int4_cpu_calls_count_in_no_path():
+    w, x = _case(256, 64, 8)
+    t = tq.quantize_tensor_grouped(torch.from_numpy(w), 128)
+    before = dict(tint4.int4_matmul.launches_by_path)
+    assert set(before) == {"tc", "gemv", "tile"}
+    for xt in (torch.from_numpy(x), torch.from_numpy(x).to(torch.bfloat16)):
+        tint4.int4_matmul(xt, t["q4"], t["gscale"])
+    assert tint4.int4_matmul.launches_by_path == before
+
+
+@pytest.mark.parametrize("M,K,N,group,x_dtype,want", [
+    # Decode with bf16 x: tensor cores, per channel (group = K) or grouped.
+    (1, 4096, 11008, 128, torch.bfloat16, "tc"),
+    (8, 4096, 11008, 128, torch.bfloat16, "tc"),
+    (8, 11008, 4096, 11008, torch.bfloat16, "tc"),
+    (1, 4096, 32000, 4096, torch.bfloat16, "tc"),
+    (3, 4096, 4096, 256, torch.bfloat16, "tc"),
+    # Decode with float32 x: the fp32 GEMV, whatever the scales.
+    (1, 4096, 11008, 128, torch.float32, "gemv"),
+    (8, 4096, 11008, 4096, torch.float32, "gemv"),
+    # Prefill (M > 8): the tiled path, for either dtype and scale kind.
+    (9, 4096, 11008, 128, torch.bfloat16, "tile"),
+    (9, 4096, 4096, 4096, torch.float32, "tile"),
+    (1024, 4096, 11008, 128, torch.bfloat16, "tile"),
+    (1024, 11008, 4096, 11008, torch.float32, "tile"),
+    # Shapes the tensor-core gate refuses go where they are taken.
+    (8, 250, 96, 250, torch.bfloat16, "gemv"),    # K % 16 != 0
+    (8, 384, 96, 8, torch.bfloat16, "gemv"),      # group % 16 != 0
+    (8, 352, 128, 32, torch.bfloat16, "gemv"),    # group % 128 != 0
+    (8, 4096, 4096, 64, torch.bfloat16, "gemv"),  # group % 128 != 0
+    (8, 4096, 4100, 128, torch.bfloat16, "gemv"),  # N % 16 != 0
+    (8, 256, 130, 128, torch.bfloat16, "tile"),   # N % 4 != 0
+    (8, 96, 96, 3, torch.bfloat16, "tile"),       # odd group, K % 16 == 0
+    (8, 96, 96, 3, torch.float32, "tile"),        # odd group
+])
+def test_int4_path_choice(M, K, N, group, x_dtype, want):
+    assert tint4._path(M, K, N, group, x_dtype) == want
+
+
 def test_int4_hopper_gate():
     assert tint4.supported(4096, 4096, 128)
     assert tint4.supported(11008, 4096, 128)      # w_down: G = 86
