@@ -15,11 +15,13 @@ Phases (each fails loudly: a failure exits non-zero and the final
    bound and a one-call PyTorch yardstick where one exists:
    #1 paged decode attention (bf16/f32 pools) and #2 its int8-pool path,
    in float32 (atol 1e-4) and bfloat16 (atol 1e-3, rtol 1e-2); #3 the
-   packed-int4 matmul at every projection shape, M = 1, 3, 8, 128 and
-   1024 (each call checked to take the path ``_path`` names: tensor
-   cores for bf16 x at M <= 8, the fp32 GEMV for float32 x, the tiled
-   path for M > 8), float32 out atol 1e-4 * max|ref|, rtol 1e-4, bf16 out
-   rtol 1e-2.
+   packed-int4 matmul at every projection shape, M = 1, 3, 8, 9, 128,
+   200 and 1024 (each call checked to take the path ``_path`` names:
+   for bf16 x the tensor-core paths, ``tc`` at M <= 8 and ``wg`` above;
+   for float32 x the fp32 GEMV at M <= 8 and the tiled path above),
+   float32 out atol 1e-4 * max|ref|, rtol 1e-4, bf16 out rtol 1e-2. At
+   M = 128 and 1024 on the layer shapes the old tiled kernel is timed on
+   the same bf16 x beside ``wg``.
 3. The engines on a small input: llama-2-7b's width cut to 2 layers,
    float32 (TF32 off). bf16 path: greedy tokens through the engine (#1 in
    every layer) against argmax of a full-sequence forward. Quantized
@@ -33,8 +35,8 @@ Phases (each fails loudly: a failure exits non-zero and the final
    pool, and checks through the launch counts (set to 0 just before each
    path, read just after) that every layer of every decode step, and
    every projection, went through the path's kernels (#3 by path: every
-   decode projection and every prefill's lm_head row on tensor cores,
-   the prefill projections on the tiled path).
+   decode projection and every prefill's lm_head row on ``tc``, the
+   prefill projections on ``wg``, none on ``tile`` or ``gemv``).
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -292,26 +294,51 @@ def int4_library_ms(torch, dev, M, K, N, group, iters):
         return None, f"aten._weight_int4pack_mm unavailable: {exc}"[:200]
 
 
+def old_tile_call(torch, x, q4, scale, out_dtype):
+    """A call of the C entry point on the "tile" path (code 2) for bf16 x,
+    which the wrapper now sends to "wg": the before side of a same-call
+    before/after factor. A measurement only; the port never does this."""
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
+        _KERNEL_DTYPES, _PATHS, _kernel)
+    M, K = x.shape
+    N, G = q4.shape[1], scale.shape[0]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+
+    def call():
+        err = _kernel()(
+            _PATHS["tile"], _KERNEL_DTYPES[x.dtype],
+            _KERNEL_DTYPES[out_dtype], x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None, 0, None, 0, M, K, N, K // G,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"int4_matmul tile path (code 2) failed with CUDA error "
+                 f"{err}")
+        return out
+    return call
+
+
 def check_int4_matmul(torch, dev):
     """The packed-int4 kernel against its plain version at every
     projection shape of llama-2-7b, (K, N) in {(4096, 4096), (4096, 11008),
-    (11008, 4096), (4096, 32000)}, M in {1, 3, 8, 128, 1024} (the logits
-    row, a partly filled decode batch, a full one, the commonest prefill
-    bucket, the largest one), per channel and group 128, x bf16 and
-    float32, out x's dtype and float32. Every call must launch the path
-    ``_path`` names, which at these shapes is the tensor-core path for bf16
-    x at M <= 8, the fp32 GEMV for float32 x at M <= 8 and the tiled path
-    above.
+    (11008, 4096), (4096, 32000)}, M in {1, 3, 8, 9, 128, 200, 1024} (the
+    logits row, a partly filled decode batch, a full one, the smallest
+    prefill, the commonest prefill bucket, a partial token tile, the
+    largest bucket here), per channel and group 128, x bf16 and float32,
+    out x's dtype and float32. Every call must launch the path ``_path``
+    names, which at these shapes is "tc" for bf16 x at M <= 8 and "wg"
+    above, "gemv" for float32 x at M <= 8 and "tile" above.
 
     Tolerances (both sides sum in fp32 from identical inputs, in another
     order): float32 out atol 1e-4 * max|ref|, rtol 1e-4; bf16 out rtol 1e-2
     (one bf16 ulp is 2^-8 relative) with the same atol for outputs near
     zero. Then times the kernel (bf16 x, group 128, the served format) at
-    each shape and M in {1, 8, 1024} beside its plain version, its bound,
-    the library yardstick and a dense bf16 ``torch.mm`` of the dequantized
-    weight, and the GEMV (float32 x) at M = 8 on w_gate. Returns the
-    kernel's row of the result line: the tensor-core path at the decode
-    step's w_gate shape (M = 8, K = 4096, N = 11008)."""
+    each shape and M in {1, 8, 128, 1024} beside its plain version, its
+    bound, the library yardstick and a dense bf16 ``torch.mm`` of the
+    dequantized weight; at M = 128 and 1024 on the layer shapes also the
+    old "tile" kernel on the same x; and the GEMV (float32 x) at M = 8 on
+    w_gate. Returns the kernel's rows of the result line: "tc" at the
+    decode step's w_gate shape (M = 8) and "wg" at a 1024-row prefill's
+    (M = 1024)."""
     from generativeaiexamples_tpu_torch.ops import quant
     from generativeaiexamples_tpu_torch.ops.int4_matmul import (
         _path, int4_matmul, int4_matmul_plain)
@@ -320,19 +347,22 @@ def check_int4_matmul(torch, dev):
     shapes = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    row = row_err = None
+    rows = {}
+    row_err = {}
+    prefill = {}   # (K, N) -> ms by kernel at M = 1024
     for K, N in shapes:
         w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
         leaves = {0: quant.quantize_tensor(w, 4),
                   128: quant.quantize_tensor_grouped(w, 128)}
         del w
-        for M in (1, 3, 8, 128, 1024):
+        for M in (1, 3, 8, 9, 128, 200, 1024):
             x32 = torch.randn((M, K), generator=gen, device=dev)
             for group, leaf in leaves.items():
                 scale = leaf["gscale"] if group else leaf["scale"]
                 for x in (x32, x32.to(torch.bfloat16)):
-                    path = ("tile" if M > 8 else
-                            "tc" if x.dtype == torch.bfloat16 else "gemv")
+                    bf16 = x.dtype == torch.bfloat16
+                    path = (("tc" if bf16 else "gemv") if M <= 8 else
+                            ("wg" if bf16 else "tile"))
                     if _path(M, K, N, group or K, x.dtype) != path:
                         fail(f"int4_matmul M={M} K={K} N={N} x={x.dtype} "
                              f"would not take the {path!r} path")
@@ -364,13 +394,14 @@ def check_int4_matmul(torch, dev):
                                  f"{peak})")
                         worst[out_dtype] = max(worst[out_dtype],
                                                err / max(peak, 1e-30))
-                        if (M, K, N, group, x.dtype, out_dtype) == (
-                                8, 4096, 11008, 128, torch.bfloat16,
-                                torch.bfloat16):
-                            row_err = err
+                        if (M in (8, 1024) and (K, N) == (4096, 11008)
+                                and group == 128 and bf16
+                                and out_dtype == torch.bfloat16):
+                            row_err[path] = err
         say(f"kernel int4_matmul K={K} N={N}: M=1, 3, 8 (tc for bf16 x, "
-            f"gemv for f32 x), 128, 1024 (tile) x per-channel, group 128 x "
-            f"bf16/f32 in and out agree with the plain version")
+            f"gemv for f32 x), 9, 128, 200, 1024 (wg for bf16 x, tile for "
+            f"f32 x) x per-channel, group 128 x bf16/f32 in and out agree "
+            f"with the plain version")
 
         # Timing: the served format (bf16 x, group 128), out bf16 (f32 for
         # the lm_head, as the logits path calls it); and the GEMV, which
@@ -382,7 +413,7 @@ def check_int4_matmul(torch, dev):
         q4s = [leaf["q4"].clone() for _ in range(copies)]
         dense = quant.dequantize(leaf, torch.bfloat16)
         runs = [(1, torch.bfloat16), (8, torch.bfloat16),
-                (1024, torch.bfloat16)]
+                (128, torch.bfloat16), (1024, torch.bfloat16)]
         if (K, N) == (4096, 11008):
             runs.append((8, torch.float32))
         for M, x_dtype in runs:
@@ -401,6 +432,25 @@ def check_int4_matmul(torch, dev):
                                                iters)
             dense_ms = time_cuda(torch, lambda: torch.mm(xb, dense),
                                  iters=iters)
+            tile = ""
+            if path == "wg" and N != 32000:
+                # The old kernel on the same x, checked once, then timed.
+                calls = [old_tile_call(torch, x, q4, leaf["gscale"],
+                                       out_dtype) for q4 in q4s]
+                got = calls[0]().float()
+                ref = int4_matmul_plain(x, leaf["q4"], leaf["gscale"],
+                                        out_dtype=out_dtype).float()
+                if not torch.allclose(got, ref, rtol=1e-2,
+                                      atol=1e-4 * ref.abs().max().item()):
+                    fail(f"old tile kernel M={M} K={K} N={N} disagrees with "
+                         f"the plain version")
+                tile_ms = time_cuda(torch, calls,
+                                    iters=5 if M == 1024 else 50)
+                tile = (f" tile_ms={tile_ms} (old kernel, same x; wg is "
+                        f"{tile_ms / ms:.2f}x faster)")
+                if M == 1024:
+                    prefill[(K, N)] = {"wg": ms, "tile": tile_ms,
+                                       "library": lib_ms, "dense": dense_ms}
             nbytes = (K // 2 * N + 4 * (K // 128) * N
                       + M * K * x.element_size()
                       + M * N * (4 if out_dtype == torch.float32 else 2))
@@ -411,13 +461,17 @@ def check_int4_matmul(torch, dev):
             bound = max(bytes_ms, flops_ms)
             by = "bytes" if bytes_ms >= flops_ms else "operations"
             lib_x = "" if x_dtype == torch.bfloat16 else " (bf16 x)"
+            lib_factor = (f" ({ms / lib_ms:.2f}x the library)"
+                          if lib_ms else "")
             say(f"kernel int4_matmul [{path}] M={M} K={K} N={N} group=128 "
                 f"x={str(x_dtype)[6:]}: ms={ms} plain_ms={plain_ms} "
-                f"bound_ms={bound} ({by}; {nbytes} bytes, {flops} flops) "
-                f"library_ms={lib_ms}{lib_x} ({lib_note}) "
-                f"dense_bf16_mm_ms={dense_ms}")
-            if (M, K, N, path) == (8, 4096, 11008, "tc"):
-                row = {
+                f"bound_ms={bound} ({by}; {nbytes} bytes, {flops} flops; "
+                f"{bound / ms:.1%} of it) library_ms={lib_ms}{lib_x} "
+                f"({lib_note}){lib_factor} dense_bf16_mm_ms={dense_ms}"
+                f"{tile}")
+            if (M, K, N) in ((8, 4096, 11008), (1024, 4096, 11008)) and (
+                    path in ("tc", "wg")):
+                rows[path] = {
                     "name": "int4_matmul",
                     "route": "cuda",
                     "source":
@@ -426,7 +480,7 @@ def check_int4_matmul(torch, dev):
                         "generativeaiexamples_tpu/ops/int4_matmul.py:83",
                     "path": path,
                     "launches": 0,
-                    "max_abs_err": row_err,
+                    "max_abs_err": row_err[path],
                     "ms": ms,
                     "plain_ms": plain_ms,
                     "bound_ms": bound,
@@ -435,11 +489,24 @@ def check_int4_matmul(torch, dev):
                 }
         del q4s, dense, leaves
         torch.cuda.empty_cache()
+    # #3's device time per 1024-row prefill: 32 layers of 4 projections
+    # of 4096 x 4096, 2 of w_gate/w_up and 1 of w_down.
+    mix = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1}
+    per_prefill = {
+        k: (32 * sum(n * prefill[s][k] for s, n in mix.items())
+            if all(prefill[s][k] for s in mix) else None)
+        for k in ("wg", "tile", "library", "dense")}
+    say(f"kernel int4_matmul: device time of the 224 prefill projections "
+        f"of a 1024-row llama-2-7b prefill, from the M=1024 rows: wg "
+        f"{per_prefill['wg']} ms, old tile {per_prefill['tile']} ms, "
+        f"library {per_prefill['library']} ms, dense bf16 mm "
+        f"{per_prefill['dense']} ms")
     say(f"kernel int4_matmul: worst error over all cases relative to "
         f"max|ref|: float32 out {worst[torch.float32]}, bf16 out "
-        f"{worst[torch.bfloat16]}; max abs err at the row's case (M=8, "
-        f"K=4096, N=11008, group 128, bf16, tc) {row['max_abs_err']}")
-    return row
+        f"{worst[torch.bfloat16]}; max abs err at the rows' cases (K=4096, "
+        f"N=11008, group 128, bf16 out): tc M=8 {row_err['tc']}, wg M=1024 "
+        f"{row_err['wg']}")
+    return [rows["tc"], rows["wg"]]
 
 
 # ------------------------------------------------------------- model check
@@ -508,7 +575,7 @@ def check_model_quant(torch, dev) -> None:
     for prompts of 40, 125 and 300 tokens (plus bos), 8 new tokens each,
     must be equal. The card engine's float32 activations take #3's fp32
     GEMV at decode (and for each prefill's lm_head row) and the tiled path
-    for the prefill projections, never the tensor-core path."""
+    for the prefill projections, never a tensor-core path ("tc", "wg")."""
     from dataclasses import replace
 
     from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
@@ -555,7 +622,7 @@ def check_model_quant(torch, dev) -> None:
                        engine.stats["prefills"])
     per_forward = 7 * cfg.num_layers + 1
     want = {"tc": 0, "gemv": per_forward * steps + prefills,
-            "tile": (per_forward - 1) * prefills}
+            "tile": (per_forward - 1) * prefills, "wg": 0}
     if n8 <= 0 or n4 <= 0 or steps <= 0 or by_path != want:
         fail(f"quantized engine on the card launched int8 attention {n8} "
              f"and int4 matmul {n4} times, by path {by_path} over {steps} "
@@ -743,18 +810,18 @@ def serve(torch, dev, card: str, quantization: str = "",
     # kind. int4: one per projection (7 per layer) plus the lm_head, per
     # decode step and per prefill (which projects only its last row). By
     # #3's path (bf16 x): a decode step's 8 slots and a prefill's lm_head
-    # row on tensor cores, a prefill's bucket rows on the tiled path.
+    # row on "tc", a prefill's bucket rows on "wg".
     L = mcfg.num_layers
     attn = "paged_attention_decode_int8" if kv_quant else \
         "paged_attention_decode"
     want = {"paged_attention_decode": 0, "paged_attention_decode_int8": 0,
             "int4_matmul": 0}
     want[attn] = L * steps
-    want_path = {"tc": 0, "gemv": 0, "tile": 0}
+    want_path = {"tc": 0, "gemv": 0, "tile": 0, "wg": 0}
     if quantization in ("int4", "int4_awq"):
         want["int4_matmul"] = (7 * L + 1) * (steps + prefills)
         want_path = {"tc": (7 * L + 1) * steps + prefills, "gemv": 0,
-                     "tile": 7 * L * prefills}
+                     "tile": 0, "wg": 7 * L * prefills}
     if (steps <= 0 or prefills <= 0 or counts != want
             or by_path != want_path):
         fail(f"[{mode}] kernel launches {counts} (int4 by path {by_path}) "
@@ -795,7 +862,7 @@ def main() -> int:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 say(f"ptxas {name}: {line.strip()}")
 
     check_paged_attention(torch, dev, torch.float32)
@@ -804,7 +871,7 @@ def main() -> int:
     kernels.append(check_paged_attention(torch, dev, torch.bfloat16,
                                          quant=True))
     torch.cuda.empty_cache()
-    kernels.append(check_int4_matmul(torch, dev))
+    kernels.extend(check_int4_matmul(torch, dev))
     check_model(torch, dev)
     check_model_quant(torch, dev)
     # Each path's kernels take their launch counts from that path's run.

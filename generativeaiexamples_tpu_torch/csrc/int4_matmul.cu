@@ -11,7 +11,7 @@
 // multiplied by its float32 scale as ops/quant.py `_grouped_matmul` does
 // (per channel is the case group = K). Sums are float32.
 //
-// Three paths; the caller names one (ops/int4_matmul.py `_path`) and a
+// Four paths; the caller names one (ops/int4_matmul.py `_path`) and a
 // path that does not take the shape returns cudaErrorInvalidValue (no
 // path falls back to another):
 // - "tc", decode with bf16 x (M <= 8; K and N multiples of 16; per
@@ -22,9 +22,14 @@
 //   group): CUDA-core fp32, so float32 activations keep full precision
 //   (tensor cores would round them to TF32). Issue-bound: each lane does
 //   64 FMAs and 8 nibble conversions per 4 weight bytes.
-// - "tile", prefill (any M; M up to 1024 on the served path): a 64 x 64
-//   output tile per block on CUDA cores, x and the unpacked weight
-//   staged through shared memory. Bound by its fp32 operations.
+// - "wg", prefill with bf16 x (M > 8; K and N multiples of 16; per
+//   channel or groups of a multiple of 128): warpgroup tensor cores
+//   (wgmma) fed by TMA. Bound by bf16 operations at M = 1024 (2 M K N
+//   over 989 TFLOP/s); at M = 128 by operations too, but only just.
+// - "tile", the rest (float32 x at M > 8, bf16 shapes "wg" refuses; any
+//   M): a 64 x 64 output tile per block on CUDA cores, x and the
+//   unpacked weight staged through shared memory, full fp32. Bound by
+//   its fp32 operations.
 //
 // The "tc" path. One mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with
 // the operands swapped: the weight is A (16 output columns x 16 k), x^T
@@ -97,9 +102,73 @@
 // depend on timing, writes the output and resets the counter to 0 for
 // the next launch.
 //
-// Work not done yet (later PRs): tensor cores at prefill (wgmma with TMA
-// staging of x and the weight), where the "tile" path is bound by fp32
-// operations; the rest of the "tc" path's per-launch latency.
+// The "wg" path. out^T (N x M) = W^T (N x K) . x^T (K x M) with
+// wgmma.mma_async m64n128k16 (bf16 in, fp32 accumulate): the weight is A,
+// built in registers from the packed bytes; x^T is B, read by the tensor
+// cores from shared memory through a descriptor. A warpgroup's 64 MMA
+// rows are 64 output columns and its n side a tile of 128 tokens.
+// - Block: 2 consumer warpgroups (64 columns each of a 128-column slab)
+//   and 1 producer warp; a tile of 128 tokens; a range of stages of 128
+//   reduction rows. Under a launch bound of one block per SM ptxas gives
+//   the 288 threads 168 registers each (as for 384): per channel the
+//   kernel uses 128, grouped 168 with a 16-byte spill. No setmaxnreg: it
+//   moves registers between whole warpgroups, and the producer is one
+//   warp.
+// - Staging: a ring of 4 stages (40 KB each: x 128 tokens x 128 k bf16,
+//   q4 64 packed rows x 128 columns) in dynamic shared memory, filled by
+//   TMA. One thread of the producer warp waits for a slot to be free
+//   (an "empty" mbarrier, one arrival per consumer warp), arms its
+//   "full" mbarrier with the stage's bytes and starts 3 tensor copies:
+//   x as two boxes of 64 k x 128 tokens (128 bytes a row, the 128-byte
+//   swizzle span) and q4 as one box of 128 columns x 64 rows, all with
+//   128-byte swizzle. Rows past M, K/2 and columns past N are filled with
+//   zeros by the copy (a zero byte is the weight 0), so ragged edges need
+//   no code in the loop. The tensor maps are encoded per launch through
+//   cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint (no -lcuda),
+//   and passed as __grid_constant__ parameters.
+// - B descriptor: K-major with 128-byte swizzle, the layout TMA writes (a
+//   token row of 128 bytes, 8 rows = 1024 bytes apart, every swizzle
+//   region 1024-byte aligned); a k16 step inside a 64-k half adds 32
+//   bytes to the start address. x (M, K) row-major is already K-major
+//   x^T, so nothing is transposed.
+// - A registers have the per-warp layout of mma.m16n8k16 (warp w of a
+//   warpgroup holds MMA rows 16 w..16 w + 15). A warpgroup row is one
+//   output column, and each register one packed byte, as on the "tc"
+//   path; here MMA row g of a warp is column 2 g of its 16 and row g + 8
+//   column 2 g + 1, so one 2-byte shared read (packed row r, columns
+//   2 g, 2 g + 1) gives a lane both rows' registers of one k pair. The
+//   swizzle puts the 4 packed rows a warp reads at once in 4 distinct
+//   16-byte chunks of the 128-byte row: no bank conflicts. A stage's 32 A
+//   registers are converted (the "tc" path's 3-op nibble_pair) before its
+//   8 wgmmas start, so no register that an in-flight wgmma reads is
+//   written; the two warpgroups take turns on the tensor cores.
+//   (Double-buffering A per k16 step, with wgmma.wait_group 1 between
+//   steps, removed the spill but measured slower: not kept.)
+// - Group scales: a stage's 8 wgmmas go into a fresh fragment (the first
+//   with scale-d = 0); after wgmma.wait_group, acc = fma(part, s, acc)
+//   with the stage's group scales (a lane's rows are 2 columns: one
+//   float2 of scales per stage, loaded before the wait). Per channel the
+//   wgmmas accumulate straight into acc and the scale is applied once at
+//   the end. Two fp32 fragments of 64 x 128 are 128 registers a thread.
+// - Filling the card: a 128 x 128 tile per block gives 32 blocks at
+//   N = 4096, M = 128. So, as on the "tc" path, the S blocks of a tile
+//   split K as one thread-block cluster (S <= 8) and reduce through
+//   distributed shared memory in rank order (deterministic, no workspace,
+//   no atomics); S minimises (waves of blocks) x (stages per block), so
+//   at M = 128 it is 4 at 4096 x 4096 and w_down, 3 at w_gate, and 1
+//   once the tiles alone fill a wave (M = 1024).
+// - No programmatic dependent launch: the next launch starts after this
+//   one completes, as a plain launch does.
+// - Sums: weights are exact in bf16 and bf16 x bf16 products exact in
+//   fp32, so the path differs from the plain version only in the order of
+//   its fp32 sums.
+//
+// Work not done yet (later PRs): on the "wg" path, overlapping a
+// warpgroup's stage epilogue (wait, scale FMAs) with its next stage's
+// wgmmas, and a persistent schedule that hides each tile's prologue and
+// epilogue (multicasting x to a pair of slabs, split-K at M = 1024 and a
+// 5-stage ring measured slower); the rest of the "tc" path's per-launch
+// latency.
 //
 // Invariants the launch relies on:
 // - 32-bit offsets: the wrapper refuses M*K, (K/2)*N, M*N or G*N above
@@ -113,6 +182,7 @@
 //   launches that share a pair never overlap. The counters start at 0
 //   and every launch leaves them at 0.
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -596,6 +666,330 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
   cluster.sync();
 }
 
+// The "wg" path's geometry (see the note at the top).
+constexpr int kWgCols = 128;                 // columns (q4 bytes) per slab
+constexpr int kWgTokens = 128;               // tokens per tile: wgmma's n
+constexpr int kWgK = 128;                    // reduction rows per stage
+constexpr int kWgRows = kWgK / 2;            // packed rows per stage
+constexpr int kWgSteps = kWgK / 16;          // k16 steps per stage
+constexpr int kWgConsumers = 2;              // warpgroups, 64 columns each
+constexpr int kWgThreads = 128 * kWgConsumers + 32;  // + the producer warp
+constexpr int kWgRing = 4;                   // stages in shared memory
+constexpr int kWgXHalf = kWgTokens * 128;    // bytes of a 64-k box of x
+constexpr int kWgQ4Off = 2 * kWgXHalf;       // the q4 box, after x's two
+constexpr int kWgStage = kWgQ4Off + kWgRows * kWgCols;  // 40 KB
+constexpr int kWgSmem = kWgRing * kWgStage + 1024;      // + 1024-alignment
+constexpr int kWgPitch = kWgCols + 4;        // floats per row of the sums
+constexpr int kWgMaxCluster = 8;             // portable cluster size
+constexpr int kWgAcc = kWgTokens / 2;        // fp32 fragment registers
+static_assert(kWgStage % 1024 == 0 && kWgXHalf % 1024 == 0,
+              "every swizzled box starts 1024-byte aligned");
+static_assert(kWgTokens * kWgPitch * 4 <= kWgRing * kWgStage,
+              "the split-K sums reuse the ring");
+static_assert(2 * kWgSmem > 227 * 1024, "one block per SM");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Arrive once and expect `bytes` more from copies before the phase ends.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Spin until the phase of the given parity has completed; a phase that
+// never completes (a lost copy or arrival) traps instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  int tries = 0;
+  do {
+    if (++tries > (1 << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One box of a 2-D tensor map at (inner, outer) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int inner,
+                                            int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner),
+      "r"(outer)
+      : "memory");
+}
+
+// Shared-memory descriptor of a K-major operand with 128-byte swizzle:
+// start address >> 4, leading offset 1 (unused by this layout), stride
+// 1024 bytes between 8-row groups (>> 4), layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// d (64 x 128, fp32) = a (64 x 16 bf16, registers) . b (16 x 128 bf16,
+// shared memory) + (scale_d ? d : 0), for the whole warpgroup.
+#define WG_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F16(i) WG_F4(i), WG_F4(i + 4), WG_F4(i + 8), WG_F4(i + 12)
+__device__ __forceinline__ void wgmma_n128(float (&d)[kWgAcc],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
+      : WG_F16(0), WG_F16(16), WG_F16(32), WG_F16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+      : "memory");
+}
+#undef WG_F16
+#undef WG_F4
+
+// Keep the compiler from moving reads or writes of the fragment across
+// the asynchronous wgmma (its registers are in flight until the wait).
+__device__ __forceinline__ void fence_fragment(float (&d)[kWgAcc]) {
+#pragma unroll
+  for (int i = 0; i < kWgAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A stage's k16 steps into d (after d's own value when `accumulate`, else
+// from zero), waited for: the caller may then read d and reuse a and the
+// stage's shared memory.
+__device__ __forceinline__ void wg_stage(float (&d)[kWgAcc],
+                                         const uint32_t (&a)[kWgSteps][4],
+                                         uint32_t xs, bool accumulate) {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+  fence_fragment(d);
+#pragma unroll
+  for (int s = 0; s < kWgSteps; ++s)
+    wgmma_n128(d, a[s], wg_desc(xs + (s >> 2) * kWgXHalf + 32 * (s & 3)),
+               accumulate || s > 0);
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_fragment(d);
+}
+
+template <typename TO>
+__device__ __forceinline__ void store2(TO* p, float a, float b) {
+  if constexpr (std::is_same_v<TO, float>)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The "wg" path (see the note at the top). Grid (slabs, token tiles, S),
+// clusters of (1, 1, S): block z (its rank in the cluster) takes stages
+// [z * n / S, (z + 1) * n / S) of the n = ceil(K / kWgK). x_map: x (M, K)
+// bf16, boxes of 64 k x 128 tokens; q4_map: q4 (K/2, N) bytes, boxes of
+// 128 columns x 64 rows; both with 128-byte swizzle. PER_CHANNEL: scale
+// is (N,), applied once at the end; else (G, N) with group a multiple of
+// kWgK, so each stage lies in one group.
+template <typename TO, bool PER_CHANNEL>
+__global__ void __launch_bounds__(kWgThreads, 1)
+int4_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap q4_map,
+                  const float* __restrict__ scale, TO* __restrict__ out,
+                  int M, int K, int N, int group) {
+  extern __shared__ char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kWgRing], empty[kWgRing];
+  // The swizzle is a function of the shared address: align the ring.
+  char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int S = gridDim.z;
+  const int rank = blockIdx.z;
+  const int n0 = blockIdx.x * kWgCols;
+  const int m0 = blockIdx.y * kWgTokens;
+  const int n_stages = (K + kWgK - 1) / kWgK;
+  const int st0 = (int)((long long)rank * n_stages / S);
+  const int n_mine = (int)((long long)(rank + 1) * n_stages / S) - st0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kWgRing; ++i) {
+      mbar_init(&full[i], 1);                  // the producer's arrival
+      mbar_init(&empty[i], 4 * kWgConsumers);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * kWgConsumers) {
+    // The producer: one thread keeps the ring full.
+    if (lane == 0) {
+      for (int i = 0; i < n_mine; ++i) {
+        const int slot = i % kWgRing;
+        mbar_wait(&empty[slot], ((i / kWgRing) & 1) ^ 1);
+        char* stage = ring + slot * kWgStage;
+        const int k0 = (st0 + i) * kWgK;
+        mbar_expect_tx(&full[slot], kWgStage);
+        tma_load_2d(stage, &x_map, &full[slot], k0, m0);
+        tma_load_2d(stage + kWgXHalf, &x_map, &full[slot], k0 + 64, m0);
+        tma_load_2d(stage + kWgQ4Off, &q4_map, &full[slot], n0, k0 / 2);
+      }
+    }
+    __syncwarp();
+  } else {
+    // A consumer warpgroup: columns 64 wg .. 64 wg + 63 of the slab; this
+    // lane's are col and col + 1 (MMA rows g and g + 8 of warp w).
+    const int wg = warp >> 2;
+    const int w = warp & 3;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int col = 64 * wg + 16 * w + 2 * g;
+    const int chunk = col >> 4;  // its 16-byte chunk of a 128-byte q4 row
+    const int gn = n0 + col;
+    const bool col_ok = gn < N;
+    float acc[kWgAcc], part[kWgAcc];
+#pragma unroll
+    for (int i = 0; i < kWgAcc; ++i) acc[i] = part[i] = 0.f;
+
+    for (int i = 0; i < n_mine; ++i) {
+      const int slot = i % kWgRing;
+      float2 sc = make_float2(0.f, 0.f);
+      if (!PER_CHANNEL && col_ok)
+        sc = __ldg(reinterpret_cast<const float2*>(
+            scale + (long long)((st0 + i) * kWgK / group) * N + gn));
+      mbar_wait(&full[slot], (i / kWgRing) & 1);
+      const char* sq = ring + slot * kWgStage + kWgQ4Off;
+      // A of step s: packed rows 8 s + t (k pair 2t) and 8 s + t + 4 (k
+      // pair 2t + 8), bytes 0 (column col: MMA row g) and 1 (col + 1: row
+      // g + 8) of a 2-byte read of the swizzled q4 box.
+      uint32_t a[kWgSteps][4];
+#pragma unroll
+      for (int s = 0; s < kWgSteps; ++s) {
+        const int r0 = 8 * s + t;
+        const int r1 = r0 + 4;
+        const uint32_t u0 = *reinterpret_cast<const uint16_t*>(
+            sq + r0 * kWgCols + ((chunk ^ (r0 & 7)) << 4) + 2 * g);
+        const uint32_t u1 = *reinterpret_cast<const uint16_t*>(
+            sq + r1 * kWgCols + ((chunk ^ (r1 & 7)) << 4) + 2 * g);
+        a[s][0] = nibble_pair(u0, u0 >> 4, 0);
+        a[s][1] = nibble_pair(u0, u0 >> 4, 1);
+        a[s][2] = nibble_pair(u1, u1 >> 4, 0);
+        a[s][3] = nibble_pair(u1, u1 >> 4, 1);
+      }
+      // B of step s: x's 64-k half s / 4, 32 bytes per k16 step in it.
+      const uint32_t xs = smem_u32(ring + slot * kWgStage);
+      if constexpr (PER_CHANNEL)
+        wg_stage(acc, a, xs, true);
+      else
+        wg_stage(part, a, xs, false);
+      if (lane == 0) mbar_arrive(&empty[slot]);  // the slot may refill
+      if constexpr (!PER_CHANNEL) {
+#pragma unroll
+        for (int j = 0; j < kWgAcc / 4; ++j) {
+          acc[4 * j] = fmaf(part[4 * j], sc.x, acc[4 * j]);
+          acc[4 * j + 1] = fmaf(part[4 * j + 1], sc.x, acc[4 * j + 1]);
+          acc[4 * j + 2] = fmaf(part[4 * j + 2], sc.y, acc[4 * j + 2]);
+          acc[4 * j + 3] = fmaf(part[4 * j + 3], sc.y, acc[4 * j + 3]);
+        }
+      }
+    }
+
+    // acc[4 j + e]: column col + (e >> 1), token 8 j + 2 t + (e & 1).
+    if (S == 1) {
+      if (col_ok) {
+        float2 ps = make_float2(1.f, 1.f);
+        if (PER_CHANNEL)
+          ps = __ldg(reinterpret_cast<const float2*>(scale + gn));
+#pragma unroll
+        for (int j = 0; j < kWgAcc / 4; ++j) {
+          const int m = m0 + 8 * j + 2 * t;
+          if (m < M)
+            store2(out + (long long)m * N + gn, acc[4 * j] * ps.x,
+                   acc[4 * j + 2] * ps.y);
+          if (m + 1 < M)
+            store2(out + (long long)(m + 1) * N + gn, acc[4 * j + 1] * ps.x,
+                   acc[4 * j + 3] * ps.y);
+        }
+      }
+    } else {
+      // Every consumer is done with the ring: it now holds this block's
+      // sums, tot[token][column].
+      asm volatile("bar.sync 1, %0;" ::"n"(128 * kWgConsumers) : "memory");
+      float* tot = reinterpret_cast<float*>(ring);
+#pragma unroll
+      for (int j = 0; j < kWgAcc / 4; ++j) {
+        const int m = 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(tot + m * kWgPitch + col) =
+            make_float2(acc[4 * j], acc[4 * j + 2]);
+        *reinterpret_cast<float2*>(tot + (m + 1) * kWgPitch + col) =
+            make_float2(acc[4 * j + 1], acc[4 * j + 3]);
+      }
+    }
+  }
+  if (S == 1) return;
+
+  // Split-K across the cluster: block z sums, in rank order, every
+  // block's sums for its 1/S of the tile's tokens, read from their shared
+  // memory. The second barrier keeps each block's shared memory alive
+  // until every read of it is done.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const float* tot = reinterpret_cast<const float*>(ring);
+  const int r0 = rank * kWgTokens / S;
+  const int rows = (rank + 1) * kWgTokens / S - r0;
+  constexpr int kQuads = kWgCols / 4;
+  for (int idx = tid; idx < rows * kQuads; idx += kWgThreads) {
+    const int row = r0 + idx / kQuads;
+    const int c = 4 * (idx % kQuads);
+    const int m = m0 + row;
+    const int gn = n0 + c;
+    if (m >= M || gn >= N) continue;
+    float4 p[kWgMaxCluster];  // all S reads in flight, then summed
+#pragma unroll
+    for (int r = 0; r < kWgMaxCluster; ++r)
+      p[r] = r < S ? *reinterpret_cast<const float4*>(cluster.map_shared_rank(
+                         tot + row * kWgPitch + c, r))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 v = p[0];
+#pragma unroll
+    for (int r = 1; r < kWgMaxCluster; ++r) {
+      v.x += p[r].x;
+      v.y += p[r].y;
+      v.z += p[r].z;
+      v.w += p[r].w;
+    }
+    if (PER_CHANNEL) {
+      const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + gn));
+      v.x *= s4.x;
+      v.y *= s4.y;
+      v.z *= s4.z;
+      v.w *= s4.w;
+    }
+    TO* o = out + (long long)m * N + gn;
+    store2(o, v.x, v.y);
+    store2(o + 2, v.z, v.w);
+  }
+  cluster.sync();
+}
+
 // BM x BN outputs per block, BK reduction rows per stage, TM x TN outputs
 // per thread (rows ty + i * TY, columns tx + j * TX: neighbouring threads
 // take neighbouring columns).
@@ -820,10 +1214,136 @@ int launch_mma(const void* x, const int8_t* q4, const float* scale,
                                       stream);
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime so that the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The map of a row-major (rows, cols) tensor with rows of row_bytes, in
+// boxes of (box_rows, box_cols), 128-byte swizzle; reads outside the
+// tensor fill the box with zeros.
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+               unsigned long long rows, unsigned long long cols,
+               unsigned long long row_bytes, unsigned int box_rows,
+               unsigned int box_cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The "wg" path (bf16 x). Needs no scratch: split-K reduces within a
+// cluster.
+template <typename TO, bool PER_CHANNEL>
+int launch_wg_kernel(const void* x, const int8_t* q4, const float* scale,
+                     void* out, int M, int K, int N, int group,
+                     cudaStream_t stream) {
+  auto kernel = int4_wgmma_kernel<TO, PER_CHANNEL>;
+  static unsigned int opted_in = 0;  // bit d: device d
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 32) return (int)cudaErrorInvalidDevice;
+  if (!(opted_in >> dev & 1u)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in |= 1u << dev;
+  }
+  const int slabs = (N + kWgCols - 1) / kWgCols;
+  const int tiles = (M + kWgTokens - 1) / kWgTokens;
+  const int n_stages = (K + kWgK - 1) / kWgK;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap x_map, q4_map;
+  if (!encode_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, 2ull * K,
+                 kWgTokens, 64) ||
+      !encode_2d(&q4_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q4, K / 2, N, N,
+                 kWgRows, kWgCols))
+    return (int)cudaErrorInvalidValue;
+  // S blocks per tile (one block per SM): 1 once the tiles fill a wave;
+  // else the S that minimises waves x stages per block (ties: the
+  // smaller), each block keeping at least 2 stages.
+  const int sms = sm_count();
+  const long long blocks = (long long)slabs * tiles;
+  int S = 1;
+  if (blocks < sms) {
+    long long best = n_stages;
+    for (int s = 2; s <= kWgMaxCluster && s <= n_stages / 2; ++s) {
+      const long long cost =
+          (blocks * s + sms - 1) / sms * ((n_stages + s - 1) / s);
+      if (cost < best) {
+        best = cost;
+        S = s;
+      }
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(slabs, tiles, S);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = kWgSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = S;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, x_map, q4_map, scale,
+                                 static_cast<TO*>(out), M, K, N, group);
+}
+
+// TMA needs 16-byte aligned tensors and row strides (K % 8, N % 16); k16
+// steps tile K and a group is whole stages.
+template <typename TO>
+int launch_wg(const void* x, const int8_t* q4, const float* scale,
+              void* out, int M, int K, int N, int group,
+              cudaStream_t stream) {
+  const bool per_channel = group == K;
+  if (K % 16 || N % 16 || (!per_channel && group % kWgK) ||
+      reinterpret_cast<uintptr_t>(q4) % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(scale) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (per_channel)
+    return launch_wg_kernel<TO, true>(x, q4, scale, out, M, K, N, group,
+                                      stream);
+  return launch_wg_kernel<TO, false>(x, q4, scale, out, M, K, N, group,
+                                     stream);
+}
+
 // Path codes, as ops/int4_matmul.py passes them.
 constexpr int kPathTc = 0;
 constexpr int kPathGemv = 1;
 constexpr int kPathTile = 2;
+constexpr int kPathWg = 3;
 
 template <typename T, typename TO>
 int launch(int path, const void* x, const int8_t* q4, const float* scale,
@@ -841,6 +1361,10 @@ int launch(int path, const void* x, const int8_t* q4, const float* scale,
     case kPathTile:
       return launch_tile<T, TO, 64, 64, 32, 4, 4>(x, q4, scale, out, M, K,
                                                  N, group, stream);
+    case kPathWg:
+      if constexpr (std::is_same_v<T, __nv_bfloat16>)
+        return launch_wg<TO>(x, q4, scale, out, M, K, N, group, stream);
+      return (int)cudaErrorInvalidValue;  // tensor cores take bf16 x only
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -848,8 +1372,8 @@ int launch(int path, const void* x, const int8_t* q4, const float* scale,
 
 }  // namespace
 
-// path: 0 = "tc", 1 = "gemv", 2 = "tile" (see the note at the top); a
-// path that does not take the shape or dtype returns
+// path: 0 = "tc", 1 = "gemv", 2 = "tile", 3 = "wg" (see the note at the
+// top); a path that does not take the shape or dtype returns
 // cudaErrorInvalidValue and launches nothing. x_dtype, out_dtype: 0 =
 // bfloat16, 1 = float32. scale is (K / group, N) float32 (group = K: per
 // channel). ws (ws_floats fp32) and counters (n_counters ints, all 0) are

@@ -4,7 +4,7 @@ version.
 ``int4_matmul`` replaces the reference's Pallas kernel
 (``generativeaiexamples_tpu/ops/int4_matmul.py`` ``int4_matmul``): it
 computes ``x @ unpack(q4) * scale`` without materializing the unpacked
-weight. On a CUDA tensor it launches one of the three paths of
+weight. On a CUDA tensor it launches one of the four paths of
 ``csrc/int4_matmul.cu`` (built at first use by ``kernels/build.py``), the
 one ``_path`` names from the shape and x's dtype, or raises; it takes the
 plain version only for CPU tensors. The paths:
@@ -12,14 +12,17 @@ plain version only for CPU tensors. The paths:
 - ``"tc"``: decode (M <= 8) with bfloat16 x, on tensor cores;
 - ``"gemv"``: decode with float32 x (or a bf16 shape the tensor-core
   path refuses), split-K fp32 on CUDA cores;
-- ``"tile"``: everything else (prefill), a tiled fp32 product.
+- ``"wg"``: prefill (M > 8) with bfloat16 x, on warpgroup tensor cores
+  (wgmma, TMA-fed);
+- ``"tile"``: everything else (float32 x at M > 8, or a bf16 shape the
+  tensor-core paths refuse), a tiled fp32 product.
 
 Each launch adds one to ``int4_matmul.launches`` and to its path's entry
 of ``int4_matmul.launches_by_path``. ``int4_matmul_plain`` unpacks the
 nibbles and computes what ``ops/quant.py``'s XLA-style branches compute:
 a float32 dot with the per-channel scale after it, or per-group float32
 partial dots times their scales (``_grouped_matmul``). Every path sums in
-float32 too (the tensor-core path multiplies bf16 x by weights that are
+float32 too (the tensor-core paths multiply bf16 x by weights that are
 exact in bf16), so the kernel is held to the plain version, not to the
 reference kernel's bf16 rounding of each dequantized weight.
 """
@@ -34,14 +37,14 @@ import torch
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _INT32_MAX = 2 ** 31 - 1
 # Path codes of the C entry point.
-_PATHS = {"tc": 0, "gemv": 1, "tile": 2}
+_PATHS = {"tc": 0, "gemv": 1, "tile": 2, "wg": 3}
 # The "gemv" path's split-K scratch (csrc/int4_matmul.cu): up to 16 fp32
 # partials of an (M <= 8, N) output, and one counter per 128-column tile.
 # The kernel leaves the counters at 0. (The "tc" path reduces within a
 # thread-block cluster and needs none.)
 _MAX_SPLIT, _DECODE_MAX_M, _GEMV_COLS = 16, 8, 128
-# The "tc" path's groups: a multiple of this many reduction rows (its
-# 128-row stages then lie in one group each).
+# The tensor-core paths' groups ("tc", "wg"): a multiple of this many
+# reduction rows (their 128-row stages then lie in one group each).
 _TC_GROUP = 128
 
 _fn = None
@@ -83,20 +86,23 @@ def supported(K: int, N: int, group_size: int = 0) -> bool:
 
 def _path(M: int, K: int, N: int, group: int, x_dtype: torch.dtype) -> str:
     """The kernel path for an (M, K) x (K, N) product with scales per
-    ``group`` reduction rows (``group == K``: per channel). Decode shapes
-    (M <= 8) with bf16 x go to the tensor cores when k16 steps tile K
-    (``K % 16 == 0``), 16-byte copies tile a q4 row (``N % 16 == 0``) and
-    the scales are per channel or per groups of a multiple of 128 rows;
-    other decode shapes to the fp32 GEMV (float32 x keeps full
-    precision: tensor cores would round it to TF32), which needs ``N % 4
-    == 0`` and an even group; the rest to the tiled path, which takes any
-    shape."""
-    if M <= _DECODE_MAX_M:
-        if (x_dtype == torch.bfloat16 and K % 16 == 0 and N % 16 == 0
-                and (group == K or group % _TC_GROUP == 0)):
-            return "tc"
-        if N % 4 == 0 and group % 2 == 0:
-            return "gemv"
+    ``group`` reduction rows (``group == K``: per channel). bf16 x goes to
+    the tensor cores when k16 steps tile K (``K % 16 == 0``), 16-byte
+    copies tile a q4 row (``N % 16 == 0``) and the scales are per channel
+    or per groups of a multiple of 128 rows: ``"tc"`` for decode shapes
+    (M <= 8), ``"wg"`` above. Other decode shapes go to the fp32 GEMV
+    (float32 x keeps full precision: tensor cores would round it to TF32),
+    which needs ``N % 4 == 0`` and an even group; the rest to the tiled
+    path, which takes any shape."""
+    tensor_cores = (x_dtype == torch.bfloat16 and K % 16 == 0
+                    and N % 16 == 0
+                    and (group == K or group % _TC_GROUP == 0))
+    if M > _DECODE_MAX_M:
+        return "wg" if tensor_cores else "tile"
+    if tensor_cores:
+        return "tc"
+    if N % 4 == 0 and group % 2 == 0:
+        return "gemv"
     return "tile"
 
 
@@ -180,11 +186,13 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
     path = _path(M, K, N, K // G, x.dtype)
     q4c, sc = q4.contiguous(), scale.contiguous()
     if path != "tile":
-        # The decode paths load q4 as 4-byte words; the "tc" path copies
-        # 16-byte pieces of q4, x and the scales. A small x is realigned;
-        # a weight or its scales are not copied.
-        align = 16 if path == "tc" else 4
-        if q4c.data_ptr() % align or (path == "tc" and sc.data_ptr() % 16):
+        # The "gemv" path loads q4 as 4-byte words; the tensor-core paths
+        # copy 16-byte pieces of q4, x and the scales ("wg" by TMA, which
+        # needs 16-byte aligned tensors). x is realigned; a weight or its
+        # scales are not copied.
+        tensor_cores = path in ("tc", "wg")
+        align = 16 if tensor_cores else 4
+        if q4c.data_ptr() % align or (tensor_cores and sc.data_ptr() % 16):
             raise ValueError(f"the {path!r} path needs q4 (and, on tensor "
                              f"cores, the scales) on a {align}-byte "
                              f"boundary")

@@ -232,10 +232,11 @@ def test_int8_kernel_matches_plain(dev, H, KV, hd, page, lengths, dtype):
 # bf16 ulp of max|ref| for outputs near zero.
 
 INT4_CASES = [
-    # (M, K, N, group: 0 = per channel). M <= 8 with N % 4 == 0 takes a
-    # split-K decode path (split when K has enough chunks): tensor cores
-    # for bf16 x when K and the group are multiples of 16, else the fp32
-    # GEMV; the rest, and any M > 8, the tiled path (``_path``).
+    # (M, K, N, group: 0 = per channel). bf16 x takes tensor cores when K
+    # and N are multiples of 16 and the scales are per channel or groups
+    # of a multiple of 128 ("tc" at M <= 8, "wg" above); other shapes
+    # with M <= 8 and N % 4 == 0 the fp32 GEMV; the rest the tiled path
+    # (``_path``).
     (1, 256, 96, 0), (3, 256, 96, 32), (33, 512, 200, 64),
     (8, 384, 130, 128), (1, 4096, 4096, 128), (33, 11008, 64, 128),
     (100, 96, 33, 32), (8, 250, 77, 0), (8, 250, 96, 0),
@@ -316,24 +317,111 @@ def test_int4_tensor_core_path_matches_plain(dev, M, K, N, group, out_dtype):
     _assert_int4_close(got, ref, out_dtype)
 
 
-# The two split-K decode paths and the x dtype that selects each.
-SPLIT_K_PATHS = [("tc", torch.bfloat16), ("gemv", torch.float32)]
+WG_CASES = [
+    # (M, K, N, group: 0 = per channel), all on the "wg" path.
+    (9, 4096, 4096, 128),       # a partial token tile, split-K
+    (127, 4096, 11008, 128),
+    (200, 11008, 4096, 128),    # two token tiles, the second partial
+    (128, 4096, 1024, 0),       # per channel, split-K
+    (1024, 4096, 4096, 0),      # per channel, the tiles fill a wave
+    (128, 4096, 4096, 256),     # group boundaries inside a split-K range
+    (128, 1536, 256, 384),      # groups straddle the split-K ranges
+    (33, 208, 80, 0),           # a ragged last stage and column slab
+    (300, 1024, 208, 128),      # a ragged last slab, three token tiles
+]
+
+
+def _wg_case(dev, M, K, N, group, seed):
+    g = torch.Generator().manual_seed(seed)
+    w = (torch.randn(K, N, generator=g) * 0.05).to(dev)
+    leaf = (quant.quantize_tensor_grouped(w, group) if group
+            else quant.quantize_tensor(w, 4))
+    scale = leaf["gscale"] if group else leaf["scale"]
+    x = torch.randn(M, K, generator=g).to(torch.bfloat16).to(dev)
+    return x, leaf["q4"], scale
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path,x_dtype", SPLIT_K_PATHS)
-def test_int4_split_k_leaves_scratch_reusable(dev, path, x_dtype):
+@pytest.mark.parametrize("M,K,N,group", WG_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int4_warpgroup_path_matches_plain(dev, M, K, N, group, out_dtype):
+    """The warpgroup tensor-core path (bf16 x, M > 8) against the plain
+    version: partial token tiles, per channel, group boundaries inside
+    and across split-K ranges, ragged last stages and column slabs."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    assert ti4._path(M, K, N, group or K, torch.bfloat16) == "wg"
+    x, q4, scale = _wg_case(dev, M, K, N, group, M * 13 + K + N)
+    before = ti4.int4_matmul.launches_by_path["wg"]
+    got = ti4.int4_matmul(x, q4, scale, out_dtype=out_dtype)
+    assert ti4.int4_matmul.launches_by_path["wg"] == before + 1
+    ref = ti4.int4_matmul_plain(x, q4, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    assert torch.isfinite(got.float()).all()
+    _assert_int4_close(got, ref, out_dtype)
+
+
+@pytest.mark.cuda
+def test_int4_warpgroup_path_misaligned_x_and_repeatable(dev):
+    """A bf16 x view off a 16-byte boundary (TMA needs one) is realigned
+    and gives the aligned result; two launches are bit-identical (the
+    split-K sum runs in a fixed order)."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    M, K, N = 128, 4096, 4096
+    x, q4, scale = _wg_case(dev, M, K, N, 128, 5)
+    buf = torch.empty(M * K + 1, dtype=torch.bfloat16, device=dev)
+    shifted = buf[1:].view(M, K)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    want = ti4.int4_matmul(x, q4, scale)
+    again = ti4.int4_matmul(x, q4, scale)
+    got = ti4.int4_matmul(shifted, q4, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(want, again)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int4_path_refuses_a_shape_outside_its_gate(dev, monkeypatch):
+    """A shape outside "wg"'s gate named "wg" makes the C entry point
+    return cudaErrorInvalidValue (1) and the wrapper raise: nothing falls
+    back to another path."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    M, K, N = 16, 256, 200          # N % 16 != 0: "tile"'s shape
+    x, q4, scale = _wg_case(dev, M, K, N, 128, 6)
+    assert ti4._path(M, K, N, 128, torch.bfloat16) == "tile"
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    err = ti4._kernel()(
+        ti4._PATHS["wg"], 0, 0, x.data_ptr(), q4.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), None, 0, None, 0, M, K, N, 128,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1
+    monkeypatch.setattr(ti4, "_path", lambda *args: "wg")
+    before = dict(ti4.int4_matmul.launches_by_path)
+    with pytest.raises(RuntimeError, match="'wg' path launch failed"):
+        ti4.int4_matmul(x, q4, scale)
+    assert ti4.int4_matmul.launches_by_path == before
+
+
+# The split-K paths, the x dtype and an M that select each.
+SPLIT_K_PATHS = [("tc", torch.bfloat16, 8), ("gemv", torch.float32, 8),
+                 ("wg", torch.bfloat16, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,x_dtype,M", SPLIT_K_PATHS)
+def test_int4_split_k_leaves_scratch_reusable(dev, path, x_dtype, M):
     """Split-K launches of different shapes in a row give the same result
     as one at a time (on the GEMV path the counters must be back at 0
-    after each; the tensor-core path reduces within a cluster)."""
+    after each; the tensor-core paths reduce within a cluster)."""
     from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
     g = torch.Generator().manual_seed(3)
     cases = []
     for K, N in ((4096, 4096), (11008, 512), (4096, 1024)):
         w = (torch.randn(K, N, generator=g) * 0.05).to(dev)
         leaf = quant.quantize_tensor_grouped(w, 128)
-        x = torch.randn(8, K, generator=g).to(x_dtype).to(dev)
-        assert ti4._path(8, K, N, 128, x_dtype) == path
+        x = torch.randn(M, K, generator=g).to(x_dtype).to(dev)
+        assert ti4._path(M, K, N, 128, x_dtype) == path
         cases.append((x, leaf["q4"], leaf["gscale"]))
     before = ti4.int4_matmul.launches_by_path[path]
     first = [ti4.int4_matmul(*c) for c in cases]
@@ -342,25 +430,25 @@ def test_int4_split_k_leaves_scratch_reusable(dev, path, x_dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
-    if path == "gemv":   # the tensor-core path reduces within a cluster
+    if path == "gemv":   # the tensor-core paths reduce within a cluster
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _, counters = ti4._scratch[(x.device, stream)]
         assert not counters.any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path,x_dtype", SPLIT_K_PATHS)
-def test_int4_split_k_streams_keep_their_own_scratch(dev, path, x_dtype):
+@pytest.mark.parametrize("path,x_dtype,M", SPLIT_K_PATHS)
+def test_int4_split_k_streams_keep_their_own_scratch(dev, path, x_dtype, M):
     """Split-K launches queued on two streams at once agree with launches
     on one stream (on the GEMV path each stream has its own workspace and
-    counters; the tensor-core path keeps no state between launches)."""
+    counters; the tensor-core paths keep no state between launches)."""
     from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
     g = torch.Generator().manual_seed(4)
     K, N = 4096, 11008
-    assert ti4._path(8, K, N, 128, x_dtype) == path
+    assert ti4._path(M, K, N, 128, x_dtype) == path
     leaf = quant.quantize_tensor_grouped(
         (torch.randn(K, N, generator=g) * 0.05).to(dev), 128)
-    xs = [torch.randn(8, K, generator=g).to(x_dtype).to(dev)
+    xs = [torch.randn(M, K, generator=g).to(x_dtype).to(dev)
           for _ in range(2)]
     want = [ti4.int4_matmul(x, leaf["q4"], leaf["gscale"]) for x in xs]
     torch.cuda.synchronize()
@@ -374,7 +462,7 @@ def test_int4_split_k_streams_keep_their_own_scratch(dev, path, x_dtype):
     for w, outs in zip(want, got):
         for o in outs:
             assert torch.equal(o, w)
-    if path == "gemv":   # the tensor-core path needs no scratch
+    if path == "gemv":   # the tensor-core paths need no scratch
         pairs = [ti4._scratch[(xs[0].device, s.cuda_stream)]
                  for s in streams]
         assert pairs[0][0].data_ptr() != pairs[1][0].data_ptr()

@@ -331,3 +331,24 @@ assert not bad, bad
     res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("quant", [[], ["--quantization", "int4_awq",
+                                        "--kv-quant", "int8"]],
+                         ids=["bf16", "int4_awq-int8kv"])
+def test_profile_prefill_mode_on_cpu(quant, capsys):
+    """``tools/profile_decode --prefill`` drives one full-bucket prefill
+    per measurement and reports it (on the CPU: no device time, no kernel
+    launch); a bucket the engine does not have is refused."""
+    from generativeaiexamples_tpu_torch.tools import profile_decode
+    assert profile_decode.main(["--model", "llama-tiny", "--device", "cpu",
+                                "--prefill", "128", "--rounds", "1",
+                                *quant]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["prefill_bucket"] == 128 and out["card"] == "cpu"
+    assert out["prefill_ms"] > 0 and out["device_ms"] == 0
+    assert out["int4_launches_by_path"] == {"tc": 0, "gemv": 0, "tile": 0,
+                                            "wg": 0}
+    with pytest.raises(SystemExit, match="not a prefill bucket"):
+        profile_decode.main(["--model", "llama-tiny", "--device", "cpu",
+                             "--prefill", "100"])

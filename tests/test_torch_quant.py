@@ -298,12 +298,19 @@ def test_int4_cpu_calls_do_not_count_and_bad_args_raise():
 
 
 def test_int4_cpu_calls_count_in_no_path():
-    w, x = _case(256, 64, 8)
+    """CPU calls of every shape that a card would send down each path
+    ("tc", "gemv", "wg", "tile") count in none of them."""
+    w, x = _case(256, 64, 16)
     t = tq.quantize_tensor_grouped(torch.from_numpy(w), 128)
     before = dict(tint4.int4_matmul.launches_by_path)
-    assert set(before) == {"tc", "gemv", "tile"}
-    for xt in (torch.from_numpy(x), torch.from_numpy(x).to(torch.bfloat16)):
-        tint4.int4_matmul(xt, t["q4"], t["gscale"])
+    assert set(before) == {"tc", "gemv", "tile", "wg"}
+    seen = set()
+    for M in (8, 16):
+        for xt in (torch.from_numpy(x[:M]),
+                   torch.from_numpy(x[:M]).to(torch.bfloat16)):
+            seen.add(tint4._path(M, 256, 64, 128, xt.dtype))
+            tint4.int4_matmul(xt, t["q4"], t["gscale"])
+    assert seen == set(before)
     assert tint4.int4_matmul.launches_by_path == before
 
 
@@ -317,11 +324,23 @@ def test_int4_cpu_calls_count_in_no_path():
     # Decode with float32 x: the fp32 GEMV, whatever the scales.
     (1, 4096, 11008, 128, torch.float32, "gemv"),
     (8, 4096, 11008, 4096, torch.float32, "gemv"),
-    # Prefill (M > 8): the tiled path, for either dtype and scale kind.
-    (9, 4096, 11008, 128, torch.bfloat16, "tile"),
+    # Prefill (M > 8) with bf16 x: warpgroup tensor cores, per channel or
+    # grouped, from the smallest M to the engine's largest default bucket.
+    (9, 4096, 11008, 128, torch.bfloat16, "wg"),
+    (9, 4096, 4096, 4096, torch.bfloat16, "wg"),
+    (128, 4096, 4096, 128, torch.bfloat16, "wg"),
+    (1024, 4096, 11008, 128, torch.bfloat16, "wg"),
+    (1024, 11008, 4096, 11008, torch.bfloat16, "wg"),
+    (3072, 11008, 4096, 128, torch.bfloat16, "wg"),
+    # Prefill with float32 x: the tiled path keeps full fp32.
     (9, 4096, 4096, 4096, torch.float32, "tile"),
-    (1024, 4096, 11008, 128, torch.bfloat16, "tile"),
     (1024, 11008, 4096, 11008, torch.float32, "tile"),
+    (3072, 4096, 11008, 128, torch.float32, "tile"),
+    # bf16 prefill shapes the tensor-core gate refuses: the tiled path.
+    (128, 250, 96, 250, torch.bfloat16, "tile"),   # K % 16 != 0
+    (128, 4096, 4100, 128, torch.bfloat16, "tile"),  # N % 16 != 0
+    (128, 4096, 4096, 64, torch.bfloat16, "tile"),   # group % 128 != 0
+    (9, 352, 128, 32, torch.bfloat16, "tile"),     # group % 128 != 0
     # Shapes the tensor-core gate refuses go where they are taken.
     (8, 250, 96, 250, torch.bfloat16, "gemv"),    # K % 16 != 0
     (8, 384, 96, 8, torch.bfloat16, "gemv"),      # group % 16 != 0
