@@ -13,8 +13,12 @@ Phases (each fails loudly: a failure exits non-zero and the final
 2. Each kernel against its plain PyTorch version at the shapes the
    llama-2-7b paths give it, plus its time beside its plain version, its
    bound and a one-call PyTorch yardstick where one exists:
-   #1 paged decode attention (bf16/f32 pools) and #2 its int8-pool path,
-   in float32 (atol 1e-4) and bfloat16 (atol 1e-3, rtol 1e-2); #3 the
+   #1 paged decode attention (bf16/f32 pools) and #2 its int8-pool path
+   (each call a split pass and a merge pass), in float32 (atol 1e-4) and
+   bfloat16 (atol 1e-3, rtol 1e-2), timed L2-cold (the calls cycle the
+   layer over a pool deep enough that > 100 MB of live rows pass between
+   two reads of one row) at the check's lengths and at 8 slots of 2048
+   rows, and L2-warm (one pool) as earlier runs timed it; #3 the
    packed-int4 matmul at every projection shape, M = 1, 3, 8, 9, 128,
    200 and 1024 (each call checked to take the path ``_path`` names:
    for bf16 x the tensor-core paths, ``tc`` at M <= 8 and ``wg`` above;
@@ -118,8 +122,9 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False):
     The appended rows must be bit copies of cur_k/cur_v (#2: equal
     ``quantize_rows(cur)``, rows and scales), and no other pool or scale
     byte may change apart from the trash page 0. Returns the kernel's row
-    of the result line for bfloat16 (timed against its plain version and
-    bound), None for float32."""
+    of the result line for bfloat16 (timed L2-cold by ``time_attention``
+    against its plain version and bound; also timed L2-warm, and L2-cold
+    at 8 slots of 2048 rows), None for float32."""
     from generativeaiexamples_tpu_torch.ops.kv_quant import quantize_rows
     from generativeaiexamples_tpu_torch.ops.paged_attention import (
         paged_attention_decode, paged_attention_decode_plain,
@@ -236,28 +241,22 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False):
             f"appends bit-exact, no row past a length read")
         return None
 
-    ms = time_cuda(torch, lambda: kernel(new), iters=50)
+    warm_ms = time_cuda(torch, lambda: kernel(new), iters=50)
     plain_ms = time_cuda(torch, lambda: plain(ref_pools), iters=5, warmup=1)
-    e = 2
-    live_rows = sum(lengths)
-    if quant:
-        nbytes = (2 * live_rows * KV * hd          # int8 K and V rows
-                  + 2 * live_rows * KV * 2         # their bf16 scales
-                  + 2 * B * KV * hd * e            # cur_k/cur_v in
-                  + 2 * B * KV * (hd + 2))         # appended rows, scales
-    else:
-        nbytes = (2 * live_rows * KV * hd * e      # K and V rows read once
-                  + 4 * B * KV * hd * e)           # cur_k/v in, append out
-    nbytes += (2 * B * H * hd * e                  # q in, out
-               + B * W * 4 + 3 * B * 4)            # table, lengths, wp, off
-    flops = 2 * 2 * (live_rows + B) * H * hd       # QK^T and PV
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_FLOPS * 1e3
-    say(f"kernel {name}: max_abs_err={err} ms={ms} plain_ms={plain_ms} "
-        f"bound_ms={max(bytes_ms, flops_ms)} ({nbytes} bytes, {flops} "
-        f"flops) library_ms=null (no single PyTorch call computes paged "
-        f"attention{' over int8 pages' if quant else ''} with the in-place "
-        f"append)")
+    del new, ref_pools, pools
+    torch.cuda.empty_cache()
+    ms, bound, by, layers = time_attention(torch, dev, dtype, quant, lengths)
+    say(f"kernel {name}: max_abs_err={err} ms={ms} (L2-cold: {layers} "
+        f"pool layers cycled) warm_l2_ms={warm_ms} (one pool, every call "
+        f"on the same rows) plain_ms={plain_ms} bound_ms={bound} ({by}; "
+        f"{bound / ms:.1%} of it) library_ms=null (no single PyTorch call "
+        f"computes paged attention{' over int8 pages' if quant else ''} "
+        f"with the in-place append)")
+    uni_ms, uni_bound, uni_by, uni_layers = time_attention(
+        torch, dev, dtype, quant, [2048] * B)
+    say(f"kernel {name} uniform {B} x 2048 rows: ms={uni_ms} (L2-cold: "
+        f"{uni_layers} pool layers cycled) bound_ms={uni_bound} ({uni_by}; "
+        f"{uni_bound / uni_ms:.1%} of it)")
     return {
         "name": name,
         "route": "cuda",
@@ -268,10 +267,87 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False):
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, flops_ms),
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "bound_ms": bound,
+        "bound_by": by,
         "library_ms": None,
     }
+
+
+def attention_bound(B, H, KV, hd, W, lengths, quant, e=2):
+    """Least time of one paged attention call at these shapes on the card
+    (ms), what bounds it, and the live K/V bytes it reads: each live row
+    (and, under int8 pools, its two scales) read once, q, cur_k/cur_v,
+    the table and the slot vectors read once, out and the appended rows
+    written once; QK^T and PV over the live rows plus the current one."""
+    live_rows = sum(lengths)
+    if quant:
+        kv_bytes = (2 * live_rows * KV * hd        # int8 K and V rows
+                    + 2 * live_rows * KV * 2)      # their bf16 scales
+        nbytes = (kv_bytes
+                  + 2 * B * KV * hd * e            # cur_k/cur_v in
+                  + 2 * B * KV * (hd + 2))         # appended rows, scales
+    else:
+        kv_bytes = 2 * live_rows * KV * hd * e     # K and V rows read once
+        nbytes = kv_bytes + 4 * B * KV * hd * e    # cur_k/v in, append out
+    nbytes += (2 * B * H * hd * e                  # q in, out
+               + B * W * 4 + 3 * B * 4)            # table, lengths, wp, off
+    flops = 2 * 2 * (live_rows + B) * H * hd       # QK^T and PV
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOPS * 1e3
+    if bytes_ms >= flops_ms:
+        return bytes_ms, "bytes", kv_bytes
+    return flops_ms, "operations", kv_bytes
+
+
+def time_attention(torch, dev, dtype, quant, lengths):
+    """L2-cold device time of one paged attention call (bf16 or float32
+    q; bf16/f32 pools, or int8 pools under ``quant``) at llama-2-7b decode
+    shapes (H = KV = 32, hd = page = 128) over ``lengths``: the timed
+    calls cycle the ``layer`` argument over a pool with enough layers that
+    more than 100 MB of live rows are read between two reads of one row
+    (the L2 cache holds 50 MB). Returns (ms, bound ms, what bounds it,
+    layers cycled)."""
+    from generativeaiexamples_tpu_torch.ops.kv_quant import quantize_rows
+    from generativeaiexamples_tpu_torch.ops.paged_attention import \
+        paged_attention_decode
+
+    B, H, KV, hd, page = len(lengths), 32, 32, 128, 128
+    W = max(-(-(n + 1) // page) for n in lengths)
+    N = 1 + B * W
+    e = torch.empty((), dtype=dtype).element_size()
+    bound, by, kv_bytes = attention_bound(B, H, KV, hd, W, lengths, quant, e)
+    layers = 2 + int(100e6 // kv_bytes)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32)
+
+    q = randn(B, H, hd).to(dtype)
+    ck, cv = randn(B, KV, hd).to(dtype), randn(B, KV, hd).to(dtype)
+    scales = {}
+    if quant:
+        (pk, ks), (pv, vs) = (quantize_rows(randn(layers, N, KV, page, hd))
+                              for _ in range(2))
+        scales = {"pool_ks": ks, "pool_vs": vs}
+    else:
+        pk = randn(layers, N, KV, page, hd).to(dtype)
+        pv = randn(layers, N, KV, page, hd).to(dtype)
+    table = (1 + torch.arange(B * W, device=dev, dtype=torch.int32)
+             ).reshape(B, W)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    live = lens > 0
+    wp = torch.where(live, table.gather(1, (lens // page)[:, None].long())
+                     [:, 0], torch.zeros_like(lens)).to(torch.int32)
+    off = torch.where(live, lens % page, torch.zeros_like(lens)).to(
+        torch.int32)
+    calls = [(lambda layer=layer: paged_attention_decode(
+        q, pk, pv, table, lens, ck, cv, wp, off, layer, **scales))
+        for layer in range(layers)]
+    ms = time_cuda(torch, calls, iters=20 * layers, warmup=layers)
+    del pk, pv, scales, calls
+    torch.cuda.empty_cache()
+    return ms, bound, by, layers
 
 
 def int4_library_ms(torch, dev, M, K, N, group, iters):

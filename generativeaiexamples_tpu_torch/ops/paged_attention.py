@@ -5,9 +5,12 @@ its plain PyTorch versions.
 (``generativeaiexamples_tpu/ops/paged_attention.py``
 ``paged_attention_decode`` and, when the scale pools are given,
 ``_paged_attention_decode_quant``). On a CUDA tensor it launches the
-hand-written kernel in ``csrc/paged_attention.cu`` (built at first use by
-``kernels/build.py``) or raises; it takes a plain version only for CPU
-tensors. ``paged_attention_decode_plain`` mirrors the reference's
+hand-written kernels in ``csrc/paged_attention.cu`` (built at first use
+by ``kernels/build.py``) or raises: a split pass over S splits of R rows
+of each slot (``split_plan``, from static shapes) into an fp32 scratch,
+then a merge pass that folds the current token in and appends it. It
+takes a plain version only for CPU tensors.
+``paged_attention_decode_plain`` mirrors the reference's
 ``paged_attention_decode_reference`` plus the append;
 ``paged_attention_decode_quant_plain`` runs the same attention over
 windows dequantized by ``kv_quant.dequantize_rows`` (the reference's
@@ -32,12 +35,19 @@ NEG = -1e30
 
 # Kernel gate on Hopper (the TPU gate of 128-aligned head_dim/page is a
 # Mosaic tiling rule and does not apply): G query heads per kv head live
-# in registers (G <= 8), each lane holds up to 8 head-dim elements
-# (hd <= 256), GQA needs H % KV == 0. The int8-pool path has the same
-# gate.
+# in registers (G <= 8), a row spreads over at most 32 lanes of up to 8
+# elements (16 for int8 rows at G = 1), so hd <= 256; GQA needs
+# H % KV == 0. Any page >= 1 and any hd in range: a row that is not a
+# multiple of 16 bytes takes narrower loads. The int8-pool path has the
+# same gate.
 MAX_GROUP = 8
 MAX_HEAD_DIM = 256
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+# Split plan: a split is at least MIN_SPLIT_ROWS rows (whole pages), and
+# the split pass's grid holds at most about MAX_SPLIT_BLOCKS blocks.
+MIN_SPLIT_ROWS = 256
+MAX_SPLIT_BLOCKS = 16384
 
 _fns: dict[str, object] = {}
 
@@ -49,6 +59,21 @@ def kernel_supported(page: int, num_heads: int, num_kv_heads: int,
             and num_heads % num_kv_heads == 0
             and 1 <= num_heads // num_kv_heads <= MAX_GROUP
             and 1 <= head_dim <= MAX_HEAD_DIM)
+
+
+def split_plan(width: int, page: int, batch: int,
+               kv_heads: int) -> tuple[int, int]:
+    """(R, S): rows per split and split count of the kernel's split pass,
+    from static shapes only (the block table's width in pages, the page
+    size, slots, kv heads), never from ``lengths``, so a launch needs no
+    host read. R is a multiple of ``page`` and at least MIN_SPLIT_ROWS;
+    it grows past that only to keep S * batch * kv_heads near
+    MAX_SPLIT_BLOCKS. S = ceil(width * page / R) >= 1, so the S splits
+    cover every row the table can address."""
+    max_splits = max(1, MAX_SPLIT_BLOCKS // max(1, batch * kv_heads))
+    pages = max(-(-MIN_SPLIT_ROWS // page), -(-width // max_splits), 1)
+    rows = pages * page
+    return rows, max(1, -(-width * page // rows))
 
 
 def _check_args(q, pool_k, pool_v, block_table, lengths, cur_k, cur_v,
@@ -150,8 +175,8 @@ def _kernel(quant: bool):
         fn = getattr(build.load("paged_attention"), name)
         n_pools = 4 if quant else 2
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (1 + n_pools + 1)
-                       + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 7 + [ctypes.c_float,
+                       + [ctypes.c_longlong] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -189,7 +214,8 @@ def paged_attention_decode(q: torch.Tensor, pool_k: torch.Tensor,
                                         writes the new row's scale
     Returns the attention output (B, H, hd) in q's dtype, scaled by
     1/sqrt(hd). CPU tensors take a plain version; CUDA tensors launch
-    the kernel (or raise). The int8 path counts its launches in
+    the kernels (or raise). One call counts one launch, whatever number
+    of CUDA kernels it starts: the int8 path in
     ``paged_attention_decode.int8_launches``, the other in ``.launches``."""
     _check_args(q, pool_k, pool_v, block_table, lengths, cur_k, cur_v,
                 write_page, write_offset, layer, pool_ks, pool_vs)
@@ -209,7 +235,14 @@ def paged_attention_decode(q: torch.Tensor, pool_k: torch.Tensor,
                        cur_v, write_page, write_offset, pool_ks, pool_vs)
     B, H, hd = q.shape
     _, N, KV, page, _ = pool_k.shape
+    G = H // KV
+    rows, splits = split_plan(block_table.shape[1], page, B, KV)
     out = torch.empty_like(q)
+    # Per call, from the current stream's caching allocator: another
+    # stream never gets it, and a later call on this stream reuses it only
+    # after this call's kernels in stream order.
+    scratch = torch.empty(B * splits * KV * G * (hd + 2),
+                          dtype=torch.float32, device=q.device)
     pools = [pool_k.data_ptr(), pool_v.data_ptr()]
     if quant:
         pools += [pool_ks.data_ptr(), pool_vs.data_ptr()]
@@ -220,7 +253,8 @@ def paged_attention_decode(q: torch.Tensor, pool_k: torch.Tensor,
             block_table.data_ptr(), block_table.stride(0),
             lengths.data_ptr(), cur_k.data_ptr(), cur_v.data_ptr(),
             write_page.data_ptr(), write_offset.data_ptr(), out.data_ptr(),
-            B, KV, H // KV, hd, N, page, int(layer), hd ** -0.5, stream)
+            scratch.data_ptr(), B, KV, G, hd, N, page, int(layer), rows,
+            splits, hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_decode kernel launch failed "
                            f"with CUDA error {err}")

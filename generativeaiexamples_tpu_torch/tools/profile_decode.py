@@ -55,9 +55,11 @@ def _kernel_times(prof) -> dict[str, tuple[float, int]]:
 
 
 # Device time of the port's own kernels, by kernel function name
-# (csrc/paged_attention.cu; csrc/int4_matmul.cu's paths "tc", "gemv",
-# "tile" and "wg").
-_OURS = {"paged_attention": ("paged_decode_kernel",),
+# (csrc/paged_attention.cu's split and merge passes; csrc/int4_matmul.cu's
+# paths "tc", "gemv", "tile" and "wg"). Every __global__ function of
+# csrc/ is named here.
+_OURS = {"paged_attention": ("paged_decode_split_kernel",
+                             "paged_decode_merge_kernel"),
          "int4_matmul": ("int4_mma_kernel", "int4_gemv_kernel",
                          "int4_matmul_kernel", "int4_wgmma_kernel")}
 _INT4_PATHS = {"tc": "int4_mma_kernel", "gemv": "int4_gemv_kernel",

@@ -224,6 +224,210 @@ def test_int8_kernel_matches_plain(dev, H, KV, hd, page, lengths, dtype):
     assert torch.equal(out_p, out)
 
 
+# ---------------------------------------------------------- split edges
+#
+# The kernel's split pass takes R = MIN_SPLIT_ROWS rows per split at these
+# shapes (``split_plan``); the merge pass folds the live splits in order.
+# Cases put lengths at R - 1, R, R + 1 and k * R (the last split full and
+# the appended row starting a fresh page), every slot at 0, one 3000-row
+# slot beside short ones, R > page (splits cross page boundaries), G = 8,
+# and rows that are not a multiple of 16 bytes (narrower loads). Same
+# tolerances, append and no-other-byte checks as above; under int8 pools
+# the appended rows and scales equal ``quantize_rows``.
+
+R = tpa.MIN_SPLIT_ROWS
+SPLIT_CASES = [
+    # (H, KV, hd, page, lengths, dtype)
+    (8, 8, 128, 128, [R - 1, R, R + 1, 2 * R, 3 * R], torch.float32),
+    (8, 8, 128, 16, [R - 1, R, R + 1, 2 * R, 0], torch.bfloat16),  # R > page
+    (4, 4, 64, 32, [0, 0, 0], torch.float32),                   # all at 0
+    (8, 8, 128, 128, [3000, 1, 5, 0], torch.bfloat16),          # one long
+    (32, 4, 128, 16, [R - 1, R, R + 1, 1000], torch.bfloat16),  # G = 8
+    (16, 2, 64, 8, [R - 1, R, R + 1], torch.float32),           # G = 8
+    (8, 8, 36, 16, [R + 1, 7, 300], torch.bfloat16),  # 72-byte rows
+    (8, 4, 33, 16, [R - 1, 64, 0], torch.float32),    # 132-byte rows
+    (8, 8, 40, 16, [R + 2, 2 * R - 1], torch.bfloat16),  # int8: 40 bytes
+]
+
+
+def _int8_pools(pk, pv):
+    from generativeaiexamples_tpu_torch.ops.kv_quant import quantize_rows
+    (kq, ks), (vq, vs) = quantize_rows(pk), quantize_rows(pv)
+    return [kq, vq, ks, vs]
+
+
+def _call(q, pools, table, lens, ck, cv, wp, off, layer):
+    scales = ({"pool_ks": pools[2], "pool_vs": pools[3]}
+              if len(pools) == 4 else {})
+    return tpa.paged_attention_decode(q, pools[0], pools[1], table, lens, ck,
+                                      cv, wp, off, layer, **scales)
+
+
+def _plain(q, pools, table, lens, ck, cv, wp, off, layer):
+    if len(pools) == 4:
+        return tpa.paged_attention_decode_quant_plain(
+            q, pools[0], pools[1], table, lens, ck, cv, wp, off, layer,
+            pool_ks=pools[2], pool_vs=pools[3])
+    return tpa.paged_attention_decode_plain(q, pools[0], pools[1], table,
+                                            lens, ck, cv, wp, off, layer)
+
+
+def _bits(t):
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _poison(pools, table, lengths, page, layer):
+    """Rows at or past each length and the trash page: NaN (int8 pools:
+    127 rows and NaN scales)."""
+    poisoned = [t.clone() for t in pools]
+    quant = len(pools) == 4
+    fills = (127, 127, float("nan"), float("nan")) if quant else (
+        float("nan"), float("nan"))
+    rows = torch.arange(table.shape[1] * page, device=table.device)
+    for b, n in enumerate(lengths):
+        dead = (rows >= n).reshape(-1, page)
+        for t, fill in zip(poisoned, fills):
+            view = t[layer, table[b].long()]
+            view[dead[:, None, :].expand(view.shape[:3])] = fill
+            t[layer, table[b].long()] = view
+            t[layer, 0] = fill
+    return poisoned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+@pytest.mark.parametrize("H,KV,hd,page,lengths,dtype", SPLIT_CASES)
+def test_split_edges_match_plain(dev, H, KV, hd, page, lengths, dtype,
+                                 quant):
+    q, pk, pv, table, lens, ck, cv, wp, off = _setup(
+        dev, H=H, KV=KV, hd=hd, page=page, lengths=lengths, dtype=dtype,
+        seed=len(lengths) + hd)
+    rows, splits = tpa.split_plan(table.shape[1], page, len(lengths), KV)
+    assert rows == R and splits * rows >= table.shape[1] * page
+    layer = 1
+    pools = _int8_pools(pk, pv) if quant else [pk, pv]
+    new = [t.clone() for t in pools]
+    ref_pools = [t.clone() for t in pools]
+    out = _call(q, new, table, lens, ck, cv, wp, off, layer)
+    ref = _plain(q, ref_pools, table, lens, ck, cv, wp, off, layer)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert torch.isfinite(out.float()).all()
+    atol, rtol = (1e-4, 0) if dtype == torch.float32 else (1e-3, 1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    live = (lens > 0).nonzero()[:, 0]
+    touched = torch.zeros(pk.shape[:4], dtype=torch.bool, device=dev)
+    touched[layer, 0] = True
+    touched[layer, wp[live].long(), :, off[live].long()] = True
+    idx = (layer, wp[live].long(), slice(None), off[live].long())
+    for got, want, old in zip(new, ref_pools, pools):
+        assert torch.equal(_bits(got[idx]), _bits(want[idx]))
+        keep = ~touched
+        if got.dim() == 5:
+            keep = keep[..., None].expand_as(got)
+        assert torch.equal(_bits(got[keep]), _bits(old[keep]))
+    # A slot of length 0 attends over nothing: its output is cur_v.
+    G = H // KV
+    for b in (lens == 0).nonzero()[:, 0].tolist():
+        assert torch.equal(out[b], cv[b].repeat_interleave(G, dim=0).to(
+            out.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_launches_are_bit_identical(dev, dtype, quant):
+    """The merge pass folds the splits in a fixed order: two launches on
+    the same inputs give identical outputs and identical pools."""
+    args = _setup(dev, H=32, KV=32, hd=128, page=128,
+                  lengths=[3000, 0, 127, 128, 129, 1000], dtype=dtype)
+    q, pk, pv, table, lens, ck, cv, wp, off = args
+    pools = _int8_pools(pk, pv) if quant else [pk, pv]
+    runs = []
+    for _ in range(2):
+        p = [t.clone() for t in pools]
+        runs.append((_call(q, p, table, lens, ck, cv, wp, off, 0), p))
+    torch.cuda.synchronize()
+    (out_a, pools_a), (out_b, pools_b) = runs
+    assert torch.equal(_bits(out_a), _bits(out_b))
+    for a, b in zip(pools_a, pools_b):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+@pytest.mark.parametrize("page", [16, 128])
+def test_poison_past_lengths_across_split_edges(dev, page, quant):
+    """NaN rows (int8: 127 rows, NaN scales) at and past each length, on
+    both sides of split boundaries and in the trash page, leave the
+    output bit-identical: masked rows are skipped, never weighted by 0."""
+    lengths = [127, 128, 129, 255, 256, 257, 0, 640]
+    args = _setup(dev, H=8, KV=8, hd=128, page=page, lengths=lengths,
+                  dtype=torch.bfloat16)
+    q, pk, pv, table, lens, ck, cv, wp, off = args
+    pools = _int8_pools(pk, pv) if quant else [pk, pv]
+    out = _call(q, [t.clone() for t in pools], table, lens, ck, cv, wp, off,
+                1)
+    out_p = _call(q, _poison(pools, table, lengths, page, 1), table, lens,
+                  ck, cv, wp, off, 1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(_bits(out_p), _bits(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+def test_misaligned_pool_base_takes_narrower_loads(dev, quant):
+    """A pool that starts one element past a 16-byte boundary cannot take
+    16-byte loads; the kernel narrows its loads (one element) and still
+    agrees with the plain version at the bf16 tolerance."""
+    args = _setup(dev, H=8, KV=8, hd=128, page=16, lengths=[300, 5, 129],
+                  dtype=torch.bfloat16)
+    q, pk, pv, table, lens, ck, cv, wp, off = args
+    pools = _int8_pools(pk, pv) if quant else [pk, pv]
+    shifted = []
+    for t in pools[:2]:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        shifted.append(view)
+    shifted += [t.clone() for t in pools[2:]]
+    want = _plain(q, [t.clone() for t in pools], table, lens, ck, cv, wp,
+                  off, 0)
+    got = _call(q, shifted, table, lens, ck, cv, wp, off, 0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_two_streams_keep_their_own_scratch(dev):
+    """Calls queued on two streams at once agree with calls on one: the
+    wrapper takes each call's scratch from the current stream's
+    allocator, so no two queued calls share one."""
+    cases = [_setup(dev, H=32, KV=32, hd=128, page=128,
+                    lengths=[2000, 129, 0, 700], dtype=torch.bfloat16,
+                    seed=s) for s in (11, 12)]
+    want = [_call(c[0], [c[1].clone(), c[2].clone()], *c[3:], 0)
+            for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    got = [[] for _ in cases]
+    for _ in range(10):
+        for c, s, outs in zip(cases, streams, got):
+            with torch.cuda.stream(s):
+                outs.append(_call(c[0], [c[1].clone(), c[2].clone()], *c[3:],
+                                  0))
+    torch.cuda.synchronize()
+    for w, outs in zip(want, got):
+        for o in outs:
+            assert torch.equal(_bits(o), _bits(w))
+
+
 # ---------------------------------------------------------- int4 matmul
 #
 # The int4 kernel against its plain version (float32 sums on both sides

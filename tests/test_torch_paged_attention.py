@@ -334,3 +334,174 @@ def test_quant_wrapper_rejects_bad_arguments():
         tpa.paged_attention_decode(
             *base, pool_ks=scales["pool_ks"],
             pool_vs=scales["pool_vs"][..., :-1])
+
+
+# ---------------------------------------------------------- split plan
+#
+# The CUDA kernel splits each slot's rows into S splits of R rows (split
+# pass), then merges the live splits in order and folds the current token
+# in (merge pass). Its plan is a pure function of static shapes, and its
+# algebra is emulated here in numpy and held against the JAX oracle
+# (atol 1e-5: float32 on both sides, sums in another order).
+
+@pytest.mark.parametrize("width,page,batch,kv", [
+    (24, 128, 8, 32), (17, 128, 8, 32), (9, 128, 8, 32), (0, 16, 1, 1),
+    (1, 1, 1, 1), (3, 16, 6, 4), (33, 16, 5, 4), (5, 100, 2, 2),
+    (4096, 16, 64, 32), (1000, 8, 1, 8), (7, 128, 200, 128)])
+def test_split_plan_covers_the_table_from_static_shapes(width, page, batch,
+                                                        kv):
+    rows, splits = tpa.split_plan(width, page, batch, kv)
+    assert rows % page == 0 and rows >= tpa.MIN_SPLIT_ROWS
+    assert splits >= 1 and splits * rows >= width * page
+    # No split starts past the rows the table can address.
+    assert (splits - 1) * rows < max(width * page, 1)
+    # The split pass's grid stays bounded.
+    assert splits * batch * kv <= max(tpa.MAX_SPLIT_BLOCKS, batch * kv)
+
+
+def test_split_plan_takes_static_shapes_only():
+    import inspect
+    assert list(inspect.signature(tpa.split_plan).parameters) == [
+        "width", "page", "batch", "kv_heads"]
+    # llama-2-7b decode at page 128: the card check's table (24 pages)
+    # and an engine table of 17 pages.
+    assert tpa.split_plan(24, 128, 8, 32) == (256, 12)
+    assert tpa.split_plan(17, 128, 8, 32) == (256, 9)
+
+
+def _windows(pool, table):
+    """(L-layer pool)[LAYER] rows in each slot's logical order: (B, W *
+    page, KV, ...) from (N, KV, page, ...) pages."""
+    g = pool[LAYER][table]                         # (B, W, KV, page, ...)
+    g = np.swapaxes(g, 2, 3)                       # (B, W, page, KV, ...)
+    return g.reshape((g.shape[0], -1) + g.shape[3:])
+
+
+def _two_pass(q, kwin, vwin, lens, ck, cv, rows, splits, kscale=None,
+              vscale=None):
+    """The kernel's algebra in float32: a state (m, l, acc) per live split
+    of ``rows`` rows (a split at or past a slot's length is never read),
+    row scales folded into the scores (K) and the probabilities (V),
+    states merged in split order with an online max, then the current
+    token folded in as the TPU kernel's epilogue does."""
+    f = np.float32
+    B, H, d = q.shape
+    KV = kwin.shape[2]
+    G = H // KV
+    scale = f(d ** -0.5)
+    out = np.empty((B, H, d), f)
+    for b in range(B):
+        for h in range(KV):
+            qg = q[b, h * G:(h + 1) * G]
+            mm, ll = np.full(G, tpa.NEG, f), np.zeros(G, f)
+            aa = np.zeros((G, d), f)
+            for s in range(splits):
+                r0, r1 = s * rows, min((s + 1) * rows, int(lens[b]))
+                if r0 >= r1:
+                    continue
+                sc = qg @ kwin[b, r0:r1, h].T
+                if kscale is not None:
+                    sc = sc * kscale[b, r0:r1, h]
+                sc = sc * scale
+                m = sc.max(-1)
+                p = np.exp(sc - m[:, None])
+                l_ = p.sum(-1)
+                if vscale is not None:
+                    p = p * vscale[b, r0:r1, h]
+                acc = p @ vwin[b, r0:r1, h]
+                mn = np.maximum(mm, m)
+                ea, eb = np.exp(mm - mn), np.exp(m - mn)
+                ll = ll * ea + l_ * eb
+                aa = aa * ea[:, None] + acc * eb[:, None]
+                mm = mn
+            s_cur = (qg @ ck[b, h]) * scale
+            m2 = np.maximum(mm, s_cur)
+            a, bta = np.exp(mm - m2), np.exp(s_cur - m2)
+            out[b, h * G:(h + 1) * G] = ((aa * a[:, None]
+                                          + cv[b, h] * bta[:, None])
+                                         / (ll * a + bta)[:, None])
+    return out
+
+
+SPLIT_CASES = {
+    # (MIN_SPLIT_ROWS, H, lengths). 256-row splits (the default) over
+    # 16-row pages: lengths at R - 1, R, R + 1 and 2R, and a slot at 0.
+    "r256_edges": (256, 8, [255, 256, 257, 0, 512]),
+    # 32-row splits: several splits per slot, empty splits for the short
+    # slots, G = 4.
+    "r32_many_splits": (32, 16, [31, 32, 33, 0, 64, 5]),
+    # Every slot at 0: no live split anywhere.
+    "all_empty": (32, 8, [0, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float32", "int8"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_two_pass_algebra_matches_reference(case, quant, monkeypatch):
+    min_rows, H, lengths = SPLIT_CASES[case]
+    monkeypatch.setattr(tpa, "MIN_SPLIT_ROWS", min_rows)
+    if quant:
+        from generativeaiexamples_tpu.ops.kv_quant import dequantize_rows
+        q, (kq, vq), (ks, vs), table, lens, ck, cv, wp, off = _setup_quant(
+            H, lengths)
+        kf = [np.asarray(dequantize_rows(
+            jnp.asarray(p[LAYER]), jnp.asarray(s[LAYER].view(jnp.bfloat16)),
+            jnp.float32)) for p, s in ((kq, ks), (vq, vs))]
+        ref_k, ref_v = kf
+        kwin, vwin = (_windows(p.astype(np.float32), table)
+                      for p in (kq, vq))
+        kscale, vscale = (_windows(np.asarray(jnp.asarray(
+            s.view(jnp.bfloat16)).astype(jnp.float32)), table)
+            for s in (ks, vs))
+    else:
+        q, pk, pv, table, lens, ck, cv, wp, off = _setup(H, lengths)
+        ref_k, ref_v = pk[LAYER], pv[LAYER]
+        kwin, vwin = _windows(pk, table), _windows(pv, table)
+        kscale = vscale = None
+    rows, splits = tpa.split_plan(table.shape[1], page, len(lengths), KV)
+    assert rows == max(min_rows, page)
+    got = _two_pass(q, kwin, vwin, lens, ck, cv, rows, splits, kscale,
+                    vscale)
+    ref = jpa.paged_attention_decode_reference(
+        jnp.asarray(q), jnp.asarray(ref_k), jnp.asarray(ref_v),
+        jnp.asarray(table), jnp.asarray(lens), jnp.asarray(ck),
+        jnp.asarray(cv))
+    np.testing.assert_allclose(got, np.asarray(ref), atol=1e-5, rtol=0)
+    # No live split: the output is exactly cur_v.
+    G = H // KV
+    for b in np.flatnonzero(lens == 0):
+        np.testing.assert_array_equal(got[b], np.repeat(cv[b], G, axis=0))
+
+
+def _global_functions(source: str) -> list[str]:
+    """Names of the __global__ functions of a CUDA source, past any
+    __launch_bounds__(...) (whose argument may hold parentheses)."""
+    import re
+    names = []
+    for m in re.finditer(r"__global__\s+void\s+", source):
+        i = m.end()
+        if source.startswith("__launch_bounds__", i):
+            i = source.index("(", i)
+            depth = 0
+            while True:
+                depth += {"(": 1, ")": -1}.get(source[i], 0)
+                i += 1
+                if depth == 0:
+                    break
+        names.append(re.match(r"\s*(\w+)\s*\(", source[i:]).group(1))
+    return names
+
+
+def test_profile_attributes_every_kernel_of_csrc():
+    """``tools/profile_decode.py`` attributes device time by kernel name:
+    every __global__ function of ``csrc/*.cu`` is named in ``_OURS``, the
+    attention kernel's split and merge passes under paged_attention."""
+    from generativeaiexamples_tpu_torch.kernels import build
+    from generativeaiexamples_tpu_torch.tools.profile_decode import _OURS
+    named = {sym for syms in _OURS.values() for sym in syms}
+    found = [n for path in sorted(build.CSRC.glob("*.cu"))
+             for n in _global_functions(path.read_text())]
+    assert len(found) == 6
+    assert set(found) <= named
+    assert set(_OURS["paged_attention"]) == {"paged_decode_split_kernel",
+                                             "paged_decode_merge_kernel"}
