@@ -31,16 +31,24 @@ Phases (each fails loudly: a failure exits non-zero and the final
    every layer) against argmax of a full-sequence forward. Quantized
    path (int4_awq weights, int8 KV pool): greedy tokens through the
    engine on the card (#2 and #3 on every call) against the same engine
-   on the CPU with the same parameters (the plain versions).
+   on the CPU with the same parameters (the plain versions). On the card
+   each engine replays the decode rounds and admissions it captured as
+   CUDA graphs at construction; an eager engine (``cuda_graphs=False``)
+   must give the same tokens.
 4. The main paths: serves llama-2-7b-chat (full width and depth, random
    weights from seed 0) through the port's aiohttp ``/v1/completions``
    (4 concurrent requests, one streamed) plus one ``ignore_eos`` engine
    request, once in bf16 and once with int4_awq weights over an int8 KV
    pool, and checks through the launch counts (set to 0 just before each
-   path, read just after) that every layer of every decode step, and
-   every projection, went through the path's kernels (#3 by path: every
+   path, read just after; a replayed program adds the counts its capture
+   recorded) that every layer of every decode step, and every
+   projection, went through the path's kernels (#3 by path: every
    decode projection and every prefill's lm_head row on ``tc``, the
-   prefill projections on ``wg``, none on ``tile`` or ``gemv``).
+   prefill projections on ``wg``, none on ``tile`` or ``gemv``). Then
+   the same prompts through the served engine and an eager engine on the
+   same weights must give equal greedy tokens, and the served engine's
+   decode round (host-clock step, device time, busy share) and
+   bucket-128 admission are measured as ``tools/profile_decode.py`` does.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -591,8 +599,10 @@ def check_model(torch, dev) -> None:
     """The port's engine against a plain greedy reference on a small
     input: llama-2-7b's full width cut to 2 layers, float32 weights from
     seed 0 (TF32 off), three concurrent greedy requests through the engine
-    (the paged kernel in every layer) against argmax of a full-sequence
-    ``llama.apply`` recomputed per token (no cache, no kernel)."""
+    (its captured programs; the paged kernel in every layer) and through
+    an eager engine (``cuda_graphs=False``), both against argmax of a
+    full-sequence ``llama.apply`` recomputed per token (no cache, no
+    kernel)."""
     from dataclasses import replace
 
     from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
@@ -604,22 +614,28 @@ def check_model(torch, dev) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = replace(LLAMA2_7B, num_layers=2)
     params = llama.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
-    engine = Engine(params, cfg, ByteTokenizer(), EngineConfig(
-        max_slots=4, max_input_length=512, max_output_length=16,
-        prefill_buckets=(128, 512), dtype="float32", kv_pool_tokens=None),
-        device=dev)
     n_new = 8
     prompts = [[1] + [3 + (7 * i + j) % 256 for i in range(n)]
                for j, n in ((0, 40), (1, 125), (2, 300))]
     t0 = time.monotonic()
-    with engine:
-        streams = [engine.submit(p, SamplingParams(max_tokens=n_new, top_k=1,
-                                                   ignore_eos=True))
-                   for p in prompts]
-        got = []
-        for s in streams:
-            s.text()
-            got.append(s.token_ids)
+    runs = {}
+    for graphs_on in (True, False):
+        engine = Engine(params, cfg, ByteTokenizer(), EngineConfig(
+            max_slots=4, max_input_length=512, max_output_length=16,
+            prefill_buckets=(128, 512), dtype="float32", kv_pool_tokens=None,
+            cuda_graphs=graphs_on), device=dev)
+        # Submitted before the serve thread starts: one schedule for both.
+        streams = [engine.submit(p, SamplingParams(
+            max_tokens=n_new, top_k=1, ignore_eos=True)) for p in prompts]
+        with engine:
+            for s in streams:
+                s.text()
+        runs[graphs_on] = [s.token_ids for s in streams]
+        del engine
+    got = runs[True]
+    if runs[False] != got:
+        fail(f"float32 engine: captured programs gave greedy tokens {got}, "
+             f"the eager engine {runs[False]}")
     with torch.no_grad():
         for p, toks in zip(prompts, got):
             ids = list(p)
@@ -635,67 +651,121 @@ def check_model(torch, dev) -> None:
                 fail(f"engine greedy tokens {toks} differ from the plain "
                      f"reference {ids[len(p):]} (prompt of {len(p)})")
     say(f"model check: 2-layer llama-2-7b width, float32: engine greedy "
-        f"tokens equal the plain full-forward reference for prompts of "
+        f"tokens (captured programs, and the eager engine alike) equal the "
+        f"plain full-forward reference for prompts of "
         f"{[len(p) for p in prompts]} tokens ({time.monotonic() - t0:.1f} s)")
-    del engine, params
+    del params
     torch.cuda.empty_cache()
 
 
-def check_model_quant(torch, dev) -> None:
-    """The quantized path's engine on the card against the same engine on
-    the CPU: llama-2-7b's full width cut to 2 layers, float32 weights from
-    seed 0 quantized on the card to int4_awq (group 128), an int8 KV pool,
-    TF32 off. The card engine runs kernels #2 and #3 on every call; the
-    CPU engine runs their plain versions on the same parameters, moved
-    there, so the reference is independent of both kernels. Greedy tokens
+def greedy_tokens(engine, prompts, n_new: int):
+    """``n_new`` greedy tokens (``ignore_eos``) for each prompt, all
+    submitted before the serve thread starts (one schedule on any
+    engine)."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    streams = [engine.submit(p, SamplingParams(
+        max_tokens=n_new, top_k=1, ignore_eos=True)) for p in prompts]
+    with engine:
+        for s in streams:
+            s.text()
+    return [s.token_ids for s in streams]
+
+
+class QuantReference:
+    """The quantized model check's model and its CPU reference: llama-2-7b's
+    full width cut to 1 layer, float32 weights from seed 0 quantized on the
+    card to int4_awq (group 128), an int8 KV pool, TF32 off; greedy tokens
     for prompts of 40, 125 and 300 tokens (plus bos), 8 new tokens each,
-    must be equal. The card engine's float32 activations take #3's fp32
-    GEMV at decode (and for each prefill's lm_head row) and the tiled path
-    for the prefill projections, never a tensor-core path ("tc", "wg")."""
+    from the engine on the CPU with the same parameters, moved there (the
+    kernels' plain versions, so the reference is independent of both
+    kernels). The CPU run takes far longer than the card's, so it starts
+    in a thread at once and overlaps the kernel build and the kernel
+    phases; ``cpu_tokens`` joins it."""
+
+    N_NEW = 8
+
+    def __init__(self, torch, dev):
+        import threading
+        from dataclasses import replace
+
+        from generativeaiexamples_tpu_torch.engine import Engine, EngineConfig
+        from generativeaiexamples_tpu_torch.models import llama
+        from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+        from generativeaiexamples_tpu_torch.models.tokenizer import \
+            ByteTokenizer
+        from generativeaiexamples_tpu_torch.ops.quant import quantize_params
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.cfg = replace(LLAMA2_7B, num_layers=1)
+        self.params = quantize_params(
+            llama.init_params(self.cfg, seed=0, dtype=torch.float32,
+                              device=dev), "int4_awq", group_size=128)
+        self.ecfg = EngineConfig(
+            max_slots=4, max_input_length=512, max_output_length=16,
+            prefill_buckets=(128, 512), dtype="float32", kv_pool_tokens=None,
+            kv_quant="int8")
+        self.prompts = [[1] + [3 + (7 * i + j) % 256 for i in range(n)]
+                        for j, n in ((0, 40), (1, 125), (2, 300))]
+
+        def to_cpu(tree):
+            if isinstance(tree, dict):
+                return {k: to_cpu(v) for k, v in tree.items()}
+            return tree.cpu()
+
+        cpu_params = to_cpu(self.params)
+        self._box: dict = {}
+        self.t0 = time.monotonic()
+
+        def run():
+            try:
+                self._box["tokens"] = greedy_tokens(
+                    Engine(cpu_params, self.cfg, ByteTokenizer(), self.ecfg,
+                           device="cpu"), self.prompts, self.N_NEW)
+            except BaseException as exc:  # noqa: BLE001 - re-raised on join
+                self._box["error"] = exc
+            self._box["seconds"] = time.monotonic() - self.t0
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def cpu_tokens(self):
+        self._thread.join()
+        if "error" in self._box:
+            fail(f"the CPU reference engine failed: {self._box['error']!r}")
+        return self._box["tokens"], self._box["seconds"]
+
+
+def check_model_quant(torch, dev, ref: QuantReference) -> None:
+    """The quantized path's engine on the card against the same engine on
+    the CPU (``QuantReference``): the card engine runs kernels #2 and #3
+    on every call, replaying its captured programs; its greedy tokens, and
+    an eager card engine's (``cuda_graphs=False``), must equal the CPU
+    engine's. The card engine's float32 activations take #3's fp32 GEMV
+    at decode (and for each prefill's lm_head row) and the tiled path for
+    the prefill projections, never a tensor-core path ("tc", "wg")."""
     from dataclasses import replace
 
-    from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
-                                                       SamplingParams)
-    from generativeaiexamples_tpu_torch.models import llama
-    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    from generativeaiexamples_tpu_torch.engine import Engine
     from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
     from generativeaiexamples_tpu_torch.ops.int4_matmul import int4_matmul
     from generativeaiexamples_tpu_torch.ops.paged_attention import \
         paged_attention_decode
-    from generativeaiexamples_tpu_torch.ops.quant import quantize_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = replace(LLAMA2_7B, num_layers=2)
-    params = quantize_params(
-        llama.init_params(cfg, seed=0, dtype=torch.float32, device=dev),
-        "int4_awq", group_size=128)
-    ecfg = EngineConfig(max_slots=4, max_input_length=512,
-                        max_output_length=16, prefill_buckets=(128, 512),
-                        dtype="float32", kv_pool_tokens=None, kv_quant="int8")
-    n_new = 8
-    prompts = [[1] + [3 + (7 * i + j) % 256 for i in range(n)]
-               for j, n in ((0, 40), (1, 125), (2, 300))]
-
-    def greedy(engine):
-        with engine:
-            streams = [engine.submit(p, SamplingParams(
-                max_tokens=n_new, top_k=1, ignore_eos=True))
-                for p in prompts]
-            for s in streams:
-                s.text()
-            return [s.token_ids for s in streams]
-
+    cfg, params, ecfg, prompts = ref.cfg, ref.params, ref.ecfg, ref.prompts
     t0 = time.monotonic()
+    engine = Engine(params, cfg, ByteTokenizer(), ecfg, device=dev)
+    # Counted from here: construction's warm-up launches are not the path.
     paged_attention_decode.int8_launches = 0
     int4_matmul.launches = 0
     int4_matmul.launches_by_path = dict.fromkeys(
         int4_matmul.launches_by_path, 0)
-    engine = Engine(params, cfg, ByteTokenizer(), ecfg, device=dev)
-    got = greedy(engine)
+    got = greedy_tokens(engine, prompts, ref.N_NEW)
     n8, n4 = paged_attention_decode.int8_launches, int4_matmul.launches
     by_path = dict(int4_matmul.launches_by_path)
     steps, prefills = (engine.stats["decode_steps"],
                        engine.stats["prefills"])
+    del engine
     per_forward = 7 * cfg.num_layers + 1
     want = {"tc": 0, "gemv": per_forward * steps + prefills,
             "tile": (per_forward - 1) * prefills, "wg": 0}
@@ -703,26 +773,25 @@ def check_model_quant(torch, dev) -> None:
         fail(f"quantized engine on the card launched int8 attention {n8} "
              f"and int4 matmul {n4} times, by path {by_path} over {steps} "
              f"decode steps and {prefills} prefills; expected {want}")
+    eager = greedy_tokens(Engine(params, cfg, ByteTokenizer(),
+                                 replace(ecfg, cuda_graphs=False),
+                                 device=dev), prompts, ref.N_NEW)
+    if eager != got:
+        fail(f"quantized engine: captured programs gave greedy tokens {got}, "
+             f"the eager engine {eager}")
     t_card = time.monotonic() - t0
-
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        return tree.cpu()
-
-    want = greedy(Engine(to_cpu(params), cfg, ByteTokenizer(), ecfg,
-                         device="cpu"))
+    want, t_cpu = ref.cpu_tokens()
     for p, a, b in zip(prompts, got, want):
-        if len(a) != n_new or a != b:
+        if len(a) != ref.N_NEW or a != b:
             fail(f"quantized engine greedy tokens on the card {a} differ "
                  f"from the CPU engine's {b} (prompt of {len(p)})")
-    say(f"model check: 2-layer llama-2-7b width, float32, int4_awq weights, "
-        f"int8 KV pool: card engine greedy tokens (int8 attention "
-        f"{n8} launches, int4 matmul {n4}: {by_path}) equal the CPU "
-        f"engine's for "
-        f"prompts of {[len(p) for p in prompts]} tokens (card "
-        f"{t_card:.1f} s, CPU {time.monotonic() - t0 - t_card:.1f} s)")
-    del params
+    say(f"model check: 1-layer llama-2-7b width, float32, int4_awq weights, "
+        f"int8 KV pool: card engine greedy tokens (captured programs and "
+        f"the eager engine alike; int8 attention {n8} launches, int4 matmul "
+        f"{n4}: {by_path}) equal the CPU engine's for prompts of "
+        f"{[len(p) for p in prompts]} tokens (card {t_card:.1f} s; CPU "
+        f"{t_cpu:.1f} s from the start, in a thread)")
+    del ref.params, params
     torch.cuda.empty_cache()
 
 
@@ -778,6 +847,14 @@ def post(url: str, body: dict, timeout: float = 300) -> str:
         return resp.read().decode()
 
 
+# Prompt lengths (byte tokens incl. bos): inside one page, one short of a
+# page, a page exactly, and several pages; 32 new tokens carry the first
+# three across a page boundary.
+SERVE_PROMPTS = ["Tell me about paged attention. " * 3, "a" * 126, "b" * 127,
+                 "The quick brown fox. " * 40]
+ENGINE_PROMPT = "Count to ten:"
+
+
 def serve(torch, dev, card: str, quantization: str = "",
           kv_quant: str = "") -> dict:
     """A main path: llama-2-7b-chat at full width and depth, bf16 random
@@ -818,13 +895,8 @@ def serve(torch, dev, card: str, quantization: str = "",
         f"{time.monotonic() - t0:.1f} s")
     base, stop_server = serve_app(create_server_app(engine, name))
     try:
-        # Prompt lengths (byte tokens incl. bos): inside one page, one
-        # short of a page, a page exactly, and several pages; 32 new tokens
-        # carry the first three across a page boundary.
-        prompts = ["Tell me about paged attention. " * 3,
-                   "a" * 126, "b" * 127, "The quick brown fox. " * 40]
         bodies = [{"prompt": p, "max_tokens": 32, "temperature": 0,
-                   "stream": i == 1} for i, p in enumerate(prompts)]
+                   "stream": i == 1} for i, p in enumerate(SERVE_PROMPTS)]
         # Warm-up request (first cuBLAS/kernel loads), outside the count.
         post(base + "/v1/completions", {"prompt": "warm", "max_tokens": 2,
                                         "temperature": 0})
@@ -843,7 +915,7 @@ def serve(torch, dev, card: str, quantization: str = "",
                 lambda b: post(base + "/v1/completions", b), bodies))
         wall = time.monotonic() - t1
         tokens_http = engine.stats["tokens_generated"] - tok0
-        stream = engine.submit(engine.tokenizer.encode("Count to ten:"),
+        stream = engine.submit(engine.tokenizer.encode(ENGINE_PROMPT),
                                SamplingParams(max_tokens=32, ignore_eos=True,
                                               temperature=0))
         stream.text()
@@ -910,10 +982,84 @@ def serve(torch, dev, card: str, quantization: str = "",
         f"ms, decode {31 / decode_s:.1f} tok/s; launches {counts} (int4 "
         f"by path {by_path}) over {steps} decode steps and {prefills} "
         f"prefills [{card}]")
+    graphs_vs_eager(torch, dev, card, engine, mode)
     del engine
     torch.cuda.empty_cache()
     return {"launches": counts, "by_path": by_path, "decode_steps": steps,
             "prefills": prefills}
+
+
+def top2_gap(torch, engine, ids) -> float:
+    """The gap between the two largest logits of the token after ``ids``,
+    from a full forward of the served weights (no cache, no kernel)."""
+    from generativeaiexamples_tpu_torch.models import llama
+    dev = engine.device
+    with torch.no_grad():
+        t = torch.tensor([ids], dtype=torch.int32, device=dev)
+        pos = torch.arange(len(ids), dtype=torch.int32, device=dev)[None, :]
+        logits, _ = llama.apply(engine.params, engine.model_cfg, t, pos)
+        top = logits[0, -1].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def graphs_vs_eager(torch, dev, card: str, engine, mode: str) -> None:
+    """The served engine (every round and admission a replay of a program
+    it captured at construction) against an eager engine on the same
+    weights (``cuda_graphs=False``): the serve prompts and the engine
+    prompt, 32 greedy tokens each (``ignore_eos``), one schedule on both
+    (all submitted, then the serve loop's step driven on this thread),
+    must give equal tokens; a difference fails with its first step and
+    the top-2 logit gap there. Then ``profile_decode``'s measurements on
+    the served engine: a decode round of 8 slots with 512-token prompts
+    (host-clock step over 4 rounds; device time, busy time and busy share
+    of one traced round) and a bucket-128 admission (host-clock time to
+    the first token, mean of 4)."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import Engine, SamplingParams
+    from generativeaiexamples_tpu_torch.tools.profile_decode import (
+        measure_decode, measure_prefill)
+
+    ids = [engine.tokenizer.encode(p) for p in SERVE_PROMPTS + [ENGINE_PROMPT]]
+    sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True)
+    eager = Engine(engine.params, engine.model_cfg, engine.tokenizer,
+                   replace(engine.cfg, cuda_graphs=False), device=dev)
+    runs = {}
+    for name, eng in (("graphs", engine), ("eager", eager)):
+        streams = [eng.submit(i, sp) for i in ids]
+        for _ in range(100):
+            if all(s.finish_reason is not None for s in streams):
+                break
+            eng._step()
+        runs[name] = [s.token_ids for s in streams]
+        if any(len(t) != 32 for t in runs[name]):
+            fail(f"[{mode}] {name} engine: {[len(t) for t in runs[name]]} "
+                 f"tokens")
+    del eager
+    for i, (a, b) in enumerate(zip(runs["graphs"], runs["eager"])):
+        if a != b:
+            k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            gap = top2_gap(torch, engine, ids[i] + a[:k])
+            fail(f"[{mode}] prompt {i} ({len(ids[i])} tokens): the captured "
+                 f"programs' greedy token {k} is {a[k]}, the eager "
+                 f"engine's {b[k]} (top-2 logit gap there {gap})")
+    dec = measure_decode(engine, 8, 512, rounds=4)
+    pre = measure_prefill(engine, 128, rounds=4)
+    say(f"graphs [{mode}]: greedy tokens of the {len(ids)} serve prompts "
+        f"equal the eager engine's; captured programs hold "
+        f"{engine.graph_pool_bytes} bytes of pool, memory reserved "
+        f"{torch.cuda.memory_reserved(dev)} bytes")
+    say(f"graphs [{mode}]: decode step {dec['step_ms']:.3f} ms (host clock, "
+        f"8 slots, context ~{dec['context']}), device "
+        f"{dec['device_ms_per_step']:.3f} ms/step (busy "
+        f"{dec['device_busy_ms_per_step']:.3f}), busy share "
+        f"{dec['device_busy_share']:.1%}; kernels per step (ms) "
+        f"{ {k: round(v, 3) for k, v in dec['kernel_ms_per_step'].items()} }"
+        f" over {dec['kernel_launches']} launches; bucket-128 TTFT "
+        f"{pre['prefill_ms']:.3f} ms (host clock), device "
+        f"{pre['device_ms']:.3f} ms (busy {pre['device_busy_ms']:.3f}), "
+        f"busy share {pre['device_busy_share']:.1%} [{card}]")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -932,7 +1078,17 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    phases = {}
     t0 = time.monotonic()
+
+    def lap(name):
+        nonlocal t0
+        phases[name] = round(time.monotonic() - t0, 1)
+        t0 = time.monotonic()
+
+    quant_ref = QuantReference(torch, dev)
+    lap("quant_reference_start")
+
     took = build.build_all()
     say(f"kernel build: {time.monotonic() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
@@ -940,6 +1096,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line:
                 say(f"ptxas {name}: {line.strip()}")
+    lap("build")
 
     check_paged_attention(torch, dev, torch.float32)
     kernels = [check_paged_attention(torch, dev, torch.bfloat16)]
@@ -947,17 +1104,24 @@ def main() -> int:
     kernels.append(check_paged_attention(torch, dev, torch.bfloat16,
                                          quant=True))
     torch.cuda.empty_cache()
+    lap("attention")
     kernels.extend(check_int4_matmul(torch, dev))
+    lap("int4_matmul")
     check_model(torch, dev)
-    check_model_quant(torch, dev)
+    lap("model")
+    check_model_quant(torch, dev, quant_ref)
+    lap("model_quant")
     # Each path's kernels take their launch counts from that path's run.
     bf16 = serve(torch, dev, card)
+    lap("serve_bf16")
     quantized = serve(torch, dev, card, quantization="int4_awq",
                       kv_quant="int8")
+    lap("serve_int4")
     for row in kernels:
         run = bf16 if row["name"] == "paged_attention_decode" else quantized
         row["launches"] = (run["by_path"][row["path"]] if "path" in row
                            else run["launches"][row["name"]])
+    say(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
 
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -16,6 +16,15 @@ port of the reference's ``engine/engine.py``.
   steps with device-side eos/length termination; tokens come back to the
   host once per round (``_decode_round``). On CUDA each layer of each step
   launches the hand-written paged-attention kernel.
+- **Static state, captured programs.** The slot state, the pool, the
+  round's token output and the admission's inputs are allocated once
+  (``_init_device_state``) and only ever written in place. On CUDA the
+  engine captures, at construction, one CUDA graph per decode-round rung
+  ``(steps, greedy)`` and one per admission ``(bucket, greedy)``
+  (``_prewarm``), where the reference compiled one program each and
+  donated the state; rounds and admissions then run only by replay. On the
+  CPU, or with ``EngineConfig(cuda_graphs=False)``, the same bodies run
+  eagerly.
 
 One serve thread plans, dispatches and harvests. Waiting for later
 slices: prefix cache, chunked prefill, speculative decoding, the KV tier,
@@ -47,6 +56,7 @@ from ..ops.sampling import (NEG_INF, apply_repetition_penalty, mask_words,
                             set_token_bits, unpack_mask)
 from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, EngineError, SchedulerFullError
+from . import graphs
 from .detokenizer import IncrementalDetokenizer, StopWordTrap
 from .sampling_params import SamplingParams
 
@@ -78,6 +88,10 @@ class EngineConfig:
     # symmetric int8 pools + bf16 scale pools, ops/kv_quant.py): about
     # half the bytes per cached token, so "auto" fits ~2x the pages.
     kv_quant: str = ""
+    # On CUDA, capture every decode round and admission as a CUDA graph at
+    # construction and replay them; False runs them eagerly (the oracle
+    # the card checks hold the graphs against). No effect on the CPU.
+    cuda_graphs: bool = True
 
     def __post_init__(self) -> None:
         if self.page_size <= 0:
@@ -234,11 +248,20 @@ class Engine:
         if self.device.type == "cuda":
             self._check_kernel_geometry()
 
+        self._pool_reserve: Optional[int] = None   # "auto" sizing's reserve
         self._n_pages = 1 + self._resolve_pool_pages()
         self._free_pages = list(range(1, self._n_pages))
         self._state = self._init_device_state()
+        (self._admit_arrays, self._admit_host,
+         self._admit_in) = self._admission_views()
         self._step_counter = itertools.count()
         self._round_gen = torch.Generator(device=self.device)
+        self._admit_gen = torch.Generator(device=self.device)
+        self._round_graphs: dict[tuple[int, bool], graphs.Program] = {}
+        self._admit_graphs: dict[tuple[int, bool], graphs.Program] = {}
+        self.graph_pool_bytes = 0
+        if self._graphs_on:
+            self._prewarm()
         self._round_gen.manual_seed(cfg.seed)
 
         self._slots: dict[int, _Request] = {}
@@ -310,25 +333,38 @@ class Engine:
             return full
         # "auto": 90% of the free device memory left after a reserve for
         # the largest bucket's prefill transients (its dense KV, logits
-        # and activations).
+        # and activations). On the card those live in the captured
+        # programs' memory pool; ``_prewarm`` checks that it fits. Cached
+        # blocks nothing uses (say, weights a quantization replaced) are
+        # handed back first, so they count as free.
+        torch.cuda.empty_cache()
         free, _ = torch.cuda.mem_get_info(self.device)
         m, S = self.model_cfg, self._buckets[-1]
         reserve = (2 * S * self._kv_bytes_per_token(pooled=False)
                    + 4 * m.hidden_size * m.vocab_size
                    + 64 * S * m.hidden_size + (512 << 20))
+        self._pool_reserve = reserve
         pages = int(0.9 * (free - reserve)) // (
             cfg.page_size * self._kv_bytes_per_token())
         return min(full, max(self._pmax, pages))
 
-    def _init_device_state(self) -> dict[str, torch.Tensor]:
-        """Device-side slot state plus the page pool."""
+    # Slot-state fields that do not start at 0, and the value they start at.
+    _STATE_FILL = {"rep_pen": 1, "bad_seq": -1, "recent": -1}
+
+    def _init_device_state(self) -> dict:
+        """Device-side slot state, the page pool, the decode round's token
+        output ``round_tokens`` (steps_per_round, B) and the admission
+        program's packed inputs (``admit``: int32 ``i32``, float32 ``f32``,
+        banned words; laid out by ``_admission_views``). Allocated once:
+        every later write is in place, so a captured program's addresses
+        stay valid."""
         B, dev = self.cfg.max_slots, self.device
         Wn = mask_words(self.model_cfg.vocab_size)
 
         def z(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        return {
+        st = {
             "cache": llama.init_paged_kv_cache(
                 self.model_cfg, self._n_pages, self.cfg.page_size,
                 self._dtype, device=dev,
@@ -340,15 +376,69 @@ class Engine:
             "temp": z(B, dtype=torch.float32),
             "top_k": z(B),
             "top_p": z(B, dtype=torch.float32),
-            "rep_pen": torch.ones((B,), dtype=torch.float32, device=dev),
+            "rep_pen": z(B, dtype=torch.float32),
             "seen": z(B, Wn, dtype=torch.int64),
             "banned": z(B, Wn, dtype=torch.int64),
-            "bad_seq": torch.full((B, self.MAX_BAD_SEQS, self.MAX_BAD_LEN),
-                                  -1, dtype=torch.int32, device=dev),
+            "bad_seq": z(B, self.MAX_BAD_SEQS, self.MAX_BAD_LEN),
             "bad_len": z(B, self.MAX_BAD_SEQS),
-            "recent": torch.full((B, self.MAX_BAD_LEN - 1), -1,
-                                 dtype=torch.int32, device=dev),
+            "recent": z(B, self.MAX_BAD_LEN - 1),
+            "round_tokens": z(self.cfg.steps_per_round, B),
+            "admit": {"i32": z(sum(n for _, n in
+                                   self._admit_i32_spans().values())),
+                      "f32": z(len(self._ADMIT_F32), dtype=torch.float32),
+                      "banned": z(Wn, dtype=torch.int64)},
         }
+        for name, value in self._STATE_FILL.items():
+            st[name].fill_(value)
+        return st
+
+    def _reset_state(self) -> None:
+        """Every state tensor back to its initial value, in place."""
+        for tensors in (self._state, self._state["cache"],
+                        self._state["admit"]):
+            for name, t in tensors.items():
+                if isinstance(t, torch.Tensor):
+                    t.fill_(self._STATE_FILL.get(name, 0))
+
+    # The admission's float32 inputs, in their order in state["admit"]["f32"].
+    _ADMIT_F32 = ("temp", "top_p", "rep_pen")
+
+    def _admit_i32_spans(self) -> dict[str, tuple[int, int]]:
+        """(offset, length) of each admission input packed into
+        state["admit"]["i32"]: the largest bucket's token ids, the page
+        row, the sequence-ban table and lengths, then the scalars."""
+        sizes = {"tokens": self._buckets[-1], "row": self._pmax,
+                 "bad_seq": self.MAX_BAD_SEQS * self.MAX_BAD_LEN,
+                 "bad_len": self.MAX_BAD_SEQS, "length": 1, "slot": 1,
+                 "top_k": 1, "remaining": 1, "eos_ok": 1}
+        spans, at = {}, 0
+        for name, n in sizes.items():
+            spans[name] = (at, n)
+            at += n
+        return spans
+
+    def _admission_views(self):
+        """Named views of the admission inputs: (the host staging arrays,
+        one int32, one float32 and one int64 as state["admit"] has them;
+        named numpy views of those; named device views of
+        state["admit"]). ``_stage_admission`` fills the host side and
+        copies each array over whole, three copies per admission; the
+        admission program reads only the device views."""
+        a = self._state["admit"]
+        host = {"i32": np.zeros(a["i32"].shape, np.int32),
+                "f32": np.zeros(a["f32"].shape, np.float32),
+                "banned": np.zeros(a["banned"].shape, np.int64)}
+        hv, dv = {"banned": host["banned"]}, {"banned": a["banned"]}
+        for name, (off, n) in self._admit_i32_spans().items():
+            hv[name] = host["i32"][off:off + n]
+            dv[name] = a["i32"][off:off + n]
+        shape = (self.MAX_BAD_SEQS, self.MAX_BAD_LEN)
+        hv["bad_seq"] = hv["bad_seq"].reshape(shape)
+        dv["bad_seq"] = dv["bad_seq"].view(shape)
+        for i, name in enumerate(self._ADMIT_F32):
+            hv[name] = host["f32"][i:i + 1]
+            dv[name] = a["f32"][i:i + 1]
+        return host, hv, dv
 
     @property
     def stats(self) -> dict[str, float]:
@@ -367,64 +457,55 @@ class Engine:
     # ------------------------------------------------------ device functions
 
     @torch.no_grad()
-    def _prefill(self, tokens: torch.Tensor, length: int, sp: SamplingParams,
-                 banned: torch.Tensor, generator: torch.Generator,
-                 greedy: bool):
-        """tokens: (1, S_bucket) on the device. Returns the bucket's dense
-        K/V (L, 1, S, KV, hd), the first token (a 0-d device tensor) and
-        the prompt's seen mask as packed (Wn,) words."""
-        mcfg, dev = self.model_cfg, self.device
-        S = tokens.shape[1]
-        positions = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
-        cache = llama.init_kv_cache(mcfg, 1, S, self._dtype, device=dev)
-        length_t = torch.tensor([length], dtype=torch.int32, device=dev)
+    def _prefill(self, bucket: int, greedy: bool):
+        """Prefill of the staged prompt (``_admit_in``) padded to
+        ``bucket``. Returns the bucket's dense K/V (L, 1, S, KV, hd), the
+        first token ((1,) int32) and the prompt's seen mask with the first
+        token set, as packed (Wn,) words. Every per-request value is read
+        from the static inputs on the device (the last prompt row by an
+        ``index_select`` of ``length``), so one captured program serves
+        every request of the bucket."""
+        mcfg, dev, a = self.model_cfg, self.device, self._admit_in
+        tokens = a["tokens"][:bucket][None, :]
+        length = a["length"]
+        positions = torch.arange(bucket, dtype=torch.int32, device=dev)[None, :]
+        cache = llama.init_kv_cache(mcfg, 1, bucket, self._dtype, device=dev)
         hn, cache = llama.apply(self.params, mcfg, tokens, positions, cache,
-                                kv_valid_len=length_t, return_hidden=True)
+                                kv_valid_len=length, return_hidden=True)
         # Only the last prompt row is projected (the reference projects
         # every row and takes this one).
-        last = llama.project_logits(self.params, hn[:, length - 1])  # (1, V)
+        last = llama.project_logits(
+            self.params, hn.index_select(1, (length - 1).long())[:, 0])
         V = mcfg.vocab_size
-        seen = seen_mask(tokens, length_t, V)                         # (1, V)
-        rep = torch.tensor([sp.repetition_penalty], dtype=torch.float32,
-                           device=dev)
-        last = apply_repetition_penalty(last, seen, rep)
-        last = torch.where(unpack_mask(banned, V)[None, :],
+        seen = seen_mask(tokens, length, V)                           # (1, V)
+        last = apply_repetition_penalty(last, seen, a["rep_pen"])
+        last = torch.where(unpack_mask(a["banned"], V)[None, :],
                            torch.full_like(last, NEG_INF), last)
         if greedy:
-            first = last[0].float().argmax().to(torch.int32)
+            first = last.float().argmax(dim=-1).to(torch.int32)
         else:
-            first = sample(
-                last,
-                torch.tensor([sp.temperature], dtype=torch.float32,
-                             device=dev),
-                torch.tensor([sp.top_k], dtype=torch.int32, device=dev),
-                torch.tensor([sp.top_p], dtype=torch.float32, device=dev),
-                generator)[0]
-        seen = seen[0].clone()
-        seen[first.long()] = True
+            first = sample(last, a["temp"], a["top_k"], a["top_p"],
+                           self._admit_gen)
+        seen = seen[0].index_fill(0, first.long(), True)
         return cache["k"], cache["v"], first, pack_mask(seen)
 
     @torch.no_grad()
-    def _insert(self, k_new: torch.Tensor, v_new: torch.Tensor, slot: int,
-                length: int, first: torch.Tensor, seen: torch.Tensor,
-                req: _Request, banned: torch.Tensor) -> None:
-        """Scatter a prefilled bucket into the slot's pages and arm the
-        slot. Page-table entries past the allocated extent are 0, so the
-        bucket's overhang lands in the trash page. Under an int8 pool the
-        bucket is quantized per row with ``quantize_rows``, one layer at a
-        time (a small float32 transient), so inserted rows are
-        bit-identical to rows the decode kernel appends. The pool and the
-        slot state are updated in place (the reference returned a new
-        state from a donated jit)."""
-        mcfg, st, dev = self.model_cfg, self._state, self.device
+    def _insert(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                first: torch.Tensor, seen: torch.Tensor) -> None:
+        """Scatter a prefilled bucket into the staged page row and arm the
+        staged slot, both read from ``_admit_in`` on the device. Page-table
+        entries past the allocated extent are 0, so the bucket's overhang
+        lands in the trash page. Under an int8 pool the bucket is
+        quantized per row with ``quantize_rows``, one layer at a time (a
+        small float32 transient), so inserted rows are bit-identical to
+        rows the decode kernel appends. The pool and the slot state are
+        updated in place (the reference returned a new state from a
+        donated jit)."""
+        mcfg, st, a = self.model_cfg, self._state, self._admit_in
         page, L = self.cfg.page_size, mcfg.num_layers
-        sp = req.params
-        row = np.zeros((self._pmax,), np.int32)
-        row[:len(req.pages)] = req.pages
-        row_t = torch.from_numpy(row).to(dev)
-        S = k_new.shape[2]
-        nb = S // page
-        dest = row_t[:nb].long()
+        nb = k_new.shape[2] // page
+        row = a["row"]
+        dest = row[:nb].long()
         # (L, 1, S, KV, hd) -> (L, nb, KV, page, hd): KV heads ahead of the
         # page dim, the pool's layout.
         cache = st["cache"]
@@ -439,30 +520,31 @@ class Engine:
                 cache[name][i, dest] = rows
                 cache[name + "s"][i, dest] = scales
         eos = int(self.tokenizer.eos_id)
-        eos_ok = not sp.ignore_eos
-        remaining = req.eff_max - 1
+        eos_ok = a["eos_ok"].bool()
         # A slot whose first token already ends it (eos, or max_tokens
         # == 1) never activates.
-        active = torch.tensor(remaining > 0, device=dev) & ~(
-            (first == eos) & eos_ok)
-        st["table"][slot] = row_t
-        st["pos"][slot] = length
-        st["last_token"][slot] = first
-        st["active"][slot] = active
-        st["remaining"][slot] = remaining
-        st["eos_ok"][slot] = eos_ok
-        st["temp"][slot] = sp.temperature
-        st["top_k"][slot] = sp.top_k
-        st["top_p"][slot] = sp.top_p
-        st["rep_pen"][slot] = sp.repetition_penalty
-        st["seen"][slot] = seen
-        st["banned"][slot] = banned
-        st["bad_seq"][slot] = torch.from_numpy(req.bad_seq_np).to(dev)
-        st["bad_len"][slot] = torch.from_numpy(req.bad_len_np).to(dev)
+        active = (a["remaining"] > 0) & ~((first == eos) & eos_ok)
         # Sequence bans match generated tokens only: a fresh ring seeded
         # with the first sampled token.
-        st["recent"][slot] = -1
-        st["recent"][slot, -1] = first
+        recent = torch.cat([torch.full((1, self.MAX_BAD_LEN - 2), -1,
+                                       dtype=torch.int32, device=first.device),
+                            first[:, None]], dim=1)
+        slot = a["slot"].long()
+        for name, value in (
+                ("table", row[None]), ("pos", a["length"]),
+                ("last_token", first), ("active", active),
+                ("remaining", a["remaining"]), ("eos_ok", eos_ok),
+                ("temp", a["temp"]), ("top_k", a["top_k"]),
+                ("top_p", a["top_p"]), ("rep_pen", a["rep_pen"]),
+                ("seen", seen[None]), ("banned", a["banned"][None]),
+                ("bad_seq", a["bad_seq"][None]),
+                ("bad_len", a["bad_len"][None]), ("recent", recent)):
+            st[name].index_copy_(0, slot, value)
+
+    def _admit_body(self, bucket: int, greedy: bool) -> None:
+        """One admission: prefill, first token, insert (the reference's
+        ``prefill_insert``, one program on the TTFT path)."""
+        self._insert(*self._prefill(bucket, greedy))
 
     @staticmethod
     def _bad_seq_hits(seq: torch.Tensor, blen: torch.Tensor,
@@ -482,68 +564,132 @@ class Engine:
         return hit, tail
 
     @torch.no_grad()
-    def _decode_round(self, steps: int, greedy: bool) -> torch.Tensor:
-        """``steps`` decode steps over every slot; returns (steps, B) int32
-        tokens with -1 for slots inactive at step entry. eos and length
-        stops happen on the device (``active`` drops), so the host reads
-        the tokens once per round. Attention takes the whole block table:
-        the kernel loops over each slot's live pages only (the reference's
-        gather path sliced a page window instead). The pool is updated in
-        place by each layer's attention call; the slot state is replaced
-        step by step (the reference carried both through a scan)."""
+    def _decode_step(self, k: int, greedy: bool) -> None:
+        """Decode step ``k`` of a round over every slot (the reference's
+        ``make_round`` body), in place: row ``k`` of ``round_tokens``
+        gets each slot's token, -1 for slots inactive at step entry; the
+        slot state advances. eos and length stops happen on the device
+        (``active`` drops), so the host reads the tokens once per round.
+        Attention takes the whole block table: the kernel loops over each
+        slot's live pages only (the reference's gather path sliced a page
+        window instead). The pool is updated in place by each layer's
+        attention call."""
         st, mcfg = self._state, self.model_cfg
         page, V = self.cfg.page_size, mcfg.vocab_size
         eos = int(self.tokenizer.eos_id)
-        out = []
-        for _ in range(steps):
-            pos, active = st["pos"], st["active"]
-            # A retired slot's stale pos may point past its table: clamp
-            # (the reference's gather clamps), the row is masked anyway.
-            pidx = (pos // page).clamp(max=self._pmax - 1).long()
-            page_of = torch.gather(st["table"], 1, pidx[:, None])[:, 0]
-            wp = torch.where(active, page_of, torch.zeros_like(page_of))
-            # Inactive slots attend over nothing (length 0) and write the
-            # trash page.
-            eff_pos = torch.where(active, pos, torch.zeros_like(pos))
-            logits, _ = llama.apply_decode_paged(
-                self.params, mcfg, st["last_token"][:, None],
-                eff_pos[:, None], st["cache"], st["table"], wp,
-                eff_pos % page)
-            pen = apply_repetition_penalty(
-                logits[:, 0], unpack_mask(st["seen"], V), st["rep_pen"])
-            pen = torch.where(unpack_mask(st["banned"], V),
-                              torch.full_like(pen, NEG_INF), pen)
-            hit, tail = self._bad_seq_hits(st["bad_seq"], st["bad_len"],
-                                           st["recent"])
-            pen = pen.scatter_reduce(
-                1, torch.where(hit, tail, torch.zeros_like(tail)).long(),
-                torch.where(hit, torch.full_like(pen[:, :1], NEG_INF),
-                            torch.full_like(pen[:, :1], float("inf"))
-                            ).expand(hit.shape).contiguous(),
-                reduce="amin")
-            if greedy:
-                tok = pen.float().argmax(dim=-1).to(torch.int32)
-            else:
-                tok = sample(pen, st["temp"], st["top_k"], st["top_p"],
-                             self._round_gen)
-            out.append(torch.where(active, tok, torch.full_like(tok, -1)))
-            remaining = torch.where(active, st["remaining"] - 1,
-                                    st["remaining"])
-            finished = active & (((tok == eos) & st["eos_ok"])
-                                 | (remaining <= 0))
-            st = dict(
-                st,
-                pos=torch.where(active, pos + 1, pos),
-                last_token=torch.where(active, tok, st["last_token"]),
-                active=active & ~finished,
-                remaining=remaining,
-                seen=set_token_bits(st["seen"], tok, active),
-                recent=torch.where(
-                    active[:, None],
-                    torch.cat([st["recent"][:, 1:], tok[:, None]], dim=1),
-                    st["recent"]))
-        self._state = st
-        return torch.stack(out)
+        pos, active = st["pos"], st["active"]
+        # A retired slot's stale pos may point past its table: clamp
+        # (the reference's gather clamps), the row is masked anyway.
+        pidx = (pos // page).clamp(max=self._pmax - 1).long()
+        page_of = torch.gather(st["table"], 1, pidx[:, None])[:, 0]
+        wp = torch.where(active, page_of, torch.zeros_like(page_of))
+        # Inactive slots attend over nothing (length 0) and write the
+        # trash page.
+        eff_pos = torch.where(active, pos, torch.zeros_like(pos))
+        logits, _ = llama.apply_decode_paged(
+            self.params, mcfg, st["last_token"][:, None],
+            eff_pos[:, None], st["cache"], st["table"], wp,
+            eff_pos % page)
+        pen = apply_repetition_penalty(
+            logits[:, 0], unpack_mask(st["seen"], V), st["rep_pen"])
+        pen = torch.where(unpack_mask(st["banned"], V),
+                          torch.full_like(pen, NEG_INF), pen)
+        hit, tail = self._bad_seq_hits(st["bad_seq"], st["bad_len"],
+                                       st["recent"])
+        pen = pen.scatter_reduce(
+            1, torch.where(hit, tail, torch.zeros_like(tail)).long(),
+            torch.where(hit, torch.full_like(pen[:, :1], NEG_INF),
+                        torch.full_like(pen[:, :1], float("inf"))
+                        ).expand(hit.shape).contiguous(),
+            reduce="amin")
+        if greedy:
+            tok = pen.float().argmax(dim=-1).to(torch.int32)
+        else:
+            tok = sample(pen, st["temp"], st["top_k"], st["top_p"],
+                         self._round_gen)
+        remaining = torch.where(active, st["remaining"] - 1,
+                                st["remaining"])
+        finished = active & (((tok == eos) & st["eos_ok"])
+                             | (remaining <= 0))
+        # Every new value is computed before the first write.
+        new = {
+            "pos": torch.where(active, pos + 1, pos),
+            "last_token": torch.where(active, tok, st["last_token"]),
+            "remaining": remaining,
+            "seen": set_token_bits(st["seen"], tok, active),
+            "recent": torch.where(
+                active[:, None],
+                torch.cat([st["recent"][:, 1:], tok[:, None]], dim=1),
+                st["recent"]),
+            "active": active & ~finished}
+        st["round_tokens"][k].copy_(
+            torch.where(active, tok, torch.full_like(tok, -1)))
+        for name, value in new.items():
+            st[name].copy_(value)
+
+    def _round_body(self, steps: int, greedy: bool) -> None:
+        for k in range(steps):
+            self._decode_step(k, greedy)
+
+    def _decode_round(self, steps: int, greedy: bool) -> torch.Tensor:
+        """``steps`` decode steps over every slot; returns the (steps, B)
+        int32 view of ``round_tokens`` (-1 for slots inactive at step
+        entry). On the card with graphs on, only the rung's captured
+        program runs."""
+        if self._graphs_on:
+            self._round_graphs[(steps, greedy)].replay()
+        else:
+            self._round_body(steps, greedy)
+        return self._state["round_tokens"][:steps]
+
+    @property
+    def _graphs_on(self) -> bool:
+        return self.device.type == "cuda" and self.cfg.cuda_graphs
+
+    def _prewarm(self) -> None:
+        """Capture every device program the serve loop runs (the
+        reference's ``prewarm``, narrowed to capture), so no request pays
+        for one: one admission program per (bucket, greedy), largest
+        bucket first so the smaller ones reuse its memory, then one
+        decode-round program per rung of ``graphs.round_rungs`` and
+        greedy flag. Each is warmed up once on a side stream and
+        captured there, into one memory pool the programs share. The
+        warm-ups write the trash page and an inactive slot 0 (staged
+        below), so the state is reset afterwards. Under "auto" pool sizing
+        the programs' pool must fit in the reserve the sizing kept."""
+        dev = self.device
+        h = self._admit_host
+        h["length"][0] = 1      # a one-token prompt into the trash page
+        h["temp"][0] = h["top_p"][0] = h["rep_pen"][0] = 1.0
+        self._copy_admission_inputs()
+        stream = torch.cuda.Stream(dev)
+        pool = torch.cuda.graph_pool_handle()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        for bucket in sorted(self._buckets, reverse=True):
+            for greedy in (True, False):
+                self._admit_graphs[(bucket, greedy)] = graphs.capture(
+                    lambda b=bucket, g=greedy: self._admit_body(b, g),
+                    device=dev, stream=stream, pool=pool,
+                    generators=() if greedy else (self._admit_gen,))
+        for steps in graphs.round_rungs(self.cfg.steps_per_round):
+            for greedy in (True, False):
+                self._round_graphs[(steps, greedy)] = graphs.capture(
+                    lambda n=steps, g=greedy: self._round_body(n, g),
+                    device=dev, stream=stream, pool=pool,
+                    generators=() if greedy else (self._round_gen,))
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self._reset_state()
+        torch.cuda.synchronize(dev)
+        if (self._pool_reserve is not None
+                and self.graph_pool_bytes > self._pool_reserve):
+            raise ConfigError(
+                f"the captured programs hold {self.graph_pool_bytes} bytes, "
+                f"more than the {self._pool_reserve} bytes that "
+                f'kv_pool_tokens="auto" reserved for them')
 
     # ------------------------------------------------------------ lifecycle
 
@@ -728,7 +874,7 @@ class Engine:
                 self._backlog.append(self._pending.get_nowait())
             except queue.Empty:
                 break
-        firsts: list[tuple[_Request, torch.Tensor]] = []
+        admitted: list[_Request] = []
         while self._backlog and self._free_slots:
             req = self._backlog[0]
             if req.stream.cancelled:
@@ -736,21 +882,22 @@ class Engine:
                 req.stream._finish("cancelled")
                 did = True
                 continue
-            first = self._admit(req)
-            if first is None:
+            if not self._admit(req):
                 break  # pool backpressure: wait for pages to free
             self._backlog.pop(0)
-            firsts.append((req, first))
-        if firsts:
+            admitted.append(req)
+        if admitted:
             # First tokens go to the host before the round, so a request's
             # time to first token is its prefill, not prefill + a round.
-            host = torch.stack([f for _, f in firsts]).cpu().numpy()
-            for (req, _), tok in zip(firsts, host):
+            # Each admission left its first token in its slot's
+            # last_token: one read serves them all.
+            host = self._state["last_token"].cpu().numpy()
+            for req in admitted:
                 if not req.done:
-                    self._emit_token(req, int(tok))
+                    self._emit_token(req, int(host[req.slot]))
         toks, members = self._dispatch_round()
         if toks is None:
-            return did or bool(firsts)
+            return did or bool(admitted)
         grid = toks.cpu().numpy()   # the round's one device->host transfer
         for k in range(grid.shape[0]):
             for slot, req in members.items():
@@ -759,32 +906,57 @@ class Engine:
                     self._emit_token(req, tok)
         return True
 
-    def _admit(self, req: _Request) -> Optional[torch.Tensor]:
-        """Allocate a slot and pages, prefill and insert. Returns the first
-        token (a device scalar), or None when the pool is exhausted."""
+    def _admit(self, req: _Request) -> bool:
+        """Allocate a slot and pages, stage the request's inputs and run
+        its bucket's admission program (prefill, first token, insert).
+        The first token lands in ``last_token[slot]``. False when the pool
+        is exhausted."""
         page = self.cfg.page_size
         n_alloc = _ceil_div(req.extent, page)
         if n_alloc > len(self._free_pages):
-            return None
+            return False
         req.slot = self._free_slots.pop()
         req.pages = [self._free_pages.pop() for _ in range(n_alloc)]
         req.proj_pos = len(req.prompt_ids)
-        sp = req.params
-        total = len(req.prompt_ids)
-        bucket = self._bucket_for(total)
-        ids = np.zeros((1, bucket), np.int32)
-        ids[0, :total] = req.prompt_ids
-        tokens = torch.from_numpy(ids).to(self.device)
-        banned = torch.from_numpy(req.banned_np).to(self.device)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed((self.cfg.seed << 32)
-                        ^ (next(self._step_counter) << 16) ^ sp.random_seed)
-        k_new, v_new, first, seen = self._prefill(
-            tokens, total, sp, banned, gen, req.greedy)
-        self._insert(k_new, v_new, req.slot, total, first, seen, req, banned)
+        bucket = self._bucket_for(len(req.prompt_ids))
+        self._stage_admission(req, bucket)
+        self._admit_gen.manual_seed(
+            (self.cfg.seed << 32) ^ (next(self._step_counter) << 16)
+            ^ req.params.random_seed)
+        if self._graphs_on:
+            self._admit_graphs[(bucket, req.greedy)].replay()
+        else:
+            self._admit_body(bucket, req.greedy)
         self._slots[req.slot] = req
         self._bump("prefills")
-        return first
+        return True
+
+    def _stage_admission(self, req: _Request, bucket: int) -> None:
+        """Write the request's admission inputs into the host staging
+        arrays and copy them to the device (``_admission_views``)."""
+        h, sp = self._admit_host, req.params
+        n = len(req.prompt_ids)
+        h["tokens"][:n] = req.prompt_ids
+        h["tokens"][n:bucket] = 0
+        h["row"][:] = 0
+        h["row"][:len(req.pages)] = req.pages
+        h["bad_seq"][:] = req.bad_seq_np
+        h["bad_len"][:] = req.bad_len_np
+        h["banned"][:] = req.banned_np
+        h["length"][0] = n
+        h["slot"][0] = req.slot
+        h["top_k"][0] = sp.top_k
+        h["remaining"][0] = req.eff_max - 1
+        h["eos_ok"][0] = not sp.ignore_eos
+        h["temp"][0] = sp.temperature
+        h["top_p"][0] = sp.top_p
+        h["rep_pen"][0] = sp.repetition_penalty
+        self._copy_admission_inputs()
+
+    def _copy_admission_inputs(self) -> None:
+        """Host staging arrays -> state["admit"], in place."""
+        for name, arr in self._admit_arrays.items():
+            self._state["admit"][name].copy_(torch.from_numpy(arr))
 
     def _dispatch_round(self):
         """Run one decode round over the armed slots, right-sized against
@@ -798,9 +970,7 @@ class Engine:
                           for r in members.values()), default=0)
         if need_steps <= 0:
             return None, {}
-        steps = self.cfg.steps_per_round
-        while steps // 2 >= need_steps:
-            steps //= 2
+        steps = graphs.rung_for(self.cfg.steps_per_round, need_steps)
         greedy = all(r.greedy for r in members.values())
         toks = self._decode_round(steps, greedy)
         for req in members.values():

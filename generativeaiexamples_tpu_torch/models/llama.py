@@ -171,13 +171,14 @@ def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
                   inv_freq: torch.Tensor,
                   kv_valid_len: Optional[torch.Tensor],
                   cache_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-                  row_start: Optional[torch.Tensor] = None,
                   attend=None) -> torch.Tensor:
     """One transformer block, shared by ``apply`` and
     ``apply_decode_paged`` (which supplies ``attend(q, k, v) -> attn``).
 
     cache_kv: optional (kc, vc) of shape (B, T, KV, hd), updated IN PLACE
-    with this chunk's K/V at rows ``row_start[b] + offset``."""
+    with this chunk's K/V at rows ``positions[b]``, by device-side index
+    (no host read, so a CUDA graph can capture it); a position past the
+    cache raises."""
     B, S, _ = h.shape
     x = block_norm(h, lp, "attn_norm", cfg)
     q = qmm(x, lp["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
@@ -188,10 +189,9 @@ def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
         attn = attend(q, k, v)
     elif cache_kv is not None:
         kc, vc = cache_kv
-        for b in range(B):
-            s0 = int(row_start[b])
-            kc[b, s0:s0 + S] = k[b].to(kc.dtype)
-            vc[b, s0:s0 + S] = v[b].to(vc.dtype)
+        rows = torch.arange(B, device=h.device)[:, None]
+        kc[rows, positions.long()] = k.to(kc.dtype)
+        vc[rows, positions.long()] = v.to(vc.dtype)
         attn = gqa_attention(q, kc, vc, positions, kv_valid_len)
     else:
         attn = gqa_attention(q, k, v, positions, kv_valid_len)
@@ -238,12 +238,11 @@ def apply(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                                 cfg.rope_scaling_factor, device=h.device)
     if kv_cache is not None and kv_valid_len is None:
         kv_valid_len = positions[:, -1] + 1
-    row_start = positions[:, 0]
     for i in range(cfg.num_layers):
         cache_kv = (None if kv_cache is None
                     else (kv_cache["k"][i], kv_cache["v"][i]))
         h = decoder_layer(h, layer_params(params, i), cfg, positions,
-                          inv_freq, kv_valid_len, cache_kv, row_start)
+                          inv_freq, kv_valid_len, cache_kv)
     if return_hidden:
         return unembed_norm(params, cfg, h), kv_cache
     return unembed(params, cfg, h), kv_cache

@@ -65,8 +65,7 @@ def _gqa_dense(q, k, v, q_positions, kv_valid_len, *, causal):
     key_idx = torch.arange(T, dtype=torch.int32, device=q.device)
     mask = _mask(q_positions, kv_valid_len, key_idx, causal)
     scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(NEG_INF, dtype=scores.dtype,
-                                      device=scores.device))
+                         scores.new_full((), NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
@@ -87,7 +86,7 @@ def _gqa_chunked(q, k, v, q_positions, kv_valid_len, *, causal, chunk):
     m = torch.full((B, KV, G, S, 1), NEG_INF, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((B, KV, G, S, 1), dtype=torch.float32, device=dev)
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
     for i in range(T // chunk):
         kb = k[:, i * chunk:(i + 1) * chunk].float()
         vb = v[:, i * chunk:(i + 1) * chunk].float()

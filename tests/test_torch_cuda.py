@@ -694,3 +694,202 @@ def test_int4_kernel_leading_dims_and_quant_matmul(dev):
     leaf["gbias"] = torch.zeros_like(leaf["gscale"])
     with pytest.raises(ConfigError, match="gbias"):
         quant.matmul(x, leaf)
+
+
+# ------------------------------------------------------ engine CUDA graphs
+
+_GRAPH_KW = dict(max_slots=4, max_input_length=512, max_output_length=24,
+                 prefill_buckets=(128, 512), kv_pool_tokens=None)
+
+
+def _model(dev, mode, num_layers=2):
+    """llama-2-7b's full width cut to ``num_layers``, random weights from
+    seed 0: "f32" (float32, TF32 off), "bf16", or "int4" (bf16 weights
+    quantized to int4_awq, group 128, over an int8 KV pool)."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(LLAMA2_7B, num_layers=num_layers)
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    params = llama.init_params(cfg, seed=0, dtype=dtype, device=dev)
+    if mode == "int4":
+        params = quant.quantize_params(params, "int4_awq", group_size=128)
+    kw = dict(_GRAPH_KW, dtype="float32" if mode == "f32" else "bfloat16",
+              kv_quant="int8" if mode == "int4" else "")
+    return params, cfg, kw
+
+
+def _engine_on(dev, params, cfg, **kw):
+    from generativeaiexamples_tpu_torch.engine import Engine, EngineConfig
+    from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
+    return Engine(params, cfg, ByteTokenizer(), EngineConfig(**kw),
+                  device=dev)
+
+
+def _drive(engine, prompts, params):
+    """Submit every prompt, then run the serve loop's step on this thread
+    until all finish (the same schedule on any engine). Returns the
+    streams."""
+    streams = [engine.submit(p, sp) for p, sp in zip(prompts, params)]
+    for _ in range(200):
+        if all(s.finish_reason is not None for s in streams):
+            return streams
+        engine._step()
+    raise AssertionError("requests did not finish in 200 steps")
+
+
+_PROMPTS = [[1] + [3 + (7 * i + j) % 256 for i in range(n)]
+            for j, n in enumerate((126, 127, 128, 40, 300))]
+
+
+def _first_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int4"])
+def test_graph_engine_matches_eager_engine(dev, mode):
+    """The captured rounds and admissions give the eager engine's greedy
+    tokens and leave the same pool bytes (every page but the trash page
+    0, which takes racing writes of inactive slots and bucket overhang)
+    and slot state: float32 at the 2-layer 7B width exactly, and bf16
+    and int4-AWQ + int8 KV likewise (both engines issue the same kernels
+    on the same inputs)."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    params, cfg, kw = _model(dev, mode)
+    sps = [SamplingParams(max_tokens=20, top_k=1, ignore_eos=True)] * len(
+        _PROMPTS)
+    got = {}
+    for graphs_on in (True, False):
+        engine = _engine_on(dev, params, cfg, cuda_graphs=graphs_on, **kw)
+        assert bool(engine._round_graphs) == graphs_on
+        got[graphs_on] = ([s.token_ids for s in _drive(engine, _PROMPTS,
+                                                       sps)],
+                          engine._state, engine.stats["decode_steps"])
+        del engine
+    (tg, sg, ng), (te, se, ne) = got[True], got[False]
+    for i, (a, b) in enumerate(zip(tg, te)):
+        assert a == b, (f"prompt {i}: graph tokens differ from eager at "
+                        f"step {_first_difference(a, b)}: {a} vs {b}")
+    assert ng == ne > 0
+    for name in sg["cache"]:
+        assert torch.equal(_bits(sg["cache"][name][:, 1:]),
+                           _bits(se["cache"][name][:, 1:])), name
+    for name in ("table", "pos", "last_token", "active", "remaining",
+                 "seen", "recent", "round_tokens"):
+        assert torch.equal(sg[name], se[name]), name
+
+
+@pytest.mark.cuda
+def test_sampled_replays_follow_the_request_seed(dev):
+    """Sampled requests on graph engines: two fresh engines give the same
+    draws for the same request seed; another seed gives another first
+    token (the admission draw); consecutive rounds of one request draw
+    fresh noise (at a temperature that makes the logits irrelevant, the
+    tokens of two rounds differ)."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA_TINY
+    params = llama.init_params(LLAMA_TINY, seed=0, dtype=torch.float32,
+                               device=dev)
+    kw = dict(max_slots=2, max_input_length=64, max_output_length=40,
+              prefill_buckets=(16, 64), page_size=16, dtype="float32",
+              kv_pool_tokens=None)
+
+    def run(seed):
+        engine = _engine_on(dev, params, LLAMA_TINY, **kw)
+        assert engine._admit_graphs and engine._round_graphs
+        sp = SamplingParams(max_tokens=33, temperature=1e4, top_k=0,
+                            top_p=1.0, ignore_eos=True, random_seed=seed)
+        return _drive(engine, [_PROMPTS[3][:20]], [sp])[0].token_ids
+
+    a, b = run(5), run(5)
+    assert a == b and len(a) == 33
+    firsts = {run(s)[0] for s in (6, 7, 8, 9)} | {a[0]}
+    assert len(firsts) > 1
+    rounds = [tuple(a[1 + 8 * r:9 + 8 * r]) for r in range(4)]
+    assert len(set(rounds)) == 4, rounds
+
+
+@pytest.mark.cuda
+def test_replays_add_their_capture_counts(dev):
+    """N replays of a program add N times the launch counts its capture
+    recorded: #2 once per layer per step, #3 225 per step at 7B width on
+    the int4 path, in all and by path."""
+    from generativeaiexamples_tpu_torch.engine import graphs
+    params, cfg, kw = _model(dev, "int4")
+    engine = _engine_on(dev, params, cfg, **kw)
+    program = engine._round_graphs[(4, True)]
+    per_step = 7 * cfg.num_layers + 1
+    assert program.launches == {
+        "paged_attention_decode_int8": 4 * cfg.num_layers,
+        "int4_matmul": 4 * per_step, "int4_matmul/tc": 4 * per_step}
+    admit = engine._admit_graphs[(128, True)]
+    assert admit.launches == {"int4_matmul": per_step,
+                              "int4_matmul/wg": per_step - 1,
+                              "int4_matmul/tc": 1}
+    before = graphs.launch_counts()
+    for _ in range(3):
+        engine._decode_round(4, True)
+    torch.cuda.synchronize()
+    after = graphs.launch_counts()
+    assert graphs.count_delta(before, after) == {
+        k: 3 * n for k, n in program.launches.items()}
+
+
+@pytest.mark.cuda
+def test_two_admissions_in_one_step_keep_their_first_tokens(dev):
+    """Two admissions of one bucket replay one program twice in one serve
+    loop iteration; each request still gets its own first token (the
+    eager engine's)."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    params, cfg, kw = _model(dev, "f32")
+    prompts = [_PROMPTS[3], _PROMPTS[3][:30]]
+    sps = [SamplingParams(max_tokens=1, top_k=1, ignore_eos=True)] * 2
+    firsts = {}
+    for graphs_on in (True, False):
+        engine = _engine_on(dev, params, cfg, cuda_graphs=graphs_on, **kw)
+        streams = [engine.submit(p, sp) for p, sp in zip(prompts, sps)]
+        engine._step()
+        assert engine.stats["prefills"] == 2
+        firsts[graphs_on] = [s.token_ids for s in streams]
+    assert firsts[True] == firsts[False]
+    assert firsts[True][0] != firsts[True][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantization,kv_quant", [("", ""),
+                                                   ("int4_awq", "int8")],
+                         ids=["bf16", "int4_awq-int8kv"])
+def test_default_config_7b_captures_and_serves_3000_tokens(
+        dev, quantization, kv_quant):
+    """llama-2-7b with the default engine config (pool sized "auto",
+    prefill buckets up to 3072) captures every program at construction,
+    within the reserve the pool sizing kept, and serves a 3000-token
+    prompt."""
+    from generativeaiexamples_tpu_torch.engine import (EngineConfig,
+                                                       SamplingParams)
+    from generativeaiexamples_tpu_torch.serving.model_server import \
+        build_services
+    torch.cuda.empty_cache()
+    engine, _ = build_services("llama-2-7b-chat", device=dev,
+                               engine_cfg=EngineConfig(kv_quant=kv_quant),
+                               quantization=quantization)
+    assert set(engine._admit_graphs) == {
+        (b, g) for b in (128, 512, 1024, 2048, 3072) for g in (True, False)}
+    assert set(engine._round_graphs) == {
+        (s, g) for s in (8, 4, 2, 1) for g in (True, False)}
+    assert 0 < engine.graph_pool_bytes <= engine._pool_reserve
+    print(f"graph pool {engine.graph_pool_bytes} bytes, reserve "
+          f"{engine._pool_reserve}, reserved "
+          f"{torch.cuda.memory_reserved(dev)}, pool pages "
+          f"{engine.stats['pool_pages']}")
+    prompt = [1] + [3 + (11 * i) % 256 for i in range(2999)]
+    stream = _drive(engine, [prompt], [SamplingParams(
+        max_tokens=16, top_k=1, ignore_eos=True)])[0]
+    assert len(stream.token_ids) == 16 and stream.finish_reason == "length"
+    assert all(0 <= t < engine.model_cfg.vocab_size
+               for t in stream.token_ids)
