@@ -33,8 +33,12 @@ Phases (each fails loudly: a failure exits non-zero and the final
    engine on the card (#2 and #3 on every call) against the same engine
    on the CPU with the same parameters (the plain versions). On the card
    each engine replays the decode rounds and admissions it captured as
-   CUDA graphs at construction; an eager engine (``cuda_graphs=False``)
-   must give the same tokens.
+   CUDA graphs at construction; an eager engine (``cuda_graphs=False``,
+   planning under the captured engine's budget) must give the same
+   tokens. Admission path (float32): a 700-token prompt admitted in six
+   chunks (buckets capped at 128), then again as a prefix hit (640 cached
+   tokens, one final chunk), gives the one-shot engine's greedy tokens,
+   equal to the full-forward reference.
 4. The main paths: serves llama-2-7b-chat (full width and depth, random
    weights from seed 0) through the port's aiohttp ``/v1/completions``
    (4 concurrent requests, one streamed) plus one ``ignore_eos`` engine
@@ -49,6 +53,18 @@ Phases (each fails loudly: a failure exits non-zero and the final
    same weights must give equal greedy tokens, and the served engine's
    decode round (host-clock step, device time, busy share) and
    bucket-128 admission are measured as ``tools/profile_decode.py`` does.
+   Then each mode's admission path at full depth on the same weights
+   (``serve_admission``): an engine for 3000-token prompts serves a
+   shared-system-prompt pair (the second a prefix hit: hit tokens, warm
+   against cold TTFT) and a 2900-token prompt arriving while 4 streams
+   decode, under its measured token budget (chunks beside the decode
+   rounds) and with the budget pinned high (one admission), printing the
+   chunks, the interleaved rounds and the largest gap between two token
+   deliveries to a decoding stream during the admission. Its launch
+   counts are set to 0 before and read after, checked the same way, and
+   added to the serve run's in the ``kernels`` line (chunk programs
+   included: each chunk's projections on ``wg``, a final chunk's lm_head
+   row on ``tc``).
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -600,9 +616,10 @@ def check_model(torch, dev) -> None:
     input: llama-2-7b's full width cut to 2 layers, float32 weights from
     seed 0 (TF32 off), three concurrent greedy requests through the engine
     (its captured programs; the paged kernel in every layer) and through
-    an eager engine (``cuda_graphs=False``), both against argmax of a
-    full-sequence ``llama.apply`` recomputed per token (no cache, no
-    kernel)."""
+    an eager engine (``cuda_graphs=False``, planning under the captured
+    engine's measured budget, so both make one schedule), both against
+    argmax of a full-sequence ``llama.apply`` recomputed per token (no
+    cache, no kernel). Then ``check_chunked``."""
     from dataclasses import replace
 
     from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
@@ -619,11 +636,14 @@ def check_model(torch, dev) -> None:
                for j, n in ((0, 40), (1, 125), (2, 300))]
     t0 = time.monotonic()
     runs = {}
+    budget = None
     for graphs_on in (True, False):
         engine = Engine(params, cfg, ByteTokenizer(), EngineConfig(
             max_slots=4, max_input_length=512, max_output_length=16,
             prefill_buckets=(128, 512), dtype="float32", kv_pool_tokens=None,
-            cuda_graphs=graphs_on), device=dev)
+            cuda_graphs=graphs_on, sched_round_budget_tokens=budget),
+            device=dev)
+        budget = engine.stats["sched_round_budget_tokens"]
         # Submitted before the serve thread starts: one schedule for both.
         streams = [engine.submit(p, SamplingParams(
             max_tokens=n_new, top_k=1, ignore_eos=True)) for p in prompts]
@@ -636,26 +656,92 @@ def check_model(torch, dev) -> None:
     if runs[False] != got:
         fail(f"float32 engine: captured programs gave greedy tokens {got}, "
              f"the eager engine {runs[False]}")
-    with torch.no_grad():
-        for p, toks in zip(prompts, got):
-            ids = list(p)
-            for _ in range(n_new):
-                t = torch.tensor([ids], dtype=torch.int32, device=dev)
-                pos = torch.arange(len(ids), dtype=torch.int32,
-                                   device=dev)[None, :]
-                logits, _ = llama.apply(params, cfg, t, pos)
-                if not torch.isfinite(logits).all():
-                    fail("reference logits are not finite")
-                ids.append(int(logits[0, -1].argmax()))
-            if ids[len(p):] != toks:
-                fail(f"engine greedy tokens {toks} differ from the plain "
-                     f"reference {ids[len(p):]} (prompt of {len(p)})")
+    for p, toks in zip(prompts, got):
+        want = reference_tokens(torch, params, cfg, p, n_new)
+        if want != toks:
+            fail(f"engine greedy tokens {toks} differ from the plain "
+                 f"reference {want} (prompt of {len(p)})")
     say(f"model check: 2-layer llama-2-7b width, float32: engine greedy "
         f"tokens (captured programs, and the eager engine alike) equal the "
         f"plain full-forward reference for prompts of "
         f"{[len(p) for p in prompts]} tokens ({time.monotonic() - t0:.1f} s)")
+    check_chunked(torch, dev, params, cfg)
     del params
     torch.cuda.empty_cache()
+
+
+def reference_tokens(torch, params, cfg, prompt, n_new: int) -> list:
+    """Greedy tokens by argmax of a full-sequence ``llama.apply``
+    recomputed per token (no cache, no kernel)."""
+    from generativeaiexamples_tpu_torch.models import llama
+    ids = list(prompt)
+    with torch.no_grad():
+        for _ in range(n_new):
+            t = torch.tensor([ids], dtype=torch.int32, device=params[
+                "embed"].device)
+            pos = torch.arange(len(ids), dtype=torch.int32,
+                               device=t.device)[None, :]
+            logits, _ = llama.apply(params, cfg, t, pos)
+            if not torch.isfinite(logits).all():
+                fail("reference logits are not finite")
+            ids.append(int(logits[0, -1].argmax()))
+    return ids[len(prompt):]
+
+
+def check_chunked(torch, dev, params, cfg) -> None:
+    """The admission path on the float32 model: a 700-token prompt through
+    an engine whose buckets are capped at 128 (six chunk programs, the
+    last arming the slot; the budget measured at construction), then the
+    same prompt again (a prefix hit: five cached pages, one seeded final
+    chunk). Both must give the greedy tokens of an engine that admits the
+    prompt in one bucket, and those equal the full-forward reference."""
+    from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
+                                                       SamplingParams)
+    from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
+
+    t0 = time.monotonic()
+    n_new = 8
+    prompt = [1] + [3 + (11 * i) % 256 for i in range(699)]
+    base = dict(max_slots=2, max_input_length=768, max_output_length=16,
+                prefill_buckets=(128, 768), dtype="float32",
+                kv_pool_tokens=None)
+    sp = SamplingParams(max_tokens=n_new, top_k=1, ignore_eos=True)
+    chunked = Engine(params, cfg, ByteTokenizer(), EngineConfig(
+        **base, max_prefill_bucket=128), device=dev)
+    with chunked:
+        cold = chunked.submit(prompt, sp)
+        cold.text()
+        warm = chunked.submit(prompt, sp)
+        warm.text()
+    st = chunked.stats
+    source = chunked._sched.cost.source
+    del chunked
+    oneshot = Engine(params, cfg, ByteTokenizer(), EngineConfig(
+        **base, prefix_cache=False, sched_round_budget_tokens=4096),
+        device=dev)
+    with oneshot:
+        one = oneshot.submit(prompt, sp)
+        one.text()
+    one_chunks = oneshot.stats["prefill_chunks"]
+    del oneshot
+    if (st["prefill_chunks"] != 7 or st["prefix_cache_hit_tokens"] != 640
+            or one_chunks != 0):
+        fail(f"chunked admission: {st['prefill_chunks']} chunk programs "
+             f"(want 6 cold + 1 warm), {st['prefix_cache_hit_tokens']} hit "
+             f"tokens (want 640), one-shot engine {one_chunks} chunks")
+    want = reference_tokens(torch, params, cfg, prompt, n_new)
+    for name, got in (("chunked cold", cold.token_ids),
+                      ("warm hit", warm.token_ids),
+                      ("one-shot", one.token_ids)):
+        if got != want:
+            fail(f"float32 {name} admission of {len(prompt)} tokens gave "
+                 f"greedy tokens {got}, the full-forward reference {want}")
+    say(f"model check: 2-layer llama-2-7b width, float32: a {len(prompt)}-"
+        f"token prompt admitted in 6 chunks of at most 128 (budget "
+        f"{st['sched_round_budget_tokens']} tokens, {source}), then as a "
+        f"prefix hit (640 cached tokens, one final chunk), gives the "
+        f"one-shot engine's greedy tokens, equal to the full-forward "
+        f"reference ({time.monotonic() - t0:.1f} s)")
 
 
 def greedy_tokens(engine, prompts, n_new: int):
@@ -700,10 +786,12 @@ class QuantReference:
         self.params = quantize_params(
             llama.init_params(self.cfg, seed=0, dtype=torch.float32,
                               device=dev), "int4_awq", group_size=128)
+        # The budget is pinned: the card engines (captured and eager) and
+        # the CPU engine plan alike (every prompt one bucket).
         self.ecfg = EngineConfig(
             max_slots=4, max_input_length=512, max_output_length=16,
             prefill_buckets=(128, 512), dtype="float32", kv_pool_tokens=None,
-            kv_quant="int8")
+            kv_quant="int8", sched_round_budget_tokens=4096)
         self.prompts = [[1] + [3 + (7 * i + j) % 256 for i in range(n)]
                         for j, n in ((0, 40), (1, 125), (2, 300))]
 
@@ -763,12 +851,13 @@ def check_model_quant(torch, dev, ref: QuantReference) -> None:
     got = greedy_tokens(engine, prompts, ref.N_NEW)
     n8, n4 = paged_attention_decode.int8_launches, int4_matmul.launches
     by_path = dict(int4_matmul.launches_by_path)
-    steps, prefills = (engine.stats["decode_steps"],
-                       engine.stats["prefills"])
+    steps, prefills, dispatches = (engine.stats["decode_steps"],
+                                   engine.stats["prefills"],
+                                   engine.stats["prefill_dispatches"])
     del engine
     per_forward = 7 * cfg.num_layers + 1
     want = {"tc": 0, "gemv": per_forward * steps + prefills,
-            "tile": (per_forward - 1) * prefills, "wg": 0}
+            "tile": (per_forward - 1) * dispatches, "wg": 0}
     if n8 <= 0 or n4 <= 0 or steps <= 0 or by_path != want:
         fail(f"quantized engine on the card launched int8 attention {n8} "
              f"and int4 matmul {n4} times, by path {by_path} over {steps} "
@@ -864,15 +953,14 @@ def serve(torch, dev, card: str, quantization: str = "",
     the counted requests and read just after; each kernel of the path
     must have run once per layer per decode step (attention) or once per
     projection per forward (int4), and the other path's kernels not at
-    all. Returns the counts and the steps."""
+    all. Then ``graphs_vs_eager`` and ``serve_admission`` on the same
+    weights. Returns the launch counts of the served requests plus those
+    of the admission path (in all and, for #3, by path)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from generativeaiexamples_tpu_torch.engine import (EngineConfig,
                                                        SamplingParams)
     from generativeaiexamples_tpu_torch.models import llama
-    from generativeaiexamples_tpu_torch.ops.int4_matmul import int4_matmul
-    from generativeaiexamples_tpu_torch.ops.paged_attention import \
-        paged_attention_decode
     from generativeaiexamples_tpu_torch.serving.model_server import (
         build_services, create_server_app)
 
@@ -901,14 +989,9 @@ def serve(torch, dev, card: str, quantization: str = "",
         post(base + "/v1/completions", {"prompt": "warm", "max_tokens": 2,
                                         "temperature": 0})
 
-        steps0 = engine.stats["decode_steps"]
-        prefills0 = engine.stats["prefills"]
+        stats0 = engine.stats
         tok0 = engine.stats["tokens_generated"]
-        paged_attention_decode.launches = 0
-        paged_attention_decode.int8_launches = 0
-        int4_matmul.launches = 0
-        int4_matmul.launches_by_path = dict.fromkeys(
-            int4_matmul.launches_by_path, 0)
+        zero_launch_counts()
         t1 = time.monotonic()
         with ThreadPoolExecutor(len(bodies)) as pool:
             outs = list(pool.map(
@@ -919,14 +1002,8 @@ def serve(torch, dev, card: str, quantization: str = "",
                                SamplingParams(max_tokens=32, ignore_eos=True,
                                               temperature=0))
         stream.text()
-        counts = {"paged_attention_decode": paged_attention_decode.launches,
-                  "paged_attention_decode_int8":
-                      paged_attention_decode.int8_launches,
-                  "int4_matmul": int4_matmul.launches}
-        by_path = dict(int4_matmul.launches_by_path)
-        steps = engine.stats["decode_steps"] - steps0
-        prefills = engine.stats["prefills"] - prefills0
         torch.cuda.synchronize()
+        run = read_launch_counts(engine, stats0)
     finally:
         stop_server()
         engine.stop()
@@ -954,27 +1031,10 @@ def serve(torch, dev, card: str, quantization: str = "",
              f"finish {stream.finish_reason!r}")
     if not all(0 <= t < mcfg.vocab_size for t in stream.token_ids):
         fail("ignore_eos request produced out-of-vocab ids")
-    # Attention: one launch per layer per decode step, of the pool's
-    # kind. int4: one per projection (7 per layer) plus the lm_head, per
-    # decode step and per prefill (which projects only its last row). By
-    # #3's path (bf16 x): a decode step's 8 slots and a prefill's lm_head
-    # row on "tc", a prefill's bucket rows on "wg".
-    L = mcfg.num_layers
-    attn = "paged_attention_decode_int8" if kv_quant else \
-        "paged_attention_decode"
-    want = {"paged_attention_decode": 0, "paged_attention_decode_int8": 0,
-            "int4_matmul": 0}
-    want[attn] = L * steps
-    want_path = {"tc": 0, "gemv": 0, "tile": 0, "wg": 0}
-    if quantization in ("int4", "int4_awq"):
-        want["int4_matmul"] = (7 * L + 1) * (steps + prefills)
-        want_path = {"tc": (7 * L + 1) * steps + prefills, "gemv": 0,
-                     "tile": 0, "wg": 7 * L * prefills}
-    if (steps <= 0 or prefills <= 0 or counts != want
-            or by_path != want_path):
-        fail(f"[{mode}] kernel launches {counts} (int4 by path {by_path}) "
-             f"over {steps} decode steps and {prefills} prefills; expected "
-             f"{want} ({want_path})")
+    check_launch_counts(f"[{mode}]", run, mcfg.num_layers, quantization,
+                        kv_quant)
+    counts, by_path = run["launches"], run["by_path"]
+    steps, prefills = run["decode_steps"], run["prefills"]
     decode_s = stream.finish_time - stream.first_token_time
     say(f"serve [{mode}]: {len(bodies)} concurrent /v1/completions in "
         f"{wall:.3f} s, {tokens_http} tokens ({tokens_http / wall:.1f} tok/s "
@@ -983,10 +1043,190 @@ def serve(torch, dev, card: str, quantization: str = "",
         f"by path {by_path}) over {steps} decode steps and {prefills} "
         f"prefills [{card}]")
     graphs_vs_eager(torch, dev, card, engine, mode)
+    admission = serve_admission(torch, dev, card, engine, mode,
+                                quantization)
     del engine
     torch.cuda.empty_cache()
-    return {"launches": counts, "by_path": by_path, "decode_steps": steps,
-            "prefills": prefills}
+    return {"launches": {k: n + admission["launches"][k]
+                         for k, n in counts.items()},
+            "by_path": {k: n + admission["by_path"][k]
+                        for k, n in by_path.items()}}
+
+
+def zero_launch_counts() -> None:
+    """Set every kernel's launch count to 0 (a replay adds its capture's
+    counts, so the counts stay exact across captured programs)."""
+    from generativeaiexamples_tpu_torch.engine import graphs
+    graphs.set_launch_counts(dict.fromkeys(graphs.launch_counts(), 0))
+
+
+def read_launch_counts(engine, stats0: dict) -> dict:
+    """The kernels' launch counts since ``zero_launch_counts`` and the
+    engine's work since ``stats0`` (its stats then)."""
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import int4_matmul
+    from generativeaiexamples_tpu_torch.ops.paged_attention import \
+        paged_attention_decode
+    now = engine.stats
+    out = {k: now[k] - stats0[k] for k in (
+        "decode_steps", "prefills", "prefill_dispatches", "prefill_chunks")}
+    out["launches"] = {
+        "paged_attention_decode": paged_attention_decode.launches,
+        "paged_attention_decode_int8": paged_attention_decode.int8_launches,
+        "int4_matmul": int4_matmul.launches}
+    out["by_path"] = dict(int4_matmul.launches_by_path)
+    return out
+
+
+def check_launch_counts(label: str, run: dict, L: int, quantization: str,
+                        kv_quant: str) -> None:
+    """Every layer of every decode step went through the pool's attention
+    kernel, once; under int4 weights every projection through #3: one per
+    projection (7 per layer) per prefill program (one-shot admission or
+    chunk; the bucket's rows on "wg") and per decode step (8 slots on
+    "tc"), plus the lm_head row on "tc" per decode step and per admission
+    (its one-shot program or final chunk samples one row); none on "tile"
+    or "gemv"; the other pool kind's kernel never."""
+    steps, prefills = run["decode_steps"], run["prefills"]
+    dispatches = run["prefill_dispatches"]
+    attn = "paged_attention_decode_int8" if kv_quant else \
+        "paged_attention_decode"
+    want = {"paged_attention_decode": 0, "paged_attention_decode_int8": 0,
+            "int4_matmul": 0}
+    want[attn] = L * steps
+    want_path = {"tc": 0, "gemv": 0, "tile": 0, "wg": 0}
+    if quantization in ("int4", "int4_awq"):
+        want_path = {"tc": (7 * L + 1) * steps + prefills, "gemv": 0,
+                     "tile": 0, "wg": 7 * L * dispatches}
+        want["int4_matmul"] = want_path["tc"] + want_path["wg"]
+    if (steps <= 0 or prefills <= 0 or run["launches"] != want
+            or run["by_path"] != want_path):
+        fail(f"{label} kernel launches {run['launches']} (int4 by path "
+             f"{run['by_path']}) over {steps} decode steps, {prefills} "
+             f"admissions and {dispatches} prefill programs; expected "
+             f"{want} ({want_path})")
+
+
+# The admission phase's prompts: a shared system prompt of 600 byte
+# tokens (with bos) before each of two questions, four decoding streams'
+# prompts, and a 2900-token document prompt.
+SYSTEM_PROMPT = ("Answer from the retrieved passages only, and cite them. "
+                 * 11)[:599]
+QUESTIONS = [" Q: What does the paged KV pool hold?",
+             " Q: How are prompts admitted under load?"]
+DOC_PROMPT = ("Passage: the engine plans each round under a token budget. "
+              * 50)[:2899]
+
+
+def serve_admission(torch, dev, card: str, served, mode: str,
+                    quantization: str) -> dict:
+    """The admission path at full depth, on the served engine's weights:
+    an engine for 3000-token prompts (buckets to 3072, 8 slots) serves,
+    through its serve thread, a shared-system-prompt pair one after the
+    other (the second maps the first's cached pages: hit tokens, warm
+    against cold TTFT) and then a 2900-token prompt that arrives while 4
+    streams decode, first under the budget the engine measured at
+    construction (the prompt goes in chunks beside the decode rounds),
+    then on an engine with the budget pinned high (one 3072-token
+    admission, the behaviour before the scheduler). Prints the chunks,
+    the interleaved rounds and the largest gap between two deliveries of
+    tokens to a decoding stream while the long prompt is admitted. The
+    launch counts are set to 0 before each engine's requests and read
+    after: every kernel of the path must have run as
+    ``check_launch_counts`` says. Returns the measured engine's counts."""
+    from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
+                                                       SamplingParams)
+
+    tok = served.tokenizer
+    mcfg = served.model_cfg
+    base = dict(max_slots=8, max_input_length=3000, max_output_length=320,
+                page_size=128, kv_pool_tokens=8 * (3072 + 320),
+                dtype="bfloat16", kv_quant=served.cfg.kv_quant)
+    greedy = dict(top_k=1, ignore_eos=True)
+    pair = [tok.encode(SYSTEM_PROMPT + q) for q in QUESTIONS]
+    decoders = [tok.encode(f"Stream {i}: count the pages. " * 4)
+                for i in range(4)]
+    doc = tok.encode(DOC_PROMPT)
+    results = {}
+    for label, pin in (("measured", None), ("pinned high", 8192)):
+        t0 = time.monotonic()
+        engine = Engine(served.params, mcfg, tok, EngineConfig(
+            **base, sched_round_budget_tokens=pin), device=dev)
+        programs = sum(len(t) for t in (
+            engine._round_graphs, engine._admit_graphs,
+            engine._extend_graphs, engine._final_graphs))
+        build_s = time.monotonic() - t0
+        with engine:
+            engine.submit(tok.encode("warm"), SamplingParams(
+                max_tokens=2, **greedy)).text()
+            torch.cuda.synchronize()
+            stats0 = engine.stats
+            zero_launch_counts()
+            cold = engine.submit(pair[0], SamplingParams(max_tokens=8,
+                                                         **greedy))
+            cold.text()
+            warm = engine.submit(pair[1], SamplingParams(max_tokens=8,
+                                                         **greedy))
+            warm.text()
+            hit = engine.stats["prefix_cache_hit_tokens"] - stats0[
+                "prefix_cache_hit_tokens"]
+            streams = [engine.submit(p, SamplingParams(max_tokens=300,
+                                                       **greedy))
+                       for p in decoders]
+            while min(len(s.token_ids) for s in streams) < 24:
+                time.sleep(0.001)
+            before = engine.stats
+            t_sub = time.monotonic()
+            long_ = engine.submit(doc, SamplingParams(max_tokens=8,
+                                                      **greedy))
+            long_.text()
+            during = engine.stats
+            for s in streams:
+                s.text()
+            torch.cuda.synchronize()
+            run = read_launch_counts(engine, stats0)
+        check_launch_counts(f"[{mode}] admission ({label})", run,
+                            mcfg.num_layers, quantization, base["kv_quant"])
+        # Gaps between two read-backs that delivered tokens to a decoding
+        # stream (a round's tokens share one time), during the long
+        # prompt's admission and outside it.
+        t_first = long_.first_token_time
+        gaps, steady = [], []
+        for s in streams:
+            t = sorted(set(s.token_times))
+            for a, b in zip(t, t[1:]):
+                (gaps if b > t_sub and a < t_first else steady).append(b - a)
+        outs = [cold, warm, long_] + streams
+        if any(len(s.token_ids) != n for s, n in zip(
+                outs, [8, 8, 8] + [300] * 4)) or not all(
+                0 <= t < mcfg.vocab_size for s in outs for t in s.token_ids):
+            fail(f"[{mode}] admission ({label}): token counts "
+                 f"{[len(s.token_ids) for s in outs]} or ids out of vocab")
+        chunks = during["prefill_chunks"] - before["prefill_chunks"]
+        inter = (during["sched_interleaved_rounds"]
+                 - before["sched_interleaved_rounds"])
+        budget = engine.stats["sched_round_budget_tokens"]
+        results[label] = dict(hit=hit, chunks=chunks, run=run)
+        say(f"admission [{mode}] ({label} budget {budget} tokens; {programs}"
+            f" programs captured in {build_s:.1f} s, graph pool "
+            f"{engine.graph_pool_bytes} bytes): shared-system-prompt pair of"
+            f" {len(pair[0])} and {len(pair[1])} tokens: {hit} hit tokens, "
+            f"TTFT cold {cold.ttft_ms:.1f} ms, warm {warm.ttft_ms:.1f} ms; "
+            f"{len(doc)}-token prompt during 4 decoding streams: TTFT "
+            f"{long_.ttft_ms:.1f} ms, {chunks} chunks, {inter} interleaved "
+            f"rounds, largest delivery gap of a decoding stream during its "
+            f"admission {max(gaps) * 1e3:.1f} ms (median outside it "
+            f"{sorted(steady)[len(steady) // 2] * 1e3:.1f} ms) [{card}]")
+        del engine
+        torch.cuda.empty_cache()
+    measured, pinned = results["measured"], results["pinned high"]
+    if measured["chunks"] < 2 or pinned["chunks"] != 0:
+        fail(f"[{mode}] the long prompt went in {measured['chunks']} chunks "
+             f"under the measured budget and {pinned['chunks']} pinned high; "
+             f"expected several and none")
+    if measured["hit"] != 512 or pinned["hit"] != 512:
+        fail(f"[{mode}] shared-system-prompt hits {measured['hit']} and "
+             f"{pinned['hit']} tokens; expected 512 (4 pages)")
+    return measured["run"]
 
 
 def top2_gap(torch, engine, ids) -> float:
@@ -1022,8 +1262,15 @@ def graphs_vs_eager(torch, dev, card: str, engine, mode: str) -> None:
 
     ids = [engine.tokenizer.encode(p) for p in SERVE_PROMPTS + [ENGINE_PROMPT]]
     sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True)
+    # The served engine still caches the serve prompts' pages: both
+    # engines start cold, so both prefill the same way.
+    engine.clear_prefix_cache()
+    # The eager engine plans with the served engine's measured budget, so
+    # both make one schedule.
     eager = Engine(engine.params, engine.model_cfg, engine.tokenizer,
-                   replace(engine.cfg, cuda_graphs=False), device=dev)
+                   replace(engine.cfg, cuda_graphs=False,
+                           sched_round_budget_tokens=engine.stats[
+                               "sched_round_budget_tokens"]), device=dev)
     runs = {}
     for name, eng in (("graphs", engine), ("eager", eager)):
         streams = [eng.submit(i, sp) for i in ids]

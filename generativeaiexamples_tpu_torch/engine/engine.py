@@ -7,33 +7,46 @@ port of the reference's ``engine/engine.py``.
 - **Paged KV pool.** KV lives in a pool of fixed-size pages shared through
   per-slot block tables. Admission allocates a request's whole extent
   (prompt + max_tokens) and waits when the pool is exhausted. Physical
-  page 0 is the trash page: inactive slots and prefill-bucket overhang
-  write there, and no live slot ever reads it.
-- **Bucketed prefill.** A prompt is padded to the nearest bucket (a page
-  multiple), prefilled into a dense cache, and its KV scattered into the
-  slot's pages (``_prefill`` + ``_insert``).
-- **Multi-step decode rounds.** Each round runs ``steps_per_round`` decode
-  steps with device-side eos/length termination; tokens come back to the
-  host once per round (``_decode_round``). On CUDA each layer of each step
-  launches the hand-written paged-attention kernel.
+  page 0 is the trash page: inactive slots and prefill overhang write
+  there, and no live slot ever reads it.
+- **Prefix cache.** Prompts are hashed in page-sized blocks
+  (``engine/prefix_cache.py``); admission maps the longest cached prefix
+  into the slot's table read-only and prefills from the first uncached
+  token. Retired requests' prompt pages stay resident until pool
+  pressure evicts them.
+- **Token-budget rounds.** Each serve-loop iteration plans a round
+  (``engine/scheduler.py``): the decode round over the armed slots first,
+  then prompt chunks under the round's token budget. A cold prompt that
+  fits its grant is prefilled in one bucket (``_prefill`` + ``_insert``);
+  a longer one, or the uncached suffix of a prefix hit, runs as
+  page-aligned chunks over the pool (``models/llama.py``
+  ``apply_prefill_paged``), the last of which samples the first token and
+  arms the slot.
+- **Multi-step decode rounds.** Each round runs up to ``steps_per_round``
+  decode steps with device-side eos/length termination; tokens come back
+  to the host once per round. On CUDA each layer of each step launches
+  the hand-written paged-attention kernel.
 - **Static state, captured programs.** The slot state, the pool, the
   round's token output and the admission's inputs are allocated once
   (``_init_device_state``) and only ever written in place. On CUDA the
   engine captures, at construction, one CUDA graph per decode-round rung
-  ``(steps, greedy)`` and one per admission ``(bucket, greedy)``
+  ``(steps, greedy)``, per admission ``(bucket, greedy)``, per chunk
+  extension ``(C, mode)`` and per final chunk ``(C, greedy, seed)``
   (``_prewarm``), where the reference compiled one program each and
-  donated the state; rounds and admissions then run only by replay. On the
-  CPU, or with ``EngineConfig(cuda_graphs=False)``, the same bodies run
+  donated the state; the serve loop then runs only by replay. On the CPU,
+  or with ``EngineConfig(cuda_graphs=False)``, the same bodies run
   eagerly.
 
 One serve thread plans, dispatches and harvests. Waiting for later
-slices: prefix cache, chunked prefill, speculative decoding, the KV tier,
-roles, the watchdog, the flight recorder, the calibrated scheduler and the
-fused vocab-tiled sampler (the materialized sampling tail runs instead).
+slices: speculative decoding, the KV tier, roles, the watchdog, the
+flight recorder, round telemetry, the online cost calibrator, the harvest
+worker and the fused vocab-tiled sampler (the materialized sampling tail
+runs instead).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import queue
 import threading
@@ -58,7 +71,9 @@ from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, EngineError, SchedulerFullError
 from . import graphs
 from .detokenizer import IncrementalDetokenizer, StopWordTrap
+from .prefix_cache import PrefixCache, hash_blocks, usable_prefix_tokens
 from .sampling_params import SamplingParams
+from .scheduler import PrefillJob, StepCostModel, TokenBudgetScheduler
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -84,10 +99,21 @@ class EngineConfig:
     kv_pool_tokens: Union[int, str, None] = "auto"
     # Decode steps per round: one host transfer per round.
     steps_per_round: int = 8
+    # Caps the largest prefill bucket; longer prompts stream through the
+    # pool in chunks. None = one-shot buckets up to max_input_length.
+    max_prefill_bucket: Optional[int] = None
     # KV-cache quantization: "" (pool in `dtype`) or "int8" (per-row
     # symmetric int8 pools + bf16 scale pools, ops/kv_quant.py): about
     # half the bytes per cached token, so "auto" fits ~2x the pages.
     kv_quant: str = ""
+    # Shared-prefix KV reuse (engine/prefix_cache.py).
+    prefix_cache: bool = True
+    # Token-budget scheduler (engine/scheduler.py): per-round prefill-token
+    # budget and per-request chunk cap. None = derive the budget from the
+    # engine's step-cost model (measured on the card at construction, the
+    # class defaults elsewhere) and let the chunk cap follow it.
+    sched_round_budget_tokens: Optional[int] = None
+    sched_prefill_chunk_tokens: Optional[int] = None
     # On CUDA, capture every decode round and admission as a CUDA graph at
     # construction and replay them; False runs them eagerly (the oracle
     # the card checks hold the graphs against). No effect on the CPU.
@@ -108,6 +134,12 @@ class EngineConfig:
                 or isinstance(self.kv_pool_tokens, int)):
             raise ConfigError(f"kv_pool_tokens={self.kv_pool_tokens!r}: use "
                               f"'auto', None or a token count")
+        if self.max_prefill_bucket is not None and (
+                self.max_prefill_bucket < self.page_size
+                or self.max_prefill_bucket % self.page_size):
+            raise ConfigError(
+                f"max_prefill_bucket={self.max_prefill_bucket} must be a "
+                f"multiple of page_size={self.page_size} (>= one page)")
 
     @property
     def max_cache_len(self) -> int:
@@ -123,6 +155,9 @@ class TokenStream:
         self._error: Optional[BaseException] = None
         self.finish_reason: Optional[str] = None
         self.token_ids: list[int] = []
+        # Host-clock time each token was read back from the device (a
+        # round's tokens share one).
+        self.token_times: list[float] = []
         self.submit_time = time.monotonic()
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
@@ -209,6 +244,13 @@ class _Request:
     banned_np: Optional[np.ndarray] = None    # packed (Wn,) words
     bad_seq_np: Optional[np.ndarray] = None   # (MAX_BAD_SEQS, MAX_BAD_LEN)
     bad_len_np: Optional[np.ndarray] = None   # (MAX_BAD_SEQS,)
+    seq: int = 0              # arrival order
+    prefill_done: bool = False   # armed: the slot decodes
+    pf_pos: int = 0           # prompt tokens prefilled (or mapped) so far
+    pf: Optional[dict] = None    # admission context while prefilling
+    cache_refs: list = field(default_factory=list)   # prefix-cache refs held
+    cache_pages: set = field(default_factory=set)    # pages the cache owns
+    block_hashes: Optional[list] = None   # memoized across admission retries
 
     @property
     def done(self) -> bool:
@@ -241,16 +283,26 @@ class Engine:
         page = cfg.page_size
         self._pmax = _ceil_div(cfg.max_cache_len, page)
         page_up = lambda n: _ceil_div(n, page) * page  # noqa: E731
+        # max_prefill_bucket caps the one-shot bucket; longer prompts are
+        # admitted in chunks.
+        cap = min(cfg.max_prefill_bucket or cfg.max_input_length,
+                  cfg.max_input_length)
         self._buckets = tuple(sorted(
-            {page_up(min(b, cfg.max_input_length))
-             for b in cfg.prefill_buckets}
-            | {page_up(cfg.max_input_length)}))
+            {page_up(min(b, cap)) for b in cfg.prefill_buckets}
+            | {page_up(cap)}))
+        # A chunk's padded span starts on a prompt page and runs at most
+        # one largest bucket: the staged page row covers it (pages past
+        # the extent map to the trash page 0). The prefix a chunk attends
+        # lies before its start, inside the prompt's pages.
+        self._row_pages = self._pmax + self._buckets[-1] // page
+        self._prefix_pages = _ceil_div(cfg.max_input_length, page)
         if self.device.type == "cuda":
             self._check_kernel_geometry()
 
         self._pool_reserve: Optional[int] = None   # "auto" sizing's reserve
         self._n_pages = 1 + self._resolve_pool_pages()
         self._free_pages = list(range(1, self._n_pages))
+        self._prefix_cache = PrefixCache(page) if cfg.prefix_cache else None
         self._state = self._init_device_state()
         (self._admit_arrays, self._admit_host,
          self._admit_in) = self._admission_views()
@@ -259,16 +311,26 @@ class Engine:
         self._admit_gen = torch.Generator(device=self.device)
         self._round_graphs: dict[tuple[int, bool], graphs.Program] = {}
         self._admit_graphs: dict[tuple[int, bool], graphs.Program] = {}
+        self._extend_graphs: dict[tuple[int, str], graphs.Program] = {}
+        self._final_graphs: dict[tuple[int, bool, bool],
+                                 graphs.Program] = {}
         self.graph_pool_bytes = 0
+        cost = StepCostModel(slots=cfg.max_slots)
         if self._graphs_on:
-            self._prewarm()
+            cost = self._prewarm()
         self._round_gen.manual_seed(cfg.seed)
+        self._sched = TokenBudgetScheduler(
+            cost, page_size=page, steps_per_round=cfg.steps_per_round,
+            round_budget_tokens=cfg.sched_round_budget_tokens,
+            chunk_tokens=cfg.sched_prefill_chunk_tokens,
+            max_one_shot_tokens=self._buckets[-1])
 
         self._slots: dict[int, _Request] = {}
         self._free_slots = list(range(cfg.max_slots))
         self._pending: "queue.Queue[_Request]" = queue.Queue(
             maxsize=cfg.max_queue)
         self._backlog: list[_Request] = []
+        self._arrival_seq = itertools.count()
         self._wake = threading.Event()
         self._stopped = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -277,7 +339,16 @@ class Engine:
         self._stats_lock = threading.Lock()
         self._stats: dict[str, float] = {
             "requests": 0, "prefills": 0, "decode_rounds": 0,
-            "decode_steps": 0, "tokens_generated": 0, "rejected_full": 0}
+            "decode_steps": 0, "tokens_generated": 0, "rejected_full": 0,
+            # Prefill programs run (one-shot admissions and chunks), and
+            # of those the chunk programs.
+            "prefill_dispatches": 0, "prefill_chunks": 0,
+            # The scheduler: the resolved per-round budget, prefill tokens
+            # granted as chunks, decode token-equivalents charged against
+            # the budget, and rounds that ran decode and prefill together.
+            "sched_round_budget_tokens": self._sched.round_budget_tokens,
+            "sched_prefill_tokens": 0, "sched_decode_tokens": 0,
+            "sched_interleaved_rounds": 0}
 
     def _check_kernel_geometry(self) -> None:
         """On the card every decode layer launches the paged kernel and
@@ -333,16 +404,19 @@ class Engine:
             return full
         # "auto": 90% of the free device memory left after a reserve for
         # the largest bucket's prefill transients (its dense KV, logits
-        # and activations). On the card those live in the captured
-        # programs' memory pool; ``_prewarm`` checks that it fits. Cached
-        # blocks nothing uses (say, weights a quantization replaced) are
-        # handed back first, so they count as free.
+        # and activations; a chunk's float32 score tiles over one
+        # streamed block of the prefix). On the card those live in the
+        # captured programs' memory pool; ``_prewarm`` checks that it
+        # fits. Cached blocks nothing uses (say, weights a quantization
+        # replaced) are handed back first, so they count as free.
         torch.cuda.empty_cache()
         free, _ = torch.cuda.mem_get_info(self.device)
         m, S = self.model_cfg, self._buckets[-1]
+        block = llama.PREFIX_BLOCK_PAGES * cfg.page_size
         reserve = (2 * S * self._kv_bytes_per_token(pooled=False)
                    + 4 * m.hidden_size * m.vocab_size
-                   + 64 * S * m.hidden_size + (512 << 20))
+                   + 64 * S * m.hidden_size
+                   + 16 * m.num_heads * S * block + (512 << 20))
         self._pool_reserve = reserve
         pages = int(0.9 * (free - reserve)) // (
             cfg.page_size * self._kv_bytes_per_token())
@@ -353,9 +427,10 @@ class Engine:
 
     def _init_device_state(self) -> dict:
         """Device-side slot state, the page pool, the decode round's token
-        output ``round_tokens`` (steps_per_round, B) and the admission
-        program's packed inputs (``admit``: int32 ``i32``, float32 ``f32``,
-        banned words; laid out by ``_admission_views``). Allocated once:
+        output ``round_tokens`` (steps_per_round, B) and the admission and
+        chunk programs' packed inputs (``admit``: int32 ``i32``, float32
+        ``f32``, banned words, and the seen words of a cached prefix
+        ``seen0``; laid out by ``_admission_views``). Allocated once:
         every later write is in place, so a captured program's addresses
         stay valid."""
         B, dev = self.cfg.max_slots, self.device
@@ -386,7 +461,8 @@ class Engine:
             "admit": {"i32": z(sum(n for _, n in
                                    self._admit_i32_spans().values())),
                       "f32": z(len(self._ADMIT_F32), dtype=torch.float32),
-                      "banned": z(Wn, dtype=torch.int64)},
+                      "banned": z(Wn, dtype=torch.int64),
+                      "seen0": z(Wn, dtype=torch.int64)},
         }
         for name, value in self._STATE_FILL.items():
             st[name].fill_(value)
@@ -406,11 +482,14 @@ class Engine:
     def _admit_i32_spans(self) -> dict[str, tuple[int, int]]:
         """(offset, length) of each admission input packed into
         state["admit"]["i32"]: the largest bucket's token ids, the page
-        row, the sequence-ban table and lengths, then the scalars."""
-        sizes = {"tokens": self._buckets[-1], "row": self._pmax,
+        row (wide enough for a chunk's padded span), the sequence-ban
+        table and lengths, then the scalars. ``start`` is a chunk's first
+        prompt position (0 for a one-shot admission) and ``length`` the
+        prompt tokens valid after it (the chunk's ``kv_valid_len``)."""
+        sizes = {"tokens": self._buckets[-1], "row": self._row_pages,
                  "bad_seq": self.MAX_BAD_SEQS * self.MAX_BAD_LEN,
-                 "bad_len": self.MAX_BAD_SEQS, "length": 1, "slot": 1,
-                 "top_k": 1, "remaining": 1, "eos_ok": 1}
+                 "bad_len": self.MAX_BAD_SEQS, "length": 1, "start": 1,
+                 "slot": 1, "top_k": 1, "remaining": 1, "eos_ok": 1}
         spans, at = {}, 0
         for name, n in sizes.items():
             spans[name] = (at, n)
@@ -422,13 +501,15 @@ class Engine:
         one int32, one float32 and one int64 as state["admit"] has them;
         named numpy views of those; named device views of
         state["admit"]). ``_stage_admission`` fills the host side and
-        copies each array over whole, three copies per admission; the
-        admission program reads only the device views."""
+        copies each array over whole, four copies per admission or chunk;
+        the programs read only the device views."""
         a = self._state["admit"]
         host = {"i32": np.zeros(a["i32"].shape, np.int32),
                 "f32": np.zeros(a["f32"].shape, np.float32),
-                "banned": np.zeros(a["banned"].shape, np.int64)}
-        hv, dv = {"banned": host["banned"]}, {"banned": a["banned"]}
+                "banned": np.zeros(a["banned"].shape, np.int64),
+                "seen0": np.zeros(a["seen0"].shape, np.int64)}
+        hv = {"banned": host["banned"], "seen0": host["seen0"]}
+        dv = {"banned": a["banned"], "seen0": a["seen0"]}
         for name, (off, n) in self._admit_i32_spans().items():
             hv[name] = host["i32"][off:off + n]
             dv[name] = a["i32"][off:off + n]
@@ -442,12 +523,20 @@ class Engine:
 
     @property
     def stats(self) -> dict[str, float]:
+        """Counters and gauges. ``free_pages`` counts the pages an
+        admission can take now: the free list plus cached pages no live
+        request maps (eviction reclaims them on demand)."""
         with self._stats_lock:
             out = dict(self._stats)
         out["queue_waiting"] = len(self._backlog) + self._pending.qsize()
         out["active_slots"] = len(self._slots)
-        out["free_pages"] = len(self._free_pages)
+        cache = self._prefix_cache
+        out["free_pages"] = len(self._free_pages) + (
+            cache.idle_pages if cache is not None else 0)
         out["pool_pages"] = self._n_pages - 1
+        if cache is not None:
+            out.update(cache.stats.snapshot())
+            out["prefix_cache_pages"] = cache.cached_pages
         return out
 
     def _bump(self, key: str, n: int = 1) -> None:
@@ -501,14 +590,13 @@ class Engine:
         rows the decode kernel appends. The pool and the slot state are
         updated in place (the reference returned a new state from a
         donated jit)."""
-        mcfg, st, a = self.model_cfg, self._state, self._admit_in
+        mcfg, a = self.model_cfg, self._admit_in
         page, L = self.cfg.page_size, mcfg.num_layers
         nb = k_new.shape[2] // page
-        row = a["row"]
-        dest = row[:nb].long()
+        dest = a["row"][:nb].long()
         # (L, 1, S, KV, hd) -> (L, nb, KV, page, hd): KV heads ahead of the
         # page dim, the pool's layout.
-        cache = st["cache"]
+        cache = self._state["cache"]
         for name, new in (("k", k_new), ("v", v_new)):
             blocks = new.reshape(L, nb, page, mcfg.num_kv_heads,
                                  mcfg.head_dim).transpose(2, 3)
@@ -519,6 +607,14 @@ class Engine:
                 rows, scales = quantize_rows(blocks[i])
                 cache[name][i, dest] = rows
                 cache[name + "s"][i, dest] = scales
+        self._arm(first, seen)
+
+    def _arm(self, first: torch.Tensor, seen: torch.Tensor) -> None:
+        """Arm the staged slot for decoding, in place: its page row, its
+        position (the prompt length), its first token ((1,) int32), its
+        sampling inputs and its seen mask (packed (Wn,) words with the
+        first token set)."""
+        st, a = self._state, self._admit_in
         eos = int(self.tokenizer.eos_id)
         eos_ok = a["eos_ok"].bool()
         # A slot whose first token already ends it (eos, or max_tokens
@@ -531,7 +627,7 @@ class Engine:
                             first[:, None]], dim=1)
         slot = a["slot"].long()
         for name, value in (
-                ("table", row[None]), ("pos", a["length"]),
+                ("table", a["row"][None, :self._pmax]), ("pos", a["length"]),
                 ("last_token", first), ("active", active),
                 ("remaining", a["remaining"]), ("eos_ok", eos_ok),
                 ("temp", a["temp"]), ("top_k", a["top_k"]),
@@ -545,6 +641,77 @@ class Engine:
         """One admission: prefill, first token, insert (the reference's
         ``prefill_insert``, one program on the TTFT path)."""
         self._insert(*self._prefill(bucket, greedy))
+
+    # The chunk programs' seen handling (the reference's ``_chunk_seen``):
+    # "replace" is the first chunk of a cold prompt (the slot's mask is
+    # the previous occupant's), "accum" ORs into the slot's mask, "seed"
+    # is the first chunk of a prefix hit (OR into the staged ``seen0``,
+    # the cached tokens' mask built on the host).
+    CHUNK_MODES = ("replace", "accum", "seed")
+
+    def _chunk_seen(self, C: int, mode: str) -> torch.Tensor:
+        """The staged slot's seen mask after the staged chunk, as packed
+        (Wn,) words."""
+        a = self._admit_in
+        in_chunk = (a["length"] - a["start"]).clamp(0, C)
+        words = pack_mask(seen_mask(a["tokens"][:C][None], in_chunk,
+                                    self.model_cfg.vocab_size)[0])
+        if mode == "accum":
+            words = self._state["seen"].index_select(
+                0, a["slot"].long())[0] | words
+        elif mode == "seed":
+            words = a["seen0"] | words
+        return words
+
+    def _chunk_prefill(self, C: int, prefix: bool) -> torch.Tensor:
+        """The staged chunk (``C`` tokens from ``start``, ``length`` valid)
+        through ``apply_prefill_paged`` into the staged page row; returns
+        its hidden states (1, C, D). ``prefix`` False: the chunk starts at
+        position 0 and attends no pool rows."""
+        a = self._admit_in
+        positions = (a["start"] + torch.arange(
+            C, dtype=torch.int32, device=self.device))[None, :]
+        h, _ = llama.apply_prefill_paged(
+            self.params, self.model_cfg, a["tokens"][:C][None], positions,
+            self._state["cache"], a["row"][None], a["length"],
+            a["start"] // self.cfg.page_size,
+            prefix_pages=self._prefix_pages if prefix else 0)
+        return h
+
+    @torch.no_grad()
+    def _chunk_extend_body(self, C: int, mode: str) -> None:
+        """A chunk that is not the prompt's last (the reference's
+        ``_chunk_extend_fn``): its K/V into the slot's pages and its
+        tokens into the slot's seen mask; no vocab projection."""
+        self._chunk_prefill(C, prefix=mode != "replace")
+        self._state["seen"].index_copy_(
+            0, self._admit_in["slot"].long(), self._chunk_seen(C, mode)[None])
+
+    @torch.no_grad()
+    def _chunk_final_body(self, C: int, greedy: bool, seed: bool) -> None:
+        """The prompt's last chunk (the reference's ``_chunk_final_fn``):
+        paged prefill, the first token from the last prompt row only, and
+        the slot armed as ``_insert`` arms it. ``seed``: also the first
+        chunk of a prefix hit."""
+        a, mcfg = self._admit_in, self.model_cfg
+        h = self._chunk_prefill(C, prefix=True)
+        seen = self._chunk_seen(C, "seed" if seed else "accum")
+        idx = (a["length"] - a["start"] - 1).clamp(0, C - 1)
+        last = llama.unembed(self.params, mcfg,
+                             h.index_select(1, idx.long()))[:, 0]  # (1, V)
+        V = mcfg.vocab_size
+        last = apply_repetition_penalty(last, unpack_mask(seen, V)[None],
+                                        a["rep_pen"])
+        last = torch.where(unpack_mask(a["banned"], V)[None, :],
+                           torch.full_like(last, NEG_INF), last)
+        if greedy:
+            first = last.float().argmax(dim=-1).to(torch.int32)
+        else:
+            first = sample(last, a["temp"], a["top_k"], a["top_p"],
+                           self._admit_gen)
+        seen = set_token_bits(seen[None], first,
+                              torch.ones_like(first, dtype=torch.bool))[0]
+        self._arm(first, seen)
 
     @staticmethod
     def _bad_seq_hits(seq: torch.Tensor, blen: torch.Tensor,
@@ -636,27 +803,51 @@ class Engine:
         int32 view of ``round_tokens`` (-1 for slots inactive at step
         entry). On the card with graphs on, only the rung's captured
         program runs."""
-        if self._graphs_on:
-            self._round_graphs[(steps, greedy)].replay()
-        else:
-            self._round_body(steps, greedy)
+        self._replay(self._round_graphs, self._round_body, steps, greedy)
         return self._state["round_tokens"][:steps]
 
     @property
     def _graphs_on(self) -> bool:
         return self.device.type == "cuda" and self.cfg.cuda_graphs
 
-    def _prewarm(self) -> None:
-        """Capture every device program the serve loop runs (the
-        reference's ``prewarm``, narrowed to capture), so no request pays
-        for one: one admission program per (bucket, greedy), largest
-        bucket first so the smaller ones reuse its memory, then one
-        decode-round program per rung of ``graphs.round_rungs`` and
-        greedy flag. Each is warmed up once on a side stream and
-        captured there, into one memory pool the programs share. The
-        warm-ups write the trash page and an inactive slot 0 (staged
-        below), so the state is reset afterwards. Under "auto" pool sizing
-        the programs' pool must fit in the reserve the sizing kept."""
+    def _programs(self):
+        """Every device program the serve loop runs, as (table, key,
+        body, generator or None), largest chunk length first so the
+        smaller ones reuse its memory: per bucket C the admission
+        ``(C, greedy)``, the chunk extensions ``(C, mode)`` and the final
+        chunks ``(C, greedy, seed)``; then the decode-round rungs
+        ``(steps, greedy)``. Sampled programs draw from a generator."""
+        for C in sorted(self._buckets, reverse=True):
+            for greedy in (True, False):
+                yield (self._admit_graphs, (C, greedy),
+                       functools.partial(self._admit_body, C, greedy),
+                       None if greedy else self._admit_gen)
+            for mode in self.CHUNK_MODES:
+                yield (self._extend_graphs, (C, mode),
+                       functools.partial(self._chunk_extend_body, C, mode),
+                       None)
+            for greedy in (True, False):
+                for seed in (False, True):
+                    yield (self._final_graphs, (C, greedy, seed),
+                           functools.partial(self._chunk_final_body, C,
+                                             greedy, seed),
+                           None if greedy else self._admit_gen)
+        for steps in graphs.round_rungs(self.cfg.steps_per_round):
+            for greedy in (True, False):
+                yield (self._round_graphs, (steps, greedy),
+                       functools.partial(self._round_body, steps, greedy),
+                       None if greedy else self._round_gen)
+
+    def _prewarm(self) -> StepCostModel:
+        """Capture every device program the serve loop runs
+        (``_programs``; the reference's ``prewarm``, narrowed to capture),
+        so no request pays for one, then measure the step-cost model the
+        scheduler plans with. Each program is warmed up once on a side
+        stream and captured there, into one memory pool the programs
+        share. The warm-ups write the trash page and an inactive slot 0
+        (staged below), so the state is reset afterwards. Under "auto"
+        pool sizing the programs' pool must fit in the reserve the sizing
+        kept. A failed capture raises."""
         dev = self.device
         h = self._admit_host
         h["length"][0] = 1      # a one-token prompt into the trash page
@@ -667,21 +858,16 @@ class Engine:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        for bucket in sorted(self._buckets, reverse=True):
-            for greedy in (True, False):
-                self._admit_graphs[(bucket, greedy)] = graphs.capture(
-                    lambda b=bucket, g=greedy: self._admit_body(b, g),
-                    device=dev, stream=stream, pool=pool,
-                    generators=() if greedy else (self._admit_gen,))
-        for steps in graphs.round_rungs(self.cfg.steps_per_round):
-            for greedy in (True, False):
-                self._round_graphs[(steps, greedy)] = graphs.capture(
-                    lambda n=steps, g=greedy: self._round_body(n, g),
-                    device=dev, stream=stream, pool=pool,
-                    generators=() if greedy else (self._round_gen,))
+        for table, key, body, gen in self._programs():
+            table[key] = graphs.capture(
+                body, device=dev, stream=stream, pool=pool,
+                generators=() if gen is None else (gen,))
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        cost = StepCostModel(slots=self.cfg.max_slots)
+        if self.cfg.sched_round_budget_tokens is None:
+            cost = self._measure_costs()
         self._reset_state()
         torch.cuda.synchronize(dev)
         if (self._pool_reserve is not None
@@ -690,6 +876,32 @@ class Engine:
                 f"the captured programs hold {self.graph_pool_bytes} bytes, "
                 f"more than the {self._pool_reserve} bytes that "
                 f'kv_pool_tokens="auto" reserved for them')
+        return cost
+
+    def _measure_costs(self, replays: int = 3) -> StepCostModel:
+        """The scheduler's step-cost model, measured on the card by CUDA
+        events around replays of the captured programs: the
+        ``steps_per_round`` rung gives ``decode_step_ms`` and the largest
+        bucket's admission ``prefill_ms_per_token`` (a bucket's prefill
+        costs its full length whatever the prompt). The replays run on
+        the staged warm-up inputs, into the trash page."""
+        def ms(program: graphs.Program) -> float:
+            program.replay()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(replays):
+                program.replay()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / replays
+
+        steps, bucket = self.cfg.steps_per_round, self._buckets[-1]
+        return StepCostModel(
+            decode_step_ms=ms(self._round_graphs[(steps, True)]) / steps,
+            prefill_ms_per_token=ms(self._admit_graphs[(bucket, True)])
+            / bucket,
+            slots=self.cfg.max_slots, source="measured")
 
     # ------------------------------------------------------------ lifecycle
 
@@ -716,6 +928,17 @@ class Engine:
         for req in self._drain_intake():
             if not req.done:
                 req.stream._finish("cancelled")
+
+    def clear_prefix_cache(self) -> int:
+        """Evict every cached page no live request maps back to the free
+        list, so the next requests prefill cold; returns how many. The
+        cache belongs to the serve thread: call this while it is
+        stopped."""
+        if self._prefix_cache is None or self._thread is not None:
+            return 0
+        freed = self._prefix_cache.evict(self._prefix_cache.idle_pages)
+        self._free_pages.extend(freed)
+        return len(freed)
 
     def __enter__(self) -> "Engine":
         self.start()
@@ -803,7 +1026,8 @@ class Engine:
                        eff_max=eff_max, extent=len(ids) + eff_max,
                        greedy=(params.top_k == 1 or params.temperature <= 0),
                        banned_np=pack_mask_np(banned_row),
-                       bad_seq_np=seq_tbl, bad_len_np=seq_len)
+                       bad_seq_np=seq_tbl, bad_len_np=seq_len,
+                       seq=next(self._arrival_seq))
         if len(self._backlog) + self._pending.qsize() >= self.cfg.max_queue:
             self._reject_full()
         try:
@@ -839,6 +1063,9 @@ class Engine:
     # ------------------------------------------------------------ scheduler
 
     def _bucket_for(self, n: int) -> int:
+        """The smallest bucket that holds ``n`` tokens: a one-shot
+        admission's length, and a chunk's padded length (the reference's
+        ``_chunk_pad``, so chunks add no shapes of their own)."""
         return next((b for b in self._buckets if n <= b), self._buckets[-1])
 
     def _drain_intake(self) -> list[_Request]:
@@ -850,7 +1077,7 @@ class Engine:
                 return out
 
     def _run(self) -> None:
-        """Serve thread: retire, admit, run one decode round, harvest."""
+        """Serve thread: retire, plan, dispatch, harvest."""
         try:
             while not self._stopped.is_set():
                 if not self._step():
@@ -863,87 +1090,286 @@ class Engine:
                     req.stream._fail(exc)
 
     def _step(self) -> bool:
-        """One iteration of the serve loop; False when there was nothing
-        to do."""
+        """One iteration of the serve loop (the reference's
+        ``_plan_round`` and ``_execute_plan``): retire finished requests,
+        plan the round, dispatch its decode round over the armed slots,
+        then its prompt chunks, then read the first tokens of the slots
+        it armed (one read) and the round's tokens (one read). False when
+        there was nothing to do."""
         did = False
         for req in [r for r in self._slots.values() if r.done]:
             self._release(req)
             did = True
+        did |= self._pull_pending()
+        plan = self._plan_round()
+        toks, members = None, {}
+        if plan.decode_steps:
+            toks, members = self._dispatch_round(plan.decode_steps)
+            self._bump("sched_decode_tokens", plan.decode_cost_tokens)
+        armed, prefilled, admitted = self._run_chunks(plan.chunks)
+        if prefilled:
+            self._bump("sched_prefill_tokens", prefilled)
+            if toks is not None:
+                self._bump("sched_interleaved_rounds")
+        if armed:
+            # Each final chunk or admission left its first token in its
+            # slot's last_token: one read serves them all.
+            host = self._state["last_token"].cpu().numpy()
+            now = time.monotonic()
+            for req in armed:
+                if not req.done:
+                    self._emit_token(req, int(host[req.slot]), now)
+        if toks is not None:
+            grid = toks.cpu().numpy()   # the round's one device->host read
+            now = time.monotonic()
+            for k in range(grid.shape[0]):
+                for slot, req in members.items():
+                    tok = int(grid[k, slot])
+                    if tok >= 0 and not req.done:
+                        self._emit_token(req, tok, now)
+        return did or admitted or bool(prefilled) or toks is not None
+
+    def _pull_pending(self) -> bool:
+        """Move submitted requests into the backlog and finish the
+        cancelled ones waiting there. True when one was finished."""
         while True:
             try:
                 self._backlog.append(self._pending.get_nowait())
             except queue.Empty:
                 break
-        admitted: list[_Request] = []
-        while self._backlog and self._free_slots:
-            req = self._backlog[0]
+        kept, did = [], False
+        for req in self._backlog:
             if req.stream.cancelled:
-                self._backlog.pop(0)
                 req.stream._finish("cancelled")
                 did = True
-                continue
-            if not self._admit(req):
-                break  # pool backpressure: wait for pages to free
-            self._backlog.pop(0)
-            admitted.append(req)
-        if admitted:
-            # First tokens go to the host before the round, so a request's
-            # time to first token is its prefill, not prefill + a round.
-            # Each admission left its first token in its slot's
-            # last_token: one read serves them all.
-            host = self._state["last_token"].cpu().numpy()
-            for req in admitted:
-                if not req.done:
-                    self._emit_token(req, int(host[req.slot]))
-        toks, members = self._dispatch_round()
-        if toks is None:
-            return did or bool(admitted)
-        grid = toks.cpu().numpy()   # the round's one device->host transfer
-        for k in range(grid.shape[0]):
-            for slot, req in members.items():
-                tok = int(grid[k, slot])
-                if tok >= 0 and not req.done:
-                    self._emit_token(req, tok)
-        return True
+            else:
+                kept.append(req)
+        self._backlog = kept
+        return did
 
-    def _admit(self, req: _Request) -> bool:
-        """Allocate a slot and pages, stage the request's inputs and run
-        its bucket's admission program (prefill, first token, insert).
-        The first token lands in ``last_token[slot]``. False when the pool
-        is exhausted."""
+    def _armed(self) -> dict[int, _Request]:
+        """The slots that decode: prefill done, not finished."""
+        return {s: r for s, r in self._slots.items()
+                if r.prefill_done and not r.done}
+
+    def _plan_round(self):
+        """This round's plan: the decode round right-sized against the
+        power-of-two step ladder (as before the scheduler, so decode-only
+        traffic runs the rounds it always ran) plus the prefill jobs the
+        scheduler may grant chunks to: slots mid-prefill first, then the
+        backlog when a slot is free."""
+        armed = self._armed()
+        # proj_pos is the device pos after the last dispatched step; the
+        # first token came from prefill, so extent - 1 - proj_pos steps
+        # remain at most.
+        need = max((r.extent - 1 - r.proj_pos for r in armed.values()),
+                   default=0)
+        steps = graphs.rung_for(self.cfg.steps_per_round, need) \
+            if need > 0 else 0
+        inflight = [PrefillJob(key=r, remaining=len(r.prompt_ids) - r.pf_pos,
+                               seq=r.seq, started=True)
+                    for r in self._slots.values() if not r.prefill_done]
+        backlog = [PrefillJob(key=r, remaining=len(r.prompt_ids), seq=r.seq)
+                   for r in self._backlog] if self._free_slots else []
+        return self._sched.plan_round(
+            decode_steps=steps, active_decodes=len(armed), inflight=inflight,
+            backlog=backlog, now=time.monotonic(),
+            max_new=len(self._free_slots))
+
+    def _run_chunks(self, chunks) -> tuple[list[_Request], int, bool]:
+        """Dispatch the plan's prefill grants: a request without a slot is
+        admitted first (``_begin_prefill``); admitting stops at pool
+        backpressure. Returns (requests armed this round, prompt tokens
+        prefilled, whether any request was admitted or dropped)."""
+        armed: list[_Request] = []
+        prefilled, admitted = 0, False
+        for req, grant in chunks:
+            if req.slot < 0:
+                if not self._free_slots:
+                    break
+                ok = self._begin_prefill(req)
+                if ok is None:     # cancelled while it waited
+                    admitted = True
+                    continue
+                if not ok:         # pool backpressure: stop admitting
+                    break
+                admitted = True
+            prefilled += self._advance_prefill(req, grant)
+            if req.prefill_done:
+                armed.append(req)
+        return armed, prefilled, admitted
+
+    def _prefix_lookup(self, req: _Request):
+        """Match the prompt's full blocks against the prefix cache and
+        take refs on the usable prefix. Returns (the prompt's block
+        hashes, how many leading blocks to map read-only, their pages).
+        A full-cover match is capped one block short (COW demotion)."""
+        if self._prefix_cache is None:
+            return [], 0, []
+        page = self.cfg.page_size
+        if req.block_hashes is None:  # backpressure retries re-enter here
+            req.block_hashes = hash_blocks(req.prompt_ids, page)
+        hashes = req.block_hashes
+        matched = self._prefix_cache.match(hashes)
+        k_use = usable_prefix_tokens(matched, len(req.prompt_ids),
+                                     page) // page
+        if k_use == 0:
+            return hashes, 0, []
+        return hashes, k_use, self._prefix_cache.acquire(hashes[:k_use])
+
+    def _register_prefix(self, req: _Request, hashes: list,
+                         k_use: int) -> None:
+        """Hand the freshly prefilled full prompt blocks to the cache
+        (they hold prompt KV only: decode writes land past the last full
+        block). A block already cached (the COW-demoted tail) keeps its
+        page private; it frees at retire."""
+        if self._prefix_cache is None:
+            return
+        for i in range(k_use, len(hashes)):
+            parent = hashes[i - 1] if i else None
+            if self._prefix_cache.insert(hashes[i], parent, req.pages[i]):
+                req.cache_refs.append(hashes[i])
+                req.cache_pages.add(req.pages[i])
+
+    def _begin_prefill(self, req: _Request) -> Optional[bool]:
+        """Admission, first half: the slot and pages (a prefix hit's
+        cached pages first), prefix-cache refs, and the context the
+        prefill programs share. Pool pressure evicts refcount-0 cached
+        pages before it reports backpressure. Returns True on success,
+        False on backpressure (the request stays in the backlog), None
+        when the request was cancelled instead."""
+        if req.stream.cancelled:
+            self._backlog.remove(req)
+            req.stream._finish("cancelled")
+            return None
         page = self.cfg.page_size
         n_alloc = _ceil_div(req.extent, page)
-        if n_alloc > len(self._free_pages):
-            return False
+        hashes, k_use, hit_pages = self._prefix_lookup(req)
+        need_new = n_alloc - k_use
+        if need_new > len(self._free_pages):
+            if self._prefix_cache is not None:
+                self._free_pages.extend(self._prefix_cache.evict(
+                    need_new - len(self._free_pages)))
+            if need_new > len(self._free_pages):
+                if k_use:
+                    self._prefix_cache.release(hashes[:k_use])
+                return False
+        self._backlog.remove(req)
         req.slot = self._free_slots.pop()
-        req.pages = [self._free_pages.pop() for _ in range(n_alloc)]
+        req.pages = hit_pages + [self._free_pages.pop()
+                                 for _ in range(need_new)]
+        req.cache_refs = list(hashes[:k_use])
+        req.cache_pages = set(hit_pages)
+        start_tok = k_use * page
         req.proj_pos = len(req.prompt_ids)
-        bucket = self._bucket_for(len(req.prompt_ids))
-        self._stage_admission(req, bucket)
-        self._admit_gen.manual_seed(
-            (self.cfg.seed << 32) ^ (next(self._step_counter) << 16)
-            ^ req.params.random_seed)
-        if self._graphs_on:
-            self._admit_graphs[(bucket, req.greedy)].replay()
-        else:
-            self._admit_body(bucket, req.greedy)
+        req.pf_pos = start_tok
+        if self._prefix_cache is not None:
+            st = self._prefix_cache.stats
+            st.lookups += 1
+            st.lookup_tokens += len(req.prompt_ids)
+            if start_tok:
+                st.hits += 1
+                st.hit_tokens += start_tok
+        row = np.zeros((self._row_pages,), np.int32)
+        row[:n_alloc] = req.pages
+        seen0 = None
+        if start_tok:
+            # The cached tokens' seen mask, built on the host and seeded
+            # into the first chunk.
+            mask = np.zeros((self.model_cfg.vocab_size,), bool)
+            mask[np.asarray(req.prompt_ids[:start_tok], np.int64)] = True
+            seen0 = pack_mask_np(mask)
+        req.pf = {"row": row, "start_tok": start_tok, "hashes": hashes,
+                  "k_use": k_use, "seen0": seen0,
+                  "seed": ((self.cfg.seed << 32)
+                           ^ (next(self._step_counter) << 16)
+                           ^ req.params.random_seed)}
         self._slots[req.slot] = req
         self._bump("prefills")
         return True
 
-    def _stage_admission(self, req: _Request, bucket: int) -> None:
-        """Write the request's admission inputs into the host staging
+    def _abort_prefill(self, req: _Request, finish: str) -> None:
+        """Retire a request between chunks (cancelled). Its slot was
+        never armed on the device, so only the host bookkeeping goes."""
+        req.pf = None
+        self._retire(req, finish)
+
+    def _advance_prefill(self, req: _Request, grant: int) -> int:
+        """Admission, second half, once per round: run one prefill program
+        for up to ``grant`` prompt tokens. A cold prompt that fits its
+        grant keeps the one-program admission (``_admit_body``); otherwise
+        a chunk padded to its bucket runs (``_chunk_extend_body``, or
+        ``_chunk_final_body`` for the prompt's last tokens, which arms the
+        slot). Returns the prompt tokens prefilled."""
+        pf = req.pf
+        if req.pf_pos > pf["start_tok"] and req.stream.cancelled:
+            self._abort_prefill(req, "cancelled")
+            return 0
+        total, page = len(req.prompt_ids), self.cfg.page_size
+        n = min(grant, total - req.pf_pos, self._buckets[-1])
+        final = req.pf_pos + n >= total
+        if not final:
+            n = (n // page) * page
+            if n <= 0:
+                return 0
+        C = self._bucket_for(n)
+        seeding = req.pf_pos == pf["start_tok"] and pf["seen0"] is not None
+        self._stage_admission(req, req.pf_pos, n, C,
+                              pf["seen0"] if seeding else None)
+        if final:
+            self._admit_gen.manual_seed(pf["seed"])
+        if final and req.pf_pos == 0:
+            self._replay(self._admit_graphs, self._admit_body, C, req.greedy)
+        elif final:
+            self._replay(self._final_graphs, self._chunk_final_body, C,
+                         req.greedy, seeding)
+            self._bump("prefill_chunks")
+        else:
+            mode = ("seed" if seeding else
+                    "replace" if req.pf_pos == 0 else "accum")
+            self._replay(self._extend_graphs, self._chunk_extend_body, C,
+                         mode)
+            self._bump("prefill_chunks")
+        self._bump("prefill_dispatches")
+        req.pf_pos += n
+        if final:
+            self._arm_slot(req)
+        return n
+
+    def _replay(self, table: dict, body, *key) -> None:
+        """Run one device program: with graphs on, the replay of the
+        capture ``table`` keeps under ``key`` (a missing one raises), else
+        ``body(*key)`` eagerly."""
+        if self._graphs_on:
+            table[key].replay()
+        else:
+            body(*key)
+
+    def _arm_slot(self, req: _Request) -> None:
+        """Prefill complete: publish the prompt's blocks to the prefix
+        cache and mark the slot armed for the decode rounds (its first
+        token is read after the round's dispatches)."""
+        pf = req.pf
+        self._register_prefix(req, pf["hashes"], pf["k_use"])
+        req.pf = None
+        req.prefill_done = True
+
+    def _stage_admission(self, req: _Request, start: int, n: int, C: int,
+                         seen0: Optional[np.ndarray]) -> None:
+        """Write a prefill program's inputs (the prompt's tokens
+        [start, start + n) padded to ``C``, the page row, the sampling
+        inputs, the cached prefix's seen words) into the host staging
         arrays and copy them to the device (``_admission_views``)."""
         h, sp = self._admit_host, req.params
-        n = len(req.prompt_ids)
-        h["tokens"][:n] = req.prompt_ids
-        h["tokens"][n:bucket] = 0
-        h["row"][:] = 0
-        h["row"][:len(req.pages)] = req.pages
+        h["tokens"][:n] = req.prompt_ids[start:start + n]
+        h["tokens"][n:C] = 0
+        h["row"][:] = req.pf["row"]
         h["bad_seq"][:] = req.bad_seq_np
         h["bad_len"][:] = req.bad_len_np
         h["banned"][:] = req.banned_np
-        h["length"][0] = n
+        h["seen0"][:] = 0 if seen0 is None else seen0
+        h["length"][0] = start + n
+        h["start"][0] = start
         h["slot"][0] = req.slot
         h["top_k"][0] = sp.top_k
         h["remaining"][0] = req.eff_max - 1
@@ -958,19 +1384,10 @@ class Engine:
         for name, arr in self._admit_arrays.items():
             self._state["admit"][name].copy_(torch.from_numpy(arr))
 
-    def _dispatch_round(self):
-        """Run one decode round over the armed slots, right-sized against
-        the power-of-two step ladder. Returns ((steps, B) device tokens,
-        members) or (None, {}) when no slot needs tokens."""
-        members = {s: r for s, r in self._slots.items() if not r.done}
-        # proj_pos is the device pos after the last dispatched step; the
-        # first token came from prefill, so extent - 1 - proj_pos steps
-        # remain at most.
-        need_steps = max((r.extent - 1 - r.proj_pos
-                          for r in members.values()), default=0)
-        if need_steps <= 0:
-            return None, {}
-        steps = graphs.rung_for(self.cfg.steps_per_round, need_steps)
+    def _dispatch_round(self, steps: int):
+        """Run one ``steps``-step decode round over the armed slots.
+        Returns ((steps, B) device tokens, members)."""
+        members = self._armed()
         greedy = all(r.greedy for r in members.values())
         toks = self._decode_round(steps, greedy)
         for req in members.values():
@@ -979,15 +1396,17 @@ class Engine:
         self._bump("decode_steps", steps)
         return toks, members
 
-    def _emit_token(self, req: _Request, token: int) -> None:
-        """Deliver one generated token; finish the stream when the request
-        ends. The finish rule mirrors the device-side termination, so host
-        and device agree on each slot's last token."""
+    def _emit_token(self, req: _Request, token: int, now: float) -> None:
+        """Deliver one generated token, read back at host time ``now``;
+        finish the stream when the request ends. The finish rule mirrors
+        the device-side termination, so host and device agree on each
+        slot's last token."""
         req.generated += 1
         req.stream.token_ids.append(token)
+        req.stream.token_times.append(now)
         self._bump("tokens_generated")
         if req.stream.first_token_time is None:
-            req.stream.first_token_time = time.monotonic()
+            req.stream.first_token_time = now
         finish: Optional[str] = None
         if token == self.tokenizer.eos_id and not req.params.ignore_eos:
             finish = "eos"
@@ -1017,9 +1436,17 @@ class Engine:
         self._retire(req, req.stream.finish_reason or "cancelled")
 
     def _retire(self, req: _Request, finish: str) -> None:
+        """Return the slot and the pages the cache does not own, and
+        release the request's prefix-cache refs: cached pages stay
+        resident, warm for the next request that shares them."""
         del self._slots[req.slot]
         self._free_slots.append(req.slot)
-        self._free_pages.extend(req.pages)
+        self._free_pages.extend(p for p in req.pages
+                                if p not in req.cache_pages)
+        if req.cache_refs:
+            self._prefix_cache.release(req.cache_refs)
         req.pages = []
+        req.cache_refs = []
+        req.cache_pages = set()
         if not req.done:
             req.stream._finish(finish)

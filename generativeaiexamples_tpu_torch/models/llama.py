@@ -31,7 +31,7 @@ from typing import Any, Iterator, Optional, Union
 import torch
 
 from ..ops.attention import gqa_attention
-from ..ops.kv_quant import SCALE_DTYPE
+from ..ops.kv_quant import SCALE_DTYPE, dequantize_rows, quantize_rows
 from ..ops.paged_attention import paged_attention_decode
 from ..ops.quant import matmul as qmm
 from ..ops.quant import matmul_f32 as qmm_f32
@@ -172,8 +172,9 @@ def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
                   kv_valid_len: Optional[torch.Tensor],
                   cache_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
                   attend=None) -> torch.Tensor:
-    """One transformer block, shared by ``apply`` and
-    ``apply_decode_paged`` (which supplies ``attend(q, k, v) -> attn``).
+    """One transformer block, shared by ``apply``, ``apply_decode_paged``
+    and ``apply_prefill_paged`` (the last two supply
+    ``attend(q, k, v) -> attn``).
 
     cache_kv: optional (kc, vc) of shape (B, T, KV, hd), updated IN PLACE
     with this chunk's K/V at rows ``positions[b]``, by device-side index
@@ -288,3 +289,190 @@ def apply_decode_paged(params: Params, cfg: LlamaConfig,
         h = decoder_layer(h, layer_params(params, i), cfg, positions,
                           inv_freq, None, attend=attend)
     return unembed(params, cfg, h), kv_cache
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` on storage-dtype operands with a float32 result
+    (the reference's ``preferred_element_type=jnp.float32``). On the card
+    a bf16 product goes to the tensor cores with fp32 accumulation and an
+    fp32 output; elsewhere both operands are widened first, which gives
+    the same exact products, summed in float32."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+# Pages per streamed block of a chunk's prefix (the reference's default).
+PREFIX_BLOCK_PAGES = 8
+
+
+def _paged_prefix_attention(q, k_self, v_self, kc, vc, ksc, vsc,
+                            block_table, start, kv_valid_len, page: int,
+                            cfg: LlamaConfig,
+                            block_pages: int = PREFIX_BLOCK_PAGES):
+    """Chunk queries attend [pooled prefix] + [their own chunk], the prefix
+    streamed from the pool in ``block_pages``-page blocks under an online
+    softmax (the reference's ``_paged_prefix_attention``, same
+    arithmetic).
+
+    q:            (1, C, H, hd) post-rope queries (C = chunk length)
+    k/v_self:     (1, C, KV, hd) this chunk's post-rope K/V (not yet in
+                  the pool: the pool's rows for these positions are stale)
+    kc/vc:        (N, KV, page, hd) one layer's pool (int8 when ksc/vsc,
+                  its (N, KV, page) scale pools, are given)
+    block_table:  (1, P) logical -> physical page window
+    start:        () int32 device scalar, the chunk's first absolute
+                  position (page-aligned); pool rows at or past it are
+                  masked
+    kv_valid_len: (1,) int32, start + valid tokens in this chunk
+    Returns (1, C, H, hd) in q.dtype.
+
+    q.k and p.v run on storage-dtype operands with float32 results
+    (``_dot_f32``); the softmax state is float32 and p is cast to the
+    compute dtype before p.v. Masked probabilities are zeroed, and so are
+    the masked rows of each V block, so a non-finite stale row cannot
+    reach the output. The reference skips blocks wholly past ``start`` at
+    run time; a CUDA graph cannot branch on a device value, so here every
+    block of the window runs, fully masked where dead (which leaves the
+    softmax state exactly as it was)."""
+    B, C, H, hd = q.shape
+    KV = cfg.num_kv_heads
+    G = H // KV
+    scale = 1.0 / (hd ** 0.5)
+    P = block_table.shape[1]
+    nb = -(-P // block_pages)
+    tbl = torch.nn.functional.pad(block_table[0],
+                                  (0, nb * block_pages - P)).long()
+    cd = q.dtype
+    dev = q.device
+    # (C, H, hd) -> (KV, G*C, hd): one batched product per kv head.
+    qk = q[0].reshape(C, KV, G, hd).permute(1, 2, 0, 3).reshape(KV, G * C, hd)
+    tblk = block_pages * page
+    rel = torch.arange(C, dtype=torch.int32, device=dev)
+    m = torch.full((KV, G * C), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((KV, G * C), dtype=torch.float32, device=dev)
+    acc = torch.zeros((KV, G * C, hd), dtype=torch.float32, device=dev)
+
+    def online(m, l, acc, kb, vb, mask):
+        """One online-softmax update over a key block: kb/vb (KV, T, hd),
+        mask (C, T) or (T,) of visible keys. The score tile is updated in
+        place (the reference's operations, in its order)."""
+        T = kb.shape[1]
+        dead = ~mask.expand(C, T).repeat(G, 1)[None]         # (1, G*C, T)
+        s = _dot_f32(qk, kb.transpose(1, 2)).mul_(scale)     # (KV, G*C, T)
+        s.masked_fill_(dead, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = s.sub_(m_new[..., None]).exp_().masked_fill_(dead, 0.0)
+        l_new = l * alpha + p.sum(dim=-1)
+        vis = mask.reshape(-1, T).any(dim=0)                  # (T,)
+        vb = vb.masked_fill(~vis[None, :, None], 0)
+        acc_new = acc * alpha[..., None] + _dot_f32(p.to(cd), vb)
+        return m_new, l_new, acc_new
+
+    def block_rows(pool, scales, pages):
+        g = pool[pages]                                  # (bp, KV, page, hd)
+        if scales is not None:
+            g = dequantize_rows(g, scales[pages], cd)
+        return g.permute(1, 0, 2, 3).reshape(KV, tblk, hd).to(cd)
+
+    for bi in range(nb):
+        pages = tbl[bi * block_pages:(bi + 1) * block_pages]
+        t = bi * tblk + torch.arange(tblk, dtype=torch.int32, device=dev)
+        # Prefix rows only, each visible to every chunk query.
+        m, l, acc = online(m, l, acc, block_rows(kc, ksc, pages),
+                           block_rows(vc, vsc, pages), t < start)
+
+    # The chunk itself, in key blocks of at most 512.
+    sb = min(C, 512)
+    while C % sb:
+        sb //= 2
+    ks = k_self[0].permute(1, 0, 2)                      # (KV, C, hd)
+    vs = v_self[0].permute(1, 0, 2)
+    for si in range(C // sb):
+        tloc = si * sb + torch.arange(sb, dtype=torch.int32, device=dev)
+        ok = ((tloc[None, :] <= rel[:, None])
+              & ((start + tloc) < kv_valid_len[0])[None, :])
+        m, l, acc = online(m, l, acc, ks[:, si * sb:(si + 1) * sb],
+                           vs[:, si * sb:(si + 1) * sb], ok)
+    # Padded rows past kv_valid_len attend nothing: floor the denominator
+    # so they give zeros, not NaN.
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    # (KV, G*C, hd) -> (1, C, H, hd)
+    return out.reshape(KV, G, C, hd).permute(2, 0, 1, 3).reshape(
+        1, C, H, hd).to(q.dtype)
+
+
+def apply_prefill_paged(params: Params, cfg: LlamaConfig,
+                        tokens: torch.Tensor, positions: torch.Tensor,
+                        kv_cache: KVCache, block_table: torch.Tensor,
+                        kv_valid_len: torch.Tensor,
+                        start_page_idx: torch.Tensor, *,
+                        prefix_pages: Optional[int] = None,
+                        ) -> tuple[torch.Tensor, KVCache]:
+    """One chunk of a prompt's prefill over the paged KV pool (B = 1): the
+    chunk attends the prefix already in the slot's pages plus itself, and
+    its K/V land in the slot's pages.
+
+    tokens/positions: (1, C), C a page multiple, positions starting at a
+    page boundary. block_table: (1, P) logical -> physical window covering
+    the chunk's padded span. kv_valid_len: (1,) = chunk start + valid
+    tokens in this chunk. start_page_idx: (1,) or () int32, the logical
+    page of the chunk's first row; the destination pages are
+    ``block_table[0, start_page_idx + i]``. ``prefix_pages`` (static)
+    bounds the window the prefix attention streams, the first
+    ``prefix_pages`` columns of ``block_table`` (None: all of it; 0: the
+    chunk starts at position 0 and has no prefix).
+
+    Positions and the start are device tensors and nothing reads them on
+    the host, so a CUDA graph can capture the function. The layer loop
+    only reads the pool; each layer's chunk K/V are collected and written
+    after it in one scatter (int8 pools through ``quantize_rows``, one
+    layer at a time, giving the reference's bytes). The pool is updated
+    in place. Returns (hidden states (1, C, D) before the final norm,
+    the pool): the caller unembeds only the rows it samples."""
+    B, C = tokens.shape
+    if B != 1:
+        raise ValueError("apply_prefill_paged is single-request (B=1)")
+    page = kv_cache["k"].shape[3]  # (L, N, KV, page, hd)
+    if C % page:
+        raise ValueError(f"chunk {C} not a page ({page}) multiple")
+    nb = C // page
+    inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                cfg.rope_scaling_factor, device=tokens.device)
+    h = params["embed"][tokens.long()]
+    start = positions[0, 0]
+    quant = kv_cache_quantized(kv_cache)
+    window = block_table if prefix_pages is None else \
+        block_table[:, :prefix_pages]
+    new_k, new_v = [], []
+    for i in range(cfg.num_layers):
+        kc, vc = kv_cache["k"][i], kv_cache["v"][i]
+        ksc = kv_cache["ks"][i] if quant else None
+        vsc = kv_cache["vs"][i] if quant else None
+
+        def attend(q, k, v, kc=kc, vc=vc, ksc=ksc, vsc=vsc):
+            new_k.append(k[0])
+            new_v.append(v[0])
+            return _paged_prefix_attention(
+                q, k, v, kc, vc, ksc, vsc, window, start, kv_valid_len,
+                page, cfg)
+
+        h = decoder_layer(h, layer_params(params, i), cfg, positions,
+                          inv_freq, kv_valid_len, attend=attend)
+    dest = (start_page_idx.reshape(()).long()
+            + torch.arange(nb, device=tokens.device))
+    dest = block_table[0].long().index_select(0, dest)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    for name, rows in (("k", new_k), ("v", new_v)):
+        pool = kv_cache[name]
+        for i, r in enumerate(rows):
+            # (C, KV, hd) -> (nb, KV, page, hd): the pool's layout.
+            blocks = r.reshape(nb, page, KV, hd).transpose(1, 2)
+            if quant:
+                qrows, scales = quantize_rows(blocks)
+                pool[i, dest] = qrows
+                kv_cache[name + "s"][i, dest] = scales
+            else:
+                pool[i, dest] = blocks.to(pool.dtype)
+    return h, kv_cache

@@ -4,7 +4,7 @@
         [--model llama-2-7b-chat] [--slots 8] [--prompt-len 512] \\
         [--steps 8] [--rounds 4] [--trace decode_trace.json] \\
         [--quantization int4_awq] [--kv-quant int8] [--prefill BUCKET] \\
-        [--eager]
+        [--chunk C --prefix P] [--eager]
 
 Builds the port's engine (random bf16 weights from ``--seed``, quantized
 on the device with ``--quantization``, over a ``--kv-quant`` pool), fills
@@ -32,6 +32,14 @@ admitted by one ``_step`` (prefill, KV insert, first token to the host).
 After a warm-up it times ``--rounds`` such prefills with the host clock,
 traces one more, and prints the prefill time, the device's busy share
 of it and its device time by kernel (the int4 matmul by path).
+
+``--chunk C --prefix P`` profiles one chunk extension of a chunked
+admission instead: a P-token prompt (a page multiple) is served first, so
+its pages are in the prefix cache; then a prompt of those P tokens plus
+2C more is admitted under a C-token budget, so its first program is the
+C-token extension that streams the P cached tokens from the pool ("seed"
+mode; "replace" at P = 0). That program is replayed ``--rounds`` times
+and timed with CUDA events, then traced once more by kernel.
 """
 
 from __future__ import annotations
@@ -205,6 +213,128 @@ def profile_prefill(args) -> int:
     return 0
 
 
+def measure_chunk(engine, chunk: int, prefix: int, rounds: int,
+                  seed: int = 0, trace: str = "") -> dict:
+    """Device time of one chunk-extension program of ``chunk`` tokens
+    after a ``prefix``-token cached prefix (the ``--chunk`` mode): CUDA
+    events around ``rounds`` replays, then one more traced by kernel.
+    ``engine`` is idle, not started, with one slot, ``chunk`` as its only
+    bucket and a ``chunk``-token round budget."""
+    from ..engine import SamplingParams
+    from ..ops.int4_matmul import int4_matmul
+
+    cuda = engine.device.type == "cuda"
+    if engine._buckets != (chunk,) or prefix % engine.cfg.page_size:
+        raise ValueError("the engine's only bucket must be the chunk and "
+                         "the prefix a page multiple")
+    rng = np.random.default_rng(seed)
+    ids = [1] + list(rng.integers(3, 259, prefix + 2 * chunk - 1))
+    sp = SamplingParams(max_tokens=1, top_k=1, ignore_eos=True)
+    if prefix:
+        warm = engine.submit(ids[:prefix], sp)
+        for _ in range(4 * (prefix // chunk + 2)):
+            engine._step()
+        if len(warm.token_ids) != 1 or engine.stats["prefix_cache_pages"] \
+                < prefix // engine.cfg.page_size:
+            raise RuntimeError("the prefix was not served and cached")
+    stream = engine.submit(ids, sp)
+    engine._step()                   # admission: the first extension
+    req = next(iter(engine._slots.values()))
+    if req.pf_pos != prefix + chunk or req.prefill_done:
+        raise RuntimeError(f"the first program prefilled up to {req.pf_pos}"
+                           f", not one {chunk}-token chunk after {prefix}")
+    mode = "seed" if prefix else "replace"
+    program = engine._extend_graphs.get((chunk, mode))
+
+    def run():
+        if program is not None:
+            program.replay()
+        else:
+            engine._chunk_extend_body(chunk, mode)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    run()
+    sync()
+    t0 = time.perf_counter()
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    for _ in range(rounds):
+        run()
+    if cuda:
+        end.record()
+    sync()
+    chunk_ms = (start.elapsed_time(end) if cuda
+                else (time.perf_counter() - t0) * 1e3) / rounds
+    int4_matmul.launches_by_path = dict.fromkeys(
+        int4_matmul.launches_by_path, 0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        sync()
+    by_path = dict(int4_matmul.launches_by_path)
+    if trace:
+        prof.export_chrome_trace(trace)
+    stream.cancel()
+    for _ in range(4):
+        engine._step()
+    events = _device_events(prof)
+    kernels = _kernel_times(events)
+    int4_us = {p: sum(us for name, (us, _) in kernels.items() if sym in name)
+               for p, sym in _INT4_PATHS.items()}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    return {
+        "card": _card(cuda), "cuda_graphs": program is not None,
+        "chunk": chunk, "prefix": prefix, "mode": mode,
+        "chunk_ms": chunk_ms,
+        "device_ms": sum(us for us, _ in kernels.values()) / 1e3,
+        "device_busy_ms": _busy_us(events) / 1e3,
+        "int4_ms_by_path": {p: us / 1e3 for p, us in int4_us.items()},
+        "int4_launches_by_path": by_path,
+        "top_device_ops": [{"name": name[:120], "ms": us / 1e3, "count": n}
+                           for name, (us, n) in top]}
+
+
+def profile_chunk(args) -> int:
+    """The ``--chunk C --prefix P`` mode (see the module docstring)."""
+    from ..engine import EngineConfig
+    from ..serving.model_server import build_services
+
+    C, P = args.chunk, args.prefix
+    ecfg = EngineConfig(max_slots=1, max_input_length=P + 2 * C,
+                        max_output_length=1, prefill_buckets=(C,),
+                        max_prefill_bucket=C, kv_pool_tokens=None,
+                        kv_quant=args.kv_quant, cuda_graphs=not args.eager,
+                        sched_round_budget_tokens=C,
+                        sched_prefill_chunk_tokens=C)
+    engine, model_name = build_services(args.model, engine_cfg=ecfg,
+                                        seed=args.seed, device=args.device,
+                                        quantization=args.quantization)
+    out = measure_chunk(engine, C, P, args.rounds, args.seed, args.trace)
+    engine.stop()
+    mode = (f"{args.quantization or 'bf16'} weights, "
+            f"{args.kv_quant or 'bf16'} KV, "
+            f"{'graphs' if out['cuda_graphs'] else 'eager'}")
+    print(f"{model_name} [{mode}] on {out['card']}: one {C}-token chunk "
+          f"extension ({out['mode']}) after a {P}-token cached prefix")
+    clock = "CUDA events" if out["card"] != "cpu" else "host clock"
+    print(f"chunk {out['chunk_ms']:.3f} ms ({clock}, mean of "
+          f"{args.rounds} runs); traced device {out['device_ms']:.3f} ms "
+          f"(busy {out['device_busy_ms']:.3f} ms)")
+    print(f"  int4_matmul by path (ms) {out['int4_ms_by_path']}, launches "
+          f"{out['int4_launches_by_path']}")
+    for op in out["top_device_ops"]:
+        print(f"  {op['ms']:9.3f} ms  {op['count']:6d}x  {op['name'][:90]}")
+    print(json.dumps({"model": model_name, "quantization": args.quantization,
+                      "kv_quant": args.kv_quant, **out}))
+    return 0
+
+
 def main(argv=None) -> int:
     from ..engine import EngineConfig
     from ..ops.quant import MODES
@@ -225,12 +355,19 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill", type=int, default=0, metavar="BUCKET",
                     help="profile one prefill of this bucket instead of "
                          "decode rounds")
+    ap.add_argument("--chunk", type=int, default=0, metavar="C",
+                    help="profile one C-token chunk extension instead")
+    ap.add_argument("--prefix", type=int, default=0, metavar="P",
+                    help="with --chunk: the cached prefix it follows "
+                         "(a page multiple)")
     ap.add_argument("--eager", action="store_true",
                     help="build the engine with cuda_graphs=False: every "
                          "operation issued from the host")
     args = ap.parse_args(argv)
     if args.prefill:
         return profile_prefill(args)
+    if args.chunk:
+        return profile_chunk(args)
 
     n_new = (args.rounds + 3) * args.steps + 1
     ecfg = EngineConfig(max_slots=args.slots,
@@ -279,6 +416,7 @@ def measure_decode(engine, slots: int, prompt_len: int, rounds: int,
     device time by kernel. The engine's ``max_output_length`` must cover
     ``(rounds + 3) * steps_per_round + 1`` tokens."""
     from ..engine import SamplingParams
+    from ..engine.scheduler import TokenBudgetScheduler
     from ..models import llama
     from ..ops.int4_matmul import int4_matmul
     from ..ops.paged_attention import paged_attention_decode
@@ -296,13 +434,22 @@ def measure_decode(engine, slots: int, prompt_len: int, rounds: int,
                              SamplingParams(max_tokens=n_new, top_k=1,
                                             ignore_eos=True))
                for _ in range(slots)]
-    # First step admits every slot (prefill) and runs a round; the
-    # second is a warm decode-only round.
+    # One step admits every slot (each prompt one bucket: the admission
+    # plans under a budget that holds them all, so no slot decodes while
+    # another is still admitted); the second is a warm decode-only round.
+    page = engine.cfg.page_size
+    planner = engine._sched
+    engine._sched = TokenBudgetScheduler(
+        planner.cost, page_size=page, steps_per_round=steps_per_round,
+        round_budget_tokens=slots * -(-prompt_len // page) * page,
+        max_one_shot_tokens=engine._buckets[-1])
+    try:
+        engine._step()
+    finally:
+        engine._sched = planner
     engine._step()
-    engine._step()
-    if engine.stats["active_slots"] != slots:
-        raise RuntimeError(f"{engine.stats['active_slots']} of {slots} "
-                           f"slots admitted")
+    if len(engine._armed()) != slots:
+        raise RuntimeError(f"{len(engine._armed())} of {slots} slots armed")
     steps0 = engine.stats["decode_steps"]
     sync()
     t0 = time.perf_counter()

@@ -698,8 +698,11 @@ def test_int4_kernel_leading_dims_and_quant_matmul(dev):
 
 # ------------------------------------------------------ engine CUDA graphs
 
+# The budget is pinned so that graph and eager engines (the latter plans
+# with the class defaults, not a measurement) make the same plans.
 _GRAPH_KW = dict(max_slots=4, max_input_length=512, max_output_length=24,
-                 prefill_buckets=(128, 512), kv_pool_tokens=None)
+                 prefill_buckets=(128, 512), kv_pool_tokens=None,
+                 sched_round_budget_tokens=4096)
 
 
 def _model(dev, mode, num_layers=2):
@@ -858,6 +861,92 @@ def test_two_admissions_in_one_step_keep_their_first_tokens(dev):
         firsts[graphs_on] = [s.token_ids for s in streams]
     assert firsts[True] == firsts[False]
     assert firsts[True][0] != firsts[True][1]
+
+
+# Chunked admission on the card: buckets capped at 128 and a 256-token
+# budget, so a 450-token prompt goes in 128-token chunks beside a decoding
+# slot (extensions "replace", "accum", an unseeded final); then its repeat
+# (3 cached pages: a seeded final) and a 428-token prompt sharing its
+# first page (a "seed" extension, then "accum" and an unseeded final).
+_CHUNK_KW = dict(max_prefill_bucket=128, sched_round_budget_tokens=256)
+_LONG = [1] + [3 + (5 * i) % 256 for i in range(449)]
+_CHUNK_PHASES = [[_PROMPTS[3], _LONG],
+                 [_LONG, _LONG[:128] + [3 + (9 * i) % 256
+                                        for i in range(300)]]]
+
+
+def _drive_phases(engine, phases, n_new=12):
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    sp = SamplingParams(max_tokens=n_new, top_k=1, ignore_eos=True)
+    out = []
+    for prompts in phases:
+        out.append([s.token_ids for s in _drive(engine, prompts,
+                                                [sp] * len(prompts))])
+        engine._step()                   # release the finished slots
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int4"])
+def test_graph_chunks_match_eager_chunks(dev, mode):
+    """The captured chunk programs (extension in every mode, final chunks
+    seeded or not) give the eager bodies' greedy tokens and leave the same
+    pool bytes (every page but the trash page 0) and slot state: float32,
+    bf16 and int4-AWQ + int8 KV at the 2-layer 7B width."""
+    params, cfg, kw = _model(dev, mode)
+    got = {}
+    for graphs_on in (True, False):
+        engine = _engine_on(dev, params, cfg, cuda_graphs=graphs_on,
+                            **{**kw, **_CHUNK_KW})
+        assert bool(engine._final_graphs) == graphs_on
+        tokens = _drive_phases(engine, _CHUNK_PHASES)
+        st = engine.stats
+        assert st["prefill_chunks"] == 8 and st["prefix_cache_hits"] == 2
+        assert st["sched_interleaved_rounds"] > 0
+        got[graphs_on] = (tokens, engine._state, st)
+        del engine
+    (tg, sg, stg), (te, se, ste) = got[True], got[False]
+    assert tg == te
+    for key in ("prefill_chunks", "prefix_cache_hit_tokens", "decode_steps"):
+        assert stg[key] == ste[key], key
+    for name in sg["cache"]:
+        assert torch.equal(_bits(sg["cache"][name][:, 1:]),
+                           _bits(se["cache"][name][:, 1:])), name
+    for name in ("table", "pos", "last_token", "active", "remaining",
+                 "seen", "recent"):
+        assert torch.equal(sg[name], se[name]), name
+
+
+@pytest.mark.cuda
+def test_warm_hit_equals_cold_run_float32(dev):
+    """float32 at the 2-layer 7B width: the prompts served warm (a repeat
+    and a shared prefix, through captured chunk programs) give the greedy
+    tokens of a cold engine that admits them in one piece."""
+    params, cfg, kw = _model(dev, "f32")
+    warm = _drive_phases(_engine_on(dev, params, cfg,
+                                    **{**kw, **_CHUNK_KW}), _CHUNK_PHASES)
+    cold = _engine_on(dev, params, cfg, prefix_cache=False, **kw)
+    assert _drive_phases(cold, _CHUNK_PHASES[1:]) == warm[1:]
+    assert cold.stats["prefill_chunks"] == 0
+    assert warm[0][1] == warm[1][0]
+
+
+@pytest.mark.cuda
+def test_chunk_programs_carry_their_launch_counts(dev):
+    """int4-AWQ at the 2-layer 7B width: a chunk extension runs every
+    projection on #3's ``wg`` path; a final chunk adds the lm_head row on
+    ``tc``; no chunk launches the decode attention kernels."""
+    params, cfg, kw = _model(dev, "int4")
+    engine = _engine_on(dev, params, cfg, **{**kw, **_CHUNK_KW})
+    wg = 7 * cfg.num_layers
+    for key, program in engine._extend_graphs.items():
+        assert program.launches == {"int4_matmul": wg,
+                                    "int4_matmul/wg": wg}, key
+    for key, program in engine._final_graphs.items():
+        assert program.launches == {"int4_matmul": wg + 1,
+                                    "int4_matmul/wg": wg,
+                                    "int4_matmul/tc": 1}, key
+    assert len(engine._extend_graphs) == 3 and len(engine._final_graphs) == 4
 
 
 @pytest.mark.cuda

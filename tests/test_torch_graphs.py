@@ -147,6 +147,31 @@ def test_bodies_make_no_host_read_or_copy(torch_params, kv_quant):
         assert mode.seen == [], greedy
 
 
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["f32-pool",
+                                                        "int8-pool"])
+def test_chunk_bodies_make_no_host_read_or_copy(torch_params, kv_quant):
+    """The chunk programs' bodies (every extension mode, and the final
+    chunk greedy and sampled, seeded or not) read every per-request value
+    on the device, as a CUDA graph needs."""
+    engine = _engine(torch_params, kv_quant=kv_quant, max_prefill_bucket=32)
+    req_params = SamplingParams(max_tokens=8, temperature=0.7, top_k=20,
+                                top_p=0.9, repetition_penalty=1.1,
+                                ignore_eos=True, bad_words=["ab"])
+    engine.submit(_prompt(50), req_params)
+    engine._step()                    # stages a real request's first chunk
+    assert engine.stats["prefill_chunks"] == 1
+    for C in engine._buckets:
+        for mode in engine.CHUNK_MODES:
+            with _HostSyncs() as mode_:
+                engine._chunk_extend_body(C, mode)
+            assert mode_.seen == [], (C, mode)
+        for greedy in (True, False):
+            for seed in (False, True):
+                with _HostSyncs() as mode_:
+                    engine._chunk_final_body(C, greedy, seed)
+                assert mode_.seen == [], (C, greedy, seed)
+
+
 def _jax_admit_and_round(jeng, reqs, steps):
     """The JAX engine's admission and round programs on the port's slots
     and pages; returns the round's (steps, B) tokens."""
@@ -195,7 +220,8 @@ def test_pools_and_slots_match_jax_engine(torch_params, jax_engines,
     reqs = []
     for i, n in enumerate(lengths):
         engine.submit(_prompt(n, i), _greedy(12))
-    engine._step()                   # both admissions, then one round
+    engine._step()                   # both admissions
+    engine._step()                   # then one round over both slots
     reqs = sorted(engine._slots.values(), key=lambda r: -r.slot)
     assert len(reqs) == 2 and engine.stats["decode_steps"] == 8
     jeng = jax_engines[kv_quant]
