@@ -37,11 +37,23 @@ port of the reference's ``engine/engine.py``.
   or with ``EngineConfig(cuda_graphs=False)``, the same bodies run
   eagerly.
 
-One serve thread plans, dispatches and harvests. Waiting for later
-slices: speculative decoding, the KV tier, roles, the watchdog, the
-flight recorder, round telemetry, the online cost calibrator, the harvest
-worker and the fused vocab-tiled sampler (the materialized sampling tail
-runs instead).
+- **Harvest worker.** The serve thread plans and dispatches; a harvest
+  thread reads the tokens back, detokenizes, scans for stop words and
+  finishes streams, so up to ``dispatch_depth`` decode rounds ride the
+  device queue while the host works on the last one's tokens. Each
+  round's tokens (and each admission's first tokens) are copied into a
+  host buffer of a ring right after their program (``_HostRing``), since
+  the next replay overwrites the static ``round_tokens``. The worker
+  posts finish decisions back; the serve thread alone retires requests
+  (slots, pages, prefix-cache refs, the device-side ``active`` flag).
+  With ``dispatch_depth=1``, or when ``_step`` is driven without
+  ``start()``, the serve thread reads each round back itself at the end
+  of its ``_step``.
+
+Waiting for later slices: speculative decoding, the KV tier, roles, the
+watchdog, the flight recorder, round telemetry, the online cost
+calibrator and the fused vocab-tiled sampler (the materialized sampling
+tail runs instead).
 """
 
 from __future__ import annotations
@@ -73,7 +85,8 @@ from . import graphs
 from .detokenizer import IncrementalDetokenizer, StopWordTrap
 from .prefix_cache import PrefixCache, hash_blocks, usable_prefix_tokens
 from .sampling_params import SamplingParams
-from .scheduler import PrefillJob, StepCostModel, TokenBudgetScheduler
+from .scheduler import (PrefillJob, RoundPlan, StepCostModel,
+                        TokenBudgetScheduler)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -118,6 +131,11 @@ class EngineConfig:
     # construction and replay them; False runs them eagerly (the oracle
     # the card checks hold the graphs against). No effect on the CPU.
     cuda_graphs: bool = True
+    # Decode rounds dispatched before the serve thread waits for their
+    # tokens: with 2 (the reference's default) a harvest thread reads each
+    # round back while the next one runs; 1 reads each round back on the
+    # serve thread, in line.
+    dispatch_depth: int = 2
 
     def __post_init__(self) -> None:
         if self.page_size <= 0:
@@ -128,8 +146,10 @@ class EngineConfig:
         if self.kv_quant not in ("", "int8"):
             raise ConfigError(f"kv_quant={self.kv_quant!r} not supported; "
                               f"use '' or 'int8'")
-        if self.max_slots < 1 or self.steps_per_round < 1:
-            raise ConfigError("max_slots and steps_per_round must be >= 1")
+        if (self.max_slots < 1 or self.steps_per_round < 1
+                or self.dispatch_depth < 1):
+            raise ConfigError("max_slots, steps_per_round and "
+                              "dispatch_depth must be >= 1")
         if not (self.kv_pool_tokens is None or self.kv_pool_tokens == "auto"
                 or isinstance(self.kv_pool_tokens, int)):
             raise ConfigError(f"kv_pool_tokens={self.kv_pool_tokens!r}: use "
@@ -257,6 +277,64 @@ class _Request:
         return self.stream.finish_reason is not None
 
 
+class _HostRing:
+    """Host buffers for the device->host copies the harvest reads: each a
+    (steps_per_round, B) int32 buffer (pinned on CUDA, so the copy is
+    asynchronous) with a CUDA event recorded after its copy. The serve
+    thread copies into the next buffer in turn (``copy``), waiting while
+    the harvest still holds it, so a copy never lands in a buffer whose
+    tokens are unread; ``read`` waits for the copy, returns the values
+    and hands the buffer back."""
+
+    def __init__(self, n: int, shape: tuple[int, int], device: torch.device):
+        cuda = device.type == "cuda"
+        self.bufs = [torch.zeros(shape, dtype=torch.int32, pin_memory=cuda)
+                     for _ in range(n)]
+        self.events = [torch.cuda.Event() if cuda else None
+                       for _ in range(n)]
+        self._busy = [False] * n
+        self._next = 0
+        self._cond = threading.Condition()
+
+    def __len__(self) -> int:
+        return len(self.bufs)
+
+    def copy(self, src: torch.Tensor, alive) -> int:
+        """Start copying ``src`` (at most (steps_per_round, B)) into the
+        next free buffer, after the work already queued on the current
+        stream; returns the buffer's index. ``alive()`` is called while
+        waiting and raises to abandon the wait."""
+        i = self._next
+        with self._cond:
+            while self._busy[i]:
+                alive()
+                self._cond.wait(timeout=0.05)
+            self._busy[i] = True
+        self._next = (i + 1) % len(self.bufs)
+        rows = src.reshape(-1, src.shape[-1])
+        self.bufs[i][:rows.shape[0]].copy_(rows, non_blocking=True)
+        if self.events[i] is not None:
+            self.events[i].record()
+        return i
+
+    def read(self, i: int, rows: int) -> list[list[int]]:
+        """Wait for buffer ``i``'s copy; its first ``rows`` rows as lists,
+        and the buffer handed back."""
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        out = self.bufs[i][:rows].tolist()
+        with self._cond:
+            self._busy[i] = False
+            self._cond.notify_all()
+        return out
+
+    def reset(self) -> None:
+        """Every buffer free (nothing is in flight)."""
+        with self._cond:
+            self._busy = [False] * len(self.bufs)
+            self._cond.notify_all()
+
+
 class Engine:
     """Continuous-batching engine over one model on one device."""
 
@@ -335,6 +413,24 @@ class Engine:
         self._stopped = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._fatal: Optional[BaseException] = None
+        # The harvest pipeline: each dispatched program's output goes
+        # onto ``_harvest_q`` in dispatch order (or ``_inline`` when no
+        # worker runs); the worker reads it and posts finished requests
+        # on ``_completed`` for the serve thread to retire.
+        self._ring = _HostRing(2 * (cfg.dispatch_depth + 1),
+                               (cfg.steps_per_round, cfg.max_slots),
+                               self.device)
+        self._harvest_q: "queue.Queue[tuple]" = queue.Queue()
+        self._inline: list[tuple] = []
+        self._completed: "queue.Queue[_Request]" = queue.Queue()
+        self._harvest_thread: Optional[threading.Thread] = None
+        self._harvest_stop = threading.Event()
+        self._depth = 1          # the running pipeline's dispatch depth
+        self._inflight_rounds = 0
+        # Prompt chunks were dispatched since the last decode round (at
+        # most one step of them between two rounds).
+        self._chunk_behind = False
+        self._pipe_lock = threading.Lock()
         self._ids = itertools.count()
         self._stats_lock = threading.Lock()
         self._stats: dict[str, float] = {
@@ -348,7 +444,13 @@ class Engine:
             # the budget, and rounds that ran decode and prefill together.
             "sched_round_budget_tokens": self._sched.round_budget_tokens,
             "sched_prefill_tokens": 0, "sched_decode_tokens": 0,
-            "sched_interleaved_rounds": 0}
+            "sched_interleaved_rounds": 0,
+            # The most decode rounds dispatched and not yet harvested;
+            # the harvest's rounds, its milliseconds waiting for their
+            # copies and delivering their tokens (the reference's
+            # harvest_wait_ms), on whichever thread harvests.
+            "dispatch_depth_peak": 0, "harvest_rounds": 0,
+            "harvest_wait_ms": 0.0, "harvest_emit_ms": 0.0}
 
     def _check_kernel_geometry(self) -> None:
         """On the card every decode layer launches the paged kernel and
@@ -530,6 +632,7 @@ class Engine:
             out = dict(self._stats)
         out["queue_waiting"] = len(self._backlog) + self._pending.qsize()
         out["active_slots"] = len(self._slots)
+        out["inflight_rounds"] = self._inflight_rounds
         cache = self._prefix_cache
         out["free_pages"] = len(self._free_pages) + (
             cache.idle_pages if cache is not None else 0)
@@ -906,8 +1009,12 @@ class Engine:
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> None:
+        """Start the serve thread, and with ``dispatch_depth`` > 1 the
+        harvest worker."""
         if self._thread is None:
             self._stopped.clear()
+            if self.cfg.dispatch_depth > 1:
+                self._start_harvest(self.cfg.dispatch_depth)
             self._thread = threading.Thread(target=self._run, daemon=True,
                                             name="engine-loop")
             self._thread.start()
@@ -920,14 +1027,58 @@ class Engine:
             if self._thread.is_alive():
                 raise EngineError("engine loop did not stop within 60s")
             self._thread = None
+        self._stop_harvest()
         # Cancel what is still live so no consumer blocks forever, and
         # deactivate the slots so a restart reuses no live pages.
         for req in list(self._slots.values()):
-            self._state["active"][req.slot] = False
-            self._retire(req, "cancelled")
+            self._release(req)
         for req in self._drain_intake():
             if not req.done:
                 req.stream._finish("cancelled")
+
+    def _start_harvest(self, depth: int) -> None:
+        """Start the harvest worker with ``depth`` decode rounds allowed in
+        flight (the serve loop's ``start`` does; a caller driving
+        ``_step`` itself may too). Nothing may be in flight."""
+        if self._harvest_thread is not None:
+            return
+        if len(self._ring) < 2 * (depth + 1):
+            self._ring = _HostRing(2 * (depth + 1), tuple(
+                self._ring.bufs[0].shape), self.device)
+        self._depth = depth
+        self._harvest_stop.clear()
+        self._harvest_thread = threading.Thread(
+            target=self._harvest_loop, daemon=True, name="engine-harvest")
+        self._harvest_thread.start()
+
+    def _stop_harvest(self) -> None:
+        """Stop and join the harvest worker. Items it left unread are
+        read here (unless it failed), so their streams still get their
+        tokens."""
+        worker = self._harvest_thread
+        if worker is None:
+            return
+        self._harvest_stop.set()
+        worker.join(timeout=60)
+        if worker.is_alive():
+            raise EngineError("harvest worker did not stop within 60s")
+        self._harvest_thread = None
+        self._depth = 1
+        while True:
+            try:
+                item = self._harvest_q.get_nowait()
+            except queue.Empty:
+                break
+            if self._fatal is None:
+                self._harvest(item)
+        self._inflight_rounds = 0
+        self._chunk_behind = False
+        self._ring.reset()
+
+    def _alive(self) -> None:
+        """Raise if the engine failed (a wait on the harvest gives up)."""
+        if self._fatal is not None:
+            raise EngineError("the engine failed") from self._fatal
 
     def clear_prefix_cache(self) -> int:
         """Evict every cached page no live request maps back to the free
@@ -1077,57 +1228,122 @@ class Engine:
                 return out
 
     def _run(self) -> None:
-        """Serve thread: retire, plan, dispatch, harvest."""
+        """Serve thread: retire, plan, dispatch (and, without a harvest
+        worker, harvest)."""
         try:
             while not self._stopped.is_set():
+                # Cleared before the step: a wake-up posted while it runs
+                # (a harvested round opening the depth gate) is kept.
+                self._wake.clear()
                 if not self._step():
                     self._wake.wait(timeout=0.05)
-                    self._wake.clear()
         except BaseException as exc:  # noqa: BLE001 - report to all streams
-            self._fatal = exc
+            if self._fatal is None:
+                self._fatal = exc
             for req in list(self._slots.values()) + self._drain_intake():
                 if not req.done:
-                    req.stream._fail(exc)
+                    req.stream._fail(self._fatal)
 
     def _step(self) -> bool:
         """One iteration of the serve loop (the reference's
         ``_plan_round`` and ``_execute_plan``): retire finished requests,
-        plan the round, dispatch its decode round over the armed slots,
-        then its prompt chunks, then read the first tokens of the slots
-        it armed (one read) and the round's tokens (one read). False when
-        there was nothing to do."""
-        did = False
-        for req in [r for r in self._slots.values() if r.done]:
-            self._release(req)
-            did = True
+        plan the round, dispatch its decode round over the armed slots
+        (while fewer than the dispatch depth are in flight), then its
+        prompt chunks, then post the first tokens of the slots it armed
+        and the round's tokens for the harvest (the worker's queue, or
+        read here at the end of the step). False when there was nothing
+        to do."""
+        self._alive()
+        did = self._drain_completed()
         did |= self._pull_pending()
         plan = self._plan_round()
-        toks, members = None, {}
+        dispatched = False
         if plan.decode_steps:
-            toks, members = self._dispatch_round(plan.decode_steps)
+            self._dispatch_round(plan.decode_steps)
+            dispatched = True
             self._bump("sched_decode_tokens", plan.decode_cost_tokens)
         armed, prefilled, admitted = self._run_chunks(plan.chunks)
         if prefilled:
+            self._chunk_behind = True
             self._bump("sched_prefill_tokens", prefilled)
-            if toks is not None:
+            if dispatched:
                 self._bump("sched_interleaved_rounds")
         if armed:
             # Each final chunk or admission left its first token in its
-            # slot's last_token: one read serves them all.
-            host = self._state["last_token"].cpu().numpy()
-            now = time.monotonic()
-            for req in armed:
-                if not req.done:
-                    self._emit_token(req, int(host[req.slot]), now)
-        if toks is not None:
-            grid = toks.cpu().numpy()   # the round's one device->host read
-            now = time.monotonic()
-            for k in range(grid.shape[0]):
-                for slot, req in members.items():
-                    tok = int(grid[k, slot])
-                    if tok >= 0 and not req.done:
-                        self._emit_token(req, tok, now)
-        return did or admitted or bool(prefilled) or toks is not None
+            # slot's last_token: one copy serves them all.
+            self._post(("first", {r.slot: r for r in armed},
+                        self._ring.copy(self._state["last_token"],
+                                        self._alive), 1))
+        items, self._inline = self._inline, []
+        for item in items:
+            self._harvest(item)
+        return did or admitted or bool(prefilled) or dispatched
+
+    def _post(self, item: tuple) -> None:
+        """Hand a dispatched program's output to the harvest: the
+        worker's queue when it runs, else read at the end of the step."""
+        if self._harvest_thread is not None:
+            self._harvest_q.put(item)
+        else:
+            self._inline.append(item)
+
+    def _harvest_loop(self) -> None:
+        """Harvest thread: read the queued outputs in dispatch order,
+        blocking on each copy here so the serve thread never does. It
+        touches no device state and none of the serve thread's
+        structures; a failure becomes ``_fatal``, which the serve thread
+        fans out to every stream."""
+        try:
+            while not self._harvest_stop.is_set() and self._fatal is None:
+                try:
+                    item = self._harvest_q.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                self._harvest(item)
+                self._wake.set()
+        except BaseException as exc:  # noqa: BLE001 - fanned out by _step
+            if self._fatal is None:
+                self._fatal = exc
+            self._wake.set()
+
+    def _harvest(self, item: tuple) -> None:
+        """Read one output back and deliver its tokens: ``("first",
+        {slot: request}, buffer, 1)`` for the slots an admission armed,
+        ``("round", {slot: request}, buffer, steps)`` for a decode round
+        (-1 marks a slot inactive on the device at that step). A request
+        the harvest finished mid-round drops its later tokens: the device
+        ran it on until the serve thread deactivates it."""
+        kind, members, buf, rows = item
+        t0 = time.monotonic()
+        grid = self._ring.read(buf, rows)
+        now = time.monotonic()
+        for row in grid:
+            for slot, req in members.items():
+                tok = row[slot]
+                if tok >= 0 and not req.done:
+                    self._emit_token(req, tok, now)
+        if kind == "round":
+            with self._pipe_lock:
+                self._inflight_rounds -= 1
+            with self._stats_lock:
+                self._stats["harvest_rounds"] += 1
+                self._stats["harvest_wait_ms"] += (now - t0) * 1e3
+                self._stats["harvest_emit_ms"] += (time.monotonic()
+                                                   - now) * 1e3
+
+    def _drain_completed(self) -> bool:
+        """Retire the requests the harvest finished: deactivate each slot
+        on the device (a stop word or a cancel leaves it live there) and
+        return its slot and pages. True when one was retired."""
+        did = False
+        while True:
+            try:
+                req = self._completed.get_nowait()
+            except queue.Empty:
+                return did
+            if self._slots.get(req.slot) is req:
+                self._release(req)
+                did = True
 
     def _pull_pending(self) -> bool:
         """Move submitted requests into the backlog and finish the
@@ -1157,7 +1373,9 @@ class Engine:
         power-of-two step ladder (as before the scheduler, so decode-only
         traffic runs the rounds it always ran) plus the prefill jobs the
         scheduler may grant chunks to: slots mid-prefill first, then the
-        backlog when a slot is free."""
+        backlog when a slot is free. Empty while armed slots wait for a
+        round, the pipeline holds ``_depth`` rounds and prompt chunks
+        were dispatched since the last round."""
         armed = self._armed()
         # proj_pos is the device pos after the last dispatched step; the
         # first token came from prefill, so extent - 1 - proj_pos steps
@@ -1166,15 +1384,28 @@ class Engine:
                    default=0)
         steps = graphs.rung_for(self.cfg.steps_per_round, need) \
             if need > 0 else 0
+        # The depth gate: no new round while ``_depth`` are in flight.
+        # Prompt chunks may take the place of the next round unless
+        # chunks already followed the last one: they are granted what is
+        # left beside that round, so one chunk step queues between two
+        # rounds as at depth 1 (a request arriving beside decoding
+        # streams waits for no extra round), and chunks never run back
+        # to back ahead of the next round.
+        gated = steps > 0 and self._inflight_rounds >= self._depth
+        if gated and self._chunk_behind:
+            return RoundPlan(decode_steps=0, active_decodes=len(armed))
         inflight = [PrefillJob(key=r, remaining=len(r.prompt_ids) - r.pf_pos,
                                seq=r.seq, started=True)
                     for r in self._slots.values() if not r.prefill_done]
         backlog = [PrefillJob(key=r, remaining=len(r.prompt_ids), seq=r.seq)
                    for r in self._backlog] if self._free_slots else []
-        return self._sched.plan_round(
+        plan = self._sched.plan_round(
             decode_steps=steps, active_decodes=len(armed), inflight=inflight,
             backlog=backlog, now=time.monotonic(),
             max_new=len(self._free_slots))
+        if gated:
+            plan.decode_steps = 0
+        return plan
 
     def _run_chunks(self, chunks) -> tuple[list[_Request], int, bool]:
         """Dispatch the plan's prefill grants: a request without a slot is
@@ -1380,27 +1611,43 @@ class Engine:
         self._copy_admission_inputs()
 
     def _copy_admission_inputs(self) -> None:
-        """Host staging arrays -> state["admit"], in place."""
+        """Host staging arrays -> state["admit"], in place. On the card
+        each array goes through a fresh pinned buffer, asynchronously (a
+        copy from pageable memory would wait for every round in flight);
+        the caching host allocator keeps that buffer until the copy has
+        run."""
         for name, arr in self._admit_arrays.items():
-            self._state["admit"][name].copy_(torch.from_numpy(arr))
+            src = torch.from_numpy(arr)
+            if self.device.type == "cuda":
+                src = src.pin_memory()
+            self._state["admit"][name].copy_(src, non_blocking=True)
 
-    def _dispatch_round(self, steps: int):
-        """Run one ``steps``-step decode round over the armed slots.
-        Returns ((steps, B) device tokens, members)."""
+    def _dispatch_round(self, steps: int) -> None:
+        """Run one ``steps``-step decode round over the armed slots, start
+        its tokens' copy to the host and post it for the harvest."""
         members = self._armed()
         greedy = all(r.greedy for r in members.values())
         toks = self._decode_round(steps, greedy)
+        buf = self._ring.copy(toks, self._alive)
         for req in members.values():
             req.proj_pos = min(req.proj_pos + steps, req.extent - 1)
+        with self._pipe_lock:
+            self._inflight_rounds += 1
+            depth = self._inflight_rounds
+        with self._stats_lock:
+            self._stats["dispatch_depth_peak"] = max(
+                self._stats["dispatch_depth_peak"], depth)
+        self._post(("round", members, buf, steps))
+        self._chunk_behind = False
         self._bump("decode_rounds")
         self._bump("decode_steps", steps)
-        return toks, members
 
     def _emit_token(self, req: _Request, token: int, now: float) -> None:
-        """Deliver one generated token, read back at host time ``now``;
-        finish the stream when the request ends. The finish rule mirrors
-        the device-side termination, so host and device agree on each
-        slot's last token."""
+        """Deliver one generated token, read back at host time ``now``
+        (on the harvest thread, or the serve thread without one); finish
+        the stream when the request ends and post it for the serve thread
+        to retire. The finish rule mirrors the device-side termination, so
+        host and device agree on each slot's last token."""
         req.generated += 1
         req.stream.token_ids.append(token)
         req.stream.token_times.append(now)
@@ -1427,12 +1674,15 @@ class Engine:
                 if req.stop.stopped and finish == "length":
                     finish = "stop"
             req.stream._finish(finish)
+            self._completed.put(req)
 
     def _release(self, req: _Request) -> None:
         """Deactivate a finished request's slot on the device (a
         host-detected finish such as a stop word leaves it live there),
-        then return its slot and pages."""
-        self._state["active"][req.slot] = False
+        then return its slot and pages. The flag is filled in place: an
+        assignment of a Python value would copy it from pageable host
+        memory, which waits for every round in flight."""
+        self._state["active"][req.slot].fill_(False)
         self._retire(req, req.stream.finish_reason or "cancelled")
 
     def _retire(self, req: _Request, finish: str) -> None:

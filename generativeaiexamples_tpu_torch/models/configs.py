@@ -7,6 +7,8 @@ data; only the llama/swiglu/rmsnorm family is served by this slice
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, replace
 
 
@@ -101,3 +103,41 @@ def get_model_config(name: str) -> LlamaConfig:
     except KeyError:
         raise KeyError(
             f"unknown model {name!r}; known: {sorted(MODEL_REGISTRY)}") from None
+
+
+# HF ``config.json`` fields -> LlamaConfig fields.
+_HF_FIELDS = {
+    "vocab_size": "vocab_size", "hidden_size": "hidden_size",
+    "intermediate_size": "intermediate_size",
+    "num_hidden_layers": "num_layers", "num_attention_heads": "num_heads",
+    "num_key_value_heads": "num_kv_heads", "head_dim": "head_dim",
+    "max_position_embeddings": "max_position_embeddings",
+    "rope_theta": "rope_theta", "rms_norm_eps": "rms_norm_eps",
+    "tie_word_embeddings": "tie_word_embeddings",
+    "num_local_experts": "num_experts",
+    "num_experts_per_tok": "num_experts_per_tok",
+}
+
+
+def config_for_checkpoint(path: str, base: LlamaConfig) -> LlamaConfig:
+    """``base`` with the geometry a checkpoint directory's HF
+    ``config.json`` states, where it has one (a depth-cut or renamed
+    checkpoint then loads under its own geometry); ``base`` unchanged
+    otherwise. A config.json without ``head_dim`` implies
+    hidden_size / num_attention_heads, and one without
+    ``num_key_value_heads`` implies as many KV heads as heads."""
+    cfg_file = os.path.join(path, "config.json")
+    if not os.path.isfile(cfg_file):
+        return base
+    with open(cfg_file) as f:
+        hf = json.load(f)
+    kw = {ours: hf[theirs] for theirs, ours in _HF_FIELDS.items()
+          if hf.get(theirs) is not None}
+    if "head_dim" not in kw and "hidden_size" in kw and "num_heads" in kw:
+        kw["head_dim"] = kw["hidden_size"] // kw["num_heads"]
+    if "num_kv_heads" not in kw and "num_heads" in kw:
+        kw["num_kv_heads"] = kw["num_heads"]
+    scaling = hf.get("rope_scaling") or {}
+    if scaling.get("type", scaling.get("rope_type")) == "linear":
+        kw["rope_scaling_factor"] = float(scaling["factor"])
+    return replace(base, **kw)

@@ -249,6 +249,69 @@ def apply(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     return unembed(params, cfg, h), kv_cache
 
 
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """float32 NLL of ``targets`` (B, n) under ``logits`` (B, n, V)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+
+
+@torch.no_grad()
+def score(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
+          mesh=None, chunk: int = 2048) -> torch.Tensor:
+    """Per-token negative log-likelihood of a (long) sequence (the
+    reference's ``llama.score``, its single-device path).
+
+    A sequence of at most ``chunk`` tokens takes one ``apply``. A longer
+    one streams through ``apply`` in chunks of ``chunk`` tokens against a
+    dense cache, so the activations are one chunk's while attention is
+    exact over the whole prefix. As in the reference the sequence is
+    padded to a chunk multiple (the padded tail is causally invisible and
+    its rows are dropped) and the cache length is rounded up to a power of
+    two of at least ``chunk`` (the reference bounds its compiled shapes
+    so; here it keeps the cache's allocations to a few sizes).
+
+    tokens: (B, S) int on the parameters' device, S >= 2 (position 0 has
+    no prediction). Returns (B, S-1) float32: the NLL of token t+1 given
+    tokens <= t. ``mesh`` (the reference's sequence-parallel path, ring
+    attention) is not ported: passing one raises ``ConfigError``."""
+    B, S = tokens.shape
+    if S < 2:
+        raise ValueError("score needs at least 2 tokens")
+    if chunk < 16:
+        raise ValueError(f"chunk must be >= 16, got {chunk}")
+    if mesh is not None:
+        raise ConfigError("sequence-parallel scoring (ring attention over "
+                          "an sp mesh) is not ported yet (ROADMAP.md A12)")
+    dev = tokens.device
+    if S <= chunk:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=dev).expand(B, S)
+        logits, _ = apply(params, cfg, tokens, positions)
+        return _nll(logits[:, :-1], tokens[:, 1:])
+    S_pad = -(-S // chunk) * chunk
+    padded = torch.nn.functional.pad(tokens, (0, S_pad - S))
+    cache_len = chunk
+    while cache_len < S_pad:
+        cache_len *= 2
+    # final_norm is never quantized: its dtype is the activations'.
+    cache = init_kv_cache(cfg, B, cache_len, params["final_norm"].dtype,
+                          device=dev)
+    parts, prev_last = [], None
+    for c0 in range(0, S_pad, chunk):
+        tok_c = padded[:, c0:c0 + chunk]
+        pos_c = torch.arange(c0, c0 + chunk, dtype=torch.int32,
+                             device=dev).expand(B, chunk)
+        logits, cache = apply(params, cfg, tok_c, pos_c, cache,
+                              kv_valid_len=pos_c[:, -1] + 1)
+        if prev_last is not None:
+            # The previous chunk's last position predicts this chunk's
+            # first token.
+            parts.append(_nll(prev_last, tok_c[:, :1]))
+        parts.append(_nll(logits[:, :-1], tok_c[:, 1:]))
+        prev_last = logits[:, -1:]
+    return torch.cat(parts, dim=1)[:, :S - 1]
+
+
 def apply_decode_paged(params: Params, cfg: LlamaConfig,
                        tokens: torch.Tensor, positions: torch.Tensor,
                        kv_cache: KVCache, block_table: torch.Tensor,

@@ -1,14 +1,19 @@
-"""Tokenizers for the port: the self-contained byte tokenizer.
+"""Tokenizers for the port (copied from the reference package's
+``models/tokenizer.py``).
 
-A copy of ``ByteTokenizer`` from the reference package's
-``models/tokenizer.py`` — no vocab files, so the port serves hermetically
-with random weights. Checkpoint tokenizers (sentencepiece, HF
-``tokenizer.json``) wait until real weights are served.
+``ByteTokenizer`` needs no vocab files, so the port serves hermetically
+with random weights. A checkpoint directory brings its own vocabulary:
+``tokenizer.model`` is read by the self-contained sentencepiece reader
+(``models/sentencepiece.py``), ``tokenizer.json`` by ``HFTokenizer``,
+which imports the ``tokenizers`` package only when it is asked for one.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Protocol, Sequence
+
+from ..utils.errors import ModelLoadError
 
 
 class Tokenizer(Protocol):
@@ -50,9 +55,67 @@ class ByteTokenizer:
         return data[0] + self._OFFSET if len(data) == 1 else None
 
 
+class HFTokenizer:
+    """Wraps a ``tokenizers.Tokenizer`` loaded from tokenizer.json. The
+    ``tokenizers`` package is imported here, not with the module, and
+    its absence raises ``ModelLoadError``."""
+
+    def __init__(self, path: str):
+        try:
+            from tokenizers import Tokenizer as _Tok
+        except ImportError as exc:
+            raise ModelLoadError(
+                f"{path}: a tokenizer.json needs the 'tokenizers' package, "
+                f"which is not installed (a tokenizer.model beside it is "
+                f"read without it)") from exc
+        if os.path.isdir(path):
+            path = os.path.join(path, "tokenizer.json")
+        self._tok = _Tok.from_file(path)
+        self.pad_id = self._special_id(("<pad>", "[PAD]", "<unk>"), 0)
+        self.bos_id = self._special_id(("<s>", "[CLS]", "<|begin_of_text|>"), 1)
+        self.eos_id = self._special_id(("</s>", "[SEP]", "<|end_of_text|>"), 2)
+
+    def _special_id(self, candidates: tuple[str, ...], default: int) -> int:
+        for tok in candidates:
+            tid = self._tok.token_to_id(tok)
+            if tid is not None:
+                return tid
+        return default
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.get_vocab_size()
+
+    def encode(self, text: str, *, add_bos: bool = True) -> list[int]:
+        ids = self._tok.encode(text, add_special_tokens=False).ids
+        return ([self.bos_id] + ids) if add_bos else ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=True)
+
+    def piece_id(self, piece: str) -> "int | None":
+        return self._tok.token_to_id(piece)
+
+
 def get_tokenizer(spec: str = "byte") -> Tokenizer:
-    """Factory: only ``"byte"`` in this slice."""
+    """Factory: ``"byte"``, or a checkpoint directory or tokenizer file.
+
+    A directory resolves in the order Llama-2 releases ship them:
+    ``tokenizer.model`` (sentencepiece), then ``tokenizer.json``."""
     if spec == "byte":
         return ByteTokenizer()
-    raise ValueError(
-        f"tokenizer {spec!r} is not available in the port yet; use 'byte'")
+    from .sentencepiece import SentencePieceTokenizer
+    if os.path.isdir(spec):
+        sp = os.path.join(spec, "tokenizer.model")
+        if os.path.isfile(sp):
+            return SentencePieceTokenizer(sp)
+        if not os.path.isfile(os.path.join(spec, "tokenizer.json")):
+            raise ModelLoadError(f"{spec} holds neither tokenizer.model nor "
+                                 f"tokenizer.json")
+        return HFTokenizer(spec)
+    if spec.endswith(".model"):
+        return SentencePieceTokenizer(spec)
+    if not os.path.isfile(spec):
+        raise ModelLoadError(f"tokenizer {spec!r}: no such file or "
+                             f"directory (or use 'byte')")
+    return HFTokenizer(spec)

@@ -1,33 +1,61 @@
 """Model server of the port: builds an engine and serves it over aiohttp.
 
     python -m generativeaiexamples_tpu_torch.serving llama-2-7b-chat \\
-        --port 8000 [--device cuda] [--seed 0] [--kv-pool-tokens N] \\
-        [--quantization {int8,int4,int4_awq}] [--kv-quant int8]
+        --port 8000 [--model-path DIR] [--device cuda] [--seed 0] \\
+        [--kv-pool-tokens N] [--quantization {int8,int4,int4_awq}] \\
+        [--kv-quant int8]
 
-The repository holds no checkpoint for the served geometries, so
-``build_services`` makes random weights on the device from ``--seed``
-and, with ``--quantization``, quantizes them there
-(``ops.quant.quantize_params``); loading real weights waits for a later
-slice. Routes: ``/health`` (with the weight and KV quantization modes)
-and ``POST /v1/completions`` (``serving/openai_api.py``).
+With ``--model-path`` (default ``$MODEL_PATH``) ``build_services`` follows
+the reference's order: the tokenizer from the directory
+(``tokenizer.model``, else ``tokenizer.json``), the weights loaded onto
+the device in the engine's dtype (``models/import_hf.py``: safetensors,
+``pytorch_model*.bin`` or Meta ``consolidated.*.pth``; quantized and NeMo
+directories are refused), then, with ``--quantization``, quantized there.
+The geometry is the registry model's, overridden by the directory's
+``config.json`` where it has one. Without a path the server makes random
+weights on the device from ``--seed`` and serves the byte tokenizer.
+
+Routes: ``/health`` (with the weight and KV quantization modes),
+``POST /v1/completions`` (``serving/openai_api.py``) and
+``POST /v1/score`` (per-token NLL and perplexity of a text or token list,
+``models/llama.py`` ``score``).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
+import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 from aiohttp import web
 
 from ..engine.engine import _DTYPES, Engine, EngineConfig
 from ..models import llama
-from ..models.configs import get_model_config
+from ..models.configs import (LlamaConfig, config_for_checkpoint,
+                              get_model_config)
+from ..models.import_hf import (LOADABLE_FORMATS, UNSUPPORTED_WHY,
+                                detect_checkpoint_format, load_checkpoint)
 from ..models.tokenizer import get_tokenizer
 from ..ops.quant import MODES, quantize_params, weight_mode
 from ..utils.device import resolve_device
-from ..utils.errors import ConfigError
+from ..utils.errors import ConfigError, UnsupportedFormatError
+
+
+def awq_group(cfg: LlamaConfig) -> int:
+    """The int4_awq group for ``cfg``: AWQ's usual 128, or the largest of
+    64 and 32 that divides every reduction dim (the tiny geometries).
+    Raises ``ConfigError`` when none does."""
+    dims = (cfg.hidden_size, cfg.q_dim, cfg.intermediate_size)
+    group = next((g for g in (128, 64, 32)
+                  if all(d % g == 0 for d in dims)), None)
+    if group is None:
+        raise ConfigError(f"no int4_awq group of 128, 64 or 32 divides the "
+                          f"reduction dims {dims}; use int4 (per channel)")
+    return group
 
 
 def build_services(model_name: str = "llama-2-7b-chat", *,
@@ -35,36 +63,130 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
                    seed: int = 0,
                    device: Union[str, torch.device] = "cuda",
                    tokenizer: str = "byte",
-                   quantization: str = "") -> tuple[Engine, str]:
-    """An engine for registry model ``model_name`` with random weights
-    made on ``device`` from ``seed`` in the engine config's dtype, and
-    quantized there when ``quantization`` is one of ``ops.quant.MODES``
-    (int4_awq groups: AWQ's usual 128, or the largest of 64 and 32 that
-    divides every reduction dim, for the tiny geometries). The KV pool's
-    mode is ``engine_cfg.kv_quant``. Returns (engine, model name)."""
+                   quantization: str = "",
+                   model_path: str = "") -> tuple[Engine, str]:
+    """An engine for registry model ``model_name`` in the engine config's
+    dtype on ``device``: with ``model_path``, the checkpoint there and its
+    own tokenizer (the geometry from its ``config.json`` where it has
+    one); else random weights made on the device from ``seed`` and the
+    ``tokenizer`` spec. With ``quantization`` (one of
+    ``ops.quant.MODES``) the weights are quantized on the device
+    (int4_awq groups: ``awq_group``). The KV pool's mode is
+    ``engine_cfg.kv_quant``. Returns (engine, model name)."""
     if quantization and quantization not in MODES:
         raise ValueError(f"quantization={quantization!r}: use one of "
                          f"{MODES} or ''")
     dev = resolve_device(device)
     cfg = get_model_config(model_name)
-    params = llama.init_params(cfg, seed=seed,
-                               dtype=_DTYPES[engine_cfg.dtype], device=dev)
+    dtype = _DTYPES[engine_cfg.dtype]
+    if model_path:
+        # The format first: a refused checkpoint fails before anything
+        # else is read.
+        fmt = detect_checkpoint_format(model_path)
+        if fmt not in LOADABLE_FORMATS:
+            raise UnsupportedFormatError(
+                f"{model_path} is a {fmt} checkpoint; {UNSUPPORTED_WHY}")
+        cfg = config_for_checkpoint(model_path, cfg)
+        tok = get_tokenizer(model_path)
+        params = load_checkpoint(model_path, cfg, dtype=dtype, device=dev)
+    else:
+        tok = get_tokenizer(tokenizer)
+        params = llama.init_params(cfg, seed=seed, dtype=dtype, device=dev)
     if quantization:
-        dims = (cfg.hidden_size, cfg.q_dim, cfg.intermediate_size)
-        group = next((g for g in (128, 64, 32)
-                      if all(d % g == 0 for d in dims)), None)
-        if group is None:
-            raise ConfigError(f"no int4_awq group of 128, 64 or 32 divides "
-                              f"the reduction dims {dims}")
+        group = awq_group(cfg) if quantization == "int4_awq" else 128
         params = quantize_params(params, mode=quantization, group_size=group)
-    engine = Engine(params, cfg, get_tokenizer(tokenizer),
+    engine = Engine(params, cfg, tok,
                     dataclasses.replace(engine_cfg, seed=seed), device=dev)
     return engine, model_name
 
 
+# The chunk sizes /v1/score accepts (the reference's allowlist: it bounds
+# the shapes a client can make the server run, and the one-pass path's
+# activation memory).
+SCORE_CHUNKS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def add_score_route(app: web.Application, engine: Engine,
+                    model_name: str) -> None:
+    """Mount ``POST /v1/score`` (the reference's route): body ``{"text":
+    ...}`` or ``{"tokens": [...]}``, optional ``"chunk"`` (one of
+    ``SCORE_CHUNKS``, default 2048) and ``"per_token"``. Answers the mean
+    NLL and the perplexity (and each token's NLL with ``per_token``);
+    400 for a body that is not a JSON object, 422 for a missing or bad
+    field or fewer than 2 tokens, 413 past ``GAIE_MAX_SCORE_TOKENS``
+    (default 32768) tokens, 503 when the device runs out of memory.
+    One score runs at a time (each holds a dense cache of the whole
+    document beside the engine's pool), in an executor, off the event
+    loop."""
+    gate = asyncio.Semaphore(1)
+
+    async def score(request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+        except Exception as exc:  # noqa: BLE001 - malformed JSON -> 400
+            raise web.HTTPBadRequest(text=f"invalid JSON: {exc}") from exc
+        max_score = int(os.environ.get("GAIE_MAX_SCORE_TOKENS", "32768"))
+        loop = asyncio.get_running_loop()
+        try:
+            chunk = int(body.get("chunk", 2048))
+            if chunk not in SCORE_CHUNKS:
+                raise ValueError(f"chunk must be one of {SCORE_CHUNKS}")
+            if "tokens" in body:
+                ids = [int(t) for t in body["tokens"]]
+            elif body.get("text"):
+                text = str(body["text"])
+                # A token covers at least one byte: a byte bound refuses
+                # a hopeless document before it is tokenized.
+                if len(text.encode("utf-8", "ignore")) > max_score * 16:
+                    raise web.HTTPRequestEntityTooLarge(
+                        max_size=max_score * 16, actual_size=len(text))
+                ids = await loop.run_in_executor(
+                    None, engine.tokenizer.encode, text)
+            else:
+                raise ValueError("'text' or 'tokens' is required")
+            if len(ids) < 2:
+                raise ValueError("scoring needs at least 2 tokens")
+            V = engine.model_cfg.vocab_size
+            if any(not 0 <= t < V for t in ids):
+                raise ValueError(f"token ids must lie in [0, {V})")
+        except (ValueError, TypeError) as exc:
+            raise web.HTTPUnprocessableEntity(text=str(exc)) from exc
+        if len(ids) > max_score:
+            raise web.HTTPRequestEntityTooLarge(max_size=max_score,
+                                                actual_size=len(ids))
+
+        def run() -> np.ndarray:
+            tokens = torch.tensor([ids], dtype=torch.int32,
+                                  device=engine.device)
+            nll = llama.score(engine.params, engine.model_cfg, tokens,
+                              chunk=chunk)
+            return nll[0].double().cpu().numpy()
+
+        try:
+            async with gate:
+                nll = await loop.run_in_executor(None, run)
+        except torch.cuda.OutOfMemoryError as exc:
+            raise web.HTTPServiceUnavailable(
+                text="the scoring cache does not fit beside the serving "
+                     "pool; send a shorter document or lower "
+                     "GAIE_MAX_SCORE_TOKENS") from exc
+        mean = float(nll.mean())
+        out = {"model": model_name, "tokens": len(ids),
+               "mean_nll": round(mean, 6),
+               "perplexity": round(float(np.exp(mean)), 4)}
+        if body.get("per_token"):
+            out["nll"] = [round(float(x), 6) for x in nll]
+        return web.json_response(out)
+
+    app.router.add_post("/v1/score", score)
+
+
 def create_server_app(engine: Engine,
                       model_name: str = "model") -> web.Application:
-    """One app: ``/health`` plus the OpenAI completions route."""
+    """One app: ``/health``, the OpenAI completions route and
+    ``/v1/score``."""
     from .openai_api import add_openai_routes
 
     app = web.Application()
@@ -79,6 +201,7 @@ def create_server_app(engine: Engine,
     app.router.add_get("/health", health)
     add_openai_routes(app, engine, model_name,
                       max_output=engine.cfg.max_output_length)
+    add_score_route(app, engine, model_name)
 
     async def _stop_engine(_app) -> None:
         engine.stop()
@@ -89,8 +212,16 @@ def create_server_app(engine: Engine,
 
 def main(argv: Optional[list[str]] = None) -> None:
     parser = argparse.ArgumentParser(
-        description="Serve a registry model (random weights) over HTTP")
+        description="Serve a llama checkpoint directory, or a registry "
+                    "model with random weights, over HTTP")
     parser.add_argument("model_name", nargs="?", default="llama-2-7b-chat")
+    parser.add_argument("--model-path",
+                        default=os.environ.get("MODEL_PATH", ""),
+                        help="checkpoint directory (safetensors, "
+                             "pytorch_model*.bin or Meta .pth, with its "
+                             "tokenizer.model or tokenizer.json); default "
+                             "$MODEL_PATH; none: random weights from "
+                             "--seed and the byte tokenizer")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--dtype", default="bfloat16",
@@ -103,8 +234,8 @@ def main(argv: Optional[list[str]] = None) -> None:
                         help="pool size in tokens (0 = fit free memory)")
     parser.add_argument("--quantization", default="",
                         choices=["", *MODES],
-                        help="weight-only quantization of the random "
-                             "weights, made on the device. int4 and "
+                        help="weight-only quantization of the weights, "
+                             "made on the device. int4 and "
                              "int4_awq run the int4 kernel; int8 has no "
                              "kernel yet: each product widens the int8 "
                              "weight to bf16 per call, so it streams more "
@@ -124,7 +255,8 @@ def main(argv: Optional[list[str]] = None) -> None:
         kv_quant=args.kv_quant)
     engine, name = build_services(args.model_name, engine_cfg=engine_cfg,
                                   seed=args.seed, device=args.device,
-                                  quantization=args.quantization)
+                                  quantization=args.quantization,
+                                  model_path=args.model_path)
     engine.start()
     web.run_app(create_server_app(engine, name), host=args.host,
                 port=args.port)

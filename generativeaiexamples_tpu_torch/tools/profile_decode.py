@@ -4,7 +4,7 @@
         [--model llama-2-7b-chat] [--slots 8] [--prompt-len 512] \\
         [--steps 8] [--rounds 4] [--trace decode_trace.json] \\
         [--quantization int4_awq] [--kv-quant int8] [--prefill BUCKET] \\
-        [--chunk C --prefix P] [--eager]
+        [--chunk C --prefix P] [--eager] [--dispatch-depth 2[,1,...]]
 
 Builds the port's engine (random bf16 weights from ``--seed``, quantized
 on the device with ``--quantization``, over a ``--kv-quant`` pool), fills
@@ -18,6 +18,16 @@ of the traced round, the port's kernels (paged attention, int4 matmul)
 with their launches, and the top kernels; the last line is one JSON
 object. Runs on the card; ``--device cpu`` rehearses the tool itself
 at a small ``--model`` (its times are then CPU times, not the card's).
+
+``--dispatch-depth`` sets how many decode rounds ride the device queue
+(2: the harvest worker reads each round back while the next runs; 1:
+each round is read back on this thread); a list (``2,1,2,1``) times each
+depth in turn on one engine, untraced, before the traced round (at the
+first). Untraced timings come first because the first profiler session
+of a process leaves CUPTI attached, and on the card that changes how
+CUDA graphs run: their launch then costs the host milliseconds and the
+round's own device time changes (PERF.md section 5). A server runs no
+profiler, so only timings taken before any trace are a server's.
 
 On the card the engine replays the rounds and admissions it captured as
 CUDA graphs at construction, and the profiler attributes each replayed
@@ -48,12 +58,20 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+
+
+def _profile():
+    """A torch.profiler session over host and device activity."""
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
 
 
 def _device_events(prof) -> list:
@@ -114,11 +132,12 @@ def _card(cuda: bool) -> str:
 
 
 def measure_prefill(engine, bucket: int, rounds: int, seed: int = 0,
-                    trace: str = "") -> dict:
+                    trace: str = "", traced: bool = True) -> dict:
     """Host-clock mean of ``rounds`` admissions of a full ``bucket``
-    prompt asking for one token (after a warm-up), and the device time
-    of one more, traced, by kernel. ``engine`` is idle and not started;
-    ``bucket`` is one of its prefill buckets."""
+    prompt asking for one token (after a warm-up), and, when ``traced``,
+    the device time of one more, traced, by kernel (no device fields
+    otherwise). ``engine`` is idle and not started; ``bucket`` is one of
+    its prefill buckets."""
     from ..engine import SamplingParams
     from ..ops.int4_matmul import int4_matmul
 
@@ -143,12 +162,13 @@ def measure_prefill(engine, bucket: int, rounds: int, seed: int = 0,
     prefills0 = engine.stats["prefills"]
     wall = [one_prefill() for _ in range(rounds)]
     prefill_ms = sum(wall) / len(wall) * 1e3
+    if not traced:
+        return {"card": _card(cuda), "cuda_graphs": engine._graphs_on,
+                "prefill_bucket": bucket, "prefill_ms": prefill_ms}
     launches0 = int4_matmul.launches
     int4_matmul.launches_by_path = dict.fromkeys(
         int4_matmul.launches_by_path, 0)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with _profile() as prof:
         traced_ms = one_prefill() * 1e3
     by_path = dict(int4_matmul.launches_by_path)
     if engine.stats["prefills"] - prefills0 != rounds + 1:
@@ -272,9 +292,7 @@ def measure_chunk(engine, chunk: int, prefix: int, rounds: int,
                 else (time.perf_counter() - t0) * 1e3) / rounds
     int4_matmul.launches_by_path = dict.fromkeys(
         int4_matmul.launches_by_path, 0)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with _profile() as prof:
         run()
         sync()
     by_path = dict(int4_matmul.launches_by_path)
@@ -360,6 +378,12 @@ def main(argv=None) -> int:
     ap.add_argument("--prefix", type=int, default=0, metavar="P",
                     help="with --chunk: the cached prefix it follows "
                          "(a page multiple)")
+    ap.add_argument("--dispatch-depth", default="2",
+                    help="decode rounds in flight (2: the harvest worker "
+                         "reads rounds back beside the serve loop; 1: each "
+                         "round read back in line); a comma-separated "
+                         "list (2,1,2,1) measures each in turn on one "
+                         "engine")
     ap.add_argument("--eager", action="store_true",
                     help="build the engine with cuda_graphs=False: every "
                          "operation issued from the host")
@@ -378,15 +402,35 @@ def main(argv=None) -> int:
     engine, model_name = build_services(args.model, engine_cfg=ecfg,
                                         seed=args.seed, device=args.device,
                                         quantization=args.quantization)
+    depths = [int(d) for d in args.dispatch_depth.split(",")]
+    # With several depths, each is timed untraced in turn (so all of them
+    # in the same profiler regime), then the first is traced.
+    runs = [measure_decode(engine, args.slots, args.prompt_len, args.rounds,
+                           args.seed, dispatch_depth=d, traced=False)
+            for d in (depths if len(depths) > 1 else [])]
     out = measure_decode(engine, args.slots, args.prompt_len, args.rounds,
-                         args.seed, args.trace)
+                         args.seed, args.trace, depths[0])
     engine.stop()
+    for r in runs:
+        share = out["device_busy_ms_per_step"] / r["step_ms"]
+        print(f"dispatch depth {r['dispatch_depth']} (peak "
+              f"{r['dispatch_depth_peak']}): decode step "
+              f"{r['step_ms']:.3f} ms (host clock), busy share "
+              f"{share:.1%}; serve thread "
+              f"{r['serve_ms_per_step']:.3f} ms/step, harvest wait "
+              f"{r['harvest_wait_ms_per_step']:.3f} and delivery "
+              f"{r['harvest_emit_ms_per_step']:.3f} ms/step")
 
     mode = (f"{args.quantization or 'bf16'} weights, "
             f"{args.kv_quant or 'bf16'} KV, "
             f"{'graphs' if out['cuda_graphs'] else 'eager'}")
     print(f"{model_name} [{mode}] on {out['card']}: {args.slots} slots, "
-          f"context ~{out['context']} tokens, {args.steps} steps per round")
+          f"context ~{out['context']} tokens, {args.steps} steps per round, "
+          f"dispatch depth {out['dispatch_depth']} (peak "
+          f"{out['dispatch_depth_peak']})")
+    print(f"host per step: serve thread {out['serve_ms_per_step']:.3f} ms, "
+          f"harvest wait {out['harvest_wait_ms_per_step']:.3f} ms and "
+          f"delivery {out['harvest_emit_ms_per_step']:.3f} ms")
     print(f"decode step {out['step_ms']:.2f} ms (host clock) vs byte bound "
           f"{out['step_bound_ms']:.2f} ms ({out['step_bytes'] / 1e9:.2f} "
           f"GB/step); {args.slots * 1e3 / out['step_ms']:.1f} tok/s aggregate")
@@ -403,30 +447,59 @@ def main(argv=None) -> int:
         print(f"  {op['ms']:9.2f} ms  {op['count']:6d}x  {op['name'][:90]}")
     print(json.dumps({"model": model_name, "quantization": args.quantization,
                       "kv_quant": args.kv_quant, "slots": args.slots,
-                      "steps_per_round": args.steps, **out}))
+                      "steps_per_round": args.steps, **out,
+                      "untraced": runs}))
     return 0
 
 
 def measure_decode(engine, slots: int, prompt_len: int, rounds: int,
-                   seed: int = 0, trace: str = "") -> dict:
+                   seed: int = 0, trace: str = "",
+                   dispatch_depth: int = 0, traced: bool = True) -> dict:
     """Fill ``slots`` slots of the idle, unstarted ``engine`` with
     ``prompt_len``-token greedy prompts, run an admitting step and a warm
-    round, time ``rounds`` decode rounds with the host clock (each ends in
-    its tokens' read-back), then trace one more round and attribute its
-    device time by kernel. The engine's ``max_output_length`` must cover
-    ``(rounds + 3) * steps_per_round + 1`` tokens."""
+    round, time ``rounds`` decode rounds with the host clock (from the
+    first dispatch until the last round's tokens are delivered), then,
+    when ``traced``, trace one more round and attribute its device time
+    by kernel (no device fields otherwise). The serve loop's
+    step is driven on this thread; with ``dispatch_depth`` (default: the
+    engine's) above 1 the harvest worker runs beside it and up to that
+    many rounds are in flight, with 1 each round is read back on this
+    thread. The engine's
+    ``max_output_length`` must cover ``(rounds + 3) * steps_per_round +
+    1`` tokens."""
     from ..engine import SamplingParams
     from ..engine.scheduler import TokenBudgetScheduler
     from ..models import llama
-    from ..ops.int4_matmul import int4_matmul
-    from ..ops.paged_attention import paged_attention_decode
 
     cuda = engine.device.type == "cuda"
     steps_per_round = engine.cfg.steps_per_round
+    depth = dispatch_depth or engine.cfg.dispatch_depth
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
+
+    def drive(n_rounds: int) -> float:
+        """Dispatch ``n_rounds`` decode rounds through the serve loop's
+        step and return once every one is harvested; returns the seconds
+        spent inside the steps (the serve thread's own work)."""
+        target = engine.stats["decode_rounds"] + n_rounds
+        deadline = time.monotonic() + 600
+        in_step = 0.0
+        while (engine.stats["decode_rounds"] < target
+               or engine.stats["inflight_rounds"]):
+            if time.monotonic() > deadline:
+                raise RuntimeError("decode rounds did not finish in 600 s")
+            engine._wake.clear()
+            did = False
+            if engine.stats["decode_rounds"] < target:
+                t = time.perf_counter()
+                did = engine._step()
+                in_step += time.perf_counter() - t
+            if not did:
+                engine._wake.wait(0.05)
+        engine._alive()
+        return in_step
 
     n_new = (rounds + 3) * steps_per_round + 1
     rng = np.random.default_rng(seed)
@@ -450,29 +523,142 @@ def measure_decode(engine, slots: int, prompt_len: int, rounds: int,
     engine._step()
     if len(engine._armed()) != slots:
         raise RuntimeError(f"{len(engine._armed())} of {slots} slots armed")
+    if depth > 1:
+        engine._start_harvest(depth)
+    with engine._stats_lock:      # the peak of this measurement only
+        engine._stats["dispatch_depth_peak"] = 0
     steps0 = engine.stats["decode_steps"]
+    h0 = engine.stats
     sync()
     t0 = time.perf_counter()
-    for _ in range(rounds):
-        engine._step()
+    in_step = drive(rounds)
     sync()
     wall = time.perf_counter() - t0
+    h1 = engine.stats
     steps = engine.stats["decode_steps"] - steps0
     step_ms = wall / steps * 1e3
+    # Host work per step: the serve thread inside its steps (planning,
+    # replays, copies; with depth 1 the harvest too), and the harvest's
+    # wait for each round's copy and its token delivery.
+    host = {"serve_ms_per_step": in_step * 1e3 / steps,
+            **{f"{k}_per_step": (h1[k] - h0[k]) / steps
+               for k in ("harvest_wait_ms", "harvest_emit_ms")}}
+    out = {"card": _card(cuda), "cuda_graphs": engine._graphs_on,
+           "dispatch_depth": depth,
+           "dispatch_depth_peak": engine.stats["dispatch_depth_peak"],
+           "context": prompt_len + (rounds + 2) * steps_per_round,
+           "step_ms": step_ms, **host}
+    if traced:
+        out.update(_trace_round(engine, drive, sync, steps0 + steps, trace))
+        out["device_busy_share"] = out["device_busy_ms_per_step"] / step_ms
+    for s in streams:      # leave the engine idle for its next user
+        s.cancel()
+    deadline = time.monotonic() + 60
+    while engine._slots and time.monotonic() < deadline:
+        engine._wake.clear()
+        if not engine._step():
+            engine._wake.wait(0.05)
+    engine._stop_harvest()
+    if engine._slots:
+        raise RuntimeError("cancelled requests still hold slots")
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in llama.param_tensors(engine.params))
+    # Weights are read once per step (the embedding table only for the B
+    # rows looked up); each slot's live KV once.
+    step_bytes = (param_bytes - engine.params["embed"].numel()
+                  * engine.params["embed"].element_size()
+                  + slots * out["context"] * engine._kv_bytes_per_token())
+    out["step_bytes"] = step_bytes
+    out["step_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def measure_arrival_ttft(engine, dispatch_depth: int, decoders: int = 4,
+                         context: int = 512, prompt_len: int = 128,
+                         arrivals: int = 6, max_delay_s: float = 0.06,
+                         seed: int = 0) -> dict:
+    """The time to first token of ``arrivals`` ``prompt_len``-token
+    requests that arrive, one after another at random moments, while
+    ``decoders`` greedy streams with ``context``-token prompts decode, at
+    ``dispatch_depth`` (untraced). The serve loop's step is driven on
+    this thread as the serve thread drives it; the requests are
+    submitted from another. Each prompt is new random ids (no prefix
+    hit). ``engine`` is idle and not started; its ``max_output_length``
+    must outlast the arrivals (each waits up to ``max_delay_s``, then for
+    its first token)."""
+    from ..engine import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    greedy = dict(top_k=1, ignore_eos=True)
+    n_out = engine.cfg.max_output_length
+    streams = [engine.submit([1] + list(rng.integers(3, 259, context - 1)),
+                             SamplingParams(max_tokens=n_out, **greedy))
+               for _ in range(decoders)]
+    prompts = [[1] + list(rng.integers(3, 259, prompt_len - 1))
+               for _ in range(arrivals)]
+    delays = rng.uniform(0.0, max_delay_s, arrivals)
+    deadline = time.monotonic() + 600
+
+    def loop(until) -> None:
+        while not until():
+            if time.monotonic() > deadline:
+                raise RuntimeError("the arrival measurement ran out of time")
+            engine._wake.clear()
+            if not engine._step():
+                engine._wake.wait(0.05)
+        engine._alive()
+
+    loop(lambda: min(len(s.token_ids) for s in streams) >= 2)
+    if dispatch_depth > 1:
+        engine._start_harvest(dispatch_depth)
+    arrived, done = [], threading.Event()
+
+    def submitter():
+        try:
+            for ids, delay in zip(prompts, delays):
+                time.sleep(delay)
+                s = engine.submit(ids, SamplingParams(max_tokens=1, **greedy))
+                arrived.append(s)
+                while (s.first_token_time is None and s.finish_reason is None
+                       and time.monotonic() < deadline):
+                    time.sleep(0.0005)
+        finally:
+            done.set()
+
+    worker = threading.Thread(target=submitter, daemon=True)
+    worker.start()
+    loop(done.is_set)
+    worker.join()
+    ttft = [s.ttft_ms for s in arrived]
+    short = min(len(s.token_ids) for s in streams) >= n_out
+    for s in streams:
+        s.cancel()
+    loop(lambda: not engine._slots)
+    engine._stop_harvest()
+    if len(ttft) != arrivals or None in ttft or short:
+        raise RuntimeError("an arrival got no first token, or a decoding "
+                           "stream ended before the arrivals did")
+    return {"dispatch_depth": dispatch_depth, "decoders": decoders,
+            "context": context, "prompt_len": prompt_len, "ttft_ms": ttft}
+
+
+def _trace_round(engine, drive, sync, steps0: int, trace: str) -> dict:
+    """Trace one more decode round of ``measure_decode`` and attribute its
+    device time by kernel."""
+    from ..ops.int4_matmul import int4_matmul
+    from ..ops.paged_attention import paged_attention_decode
 
     paged_attention_decode.launches = 0
     paged_attention_decode.int8_launches = 0
     int4_matmul.launches = 0
     int4_matmul.launches_by_path = dict.fromkeys(
         int4_matmul.launches_by_path, 0)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with _profile() as prof:
         t1 = time.perf_counter()
-        engine._step()
+        drive(1)
         sync()
         traced_s = time.perf_counter() - t1
-    traced_steps = engine.stats["decode_steps"] - steps0 - steps
+    traced_steps = engine.stats["decode_steps"] - steps0
     launches = {"paged_attention": paged_attention_decode.launches
                 + paged_attention_decode.int8_launches,
                 "int4_matmul": int4_matmul.launches}
@@ -490,31 +676,10 @@ def measure_decode(engine, slots: int, prompt_len: int, rounds: int,
     # serving.
     n = max(traced_steps, 1)
     busy_ms_step = _busy_us(events) / 1e3 / n
-
-    param_bytes = sum(t.numel() * t.element_size()
-                      for t in llama.param_tensors(engine.params))
-    kv_token = engine._kv_bytes_per_token()
-    ctx = prompt_len + (rounds + 2) * steps_per_round
-    # Weights are read once per step (the embedding table only for the B
-    # rows looked up); each slot's live KV once.
-    step_bytes = (param_bytes - engine.params["embed"].numel()
-                  * engine.params["embed"].element_size()
-                  + slots * ctx * kv_token)
-    for s in streams:      # leave the engine idle for its next user
-        s.cancel()
-    for _ in range(3):
-        engine._step()
-    if engine._slots:
-        raise RuntimeError("cancelled requests still hold slots")
     return {
-        "card": _card(cuda), "cuda_graphs": engine._graphs_on,
-        "context": ctx, "step_ms": step_ms,
-        "step_bytes": step_bytes,
-        "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
         "traced_round_ms": traced_s * 1e3, "traced_steps": traced_steps,
         "device_ms_per_step": device_us / 1e3 / n,
         "device_busy_ms_per_step": busy_ms_step,
-        "device_busy_share": busy_ms_step / step_ms,
         "kernel_ms_per_step": {k: us / 1e3 / n for k, us in ours_us.items()},
         "kernel_launches": launches,
         "int4_launches_by_path": int4_by_path,

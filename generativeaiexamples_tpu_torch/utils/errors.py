@@ -12,6 +12,14 @@ class ConfigError(FrameworkError):
     """Invalid or missing configuration."""
 
 
+class ModelLoadError(FrameworkError):
+    """A checkpoint could not be found, sniffed, or imported."""
+
+
+class UnsupportedFormatError(ModelLoadError):
+    """Checkpoint format not recognized, or not served by the port."""
+
+
 class EngineError(FrameworkError):
     """Inference-engine runtime failure."""
 
