@@ -25,7 +25,13 @@ Phases (each fails loudly: a failure exits non-zero and the final
    for float32 x the fp32 GEMV at M <= 8 and the tiled path above),
    float32 out atol 1e-4 * max|ref|, rtol 1e-4, bf16 out rtol 1e-2. At
    M = 128 and 1024 on the layer shapes the old tiled kernel is timed on
-   the same bf16 x beside ``wg``.
+   the same bf16 x beside ``wg``; and ``tc`` on the fused tail's lm_head
+   tiles (M = 8 and 1, K 4096, N 4000 and 16000: column slices of the
+   32000-wide head read in place at its row stride).
+   The fused sampling tail (``check_fused_tail``): at llama-2-7b's head
+   width over bf16 and int4_awq heads, in 8 tiles of 4000 and in the
+   card's default 2 of 16000, 8 rows of mixed sampling settings give the
+   materialized oracle's tokens on one shared noise field.
 3. The engines on a small input: llama-2-7b's width cut to 2 layers,
    float32 (TF32 off). bf16 path: greedy tokens through the engine (#1 in
    every layer) against argmax of a full-sequence forward. Quantized
@@ -67,7 +73,17 @@ Phases (each fails loudly: a failure exits non-zero and the final
    decode round (host-clock step at dispatch depth 2, the harvest worker,
    and 1, in line; device time and busy share of a traced round) and
    bucket-128 admission are measured as ``tools/profile_decode.py`` does.
-   Every serve path runs at the engine's default dispatch depth, 2.
+   Every serve path runs at the engine's default dispatch depth, 2, and
+   with the fused sampling tail (the engine's default): the lm_head in
+   the card's 2 vocab tiles of 16000 on ``tc`` per decode step, over the
+   active-row ladder's rungs (1 row for one stream, all 8 otherwise; both
+   must run, shown by ``sampler_rows_*``). The served engine's greedy tokens must also equal
+   an eager engine's with the materialized tail (``fused_tail=False``);
+   the 8-slot step of a graph engine with the materialized tail, one
+   stream's step with and without the ladder, and the tail alone (fused
+   at 8 and 1 rows and at tiles of 4000, 8000 and 16000; materialized)
+   are timed untraced, and traced last beside a traced lm_head tile
+   product, which must run no copy kernel.
    Then each mode's admission path at full depth on the same weights
    (``serve_admission``): an engine for 3000-token prompts serves a
    shared-system-prompt pair (the second a prefix hit: hit tokens, warm
@@ -86,6 +102,7 @@ Exits 2 without printing a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -423,7 +440,7 @@ def old_tile_call(torch, x, q4, scale, out_dtype):
         err = _kernel()(
             _PATHS["tile"], _KERNEL_DTYPES[x.dtype],
             _KERNEL_DTYPES[out_dtype], x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None, 0, None, 0, M, K, N, K // G,
+            None, 0, None, 0, M, K, N, K // G, N, N,
             torch.cuda.current_stream().cuda_stream)
         if err:
             fail(f"int4_matmul tile path (code 2) failed with CUDA error "
@@ -604,6 +621,7 @@ def check_int4_matmul(torch, dev):
                 }
         del q4s, dense, leaves
         torch.cuda.empty_cache()
+    rows.update(time_head_tiles(torch, dev, gen))
     # #3's device time per 1024-row prefill: 32 layers of 4 projections
     # of 4096 x 4096, 2 of w_gate/w_up and 1 of w_down.
     mix = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1}
@@ -621,7 +639,179 @@ def check_int4_matmul(torch, dev):
         f"{worst[torch.bfloat16]}; max abs err at the rows' cases (K=4096, "
         f"N=11008, group 128, bf16 out): tc M=8 {row_err['tc']}, wg M=1024 "
         f"{row_err['wg']}")
-    return [rows["tc"], rows["wg"]]
+    return [rows["tc"], rows["wg"]] + [rows[k] for k in sorted(rows)
+                                       if k.startswith("head")]
+
+
+def time_head_tiles(torch, dev, gen) -> dict:
+    """#3 on the fused tail's lm_head tiles: column slices of llama-2-7b's
+    (4096, 32000) head quantized to group 128, 4000 columns each (the
+    reference's tile) and 16000 (the card's default), read in place at
+    the head's row stride ("tc", float32 out as the logits path calls
+    it), at M = 8 and 1 (the active-row ladder's rungs). Each tile is
+    checked against the plain version on a contiguous copy (atol 1e-4 *
+    max|ref|, rtol 1e-4); the kernel is timed cycling through the tiles
+    (the whole head, 65 MB, read cold as a decode step reads it) beside
+    its plain version, its bound and the library yardstick at the same
+    shape. Returns the kernels line's rows "head<tile>-<M>"."""
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
+        _path, int4_matmul, int4_matmul_plain)
+
+    K, V = 4096, 32000
+    w = torch.randn((K, V), generator=gen, device=dev) * K ** -0.5
+    head = quant.quantize_tensor_grouped(w, 128)
+    del w
+    out = {}
+    for tile, M in itertools.product((4000, 16000), (8, 1)):
+        tiles = [(head["q4"][:, t0:t0 + tile],
+                  head["gscale"][:, t0:t0 + tile])
+                 for t0 in range(0, V, tile)]
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        if _path(M, K, tile, 128, x.dtype) != "tc":
+            fail(f"head tile M={M} would not take the 'tc' path")
+        before = int4_matmul.launches_by_path["tc"]
+        err = 0.0
+        for q4, sc in tiles:
+            got = int4_matmul(x, q4, sc, out_dtype=torch.float32)
+            ref = int4_matmul_plain(x, q4.contiguous(), sc.contiguous(),
+                                    out_dtype=torch.float32)
+            peak = ref.abs().max().item()
+            err = max(err, (got - ref).abs().max().item())
+            if not torch.allclose(got, ref, atol=1e-4 * peak, rtol=1e-4):
+                fail(f"int4_matmul head tile M={M} disagrees with its "
+                     f"plain version: max abs err {err}")
+        if int4_matmul.launches_by_path["tc"] != before + len(tiles):
+            fail("a head tile did not launch the 'tc' path once")
+        ms = time_cuda(torch, [
+            (lambda q4=q4, sc=sc: int4_matmul(x, q4, sc,
+                                              out_dtype=torch.float32))
+            for q4, sc in tiles], iters=200)
+        plain_ms = time_cuda(torch, lambda: int4_matmul_plain(
+            x, tiles[0][0], tiles[0][1], out_dtype=torch.float32),
+            iters=3, warmup=1)
+        lib_ms, lib_note = int4_library_ms(torch, dev, M, K, tile, 128, 200)
+        nbytes = K // 2 * tile + 4 * (K // 128) * tile + M * K * 2 + \
+            M * tile * 4
+        flops = 2 * M * K * tile
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / BF16_FLOPS * 1e3
+        bound = max(bytes_ms, flops_ms)
+        by = "bytes" if bytes_ms >= flops_ms else "operations"
+        say(f"kernel int4_matmul [tc] head tile M={M} K={K} N={tile} of "
+            f"{V} (strided, in place) group=128 x=bfloat16 out=float32: "
+            f"ms={ms} plain_ms={plain_ms} bound_ms={bound} ({by}; {nbytes} "
+            f"bytes; {bound / ms:.1%} of it) library_ms={lib_ms} "
+            f"({lib_note}); max abs err {err}")
+        out[f"head{tile:05d}-{M}"] = {
+            "name": "int4_matmul", "route": "cuda",
+            "source": "generativeaiexamples_tpu_torch/csrc/int4_matmul.cu",
+            "replaces": "generativeaiexamples_tpu/ops/int4_matmul.py:83",
+            "path": "tc", "shape": f"lm_head tile M={M} K={K} N={tile} "
+                                   f"strided",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+    del head
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------ fused sampling tail
+
+def check_fused_tail(torch, dev, card: str) -> None:
+    """The fused sampling tail (``ops/fused_sampler.py``) at llama-2-7b's
+    head width (D 4096, V 32000) on the card, in the reference's 8 tiles
+    of 4000 and the card's default 2 of 16000, over a bf16 head and an
+    int4_awq one: 8 rows of mixed settings (greedy,
+    top-k, top-p at a low temperature, pure temperature) with repetition
+    penalties, banned tokens and sequence-ban tails, against the
+    materialized oracle ``sample_reference_tiled`` on the same logits
+    (the same tile products, concatenated) and one shared Gumbel field:
+    exact tokens with the engine's candidate carry (64) and with a carry
+    of the whole vocab (rows whose top-p set is wider than 64), and the
+    greedy stream equal to the argmax of the penalized logits. Under
+    int4 each stream launches "tc" once per tile."""
+    from generativeaiexamples_tpu_torch.engine.engine import CARD_TILE
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    from generativeaiexamples_tpu_torch.ops import fused_sampler as fs
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import int4_matmul
+    from generativeaiexamples_tpu_torch.ops.sampling import (
+        NEG_INF, apply_repetition_penalty, pack_mask)
+
+    t0 = time.monotonic()
+    D, V, B = LLAMA2_7B.hidden_size, LLAMA2_7B.vocab_size, 8
+    g = torch.Generator(dev).manual_seed(5)
+    w = torch.randn((D, V), generator=g, device=dev).mul_(D ** -0.5)
+    heads = {"bf16": w.to(torch.bfloat16),
+             "int4_awq": quant.quantize_tensor_grouped(w, 128)}
+    del w
+    hn = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    seen = torch.rand((B, V), generator=g, device=dev) < 0.002
+    banned = torch.rand((B, V), generator=g, device=dev) < 0.0005
+    ban_tok = torch.randint(0, V, (B, 2), generator=g, device=dev,
+                            dtype=torch.int32)
+    ban_hit = torch.rand((B, 2), generator=g, device=dev) < 0.5
+    rep_pen = torch.tensor([1.0, 1.2, 1.0, 1.1, 1.3, 1.0, 1.0, 1.2],
+                           device=dev)
+    # (temperature, top_k, top_p): every kept set fits 64 candidates
+    # (top-p at temperature 0.05 keeps a few tokens).
+    narrow = [(0.0, 0, 0.0), (0.7, 40, 0.0), (1.0, 0, 0.0), (1.3, 5, 0.0),
+              (0.05, 0, 0.9), (1.0, 64, 0.0), (0.8, 1, 0.0), (2.0, 0, 0.0)]
+    # wide top-p sets: exact only with the whole vocab as the carry
+    wide = [(1.0, 0, 0.9), (0.7, 0, 0.95), (1.0, 200, 0.0),
+            (1.2, 0, 0.5), (0.0, 0, 0.0), (1.0, 0, 0.0), (0.9, 500, 0.9),
+            (1.5, 0, 0.99)]
+    for (name, head), tile in itertools.product(
+            heads.items(), (fs.choose_tile(V), fs.choose_tile(V, CARD_TILE))):
+        n_tiles = V // tile
+        field = fs.tiled_gumbel(torch.Generator(dev).manual_seed(6), B, V,
+                                tile, dev)
+        params = {"lm_head": head}
+        logits = torch.cat([llama.lm_head_tile(params, LLAMA2_7B, hn, t, tile)
+                            for t in range(0, V, tile)], dim=1)
+        pen = apply_repetition_penalty(logits, seen, rep_pen).masked_fill(
+            banned, NEG_INF)
+        rows = torch.arange(B, device=dev)[:, None]
+        pen[rows.expand(B, 2)[ban_hit], ban_tok.long()[ban_hit]] = NEG_INF
+        for settings, cand_k in ((narrow, 64), (wide, V)):
+            temp, top_k, top_p = (torch.tensor(c, device=dev)
+                                  for c in zip(*settings))
+            top_k = top_k.to(torch.int32)
+            kw = dict(temp=temp, top_k=top_k, top_p=top_p, rep_pen=rep_pen,
+                      seen_words=pack_mask(seen),
+                      banned_words=pack_mask(banned), ban_tok=ban_tok,
+                      ban_hit=ban_hit, tile=tile, cand_k=cand_k)
+            fn = (lambda t, n: llama.lm_head_tile(  # noqa: E731
+                params, LLAMA2_7B, hn, t, n))
+            before = int4_matmul.launches_by_path["tc"]
+            got = fs.fused_unembed_sample(
+                fn, V, noise=lambda t: field[:, t * tile:(t + 1) * tile],
+                **kw)
+            greedy = fs.fused_unembed_sample(fn, V, noise=None, greedy=True,
+                                             **kw)
+            launched = int4_matmul.launches_by_path["tc"] - before
+            want = fs.sample_reference_tiled(pen, field, temp, top_k, top_p,
+                                             tile)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"fused tail [{name} head, cand_k {cand_k}]: tokens "
+                     f"{got.tolist()}, the oracle's {want.tolist()}")
+            if not torch.equal(greedy, pen.argmax(dim=-1).to(torch.int32)):
+                fail(f"fused tail [{name} head]: the greedy stream is not "
+                     f"the argmax of the penalized logits")
+            if launched != (2 * n_tiles if name == "int4_awq" else 0):
+                fail(f"fused tail [{name} head]: {launched} 'tc' launches "
+                     f"for two streams of {n_tiles} tiles")
+        say(f"fused tail [{name} head]: V={V} in {n_tiles} tiles of {tile}, "
+            f"8 mixed rows: tokens equal the oracle's with cand_k 64 and "
+            f"with cand_k {V}; greedy stream = argmax; tc launches per "
+            f"stream {n_tiles if name == 'int4_awq' else 0}")
+    del heads
+    torch.cuda.empty_cache()
+    say(f"fused tail check: {time.monotonic() - t0:.1f} s [{card}]")
 
 
 # ------------------------------------------------------------- model check
@@ -845,7 +1035,9 @@ def check_model_quant(torch, dev, ref: QuantReference) -> None:
     an eager card engine's (``cuda_graphs=False``), must equal the CPU
     engine's. The card engine's float32 activations take #3's fp32 GEMV
     at decode (and for each prefill's lm_head row) and the tiled path for
-    the prefill projections, never a tensor-core path ("tc", "wg")."""
+    the prefill projections, never a tensor-core path ("tc", "wg"); the
+    decode step's lm_head in the fused tail's vocab tiles, each a strided
+    column slice of the head read in place."""
     from dataclasses import replace
 
     from generativeaiexamples_tpu_torch.engine import Engine
@@ -869,10 +1061,11 @@ def check_model_quant(torch, dev, ref: QuantReference) -> None:
     steps, prefills, dispatches = (engine.stats["decode_steps"],
                                    engine.stats["prefills"],
                                    engine.stats["prefill_dispatches"])
+    n_tiles = head_tiles(engine)
     del engine
-    per_forward = 7 * cfg.num_layers + 1
-    want = {"tc": 0, "gemv": per_forward * steps + prefills,
-            "tile": (per_forward - 1) * dispatches, "wg": 0}
+    want = {"tc": 0,
+            "gemv": (7 * cfg.num_layers + n_tiles) * steps + prefills,
+            "tile": 7 * cfg.num_layers * dispatches, "wg": 0}
     if n8 <= 0 or n4 <= 0 or steps <= 0 or by_path != want:
         fail(f"quantized engine on the card launched int8 attention {n8} "
              f"and int4 matmul {n4} times, by path {by_path} over {steps} "
@@ -1048,9 +1241,20 @@ def serve(torch, dev, card: str, quantization: str = "",
     if not all(0 <= t < mcfg.vocab_size for t in stream.token_ids):
         fail("ignore_eos request produced out-of-vocab ids")
     check_launch_counts(f"[{mode}]", run, mcfg.num_layers, quantization,
-                        kv_quant)
+                        kv_quant, head_tiles(engine))
     counts, by_path = run["launches"], run["by_path"]
     steps, prefills = run["decode_steps"], run["prefills"]
+    # Both rungs of the active-row ladder ran: rounds of one stream (the
+    # ignore_eos request) sample 1 row, concurrent ones all 8.
+    B = ecfg.max_slots
+    sampled, skipped = (run["sampler_rows_sampled"],
+                        run["sampler_rows_skipped"])
+    if not (steps < sampled < B * steps and sampled + skipped == B * steps):
+        fail(f"[{mode}] the fused tail sampled {sampled} and skipped "
+             f"{skipped} rows over {steps} decode steps: not both ladder "
+             f"rungs (1 and {B} rows)")
+    say(f"serve [{mode}]: fused tail over {steps} decode steps sampled "
+        f"{sampled} rows and skipped {skipped} (ladder rungs 1 and {B})")
     decode_s = stream.finish_time - stream.first_token_time
     say(f"serve [{mode}]: {len(bodies)} concurrent /v1/completions in "
         f"{wall:.3f} s, {tokens_http} tokens ({tokens_http / wall:.1f} tok/s "
@@ -1084,7 +1288,8 @@ def read_launch_counts(engine, stats0: dict) -> dict:
         paged_attention_decode
     now = engine.stats
     out = {k: now[k] - stats0[k] for k in (
-        "decode_steps", "prefills", "prefill_dispatches", "prefill_chunks")}
+        "decode_steps", "prefills", "prefill_dispatches", "prefill_chunks",
+        "sampler_rows_sampled", "sampler_rows_skipped")}
     out["launches"] = {
         "paged_attention_decode": paged_attention_decode.launches,
         "paged_attention_decode_int8": paged_attention_decode.int8_launches,
@@ -1093,15 +1298,24 @@ def read_launch_counts(engine, stats0: dict) -> dict:
     return out
 
 
+def head_tiles(engine) -> int:
+    """The lm_head products of one decode step: one per vocab tile of the
+    fused tail, or the whole head at once under the materialized one."""
+    if not engine.cfg.fused_tail:
+        return 1
+    return engine.model_cfg.vocab_size // engine._sampler_tile
+
+
 def check_launch_counts(label: str, run: dict, L: int, quantization: str,
-                        kv_quant: str) -> None:
+                        kv_quant: str, n_tiles: int) -> None:
     """Every layer of every decode step went through the pool's attention
     kernel, once; under int4 weights every projection through #3: one per
     projection (7 per layer) per prefill program (one-shot admission or
-    chunk; the bucket's rows on "wg") and per decode step (8 slots on
-    "tc"), plus the lm_head row on "tc" per decode step and per admission
-    (its one-shot program or final chunk samples one row); none on "tile"
-    or "gemv"; the other pool kind's kernel never."""
+    chunk; the bucket's rows on "wg") and per decode step (the sampled
+    rows on "tc"), plus the lm_head's ``n_tiles`` vocab tiles on "tc" per
+    decode step (the fused tail) and its row per admission (its one-shot
+    program or final chunk samples one row whole); none on "tile" or
+    "gemv"; the other pool kind's kernel never."""
     steps, prefills = run["decode_steps"], run["prefills"]
     dispatches = run["prefill_dispatches"]
     attn = "paged_attention_decode_int8" if kv_quant else \
@@ -1111,7 +1325,7 @@ def check_launch_counts(label: str, run: dict, L: int, quantization: str,
     want[attn] = L * steps
     want_path = {"tc": 0, "gemv": 0, "tile": 0, "wg": 0}
     if quantization in ("int4", "int4_awq"):
-        want_path = {"tc": (7 * L + 1) * steps + prefills, "gemv": 0,
+        want_path = {"tc": (7 * L + n_tiles) * steps + prefills, "gemv": 0,
                      "tile": 0, "wg": 7 * L * dispatches}
         want["int4_matmul"] = want_path["tc"] + want_path["wg"]
     if (steps <= 0 or prefills <= 0 or run["launches"] != want
@@ -1201,7 +1415,8 @@ def serve_admission(torch, dev, card: str, served, mode: str,
             torch.cuda.synchronize()
             run = read_launch_counts(engine, stats0)
         check_launch_counts(f"[{mode}] admission ({label})", run,
-                            mcfg.num_layers, quantization, base["kv_quant"])
+                            mcfg.num_layers, quantization, base["kv_quant"],
+                            head_tiles(engine))
         if pin is None:
             arrival_ttft(card, engine, mode)
         # Gaps between two read-backs that delivered tokens to a decoding
@@ -1288,18 +1503,26 @@ def graphs_vs_eager(torch, dev, card: str, engine, mode: str) -> dict:
     prompt, 32 greedy tokens each (``ignore_eos``), one schedule on both
     (all submitted, then the serve loop's step driven on this thread,
     each round read back in line), must give equal tokens; a difference
-    fails with its first step and the top-2 logit gap there. Then
+    fails with its first step and the top-2 logit gap there; so must an
+    eager engine with the materialized tail (``fused_tail=False``, the
+    oracle: (B, V) logits, one whole-head product). Then
     ``profile_decode``'s untraced measurements on the served engine: a
     decode round of 8 slots with 512-token prompts (host-clock step over
     4 rounds) at dispatch depth 2 (the harvest worker), 1 (in line), 2
     and 1, and a bucket-128 admission (host-clock time to the first
-    token, mean of 4). Returns the step times by depth and the
-    admission's time."""
+    token, mean of 4); the same 8-slot step on a graph engine with the
+    materialized tail, in turns (materialized, fused, fused,
+    materialized); one stream's step with the active-row ladder and with
+    every round forced onto the 8-row rung, in turns; and the tail alone
+    (``measure_tail``: fused at 8 and 1 rows, materialized, greedy and
+    sampled; the fused tail at tiles of 4000, 8000 and 16000). Returns the
+    step times by depth, the admission's time and the materialized graph
+    engine (traced last)."""
     from dataclasses import replace
 
     from generativeaiexamples_tpu_torch.engine import Engine, SamplingParams
     from generativeaiexamples_tpu_torch.tools.profile_decode import (
-        measure_decode, measure_prefill)
+        measure_decode, measure_prefill, tail_table)
 
     ids = [engine.tokenizer.encode(p) for p in SERVE_PROMPTS + [ENGINE_PROMPT]]
     sp = SamplingParams(max_tokens=32, temperature=0, ignore_eos=True)
@@ -1308,12 +1531,16 @@ def graphs_vs_eager(torch, dev, card: str, engine, mode: str) -> dict:
     engine.clear_prefix_cache()
     # The eager engine plans with the served engine's measured budget, so
     # both make one schedule.
+    budget = engine.stats["sched_round_budget_tokens"]
     eager = Engine(engine.params, engine.model_cfg, engine.tokenizer,
                    replace(engine.cfg, cuda_graphs=False,
-                           sched_round_budget_tokens=engine.stats[
-                               "sched_round_budget_tokens"]), device=dev)
+                           sched_round_budget_tokens=budget), device=dev)
+    oracle = Engine(engine.params, engine.model_cfg, engine.tokenizer,
+                    replace(engine.cfg, cuda_graphs=False, fused_tail=False,
+                            sched_round_budget_tokens=budget), device=dev)
     runs = {}
-    for name, eng in (("graphs", engine), ("eager", eager)):
+    for name, eng in (("graphs", engine), ("eager", eager),
+                      ("materialized", oracle)):
         streams = [eng.submit(i, sp) for i in ids]
         for _ in range(100):
             if all(s.finish_reason is not None for s in streams):
@@ -1323,14 +1550,16 @@ def graphs_vs_eager(torch, dev, card: str, engine, mode: str) -> dict:
         if any(len(t) != 32 for t in runs[name]):
             fail(f"[{mode}] {name} engine: {[len(t) for t in runs[name]]} "
                  f"tokens")
-    del eager
-    for i, (a, b) in enumerate(zip(runs["graphs"], runs["eager"])):
-        if a != b:
-            k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-            gap = top2_gap(torch, engine, ids[i] + a[:k])
-            fail(f"[{mode}] prompt {i} ({len(ids[i])} tokens): the captured "
-                 f"programs' greedy token {k} is {a[k]}, the eager "
-                 f"engine's {b[k]} (top-2 logit gap there {gap})")
+    del eager, oracle
+    for other in ("eager", "materialized"):
+        for i, (a, b) in enumerate(zip(runs["graphs"], runs[other])):
+            if a != b:
+                k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+                gap = top2_gap(torch, engine, ids[i] + a[:k])
+                fail(f"[{mode}] prompt {i} ({len(ids[i])} tokens): the "
+                     f"captured programs' greedy token {k} is {a[k]}, the "
+                     f"{other} engine's {b[k]} (top-2 logit gap there "
+                     f"{gap})")
     # The decode step with the harvest worker (2 rounds in flight) and
     # with each round read back on the serve thread, on one engine, and a
     # bucket-128 admission, all untraced: no profiler has run in this
@@ -1339,8 +1568,30 @@ def graphs_vs_eager(torch, dev, card: str, engine, mode: str) -> dict:
     decs = [measure_decode(engine, 8, 512, rounds=4, dispatch_depth=d,
                            traced=False) for d in (2, 1, 2, 1)]
     pre = measure_prefill(engine, 128, rounds=4, traced=False)
+    # The materialized tail's graph engine on the same weights, and the
+    # 8-slot step of both in turns.
+    t0 = time.monotonic()
+    mat = Engine(engine.params, engine.model_cfg, engine.tokenizer,
+                 replace(engine.cfg, fused_tail=False), device=dev)
+    mat_build = time.monotonic() - t0
+    turns = [(name, measure_decode(e, 8, 512, rounds=4, dispatch_depth=2,
+                                   traced=False))
+             for name, e in (("materialized", mat), ("fused", engine),
+                             ("fused", engine), ("materialized", mat))]
+    # One stream: the ladder's 1-row rung, against every round forced
+    # onto the 8-row rung (its captured programs), in turns.
+    ladder = engine._ba_ladder
+    single = []
+    for rungs in (ladder, ladder[-1:], ladder, ladder[-1:]):
+        engine._ba_ladder = rungs
+        single.append((rungs, measure_decode(engine, 1, 512, rounds=4,
+                                             dispatch_depth=2,
+                                             traced=False)["step_ms"]))
+    engine._ba_ladder = ladder
+    tails = tail_table(engine, tiles=(4000, 8000, 16000))
     say(f"graphs [{mode}]: greedy tokens of the {len(ids)} serve prompts "
-        f"equal the eager engine's; captured programs hold "
+        f"equal the eager engine's and the materialized-tail eager "
+        f"engine's; captured programs hold "
         f"{engine.graph_pool_bytes} bytes of pool, memory reserved "
         f"{torch.cuda.memory_reserved(dev)} bytes")
     for run in decs:
@@ -1355,10 +1606,27 @@ def graphs_vs_eager(torch, dev, card: str, engine, mode: str) -> dict:
              f"of rounds in flight")
     say(f"graphs [{mode}]: bucket-128 TTFT {pre['prefill_ms']:.3f} ms (host "
         f"clock, untraced) [{card}]")
+    say(f"tail [{mode}]: materialized-tail graph engine built in "
+        f"{mat_build:.1f} s, {len(mat._round_graphs)} round programs "
+        f"(fused: {len(engine._round_graphs)}); 8-slot decode step, depth "
+        f"2, untraced, in turns: " + ", ".join(
+            f"{name} {r['step_ms']:.3f} ms" for name, r in turns)
+        + f" [{card}]")
+    say(f"tail [{mode}]: one stream, depth 2, untraced, in turns: "
+        + ", ".join(f"rungs {r} {ms:.3f} ms ({1e3 / ms:.1f} tok/s)"
+                    for r, ms in single) + f" [{card}]")
+    for t in tails:
+        say(f"tail [{mode}]: {'fused' if t['fused'] else 'materialized'} "
+            f"tail alone, {t['rows']} rows, "
+            f"{'greedy' if t['greedy'] else 'sampled'}"
+            + (f", tile {t['tile']}" if t["fused"] else "")
+            + f": {t['ms']:.4f} ms/step (device, CUDA events over a graph "
+            f"of 20), int4 launches per step {t.get('int4_launches')} "
+            f"[{card}]")
     torch.cuda.empty_cache()
     return {"step_ms": {d: [r["step_ms"] for r in decs
                             if r["dispatch_depth"] == d] for d in (2, 1)},
-            "prefill_ms": pre["prefill_ms"]}
+            "prefill_ms": pre["prefill_ms"], "materialized": mat}
 
 
 def traced_profiles(torch, card: str, served: list) -> None:
@@ -1368,13 +1636,38 @@ def traced_profiles(torch, card: str, served: list) -> None:
     round's launch costs the host milliseconds). For each served engine
     (mode, engine, its untraced timings): one traced decode round at
     depth 2 (device time, busy time, by kernel; busy share against the
-    untraced depth-2 step) and one traced bucket-128 admission."""
+    untraced depth-2 step) and one traced bucket-128 admission; then the
+    same traced round on the materialized-tail engine, the fused tail
+    alone traced (its kernels per step, busy time), and one lm_head tile
+    product traced: its kernels must hold no copy (the strided column
+    slice reaches cuBLAS or #3 in place)."""
+    from generativeaiexamples_tpu_torch.models import llama
     from generativeaiexamples_tpu_torch.tools.profile_decode import (
-        measure_decode, measure_prefill)
+        _device_events, _kernel_times, _profile, measure_decode,
+        measure_prefill, measure_tail)
 
     while served:
         mode, engine, untraced = served.pop(0)
+        mat = untraced.pop("materialized")
         dec = measure_decode(engine, 8, 512, rounds=4, dispatch_depth=2)
+        mat_dec = measure_decode(mat, 8, 512, rounds=4, dispatch_depth=2)
+        mat.stop()
+        del mat
+        tail = measure_tail(engine, 8, False, True, traced=True)
+        hn = torch.randn((8, engine.model_cfg.hidden_size),
+                         device=engine.device).to(torch.bfloat16)
+        tile = engine._sampler_tile
+        llama.lm_head_tile(engine.params, engine.model_cfg, hn, tile, tile)
+        torch.cuda.synchronize()
+        with _profile() as prof:
+            llama.lm_head_tile(engine.params, engine.model_cfg, hn, tile,
+                               tile)
+            torch.cuda.synchronize()
+        head_kernels = sorted(_kernel_times(_device_events(prof)))
+        if not head_kernels or any("copy" in k.lower() for k in
+                                   head_kernels):
+            fail(f"traced [{mode}]: an lm_head tile product ran kernels "
+                 f"{head_kernels}: a copy of the strided slice, or none")
         pre = measure_prefill(engine, 128, rounds=4)
         busy = dec["device_busy_ms_per_step"]
         step, step_1 = (min(untraced["step_ms"][d]) for d in (2, 1))
@@ -1387,6 +1680,17 @@ def traced_profiles(torch, card: str, served: list) -> None:
             f"step {step_1:.3f} ms {busy / step_1:.1%}; "
             f"kernels per step (ms) {kernels} over "
             f"{dec['kernel_launches']} launches [{card}]")
+        say(f"traced [{mode}]: materialized-tail round: device "
+            f"{mat_dec['device_ms_per_step']:.3f} ms/step (busy "
+            f"{mat_dec['device_busy_ms_per_step']:.3f}) over "
+            f"{mat_dec['kernels_per_step']:.0f} device ops per step; fused: "
+            f"busy {busy:.3f} over {dec['kernels_per_step']:.0f} [{card}]")
+        say(f"traced [{mode}]: fused tail alone (8 rows, sampled): busy "
+            f"{tail['busy_ms']:.4f} ms/step over "
+            f"{tail['kernels_per_step']:.0f} device ops per step, so the "
+            f"rest of the fused step is {busy - tail['busy_ms']:.3f} ms; top "
+            f"{tail['top_kernels']}; an lm_head tile product runs "
+            f"{head_kernels} [{card}]")
         say(f"traced [{mode}]: bucket-128 admission device "
             f"{pre['device_ms']:.3f} ms (busy {pre['device_busy_ms']:.3f}), "
             f"busy share of the untraced TTFT {untraced['prefill_ms']:.3f} ms "
@@ -1479,7 +1783,7 @@ def check_golden(torch, dev, card: str, quantization: str = "",
         stop_server()
         engine.stop()
     check_launch_counts(f"golden [{mode}]", run, mcfg.num_layers,
-                        quantization, kv_quant)
+                        quantization, kv_quant, head_tiles(engine))
     if streamed != tok.decode(same.token_ids) or len(streamed) < 10:
         fail(f"golden [{mode}]: streamed text {streamed!r} is not "
              f"decode() of the greedy tokens {same.token_ids}")
@@ -1724,6 +2028,8 @@ def main() -> int:
     lap("attention")
     kernels.extend(check_int4_matmul(torch, dev))
     lap("int4_matmul")
+    check_fused_tail(torch, dev, card)
+    lap("fused_tail")
     check_model(torch, dev)
     lap("model")
     check_model_quant(torch, dev, quant_ref)

@@ -9,7 +9,9 @@
 // both sign-extended. Scales are per output channel (N,) or per group of
 // `group` reduction rows (G, N), G = K / group; a group's partial sum is
 // multiplied by its float32 scale as ops/quant.py `_grouped_matmul` does
-// (per channel is the case group = K). Sums are float32.
+// (per channel is the case group = K). Sums are float32. Rows of q4 and
+// of grouped scales are ldq bytes and lds floats apart (N for a whole
+// weight, more for a column slice of a wider one); columns are packed.
 //
 // Four paths; the caller names one (ops/int4_matmul.py `_path`) and a
 // path that does not take the shape returns cudaErrorInvalidValue (no
@@ -230,7 +232,8 @@ __global__ void __launch_bounds__(32 * kGemvWarps)
 int4_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q4,
                  const float* __restrict__ scale, TO* __restrict__ out,
                  float* __restrict__ partial, int* __restrict__ counters,
-                 int M, int K, int N, int group, int chunk_rows,
+                 int M, int K, int N, int group, int ldq, int lds,
+                 int chunk_rows,
                  int n_chunks) {
   // Per warp: x of the packed rows being streamed (2 * kGemvStage
   // values per row of x), then the warp's partial output for the
@@ -285,7 +288,7 @@ int4_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q4,
           const int r = rb + u;
           w[u] = (col_ok && r < se)
                      ? __ldg(reinterpret_cast<const unsigned int*>(
-                           q4 + (long long)r * N + n))
+                           q4 + (long long)r * ldq + n))
                      : 0u;
         }
 #pragma unroll
@@ -318,7 +321,7 @@ int4_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q4,
     } else if (col_ok) {  // chunk c is group c
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float s = scale[(long long)c * N + n + j];
+        const float s = scale[(long long)c * lds + n + j];
 #pragma unroll
         for (int m = 0; m < MM; ++m) acc[m][j] = fmaf(part[m][j], s, acc[m][j]);
       }
@@ -492,7 +495,7 @@ __global__ void __launch_bounds__(32 * kTcWarps, kTcPerSm)
 int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
                 const int8_t* __restrict__ q4,
                 const float* __restrict__ scale, TO* __restrict__ out,
-                int M, int K, int N, int group) {
+                int M, int K, int N, int group, int ldq, int lds) {
   extern __shared__ __align__(16) char ring[];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -522,14 +525,14 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
       const int gr = st * kTcRows + row;
       const bool ok = gr < K2 && n0 + col < N;
       cp_async16(slot + row * kTcPitch + col,
-                 ok ? q4 + (long long)gr * N + n0 + col : q4, ok);
+                 ok ? q4 + (long long)gr * ldq + n0 + col : q4, ok);
     }
     if (!PER_CHANNEL && tid < kTcCols / 4) {
       const int gn = n0 + 4 * tid;
       const bool ok = gn < N;
       const long long gi = (long long)st * kTcK / group;
       cp_async16(slot + kTcScaleOff + 16 * tid,
-                 ok ? scale + gi * N + gn : scale, ok);
+                 ok ? scale + gi * lds + gn : scale, ok);
     }
   };
   auto issue_x = [&](int st) {  // the (8, 128) tile of x
@@ -813,7 +816,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 int4_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap q4_map,
                   const float* __restrict__ scale, TO* __restrict__ out,
-                  int M, int K, int N, int group) {
+                  int M, int K, int N, int group, int lds) {
   extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[kWgRing], empty[kWgRing];
   // The swizzle is a function of the shared address: align the ring.
@@ -874,7 +877,7 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       float2 sc = make_float2(0.f, 0.f);
       if (!PER_CHANNEL && col_ok)
         sc = __ldg(reinterpret_cast<const float2*>(
-            scale + (long long)((st0 + i) * kWgK / group) * N + gn));
+            scale + (long long)((st0 + i) * kWgK / group) * lds + gn));
       mbar_wait(&full[slot], (i / kWgRing) & 1);
       const char* sq = ring + slot * kWgStage + kWgQ4Off;
       // A of step s: packed rows 8 s + t (k pair 2t) and 8 s + t + 4 (k
@@ -997,7 +1000,8 @@ template <typename T, typename TO, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 int4_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ q4,
                    const float* __restrict__ scale, TO* __restrict__ out,
-                   int M, int K, int N, int group) {
+                   int M, int K, int N, int group, int ldq,
+                   int lds) {
   constexpr int TX = BN / TN;
   constexpr int TY = BM / TM;
   constexpr int NT = TX * TY;
@@ -1043,7 +1047,7 @@ int4_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ q4,
       const int gr = k0 / 2 + r;
       const int gn = n0 + n;
       int b = 0;
-      if (gr < K2 && gn < N) b = (int)(uint8_t)q4[gr * N + gn];
+      if (gr < K2 && gn < N) b = (int)(uint8_t)q4[(long long)gr * ldq + gn];
       ws[2 * r][n] = nibble(b);
       ws[2 * r + 1][n] = nibble(b >> 4);
     }
@@ -1072,7 +1076,7 @@ int4_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ q4,
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           const int gn = n0 + tx + j * TX;
-          const float s = gn < N ? scale[g * N + gn] : 0.f;
+          const float s = gn < N ? scale[(long long)g * lds + gn] : 0.f;
 #pragma unroll
           for (int i = 0; i < TM; ++i) {
             acc[i][j] = fmaf(part[i][j], s, acc[i][j]);
@@ -1097,14 +1101,14 @@ int4_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ q4,
 
 template <typename T, typename TO, int BM, int BN, int BK, int TM, int TN>
 int launch_tile(const void* x, const int8_t* q4, const float* scale,
-                void* out, int M, int K, int N, int group,
+                void* out, int M, int K, int N, int group, int ldq, int lds,
                 cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   int4_matmul_kernel<T, TO, BM, BN, BK, TM, TN>
       <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
           static_cast<const T*>(x), q4, scale, static_cast<TO*>(out), M, K,
-          N, group);
+          N, group, ldq, lds);
   return (int)cudaGetLastError();
 }
 
@@ -1124,12 +1128,12 @@ int sm_count() {
 template <typename T, typename TO>
 int launch_gemv(const void* x, const int8_t* q4, const float* scale,
                 void* out, float* ws, long long ws_floats, int* counters,
-                int n_counters, int M, int K, int N, int group,
-                cudaStream_t stream) {
+                int n_counters, int M, int K, int N, int group, int ldq,
+                int lds, cudaStream_t stream) {
   const bool per_channel = group == K;
   const int tiles = (N + kGemvCols - 1) / kGemvCols;
   if (M > 8 || N % 4 || (!per_channel && group % 2) ||
-      reinterpret_cast<uintptr_t>(q4) % 4 || tiles > n_counters)
+      reinterpret_cast<uintptr_t>(q4) % 4 || ldq % 4 || tiles > n_counters)
     return (int)cudaErrorInvalidValue;
   const int chunk_rows = per_channel ? 64 : group / 2;
   const int n_chunks = (K / 2 + chunk_rows - 1) / chunk_rows;
@@ -1142,11 +1146,11 @@ int launch_gemv(const void* x, const int8_t* q4, const float* scale,
   if (M == 1)
     int4_gemv_kernel<T, TO, 1><<<grid, 32 * kGemvWarps, 0, stream>>>(
         static_cast<const T*>(x), q4, scale, static_cast<TO*>(out), ws,
-        counters, M, K, N, group, chunk_rows, n_chunks);
+        counters, M, K, N, group, ldq, lds, chunk_rows, n_chunks);
   else
     int4_gemv_kernel<T, TO, 8><<<grid, 32 * kGemvWarps, 0, stream>>>(
         static_cast<const T*>(x), q4, scale, static_cast<TO*>(out), ws,
-        counters, M, K, N, group, chunk_rows, n_chunks);
+        counters, M, K, N, group, ldq, lds, chunk_rows, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -1154,8 +1158,8 @@ int launch_gemv(const void* x, const int8_t* q4, const float* scale,
 // cluster.
 template <typename TO, bool PER_CHANNEL>
 int launch_mma_kernel(const void* x, const int8_t* q4, const float* scale,
-                      void* out, int M, int K, int N, int group,
-                      cudaStream_t stream) {
+                      void* out, int M, int K, int N, int group, int ldq,
+                      int lds, cudaStream_t stream) {
   auto kernel = int4_mma_kernel<TO, PER_CHANNEL>;
   // More than 48 KB of shared memory needs an opt-in, once per device.
   static unsigned int opted_in = 0;  // bit d: device d
@@ -1194,24 +1198,24 @@ int launch_mma_kernel(const void* x, const int8_t* q4, const float* scale,
   return (int)cudaLaunchKernelEx(&cfg, kernel,
                                  static_cast<const __nv_bfloat16*>(x), q4,
                                  scale, static_cast<TO*>(out), M, K, N,
-                                 group);
+                                 group, ldq, lds);
 }
 
 template <typename TO>
 int launch_mma(const void* x, const int8_t* q4, const float* scale,
-               void* out, int M, int K, int N, int group,
-               cudaStream_t stream) {
+               void* out, int M, int K, int N, int group, int ldq,
+               int lds, cudaStream_t stream) {
   const bool per_channel = group == K;
   if (M > 8 || K % 16 || N % 16 || (!per_channel && group % kTcK) ||
       reinterpret_cast<uintptr_t>(q4) % 16 ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(scale) % 16)
+      reinterpret_cast<uintptr_t>(scale) % 16 || ldq % 16 || lds % 4)
     return (int)cudaErrorInvalidValue;
   if (per_channel)
     return launch_mma_kernel<TO, true>(x, q4, scale, out, M, K, N, group,
-                                       stream);
+                                       ldq, lds, stream);
   return launch_mma_kernel<TO, false>(x, q4, scale, out, M, K, N, group,
-                                      stream);
+                                      ldq, lds, stream);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the
@@ -1264,8 +1268,8 @@ bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
 // cluster.
 template <typename TO, bool PER_CHANNEL>
 int launch_wg_kernel(const void* x, const int8_t* q4, const float* scale,
-                     void* out, int M, int K, int N, int group,
-                     cudaStream_t stream) {
+                     void* out, int M, int K, int N, int group, int ldq,
+                     int lds, cudaStream_t stream) {
   auto kernel = int4_wgmma_kernel<TO, PER_CHANNEL>;
   static unsigned int opted_in = 0;  // bit d: device d
   int dev = 0;
@@ -1284,7 +1288,7 @@ int launch_wg_kernel(const void* x, const int8_t* q4, const float* scale,
   CUtensorMap x_map, q4_map;
   if (!encode_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, 2ull * K,
                  kWgTokens, 64) ||
-      !encode_2d(&q4_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q4, K / 2, N, N,
+      !encode_2d(&q4_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q4, K / 2, N, ldq,
                  kWgRows, kWgCols))
     return (int)cudaErrorInvalidValue;
   // S blocks per tile (one block per SM): 1 once the tiles fill a wave;
@@ -1317,26 +1321,26 @@ int launch_wg_kernel(const void* x, const int8_t* q4, const float* scale,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, kernel, x_map, q4_map, scale,
-                                 static_cast<TO*>(out), M, K, N, group);
+                                 static_cast<TO*>(out), M, K, N, group, lds);
 }
 
 // TMA needs 16-byte aligned tensors and row strides (K % 8, N % 16); k16
 // steps tile K and a group is whole stages.
 template <typename TO>
 int launch_wg(const void* x, const int8_t* q4, const float* scale,
-              void* out, int M, int K, int N, int group,
+              void* out, int M, int K, int N, int group, int ldq, int lds,
               cudaStream_t stream) {
   const bool per_channel = group == K;
   if (K % 16 || N % 16 || (!per_channel && group % kWgK) ||
       reinterpret_cast<uintptr_t>(q4) % 16 ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(scale) % 16)
+      reinterpret_cast<uintptr_t>(scale) % 16 || ldq % 16 || lds % 4)
     return (int)cudaErrorInvalidValue;
   if (per_channel)
     return launch_wg_kernel<TO, true>(x, q4, scale, out, M, K, N, group,
-                                      stream);
+                                      ldq, lds, stream);
   return launch_wg_kernel<TO, false>(x, q4, scale, out, M, K, N, group,
-                                     stream);
+                                     ldq, lds, stream);
 }
 
 // Path codes, as ops/int4_matmul.py passes them.
@@ -1348,22 +1352,25 @@ constexpr int kPathWg = 3;
 template <typename T, typename TO>
 int launch(int path, const void* x, const int8_t* q4, const float* scale,
            void* out, float* ws, long long ws_floats, int* counters,
-           int n_counters, int M, int K, int N, int group,
+           int n_counters, int M, int K, int N, int group, int ldq, int lds,
            cudaStream_t stream) {
   switch (path) {
     case kPathTc:
       if constexpr (std::is_same_v<T, __nv_bfloat16>)
-        return launch_mma<TO>(x, q4, scale, out, M, K, N, group, stream);
+        return launch_mma<TO>(x, q4, scale, out, M, K, N, group, ldq, lds,
+                              stream);
       return (int)cudaErrorInvalidValue;  // tensor cores take bf16 x only
     case kPathGemv:
       return launch_gemv<T, TO>(x, q4, scale, out, ws, ws_floats, counters,
-                                n_counters, M, K, N, group, stream);
+                                n_counters, M, K, N, group, ldq, lds,
+                                stream);
     case kPathTile:
       return launch_tile<T, TO, 64, 64, 32, 4, 4>(x, q4, scale, out, M, K,
-                                                 N, group, stream);
+                                                 N, group, ldq, lds, stream);
     case kPathWg:
       if constexpr (std::is_same_v<T, __nv_bfloat16>)
-        return launch_wg<TO>(x, q4, scale, out, M, K, N, group, stream);
+        return launch_wg<TO>(x, q4, scale, out, M, K, N, group, ldq, lds,
+                             stream);
       return (int)cudaErrorInvalidValue;  // tensor cores take bf16 x only
     default:
       return (int)cudaErrorInvalidValue;
@@ -1378,15 +1385,21 @@ int launch(int path, const void* x, const int8_t* q4, const float* scale,
 // bfloat16, 1 = float32. scale is (K / group, N) float32 (group = K: per
 // channel). ws (ws_floats fp32) and counters (n_counters ints, all 0) are
 // the "gemv" path's split-K scratch, owned by the caller and left as
-// found; the other paths ignore them. The caller (ops/int4_matmul.py) validates shapes, dtypes,
-// contiguity and the 32-bit offset limit. Returns cudaGetLastError()
-// after the launch.
+// found; the other paths ignore them. ldq and lds are the row strides
+// of q4 (bytes) and of grouped scales (floats), at least N: a column
+// slice of a wider weight (an lm_head vocab tile) is read in place. The
+// tensor-core paths need both 16-byte aligned (ldq % 16, lds % 4), the
+// "gemv" path ldq % 4. The caller (ops/int4_matmul.py) validates shapes,
+// dtypes, strides and the 32-bit offset limit. Returns
+// cudaGetLastError() after the launch.
 extern "C" int int4_matmul(int path, int x_dtype, int out_dtype,
                            const void* x, const void* q4, const void* scale,
                            void* out, void* ws, long long ws_floats,
                            void* counters, int n_counters, int M, int K,
-                           int N, int group, void* stream) {
-  if (M < 1 || K < 2 || K % 2 || N < 1 || group < 1 || K % group)
+                           int N, int group, int ldq, int lds,
+                           void* stream) {
+  if (M < 1 || K < 2 || K % 2 || N < 1 || group < 1 || K % group ||
+      ldq < N || (group < K && lds < N))
     return (int)cudaErrorInvalidValue;
   const int8_t* q = static_cast<const int8_t*>(q4);
   const float* s = static_cast<const float*>(scale);
@@ -1396,20 +1409,20 @@ extern "C" int int4_matmul(int path, int x_dtype, int out_dtype,
   switch (x_dtype * 2 + out_dtype) {
     case 0:
       return launch<__nv_bfloat16, __nv_bfloat16>(
-          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group,
-          st);
+          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group, ldq,
+          lds, st);
     case 1:
       return launch<__nv_bfloat16, float>(
-          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group,
-          st);
+          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group, ldq,
+          lds, st);
     case 2:
       return launch<float, __nv_bfloat16>(
-          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group,
-          st);
+          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group, ldq,
+          lds, st);
     case 3:
       return launch<float, float>(
-          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group,
-          st);
+          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group, ldq,
+          lds, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

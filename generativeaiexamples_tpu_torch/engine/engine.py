@@ -37,6 +37,14 @@ port of the reference's ``engine/engine.py``.
   or with ``EngineConfig(cuda_graphs=False)``, the same bodies run
   eagerly.
 
+- **Fused sampling tail.** By default each decode step streams the
+  lm_head in vocab tiles and samples from a running candidate carry
+  (``ops/fused_sampler.py``, the reference's default tail), over the
+  armed slots only: a round of one stream gathers one row, a round of
+  more all ``max_slots`` rows (the reference's active-row ladder {1, B});
+  no (B, V) tensor exists. ``EngineConfig(fused_tail=False)`` keeps the
+  materialized tail, (B, V) logits and a full sort, as the oracle.
+
 - **Harvest worker.** The serve thread plans and dispatches; a harvest
   thread reads the tokens back, detokenizes, scans for stop words and
   finishes streams, so up to ``dispatch_depth`` decode rounds ride the
@@ -52,8 +60,7 @@ port of the reference's ``engine/engine.py``.
 
 Waiting for later slices: speculative decoding, the KV tier, roles, the
 watchdog, the flight recorder, round telemetry, the online cost
-calibrator and the fused vocab-tiled sampler (the materialized sampling
-tail runs instead).
+calibrator, and the tensor-parallel tails.
 """
 
 from __future__ import annotations
@@ -73,12 +80,13 @@ from ..models import llama
 from ..models.configs import LlamaConfig
 from ..models.tokenizer import Tokenizer
 from ..ops import int4_matmul
+from ..ops.fused_sampler import choose_tile, fused_unembed_sample
 from ..ops.kv_quant import quantize_rows
 from ..ops.paged_attention import kernel_supported
 from ..ops.quant import is_grouped, is_quantized
-from ..ops.sampling import (NEG_INF, apply_repetition_penalty, mask_words,
-                            pack_mask, pack_mask_np, sample, seen_mask,
-                            set_token_bits, unpack_mask)
+from ..ops.sampling import (MASK_BITS, NEG_INF, apply_repetition_penalty,
+                            mask_words, pack_mask, pack_mask_np, sample,
+                            seen_mask, set_token_bits, unpack_mask)
 from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, EngineError, SchedulerFullError
 from . import graphs
@@ -93,6 +101,13 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# The card's default sampler tile target: 2 tiles of 16000 for llama's
+# 32000-token vocab. The tail's cost is launches, not bytes: on an H100
+# the sampled 8-row tail takes 0.70 ms in 2 tiles against 1.62 in 8 of
+# 4000 (PERF.md section 5, the sampling tail).
+CARD_TILE = 16384
 
 
 @dataclass(frozen=True)
@@ -136,6 +151,16 @@ class EngineConfig:
     # round back while the next one runs; 1 reads each round back on the
     # serve thread, in line.
     dispatch_depth: int = 2
+    # The decode round's sampling tail (the reference's ENGINE_FUSED_SAMPLER,
+    # SAMPLER_TILE and SAMPLER_CAND_K): True streams the lm_head in vocab
+    # tiles of ``sampler_tile`` tokens and samples from a running
+    # top-``sampler_cand_k`` candidate carry, over the armed slots only;
+    # False builds (B, V) logits and sorts them (the oracle). None: the
+    # largest 32-aligned divisor of the vocab up to 4096 on the CPU (the
+    # reference's; 4000 for 32000), up to ``CARD_TILE`` on the card.
+    fused_tail: bool = True
+    sampler_tile: Optional[int] = None
+    sampler_cand_k: int = 64
 
     def __post_init__(self) -> None:
         if self.page_size <= 0:
@@ -150,6 +175,9 @@ class EngineConfig:
                 or self.dispatch_depth < 1):
             raise ConfigError("max_slots, steps_per_round and "
                               "dispatch_depth must be >= 1")
+        if self.sampler_cand_k < 1 or (self.sampler_tile is not None
+                                       and self.sampler_tile < 1):
+            raise ConfigError("sampler_cand_k and sampler_tile must be >= 1")
         if not (self.kv_pool_tokens is None or self.kv_pool_tokens == "auto"
                 or isinstance(self.kv_pool_tokens, int)):
             raise ConfigError(f"kv_pool_tokens={self.kv_pool_tokens!r}: use "
@@ -376,6 +404,18 @@ class Engine:
         self._prefix_pages = _ceil_div(cfg.max_input_length, page)
         if self.device.type == "cuda":
             self._check_kernel_geometry()
+        V, B = model_cfg.vocab_size, cfg.max_slots
+        self._sampler_tile = choose_tile(V, cfg.sampler_tile or (
+            CARD_TILE if self.device.type == "cuda" else None))
+        if (cfg.sampler_tile is not None and V % MASK_BITS == 0
+                and self._sampler_tile == V):
+            raise ConfigError(
+                f"sampler_tile={cfg.sampler_tile} streams the {V}-token "
+                f"vocab as one tile: the materialized tail is "
+                f"fused_tail=False")
+        # The fused tail's active-row ladder (the reference's two rungs):
+        # a round samples 1 row for one stream, else all B.
+        self._ba_ladder = (1, B) if cfg.fused_tail and B > 1 else (B,)
 
         self._pool_reserve: Optional[int] = None   # "auto" sizing's reserve
         self._n_pages = 1 + self._resolve_pool_pages()
@@ -387,7 +427,8 @@ class Engine:
         self._step_counter = itertools.count()
         self._round_gen = torch.Generator(device=self.device)
         self._admit_gen = torch.Generator(device=self.device)
-        self._round_graphs: dict[tuple[int, bool], graphs.Program] = {}
+        self._round_graphs: dict[tuple[int, bool, int],
+                                 graphs.Program] = {}
         self._admit_graphs: dict[tuple[int, bool], graphs.Program] = {}
         self._extend_graphs: dict[tuple[int, str], graphs.Program] = {}
         self._final_graphs: dict[tuple[int, bool, bool],
@@ -450,7 +491,10 @@ class Engine:
             # copies and delivering their tokens (the reference's
             # harvest_wait_ms), on whichever thread harvests.
             "dispatch_depth_peak": 0, "harvest_rounds": 0,
-            "harvest_wait_ms": 0.0, "harvest_emit_ms": 0.0}
+            "harvest_wait_ms": 0.0, "harvest_emit_ms": 0.0,
+            # The fused tail's rows sampled and skipped (max_slots less
+            # the rung) over decode steps; 0 under the materialized tail.
+            "sampler_rows_sampled": 0, "sampler_rows_skipped": 0}
 
     def _check_kernel_geometry(self) -> None:
         """On the card every decode layer launches the paged kernel and
@@ -529,7 +573,9 @@ class Engine:
 
     def _init_device_state(self) -> dict:
         """Device-side slot state, the page pool, the decode round's token
-        output ``round_tokens`` (steps_per_round, B) and the admission and
+        output ``round_tokens`` (steps_per_round, B), the armed slots a
+        fused-tail round samples (``act_idx``: sorted, padded with B) and
+        the admission and
         chunk programs' packed inputs (``admit``: int32 ``i32``, float32
         ``f32``, banned words, and the seen words of a cached prefix
         ``seen0``; laid out by ``_admission_views``). Allocated once:
@@ -560,6 +606,7 @@ class Engine:
             "bad_len": z(B, self.MAX_BAD_SEQS),
             "recent": z(B, self.MAX_BAD_LEN - 1),
             "round_tokens": z(self.cfg.steps_per_round, B),
+            "act_idx": z(B),
             "admit": {"i32": z(sum(n for _, n in
                                    self._admit_i32_spans().values())),
                       "f32": z(len(self._ADMIT_F32), dtype=torch.float32),
@@ -833,35 +880,49 @@ class Engine:
                             )[..., 0]
         return hit, tail
 
-    @torch.no_grad()
-    def _decode_step(self, k: int, greedy: bool) -> None:
-        """Decode step ``k`` of a round over every slot (the reference's
-        ``make_round`` body), in place: row ``k`` of ``round_tokens``
-        gets each slot's token, -1 for slots inactive at step entry; the
-        slot state advances. eos and length stops happen on the device
-        (``active`` drops), so the host reads the tokens once per round.
-        Attention takes the whole block table: the kernel loops over each
-        slot's live pages only (the reference's gather path sliced a page
-        window instead). The pool is updated in place by each layer's
-        attention call."""
-        st, mcfg = self._state, self.model_cfg
-        page, V = self.cfg.page_size, mcfg.vocab_size
-        eos = int(self.tokenizer.eos_id)
-        pos, active = st["pos"], st["active"]
-        # A retired slot's stale pos may point past its table: clamp
-        # (the reference's gather clamps), the row is masked anyway.
-        pidx = (pos // page).clamp(max=self._pmax - 1).long()
-        page_of = torch.gather(st["table"], 1, pidx[:, None])[:, 0]
-        wp = torch.where(active, page_of, torch.zeros_like(page_of))
-        # Inactive slots attend over nothing (length 0) and write the
-        # trash page.
-        eff_pos = torch.where(active, pos, torch.zeros_like(pos))
-        logits, _ = llama.apply_decode_paged(
-            self.params, mcfg, st["last_token"][:, None],
-            eff_pos[:, None], st["cache"], st["table"], wp,
-            eff_pos % page)
+    def _fused_tail(self, h: torch.Tensor, greedy: bool,
+                    ba: int) -> torch.Tensor:
+        """The fused sampling tail of one decode step (the reference's
+        ``make_round`` fused branch): the final norm of the hidden rows
+        ``h`` (B, D), the ``ba`` rows ``act_idx`` names gathered (pad
+        index B reads row B - 1 and is dropped), their sequence bans, the
+        vocab-tiled unembed + sample over them (``ops/fused_sampler.py``;
+        a running argmax when ``greedy``), and the tokens scattered back.
+        Returns (B,) int32: rows outside ``act_idx`` get 0, and every
+        state update masks them on ``active``."""
+        st, mcfg, B = self._state, self.model_cfg, self.cfg.max_slots
+        hn = llama.unembed_norm(self.params, mcfg, h)
+        act = st["act_idx"][:ba].long()
+        rows = act.clamp(max=B - 1)
+
+        def take(name: str) -> torch.Tensor:
+            return st[name].index_select(0, rows)
+
+        hit, tail = self._bad_seq_hits(take("bad_seq"), take("bad_len"),
+                                       take("recent"))
+        # AWQ's activation smoothing once per step, not once per tile.
+        ha = llama.lm_head_input(self.params, hn.index_select(0, rows))
+        tok_a = fused_unembed_sample(
+            lambda t0, tile: llama.lm_head_tile(self.params, mcfg, ha, t0,
+                                                tile, prescaled=True),
+            mcfg.vocab_size, noise=self._round_gen, temp=take("temp"),
+            top_k=take("top_k"), top_p=take("top_p"),
+            rep_pen=take("rep_pen"), seen_words=take("seen"),
+            banned_words=take("banned"), ban_tok=tail, ban_hit=hit,
+            greedy=greedy, tile=self._sampler_tile,
+            cand_k=self.cfg.sampler_cand_k)
+        tok = torch.zeros((B + 1,), dtype=torch.int32, device=h.device)
+        return tok.index_copy(0, act, tok_a)[:B]
+
+    def _materialized_tail(self, h: torch.Tensor,
+                           greedy: bool) -> torch.Tensor:
+        """The materialized tail (``fused_tail=False``, the oracle): (B, V)
+        float32 logits of every slot, penalized, banned and sampled with a
+        full sort. Returns (B,) int32."""
+        st, mcfg, V = self._state, self.model_cfg, self.model_cfg.vocab_size
         pen = apply_repetition_penalty(
-            logits[:, 0], unpack_mask(st["seen"], V), st["rep_pen"])
+            llama.unembed(self.params, mcfg, h), unpack_mask(st["seen"], V),
+            st["rep_pen"])
         pen = torch.where(unpack_mask(st["banned"], V),
                           torch.full_like(pen, NEG_INF), pen)
         hit, tail = self._bad_seq_hits(st["bad_seq"], st["bad_len"],
@@ -873,10 +934,42 @@ class Engine:
                         ).expand(hit.shape).contiguous(),
             reduce="amin")
         if greedy:
-            tok = pen.float().argmax(dim=-1).to(torch.int32)
+            return pen.float().argmax(dim=-1).to(torch.int32)
+        return sample(pen, st["temp"], st["top_k"], st["top_p"],
+                      self._round_gen)
+
+    @torch.no_grad()
+    def _decode_step(self, k: int, greedy: bool, ba: int) -> None:
+        """Decode step ``k`` of a round over every slot (the reference's
+        ``make_round`` body), in place: row ``k`` of ``round_tokens``
+        gets each slot's token, -1 for slots inactive at step entry; the
+        slot state advances. eos and length stops happen on the device
+        (``active`` drops), so the host reads the tokens once per round.
+        Attention takes the whole block table: the kernel loops over each
+        slot's live pages only (the reference's gather path sliced a page
+        window instead). The pool is updated in place by each layer's
+        attention call. The tail samples the ``ba`` rows of ``act_idx``
+        (fused) or every row (materialized)."""
+        st, mcfg = self._state, self.model_cfg
+        page = self.cfg.page_size
+        eos = int(self.tokenizer.eos_id)
+        pos, active = st["pos"], st["active"]
+        # A retired slot's stale pos may point past its table: clamp
+        # (the reference's gather clamps), the row is masked anyway.
+        pidx = (pos // page).clamp(max=self._pmax - 1).long()
+        page_of = torch.gather(st["table"], 1, pidx[:, None])[:, 0]
+        wp = torch.where(active, page_of, torch.zeros_like(page_of))
+        # Inactive slots attend over nothing (length 0) and write the
+        # trash page.
+        eff_pos = torch.where(active, pos, torch.zeros_like(pos))
+        h, _ = llama.apply_decode_paged(
+            self.params, mcfg, st["last_token"][:, None],
+            eff_pos[:, None], st["cache"], st["table"], wp,
+            eff_pos % page, return_hidden=True)
+        if self.cfg.fused_tail:
+            tok = self._fused_tail(h[:, 0], greedy, ba)
         else:
-            tok = sample(pen, st["temp"], st["top_k"], st["top_p"],
-                         self._round_gen)
+            tok = self._materialized_tail(h[:, 0], greedy)
         remaining = torch.where(active, st["remaining"] - 1,
                                 st["remaining"])
         finished = active & (((tok == eos) & st["eos_ok"])
@@ -897,17 +990,23 @@ class Engine:
         for name, value in new.items():
             st[name].copy_(value)
 
-    def _round_body(self, steps: int, greedy: bool) -> None:
+    def _round_body(self, steps: int, greedy: bool,
+                    ba: Optional[int] = None) -> None:
         for k in range(steps):
-            self._decode_step(k, greedy)
+            self._decode_step(k, greedy, ba or self.cfg.max_slots)
 
-    def _decode_round(self, steps: int, greedy: bool) -> torch.Tensor:
-        """``steps`` decode steps over every slot; returns the (steps, B)
-        int32 view of ``round_tokens`` (-1 for slots inactive at step
-        entry). On the card with graphs on, only the rung's captured
-        program runs."""
-        self._replay(self._round_graphs, self._round_body, steps, greedy)
+    def _decode_round(self, steps: int, greedy: bool,
+                      ba: int) -> torch.Tensor:
+        """``steps`` decode steps over every slot, the tail sampling the
+        ``ba`` rows of ``act_idx``; returns the (steps, B) int32 view of
+        ``round_tokens`` (-1 for slots inactive at step entry). On the
+        card with graphs on, only the rung's captured program runs."""
+        self._replay(self._round_graphs, self._round_body, steps, greedy, ba)
         return self._state["round_tokens"][:steps]
+
+    def _ba_for(self, n: int) -> int:
+        """The smallest active-row rung that covers ``n`` armed slots."""
+        return next(b for b in self._ba_ladder if b >= max(1, n))
 
     @property
     def _graphs_on(self) -> bool:
@@ -919,7 +1018,8 @@ class Engine:
         smaller ones reuse its memory: per bucket C the admission
         ``(C, greedy)``, the chunk extensions ``(C, mode)`` and the final
         chunks ``(C, greedy, seed)``; then the decode-round rungs
-        ``(steps, greedy)``. Sampled programs draw from a generator."""
+        ``(steps, greedy, ba)``, ``ba`` over the active-row ladder.
+        Sampled programs draw from a generator."""
         for C in sorted(self._buckets, reverse=True):
             for greedy in (True, False):
                 yield (self._admit_graphs, (C, greedy),
@@ -937,9 +1037,11 @@ class Engine:
                            None if greedy else self._admit_gen)
         for steps in graphs.round_rungs(self.cfg.steps_per_round):
             for greedy in (True, False):
-                yield (self._round_graphs, (steps, greedy),
-                       functools.partial(self._round_body, steps, greedy),
-                       None if greedy else self._round_gen)
+                for ba in self._ba_ladder:
+                    yield (self._round_graphs, (steps, greedy, ba),
+                           functools.partial(self._round_body, steps, greedy,
+                                             ba),
+                           None if greedy else self._round_gen)
 
     def _prewarm(self) -> StepCostModel:
         """Capture every device program the serve loop runs
@@ -1001,7 +1103,8 @@ class Engine:
 
         steps, bucket = self.cfg.steps_per_round, self._buckets[-1]
         return StepCostModel(
-            decode_step_ms=ms(self._round_graphs[(steps, True)]) / steps,
+            decode_step_ms=ms(self._round_graphs[
+                (steps, True, self.cfg.max_slots)]) / steps,
             prefill_ms_per_token=ms(self._admit_graphs[(bucket, True)])
             / bucket,
             slots=self.cfg.max_slots, source="measured")
@@ -1611,23 +1714,38 @@ class Engine:
         self._copy_admission_inputs()
 
     def _copy_admission_inputs(self) -> None:
-        """Host staging arrays -> state["admit"], in place. On the card
-        each array goes through a fresh pinned buffer, asynchronously (a
-        copy from pageable memory would wait for every round in flight);
-        the caching host allocator keeps that buffer until the copy has
-        run."""
+        """Host staging arrays -> state["admit"], in place."""
         for name, arr in self._admit_arrays.items():
-            src = torch.from_numpy(arr)
-            if self.device.type == "cuda":
-                src = src.pin_memory()
-            self._state["admit"][name].copy_(src, non_blocking=True)
+            self._host_to_device(self._state["admit"][name], arr)
+
+    def _host_to_device(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """Copy a host array into device state, in place. On the card it
+        goes through a fresh pinned buffer, asynchronously (a copy from
+        pageable memory would wait for every round in flight); the caching
+        host allocator keeps that buffer until the copy has run, so each
+        program in flight keeps its own source."""
+        src = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
 
     def _dispatch_round(self, steps: int) -> None:
         """Run one ``steps``-step decode round over the armed slots, start
-        its tokens' copy to the host and post it for the harvest."""
+        its tokens' copy to the host and post it for the harvest. Under
+        the fused tail the armed slots, sorted and padded with B, are
+        staged into ``act_idx`` first, and the round samples the smallest
+        rung of rows that holds them. Every slot active on the device
+        when the round runs is armed: a chunk program that arms a slot in
+        this serve step runs after the round."""
         members = self._armed()
         greedy = all(r.greedy for r in members.values())
-        toks = self._decode_round(steps, greedy)
+        B = self.cfg.max_slots
+        ba = self._ba_for(len(members))
+        if self.cfg.fused_tail:
+            act = np.full((B,), B, np.int32)
+            act[:len(members)] = sorted(members)
+            self._host_to_device(self._state["act_idx"], act)
+        toks = self._decode_round(steps, greedy, ba)
         buf = self._ring.copy(toks, self._alive)
         for req in members.values():
             req.proj_pos = min(req.proj_pos + steps, req.extent - 1)
@@ -1641,6 +1759,9 @@ class Engine:
         self._chunk_behind = False
         self._bump("decode_rounds")
         self._bump("decode_steps", steps)
+        if self.cfg.fused_tail:
+            self._bump("sampler_rows_sampled", ba * steps)
+            self._bump("sampler_rows_skipped", (B - ba) * steps)
 
     def _emit_token(self, req: _Request, token: int, now: float) -> None:
         """Deliver one generated token, read back at host time ``now``

@@ -220,6 +220,47 @@ def project_logits(params: Params, hn: torch.Tensor) -> torch.Tensor:
     return qmm_f32(hn, head)
 
 
+# A quantized head's leaves that carry the vocab axis last (sliced per
+# tile); ``pre_scale`` runs along the reduction axis.
+_HEAD_VOCAB_LEAVES = ("q", "q4", "scale", "gscale", "gbias")
+
+
+def lm_head_input(params: Params, hn: torch.Tensor) -> torch.Tensor:
+    """The rows the head's product takes: an AWQ head's activation
+    smoothing (``pre_scale``) applied to the normed hidden states, once
+    for every vocab tile of a step (``lm_head_tile(..., prescaled=True)``),
+    with the arithmetic ``ops/quant.py`` applies per call."""
+    head = params.get("lm_head")
+    if isinstance(head, dict) and "pre_scale" in head:
+        return (hn.float() * head["pre_scale"]).to(hn.dtype)
+    return hn
+
+
+def lm_head_tile(params: Params, cfg: LlamaConfig, hn: torch.Tensor,
+                 t0: int, tile: int, *, prescaled: bool = False
+                 ) -> torch.Tensor:
+    """Project already-normed hidden states onto ONE vocab tile:
+    (B, D) x head[:, t0:t0 + tile] -> (B, tile) float32 (the reference's
+    ``lm_head_tile``).
+
+    Every head storage the port serves: the tied embedding (a row slice of
+    (V, D)), a raw (D, V) head (a column slice), and quantized dicts (int8,
+    int4 per channel or grouped, AWQ), whose packing runs along the
+    reduction axis, so a vocab slice of each leaf is still a valid leaf.
+    Slices are views: cuBLAS and the int4 kernel read them at their row
+    stride, so a full pass over the tiles reads each weight byte once.
+    ``prescaled``: ``hn`` already went through ``lm_head_input``."""
+    head = params.get("lm_head")
+    if head is None:
+        return qmm_f32(hn, params["embed"][t0:t0 + tile].T)
+    if isinstance(head, dict):
+        sliced = {k: (v[..., t0:t0 + tile] if k in _HEAD_VOCAB_LEAVES else v)
+                  for k, v in head.items()
+                  if not (prescaled and k == "pre_scale")}
+        return qmm_f32(hn, sliced)
+    return qmm_f32(hn, head[:, t0:t0 + tile])
+
+
 def apply(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
           positions: torch.Tensor, kv_cache: Optional[KVCache] = None,
           kv_valid_len: Optional[torch.Tensor] = None, *,
@@ -316,6 +357,7 @@ def apply_decode_paged(params: Params, cfg: LlamaConfig,
                        tokens: torch.Tensor, positions: torch.Tensor,
                        kv_cache: KVCache, block_table: torch.Tensor,
                        write_page: torch.Tensor, write_offset: torch.Tensor,
+                       *, return_hidden: bool = False,
                        ) -> tuple[torch.Tensor, KVCache]:
     """Single-token decode step over the paged KV pool.
 
@@ -330,8 +372,9 @@ def apply_decode_paged(params: Params, cfg: LlamaConfig,
     reference's ``_gathered_window`` path) on CPU tensors. Under an int8
     pool (``kv_cache_quantized``) the scale pools go along and the current
     K/V pass in the compute dtype: the kernel quantizes its appended row.
-    The pool is updated in place. Returns (logits (B, 1, V) float32,
-    kv_cache)."""
+    The pool is updated in place. Returns (logits (B, 1, V) float32, or
+    under ``return_hidden`` the hidden states (B, 1, D) before the final
+    norm, for the fused tail; kv_cache)."""
     h = params["embed"][tokens.long()]
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 cfg.rope_scaling_factor, device=h.device)
@@ -351,6 +394,8 @@ def apply_decode_paged(params: Params, cfg: LlamaConfig,
             return attn[:, None]
         h = decoder_layer(h, layer_params(params, i), cfg, positions,
                           inv_freq, None, attend=attend)
+    if return_hidden:
+        return h, kv_cache
     return unembed(params, cfg, h), kv_cache
 
 

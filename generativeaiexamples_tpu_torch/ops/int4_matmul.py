@@ -135,6 +135,30 @@ def _check_args(x, q4, scale, out_dtype) -> None:
         raise ValueError("x, q4 and scale must share one device")
 
 
+def _strides(q4: torch.Tensor, scale: torch.Tensor, path: str
+             ) -> tuple[int, int]:
+    """The row strides the C entry point takes: q4's in bytes, a (G, N)
+    scale's in floats (N for a per-channel scale). Columns must be
+    packed; the tensor-core paths load 16-byte pieces of each row, so
+    there both strides must keep rows 16-byte aligned, and the "gemv"
+    path loads 4-byte words of q4. A sliced operand outside that raises
+    (a whole weight's shape is the C entry point's to refuse): the
+    wrapper never copies a weight."""
+    N = q4.shape[1]
+    if q4.stride(1) != 1 or scale.stride(-1) != 1:
+        raise ValueError("q4 and scale need packed columns (stride 1); got "
+                         f"strides {q4.stride()} and {scale.stride()}")
+    ldq = q4.stride(0) if q4.shape[0] > 1 else N
+    lds = scale.stride(0) if scale.dim() == 2 and scale.shape[0] > 1 else N
+    align = {"tc": 16, "wg": 16, "gemv": 4}.get(path, 1)
+    if (ldq != N and ldq % align) or (align == 16 and lds != N
+                                        and lds % 4):
+        raise ValueError(f"the {path!r} path needs q4 rows {align}-byte "
+                         f"aligned (row stride {ldq}) and, on tensor cores, "
+                         f"scale rows 16-byte aligned (row stride {lds})")
+    return ldq, lds
+
+
 def _kernel():
     """The C entry point, built and loaded at first use."""
     global _fn
@@ -143,7 +167,7 @@ def _kernel():
         fn = build.load("int4_matmul").int4_matmul
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
                        + [ctypes.c_longlong, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -159,6 +183,9 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
                row 2r in the low nibble, row 2r+1 in the high one)
     scale:     (N,) per-output-channel, or (G, N) per group of K/G
                reduction rows (AWQ), float32
+    q4 and a (G, N) scale may be column slices of wider tensors (an
+    lm_head vocab tile): their rows are read in place at their stride,
+    never copied. A stride the launched path cannot take raises.
     out_dtype: bfloat16 or float32 (default: x's dtype)
     Returns (..., N). CPU tensors take the plain version; CUDA tensors
     launch the kernel path ``_path`` names (or raise)."""
@@ -184,7 +211,7 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"M={M} K={K} N={N} overflows the kernel's 32-bit "
                          f"offsets")
     path = _path(M, K, N, K // G, x.dtype)
-    q4c, sc = q4.contiguous(), scale.contiguous()
+    ldq, lds = _strides(q4, scale, path)
     if path != "tile":
         # The "gemv" path loads q4 as 4-byte words; the tensor-core paths
         # copy 16-byte pieces of q4, x and the scales ("wg" by TMA, which
@@ -192,7 +219,8 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
         # scales are not copied.
         tensor_cores = path in ("tc", "wg")
         align = 16 if tensor_cores else 4
-        if q4c.data_ptr() % align or (tensor_cores and sc.data_ptr() % 16):
+        if q4.data_ptr() % align or (tensor_cores
+                                     and scale.data_ptr() % 16):
             raise ValueError(f"the {path!r} path needs q4 (and, on tensor "
                              f"cores, the scales) on a {align}-byte "
                              f"boundary")
@@ -207,13 +235,13 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
                 ws, counters = _gemv_scratch(x.device, stream, N)
             err = _kernel()(
                 _PATHS[path], _KERNEL_DTYPES[x.dtype],
-                _KERNEL_DTYPES[out_dtype], x2.data_ptr(), q4c.data_ptr(),
-                sc.data_ptr(), out.data_ptr(),
+                _KERNEL_DTYPES[out_dtype], x2.data_ptr(), q4.data_ptr(),
+                scale.data_ptr(), out.data_ptr(),
                 ws.data_ptr() if ws is not None else None,
                 ws.numel() if ws is not None else 0,
                 counters.data_ptr() if counters is not None else None,
                 counters.numel() if counters is not None else 0,
-                M, K, N, K // G, stream)
+                M, K, N, K // G, ldq, lds, stream)
         if err != 0:
             raise RuntimeError(f"int4_matmul {path!r} path launch failed "
                                f"with CUDA error {err}")

@@ -73,6 +73,16 @@ def set_token_bits(words: torch.Tensor, tokens: torch.Tensor,
     return out
 
 
+def gumbel_noise(shape: tuple[int, ...], generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """float32 Gumbel(0, 1) noise of ``shape`` from ``generator``'s uniform
+    stream (the draw the reference's ``jax.random.gumbel`` makes from its
+    key; the two streams differ)."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
+
+
 def sample(logits: torch.Tensor, temperature: torch.Tensor,
            top_k: torch.Tensor, top_p: torch.Tensor,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -85,7 +95,9 @@ def sample(logits: torch.Tensor, temperature: torch.Tensor,
     Returns (B,) int32 ids. The draw is Gumbel-max over the kept logits
     (the reference's ``jax.random.categorical``), with noise from
     ``generator``; the two frameworks' random streams differ, so sampled
-    draws agree in distribution, not sample by sample."""
+    draws agree in distribution, not sample by sample. The descending sort
+    is stable, as ``jnp.argsort`` is: among equal logits the lowest ids
+    rank first, so top-k/top-p keep the reference's set at ties."""
     B, V = logits.shape
     dev = logits.device
     lf = logits.float()
@@ -93,7 +105,7 @@ def sample(logits: torch.Tensor, temperature: torch.Tensor,
 
     temp = torch.clamp(temperature.float(), min=1e-6)[:, None]
     scaled = lf / temp
-    sort_idx = torch.argsort(-scaled, dim=-1)                  # (B, V)
+    sort_idx = torch.argsort(-scaled, dim=-1, stable=True)     # (B, V)
     ranks = torch.empty_like(sort_idx).scatter_(
         1, sort_idx, torch.arange(V, device=dev).expand(B, V).contiguous())
     k = torch.where(top_k[:, None] <= 0, torch.full_like(top_k[:, None], V),
@@ -112,9 +124,7 @@ def sample(logits: torch.Tensor, temperature: torch.Tensor,
 
     masked = torch.where(keep & keep_p, scaled,
                          torch.full_like(scaled, NEG_INF))
-    u = torch.rand((B, V), generator=generator, device=dev,
-                   dtype=torch.float32)
-    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
+    gumbel = gumbel_noise((B, V), generator, dev)
     sampled = (masked + gumbel).argmax(dim=-1).to(torch.int32)
 
     is_greedy = (temperature <= 0) | (top_k == 1)

@@ -4,7 +4,8 @@
         [--model llama-2-7b-chat] [--slots 8] [--prompt-len 512] \\
         [--steps 8] [--rounds 4] [--trace decode_trace.json] \\
         [--quantization int4_awq] [--kv-quant int8] [--prefill BUCKET] \\
-        [--chunk C --prefix P] [--eager] [--dispatch-depth 2[,1,...]]
+        [--chunk C --prefix P] [--eager] [--dispatch-depth 2[,1,...]] \\
+        [--materialized-tail] [--tail-tiles 4000,8000,16000]
 
 Builds the port's engine (random bf16 weights from ``--seed``, quantized
 on the device with ``--quantization``, over a ``--kv-quant`` pool), fills
@@ -36,6 +37,19 @@ kernel by name; ``--eager`` builds the engine with
 host as before. ``measure_decode`` and ``measure_prefill`` take an engine
 that exists already (``chip_smoke.py`` calls them).
 
+The sampling tail is measured on its own as well (``measure_tail``, the
+"sampler" group): one decode step's tail over the engine's slot state,
+captured as a CUDA graph of back-to-back tails and timed with CUDA
+events, at 8 rows and at 1 (the active-row ladder's rungs), greedy and
+sampled, fused (the head tiles, the penalize and stream kernels, the
+candidate merge; ``--tail-tiles`` sweeps the tile size) and
+materialized ((B, V) logits, masks and a full sort, every row whatever
+the occupancy). The traced tail lists its kernels and whether a copy
+kernel ran (a head tile must reach its GEMM as a strided view). The
+non-tail rest of a step is the traced round's busy time less the
+tail's. ``--materialized-tail`` builds the engine with
+``EngineConfig(fused_tail=False)`` (the oracle) for its decode rounds.
+
 ``--prefill BUCKET`` profiles one prefill instead: a prompt of BUCKET
 tokens (a prefill bucket, so no row is padding) asking for one token,
 admitted by one ``_step`` (prefill, KV insert, first token to the host).
@@ -60,6 +74,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -193,6 +208,98 @@ def measure_prefill(engine, bucket: int, rounds: int, seed: int = 0,
         "int4_launches_by_path": by_path,
         "top_device_ops": [{"name": name[:120], "ms": us / 1e3, "count": n}
                            for name, (us, n) in top]}
+
+
+def measure_tail(engine, rows: int, greedy: bool, fused: bool,
+                 tile: Optional[int] = None, reps: int = 20,
+                 traced: bool = False, seed: int = 0) -> dict:
+    """One decode step's sampling tail alone, on the engine's current slot
+    state and random hidden rows: the fused tail over ``rows`` rows of
+    ``act_idx`` (``tile``: the sampler tile, default the engine's) or the
+    materialized tail (every row). On the card ``reps`` tails are
+    captured in one CUDA graph and a replay is timed with CUDA events
+    (``traced``: one more replay under the profiler, by kernel); on the
+    CPU the host clock times eager calls. The engine must be idle; the
+    tails write no engine state but ``act_idx``."""
+    from ..engine import graphs
+
+    cuda = engine.device.type == "cuda"
+    B, D = engine.cfg.max_slots, engine.model_cfg.hidden_size
+    gen = torch.Generator(device=engine.device).manual_seed(seed)
+    h = torch.randn((B, D), generator=gen, device=engine.device).to(
+        engine._dtype)
+    act = np.full((B,), B, np.int32)
+    act[:rows] = np.arange(rows)
+    engine._host_to_device(engine._state["act_idx"], act)
+    saved = engine._sampler_tile
+    engine._sampler_tile = tile or saved
+
+    def tails():
+        for _ in range(reps):
+            if fused:
+                engine._fused_tail(h, greedy, rows)
+            else:
+                engine._materialized_tail(h, greedy)
+
+    out = {"rows": rows if fused else B, "greedy": greedy, "fused": fused,
+           "tile": engine._sampler_tile if fused else None}
+    try:
+        with torch.no_grad():
+            if not cuda:
+                tails()
+                t0 = time.perf_counter()
+                tails()
+                out["ms"] = (time.perf_counter() - t0) * 1e3 / reps
+                return out
+            before = graphs.launch_counts()
+            program = graphs.capture(
+                tails, device=engine.device,
+                stream=torch.cuda.Stream(engine.device),
+                pool=torch.cuda.graph_pool_handle(),
+                generators=() if greedy else (engine._round_gen,))
+            graphs.set_launch_counts(before)
+            program.graph.replay()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            program.graph.replay()
+            end.record()
+            end.synchronize()
+            out["ms"] = start.elapsed_time(end) / reps
+            out["int4_launches"] = program.launches.get(
+                "int4_matmul", 0) / reps
+            if traced:
+                with _profile() as prof:
+                    program.graph.replay()
+                    torch.cuda.synchronize()
+                events = _device_events(prof)
+                kernels = _kernel_times(events)
+                out["kernels_per_step"] = sum(
+                    n for _, n in kernels.values()) / reps
+                out["busy_ms"] = _busy_us(events) / 1e3 / reps
+                out["copy_kernels"] = sorted(
+                    name[:80] for name in kernels
+                    if "copy" in name.lower() or "memcpy" in name.lower())
+                out["top_kernels"] = [
+                    {"name": name[:90], "ms_per_step": us / 1e3 / reps,
+                     "per_step": n / reps}
+                    for name, (us, n) in sorted(
+                        kernels.items(), key=lambda kv: -kv[1][0])[:6]]
+            return out
+    finally:
+        engine._sampler_tile = saved
+
+
+def tail_table(engine, tiles=()) -> list[dict]:
+    """``measure_tail`` untraced: the fused tail at the engine's slots and
+    at 1 row and the materialized tail, greedy and sampled; then the
+    fused tail at each of ``tiles`` (all rows, sampled)."""
+    B = engine.cfg.max_slots
+    runs = [measure_tail(engine, rows, greedy, fused)
+            for fused in (True, False) for greedy in (True, False)
+            for rows in ((B, 1) if fused else (B,))]
+    runs += [measure_tail(engine, B, False, True, tile=t) for t in tiles]
+    return runs
 
 
 def profile_prefill(args) -> int:
@@ -387,6 +494,12 @@ def main(argv=None) -> int:
     ap.add_argument("--eager", action="store_true",
                     help="build the engine with cuda_graphs=False: every "
                          "operation issued from the host")
+    ap.add_argument("--materialized-tail", action="store_true",
+                    help="build the engine with fused_tail=False: (B, V) "
+                         "logits and a full sort each step (the oracle)")
+    ap.add_argument("--tail-tiles", default="",
+                    help="comma-separated sampler tiles to time the fused "
+                         "tail at (all rows, sampled), e.g. 4000,8000,16000")
     args = ap.parse_args(argv)
     if args.prefill:
         return profile_prefill(args)
@@ -398,7 +511,8 @@ def main(argv=None) -> int:
                         max_input_length=max(args.prompt_len, 128),
                         max_output_length=n_new, steps_per_round=args.steps,
                         kv_pool_tokens=None, kv_quant=args.kv_quant,
-                        cuda_graphs=not args.eager)
+                        cuda_graphs=not args.eager,
+                        fused_tail=not args.materialized_tail)
     engine, model_name = build_services(args.model, engine_cfg=ecfg,
                                         seed=args.seed, device=args.device,
                                         quantization=args.quantization)
@@ -408,8 +522,13 @@ def main(argv=None) -> int:
     runs = [measure_decode(engine, args.slots, args.prompt_len, args.rounds,
                            args.seed, dispatch_depth=d, traced=False)
             for d in (depths if len(depths) > 1 else [])]
+    tiles = [int(t) for t in args.tail_tiles.split(",") if t]
+    # The tail alone, untraced; then the decode rounds (traced last).
+    tails = tail_table(engine, tiles)
     out = measure_decode(engine, args.slots, args.prompt_len, args.rounds,
                          args.seed, args.trace, depths[0])
+    traced_tail = measure_tail(engine, args.slots, False,
+                               engine.cfg.fused_tail, traced=True)
     engine.stop()
     for r in runs:
         share = out["device_busy_ms_per_step"] / r["step_ms"]
@@ -423,7 +542,8 @@ def main(argv=None) -> int:
 
     mode = (f"{args.quantization or 'bf16'} weights, "
             f"{args.kv_quant or 'bf16'} KV, "
-            f"{'graphs' if out['cuda_graphs'] else 'eager'}")
+            f"{'graphs' if out['cuda_graphs'] else 'eager'}, "
+            f"{'fused' if engine.cfg.fused_tail else 'materialized'} tail")
     print(f"{model_name} [{mode}] on {out['card']}: {args.slots} slots, "
           f"context ~{out['context']} tokens, {args.steps} steps per round, "
           f"dispatch depth {out['dispatch_depth']} (peak "
@@ -445,10 +565,23 @@ def main(argv=None) -> int:
                              if k == "int4_matmul" else ""))
     for op in out["top_device_ops"]:
         print(f"  {op['ms']:9.2f} ms  {op['count']:6d}x  {op['name'][:90]}")
+    for t in tails:
+        print(f"sampler: {'fused' if t['fused'] else 'materialized'} tail, "
+              f"{t['rows']} rows, {'greedy' if t['greedy'] else 'sampled'}"
+              + (f", tile {t['tile']}" if t["fused"] else "")
+              + f": {t['ms']:.4f} ms/step")
+    if "busy_ms" in traced_tail:
+        rest = out["device_busy_ms_per_step"] - traced_tail["busy_ms"]
+        print(f"sampler (traced, this engine's tail, sampled): busy "
+              f"{traced_tail['busy_ms']:.4f} ms/step over "
+              f"{traced_tail['kernels_per_step']:.0f} kernels; the rest of "
+              f"the step {rest:.3f} ms; copy kernels "
+              f"{traced_tail['copy_kernels'] or 'none'}")
     print(json.dumps({"model": model_name, "quantization": args.quantization,
                       "kv_quant": args.kv_quant, "slots": args.slots,
                       "steps_per_round": args.steps, **out,
-                      "untraced": runs}))
+                      "untraced": runs, "sampler": tails,
+                      "sampler_traced": traced_tail}))
     return 0
 
 
@@ -680,6 +813,7 @@ def _trace_round(engine, drive, sync, steps0: int, trace: str) -> dict:
         "traced_round_ms": traced_s * 1e3, "traced_steps": traced_steps,
         "device_ms_per_step": device_us / 1e3 / n,
         "device_busy_ms_per_step": busy_ms_step,
+        "kernels_per_step": sum(c for _, c in kernels.values()) / n,
         "kernel_ms_per_step": {k: us / 1e3 / n for k, us in ours_us.items()},
         "kernel_launches": launches,
         "int4_launches_by_path": int4_by_path,

@@ -597,8 +597,8 @@ def test_int4_path_refuses_a_shape_outside_its_gate(dev, monkeypatch):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     err = ti4._kernel()(
         ti4._PATHS["wg"], 0, 0, x.data_ptr(), q4.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), None, 0, None, 0, M, K, N, 128,
-        torch.cuda.current_stream().cuda_stream)
+        scale.data_ptr(), out.data_ptr(), None, 0, None, 0, M, K, N, 128, N,
+        N, torch.cuda.current_stream().cuda_stream)
     assert err == 1
     monkeypatch.setattr(ti4, "_path", lambda *args: "wg")
     before = dict(ti4.int4_matmul.launches_by_path)
@@ -820,23 +820,28 @@ def test_sampled_replays_follow_the_request_seed(dev):
 @pytest.mark.cuda
 def test_replays_add_their_capture_counts(dev):
     """N replays of a program add N times the launch counts its capture
-    recorded: #2 once per layer per step, #3 225 per step at 7B width on
-    the int4 path, in all and by path."""
+    recorded: #2 once per layer per step, #3 7 per layer plus one per
+    vocab tile of the fused tail (the card's 2 tiles of 16000) per step
+    on the int4 path, in all and by path; an admission projects its one
+    row whole."""
     from generativeaiexamples_tpu_torch.engine import graphs
     params, cfg, kw = _model(dev, "int4")
     engine = _engine_on(dev, params, cfg, **kw)
-    program = engine._round_graphs[(4, True)]
-    per_step = 7 * cfg.num_layers + 1
+    B = engine.cfg.max_slots
+    program = engine._round_graphs[(4, True, B)]
+    assert engine._sampler_tile == 16000
+    per_step = 7 * cfg.num_layers + cfg.vocab_size // engine._sampler_tile
+    assert engine._round_graphs[(4, True, 1)].launches == program.launches
     assert program.launches == {
         "paged_attention_decode_int8": 4 * cfg.num_layers,
         "int4_matmul": 4 * per_step, "int4_matmul/tc": 4 * per_step}
     admit = engine._admit_graphs[(128, True)]
-    assert admit.launches == {"int4_matmul": per_step,
-                              "int4_matmul/wg": per_step - 1,
+    wg = 7 * cfg.num_layers
+    assert admit.launches == {"int4_matmul": wg + 1, "int4_matmul/wg": wg,
                               "int4_matmul/tc": 1}
     before = graphs.launch_counts()
     for _ in range(3):
-        engine._decode_round(4, True)
+        engine._decode_round(4, True, B)
     torch.cuda.synchronize()
     after = graphs.launch_counts()
     assert graphs.count_delta(before, after) == {
@@ -970,7 +975,8 @@ def test_default_config_7b_captures_and_serves_3000_tokens(
     assert set(engine._admit_graphs) == {
         (b, g) for b in (128, 512, 1024, 2048, 3072) for g in (True, False)}
     assert set(engine._round_graphs) == {
-        (s, g) for s in (8, 4, 2, 1) for g in (True, False)}
+        (s, g, ba) for s in (8, 4, 2, 1) for g in (True, False)
+        for ba in (1, 8)}
     assert 0 < engine.graph_pool_bytes <= engine._pool_reserve
     print(f"graph pool {engine.graph_pool_bytes} bytes, reserve "
           f"{engine._pool_reserve}, reserved "
@@ -982,3 +988,139 @@ def test_default_config_7b_captures_and_serves_3000_tokens(
     assert len(stream.token_ids) == 16 and stream.finish_reason == "length"
     assert all(0 <= t < engine.model_cfg.vocab_size
                for t in stream.token_ids)
+
+
+@pytest.mark.cuda
+def test_sample_keeps_the_lowest_ids_at_ties_on_the_card(dev):
+    """Four equal top logits with top_k = 2 on the card, where an unstable
+    sort may order ties any way: only ids 0 and 1 are ever drawn."""
+    from generativeaiexamples_tpu_torch.ops.sampling import sample
+    N = 4096
+    logits = torch.full((N, 32000), -3.0, device=dev)
+    logits[:, :4] = 2.0
+    toks = sample(logits, torch.ones(N, device=dev),
+                  torch.full((N,), 2, dtype=torch.int32, device=dev),
+                  torch.zeros(N, device=dev),
+                  torch.Generator(dev).manual_seed(0))
+    assert set(toks.tolist()) == {0, 1}
+
+
+# Head-tile products: (M, K, V, tile, group, x dtype) over every path.
+HEAD_TILE_CASES = [(8, 4096, 32000, 4000, 128, torch.bfloat16),    # tc
+                   (1, 4096, 32000, 4000, 0, torch.bfloat16),      # tc
+                   (4, 1024, 32000, 8000, 128, torch.float32),     # gemv
+                   (16, 1024, 32000, 4000, 128, torch.bfloat16),   # wg
+                   (16, 256, 2000, 500, 0, torch.float32)]         # tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,V,tile,group,x_dtype", HEAD_TILE_CASES)
+def test_int4_reads_a_column_slice_in_place(dev, M, K, V, tile, group,
+                                            x_dtype):
+    """A vocab tile of an int4 head (q4[:, t0:t0 + tile] and its scales)
+    goes to the kernel at its row stride, uncopied, and equals the plain
+    version on a contiguous copy; a stride the path cannot take raises."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(M + K + tile)
+    w = (torch.randn(K, V, generator=g) * K ** -0.5).to(dev)
+    leaf = (quant.quantize_tensor_grouped(w, group) if group
+            else quant.quantize_tensor(w, 4))
+    scale = leaf["gscale"] if group else leaf["scale"]
+    x = torch.randn(M, K, generator=g).to(x_dtype).to(dev)
+    path = ti4._path(M, K, tile, group or K, x_dtype)
+    for t0 in (0, tile, V - tile):
+        q4 = leaf["q4"][:, t0:t0 + tile]
+        sc = scale[..., t0:t0 + tile]
+        assert not q4.is_contiguous()
+        before = ti4.int4_matmul.launches_by_path[path]
+        got = ti4.int4_matmul(x, q4, sc, out_dtype=torch.float32)
+        assert ti4.int4_matmul.launches_by_path[path] == before + 1
+        ref = ti4.int4_matmul_plain(x, q4.contiguous(), sc.contiguous(),
+                                    out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        _assert_int4_close(got, ref, torch.float32)
+    if path in ("tc", "wg"):
+        odd = leaf["q4"][:, 8:8 + tile]           # row stride V, offset 8
+        wide = torch.zeros((K // 2, V + 8), dtype=torch.int8, device=dev)
+        with pytest.raises(ValueError, match="aligned"):
+            ti4.int4_matmul(x, wide[:, :tile], scale[..., :tile])
+        assert odd.data_ptr() % 16 == 8
+        with pytest.raises(ValueError, match="boundary"):
+            ti4.int4_matmul(x, odd, scale[..., 8:8 + tile])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["bf16", "int4"])
+def test_fused_tail_matches_its_oracle_on_the_card(dev, head):
+    """The fused sampler over bf16 and int4 head tiles on the card gives
+    the oracle's tokens on one shared noise field (8 rows of mixed
+    sampling settings at llama-2-7b's head width)."""
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    from generativeaiexamples_tpu_torch.ops import fused_sampler as tfs
+    from generativeaiexamples_tpu_torch.ops.sampling import (
+        apply_repetition_penalty, pack_mask)
+    D, V, B, tile = 4096, 32000, 8, 4000
+    g = torch.Generator(dev).manual_seed(3)
+    w = torch.randn((D, V), generator=g, device=dev).mul_(D ** -0.5)
+    params = {"lm_head": w.to(torch.bfloat16) if head == "bf16"
+              else quant.quantize_tensor_grouped(w, 128)}
+    hn = torch.randn((B, D), generator=g, device=dev).to(torch.bfloat16)
+    knobs = dict(temp=torch.tensor([0.0, 0.7, 1.0, 1.3, 0.9, 1.0, 0.6, 2.0],
+                                   device=dev),
+                 top_k=torch.tensor([1, 0, 40, 0, 5, 0, 0, 3],
+                                    dtype=torch.int32, device=dev),
+                 top_p=torch.tensor([0.0, 0.9, 0.0, 0.95, 0.0, 0.0, 0.5,
+                                     0.0], device=dev))
+    rep_pen = torch.tensor([1.0, 1.2, 1.0, 1.1, 1.3, 1.0, 1.0, 1.2],
+                           device=dev)
+    seen = torch.rand((B, V), generator=g, device=dev) < 0.01
+    banned = torch.rand((B, V), generator=g, device=dev) < 0.001
+    field = tfs.tiled_gumbel(torch.Generator(dev).manual_seed(4), B, V,
+                             tile, dev)
+    got = tfs.fused_unembed_sample(
+        lambda t0, n: llama.lm_head_tile(params, LLAMA2_7B, hn, t0, n), V,
+        noise=lambda t: field[:, t * tile:(t + 1) * tile], rep_pen=rep_pen,
+        seen_words=pack_mask(seen), banned_words=pack_mask(banned),
+        tile=tile, cand_k=V, **knobs)
+    # The oracle takes the same tile products (a whole-head product may
+    # sum in another order: ulps that a near tie would show).
+    logits = torch.cat([llama.lm_head_tile(params, LLAMA2_7B, hn, t0, tile)
+                        for t0 in range(0, V, tile)], dim=1)
+    pen = apply_repetition_penalty(logits, seen, rep_pen).masked_fill(
+        banned, -1e30)
+    want = tfs.sample_reference_tiled(pen, field, knobs["temp"],
+                                      knobs["top_k"], knobs["top_p"], tile)
+    assert torch.equal(got, want), (got, want)
+
+
+@pytest.mark.cuda
+def test_fused_sampled_rounds_replay_like_eager(dev):
+    """Sampled requests through the fused tail: an eager engine and a
+    graph engine give the same draws for one seed (a replay advances the
+    registered generator once per tile draw, as the eager draws do), and
+    consecutive rounds of one request draw fresh noise."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import GOLDEN_TINY
+    params = llama.init_params(GOLDEN_TINY, seed=0, dtype=torch.float32,
+                               device=dev)
+    kw = dict(max_slots=2, max_input_length=64, max_output_length=40,
+              prefill_buckets=(16, 64), page_size=16, dtype="float32",
+              kv_pool_tokens=None, sched_round_budget_tokens=256)
+    sps = [SamplingParams(max_tokens=33, temperature=1e4, top_k=0,
+                          top_p=1.0, ignore_eos=True, random_seed=5),
+           SamplingParams(max_tokens=33, temperature=0.8, top_k=50,
+                          top_p=0.9, ignore_eos=True, random_seed=6)]
+    runs = {}
+    for graphs_on in (True, False):
+        engine = _engine_on(dev, params, GOLDEN_TINY, cuda_graphs=graphs_on,
+                            **kw)
+        runs[graphs_on] = [s.token_ids for s in _drive(
+            engine, [_PROMPTS[3][:20], _PROMPTS[4][:30]], sps)]
+        assert engine.stats["sampler_rows_sampled"] > 0
+    assert runs[True] == runs[False]
+    a = runs[True][0]
+    rounds = [tuple(a[1 + 8 * r:9 + 8 * r]) for r in range(4)]
+    assert len(set(rounds)) == 4, rounds
