@@ -96,6 +96,25 @@ Phases (each fails loudly: a failure exits non-zero and the final
    added to the serve run's in the ``kernels`` line (chunk programs
    included: each chunk's projections on ``wg``, a final chunk's lm_head
    row on ``tc``).
+   Each served engine first runs ``Engine.prewarm()`` (a worst-case
+   request and the ladder pair through the loop). Inside each mode's
+   counted window, after the completions, the chat phase
+   (``serve_chat``): a greedy ``/v1/chat/completions`` with a system and
+   a user message and a client ``X-Request-ID`` (echoed; its
+   ``/debug/requests`` timeline holds the queue wait and the first
+   readback), a streamed sampled chat with the route's default body and
+   seed 7 (the engine's sampling state put back to its construction
+   state first), and a request with ``X-Deadline-Ms: 1`` (finish
+   ``deadline_queue`` or ``deadline``, its counter moved); ``/metrics``
+   parses and its ``engine_rounds_total`` moves by the engine's records
+   that ``/debug/rounds`` shows completed; those hold decode records with device
+   time whose median ``bw_util`` lies in (0, 1.05] (spread printed).
+   After the window the greedy chat's text must equal the engine's
+   greedy text for the rendered messages, and the sampled chat's text an
+   eager engine's (``cuda_graphs=False``) for the same body and seed.
+6. After the traced profiles, the model server's ``/profiler/start`` and
+   ``/stop`` around one request on the int4 engine write a Chrome trace
+   that must name ``paged_decode_split_kernel`` and an int4 kernel.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -104,6 +123,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1135,13 +1155,22 @@ def serve_app(app):
 
 
 def post(url: str, body: dict, timeout: float = 300) -> str:
+    return call(url, body, timeout=timeout)[1]
+
+
+def call(url: str, body=None, headers=None, timeout: float = 300):
+    """(response headers, text) of a GET (``body`` None) or a JSON POST;
+    fails on a status other than 200."""
+    import urllib.error
     import urllib.request
-    req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        if resp.status != 200:
-            fail(f"{url} answered {resp.status}")
-        return resp.read().decode()
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return dict(resp.headers), resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        fail(f"{url} answered {exc.code}: {exc.read().decode()[:300]}")
 
 
 # Prompt lengths (byte tokens incl. bos): inside one page, one short of a
@@ -1150,6 +1179,205 @@ def post(url: str, body: dict, timeout: float = 300) -> str:
 SERVE_PROMPTS = ["Tell me about paged attention. " * 3, "a" * 126, "b" * 127,
                  "The quick brown fox. " * 40]
 ENGINE_PROMPT = "Count to ten:"
+# The chat requests of the serve phase: a greedy one with a system
+# message, and a sampled one (the route's default body: temperature 1,
+# top_k 0, top_p 1) with a seed.
+CHAT_MESSAGES = [
+    {"role": "system", "content": "Answer from the retrieved passages."},
+    {"role": "user", "content": "What does the paged KV pool hold?"}]
+SAMPLED_MESSAGES = [{"role": "user", "content": "Write a line on GPUs."}]
+CHAT_NEW = 24
+
+
+def metric_values(text: str) -> dict:
+    """Every sample of a Prometheus text exposition, name{labels} ->
+    value; fails on a line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        try:
+            out[name] = float(value)
+        except ValueError:
+            fail(f"/metrics line does not parse: {line!r}")
+    return out
+
+
+def wait_idle(engine, timeout: float = 120) -> None:
+    """Until no slot is held and no round is in flight (each round's
+    record is complete then)."""
+    deadline = time.monotonic() + timeout
+    while engine.stats["active_slots"] or engine.stats["dispatch_queue_depth"]:
+        if time.monotonic() > deadline:
+            fail("the served engine did not go idle")
+        time.sleep(0.005)
+
+
+def serve_chat(base: str, engine, label: str, card: str) -> dict:
+    """The chat requests, inside a serve phase's launch-count window:
+    a greedy /v1/chat/completions with a client X-Request-ID (echoed,
+    its timeline in /debug/requests with the queue wait and the first
+    readback); then, on an idle engine whose sampling state is put back
+    to its construction state (admission counter, round generator), a
+    streamed sampled chat with a seed; then a request with
+    X-Deadline-Ms: 1 (finish deadline_queue or deadline, its counter
+    moved). /metrics around them: it parses, and its round counter moves
+    by the records of this engine that /debug/rounds shows completed in
+    the meantime (counted apart, by the round recorder's ring). Its
+    decode records have steps and device time, and their median bw_util
+    lies in (0, 1.05]. Returns the chat requests' texts and token ids
+    (recorded as the harvest delivers them) for the checks after the
+    window."""
+    wait_idle(engine)
+    delivered: dict = {}
+    emit = engine._emit_token
+
+    def recording(req, token, now):
+        delivered.setdefault(req.stream.request_id, []).append(token)
+        emit(req, token, now)
+
+    engine._emit_token = recording
+
+    def done_rounds() -> set:
+        body = json.loads(call(base + "/debug/rounds?limit=512&engine="
+                               + engine.engine_tag)[1])
+        return {r["round_id"] for r in body["rounds"] if r["done"]}
+
+    rounds0 = done_rounds()
+    scrape0 = metric_values(call(base + "/metrics")[1])
+    rid = "chip-smoke-chat-" + "".join(c if c.isalnum() else "-"
+                                       for c in label)
+    headers, raw = call(base + "/v1/chat/completions", {
+        "messages": CHAT_MESSAGES, "max_tokens": CHAT_NEW, "temperature": 0},
+        {"X-Request-ID": rid})
+    greedy = json.loads(raw)
+    if greedy["id"] != rid or headers.get("X-Request-ID") != rid:
+        fail(f"[{label}] X-Request-ID {rid!r} came back as "
+             f"{greedy['id']!r} / {headers.get('X-Request-ID')!r}")
+    if greedy["object"] != "chat.completion":
+        fail(f"[{label}] chat body object {greedy['object']!r}")
+    wait_idle(engine)
+    engine._step_counter = itertools.count()
+    engine._round_gen.manual_seed(engine.cfg.seed)
+    sampled_body = {"messages": SAMPLED_MESSAGES, "max_tokens": CHAT_NEW,
+                    "seed": 7, "stream": True}
+    sampled_rid = rid + "-sampled"
+    _, raw = call(base + "/v1/chat/completions", sampled_body,
+                  {"X-Request-ID": sampled_rid})
+    events = [ln[6:] for ln in raw.splitlines() if ln.startswith("data: ")]
+    if not events or events[-1] != "[DONE]":
+        fail(f"[{label}] the sampled chat stream did not end with [DONE]")
+    chunks = [json.loads(e) for e in events[:-1]]
+    sampled = "".join(c["choices"][0]["delta"]["content"] for c in chunks)
+    before = engine.stats
+    _, raw = call(base + "/v1/chat/completions", {
+        "messages": CHAT_MESSAGES[1:], "max_tokens": 8, "temperature": 0},
+        {"X-Deadline-Ms": "1"})
+    finish = json.loads(raw)["choices"][0]["finish_reason"]
+    wait_idle(engine)
+    engine._emit_token = emit
+    after = engine.stats
+    key = {"deadline_queue": "deadline_queue_drops",
+           "deadline": "deadline_stops"}.get(finish)
+    if key is None or after[key] != before[key] + 1:
+        fail(f"[{label}] X-Deadline-Ms: 1 finished {finish!r} with "
+             f"deadline counters {before['deadline_queue_drops']} -> "
+             f"{after['deadline_queue_drops']} (queue), "
+             f"{before['deadline_stops']} -> {after['deadline_stops']}")
+    scrape1 = metric_values(call(base + "/metrics")[1])
+    counted = (scrape1["engine_rounds_total"]
+               - scrape0.get("engine_rounds_total", 0.0))
+    completed = len(done_rounds() - rounds0)
+    if not counted == completed > 0:
+        fail(f"[{label}] /metrics engine_rounds_total moved {counted}, "
+             f"/debug/rounds shows {completed} more completed records")
+    snap = json.loads(call(base + "/debug/requests?limit=200")[1])
+    tl = next((t for t in snap["completed"] if t["request_id"] == rid), None)
+    names = {e["event"] for e in tl["events"]} if tl else set()
+    if not {"engine_admit_pickup", "engine_first_readback"} <= names:
+        fail(f"[{label}] /debug/requests timeline of {rid!r}: {names}")
+    rounds = json.loads(call(base + f"/debug/rounds?limit=512&engine="
+                             f"{engine.engine_tag}")[1])["rounds"]
+    decode = [r for r in rounds if r["done"] and r["plan"]["decode_steps"]]
+    if not decode or any(r["execution"]["device_ms"] <= 0 for r in decode):
+        fail(f"[{label}] /debug/rounds holds {len(decode)} decode records, "
+             f"device_ms {[r['execution']['device_ms'] for r in decode]}")
+    bw = sorted(r["outcome"]["bw_util"] for r in decode)
+    median = bw[len(bw) // 2]
+    device_ms = sorted(r["execution"]["device_ms"] for r in decode)
+    if not 0 < median <= 1.05:
+        fail(f"[{label}] median bw_util of {len(bw)} decode rounds is "
+             f"{median}, outside (0, 1.05]: {bw}")
+    say(f"chat [{label}]: greedy /v1/chat/completions {rid!r} echoed, "
+        f"{greedy['usage']['completion_tokens']} tokens, timeline events "
+        f"{sorted(names)}; sampled streamed chat (seed 7): "
+        f"{len(chunks) - 1} chunks; X-Deadline-Ms 1 -> {finish}; /metrics "
+        f"{len(scrape1)} samples, {counted:.0f} rounds counted = records "
+        f"completed; "
+        f"{len(decode)} decode round records: bw_util min {bw[0]:.3f}, "
+        f"p10 {bw[len(bw) // 10]:.3f}, median {median:.3f}, p90 "
+        f"{bw[9 * len(bw) // 10]:.3f}, max {bw[-1]:.3f} (device_ms a host-"
+        f"clock estimate under pipelining), median device_ms "
+        f"{device_ms[len(bw) // 2]:.3f} [{card}]")
+    return {"greedy": greedy["choices"][0]["message"]["content"],
+            "greedy_ids": delivered.get(rid, []), "sampled": sampled,
+            "sampled_ids": delivered.get(sampled_rid, []),
+            "sampled_body": sampled_body}
+
+
+def check_chat_texts(engine, chat: dict, label: str) -> None:
+    """After the window, on the stopped served engine: the greedy chat's
+    token ids and text are the engine's greedy ones for ``render_chat``
+    of the same messages (prefix cache cleared: a cold admission, as the
+    request had); and an eager engine (``cuda_graphs=False``) on the same
+    weights, planning under the same budget, gives the sampled chat's
+    token ids and text for the same body and seed (the served engine's
+    sampling state was put back to its construction state before that
+    request). Random weights over the byte tokenizer mostly sample ids
+    past the bytes, whose text is empty: the ids are the check."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import Engine, SamplingParams
+    from generativeaiexamples_tpu_torch.serving.openai_api import (
+        _sampling_from_body, render_chat)
+
+    tok = engine.tokenizer
+    engine.clear_prefix_cache()
+    s = engine.submit(tok.encode(render_chat(CHAT_MESSAGES)),
+                      SamplingParams(max_tokens=CHAT_NEW, temperature=0))
+    for _ in range(400):
+        if s.finish_reason is not None:
+            break
+        engine._step()
+    if (s.token_ids != chat["greedy_ids"] or s.text() != chat["greedy"]
+            or len(s.token_ids) != CHAT_NEW):
+        fail(f"[{label}] greedy chat tokens {chat['greedy_ids']} "
+             f"({chat['greedy']!r}) are not the engine's greedy tokens "
+             f"{s.token_ids} ({s.text()!r}) for the same messages")
+    greedy_ids = s.token_ids
+    eager = Engine(engine.params, engine.model_cfg, tok, replace(
+        engine.cfg, cuda_graphs=False,
+        sched_round_budget_tokens=engine.stats["sched_round_budget_tokens"]),
+        device=engine.device)
+    s = eager.submit(tok.encode(render_chat(SAMPLED_MESSAGES)),
+                     _sampling_from_body(chat["sampled_body"],
+                                         engine.cfg.max_output_length))
+    for _ in range(400):
+        if s.finish_reason is not None:
+            break
+        eager._step()
+    if (s.token_ids != chat["sampled_ids"] or s.text() != chat["sampled"]
+            or not s.token_ids):
+        fail(f"[{label}] sampled chat (seed 7): the captured programs gave "
+             f"{chat['sampled_ids']} ({chat['sampled']!r}), the eager "
+             f"engine {s.token_ids} ({s.text()!r})")
+    say(f"chat [{label}]: greedy chat tokens {greedy_ids[:8]}... and text "
+        f"= the engine's greedy ones; sampled chat tokens "
+        f"{s.token_ids[:8]}... ({len(s.token_ids)}, finish "
+        f"{s.finish_reason}, distinct {len(set(s.token_ids))}) and text = "
+        f"the eager engine's for seed 7")
+    del eager
 
 
 def serve(torch, dev, card: str, quantization: str = "",
@@ -1180,6 +1408,13 @@ def serve(torch, dev, card: str, quantization: str = "",
                         dtype="bfloat16", kv_quant=kv_quant)
     engine, name = build_services("llama-2-7b-chat", engine_cfg=ecfg, seed=0,
                                   device=dev, quantization=quantization)
+    t1 = time.monotonic()
+    engine.prewarm()
+    if engine.stats["requests"] != 0:
+        fail(f"prewarm left {engine.stats['requests']} requests counted")
+    say(f"serve [{quantization or 'bf16'}]: prewarm served its worst-case "
+        f"request and the ladder pair in {time.monotonic() - t1:.1f} s, "
+        f"pool {engine.stats['pool_pages']} pages")
     torch.cuda.synchronize()
     mcfg = engine.model_cfg
     mode = f"{quantization or 'bf16'} weights, {kv_quant or 'bf16'} KV"
@@ -1211,11 +1446,13 @@ def serve(torch, dev, card: str, quantization: str = "",
                                SamplingParams(max_tokens=32, ignore_eos=True,
                                               temperature=0))
         stream.text()
+        chat = serve_chat(base, engine, mode, card)
         torch.cuda.synchronize()
         run = read_launch_counts(engine, stats0)
     finally:
         stop_server()
         engine.stop()
+    check_chat_texts(engine, chat, mode)
 
     for i, (body, raw) in enumerate(zip(bodies, outs)):
         if body["stream"]:
@@ -1599,8 +1836,8 @@ def graphs_vs_eager(torch, dev, card: str, engine, mode: str) -> dict:
             f"{run['dispatch_depth_peak']}, untraced): decode step "
             f"{run['step_ms']:.3f} ms (host clock, 8 slots, context "
             f"~{run['context']}); serve thread {run['serve_ms_per_step']:.3f}"
-            f" ms/step, harvest wait {run['harvest_wait_ms_per_step']:.3f} "
-            f"[{card}]")
+            f" ms/step with the flight and round recorders on, harvest wait "
+            f"{run['harvest_wait_ms_per_step']:.3f} [{card}]")
     if any(r["dispatch_depth_peak"] != r["dispatch_depth"] for r in decs):
         fail(f"[{mode}] a decode measurement never had its dispatch depth "
              f"of rounds in flight")
@@ -1695,9 +1932,48 @@ def traced_profiles(torch, card: str, served: list) -> None:
             f"{pre['device_ms']:.3f} ms (busy {pre['device_busy_ms']:.3f}), "
             f"busy share of the untraced TTFT {untraced['prefill_ms']:.3f} ms "
             f"{pre['device_busy_ms'] / untraced['prefill_ms']:.1%} [{card}]")
+        if "int4" in mode:
+            check_profiler_route(engine, mode, card)
         engine.stop()
         del engine
         torch.cuda.empty_cache()
+
+
+def check_profiler_route(engine, mode: str, card: str) -> None:
+    """The model server's profiler routes on the served int4 engine:
+    POST /profiler/start (into a temporary directory), one streamed
+    request, POST /profiler/stop; the Chrome trace written there must
+    name the paged attention's split kernel and an int4 kernel."""
+    import shutil
+    import tempfile
+
+    from generativeaiexamples_tpu_torch.serving.model_server import \
+        create_server_app
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    base, stop_server = serve_app(create_server_app(engine, "traced"))
+    try:
+        call(base + "/profiler/start", {"dir": trace_dir})
+        post(base + "/v1/completions", {"prompt": ENGINE_PROMPT,
+                                        "max_tokens": 12, "temperature": 0,
+                                        "stream": True})
+        out = json.loads(call(base + "/profiler/stop", {})[1])
+        with open(out["trace"]) as fh:
+            trace = json.load(fh)
+        size = os.path.getsize(out["trace"])
+    finally:
+        stop_server()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    kernels = sorted({e.get("name", "") for e in trace.get("traceEvents", [])
+                      if e.get("cat") == "kernel"})
+    split = [k for k in kernels if "paged_decode_split_kernel" in k]
+    int4 = [k for k in kernels if "int4" in k]
+    if not split or not int4:
+        fail(f"profiler [{mode}]: the /profiler trace names no "
+             f"paged_decode_split_kernel or no int4 kernel: {kernels[:40]}")
+    say(f"profiler [{mode}]: /profiler/start + /stop around one request "
+        f"wrote a {size} byte Chrome trace of {len(kernels)} kernel names, "
+        f"among them {split[0][:60]!r} and {int4[0][:60]!r} [{card}]")
 
 
 # ------------------------------------------------------- checkpoint phase

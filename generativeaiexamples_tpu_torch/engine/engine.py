@@ -58,14 +58,30 @@ port of the reference's ``engine/engine.py``.
   ``start()``, the serve thread reads each round back itself at the end
   of its ``_step``.
 
+- **Observability.** Every request gets a flight-recorder timeline
+  (``obs/flight.py``): its ID (adopted from the caller or minted; a
+  duplicate in-flight ID gets a ``#N`` suffix), queue wait, slot, pages,
+  prefix-hit tokens, first readback, one event per decode round, and its
+  finish. Every planned round gets a record (``obs/rounds.py``): the serve
+  thread opens it and seals its dispatch half, the harvest completes it
+  when it reads the round back; its device time, estimated bytes moved,
+  bandwidth share of the card's peak (``utils/hbm.py``) and drift from the
+  step-cost model feed ``/debug/rounds`` and ``/metrics``. The recorders
+  do O(1) host work per round and none per token, and read no device
+  value.
+- **Deadlines.** A request may carry an absolute deadline: past it in the
+  backlog it is dropped before it takes a slot (finish
+  ``deadline_queue``); past it between two prompt chunks, or at a
+  harvested token, it stops (finish ``deadline``).
+
 Waiting for later slices: speculative decoding, the KV tier, roles, the
-watchdog, the flight recorder, round telemetry, the online cost
-calibrator, and the tensor-parallel tails.
+watchdog, the online cost calibrator, and the tensor-parallel tails.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import itertools
 import queue
 import threading
@@ -78,6 +94,9 @@ import torch
 
 from ..models import llama
 from ..models.configs import LlamaConfig
+from ..obs import flight as obs_flight
+from ..obs import rounds as obs_rounds
+from ..obs.tracing import record_stage
 from ..models.tokenizer import Tokenizer
 from ..ops import int4_matmul
 from ..ops.fused_sampler import choose_tile, fused_unembed_sample
@@ -89,6 +108,8 @@ from ..ops.sampling import (MASK_BITS, NEG_INF, apply_repetition_penalty,
                             seen_mask, set_token_bits, unpack_mask)
 from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, EngineError, SchedulerFullError
+from ..utils.hbm import peak_bw
+from ..utils.logging import get_logger, log_event
 from . import graphs
 from .detokenizer import IncrementalDetokenizer, StopWordTrap
 from .prefix_cache import PrefixCache, hash_blocks, usable_prefix_tokens
@@ -97,6 +118,73 @@ from .scheduler import (PrefillJob, RoundPlan, StepCostModel,
                         TokenBudgetScheduler)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+logger = get_logger(__name__)
+
+# Short per-engine tag stamped on round records: engines in one process
+# share the process-wide round ring, and the tag tells their rounds apart
+# in /debug/rounds.
+_ENGINE_TAGS = itertools.count()
+
+# The counters ``Engine.stats`` always carries, with their start values
+# (each engine copies this template), named as the reference's stats.
+_STATS_TEMPLATE = {
+    "requests": 0, "tokens_generated": 0, "decode_steps": 0, "prefills": 0,
+    # The harvest's milliseconds waiting for decode rounds' copies and the
+    # rounds it read; the same for the first-token copies (one per serve
+    # step that armed slots).
+    "harvest_wait_ms": 0.0, "harvest_rounds": 0,
+    "first_readback_ms": 0.0, "first_readbacks": 0,
+    # The most decode rounds dispatched and not yet harvested.
+    "dispatch_depth_peak": 0,
+    # Submissions refused at a full queue (a 429 at the HTTP edge),
+    # requests dropped in the backlog past their deadline, and requests
+    # stopped past it between prompt chunks or mid-decode.
+    "rejected_full": 0, "deadline_queue_drops": 0, "deadline_stops": 0,
+    # The scheduler: the resolved per-round budget, prefill tokens granted,
+    # decode token-equivalents charged against the budget, and rounds
+    # that ran decode and prefill together.
+    "sched_round_budget_tokens": 0, "sched_prefill_tokens": 0,
+    "sched_decode_tokens": 0, "sched_interleaved_rounds": 0,
+    # The fused tail's rows sampled and skipped (max_slots less the rung)
+    # over decode steps; 0 under the materialized tail.
+    "sampler_rows_sampled": 0, "sampler_rows_skipped": 0,
+    # Rounds whose record completed (obs/rounds.py).
+    "rounds_completed": 0,
+    # Feature downgrades at construction: the port refuses a geometry its
+    # kernels do not take (ConfigError) instead of serving it slower.
+    "downgrades": 0,
+    # Port-only: decode rounds dispatched, prefill programs run (one-shot
+    # admissions and chunks) and of those the chunk programs, and the
+    # harvest's milliseconds delivering tokens (detokenize, stop words).
+    "decode_rounds": 0, "prefill_dispatches": 0, "prefill_chunks": 0,
+    "harvest_emit_ms": 0.0,
+}
+
+# Keys ``Engine.stats`` adds when it is read (the prefix cache's keys only
+# while the cache is on).
+_STATS_READ_TIME = ("dispatch_queue_depth", "queue_waiting",
+                    "sched_prefill_share", "sched_cost_drift_ratio",
+                    "uptime_s", "active_slots", "free_pages", "pool_pages")
+
+
+def engine_stat_keys() -> tuple[str, ...]:
+    """Every key an ``Engine.stats`` snapshot can hold: the template, the
+    read-time gauges and the prefix cache's counters (on by default).
+    ``/metrics`` mirrors each as an ``engine_*`` gauge."""
+    from .prefix_cache import CacheStats
+    return (tuple(_STATS_TEMPLATE) + _STATS_READ_TIME
+            + tuple(CacheStats().snapshot()) + ("prefix_cache_pages",))
+
+
+def _drop_tracebacks(exc: Optional[BaseException]) -> None:
+    """Clear the tracebacks of ``exc`` and of the errors it chains to, so
+    their frames (and the tensors those hold) can be freed."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        exc.__traceback__ = None
+        exc = exc.__cause__ or exc.__context__
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -195,10 +283,16 @@ class EngineConfig:
 
 
 class TokenStream:
-    """Thread-safe stream of text chunks for one request."""
+    """Thread-safe stream of text chunks for one request.
+
+    ``request_id`` is the request's end-to-end identity and the key of its
+    flight-recorder timeline (``timeline``), which the stream's terminal
+    transition completes through ``_flight``."""
 
     def __init__(self, request_id: str):
         self.request_id = request_id
+        self.timeline: Optional[obs_flight.Timeline] = None
+        self._flight: Optional[obs_flight.FlightRecorder] = None
         self._q: "queue.Queue[tuple[str, object]]" = queue.Queue()
         self._error: Optional[BaseException] = None
         self.finish_reason: Optional[str] = None
@@ -215,14 +309,24 @@ class TokenStream:
         if text:
             self._q.put(("chunk", text))
 
+    def _record_done(self) -> None:
+        """Complete the timeline at the first terminal transition (every
+        finish path goes through ``_finish`` or ``_fail``); idempotent."""
+        if self._flight is not None:
+            self._flight.complete_stream(self)
+
     def _finish(self, reason: str) -> None:
         self.finish_reason = reason
         self.finish_time = time.monotonic()
+        # Into the timeline before the terminal event goes out: a consumer
+        # woken by it may read /debug/requests at once.
+        self._record_done()
         self._q.put(("done", reason))
 
     def _fail(self, exc: BaseException) -> None:
         self._error = exc   # sticky: re-iteration re-raises, never hangs
         self.finish_reason = "error"
+        self._record_done()
         self._q.put(("error", exc))
 
     def cancel(self) -> None:
@@ -299,6 +403,10 @@ class _Request:
     cache_refs: list = field(default_factory=list)   # prefix-cache refs held
     cache_pages: set = field(default_factory=set)    # pages the cache owns
     block_hashes: Optional[list] = None   # memoized across admission retries
+    # Absolute time.monotonic deadline: past it in the backlog the request
+    # is dropped ("deadline_queue"); past it between chunks or at a
+    # harvested token it stops ("deadline").
+    deadline_t: Optional[float] = None
 
     @property
     def done(self) -> bool:
@@ -418,9 +526,71 @@ class Engine:
         self._ba_ladder = (1, B) if cfg.fused_tail and B > 1 else (B,)
 
         self._pool_reserve: Optional[int] = None   # "auto" sizing's reserve
+        # The side stream the programs are captured on, kept across a
+        # rebuild: cuBLAS's workspace and the kernels' scratch are keyed
+        # by stream, and a new stream would hold a second set.
+        self._capture_stream: Optional[torch.cuda.Stream] = None
         self._n_pages = 1 + self._resolve_pool_pages()
+        self._build_device()
+
+        self._slots: dict[int, _Request] = {}
+        self._free_slots = list(range(cfg.max_slots))
+        self._pending: "queue.Queue[_Request]" = queue.Queue(
+            maxsize=cfg.max_queue)
+        self._backlog: list[_Request] = []
+        self._arrival_seq = itertools.count()
+        # The recorders (the process-wide ones unless a private one is
+        # installed through ``flight`` / ``rounds``) and the inputs of a
+        # round's byte estimate: the weights' bytes as stored (packed int4
+        # at its packed size), streamed once per decode step and per
+        # prefill program, and the card's peak rate (0 on the CPU).
+        self._flight_override: Optional[obs_flight.FlightRecorder] = None
+        self._rounds_override: Optional[obs_rounds.RoundRecorder] = None
+        self._engine_tag = f"e{next(_ENGINE_TAGS)}"
+        self._param_bytes = sum(t.numel() * t.element_size()
+                                for t in llama.param_tensors(params))
+        self._hbm_peak = peak_bw(self.device)
+        # EWMA of round wall over the step-cost model's prediction, updated
+        # per completed round (``sched_cost_drift_ratio``).
+        self._drift_ratio: Optional[float] = None
+        self._created_monotonic = time.monotonic()
+        self._wake = threading.Event()
+        self._stopped = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._fatal: Optional[BaseException] = None
+        # The harvest pipeline: each dispatched program's output goes
+        # onto ``_harvest_q`` in dispatch order (or ``_inline`` when no
+        # worker runs); the worker reads it and posts finished requests
+        # on ``_completed`` for the serve thread to retire.
+        self._ring = _HostRing(2 * (cfg.dispatch_depth + 1),
+                               (cfg.steps_per_round, cfg.max_slots),
+                               self.device)
+        self._harvest_q: "queue.Queue[tuple]" = queue.Queue()
+        self._inline: list[tuple] = []
+        self._marks: list = []     # round records awaiting a later read
+        self._completed: "queue.Queue[_Request]" = queue.Queue()
+        self._harvest_thread: Optional[threading.Thread] = None
+        self._harvest_stop = threading.Event()
+        self._depth = 1          # the running pipeline's dispatch depth
+        self._inflight_rounds = 0
+        # Prompt chunks were dispatched since the last decode round (at
+        # most one step of them between two rounds).
+        self._chunk_behind = False
+        self._pipe_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self._stats: dict[str, float] = dict(_STATS_TEMPLATE)
+        self._stats["sched_round_budget_tokens"] = \
+            self._sched.round_budget_tokens
+
+    def _build_device(self) -> None:
+        """Allocate the pool of ``_n_pages`` pages and the static state,
+        capture every program on the card (``_prewarm``) and build the
+        scheduler over the step-cost model that gives: the construction
+        path, which ``prewarm`` reruns at a smaller pool."""
+        cfg = self.cfg
         self._free_pages = list(range(1, self._n_pages))
-        self._prefix_cache = PrefixCache(page) if cfg.prefix_cache else None
+        self._prefix_cache = (PrefixCache(cfg.page_size) if cfg.prefix_cache
+                              else None)
         self._state = self._init_device_state()
         (self._admit_arrays, self._admit_host,
          self._admit_in) = self._admission_views()
@@ -439,62 +609,11 @@ class Engine:
             cost = self._prewarm()
         self._round_gen.manual_seed(cfg.seed)
         self._sched = TokenBudgetScheduler(
-            cost, page_size=page, steps_per_round=cfg.steps_per_round,
+            cost, page_size=cfg.page_size,
+            steps_per_round=cfg.steps_per_round,
             round_budget_tokens=cfg.sched_round_budget_tokens,
             chunk_tokens=cfg.sched_prefill_chunk_tokens,
             max_one_shot_tokens=self._buckets[-1])
-
-        self._slots: dict[int, _Request] = {}
-        self._free_slots = list(range(cfg.max_slots))
-        self._pending: "queue.Queue[_Request]" = queue.Queue(
-            maxsize=cfg.max_queue)
-        self._backlog: list[_Request] = []
-        self._arrival_seq = itertools.count()
-        self._wake = threading.Event()
-        self._stopped = threading.Event()
-        self._thread: Optional[threading.Thread] = None
-        self._fatal: Optional[BaseException] = None
-        # The harvest pipeline: each dispatched program's output goes
-        # onto ``_harvest_q`` in dispatch order (or ``_inline`` when no
-        # worker runs); the worker reads it and posts finished requests
-        # on ``_completed`` for the serve thread to retire.
-        self._ring = _HostRing(2 * (cfg.dispatch_depth + 1),
-                               (cfg.steps_per_round, cfg.max_slots),
-                               self.device)
-        self._harvest_q: "queue.Queue[tuple]" = queue.Queue()
-        self._inline: list[tuple] = []
-        self._completed: "queue.Queue[_Request]" = queue.Queue()
-        self._harvest_thread: Optional[threading.Thread] = None
-        self._harvest_stop = threading.Event()
-        self._depth = 1          # the running pipeline's dispatch depth
-        self._inflight_rounds = 0
-        # Prompt chunks were dispatched since the last decode round (at
-        # most one step of them between two rounds).
-        self._chunk_behind = False
-        self._pipe_lock = threading.Lock()
-        self._ids = itertools.count()
-        self._stats_lock = threading.Lock()
-        self._stats: dict[str, float] = {
-            "requests": 0, "prefills": 0, "decode_rounds": 0,
-            "decode_steps": 0, "tokens_generated": 0, "rejected_full": 0,
-            # Prefill programs run (one-shot admissions and chunks), and
-            # of those the chunk programs.
-            "prefill_dispatches": 0, "prefill_chunks": 0,
-            # The scheduler: the resolved per-round budget, prefill tokens
-            # granted as chunks, decode token-equivalents charged against
-            # the budget, and rounds that ran decode and prefill together.
-            "sched_round_budget_tokens": self._sched.round_budget_tokens,
-            "sched_prefill_tokens": 0, "sched_decode_tokens": 0,
-            "sched_interleaved_rounds": 0,
-            # The most decode rounds dispatched and not yet harvested;
-            # the harvest's rounds, its milliseconds waiting for their
-            # copies and delivering their tokens (the reference's
-            # harvest_wait_ms), on whichever thread harvests.
-            "dispatch_depth_peak": 0, "harvest_rounds": 0,
-            "harvest_wait_ms": 0.0, "harvest_emit_ms": 0.0,
-            # The fused tail's rows sampled and skipped (max_slots less
-            # the rung) over decode steps; 0 under the materialized tail.
-            "sampler_rows_sampled": 0, "sampler_rows_skipped": 0}
 
     def _check_kernel_geometry(self) -> None:
         """On the card every decode layer launches the paged kernel and
@@ -671,15 +790,52 @@ class Engine:
         return host, hv, dv
 
     @property
+    def flight(self) -> obs_flight.FlightRecorder:
+        """The flight recorder in use: the process-wide one unless a
+        private one was installed. Resolved per access, so the engine and
+        the HTTP server always agree on it."""
+        return self._flight_override or obs_flight.RECORDER
+
+    @flight.setter
+    def flight(self, recorder: obs_flight.FlightRecorder) -> None:
+        self._flight_override = recorder
+
+    @property
+    def rounds(self) -> obs_rounds.RoundRecorder:
+        """The round recorder in use, resolved as ``flight``."""
+        return self._rounds_override or obs_rounds.RECORDER
+
+    @rounds.setter
+    def rounds(self, recorder: obs_rounds.RoundRecorder) -> None:
+        self._rounds_override = recorder
+
+    @property
+    def engine_tag(self) -> str:
+        """This engine's tag on its round records: the ``?engine=`` filter
+        of ``/debug/rounds``."""
+        return self._engine_tag
+
+    @property
     def stats(self) -> dict[str, float]:
-        """Counters and gauges. ``free_pages`` counts the pages an
-        admission can take now: the free list plus cached pages no live
-        request maps (eviction reclaims them on demand)."""
+        """Counters and gauges (``engine_stat_keys``).
+        ``dispatch_queue_depth`` is the decode rounds dispatched and not
+        yet harvested; ``free_pages`` counts the pages an admission can
+        take now: the free list plus cached pages no live request maps
+        (eviction reclaims them on demand)."""
         with self._stats_lock:
             out = dict(self._stats)
+        out["dispatch_queue_depth"] = self._inflight_rounds
         out["queue_waiting"] = len(self._backlog) + self._pending.qsize()
+        sched_total = out["sched_prefill_tokens"] + out["sched_decode_tokens"]
+        out["sched_prefill_share"] = (
+            round(out["sched_prefill_tokens"] / sched_total, 4)
+            if sched_total else 0.0)
+        drift = self._drift_ratio
+        out["sched_cost_drift_ratio"] = (round(drift, 4)
+                                         if drift is not None else 0.0)
+        out["uptime_s"] = round(time.monotonic() - self._created_monotonic,
+                                3)
         out["active_slots"] = len(self._slots)
-        out["inflight_rounds"] = self._inflight_rounds
         cache = self._prefix_cache
         out["free_pages"] = len(self._free_pages) + (
             cache.idle_pages if cache is not None else 0)
@@ -1058,7 +1214,9 @@ class Engine:
         h["length"][0] = 1      # a one-token prompt into the trash page
         h["temp"][0] = h["top_p"][0] = h["rep_pen"][0] = 1.0
         self._copy_admission_inputs()
-        stream = torch.cuda.Stream(dev)
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        stream = self._capture_stream
         pool = torch.cuda.graph_pool_handle()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -1111,6 +1269,124 @@ class Engine:
 
     # ------------------------------------------------------------ lifecycle
 
+    # How often ``prewarm`` shrinks the pool before it gives up (the
+    # reference's default).
+    PREWARM_RETRIES = 4
+
+    def prewarm(self) -> None:
+        """Check the pool's size by serving through the real loop, before
+        any request: two short concurrent streams, so both rungs of the
+        active-row ladder run, then one worst-case request (a prompt of
+        ``max_input_length`` tokens, rounds at full depth). The dummies
+        are scrubbed from ``stats["requests"]``. When the card runs out
+        of memory the pool shrinks by the reference's rule, to
+        ``int((pages - 1) * 0.8) + 1`` pages with the trash page (never
+        below one request's pages), and the engine is rebuilt at that
+        size, up to ``PREWARM_RETRIES`` times. The engine must be
+        stopped."""
+        if self._thread is not None:
+            raise EngineError("prewarm() requires a stopped engine")
+        for attempt in range(self.PREWARM_RETRIES + 1):
+            try:
+                if attempt:
+                    # Inside the try: the rebuild's own allocations can
+                    # run out too, and that shrinks the pool again.
+                    self._rebuild()
+                self._verify_alloc()
+                return
+            except torch.cuda.OutOfMemoryError as exc:
+                new_pages = max(self._pmax + 1,
+                                int((self._n_pages - 1) * 0.8) + 1)
+                if (attempt == self.PREWARM_RETRIES
+                        or new_pages >= self._n_pages):
+                    raise
+                # The failed serve's frames (its device tensors) hang off
+                # the error's tracebacks, and the loop keeps the error as
+                # ``_fatal``: both go before the rebuild frees the pool.
+                _drop_tracebacks(exc)
+                self._fatal = None
+                log_event(logger, "engine_prewarm_oom",
+                          pool_pages=self._n_pages - 1,
+                          retry_pages=new_pages - 1)
+                self._n_pages = new_pages
+
+    def _verify_alloc(self) -> None:
+        """``prewarm``'s serve: the two short streams, then, once they are
+        done, the worst-case request, through the started loop, holding
+        256 MiB spare on the card so the accepted size has headroom past
+        the serve's peak."""
+        slack = (torch.empty((256 << 20,), dtype=torch.int8,
+                             device=self.device)
+                 if self.device.type == "cuda" else None)
+        ids = [min(3, self.model_cfg.vocab_size - 1)] * \
+            self.cfg.max_input_length
+        streams = []
+        if self.cfg.max_slots > 1 and self.cfg.fused_tail:
+            # Submitted together before the loop starts and long enough
+            # (three rounds) that their decoding overlaps even when the
+            # budget admits them a step apart: rounds over both take the
+            # full-width rung.
+            streams = [self.submit(ids[:16], SamplingParams(
+                max_tokens=min(self.cfg.max_output_length,
+                               3 * self.cfg.steps_per_round + 1),
+                top_k=1, ignore_eos=True),
+                request_id=f"engine-prewarm-b{i}") for i in range(2)]
+
+        def drain(batch) -> None:
+            for stream in batch:
+                try:
+                    stream.text()
+                except EngineError as exc:
+                    # The caller matches the loop's own failure (an out of
+                    # memory error), not the stream's wrapper.
+                    raise (self._fatal or exc) from exc
+
+        try:
+            self.start()
+            drain(streams)
+            streams.append(self.submit(ids, SamplingParams(
+                max_tokens=min(self.cfg.max_output_length,
+                               2 * self.cfg.steps_per_round + 1),
+                top_k=1, ignore_eos=True), request_id="engine-prewarm"))
+            drain(streams[-1:])
+        finally:
+            with self._stats_lock:
+                self._stats["requests"] -= len(streams)
+            try:
+                self.stop()
+            except Exception:  # noqa: BLE001 - cleanup after a failure
+                pass
+            del slack
+
+    def _rebuild(self) -> None:
+        """Drop the pool, the state and every captured program, and build
+        them again at ``_n_pages`` pages (``_build_device``). The serve
+        loop is stopped; whatever it held is gone, every reference to the
+        failed serve's tensors (its error, its requests and outputs)
+        before the cache is emptied."""
+        self._fatal = None
+        self._state = self._admit_in = None
+        self._round_graphs = self._admit_graphs = {}
+        self._extend_graphs = self._final_graphs = {}
+        self._slots = {}
+        self._free_slots = list(range(self.cfg.max_slots))
+        self._drain_intake()
+        self._completed = queue.Queue()
+        self._harvest_q = queue.Queue()
+        self._inline = []
+        self._marks = []
+        self._inflight_rounds = 0
+        self._chunk_behind = False
+        self._ring.reset()
+        if self.device.type == "cuda":
+            gc.collect()
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+        self._build_device()
+        with self._stats_lock:
+            self._stats["sched_round_budget_tokens"] = \
+                self._sched.round_budget_tokens
+
     def start(self) -> None:
         """Start the serve thread, and with ``dispatch_depth`` > 1 the
         harvest worker."""
@@ -1131,6 +1407,7 @@ class Engine:
                 raise EngineError("engine loop did not stop within 60s")
             self._thread = None
         self._stop_harvest()
+        self._complete_marks(0.0)
         # Cancel what is still live so no consumer blocks forever, and
         # deactivate the slots so a restart reuses no live pages.
         for req in list(self._slots.values()):
@@ -1173,7 +1450,7 @@ class Engine:
             except queue.Empty:
                 break
             if self._fatal is None:
-                self._harvest(item)
+                self._read_back(item)
         self._inflight_rounds = 0
         self._chunk_behind = False
         self._ring.reset()
@@ -1244,10 +1521,40 @@ class Engine:
                               f"{self.MAX_BAD_SEQS}")
         return banned_ids, bad_seqs
 
+    def _new_stream(self, request_id: Optional[str], prompt_tokens: int,
+                    eff_max: int) -> TokenStream:
+        """The stream and flight timeline of one submission: the recorder
+        begins a fresh timeline under ``request_id`` (minted when None; a
+        duplicate of an in-flight ID gets a ``#N`` suffix), which the
+        stream completes."""
+        tl = self.flight.begin(request_id or obs_flight.mint_request_id(),
+                               fresh=True)
+        stream = TokenStream(tl.request_id)
+        tl.annotate(prompt_tokens=prompt_tokens, max_tokens=eff_max)
+        tl.event("engine_submit")
+        stream.timeline = tl
+        stream._flight = self.flight
+        return stream
+
+    @staticmethod
+    def _resolve_deadline(stream: TokenStream,
+                          deadline_t: Optional[float]) -> Optional[float]:
+        """The request's deadline, stamped onto its timeline so
+        /debug/requests shows the budget the request ran against."""
+        tl = stream.timeline
+        if deadline_t is not None and tl is not None:
+            tl.set_deadline((deadline_t - tl.t_start) * 1e3)
+            tl.deadline_t = deadline_t
+        return deadline_t
+
     def submit(self, prompt_ids: Sequence[int],
                params: Optional[SamplingParams] = None,
-               request_id: Optional[str] = None) -> TokenStream:
-        """Enqueue a request; returns its stream immediately."""
+               request_id: Optional[str] = None,
+               deadline_t: Optional[float] = None) -> TokenStream:
+        """Enqueue a request; returns its stream immediately.
+        ``request_id`` names the request end to end (its timeline in
+        ``/debug/requests``); ``deadline_t`` is an absolute
+        ``time.monotonic`` deadline (see ``_Request.deadline_t``)."""
         if self._fatal is not None:
             raise EngineError("engine is dead") from self._fatal
         params = params or SamplingParams()
@@ -1273,7 +1580,7 @@ class Engine:
         for i, seq in enumerate(bad_seqs):
             seq_tbl[i, :len(seq)] = seq
             seq_len[i] = len(seq)
-        stream = TokenStream(request_id or f"req-{next(self._ids)}")
+        stream = self._new_stream(request_id, len(ids), eff_max)
         req = _Request(stream=stream, prompt_ids=ids, params=params,
                        detok=IncrementalDetokenizer(self.tokenizer),
                        stop=StopWordTrap(params.stop_words),
@@ -1281,21 +1588,28 @@ class Engine:
                        greedy=(params.top_k == 1 or params.temperature <= 0),
                        banned_np=pack_mask_np(banned_row),
                        bad_seq_np=seq_tbl, bad_len_np=seq_len,
+                       deadline_t=self._resolve_deadline(stream, deadline_t),
                        seq=next(self._arrival_seq))
         if len(self._backlog) + self._pending.qsize() >= self.cfg.max_queue:
-            self._reject_full()
+            self._reject_full(stream)
         try:
             self._pending.put_nowait(req)
         except queue.Full:
-            self._reject_full()
+            self._reject_full(stream)
         if self._fatal is not None:
             stream._fail(self._fatal)
         self._bump("requests")
         self._wake.set()
         return stream
 
-    def _reject_full(self) -> None:
+    def _reject_full(self, stream: TokenStream) -> None:
+        """Refuse a submission at a full queue: count it, and retire its
+        timeline with the reason."""
         self._bump("rejected_full")
+        tl = stream.timeline
+        if tl is not None:
+            tl.annotate(finish="rejected")
+            self.flight.complete(tl)
         raise SchedulerFullError(
             f"request queue full ({self.cfg.max_queue})") from None
 
@@ -1309,10 +1623,11 @@ class Engine:
 
     def stream_text(self, prompt: str,
                     params: Optional[SamplingParams] = None,
-                    request_id: Optional[str] = None) -> TokenStream:
+                    request_id: Optional[str] = None,
+                    deadline_t: Optional[float] = None) -> TokenStream:
         self.start()
         return self.submit(self.tokenizer.encode(prompt), params,
-                           request_id=request_id)
+                           request_id=request_id, deadline_t=deadline_t)
 
     # ------------------------------------------------------------ scheduler
 
@@ -1358,14 +1673,48 @@ class Engine:
         to do."""
         self._alive()
         did = self._drain_completed()
-        did |= self._pull_pending()
+        self._pull_pending()
+        did |= self._cull_backlog()
         plan = self._plan_round()
+        rec = None
+        if plan.decode_steps or plan.chunks:
+            # The round's record: the plan now, the dispatch half sealed
+            # below, the execution half completed by the harvest.
+            rec = self.rounds.begin(
+                engine_tag=self._engine_tag,
+                budget_tokens=self._sched.round_budget_tokens,
+                decode_steps=plan.decode_steps,
+                decode_cost_tokens=plan.decode_cost_tokens,
+                active_decodes=plan.active_decodes,
+                kind="decode" if plan.decode_steps else "prefill",
+                on_complete=self._on_round_complete)
+        try:
+            work = self._execute_plan(plan, rec)
+        except BaseException:
+            # A round that failed mid-dispatch leaves no unsealed record.
+            if rec is not None and not rec._sealed:
+                self.rounds.discard(rec)
+            raise
+        items, self._inline = self._inline, []
+        for item in items:
+            self._read_back(item)
+        return did or work
+
+    def _execute_plan(self, plan: RoundPlan, rec) -> bool:
+        """Dispatch the plan's decode round, then its prompt chunks; post
+        for the harvest the first tokens of the slots it armed (their copy
+        runs after every chunk, so reading it completes the chunks' part
+        of the round) or, when chunks armed none, a marker that the next
+        output read back completes; seal the round's record with the parts
+        the harvest will complete (or drop it when nothing was
+        dispatched). True when anything was done."""
         dispatched = False
         if plan.decode_steps:
-            self._dispatch_round(plan.decode_steps)
+            self._dispatch_round(plan.decode_steps, rec)
             dispatched = True
             self._bump("sched_decode_tokens", plan.decode_cost_tokens)
-        armed, prefilled, admitted = self._run_chunks(plan.chunks)
+        armed, prefilled, admitted, grants = self._run_chunks(plan.chunks,
+                                                              rec)
         if prefilled:
             self._chunk_behind = True
             self._bump("sched_prefill_tokens", prefilled)
@@ -1376,11 +1725,53 @@ class Engine:
             # slot's last_token: one copy serves them all.
             self._post(("first", {r.slot: r for r in armed},
                         self._ring.copy(self._state["last_token"],
-                                        self._alive), 1))
-        items, self._inline = self._inline, []
-        for item in items:
-            self._harvest(item)
-        return did or admitted or bool(prefilled) or dispatched
+                                        self._alive), 1, rec))
+        if rec is not None:
+            if prefilled and not armed:
+                self._post(("mark", {}, None, 0, rec))
+            parts = int(dispatched) + int(bool(prefilled))
+            if not parts:
+                self.rounds.discard(rec)
+            else:
+                if not dispatched:
+                    rec.kind = "prefill"
+                elif prefilled:
+                    rec.kind = "mixed"
+                self.rounds.seal(
+                    rec, parts=parts, prefill_tokens=prefilled,
+                    grants=grants, modeled_ms=self._modeled_round_ms(
+                        plan.decode_steps if dispatched else 0, prefilled))
+        return admitted or bool(prefilled) or dispatched
+
+    def _modeled_round_ms(self, decode_steps: int,
+                          prefill_tokens: int) -> float:
+        """What the step-cost model predicts the round takes: the
+        denominator of its drift ratio."""
+        cost = self._sched.cost
+        return (cost.decode_round_ms(decode_steps)
+                + prefill_tokens * cost.prefill_ms_per_token)
+
+    def _on_round_complete(self, rec) -> None:
+        """A round's record completed (on whichever thread harvested its
+        last part): its bandwidth share and drift, the metrics and the
+        span. Never raises."""
+        try:
+            if self._hbm_peak > 0 and rec.device_ms > 0:
+                rec.bw_util = (rec.hbm_bytes / (rec.device_ms / 1e3)
+                               / self._hbm_peak)
+            ratio = (rec.round_ms / rec.modeled_ms
+                     if rec.modeled_ms > 0 else 0.0)
+            rec.drift_ratio = ratio
+            if ratio > 0:
+                prev = self._drift_ratio
+                self._drift_ratio = (ratio if prev is None
+                                     else prev + 0.2 * (ratio - prev))
+            self._bump("rounds_completed")
+            obs_rounds.record_round_metrics(rec, self._drift_ratio)
+            obs_rounds.emit_round_span(rec)
+        except Exception:  # noqa: BLE001 - telemetry never raises
+            logger.debug("round completion accounting failed",
+                         exc_info=True)
 
     def _post(self, item: tuple) -> None:
         """Hand a dispatched program's output to the harvest: the
@@ -1402,37 +1793,95 @@ class Engine:
                     item = self._harvest_q.get(timeout=0.05)
                 except queue.Empty:
                     continue
-                self._harvest(item)
+                self._read_back(item)
                 self._wake.set()
         except BaseException as exc:  # noqa: BLE001 - fanned out by _step
             if self._fatal is None:
                 self._fatal = exc
             self._wake.set()
 
+    def _read_back(self, item: tuple) -> None:
+        """One posted item, in dispatch order: an output (``_harvest``);
+        ``("mark", {}, None, 0, record)`` after a round's prompt chunks
+        that armed no slot; ``("flush", {}, event, 0, None)`` after an
+        admission stopped between its chunks. A marker waits for nothing:
+        the next output read back, queued on the device after the
+        marker's chunks, completes its round's prefill part (a wait of its
+        own would hold the harvest off the rounds a long chunk program's
+        launch blocks behind). A stopped admission may leave no later
+        output, so its flush waits for the device to finish the work
+        queued before it (the event; nothing to wait for on the CPU) and
+        completes every marker read so far."""
+        kind = item[0]
+        if kind == "mark":
+            self._marks.append(item[4])
+        elif kind == "flush":
+            t0 = time.monotonic()
+            if item[2] is not None:
+                item[2].synchronize()
+            self._complete_marks(time.monotonic() - t0)
+        else:
+            self._harvest(item)
+
     def _harvest(self, item: tuple) -> None:
         """Read one output back and deliver its tokens: ``("first",
-        {slot: request}, buffer, 1)`` for the slots an admission armed,
-        ``("round", {slot: request}, buffer, steps)`` for a decode round
-        (-1 marks a slot inactive on the device at that step). A request
-        the harvest finished mid-round drops its later tokens: the device
-        ran it on until the serve thread deactivates it."""
-        kind, members, buf, rows = item
+        {slot: request}, buffer, 1, record)`` for the slots an admission
+        armed, ``("round", {slot: request}, buffer, steps, record)`` for a
+        decode round (-1 marks a slot inactive on the device at that
+        step). A request the harvest finished mid-round drops its later
+        tokens: the device ran it on until the serve thread deactivates
+        it. Each output completes its part of the round's record (a
+        "first" output the prefill part) and the prefill parts of the
+        markers read before it. Each request's timeline gets one event per
+        round, none per token."""
+        kind, members, buf, rows, rec = item
         t0 = time.monotonic()
         grid = self._ring.read(buf, rows)
         now = time.monotonic()
+        wait = now - t0
+        self._complete_marks(wait)
+        emitted = dict.fromkeys(members, 0)
+        live = {slot: not req.done for slot, req in members.items()}
         for row in grid:
             for slot, req in members.items():
                 tok = row[slot]
                 if tok >= 0 and not req.done:
+                    emitted[slot] += 1
                     self._emit_token(req, tok, now)
-        if kind == "round":
-            with self._pipe_lock:
-                self._inflight_rounds -= 1
+        if kind == "first":
+            record_stage("engine_first_readback", wait)
             with self._stats_lock:
-                self._stats["harvest_rounds"] += 1
-                self._stats["harvest_wait_ms"] += (now - t0) * 1e3
-                self._stats["harvest_emit_ms"] += (time.monotonic()
-                                                   - now) * 1e3
+                self._stats["first_readback_ms"] += wait * 1e3
+                self._stats["first_readbacks"] += 1
+            for i, (slot, req) in enumerate(members.items()):
+                if req.stream.timeline is not None:
+                    req.stream.timeline.stage("engine_first_readback", wait)
+                self.rounds.first_token(rec, wait_ms=0.0 if i else wait * 1e3,
+                                        counted=live[slot])
+            self.rounds.complete_part(rec, harvest_wait_ms=wait * 1e3)
+            return
+        with self._stats_lock:
+            self._stats["harvest_rounds"] += 1
+            self._stats["harvest_wait_ms"] += wait * 1e3
+            self._stats["harvest_emit_ms"] += (time.monotonic() - now) * 1e3
+        record_stage("engine_harvest_wait", wait)
+        for slot, n in emitted.items():
+            tl = members[slot].stream.timeline
+            if n and tl is not None:
+                tl.event("decode_round", n)
+        self.rounds.complete_part(rec, tokens=sum(emitted.values()),
+                                  harvest_wait_ms=wait * 1e3)
+        # Last: the depth gate opens only once the round is accounted for,
+        # and the serve thread is woken right after.
+        with self._pipe_lock:
+            self._inflight_rounds -= 1
+
+    def _complete_marks(self, wait_s: float) -> None:
+        """Complete the prefill parts of the markers read so far (their
+        chunks ran before the output just read back)."""
+        marks, self._marks = self._marks, []
+        for rec in marks:
+            self.rounds.complete_part(rec, harvest_wait_ms=wait_s * 1e3)
 
     def _drain_completed(self) -> bool:
         """Retire the requests the harvest finished: deactivate each slot
@@ -1448,18 +1897,31 @@ class Engine:
                 self._release(req)
                 did = True
 
-    def _pull_pending(self) -> bool:
-        """Move submitted requests into the backlog and finish the
-        cancelled ones waiting there. True when one was finished."""
+    def _pull_pending(self) -> None:
+        """Move submitted requests into the backlog."""
         while True:
             try:
                 self._backlog.append(self._pending.get_nowait())
             except queue.Empty:
-                break
+                return
+
+    def _cull_backlog(self) -> bool:
+        """Finish the backlog's cancelled requests and drop those past
+        their deadline ("deadline_queue"), every round before a slot or a
+        page is touched. True when one was finished."""
         kept, did = [], False
+        now = time.monotonic()
         for req in self._backlog:
             if req.stream.cancelled:
                 req.stream._finish("cancelled")
+                did = True
+            elif req.deadline_t is not None and now > req.deadline_t:
+                self._bump("deadline_queue_drops")
+                tl = req.stream.timeline
+                if tl is not None:
+                    tl.stage("engine_admit_pickup",
+                             now - req.stream.submit_time)
+                req.stream._finish("deadline_queue")
                 did = True
             else:
                 kept.append(req)
@@ -1498,9 +1960,11 @@ class Engine:
         if gated and self._chunk_behind:
             return RoundPlan(decode_steps=0, active_decodes=len(armed))
         inflight = [PrefillJob(key=r, remaining=len(r.prompt_ids) - r.pf_pos,
-                               seq=r.seq, started=True)
+                               deadline_t=r.deadline_t, seq=r.seq,
+                               started=True)
                     for r in self._slots.values() if not r.prefill_done]
-        backlog = [PrefillJob(key=r, remaining=len(r.prompt_ids), seq=r.seq)
+        backlog = [PrefillJob(key=r, remaining=len(r.prompt_ids),
+                              deadline_t=r.deadline_t, seq=r.seq)
                    for r in self._backlog] if self._free_slots else []
         plan = self._sched.plan_round(
             decode_steps=steps, active_decodes=len(armed), inflight=inflight,
@@ -1510,12 +1974,16 @@ class Engine:
             plan.decode_steps = 0
         return plan
 
-    def _run_chunks(self, chunks) -> tuple[list[_Request], int, bool]:
+    def _run_chunks(self, chunks, rec=None
+                    ) -> tuple[list[_Request], int, bool, list]:
         """Dispatch the plan's prefill grants: a request without a slot is
         admitted first (``_begin_prefill``); admitting stops at pool
         backpressure. Returns (requests armed this round, prompt tokens
-        prefilled, whether any request was admitted or dropped)."""
+        prefilled, whether any request was admitted or dropped, the
+        (request id, tokens) grants dispatched). Each program's estimated
+        bytes (the weights once, its tokens' KV written) go on ``rec``."""
         armed: list[_Request] = []
+        grants: list[tuple[str, int]] = []
         prefilled, admitted = 0, False
         for req, grant in chunks:
             if req.slot < 0:
@@ -1528,10 +1996,16 @@ class Engine:
                 if not ok:         # pool backpressure: stop admitting
                     break
                 admitted = True
-            prefilled += self._advance_prefill(req, grant)
+            n = self._advance_prefill(req, grant)
+            if n:
+                prefilled += n
+                grants.append((req.stream.request_id, n))
+                if rec is not None:
+                    rec.hbm_bytes += (self._param_bytes
+                                      + n * self._kv_bytes_per_token())
             if req.prefill_done:
                 armed.append(req)
-        return armed, prefilled, admitted
+        return armed, prefilled, admitted, grants
 
     def _prefix_lookup(self, req: _Request):
         """Match the prompt's full blocks against the prefix cache and
@@ -1614,19 +2088,41 @@ class Engine:
             mask[np.asarray(req.prompt_ids[:start_tok], np.int64)] = True
             seen0 = pack_mask_np(mask)
         req.pf = {"row": row, "start_tok": start_tok, "hashes": hashes,
-                  "k_use": k_use, "seen0": seen0,
+                  "k_use": k_use, "seen0": seen0, "dispatch_s": 0.0,
                   "seed": ((self.cfg.seed << 32)
                            ^ (next(self._step_counter) << 16)
                            ^ req.params.random_seed)}
+        # The queue wait, and the slack left at admission after the
+        # modeled prefill of the uncached suffix (clamped at 0).
+        now = time.monotonic()
+        qwait = now - req.stream.submit_time
+        record_stage("engine_admit_pickup", qwait)
+        if req.deadline_t is not None:
+            slack = (req.deadline_t - now) - self._sched.cost.prefill_s(
+                len(req.prompt_ids) - start_tok)
+            record_stage("sched_slack", max(slack, 0.0))
+        tl = req.stream.timeline
+        if tl is not None:
+            tl.stage("engine_admit_pickup", qwait)
+            tl.annotate(slot=req.slot, pages_held=len(req.pages),
+                        prefix_hit_tokens=start_tok)
         self._slots[req.slot] = req
         self._bump("prefills")
         return True
 
     def _abort_prefill(self, req: _Request, finish: str) -> None:
-        """Retire a request between chunks (cancelled). Its slot was
-        never armed on the device, so only the host bookkeeping goes."""
+        """Retire a request between chunks (cancelled, or past its
+        deadline): its slot was never armed on the device, so only the
+        host bookkeeping goes; its pages and prefix-cache refs return. Its
+        earlier chunks' round records complete at the flush posted here,
+        as no output of the request will follow them."""
         req.pf = None
         self._retire(req, finish)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._post(("flush", {}, event, 0, None))
 
     def _advance_prefill(self, req: _Request, grant: int) -> int:
         """Admission, second half, once per round: run one prefill program
@@ -1636,9 +2132,18 @@ class Engine:
         ``_chunk_final_body`` for the prompt's last tokens, which arms the
         slot). Returns the prompt tokens prefilled."""
         pf = req.pf
-        if req.pf_pos > pf["start_tok"] and req.stream.cancelled:
-            self._abort_prefill(req, "cancelled")
-            return 0
+        if req.pf_pos > pf["start_tok"]:
+            # Between chunks only: a started admission's first program
+            # runs, and the harvest notices a cancel or a deadline at the
+            # first token.
+            if req.stream.cancelled:
+                self._abort_prefill(req, "cancelled")
+                return 0
+            if req.deadline_t is not None \
+                    and time.monotonic() > req.deadline_t:
+                self._bump("deadline_stops")
+                self._abort_prefill(req, "deadline")
+                return 0
         total, page = len(req.prompt_ids), self.cfg.page_size
         n = min(grant, total - req.pf_pos, self._buckets[-1])
         final = req.pf_pos + n >= total
@@ -1652,6 +2157,7 @@ class Engine:
                               pf["seen0"] if seeding else None)
         if final:
             self._admit_gen.manual_seed(pf["seed"])
+        t0 = time.monotonic()
         if final and req.pf_pos == 0:
             self._replay(self._admit_graphs, self._admit_body, C, req.greedy)
         elif final:
@@ -1664,6 +2170,7 @@ class Engine:
             self._replay(self._extend_graphs, self._chunk_extend_body, C,
                          mode)
             self._bump("prefill_chunks")
+        pf["dispatch_s"] += time.monotonic() - t0
         self._bump("prefill_dispatches")
         req.pf_pos += n
         if final:
@@ -1685,6 +2192,11 @@ class Engine:
         token is read after the round's dispatches)."""
         pf = req.pf
         self._register_prefix(req, pf["hashes"], pf["k_use"])
+        # The host's dispatch time over every program of the admission.
+        record_stage("engine_admit_dispatch", pf["dispatch_s"])
+        if req.stream.timeline is not None:
+            req.stream.timeline.stage("engine_admit_dispatch",
+                                      pf["dispatch_s"])
         req.pf = None
         req.prefill_done = True
 
@@ -1729,14 +2241,17 @@ class Engine:
             src = src.pin_memory()
         dst.copy_(src, non_blocking=True)
 
-    def _dispatch_round(self, steps: int) -> None:
+    def _dispatch_round(self, steps: int, rec=None) -> None:
         """Run one ``steps``-step decode round over the armed slots, start
         its tokens' copy to the host and post it for the harvest. Under
         the fused tail the armed slots, sorted and padded with B, are
         staged into ``act_idx`` first, and the round samples the smallest
         rung of rows that holds them. Every slot active on the device
         when the round runs is armed: a chunk program that arms a slot in
-        this serve step runs after the round."""
+        this serve step runs after the round. ``rec`` gets the round's
+        slots, the pages its steps read and its estimated bytes: the
+        weights once per step, and each slot's live pages (at its host
+        position bound before the round) per step."""
         members = self._armed()
         greedy = all(r.greedy for r in members.values())
         B = self.cfg.max_slots
@@ -1747,6 +2262,14 @@ class Engine:
             self._host_to_device(self._state["act_idx"], act)
         toks = self._decode_round(steps, greedy, ba)
         buf = self._ring.copy(toks, self._alive)
+        if rec is not None:
+            page = self.cfg.page_size
+            pages = sum(_ceil_div(r.proj_pos + 1, page)
+                        for r in members.values())
+            rec.decode_slots = len(members)
+            rec.pages_touched += pages * steps
+            rec.hbm_bytes += steps * (
+                self._param_bytes + pages * page * self._kv_bytes_per_token())
         for req in members.values():
             req.proj_pos = min(req.proj_pos + steps, req.extent - 1)
         with self._pipe_lock:
@@ -1755,7 +2278,7 @@ class Engine:
         with self._stats_lock:
             self._stats["dispatch_depth_peak"] = max(
                 self._stats["dispatch_depth_peak"], depth)
-        self._post(("round", members, buf, steps))
+        self._post(("round", members, buf, steps, rec))
         self._chunk_behind = False
         self._bump("decode_rounds")
         self._bump("decode_steps", steps)
@@ -1775,6 +2298,10 @@ class Engine:
         self._bump("tokens_generated")
         if req.stream.first_token_time is None:
             req.stream.first_token_time = now
+            ttft = now - req.stream.submit_time
+            record_stage("engine_ttft", ttft)
+            if req.stream.timeline is not None:
+                req.stream.timeline.stage("engine_ttft", ttft)
         finish: Optional[str] = None
         if token == self.tokenizer.eos_id and not req.params.ignore_eos:
             finish = "eos"
@@ -1782,6 +2309,13 @@ class Engine:
             finish = "length"
         if req.stream.cancelled and finish is None:
             finish = "cancelled"
+        elif (finish is None and req.deadline_t is not None
+                and time.monotonic() > req.deadline_t):
+            # Past the deadline mid-generation: the tokens delivered stand,
+            # this one's text is not emitted, and the request retires like
+            # a host-detected finish.
+            finish = "deadline"
+            self._bump("deadline_stops")
         elif finish != "eos":  # the eos token itself is not emitted as text
             req.stream._put_chunk(req.stop.feed(req.detok.push(token)))
             if req.stop.stopped:

@@ -1,2 +1,3 @@
-"""HTTP serving surface of the port: OpenAI-style ``/v1/completions`` and
-``/health`` over one engine."""
+"""HTTP serving surface of the port: the model server's OpenAI-style
+routes, ``/v1/score``, ``/health``, ``/metrics``, the ``/debug/*`` and
+``/control/incident`` routes and the profiler routes over one engine."""

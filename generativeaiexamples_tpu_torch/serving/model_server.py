@@ -15,10 +15,19 @@ The geometry is the registry model's, overridden by the directory's
 ``config.json`` where it has one. Without a path the server makes random
 weights on the device from ``--seed`` and serves the byte tokenizer.
 
-Routes: ``/health`` (with the weight and KV quantization modes),
-``POST /v1/completions`` (``serving/openai_api.py``) and
-``POST /v1/score`` (per-token NLL and perplexity of a text or token list,
-``models/llama.py`` ``score``).
+Routes: ``/health`` (with the weight and KV quantization modes); the
+OpenAI routes of ``serving/openai_api.py`` (``/v1/completions``,
+``/v1/chat/completions``, ``/v1/models``, ``/v1/embeddings``: 501, no
+embedder yet); ``POST /v1/score`` (per-token NLL and perplexity of a text
+or token list, ``models/llama.py`` ``score``); ``/metrics`` (Prometheus
+text: the engine's stats as ``engine_*`` gauges, the round metrics, the
+stage histograms, the request timers, the process gauges);
+``/debug/requests`` (flight-recorder timelines), ``/debug/rounds`` (round
+records), ``/debug/history``, ``/debug/alerts``, ``/debug/incidents`` and
+``POST /control/incident`` (the retained telemetry, inert with
+``HISTORY_INTERVAL_S=0``); ``POST /profiler/start`` (body ``{"dir": ...}``)
+and ``POST /profiler/stop``, a ``torch.profiler`` session whose Chrome
+trace lands in that directory.
 """
 
 from __future__ import annotations
@@ -27,6 +36,9 @@ import argparse
 import asyncio
 import dataclasses
 import os
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Union
 
 import numpy as np
@@ -40,9 +52,18 @@ from ..models.configs import (LlamaConfig, config_for_checkpoint,
 from ..models.import_hf import (LOADABLE_FORMATS, UNSUPPORTED_WHY,
                                 detect_checkpoint_format, load_checkpoint)
 from ..models.tokenizer import get_tokenizer
+from ..obs import alerts as obs_alerts
+from ..obs import flight as obs_flight
+from ..obs import history as obs_history
+from ..obs import incidents as obs_incidents
+from ..obs import metrics as obs_metrics
+from ..obs import rounds as obs_rounds
 from ..ops.quant import MODES, quantize_params, weight_mode
 from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, UnsupportedFormatError
+from ..utils.logging import bootstrap_logging, get_logger, write_pid_file
+
+logger = get_logger(__name__)
 
 
 def awq_group(cfg: LlamaConfig) -> int:
@@ -183,10 +204,105 @@ def add_score_route(app: web.Application, engine: Engine,
     app.router.add_post("/v1/score", score)
 
 
+def add_profiler_routes(app: web.Application, engine: Engine) -> None:
+    """Mount ``POST /profiler/start`` and ``/profiler/stop``: one
+    ``torch.profiler`` session at a time, recording CPU activity and, when
+    the engine runs on the card, CUDA activity. Start (body
+    ``{"dir": ...}``, default ``generativeaiexamples_tpu_torch/profile``
+    under the temporary directory) answers 409 while a session runs; stop
+    writes the session's Chrome trace into that directory and answers 409
+    when none runs. Both run on one profiler thread, off the event loop,
+    bounded by ``PROFILER_TIMEOUT_S`` (default 120): past it they answer
+    504 and keep the session's claim, which a later stop clears."""
+    import torch.profiler as tprof
+
+    state: dict = {"dir": None, "prof": None}
+    worker = ThreadPoolExecutor(1, thread_name_prefix="profiler")
+    timeout_s = float(os.environ.get("PROFILER_TIMEOUT_S", "120"))
+
+    def start(trace_dir: str) -> None:
+        activities = [tprof.ProfilerActivity.CPU]
+        if engine.device.type == "cuda":
+            activities.append(tprof.ProfilerActivity.CUDA)
+        prof = tprof.profile(activities=activities)
+        prof.start()
+        state["prof"] = prof
+
+    def stop(trace_dir: str) -> str:
+        prof, state["prof"] = state["prof"], None
+        if prof is None:
+            raise RuntimeError("no profiler session is running")
+        prof.stop()
+        path = os.path.join(trace_dir, f"trace-{os.getpid()}-"
+                                       f"{int(time.time() * 1e3)}.json")
+        prof.export_chrome_trace(path)
+        return path
+
+    async def run(fn, *args):
+        return await asyncio.wait_for(
+            asyncio.get_running_loop().run_in_executor(worker, fn, *args),
+            timeout=timeout_s)
+
+    async def profiler_start(request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+        except Exception:  # noqa: BLE001 - an empty body is fine
+            body = {}
+        # No await between the check and the claim: concurrent starts
+        # answer 409 instead of racing into two sessions.
+        if state["dir"]:
+            raise web.HTTPConflict(text="profiler already running")
+        trace_dir = (body or {}).get("dir") or os.path.join(
+            tempfile.gettempdir(), "generativeaiexamples_tpu_torch",
+            "profile")
+        state["dir"] = trace_dir
+        try:
+            os.makedirs(trace_dir, exist_ok=True)
+            await run(start, trace_dir)
+        except asyncio.TimeoutError:
+            # The start may still land on its thread: keep the claim.
+            raise web.HTTPGatewayTimeout(
+                text=f"profiler start exceeded {timeout_s}s; trace state "
+                     f"unknown — POST /profiler/stop to clean up")
+        except Exception:
+            state["dir"] = None
+            raise
+        return web.json_response({"status": "tracing", "dir": trace_dir})
+
+    async def profiler_stop(request: web.Request) -> web.Response:
+        if not state["dir"]:
+            raise web.HTTPConflict(text="profiler not running")
+        try:
+            path = await run(stop, state["dir"])
+        except asyncio.TimeoutError:
+            # Keep the claim: the stop may still land, and a retry cleans
+            # up; a new start must not race it.
+            raise web.HTTPGatewayTimeout(
+                text=f"profiler stop exceeded {timeout_s}s; retry to "
+                     f"attempt cleanup")
+        except Exception as exc:  # noqa: BLE001 - nothing to stop
+            state["dir"] = None
+            raise web.HTTPConflict(
+                text=f"profiler stop failed: {exc}") from exc
+        trace_dir, state["dir"] = state["dir"], None
+        return web.json_response({"status": "written", "dir": trace_dir,
+                                  "trace": path})
+
+    async def _shutdown(_app) -> None:
+        worker.shutdown(wait=False)
+
+    app.router.add_post("/profiler/start", profiler_start)
+    app.router.add_post("/profiler/stop", profiler_stop)
+    app.on_cleanup.append(_shutdown)
+
+
 def create_server_app(engine: Engine,
                       model_name: str = "model") -> web.Application:
-    """One app: ``/health``, the OpenAI completions route and
-    ``/v1/score``."""
+    """One app over one engine: ``/health``, the OpenAI routes,
+    ``/v1/score``, ``/metrics``, the ``/debug/*`` and ``/control/incident``
+    routes and the profiler routes (see the module docstring). The
+    retained telemetry's sampler starts with the app and stops at its
+    cleanup, as does the engine."""
     from .openai_api import add_openai_routes
 
     app = web.Application()
@@ -198,15 +314,68 @@ def create_server_app(engine: Engine,
              "kv_quant": engine.cfg.kv_quant,
              "engine": dict(engine.stats)})
 
+    def _mirror_engine_stats() -> None:
+        obs_metrics.record_engine_stats(engine.stats)
+
+    async def metrics_endpoint(request: web.Request) -> web.Response:
+        # Scrape-time pull: every numeric stats key as an engine_* gauge,
+        # plus the process gauges. A scrape never answers 500.
+        try:
+            _mirror_engine_stats()
+        except Exception:  # noqa: BLE001
+            logger.debug("engine stats unavailable", exc_info=True)
+        obs_metrics.record_process_stats()
+        return web.Response(text=obs_metrics.REGISTRY.render_prometheus(),
+                            content_type="text/plain")
+
+    async def debug_requests(request: web.Request) -> web.Response:
+        return obs_flight.debug_requests_response(request, engine.flight)
+
+    async def debug_rounds(request: web.Request) -> web.Response:
+        return obs_rounds.debug_rounds_response(request, engine.rounds)
+
+    # History, alerts and incident bundles as one unit; engine stats and
+    # process gauges go into every sample, so alerts see them between
+    # scrapes.
+    obs_stack = obs_incidents.ObservabilityStack(
+        "model", pre_sample=[_mirror_engine_stats,
+                             obs_metrics.record_process_stats],
+        flight=engine.flight, rounds=engine.rounds)
+
+    async def debug_history(request: web.Request) -> web.Response:
+        return obs_history.debug_history_response(request, obs_stack.history)
+
+    async def debug_alerts(request: web.Request) -> web.Response:
+        return obs_alerts.debug_alerts_response(request, obs_stack.alerts)
+
+    async def debug_incidents(request: web.Request) -> web.Response:
+        return obs_incidents.debug_incidents_response(request, obs_stack)
+
+    async def control_incident(request: web.Request) -> web.Response:
+        return await obs_incidents.control_incident_response(request,
+                                                             obs_stack)
+
+    async def _obs_start(_app) -> None:
+        obs_stack.start()
+
+    async def _cleanup(_app) -> None:
+        obs_stack.stop()
+        engine.stop()
+
     app.router.add_get("/health", health)
+    app.router.add_get("/metrics", metrics_endpoint)
+    app.router.add_get("/debug/requests", debug_requests)
+    app.router.add_get("/debug/rounds", debug_rounds)
+    app.router.add_get("/debug/history", debug_history)
+    app.router.add_get("/debug/alerts", debug_alerts)
+    app.router.add_get("/debug/incidents", debug_incidents)
+    app.router.add_post("/control/incident", control_incident)
     add_openai_routes(app, engine, model_name,
                       max_output=engine.cfg.max_output_length)
     add_score_route(app, engine, model_name)
-
-    async def _stop_engine(_app) -> None:
-        engine.stop()
-
-    app.on_cleanup.append(_stop_engine)
+    add_profiler_routes(app, engine)
+    app.on_startup.append(_obs_start)
+    app.on_cleanup.append(_cleanup)
     return app
 
 
@@ -257,6 +426,13 @@ def main(argv: Optional[list[str]] = None) -> None:
                                   seed=args.seed, device=args.device,
                                   quantization=args.quantization,
                                   model_path=args.model_path)
+    bootstrap_logging()
+    pid_path = write_pid_file(f"model-server-{args.port}")
+    if pid_path:
+        logger.info("pid file: %s", pid_path)
+    # Serve a worst-case request through the real loop before taking
+    # traffic; the pool shrinks if the card runs out of memory.
+    engine.prewarm()
     engine.start()
     web.run_app(create_server_app(engine, name), host=args.host,
                 port=args.port)

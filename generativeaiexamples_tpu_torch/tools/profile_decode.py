@@ -620,7 +620,7 @@ def measure_decode(engine, slots: int, prompt_len: int, rounds: int,
         deadline = time.monotonic() + 600
         in_step = 0.0
         while (engine.stats["decode_rounds"] < target
-               or engine.stats["inflight_rounds"]):
+               or engine.stats["dispatch_queue_depth"]):
             if time.monotonic() > deadline:
                 raise RuntimeError("decode rounds did not finish in 600 s")
             engine._wake.clear()

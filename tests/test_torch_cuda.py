@@ -1124,3 +1124,62 @@ def test_fused_sampled_rounds_replay_like_eager(dev):
     a = runs[True][0]
     rounds = [tuple(a[1 + 8 * r:9 + 8 * r]) for r in range(4)]
     assert len(set(rounds)) == 4, rounds
+
+
+@pytest.mark.cuda
+def test_prewarm_shrinks_the_pool_on_a_real_out_of_memory(dev):
+    """With less free card memory than prewarm's 256 MiB headroom,
+    prewarm runs out of memory for real, shrinks the pool by the
+    reference's rule and rebuilds at that size: the old pool's memory is
+    released (the allocated bytes drop by the pages given up, so the
+    rebuild does not run out on memory that is unreachable but still
+    held), and the engine serves."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LlamaConfig
+    # 16 KiB of bf16 KV per token: a 1 GiB pool over 16 slots.
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=1024,
+                      intermediate_size=2816, num_layers=4, num_heads=16,
+                      num_kv_heads=16, head_dim=64,
+                      max_position_embeddings=4096)
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    engine = _engine_on(dev, params, cfg, max_slots=16,
+                        max_input_length=1024, max_output_length=3072,
+                        prefill_buckets=(64, 256), max_prefill_bucket=256,
+                        page_size=128, kv_pool_tokens=None)
+    pages0 = engine.stats["pool_pages"]
+    page_bytes = 128 * engine._kv_bytes_per_token()
+    assert pages0 * page_bytes == 1 << 30
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    # Fill the card by what it really hands out (blocks of falling size
+    # until each runs out), then free 160 MiB of it: less than the 256
+    # MiB headroom, more than it once a fifth of the pool is given up.
+    filler = []
+    for size in (1 << 30, 64 << 20, 4 << 20):
+        while True:
+            try:
+                filler.append(torch.empty((size,), dtype=torch.uint8,
+                                          device=dev))
+            except torch.cuda.OutOfMemoryError:
+                break
+    freed = 0
+    while freed < 160 << 20:
+        freed += filler.pop().numel()
+    try:
+        before = torch.cuda.memory_allocated(dev)
+        engine.prewarm()
+        after = torch.cuda.memory_allocated(dev)
+        pages = engine.stats["pool_pages"]
+        assert pages in (int(pages0 * 0.8), int(int(pages0 * 0.8) * 0.8)), (
+            pages0, pages, torch.cuda.mem_get_info(dev))
+        assert before - after >= 0.9 * (pages0 - pages) * page_bytes, (
+            before, after)
+        streams = _drive(engine, [_PROMPTS[3]],
+                         [SamplingParams(max_tokens=8, top_k=1,
+                                         ignore_eos=True)])
+        assert len(streams[0].token_ids) == 8
+        assert engine._fatal is None and engine.stats["requests"] == 1
+    finally:
+        del filler
+        engine.stop()

@@ -313,7 +313,9 @@ def test_port_imports_no_jax():
     package ends up loaded, nor any package the card's machine lacks:
     safetensors, transformers, tokenizers, sentencepiece, orbax (the
     port reads checkpoints and vocabularies with its own code, and
-    imports ``tokenizers`` only when a tokenizer.json is asked for)."""
+    imports ``tokenizers`` only when a tokenizer.json is asked for),
+    opentelemetry (imported only once tracing is switched on) and psutil
+    (the process gauges read /proc)."""
     code = r"""
 import importlib, pkgutil, sys
 import generativeaiexamples_tpu_torch as pkg
@@ -322,7 +324,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 roots = ("jax", "generativeaiexamples_tpu", "safetensors", "transformers",
-         "tokenizers", "sentencepiece", "orbax")
+         "tokenizers", "sentencepiece", "orbax", "opentelemetry", "psutil")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
 print(len(names), bad)
 assert len(names) >= 20, names

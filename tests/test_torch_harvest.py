@@ -158,7 +158,7 @@ def test_depths_give_the_same_tokens_and_finishes(golden, stop_word, depth,
     assert stop_word not in base[1].text() and len(base[1].token_ids) < 30
     assert all(s.token_times == sorted(s.token_times) for s in got)
     assert st["prefill_chunks"] >= 3 and st["prefix_cache_hits"] >= 1
-    assert st["inflight_rounds"] == 0 and st["active_slots"] == 0
+    assert st["dispatch_queue_depth"] == 0 and st["active_slots"] == 0
     assert st["free_pages"] == st["pool_pages"]
     if stall:
         assert st["dispatch_depth_peak"] == depth
@@ -179,7 +179,7 @@ def test_a_full_pipeline_queues_one_chunk_step_between_rounds(golden):
 
     def run(depth):
         eng = _engine(golden, depth)
-        plans = []
+        plans, box = [], {}
         plan_round = eng._plan_round
 
         def recorded():
@@ -192,10 +192,18 @@ def test_a_full_pipeline_queues_one_chunk_step_between_rounds(golden):
             return plan
 
         eng._plan_round = recorded
+
+        def arrive():
+            box["b"] = eng.submit(tok.encode(LONG + " " + LONG),
+                                  SamplingParams(max_tokens=8, **greedy))
+
         if depth > 1:
             # Each harvest waits (up to 0.3 s) for a full pipeline and
             # then three more plans, so the serve thread keeps meeting a
-            # shut gate.
+            # shut gate. The long prompt arrives during such a hold, once
+            # the stream has tokens, and the hold lasts until the serve
+            # thread planned with it: it meets a shut gate whatever the
+            # machine's speed.
             real = eng._harvest
 
             def held(item):
@@ -203,21 +211,32 @@ def test_a_full_pipeline_queues_one_chunk_step_between_rounds(golden):
                 while ((eng._inflight_rounds < depth or len(plans) < n0 + 3)
                        and time.monotonic() < deadline):
                     time.sleep(0.001)
+                a = box.get("a")
+                if ("b" not in box and a is not None
+                        and len(a.token_ids) >= 2
+                        and eng._inflight_rounds >= depth):
+                    arrive()
+                    n0, deadline = len(plans), time.monotonic() + 0.3
+                    while len(plans) < n0 + 2 and time.monotonic() < deadline:
+                        time.sleep(0.001)
                 real(item)
 
             eng._harvest = held
         with eng:
-            a = eng.submit(tok.encode("Continuous batching admits"),
-                           SamplingParams(max_tokens=40, **greedy))
+            a = box["a"] = eng.submit(tok.encode("Continuous batching admits"),
+                                      SamplingParams(max_tokens=40, **greedy))
             deadline = time.monotonic() + TIMEOUT
             while len(a.token_ids) < 2:
                 assert time.monotonic() < deadline, "no tokens"
                 time.sleep(0.002)
-            b = eng.submit(tok.encode(LONG + " " + LONG), SamplingParams(
-                max_tokens=8, **greedy))
-            for s in (a, b):
+            if depth == 1:
+                arrive()
+            while "b" not in box:
+                assert time.monotonic() < deadline, "the prompt never arrived"
+                time.sleep(0.002)
+            for s in (a, box["b"]):
                 _within(TIMEOUT, s.text)
-        return [a.token_ids, b.token_ids], plans, eng.stats
+        return [a.token_ids, box["b"].token_ids], plans, eng.stats
 
     want, _, _ = run(1)
     got, plans, st = run(2)
@@ -352,7 +371,7 @@ def test_cancel_with_a_round_in_flight(golden):
     with eng:
         s = box["stream"] = eng.submit(prompt, sp)
         deadline = time.monotonic() + TIMEOUT
-        while len(s.token_ids) < 6 or not eng.stats["inflight_rounds"]:
+        while len(s.token_ids) < 6 or not eng.stats["dispatch_queue_depth"]:
             assert time.monotonic() < deadline, "no round in flight"
             time.sleep(0.002)
         s.cancel()
