@@ -112,7 +112,26 @@ Phases (each fails loudly: a failure exits non-zero and the final
    After the window the greedy chat's text must equal the engine's
    greedy text for the rendered messages, and the sampled chat's text an
    eager engine's (``cuda_graphs=False``) for the same body and seed.
-6. After the traced profiles, the model server's ``/profiler/start`` and
+6. The RAG chatbot (``serve_rag``): the e5-large-v2 embedder (float32,
+   random weights from seed 0 on the card, byte tokenizer) first cut to
+   2 layers against the same numbers on the CPU (8 passages in the 512
+   bucket, a query in the 128 bucket; atol 1e-4, TF32 off), then at 24
+   layers behind the port's chain server with an ``exact-cuda`` store
+   and the reference's defaults (510/200 splitter, top-4, 1500-token
+   context cap), over a 3000-token engine on each served mode's weights.
+   Every ``docs/*.md`` (18 files) goes through ``/uploadDocument``; the
+   search's ids equal the numpy backend's on the stored vectors (near-
+   ties within the bf16 rounding bound are named and allowed); greedy
+   ``/generate`` questions with the knowledge base (launch counts set to
+   0 before and read after, checked as the serve phases' and added to
+   the kernels line) stream the engine's greedy text for the prompt the
+   chain assembled, with ``degraded_total`` unmoved; in bf16 one
+   ``/generate`` through ``OpenAICompatLLM`` against the model server
+   gives the same text, and ``/v1/embeddings`` the service's vector.
+   Prints the ingest rate, the query embed, ``/documentSearch`` and the
+   store's search (also over a seeded 1,000,000 x 1024 corpus) and the
+   ``/generate`` TTFT by the timeline's stages.
+7. After the traced profiles, the model server's ``/profiler/start`` and
    ``/stop`` around one request on the int4 engine write a Chrome trace
    that must name ``paged_decode_split_kernel`` and an int4 kernel.
 
@@ -1425,7 +1444,8 @@ def serve(torch, dev, card: str, quantization: str = "",
         f"V={mcfg.vocab_size}, {n_bytes / 1e9:.2f} GB of weights, pool "
         f"{engine.stats['pool_pages']} pages of {ecfg.page_size}, built in "
         f"{time.monotonic() - t0:.1f} s")
-    base, stop_server = serve_app(create_server_app(engine, name))
+    base, stop_server = serve_app(create_server_app(engine,
+                                                    model_name=name))
     try:
         bodies = [{"prompt": p, "max_tokens": 32, "temperature": 0,
                    "stream": i == 1} for i, p in enumerate(SERVE_PROMPTS)]
@@ -1951,7 +1971,8 @@ def check_profiler_route(engine, mode: str, card: str) -> None:
         create_server_app
 
     trace_dir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
-    base, stop_server = serve_app(create_server_app(engine, "traced"))
+    base, stop_server = serve_app(create_server_app(engine,
+                                                    model_name="traced"))
     try:
         call(base + "/profiler/start", {"dir": trace_dir})
         post(base + "/v1/completions", {"prompt": ENGINE_PROMPT,
@@ -2033,7 +2054,8 @@ def check_golden(torch, dev, card: str, quantization: str = "",
                                   quantization=quantization)
     tok = engine.tokenizer
     mcfg = engine.model_cfg
-    base, stop_server = serve_app(create_server_app(engine, name))
+    base, stop_server = serve_app(create_server_app(engine,
+                                                    model_name=name))
     try:
         post(base + "/v1/completions", {"prompt": "warm", "max_tokens": 2,
                                         "temperature": 0})
@@ -2259,6 +2281,431 @@ def checkpoint_phase(torch, dev, card: str) -> None:
     check_full_width_load(torch, dev, card)
 
 
+# ------------------------------------------------------------- RAG phase
+
+RAG_QUESTIONS = ["How does the chain server stream an answer?",
+                 "What does the router do when a replica drains?",
+                 "How are long prompts admitted beside decoding streams?"]
+RAG_NEW = 32
+# Rows of the seeded corpus the store's search is timed over.
+RAG_BIG_ROWS = 1_000_000
+# Card encoder against the CPU: float32 on both, TF32 off; the sums run
+# in another order (unit vectors, so an absolute bound).
+ENCODER_ATOL = 1e-4
+
+
+def docs_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs")
+
+
+def golden_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "golden_tiny")
+
+
+def upload(base: str, path: str) -> dict:
+    """POST one file to the chain server's /uploadDocument (multipart)."""
+    import urllib.error
+    import urllib.request
+    boundary = os.urandom(12).hex()
+    with open(path, "rb") as f:
+        payload = f.read()
+    data = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\";"
+            f" filename=\"{os.path.basename(path)}\"\r\nContent-Type: "
+            f"text/markdown\r\n\r\n").encode() + payload + \
+        f"\r\n--{boundary}--\r\n".encode()
+    req = urllib.request.Request(base + "/uploadDocument", data=data, headers={
+        "Content-Type": f"multipart/form-data; boundary={boundary}"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        fail(f"/uploadDocument of {path} answered {exc.code}: "
+             f"{exc.read().decode()[:300]}")
+
+
+def stream_generate(base: str, body: dict, rid: str) -> tuple:
+    """(seconds to the first byte, text) of a streamed /generate."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(base + "/generate",
+                                 data=json.dumps(body).encode(), headers={
+                                     "Content-Type": "application/json",
+                                     "X-Request-ID": rid})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            first = resp.read(1)
+            ttfb = time.monotonic() - t0
+            text = (first + resp.read()).decode()
+    except urllib.error.HTTPError as exc:
+        fail(f"/generate answered {exc.code}: {exc.read().decode()[:300]}")
+    return ttfb, text
+
+
+def check_rag_encoder(torch, dev, svc) -> None:
+    """The served encoder (e5-large-v2's geometry, float32, random weights
+    from seed 0 on the card) cut to its first 2 layers, on the card and on
+    the CPU with the same numbers: 8 passages in the 512 bucket and one
+    query in the 128 bucket give the same pooled embeddings."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.embed.encoder import EmbeddingService
+
+    cfg2 = replace(svc.cfg, num_layers=2)
+    cut = {"embed": svc.params["embed"],
+           "layers": {k: v[:2] for k, v in svc.params["layers"].items()}}
+    cpu = {g: {k: v.cpu() for k, v in t.items()} for g, t in cut.items()}
+    card = EmbeddingService(cut, cfg2, svc.tokenizer)
+    host = EmbeddingService(cpu, cfg2, svc.tokenizer)
+    names = sorted(os.listdir(docs_dir()))[:8]
+    passages = []
+    for n in names:
+        with open(os.path.join(docs_dir(), n), encoding="utf-8") as f:
+            passages.append(f.read()[:1500])
+    query = RAG_QUESTIONS[0]
+    if (card.pack([f"passage: {p}" for p in passages]).shape != (2, 8, 512)
+            or card.pack([f"query: {query}"]).shape != (2, 1, 128)):
+        fail("the encoder check's inputs miss the 8 x 512 / 1 x 128 buckets")
+    got = {"passages": card.embed_documents(passages),
+           "query": card.embed_query(query)}
+    want = {"passages": host.embed_documents(passages),
+            "query": host.embed_query(query)}
+    errs = {k: float(abs(got[k] - want[k]).max()) for k in got}
+    ok = all(e <= ENCODER_ATOL for e in errs.values())
+    say(f"rag encoder: e5-large-v2 width (D {cfg2.hidden_size}, F "
+        f"{cfg2.intermediate_size}, H {cfg2.num_heads}) at 2 layers, card "
+        f"vs CPU, float32 with torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}: max abs error passages "
+        f"(8 x 512) {errs['passages']:.3g}, query (1 x 128) "
+        f"{errs['query']:.3g}, tolerance {ENCODER_ATOL}")
+    if not ok:
+        fail(f"the card encoder disagrees with the CPU: {errs}")
+
+
+def check_search_ids(bot, questions) -> None:
+    """The chain's search (``DocumentIndex.similarity_search``, behind
+    /documentSearch) against the numpy backend on the stored float32
+    vectors: equal ids; where they differ, numpy's scores of the
+    card's ids must match numpy's own top-k scores position by position
+    within the bfloat16 rounding bound of the card's product (2^-8 of
+    |q| max|x|: near-ties), and the check says so."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.retrieval.exact import ExactStore
+
+    store, index = bot.index.store, bot.index
+    k = bot.config.retriever.top_k
+    ref = ExactStore(dim=store.dim, backend="numpy")
+    ref.add(store._data[:store._n])
+    for q in questions:
+        vec = np.asarray(index.embedder.embed_query(q), np.float32)
+        got = [d.id for d in index.similarity_search(q, k=k)]
+        hits = ref.search(vec, k=len(store))[0]
+        want = [h.id for h in hits[:k]]
+        if got == want:
+            say(f"rag search: {q!r}: card ids {got} = numpy's")
+            continue
+        exact = {h.id: h.score for h in hits}
+        bound = 2.0 ** -8 * float(np.linalg.norm(vec)) * float(
+            np.linalg.norm(store._data[:store._n], axis=1).max())
+        gap = max(abs(exact[a] - exact[b]) for a, b in zip(got, want))
+        say(f"rag search: {q!r}: card ids {got}, numpy's {want} (sets "
+            f"equal: {set(got) == set(want)}): near-ties, numpy scores "
+            f"differ by at most {gap:.3g} position by position, bf16 "
+            f"bound {bound:.3g}")
+        if len(got) != k or gap > bound:
+            fail(f"/documentSearch ids {got} differ from numpy's {want} "
+                 f"beyond the bf16 rounding bound")
+
+
+def rag_search_times(torch, dev, card: str, store, q) -> None:
+    """The exact-cuda store's search: host clock through ``search`` over
+    the ingested corpus (median of 20), and device time (CUDA events over
+    20 calls) of the matmul + top-k over it and over a seeded 1,000,000 x
+    1024 bfloat16 corpus, beside the byte bound (the base and the live
+    mask read once)."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.retrieval.cuda_search import \
+        search_scores
+
+    host = []
+    for _ in range(20):
+        t0 = time.monotonic()
+        store.search(q, k=4)
+        host.append((time.monotonic() - t0) * 1e3)
+    host.sort()
+    be = store._cuda
+    qd = torch.from_numpy(np.asarray(q, np.float32)[None]).to(dev)
+
+    def device_ms(base, sq, mask):
+        for _ in range(3):
+            search_scores(base, sq, mask, qd, 4, "ip")
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            search_scores(base, sq, mask, qd, 4, "ip")
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / 20
+
+    n = be.base.shape[0]
+    ms = device_ms(be.base, be.sq, be.mask)
+    bound = n * (be.base.shape[1] * 2 + 4) / HBM_BYTES_PER_S * 1e3
+    say(f"rag search: exact-cuda over the ingested {len(store)} chunks "
+        f"({n} padded rows x {be.base.shape[1]}): host clock median "
+        f"{host[10]:.3f} ms (range {host[0]:.3f}-{host[-1]:.3f}), device "
+        f"{ms:.4f} ms, byte bound {bound:.5f} ms [{card}]")
+    N, D = RAG_BIG_ROWS, qd.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    big = torch.randn((N, D), generator=gen, device=dev)
+    big /= big.norm(dim=1, keepdim=True)
+    sq = torch.ones(N, device=dev)
+    base = big.to(torch.bfloat16)
+    del big
+    mask = torch.ones(N, device=dev)
+    ms = device_ms(base, sq, mask)
+    bound = N * (D * 2 + 4) / HBM_BYTES_PER_S * 1e3
+    say(f"rag search: {N:,} x {D} bf16 corpus (seed 0, "
+        f"{base.numel() * 2 / 2 ** 30:.2f} GiB): device {ms:.4f} ms per "
+        f"query (matmul + top-4), byte bound {bound:.4f} ms "
+        f"({bound / ms:.0%}) [{card}]")
+    del base, sq, mask
+    torch.cuda.empty_cache()
+
+
+def rag_stage_times(base: str, mode: str, card: str) -> None:
+    """/generate TTFT through the chain server (client's first byte),
+    split by the request timeline's stages; median of 3 KB requests."""
+    rows = []
+    for i in range(3):
+        rid = f"rag-ttft-{mode.split()[0]}-{i}"
+        ttfb, _ = stream_generate(base, {
+            "question": RAG_QUESTIONS[i], "use_knowledge_base": True,
+            "num_tokens": 4}, rid)
+        _, text = call(base + "/debug/requests?limit=50")
+        tl = next((t for t in json.loads(text)["completed"]
+                   if t["request_id"] == rid), None)
+        if tl is None:
+            fail(f"no completed timeline for {rid}")
+        st = {e["event"]: e["dur_ms"] for e in tl["events"] if "dur_ms" in e}
+        need = ("embedding", "retrieve", "templating", "llm_first_chunk",
+                "engine_ttft")
+        if any(s not in st for s in need):
+            fail(f"the /generate timeline lacks stages: {sorted(st)}")
+        rows.append({"ttfb": ttfb * 1e3, **{s: st[s] for s in need}})
+    med = {k: sorted(r[k] for r in rows)[1] for k in rows[0]}
+    say(f"rag ttft [{mode}]: /generate first byte {med['ttfb']:.1f} ms "
+        f"(median of 3); stages: embedding {med['embedding']:.1f}, "
+        f"retrieve {med['retrieve']:.1f} (embedding included), templating "
+        f"{med['templating']:.2f}, llm_first_chunk "
+        f"{med['llm_first_chunk']:.1f}, engine_ttft "
+        f"{med['engine_ttft']:.1f} ms [{card}]")
+
+
+def serve_rag(torch, dev, card: str, served: list) -> dict:
+    """The RAG chatbot's main path on the card: the e5-large-v2 embedder
+    (float32, seed 0, byte tokenizer; checked against the CPU at 2
+    layers), an ``exact-cuda`` store and the port's chain server over a
+    3000-token engine of each served mode's weights (``served``: (engine,
+    quantization) pairs) with golden-tiny's 32,000-piece vocabulary.
+    Ingests every ``docs/*.md`` through
+    /uploadDocument (once: both modes search the same store), checks
+    /documentSearch against the numpy backend, streams greedy /generate
+    questions with the knowledge base (launch counts set to 0 just before
+    and read just after, by the serve phases' formula), holds each text
+    to the engine's greedy text for the prompt the chain assembled and
+    the degraded counter at 0; in the bf16 mode also one /generate
+    through ``OpenAICompatLLM`` against the model server and one
+    /v1/embeddings. Prints the ingest, embed, search and TTFT times.
+    Returns the launch counts by mode."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.chains.examples.developer_rag \
+        import QAChatbot
+    from generativeaiexamples_tpu_torch.chains.llm import (EngineLLM,
+                                                           OpenAICompatLLM)
+    from generativeaiexamples_tpu_torch.chains.server import create_app
+    from generativeaiexamples_tpu_torch.embed.encoder import get_embedder
+    from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
+                                                       SamplingParams)
+    from generativeaiexamples_tpu_torch.models.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.obs import metrics as obs_metrics
+    from generativeaiexamples_tpu_torch.retrieval.docstore import Document
+    from generativeaiexamples_tpu_torch.serving.model_server import \
+        create_server_app
+    from generativeaiexamples_tpu_torch.utils.app_config import AppConfig
+    from generativeaiexamples_tpu_torch.utils.configuration import from_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    svc = get_embedder("torch-cuda", "e5-large-v2", device=dev)
+    torch.cuda.synchronize()
+    say(f"rag: e5-large-v2 embedder (24 layers, float32, seed 0) built on "
+        f"the card in {time.monotonic() - t0:.1f} s")
+    check_rag_encoder(torch, dev, svc)
+    cfg = from_dict(AppConfig, {"vector_store": {"name": "exact-cuda"}})
+    if (cfg.text_splitter.chunk_size, cfg.text_splitter.chunk_overlap,
+            cfg.retriever.top_k, cfg.retriever.max_context_tokens) != (
+            510, 200, 4, 1500):
+        fail("the chatbot's defaults are not the reference's")
+    upload_dir = tempfile.mkdtemp(prefix="chip_smoke_rag_")
+    # The engines read and write text with a 32,000-piece sentencepiece
+    # vocabulary (golden-tiny's, llama-2's size), so the random weights'
+    # tokens stream as visible text; the byte tokenizer would drop every
+    # id past 258.
+    tok = get_tokenizer(golden_dir())
+    index, out = None, {}
+    for engine0, quantization in served:
+        mode = f"{quantization or 'bf16'} weights, " \
+               f"{engine0.cfg.kv_quant or 'bf16'} KV"
+        ecfg = EngineConfig(max_slots=8, max_input_length=3000,
+                            max_output_length=320, page_size=128,
+                            kv_pool_tokens=8 * (3072 + 320),
+                            dtype="bfloat16", kv_quant=engine0.cfg.kv_quant)
+        if tok.vocab_size != engine0.model_cfg.vocab_size:
+            fail(f"the RAG tokenizer has {tok.vocab_size} pieces, the model "
+                 f"{engine0.model_cfg.vocab_size}")
+        t0 = time.monotonic()
+        engine = Engine(engine0.params, engine0.model_cfg, tok, ecfg,
+                        device=dev)
+        say(f"rag [{mode}]: 3000-token engine built in "
+            f"{time.monotonic() - t0:.1f} s")
+        bot = QAChatbot(llm=EngineLLM(engine), embedder=svc, index=index,
+                        config=cfg, fused_rag=False)
+        base, stop_chain = serve_app(create_app(bot, upload_dir))
+        try:
+            if index is None:
+                index = bot.index
+                names = sorted(n for n in os.listdir(docs_dir())
+                               if n.endswith(".md"))
+                size = sum(os.path.getsize(os.path.join(docs_dir(), n))
+                           for n in names)
+                t0 = time.monotonic()
+                for n in names:
+                    upload(base, os.path.join(docs_dir(), n))
+                ingest_s = time.monotonic() - t0
+                if len(names) != 18 or len(index.sources()) != 18:
+                    fail(f"ingested {index.sources()} of {names}")
+                say(f"rag ingest: {len(names)} docs ({size} bytes) -> "
+                    f"{len(index)} chunks in {ingest_s:.2f} s "
+                    f"({len(index) / ingest_s:.1f} chunks/s) through "
+                    f"/uploadDocument [{card}]")
+                check_search_ids(bot, RAG_QUESTIONS)
+                times = []
+                for _ in range(20):
+                    t1 = time.monotonic()
+                    svc.embed_query(RAG_QUESTIONS[0])
+                    times.append((time.monotonic() - t1) * 1e3)
+                times.sort()
+                ds = []
+                for _ in range(5):
+                    t1 = time.monotonic()
+                    call(base + "/documentSearch",
+                         {"content": RAG_QUESTIONS[0], "num_docs": 4})
+                    ds.append((time.monotonic() - t1) * 1e3)
+                ds.sort()
+                say(f"rag: query embed (1 x 128, 24 layers) median "
+                    f"{times[10]:.2f} ms (range {times[0]:.2f}-"
+                    f"{times[-1]:.2f}, 20 calls); /documentSearch median "
+                    f"{ds[2]:.2f} ms (5 calls) [{card}]")
+                rag_search_times(torch, dev, card, index.store,
+                                 svc.embed_query(RAG_QUESTIONS[0]))
+            # Warm-up (first-use costs), then a cold prefix cache.
+            stream_generate(base, {"question": "warm up",
+                                   "num_tokens": 2}, "rag-warm")
+            engine.stop()
+            engine.clear_prefix_cache()
+            key0 = {k: v for k, v in obs_metrics.REGISTRY.snapshot().items()
+                    if k.startswith("degraded_total")}
+            torch.cuda.synchronize()
+            stats0 = engine.stats
+            zero_launch_counts()
+            texts = [stream_generate(base, {
+                "question": q, "use_knowledge_base": True,
+                "num_tokens": RAG_NEW}, f"rag-{i}")[1]
+                for i, q in enumerate(RAG_QUESTIONS)]
+            torch.cuda.synchronize()
+            run = read_launch_counts(engine, stats0)
+            check_launch_counts(f"[{mode}] rag", run,
+                                engine.model_cfg.num_layers, quantization,
+                                ecfg.kv_quant, head_tiles(engine))
+            key1 = {k: v for k, v in obs_metrics.REGISTRY.snapshot().items()
+                    if k.startswith("degraded_total")}
+            if key1 != key0 or any(t.startswith("[notice]") for t in texts):
+                fail(f"[{mode}] a /generate answer was degraded: {key1}")
+            prompts = []
+            for q in RAG_QUESTIONS:
+                _, text = call(base + "/documentSearch",
+                               {"content": q, "num_docs": 4})
+                docs = [Document(text=h["content"]) for h in json.loads(text)]
+                prompts.append(bot.rag_prompt(docs, q))
+            engine.stop()
+            engine.clear_prefix_cache()
+            for q, prompt, text in zip(RAG_QUESTIONS, prompts, texts):
+                want = engine.generate_text(prompt, SamplingParams(
+                    max_tokens=RAG_NEW, top_k=1,
+                    stop_words=["</s>", "[INST]"]))
+                n_prompt = len(engine.tokenizer.encode(prompt))
+                if text != want:
+                    fail(f"[{mode}] /generate streamed {text!r}; the engine's"
+                         f" greedy text for the chain's prompt is {want!r}")
+                say(f"rag [{mode}]: {q!r}: {n_prompt}-token prompt, "
+                    f"/generate = the engine's greedy text ({len(text)} "
+                    f"chars)")
+            say(f"rag [{mode}]: launches {run['launches']} (int4 by path "
+                f"{run['by_path']}) over {run['decode_steps']} decode steps,"
+                f" {run['prefills']} admissions and "
+                f"{run['prefill_dispatches']} prefill programs")
+            rag_stage_times(base, mode, card)
+            if not quantization:
+                engine.stop()
+                engine.clear_prefix_cache()
+                mbase, stop_model = serve_app(create_server_app(
+                    engine, svc, model_name="llama-2-7b-chat"))
+                remote = QAChatbot(llm=OpenAICompatLLM(mbase), embedder=svc,
+                                   index=index, config=cfg, fused_rag=False)
+                rbase, stop_remote = serve_app(create_app(remote,
+                                                          upload_dir))
+                try:
+                    _, text = stream_generate(rbase, {
+                        "question": RAG_QUESTIONS[0],
+                        "use_knowledge_base": True,
+                        "num_tokens": RAG_NEW}, "rag-remote")
+                    _, emb = call(mbase + "/v1/embeddings", {
+                        "input": [RAG_QUESTIONS[0]],
+                        "input_type": "passage"})
+                finally:
+                    stop_remote()
+                    stop_model()
+                if text != texts[0]:
+                    fail(f"/generate through OpenAICompatLLM gave {text!r}, "
+                         f"in process {texts[0]!r}")
+                vec = np.array(json.loads(emb)["data"][0]["embedding"])
+                err = float(abs(vec - svc.embed_documents(
+                    [RAG_QUESTIONS[0]])[0]).max())
+                if vec.shape != (svc.dim,) or err > 1e-5:
+                    fail(f"/v1/embeddings: shape {vec.shape}, error {err}")
+                say(f"rag [{mode}]: /generate through OpenAICompatLLM "
+                    f"against the model server's /v1/completions = the "
+                    f"in-process text; /v1/embeddings {svc.dim}-d within "
+                    f"{err:.2g} of the service")
+        finally:
+            stop_chain()
+            engine.stop()
+        out[quantization] = run
+        del engine, bot
+        torch.cuda.empty_cache()
+    shutil.rmtree(upload_dir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2318,6 +2765,15 @@ def main() -> int:
     quantized = serve(torch, dev, card, quantization="int4_awq",
                       kv_quant="int8")
     lap("serve_int4")
+    # The RAG chatbot over each mode's weights; its counts join the
+    # mode's in the kernels line.
+    rag = serve_rag(torch, dev, card, [(bf16["profile"][1], ""),
+                                       (quantized["profile"][1],
+                                        "int4_awq")])
+    for run, q in ((bf16, ""), (quantized, "int4_awq")):
+        for key in ("launches", "by_path"):
+            run[key] = {k: n + rag[q][key][k] for k, n in run[key].items()}
+    lap("serve_rag")
     # Last: the first profiler session changes how the card runs graphs.
     traced_profiles(torch, card, [bf16.pop("profile"),
                                   quantized.pop("profile")])

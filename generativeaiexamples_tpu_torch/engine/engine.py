@@ -287,11 +287,14 @@ class TokenStream:
 
     ``request_id`` is the request's end-to-end identity and the key of its
     flight-recorder timeline (``timeline``), which the stream's terminal
-    transition completes through ``_flight``."""
+    transition completes through ``_flight`` unless the timeline was
+    adopted from a serving edge (``owns_timeline`` False: the edge
+    completes it)."""
 
     def __init__(self, request_id: str):
         self.request_id = request_id
         self.timeline: Optional[obs_flight.Timeline] = None
+        self.owns_timeline = True
         self._flight: Optional[obs_flight.FlightRecorder] = None
         self._q: "queue.Queue[tuple[str, object]]" = queue.Queue()
         self._error: Optional[BaseException] = None
@@ -1523,13 +1526,22 @@ class Engine:
 
     def _new_stream(self, request_id: Optional[str], prompt_tokens: int,
                     eff_max: int) -> TokenStream:
-        """The stream and flight timeline of one submission: the recorder
-        begins a fresh timeline under ``request_id`` (minted when None; a
-        duplicate of an in-flight ID gets a ``#N`` suffix), which the
-        stream completes."""
-        tl = self.flight.begin(request_id or obs_flight.mint_request_id(),
-                               fresh=True)
+        """The stream and flight timeline of one submission. Without an
+        explicit ``request_id``, a timeline bound on the calling context
+        (the chain server's request, ``obs_flight.bind``) is adopted by
+        object identity, and the edge completes it; otherwise the
+        recorder begins a fresh timeline under ``request_id`` (minted
+        when None; a duplicate of an in-flight ID gets a ``#N`` suffix),
+        which the stream completes."""
+        tl_ctx = obs_flight.current()
+        if request_id is None and tl_ctx is not None:
+            tl, owns = tl_ctx, False
+        else:
+            tl = self.flight.begin(
+                request_id or obs_flight.mint_request_id(), fresh=True)
+            owns = True
         stream = TokenStream(tl.request_id)
+        stream.owns_timeline = owns
         tl.annotate(prompt_tokens=prompt_tokens, max_tokens=eff_max)
         tl.event("engine_submit")
         stream.timeline = tl
@@ -1539,10 +1551,15 @@ class Engine:
     @staticmethod
     def _resolve_deadline(stream: TokenStream,
                           deadline_t: Optional[float]) -> Optional[float]:
-        """The request's deadline, stamped onto its timeline so
-        /debug/requests shows the budget the request ran against."""
+        """The request's deadline: the explicit argument (the OpenAI
+        surface passes it), else whatever the serving edge armed on an
+        adopted timeline. An explicit deadline is stamped onto an unarmed
+        timeline so /debug/requests shows the budget the request ran
+        against."""
         tl = stream.timeline
-        if deadline_t is not None and tl is not None:
+        if deadline_t is None:
+            return tl.deadline_t if tl is not None else None
+        if tl is not None and tl.deadline_t is None:
             tl.set_deadline((deadline_t - tl.t_start) * 1e3)
             tl.deadline_t = deadline_t
         return deadline_t
@@ -1609,7 +1626,8 @@ class Engine:
         tl = stream.timeline
         if tl is not None:
             tl.annotate(finish="rejected")
-            self.flight.complete(tl)
+            if stream.owns_timeline:
+                self.flight.complete(tl)
         raise SchedulerFullError(
             f"request queue full ({self.cfg.max_queue})") from None
 

@@ -3,7 +3,9 @@
 A copy of the reference package's ``models/configs.py`` decoder configs
 (the port imports nothing from that package). The geometry is the same
 data; only the llama/swiglu/rmsnorm family is served by this slice
-(``models/llama.py`` rejects the others)."""
+(``models/llama.py`` rejects the others). ``EncoderConfig`` and
+``ENCODER_REGISTRY`` are the reference's encoder geometries (e5-large-v2
+and the tiny test encoder), served by ``models/encoder.py``."""
 
 from __future__ import annotations
 
@@ -83,6 +85,25 @@ LLAMA_1B = LlamaConfig(vocab_size=32000, hidden_size=2048,
                        intermediate_size=5632, num_layers=22,
                        num_heads=32, num_kv_heads=4, head_dim=64)
 
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """BERT-style bidirectional encoder (e5-large-v2 geometry)."""
+    vocab_size: int = 30522
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_layers: int = 24
+    num_heads: int = 16
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+
+
+E5_LARGE_V2 = EncoderConfig()
+ENCODER_TINY = EncoderConfig(vocab_size=512, hidden_size=64,
+                             intermediate_size=128, num_layers=2, num_heads=4,
+                             max_position_embeddings=128)
+
 MODEL_REGISTRY: dict[str, LlamaConfig] = {
     "llama-2-7b-chat": LLAMA2_7B,
     "llama-2-13b-chat": LLAMA2_13B,
@@ -94,6 +115,12 @@ MODEL_REGISTRY: dict[str, LlamaConfig] = {
     "llama-tiny": LLAMA_TINY,
     "golden-tiny": GOLDEN_TINY,
     "llama-1b": LLAMA_1B,
+}
+
+ENCODER_REGISTRY: dict[str, EncoderConfig] = {
+    "intfloat/e5-large-v2": E5_LARGE_V2,
+    "e5-large-v2": E5_LARGE_V2,
+    "encoder-tiny": ENCODER_TINY,
 }
 
 

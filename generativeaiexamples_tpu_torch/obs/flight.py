@@ -37,6 +37,7 @@ Exposure:
 
 from __future__ import annotations
 
+import contextvars
 import itertools
 import os
 import threading
@@ -48,6 +49,13 @@ from typing import Any, Optional
 from ..utils.logging import get_logger, log_event
 
 logger = get_logger(__name__)
+
+# The timeline of the request the calling context serves: the chain
+# server binds it around its chain generator, which runs under a copied
+# context (``serving/streaming.py``), so the chain's stages, the embedder
+# and ``Engine.submit`` all reach it without an argument.
+_current: contextvars.ContextVar[Optional["Timeline"]] = \
+    contextvars.ContextVar("flight_timeline", default=None)
 
 _MAX_RID_CHARS = 128
 
@@ -99,6 +107,36 @@ def adopt_deadline_ms(headers: Any,
     if ms is None or ms <= 0:
         return None
     return ms
+
+
+def bind(timeline: Optional["Timeline"]):
+    """Bind ``timeline`` as the current request's; returns the reset
+    token for ``unbind``."""
+    return _current.set(timeline)
+
+
+def unbind(token) -> None:
+    _current.reset(token)
+
+
+def current() -> Optional["Timeline"]:
+    return _current.get()
+
+
+def current_request_id() -> Optional[str]:
+    tl = _current.get()
+    return tl.request_id if tl is not None else None
+
+
+def record_current_stage(name: str, seconds: float) -> None:
+    """Append a stage duration to the bound timeline, if any — the hook
+    ``obs.tracing.record_stage`` fans into, so every ``event_span`` and
+    ``record_stage`` site (the chain's retrieve/templating/llm, the
+    embedder's dispatch, EngineLLM's first chunk) lands on the request's
+    timeline."""
+    tl = _current.get()
+    if tl is not None:
+        tl.stage(name, seconds)
 
 
 class Timeline:
@@ -293,22 +331,34 @@ class FlightRecorder:
     def complete_stream(self, stream) -> None:
         """Completion driven from a terminal ``TokenStream`` transition
         (finish/fail/cancel): stamp the engine's serving measurements
-        into the stream's timeline and complete it."""
+        into the stream's timeline and — when the engine owns it —
+        complete it.
+
+        A stream that ADOPTED a serving edge's timeline
+        (``stream.owns_timeline`` False) must not retire it: a chain may
+        run several engine calls per HTTP request, and the request is
+        over only when the edge completes it. Sub-call stats accumulate
+        instead: ``generated`` sums, ``ttft_ms`` keeps the first
+        sub-call's, ``finish`` tracks the latest, and the duration is
+        left to ``complete()``'s whole-timeline fallback."""
         tl = getattr(stream, "timeline", None)
         if tl is None or tl.done:
             return
         reason = stream.finish_reason or "unknown"
-        tl.meta["generated"] = len(stream.token_ids)
+        owns = getattr(stream, "owns_timeline", True)
+        tl.meta["generated"] = (tl.meta.get("generated") or 0) \
+            + len(stream.token_ids)
         if stream.ttft_ms is not None:
             tl.meta.setdefault("ttft_ms", round(stream.ttft_ms, 2))
         tl.annotate(finish=reason)
-        if stream.finish_time is not None:
+        if owns and stream.finish_time is not None:
             # failed streams have no finish_time; complete() falls back
             # to the timeline's age for the duration SLO
             tl.annotate(duration_ms=round(
                 (stream.finish_time - stream.submit_time) * 1e3, 2))
         tl.event("finish", reason)
-        self.complete(tl)
+        if owns:
+            self.complete(tl)
 
     # ------------------------------------------------------------ queries
 

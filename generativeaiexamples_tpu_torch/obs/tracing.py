@@ -112,9 +112,11 @@ def instrumented(name: str):
 
 
 def record_stage(name: str, seconds: float) -> None:
-    """Report one stage duration to the labeled ``engine_stage_seconds``
-    histogram, so the per-stage breakdown is in every scrape (the engine
-    stamps the request's own timeline beside it)."""
+    """Report one stage duration to the bound request timeline (if any)
+    and to the labeled ``engine_stage_seconds`` histogram, so the
+    per-stage breakdown is in every scrape and in /debug/requests."""
+    from .flight import record_current_stage
+    record_current_stage(name, seconds)
     _metrics.observe_stage(name, seconds)
 
 

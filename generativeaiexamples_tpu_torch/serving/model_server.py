@@ -3,7 +3,7 @@
     python -m generativeaiexamples_tpu_torch.serving llama-2-7b-chat \\
         --port 8000 [--model-path DIR] [--device cuda] [--seed 0] \\
         [--kv-pool-tokens N] [--quantization {int8,int4,int4_awq}] \\
-        [--kv-quant int8]
+        [--kv-quant int8] [--embedder-path DIR | --no-embedder]
 
 With ``--model-path`` (default ``$MODEL_PATH``) ``build_services`` follows
 the reference's order: the tokenizer from the directory
@@ -15,10 +15,15 @@ The geometry is the registry model's, overridden by the directory's
 ``config.json`` where it has one. Without a path the server makes random
 weights on the device from ``--seed`` and serves the byte tokenizer.
 
+The embedder behind ``/v1/embeddings`` (``build_embedder``) is the
+e5-large-v2 checkpoint in ``--embedder-path``, else ``encoder-tiny`` with
+random weights; ``--no-embedder`` serves none (the route then answers
+501).
+
 Routes: ``/health`` (with the weight and KV quantization modes); the
 OpenAI routes of ``serving/openai_api.py`` (``/v1/completions``,
-``/v1/chat/completions``, ``/v1/models``, ``/v1/embeddings``: 501, no
-embedder yet); ``POST /v1/score`` (per-token NLL and perplexity of a text
+``/v1/chat/completions``, ``/v1/models``, ``/v1/embeddings``);
+``POST /v1/score`` (per-token NLL and perplexity of a text
 or token list, ``models/llama.py`` ``score``); ``/metrics`` (Prometheus
 text: the engine's stats as ``engine_*`` gauges, the round metrics, the
 stage histograms, the request timers, the process gauges);
@@ -119,6 +124,19 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
     engine = Engine(params, cfg, tok,
                     dataclasses.replace(engine_cfg, seed=seed), device=dev)
     return engine, model_name
+
+
+def build_embedder(embedder_path: str = "",
+                   device: Union[str, torch.device] = "cuda"):
+    """The model server's embedder on ``device``: the e5-large-v2
+    checkpoint directory ``embedder_path`` (HF BERT safetensors and its
+    tokenizer), else ``encoder-tiny`` with random weights, as the
+    reference's server defaults."""
+    from ..embed.encoder import get_embedder
+    if embedder_path:
+        return get_embedder("torch-cuda", "e5-large-v2",
+                            checkpoint_path=embedder_path, device=device)
+    return get_embedder("torch-cuda", "encoder-tiny", device=device)
 
 
 # The chunk sizes /v1/score accepts (the reference's allowlist: it bounds
@@ -296,9 +314,10 @@ def add_profiler_routes(app: web.Application, engine: Engine) -> None:
     app.on_cleanup.append(_shutdown)
 
 
-def create_server_app(engine: Engine,
+def create_server_app(engine: Engine, embed_service=None,
                       model_name: str = "model") -> web.Application:
-    """One app over one engine: ``/health``, the OpenAI routes,
+    """One app over one engine (and optional embedder): ``/health``, the
+    OpenAI routes,
     ``/v1/score``, ``/metrics``, the ``/debug/*`` and ``/control/incident``
     routes and the profiler routes (see the module docstring). The
     retained telemetry's sampler starts with the app and stops at its
@@ -370,7 +389,7 @@ def create_server_app(engine: Engine,
     app.router.add_get("/debug/alerts", debug_alerts)
     app.router.add_get("/debug/incidents", debug_incidents)
     app.router.add_post("/control/incident", control_incident)
-    add_openai_routes(app, engine, model_name,
+    add_openai_routes(app, engine, model_name, embed_service=embed_service,
                       max_output=engine.cfg.max_output_length)
     add_score_route(app, engine, model_name)
     add_profiler_routes(app, engine)
@@ -412,6 +431,13 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--kv-quant", default="", choices=["", "int8"],
                         help="KV-cache quantization: int8 pool pages + "
                              "per-row bf16 scales")
+    parser.add_argument("--embedder-path", default="",
+                        help="e5-large-v2 checkpoint directory for "
+                             "/v1/embeddings (HF BERT safetensors and its "
+                             "tokenizer); none: encoder-tiny with random "
+                             "weights")
+    parser.add_argument("--no-embedder", action="store_true",
+                        help="serve no embedder (/v1/embeddings: 501)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     args = parser.parse_args(argv)
@@ -426,6 +452,8 @@ def main(argv: Optional[list[str]] = None) -> None:
                                   seed=args.seed, device=args.device,
                                   quantization=args.quantization,
                                   model_path=args.model_path)
+    embed_service = (None if args.no_embedder else
+                     build_embedder(args.embedder_path, device=args.device))
     bootstrap_logging()
     pid_path = write_pid_file(f"model-server-{args.port}")
     if pid_path:
@@ -434,5 +462,5 @@ def main(argv: Optional[list[str]] = None) -> None:
     # traffic; the pool shrinks if the card runs out of memory.
     engine.prewarm()
     engine.start()
-    web.run_app(create_server_app(engine, name), host=args.host,
-                port=args.port)
+    web.run_app(create_server_app(engine, embed_service, name),
+                host=args.host, port=args.port)

@@ -1,7 +1,9 @@
 """OpenAI-style HTTP API over the port's engine — the reference package's
 ``serving/openai_api.py``: ``/v1/completions`` and ``/v1/chat/completions``
 (SSE streams of true deltas, or one JSON body), ``/v1/models``, and
-``/v1/embeddings``, which answers 501 until the port has an embedder.
+``/v1/embeddings`` over an ``embed.EmbeddingService`` (``input_type``
+``passage`` or ``query``, the NeMo retriever's switch; 501 when the
+server has no embedder).
 
 Each generation adopts the caller's ``X-Request-ID`` (or W3C
 ``traceparent`` trace id) as its flight-recorder request ID, minting a
@@ -104,8 +106,9 @@ def render_chat(messages: list[dict]) -> str:
 
 
 def add_openai_routes(app: web.Application, engine, model_name: str,
-                      max_output: int = 512) -> None:
-    """Mount the ``/v1/*`` routes for one engine."""
+                      embed_service=None, max_output: int = 512) -> None:
+    """Mount the ``/v1/*`` routes for one engine (and optional
+    embedder)."""
 
     async def _generate(request: web.Request, kind: str) -> web.StreamResponse:
         body = await request.json()
@@ -208,12 +211,35 @@ def add_openai_routes(app: web.Application, engine, model_name: str,
 
     @instrumented("v1_embeddings")
     async def embeddings(request: web.Request) -> web.Response:
-        raise web.HTTPNotImplemented(text="no embedding model loaded")
+        if embed_service is None:
+            raise web.HTTPNotImplemented(text="no embedding model loaded")
+        body = await request.json()
+        inputs = body.get("input", [])
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        input_type = body.get("input_type", "query")
+        loop = asyncio.get_running_loop()
+        if input_type == "passage":
+            vecs = await loop.run_in_executor(
+                None, embed_service.embed_documents, inputs)
+        else:
+            vecs = await loop.run_in_executor(
+                None, lambda: [embed_service.embed_query(t) for t in inputs])
+        data = [{"object": "embedding", "index": i,
+                 "embedding": [float(x) for x in v]}
+                for i, v in enumerate(vecs)]
+        return web.json_response(
+            {"object": "list", "data": data,
+             "model": body.get("model", "e5-large-v2")})
 
     @instrumented("v1_models")
     async def models(request: web.Request) -> web.Response:
-        return web.json_response({"object": "list", "data": [
-            {"id": model_name, "object": "model", "owned_by": OWNED_BY}]})
+        entries = [{"id": model_name, "object": "model",
+                    "owned_by": OWNED_BY}]
+        if embed_service is not None:
+            entries.append({"id": "embeddings", "object": "model",
+                            "owned_by": OWNED_BY})
+        return web.json_response({"object": "list", "data": entries})
 
     app.router.add_post("/v1/completions", completions)
     app.router.add_post("/v1/chat/completions", chat_completions)

@@ -26,3 +26,28 @@ class EngineError(FrameworkError):
 
 class SchedulerFullError(EngineError):
     """No queue capacity for a new request."""
+
+
+class RetrievalError(FrameworkError):
+    """Vector-store failure. ``reason`` labels which dependency failed
+    (``retrieval`` / ``embed``) for degradation metrics."""
+
+    def __init__(self, *args, reason: str = "retrieval"):
+        super().__init__(*args)
+        self.reason = reason
+
+
+class BreakerOpenError(FrameworkError):
+    """A circuit breaker rejected the call without attempting it
+    (utils/resilience.py). Carries the breaker's name and the cooldown
+    remaining so edges can emit ``Retry-After`` and degradation paths
+    can label their fallback."""
+
+    def __init__(self, *args, breaker: str = "", retry_after_s: float = 0.0):
+        super().__init__(*args)
+        self.breaker = breaker
+        self.retry_after_s = retry_after_s
+
+
+class ChainError(FrameworkError):
+    """Chain-server / example pipeline failure."""

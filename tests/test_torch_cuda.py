@@ -1183,3 +1183,54 @@ def test_prewarm_shrinks_the_pool_on_a_real_out_of_memory(dev):
     finally:
         del filler
         engine.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_exact_cuda_search_on_the_card_matches_its_cpu_path(dev, metric):
+    """The store's device backend on the card gives its CPU path's ids,
+    duplicate rows ordered lowest id first, and -1 past the live rows.
+    Scores: float32 sums of the same bf16 products in another order,
+    atol 1e-5 on unit-scale scores and rtol 1e-6 on the l2 scores of the
+    raw queries (|score| ~ 1e3)."""
+    from generativeaiexamples_tpu_torch.retrieval.cuda_search import \
+        _CudaBackend
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal((300, 1024)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    base[5:10] = base[3]
+    live = np.ones(300, np.uint8)
+    live[[6, 100]] = 0
+    q = np.concatenate([base[[3, 40]], rng.standard_normal(
+        (3, 1024)).astype(np.float32)])
+    card = _CudaBackend(base, live, metric, device=dev)
+    cpu = _CudaBackend(base, live, metric, device="cpu")
+    for k in (1, 5, 12):
+        idx, sc = card.search(q, k)
+        jdx, jsc = cpu.search(q, k)
+        np.testing.assert_array_equal(idx, jdx)
+        np.testing.assert_allclose(sc, jsc, atol=1e-5, rtol=1e-6)
+    assert list(card.search(base[3:4], 5)[0][0]) == [3, 5, 7, 8, 9]
+    small = _CudaBackend(base[:3], None, metric, device=dev)
+    assert list(small.search(base[:1], 5)[0][0][3:]) == [-1, -1]
+
+
+@pytest.mark.cuda
+def test_embedding_service_on_the_card_matches_the_cpu(dev):
+    """encoder-tiny's service on its own stream on the card gives the CPU
+    service's vectors on the same weights (float32, TF32 off: 1e-5)."""
+    from generativeaiexamples_tpu_torch.embed.encoder import EmbeddingService
+    from generativeaiexamples_tpu_torch.models import encoder as enc
+    from generativeaiexamples_tpu_torch.models.configs import ENCODER_TINY
+    from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = enc.init_params(ENCODER_TINY, seed=1, device="cpu")
+    cpu = EmbeddingService(params, ENCODER_TINY, ByteTokenizer())
+    card = EmbeddingService(
+        {g: {k: v.to(dev) for k, v in t.items()} for g, t in params.items()},
+        ENCODER_TINY, ByteTokenizer())
+    texts = [f"passage {i}: " + "word " * i for i in range(40)]
+    np.testing.assert_allclose(card.embed_documents(texts),
+                               cpu.embed_documents(texts), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(card.embed_query("q"), cpu.embed_query("q"),
+                               atol=1e-5, rtol=0)

@@ -237,7 +237,7 @@ def test_completions_round_trip():
     engine, name = build_services(
         "llama-tiny", engine_cfg=EngineConfig(**ENGINE_KW), seed=1,
         device="cpu")
-    app = create_server_app(engine, name)
+    app = create_server_app(engine, model_name=name)
     with serve_app(app) as base:
         def post(body):
             req = urllib.request.Request(
@@ -280,7 +280,7 @@ def test_completions_round_trip_int4_awq_int8_pool():
     w_down = engine.params["layers"]["w_down"]
     assert set(w_down) == {"q4", "gscale"}
     assert w_down["gscale"].shape == (CFG.num_layers, 352 // 32, 128)
-    with serve_app(create_server_app(engine, name)) as base:
+    with serve_app(create_server_app(engine, model_name=name)) as base:
         def post(body):
             req = urllib.request.Request(
                 base + "/v1/completions", data=json.dumps(body).encode(),
@@ -314,8 +314,12 @@ def test_port_imports_no_jax():
     safetensors, transformers, tokenizers, sentencepiece, orbax (the
     port reads checkpoints and vocabularies with its own code, and
     imports ``tokenizers`` only when a tokenizer.json is asked for),
-    opentelemetry (imported only once tracing is switched on) and psutil
-    (the process gauges read /proc)."""
+    opentelemetry (imported only once tracing is switched on), psutil
+    (the process gauges read /proc), requests (the chains' HTTP client
+    is urllib), yaml (imported only to read a YAML config), bs4 and
+    pypdf (imported only to read an HTML or PDF document) and the vector
+    stores' clients, pymilvus and psycopg2 (imported only by their
+    connectors)."""
     code = r"""
 import importlib, pkgutil, sys
 import generativeaiexamples_tpu_torch as pkg
@@ -324,10 +328,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 roots = ("jax", "generativeaiexamples_tpu", "safetensors", "transformers",
-         "tokenizers", "sentencepiece", "orbax", "opentelemetry", "psutil")
+         "tokenizers", "sentencepiece", "orbax", "opentelemetry", "psutil",
+         "requests", "yaml", "bs4", "pypdf", "pymilvus", "psycopg2")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
 print(len(names), bad)
-assert len(names) >= 20, names
+assert len(names) >= 60, names
 assert not bad, bad
 """
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

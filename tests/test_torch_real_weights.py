@@ -197,7 +197,7 @@ def test_checkpoint_server_completions_and_score(golden, monkeypatch):
         assert torch.equal(engine.params[k], params[k])
     want = llama.score(params, CFG, _snippet_ids(tok))[0].double().numpy()
     monkeypatch.setenv("GAIE_MAX_SCORE_TOKENS", "64")
-    with serve_app(create_server_app(engine, name)) as base:
+    with serve_app(create_server_app(engine, model_name=name)) as base:
         status, raw = _post(base + "/v1/completions", {
             "prompt": PROMPTS[0], "max_tokens": 12, "temperature": 0,
             "stream": True})

@@ -141,7 +141,7 @@ def servers(golden, tmp_path_factory):
                    jget(GOLDEN), JConfig(**ENGINE_KW))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("GAIE_RUN_DIR", str(tmp_path_factory.mktemp("port_run")))
-        app = create_server_app(eng, "golden-tiny")
+        app = create_server_app(eng, model_name="golden-tiny")
         mp.setenv("GAIE_RUN_DIR", str(tmp_path_factory.mktemp("ref_run")))
         japp = ref_app(jeng, None, "golden-tiny")
     with _serve(app) as port, _serve(japp) as ref:
@@ -204,6 +204,65 @@ def test_models_and_embeddings_routes(servers):
     assert "no embedding model loaded" in out["port"][2]
     out = _both(servers, "/v1/chat/completions", {"messages": []})
     assert out["port"][0] == out["ref"][0] == 422
+
+
+@pytest.mark.parametrize("input_type", ["passage", "query"])
+def test_embeddings_route_matches_the_reference(input_type):
+    """/v1/embeddings over each package's embedding service on the same
+    seeded encoder-tiny weights: the same body shape, and vectors within
+    1e-5 (the encoders sum in different orders); /v1/models lists the
+    embedder. ``build_embedder`` makes the server's default embedder."""
+    import jax
+    import numpy as np
+    from aiohttp import web
+
+    from generativeaiexamples_tpu.embed.encoder import \
+        EmbeddingService as JEmbed
+    from generativeaiexamples_tpu.models import encoder as jenc
+    from generativeaiexamples_tpu.models.configs import ENCODER_TINY as JENC
+    from generativeaiexamples_tpu.models.tokenizer import ByteTokenizer as JB
+    from generativeaiexamples_tpu.serving.openai_api import \
+        add_openai_routes as ref_routes
+    from generativeaiexamples_tpu_torch.embed.encoder import EmbeddingService
+    from generativeaiexamples_tpu_torch.models import encoder as enc
+    from generativeaiexamples_tpu_torch.models.configs import ENCODER_TINY
+    from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.serving.model_server import \
+        build_embedder
+    from generativeaiexamples_tpu_torch.serving.openai_api import \
+        add_openai_routes
+
+    jparams = jenc.init_params(JENC, jax.random.key(0))
+    params = enc.encoder_params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                           ENCODER_TINY)
+    app, japp = web.Application(), web.Application()
+    add_openai_routes(app, None, "golden-tiny", embed_service=EmbeddingService(
+        params, ENCODER_TINY, ByteTokenizer()))
+    ref_routes(japp, None, "golden-tiny",
+               embed_service=JEmbed(jparams, JENC, JB()))
+    body = {"input": ["The paged KV pool holds pages.", "x"],
+            "input_type": input_type}
+    out = {}
+    with _serve(app) as port, _serve(japp) as ref:
+        for side, base in (("port", port), ("ref", ref)):
+            status, _, text = _call(base + "/v1/embeddings", body)
+            assert status == 200, text
+            out[side] = json.loads(text)
+            status, _, text = _call(base + "/v1/models")
+            assert [m["id"] for m in json.loads(text)["data"]] == [
+                "golden-tiny", "embeddings"]
+        status, _, text = _call(port + "/v1/embeddings", {"input": "one"})
+        assert status == 200 and len(json.loads(text)["data"]) == 1
+    vecs = {side: np.array([d["embedding"] for d in o["data"]])
+            for side, o in out.items()}
+    strip = {side: {**o, "data": [{**d, "embedding": None}
+                                  for d in o["data"]]}
+             for side, o in out.items()}
+    assert strip["port"] == strip["ref"]
+    assert vecs["port"].shape == (2, ENCODER_TINY.hidden_size)
+    np.testing.assert_allclose(vecs["port"], vecs["ref"], atol=1e-5, rtol=0)
+    svc = build_embedder(device="cpu")
+    assert svc.cfg == ENCODER_TINY and svc.device.type == "cpu"
 
 
 def test_request_id_echo_duplicate_suffix_and_timeline(servers):
