@@ -130,7 +130,23 @@ Phases (each fails loudly: a failure exits non-zero and the final
    gives the same text, and ``/v1/embeddings`` the service's vector.
    Prints the ingest rate, the query embed, ``/documentSearch`` and the
    store's search (also over a seeded 1,000,000 x 1024 corpus) and the
-   ``/generate`` TTFT by the timeline's stages.
+   ``/generate`` TTFT by the timeline's stages. That is the host path
+   (``fused_rag=False``); beside it, per mode, the chatbot's default
+   path, fused RAG (``serve_rag_fused``): a chatbot with the default
+   ``fused_rag`` over the same index and engine mirrors the corpus onto
+   the engine (the spec the reference's defaults give: bucket 1664, C
+   542, top-4, over a 1024-row corpus; one captured program per greedy
+   flag, a silent fallback to the host path fails); greedy ``/generate``
+   questions each take a fused admission (``rag_admissions``; launch
+   counts by the same formula, added to the kernels line;
+   ``last_sources`` name ingested files); each question through
+   ``submit_rag`` gives the same tokens, rows and assembled length on
+   the captured programs and on an eager engine; the rows equal a numpy
+   float32 top-4 over the exported vectors (near-ties within float32
+   rounding named), the length a numpy assembly's, and the plain
+   engine's greedy tokens for those assembled ids (cold, one-shot, in
+   the fused bucket) equal the fused ones. Prints the fused TTFT beside
+   the host path's and the fused admission's replay time.
 7. After the traced profiles, the model server's ``/profiler/start`` and
    ``/stop`` around one request on the int4 engine write a Chrome trace
    that must name ``paged_decode_split_kernel`` and an int4 kernel.
@@ -2504,6 +2520,287 @@ def rag_stage_times(base: str, mode: str, card: str) -> None:
         f"{med['templating']:.2f}, llm_first_chunk "
         f"{med['llm_first_chunk']:.1f}, engine_ttft "
         f"{med['engine_ttft']:.1f} ms [{card}]")
+    return med
+
+
+# The reference's chain derives its fused-RAG spec from the configuration
+# (chunk_size + 32 tokens a chunk, a 64-token question bucket, the encoder
+# at 128 tokens): the smoke derives it again to check the chain's.
+RAG_Q_BUCKET = 64
+
+
+def expected_fused_spec(cfg, tok, page: int) -> dict:
+    """The fields of the fused-RAG spec the chain should derive from the
+    reference's defaults, computed here from the template's token counts."""
+    probe = cfg.prompts.rag_template.format(context_str="\x00",
+                                            query_str="\x01")
+    prefix, rest = probe.split("\x00", 1)
+    mid, suffix = rest.split("\x01", 1)
+    lens = [len(tok.encode(prefix, add_bos=True)),
+            len(tok.encode(mid, add_bos=False)),
+            len(tok.encode(suffix, add_bos=False))]
+    sep = len(tok.encode("\n\n", add_bos=False))
+    C, K = cfg.text_splitter.chunk_size + 32, cfg.retriever.top_k
+    budget = min(cfg.retriever.max_context_tokens, K * (C + sep))
+    bucket = -(-(sum(lens) + RAG_Q_BUCKET + budget) // page) * page
+    return {"chunk_tokens": C, "top_k": K, "ctx_budget": budget,
+            "bucket": bucket, "q_bucket": RAG_Q_BUCKET, "enc_bucket": 128}
+
+
+def numpy_assembly(spec, toks: list, rows: list, q_ids: list) -> list:
+    """The prompt ids the fused program should assemble for the retrieved
+    ``rows`` (the chunks' token lists ``toks``): template prefix, the
+    leading chunks that fit the context budget joined by the separator,
+    then the template's middle, the question and its suffix, cut to the
+    bucket."""
+    out, used = list(spec.prefix_ids), 0
+    for rank, r in enumerate(rows):
+        doc = toks[r][:spec.chunk_tokens]
+        if not doc:
+            continue
+        cost = len(doc) + (len(spec.sep_ids) if rank else 0)
+        if used + cost > spec.ctx_budget:
+            break
+        out += (list(spec.sep_ids) if rank else []) + doc
+        used += cost
+    out += list(spec.mid_ids) + list(q_ids) + list(spec.suffix_ids)
+    return out[:spec.bucket]
+
+
+def fused_stage_times(base: str, mode: str, card: str) -> dict:
+    """Fused /generate TTFT through the chain server (client's first
+    byte) and its timeline's stages; median of 3 KB requests."""
+    rows = []
+    for i in range(3):
+        rid = f"rag-fused-ttft-{mode.split()[0]}-{i}"
+        ttfb, _ = stream_generate(base, {
+            "question": RAG_QUESTIONS[i], "use_knowledge_base": True,
+            "num_tokens": 4}, rid)
+        _, text = call(base + "/debug/requests?limit=50")
+        tl = next((t for t in json.loads(text)["completed"]
+                   if t["request_id"] == rid), None)
+        if tl is None:
+            fail(f"no completed timeline for {rid}")
+        st = {e["event"]: e["dur_ms"] for e in tl["events"] if "dur_ms" in e}
+        need = ("llm_first_chunk", "engine_ttft", "engine_admit_dispatch")
+        if any(s not in st for s in need) or "retrieve" in st:
+            fail(f"the fused /generate timeline has stages {sorted(st)}")
+        rows.append({"ttfb": ttfb * 1e3, **{s: st[s] for s in need}})
+    return {k: sorted(r[k] for r in rows)[1] for k in rows[0]}
+
+
+def fused_replay_ms(torch, engine, q_enc, q_llm, q_len) -> tuple:
+    """Device milliseconds of the captured greedy fused admission (CUDA
+    events over 5 replays after one, on the staged inputs of the last
+    fused request, the engine stopped and idle; the replays re-arm that
+    request's retired slot, which is then deactivated) and of its
+    retrieval and assembly alone, captured by themselves (``time_cuda``)."""
+    if engine._slots:
+        fail("the fused replay needs an idle engine")
+    prog = engine._rag_graphs[(True,)]
+    prog.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        prog.replay()
+    b.record()
+    torch.cuda.synchronize()
+    engine._state["active"].fill_(False)
+    fused = engine._fused_rag
+    alone = time_cuda(torch, lambda: fused.assemble(q_enc, q_llm, q_len), 5)
+    return a.elapsed_time(b) / 5, alone
+
+
+# Scores of unit vectors in float32 over D dimensions: two orders of
+# summation differ by at most ~D ulps of 1.
+def f32_tie(D: int) -> float:
+    return D * 2.0 ** -23
+
+
+def serve_rag_fused(torch, dev, card: str, engine, svc, index, cfg,
+                    upload_dir: str, mode: str, quantization: str,
+                    host: dict) -> dict:
+    """The chatbot's default path, fused RAG, on ``engine`` over the
+    ingested ``index``: a ``QAChatbot`` with the default ``fused_rag``
+    mirrors the corpus onto the engine (``_sync_fused_corpus``, what each
+    ingest runs: one fused program per greedy captured over a
+    1024-row corpus) and must be ready, with the spec the reference's
+    defaults give; greedy /generate questions with the knowledge base
+    through its chain server (launch counts set to 0 just before and read
+    just after, by the serve phases' formula; each request a fused
+    admission); then each question through ``submit_rag`` on this engine
+    and on an eager one (``cuda_graphs=False``): equal tokens, rows and
+    assembled lengths, and the /generate text; the rows equal a numpy
+    float32 top-k over the exported corpus vectors for the service's
+    query vector (near-ties within float32 rounding named); the length
+    read back is a numpy assembly's of those rows; the eager engine's
+    plain greedy tokens for those assembled ids (``Engine.submit``, at
+    the fused bucket) equal the fused ones. Prints the fused /generate
+    TTFT beside the host path's (``host``) and the fused admission's
+    replay time. Returns the launch counts."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.chains.examples.developer_rag \
+        import QAChatbot
+    from generativeaiexamples_tpu_torch.chains.llm import EngineLLM
+    from generativeaiexamples_tpu_torch.chains.server import create_app
+    from generativeaiexamples_tpu_torch.engine import Engine, SamplingParams
+
+    tok = engine.tokenizer
+    fbot = QAChatbot(llm=EngineLLM(engine), embedder=svc, index=index,
+                     config=cfg)
+    t0 = time.monotonic()
+    fbot._sync_fused_corpus()
+    sync_s = time.monotonic() - t0
+    spec = fbot._fused_spec
+    want = expected_fused_spec(cfg, tok, engine.cfg.page_size)
+    if not fbot._fused_ready or spec is None:
+        fail(f"[{mode}] fused RAG did not turn on (see the log above)")
+    if {k: getattr(spec, k) for k in want} != want:
+        fail(f"[{mode}] the chain's fused spec {spec} is not {want}")
+    fused = engine._fused_rag
+    if (set(engine._rag_graphs) != {(True,), (False,)}
+            or fused.capacity != 1024 or engine.fused_rag_spec != spec):
+        fail(f"[{mode}] fused programs {sorted(engine._rag_graphs)} over "
+             f"{fused.capacity} rows")
+    ids, vecs, texts = index.export_corpus()
+    say(f"rag fused [{mode}]: spec bucket {spec.bucket}, C "
+        f"{spec.chunk_tokens}, top-{spec.top_k}, budget {spec.ctx_budget}, "
+        f"template {len(spec.prefix_ids)}+{len(spec.mid_ids)}+"
+        f"{len(spec.suffix_ids)} tokens; corpus {len(ids)} rows in "
+        f"{fused.capacity}; sync (tokenize, upload, capture 2 programs) "
+        f"{sync_s:.2f} s, captured programs added "
+        f"{engine.rag_graph_bytes / 2 ** 20:.1f} MiB reserved [{card}]")
+    fbase, stop_chain = serve_app(create_app(fbot, upload_dir))
+    try:
+        stream_generate(fbase, {"question": "warm up", "num_tokens": 2},
+                        "rag-fused-warm")
+        torch.cuda.synchronize()
+        stats0 = engine.stats
+        zero_launch_counts()
+        texts_g, sources = [], []
+        for i, q in enumerate(RAG_QUESTIONS):
+            texts_g.append(stream_generate(fbase, {
+                "question": q, "use_knowledge_base": True,
+                "num_tokens": RAG_NEW}, f"rag-fused-{i}")[1])
+            sources.append(fbot.last_sources)
+        torch.cuda.synchronize()
+        run = read_launch_counts(engine, stats0)
+        check_launch_counts(f"[{mode}] rag fused", run,
+                            engine.model_cfg.num_layers, quantization,
+                            engine.cfg.kv_quant, head_tiles(engine))
+        moved = engine.stats["rag_admissions"] - stats0["rag_admissions"]
+        if moved != len(RAG_QUESTIONS) or run["prefills"] != moved:
+            fail(f"[{mode}] {moved} fused admissions for "
+                 f"{len(RAG_QUESTIONS)} /generate requests")
+        say(f"rag fused [{mode}]: launches {run['launches']} (int4 by path "
+            f"{run['by_path']}) over {run['decode_steps']} decode steps and "
+            f"{moved} fused admissions")
+        names = set(index.sources())
+        for q, src in zip(RAG_QUESTIONS, sources):
+            if len(src) != spec.top_k or not {s["source"] for s in src} \
+                    <= names:
+                fail(f"[{mode}] last_sources for {q!r}: {src}")
+        med = fused_stage_times(fbase, mode, card)
+    finally:
+        stop_chain()
+        engine.stop()
+    say(f"rag fused ttft [{mode}]: /generate first byte {med['ttfb']:.1f} "
+        f"ms (host path {host['ttfb']:.1f}), engine_ttft "
+        f"{med['engine_ttft']:.1f} ms (host path {host['engine_ttft']:.1f}),"
+        f" llm_first_chunk {med['llm_first_chunk']:.1f} (host path "
+        f"{host['llm_first_chunk']:.1f}), admission dispatch on the host "
+        f"{med['engine_admit_dispatch']:.2f} ms; median of 3 [{card}]")
+
+    # The same questions straight through the engines, captured and eager.
+    # The eager engine prefills a plain prompt as the fused program does:
+    # one-shot (its budget pinned high), in the fused bucket, and cold (no
+    # prefix cache: questions that retrieve the same first chunk share a
+    # block, and a hit prefills its rest in a chunk that rounds
+    # differently).
+    eager = Engine(engine.params, engine.model_cfg, tok, replace(
+        engine.cfg, cuda_graphs=False, prefill_buckets=(spec.bucket,),
+        kv_pool_tokens=2 * (engine.cfg.max_cache_len + 128),
+        sched_round_budget_tokens=4096, prefix_cache=False), device=dev)
+    eager.enable_fused_rag(svc.params, svc.cfg, spec)
+    toks = [tok.encode(t, add_bos=False)[:spec.chunk_tokens] for t in texts]
+    toks_c = np.zeros((len(toks), spec.chunk_tokens), np.int32)
+    lens_c = np.array([len(t) for t in toks], np.int32)
+    for i, t in enumerate(toks):
+        toks_c[i, :len(t)] = t
+    eager.set_rag_corpus(vecs, toks_c, lens_c)
+    sp = SamplingParams(max_tokens=RAG_NEW, top_k=1,
+                        stop_words=["</s>", "[INST]"])
+    enc_tok, D = svc.tokenizer, vecs.shape[1]
+    ties = []
+    engine.start()
+    eager.start()
+    for q, text in zip(RAG_QUESTIONS, texts_g):
+        q_ids = tok.encode(q, add_bos=False)
+        enc_ids = enc_tok.encode(f"query: {q}")
+        got = {}
+        for name, e in (("captured", engine), ("eager", eager)):
+            st = e.submit_rag(q_ids, enc_ids, sp)
+            got[name] = (st.text(), st.token_ids, st.source_ids,
+                         st.rag_length)
+        if got["captured"] != got["eager"]:
+            fail(f"[{mode}] {q!r}: captured fused admission gave "
+                 f"{got['captured'][1:]}, eager {got['eager'][1:]}")
+        text_c, tokens, rows, length = got["captured"]
+        if text_c != text:
+            fail(f"[{mode}] {q!r}: /generate streamed {text!r}, submit_rag "
+                 f"{text_c!r}")
+        qvec = np.asarray(svc.embed_query(q), np.float32)
+        scores = vecs @ qvec
+        order = [int(i) for i in np.argsort(-scores, kind="stable")]
+        want_rows = order[:spec.top_k]
+        for a_, b_ in zip(rows, want_rows):
+            if a_ != b_:
+                gap = abs(float(scores[a_]) - float(scores[b_]))
+                if gap > f32_tie(D):
+                    fail(f"[{mode}] {q!r}: on-card rows {rows}, numpy's "
+                         f"{want_rows} (score gap {gap:.3g} > "
+                         f"{f32_tie(D):.3g})")
+                ties.append((q, a_, b_, gap))
+        prompt = numpy_assembly(spec, toks, rows, q_ids)
+        if length != len(prompt):
+            fail(f"[{mode}] {q!r}: assembled length {length}, numpy's "
+                 f"{len(prompt)}")
+        plain = eager.submit(prompt, sp)
+        plain.text()
+        if plain.token_ids != tokens:
+            a_, b_ = tokens, plain.token_ids
+            k = next((j for j, (x, y) in enumerate(zip(a_, b_)) if x != y),
+                     min(len(a_), len(b_)))
+            gap = top2_gap(torch, engine, prompt + a_[:k])
+            fail(f"[{mode}] {q!r}: fused token {k} differs from the plain "
+                 f"engine's for the assembled {len(prompt)} ids: {a_} vs "
+                 f"{b_} (top-2 logit gap there {gap})")
+        say(f"rag fused [{mode}]: {q!r}: rows {rows} = numpy's top-"
+            f"{spec.top_k}{' (near-ties named below)' if ties else ''}; "
+            f"assembled {length} tokens = numpy's; captured = eager = "
+            f"plain engine on those ids ({len(tokens)} tokens), = /generate")
+    for q, a_, b_, gap in ties:
+        say(f"rag fused [{mode}]: near-tie for {q!r}: rows {a_} and {b_} "
+            f"score within {gap:.3g} (float32 bound {f32_tie(D):.3g})")
+    eager.stop()
+    engine.stop()
+    del eager
+    # The fused admission's device time on the captured program.
+    x = engine._rag_in[1]
+    Se, Sq = spec.enc_bucket, spec.q_bucket
+    total, alone = fused_replay_ms(torch, engine, x[:2 * Se].view(2, Se),
+                                   x[2 * Se:2 * Se + Sq], x[-1:])
+    say(f"rag fused [{mode}]: the fused admission replays in {total:.3f} ms "
+        f"device (bucket {spec.bucket}: embed, top-{spec.top_k} over "
+        f"{fused.capacity} rows, assembly, prefill, insert), retrieval and "
+        f"assembly alone {alone:.3f} ms [{card}]")
+    torch.cuda.empty_cache()
+    return run
 
 
 def serve_rag(torch, dev, card: str, served: list) -> dict:
@@ -2663,7 +2960,10 @@ def serve_rag(torch, dev, card: str, served: list) -> dict:
                 f"{run['by_path']}) over {run['decode_steps']} decode steps,"
                 f" {run['prefills']} admissions and "
                 f"{run['prefill_dispatches']} prefill programs")
-            rag_stage_times(base, mode, card)
+            host = rag_stage_times(base, mode, card)
+            fused_run = serve_rag_fused(torch, dev, card, engine, svc,
+                                        index, cfg, upload_dir, mode,
+                                        quantization, host)
             if not quantization:
                 engine.stop()
                 engine.clear_prefix_cache()
@@ -2699,7 +2999,9 @@ def serve_rag(torch, dev, card: str, served: list) -> dict:
         finally:
             stop_chain()
             engine.stop()
-        out[quantization] = run
+        out[quantization] = {key: {k: n + fused_run[key][k]
+                                   for k, n in run[key].items()}
+                             for key in ("launches", "by_path")}
         del engine, bot
         torch.cuda.empty_cache()
     shutil.rmtree(upload_dir, ignore_errors=True)

@@ -7,8 +7,9 @@ package's ``chains/llm.py``. Engines:
                     server — this package's own model server included.
 - ``echo``          deterministic test double.
 
-The reference's fused-RAG generation (``EngineLLM.stream_rag``) waits for
-the engine's fused-RAG admission, which this package does not port yet.
+``EngineLLM.stream_rag`` is the fused-RAG generation: retrieval, prompt
+assembly and prefill as one program inside the engine's admission
+(``engine/rag_fusion.py``).
 """
 
 from __future__ import annotations
@@ -84,7 +85,33 @@ class EngineLLM(LLM):
         stream = self.engine.stream_text(prompt, params)
         yield from self._consume(stream, time.monotonic())
 
-    def _consume(self, stream, t0: float) -> Iterator[str]:
+    def stream_rag(self, question: str, enc_ids: list,
+                   max_tokens: int = 256,
+                   stop: Optional[list[str]] = None,
+                   temperature: float = 1.0, top_k: int = 1,
+                   top_p: float = 0.0, on_sources=None,
+                   q_ids: Optional[list] = None) -> Iterator[str]:
+        """Fused-RAG generation: retrieval, prompt assembly and prefill
+        run as one device program inside the engine. ``enc_ids``: the
+        question's tokens in the encoder's vocabulary, query prefix
+        included. ``on_sources`` (optional) receives the retrieved corpus
+        rows once they are known, with the first chunk. ``q_ids``: the
+        question already tokenized in the LLM's vocabulary (callers that
+        checked its length pass it, so it is tokenized once)."""
+        from ..engine.sampling_params import SamplingParams
+        params = SamplingParams(max_tokens=max_tokens,
+                                stop_words=list(stop or []),
+                                temperature=temperature, top_k=top_k,
+                                top_p=top_p)
+        self.engine.start()
+        if q_ids is None:
+            q_ids = self.engine.tokenizer.encode(question, add_bos=False)
+        stream = self.engine.submit_rag(q_ids, enc_ids, params)
+        yield from self._consume(stream, time.monotonic(),
+                                 on_sources=on_sources)
+
+    def _consume(self, stream, t0: float,
+                 on_sources=None) -> Iterator[str]:
         from ..obs.tracing import record_stage
         first = True
         try:
@@ -94,6 +121,8 @@ class EngineLLM(LLM):
                     # (queue + prefill + detokenize). engine_ttft is the
                     # engine's own, recorded at the first token's harvest.
                     record_stage("llm_first_chunk", time.monotonic() - t0)
+                    if on_sources is not None and stream.source_ids:
+                        on_sources(stream.source_ids)
                     first = False
                 yield chunk
         finally:

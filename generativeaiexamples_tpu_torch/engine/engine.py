@@ -69,6 +69,13 @@ port of the reference's ``engine/engine.py``.
   step-cost model feed ``/debug/rounds`` and ``/metrics``. The recorders
   do O(1) host work per round and none per token, and read no device
   value.
+- **Fused RAG.** ``enable_fused_rag`` + ``set_rag_corpus`` keep a
+  retrieval corpus on the device; ``submit_rag`` admits a question whose
+  embedding, top-k, prompt assembly and prefill run as one program
+  (``engine/rag_fusion.py``; captured per greedy on the card), charged
+  the spec's whole bucket and never split into chunks. The prefix cache
+  does not see these prompts; the retrieved rows come back with the
+  first token (``TokenStream.source_ids``).
 - **Deadlines.** A request may carry an absolute deadline: past it in the
   backlog it is dropped before it takes a slot (finish
   ``deadline_queue``); past it between two prompt chunks, or at a
@@ -113,6 +120,7 @@ from ..utils.logging import get_logger, log_event
 from . import graphs
 from .detokenizer import IncrementalDetokenizer, StopWordTrap
 from .prefix_cache import PrefixCache, hash_blocks, usable_prefix_tokens
+from .rag_fusion import FusedRag, FusedRagSpec
 from .sampling_params import SamplingParams
 from .scheduler import (PrefillJob, RoundPlan, StepCostModel,
                         TokenBudgetScheduler)
@@ -155,10 +163,11 @@ _STATS_TEMPLATE = {
     # kernels do not take (ConfigError) instead of serving it slower.
     "downgrades": 0,
     # Port-only: decode rounds dispatched, prefill programs run (one-shot
-    # admissions and chunks) and of those the chunk programs, and the
-    # harvest's milliseconds delivering tokens (detokenize, stop words).
+    # admissions, fused-RAG admissions and chunks) and of those the chunk
+    # programs and the fused-RAG admissions, and the harvest's
+    # milliseconds delivering tokens (detokenize, stop words).
     "decode_rounds": 0, "prefill_dispatches": 0, "prefill_chunks": 0,
-    "harvest_emit_ms": 0.0,
+    "rag_admissions": 0, "harvest_emit_ms": 0.0,
 }
 
 # Keys ``Engine.stats`` adds when it is read (the prefix cache's keys only
@@ -307,6 +316,11 @@ class TokenStream:
         self.first_token_time: Optional[float] = None
         self.finish_time: Optional[float] = None
         self.cancelled = False
+        # Fused-RAG requests: the corpus rows the retrieval on the device
+        # picked and the length of the prompt it assembled, read back
+        # with the first token.
+        self.source_ids: list[int] = []
+        self.rag_length: Optional[int] = None
 
     def _put_chunk(self, text: str) -> None:
         if text:
@@ -410,6 +424,15 @@ class _Request:
     # is dropped ("deadline_queue"); past it between chunks or at a
     # harvested token it stops ("deadline").
     deadline_t: Optional[float] = None
+    # The prompt's length on the device: its token count, or the spec's
+    # bucket for a fused-RAG request (assembled on the device).
+    base_len: int = 0
+    # Fused-RAG payload: (q_llm (q_bucket,) int32, question length,
+    # q_enc (2, enc_bucket) int32); its admission runs the fused program.
+    rag: Optional[tuple] = None
+    # The fused admission's [first, length, top_ids] copy to the host: a
+    # pinned buffer and the event recorded after the copy.
+    rag_aux: Optional[tuple] = None
 
     @property
     def done(self) -> bool:
@@ -528,11 +551,24 @@ class Engine:
         # a round samples 1 row for one stream, else all B.
         self._ba_ladder = (1, B) if cfg.fused_tail and B > 1 else (B,)
 
+        # Fused RAG (``enable_fused_rag``): the corpus and encoder, the
+        # captured programs per greedy, the question inputs staged on the
+        # device (host array, device tensor) and the aux row read back.
+        self._fused_rag: Optional[FusedRag] = None
+        self._rag_graphs: dict[tuple[bool], graphs.Program] = {}
+        self._rag_in: Optional[tuple[np.ndarray, torch.Tensor]] = None
+        self._rag_aux: Optional[torch.Tensor] = None
+        # Work handed to the serve thread, run between two steps.
+        self._control: "queue.Queue[tuple]" = queue.Queue()
         self._pool_reserve: Optional[int] = None   # "auto" sizing's reserve
         # The side stream the programs are captured on, kept across a
         # rebuild: cuBLAS's workspace and the kernels' scratch are keyed
         # by stream, and a new stream would hold a second set.
         self._capture_stream: Optional[torch.cuda.Stream] = None
+        # The memory pool every captured program shares (``_prewarm``), and
+        # what the fused-RAG programs added to the reserved memory.
+        self._graph_pool = None
+        self.rag_graph_bytes = 0
         self._n_pages = 1 + self._resolve_pool_pages()
         self._build_device()
 
@@ -752,12 +788,15 @@ class Engine:
 
     def _admit_i32_spans(self) -> dict[str, tuple[int, int]]:
         """(offset, length) of each admission input packed into
-        state["admit"]["i32"]: the largest bucket's token ids, the page
+        state["admit"]["i32"]: room for the token ids of the longest prompt
+        the cache holds (a fused-RAG bucket may exceed the largest prefill
+        bucket, ``_stage_admission`` pads the rest of a bucket), the page
         row (wide enough for a chunk's padded span), the sequence-ban
         table and lengths, then the scalars. ``start`` is a chunk's first
         prompt position (0 for a one-shot admission) and ``length`` the
         prompt tokens valid after it (the chunk's ``kv_valid_len``)."""
-        sizes = {"tokens": self._buckets[-1], "row": self._row_pages,
+        sizes = {"tokens": self._pmax * self.cfg.page_size,
+                 "row": self._row_pages,
                  "bad_seq": self.MAX_BAD_SEQS * self.MAX_BAD_LEN,
                  "bad_len": self.MAX_BAD_SEQS, "length": 1, "start": 1,
                  "slot": 1, "top_k": 1, "remaining": 1, "eos_ok": 1}
@@ -950,6 +989,25 @@ class Engine:
         """One admission: prefill, first token, insert (the reference's
         ``prefill_insert``, one program on the TTFT path)."""
         self._insert(*self._prefill(bucket, greedy))
+
+    @torch.no_grad()
+    def _rag_body(self, greedy: bool) -> None:
+        """One fused-RAG admission (the reference's ``rag_admit``): the
+        question staged in ``_rag_in`` through ``FusedRag.assemble``, the
+        assembled tokens and length written over the staged admission
+        inputs on the device, then the one-shot prefill and insert at the
+        spec's bucket. ``_rag_aux`` gets [first token, length, top_ids]
+        for the harvest."""
+        fused, x = self._fused_rag, self._rag_in[1]
+        spec, a = fused.spec, self._admit_in
+        Se, Sq = spec.enc_bucket, spec.q_bucket
+        tokens, length, top_ids = fused.assemble(
+            x[:2 * Se].view(2, Se), x[2 * Se:2 * Se + Sq], x[-1:])
+        a["tokens"][:spec.bucket].copy_(tokens)
+        a["length"].copy_(length)
+        k, v, first, seen = self._prefill(spec.bucket, greedy)
+        self._insert(k, v, first, seen)
+        self._rag_aux.copy_(torch.cat([first, length, top_ids]))
 
     # The chunk programs' seen handling (the reference's ``_chunk_seen``):
     # "replace" is the first chunk of a cold prompt (the slot's mask is
@@ -1220,7 +1278,7 @@ class Engine:
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(dev)
         stream = self._capture_stream
-        pool = torch.cuda.graph_pool_handle()
+        pool = self._graph_pool = torch.cuda.graph_pool_handle()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
@@ -1371,6 +1429,8 @@ class Engine:
         self._state = self._admit_in = None
         self._round_graphs = self._admit_graphs = {}
         self._extend_graphs = self._final_graphs = {}
+        self._fused_rag = self._rag_in = self._rag_aux = None
+        self._rag_graphs = {}
         self._slots = {}
         self._free_slots = list(range(self.cfg.max_slots))
         self._drain_intake()
@@ -1409,6 +1469,8 @@ class Engine:
             if self._thread.is_alive():
                 raise EngineError("engine loop did not stop within 60s")
             self._thread = None
+        # Work handed to the serve thread that it did not reach.
+        self._run_control()
         self._stop_harvest()
         self._complete_marks(0.0)
         # Cancel what is still live so no consumer blocks forever, and
@@ -1588,6 +1650,24 @@ class Engine:
             raise EngineError(
                 f"request needs {need} KV pages but the pool only has "
                 f"{self._n_pages - 1} (kv_pool_tokens too small)")
+        banned_np, bad_seq_np, bad_len_np = self._render_bad_words(params)
+        stream = self._new_stream(request_id, len(ids), eff_max)
+        req = _Request(stream=stream, prompt_ids=ids, params=params,
+                       detok=IncrementalDetokenizer(self.tokenizer),
+                       stop=StopWordTrap(params.stop_words),
+                       eff_max=eff_max, extent=len(ids) + eff_max,
+                       greedy=(params.top_k == 1 or params.temperature <= 0),
+                       banned_np=banned_np, bad_seq_np=bad_seq_np,
+                       bad_len_np=bad_len_np,
+                       deadline_t=self._resolve_deadline(stream, deadline_t),
+                       seq=next(self._arrival_seq), base_len=len(ids))
+        return self._enqueue(req)
+
+    def _render_bad_words(self, params: SamplingParams
+                          ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``params.bad_words`` as the device inputs: the packed (Wn,)
+        banned-token words, the (MAX_BAD_SEQS, MAX_BAD_LEN) sequence table
+        (-1 padded) and its lengths. Built on the caller's thread."""
         banned_ids, bad_seqs = self._compile_bad_words(params)
         banned_row = np.zeros((self.model_cfg.vocab_size,), bool)
         banned_row[banned_ids] = True
@@ -1597,16 +1677,12 @@ class Engine:
         for i, seq in enumerate(bad_seqs):
             seq_tbl[i, :len(seq)] = seq
             seq_len[i] = len(seq)
-        stream = self._new_stream(request_id, len(ids), eff_max)
-        req = _Request(stream=stream, prompt_ids=ids, params=params,
-                       detok=IncrementalDetokenizer(self.tokenizer),
-                       stop=StopWordTrap(params.stop_words),
-                       eff_max=eff_max, extent=len(ids) + eff_max,
-                       greedy=(params.top_k == 1 or params.temperature <= 0),
-                       banned_np=pack_mask_np(banned_row),
-                       bad_seq_np=seq_tbl, bad_len_np=seq_len,
-                       deadline_t=self._resolve_deadline(stream, deadline_t),
-                       seq=next(self._arrival_seq))
+        return pack_mask_np(banned_row), seq_tbl, seq_len
+
+    def _enqueue(self, req: _Request) -> TokenStream:
+        """Queue a built request for the serve thread (refused at a full
+        queue); returns its stream."""
+        stream = req.stream
         if len(self._backlog) + self._pending.qsize() >= self.cfg.max_queue:
             self._reject_full(stream)
         try:
@@ -1618,6 +1694,206 @@ class Engine:
         self._bump("requests")
         self._wake.set()
         return stream
+
+    # ------------------------------------------------------------ fused RAG
+
+    def enable_fused_rag(self, enc_params, enc_cfg,
+                         spec: FusedRagSpec) -> None:
+        """Serve fused-RAG admissions (``engine/rag_fusion.py``): the
+        question's retrieval, prompt assembly and prefill as one device
+        program. The corpus comes through ``set_rag_corpus``, which on the
+        card captures the program. A new spec drops the old one's
+        programs. Refused: a bucket that is not a page multiple or leaves
+        the cache no room (the reference's refusals), and encoder
+        parameters on another device."""
+        if spec.bucket % self.cfg.page_size:
+            raise EngineError("fused-RAG bucket must be a page multiple")
+        if spec.bucket + 1 > self.cfg.max_cache_len:
+            raise EngineError("fused-RAG bucket exceeds the cache extent")
+        where = enc_params["embed"]["word"].device
+        if where.type != self.device.type:
+            raise EngineError(f"the encoder's parameters are on {where}; "
+                              f"the engine runs on {self.device}")
+
+        def install() -> None:
+            self._drop_rag_programs()
+            n = 2 * spec.enc_bucket + spec.q_bucket + 1
+            self._fused_rag = FusedRag(enc_params, enc_cfg, spec,
+                                       self.device)
+            self._rag_in = (np.zeros((n,), np.int32),
+                            torch.zeros((n,), dtype=torch.int32,
+                                        device=self.device))
+            self._rag_aux = torch.zeros((spec.top_k + 2,),
+                                        dtype=torch.int32, device=self.device)
+        self._on_serve_thread(install)
+
+    @property
+    def fused_rag_spec(self) -> Optional[FusedRagSpec]:
+        """The spec of the fused-RAG program, or None when fused RAG is
+        not enabled (a rebuild drops it): callers that keep a spec
+        compare it with the engine's."""
+        return self._fused_rag.spec if self._fused_rag is not None else None
+
+    def set_rag_corpus(self, emb, toks, lens) -> None:
+        """Upload or replace the device-resident retrieval corpus
+        (``rag_fusion.corpus_rows`` builds toks/lens from chunk texts).
+        While the serve thread runs, the upload runs there between two
+        steps, so on the device it is ordered against every program in
+        flight: an admission dispatched before it reads the old corpus,
+        one after it the new. On the card the fused programs are captured
+        here when missing, and again when the corpus outgrew its
+        capacity (new buffers)."""
+        if self._fused_rag is None:
+            raise EngineError("enable_fused_rag() first")
+
+        def upload() -> None:
+            if self._fused_rag.set_corpus(emb, toks, lens,
+                                          copy=self._host_to_device):
+                self._drop_rag_programs()
+            self._capture_rag()
+        self._on_serve_thread(upload)
+
+    # The slot state an admission writes (``_arm``).
+    _SLOT_KEYS = ("table", "pos", "last_token", "active", "remaining",
+                  "eos_ok", "temp", "top_k", "top_p", "rep_pen", "seen",
+                  "banned", "bad_seq", "bad_len", "recent")
+
+    def _capture_rag(self) -> None:
+        """Capture the fused admission, greedy and sampled (which draws
+        from ``_admit_gen``), into the engine's shared graph pool on its
+        capture stream: on the card with graphs on, when not captured
+        yet. The warm-up run before each capture writes the trash page
+        and the state of slot 0 from zeroed staging inputs: the slot
+        state is saved before and put back after, so a live request in
+        slot 0 keeps its own. The programs' memory must fit beside the KV
+        pool: running out raises ``EngineError``."""
+        if not self._graphs_on or self._rag_graphs:
+            return
+        dev, st, spec = self.device, self._state, self._fused_rag.spec
+        saved = {name: st[name].clone() for name in self._SLOT_KEYS}
+        for arr in self._admit_arrays.values():
+            arr.fill(0)
+        h = self._admit_host
+        h["length"][0] = 1
+        h["temp"][0] = h["top_p"][0] = h["rep_pen"][0] = 1.0
+        self._copy_admission_inputs()
+        self._rag_in[0].fill(0)
+        self._host_to_device(self._rag_in[1], self._rag_in[0])
+        before = torch.cuda.memory_reserved(dev)
+        try:
+            for greedy in (True, False):
+                self._rag_graphs[(greedy,)] = graphs.capture(
+                    functools.partial(self._rag_body, greedy), device=dev,
+                    stream=self._capture_stream, pool=self._graph_pool,
+                    generators=() if greedy else (self._admit_gen,))
+        except torch.cuda.OutOfMemoryError as exc:
+            self._rag_graphs = {}
+            raise EngineError(
+                f"the fused-RAG admission (bucket {spec.bucket}, corpus of "
+                f"{self._fused_rag.capacity} rows) does not fit in the "
+                f"device memory the KV pool left; shrink kv_pool_tokens"
+            ) from exc
+        finally:
+            # After the warm-ups, also when one failed.
+            torch.cuda.current_stream(dev).wait_stream(self._capture_stream)
+            for name, t in saved.items():
+                st[name].copy_(t)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        self.rag_graph_bytes = torch.cuda.memory_reserved(dev) - before
+
+    def _drop_rag_programs(self) -> None:
+        """Forget the fused programs, once no replay of them is in flight
+        (their graphs and pool blocks go with them)."""
+        if self._rag_graphs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._rag_graphs = {}
+
+    def _on_serve_thread(self, fn):
+        """Run ``fn`` on the serve thread between two of its steps and
+        return its result (its error is raised here); run it here when no
+        serve thread runs or this is it."""
+        thread = self._thread
+        if thread is None or thread is threading.current_thread():
+            return fn()
+        done, box = threading.Event(), {}
+        self._control.put((fn, done, box))
+        self._wake.set()
+        while not done.wait(0.05):
+            self._alive()
+            if self._thread is None:   # stopped meanwhile: run it here
+                self._run_control()
+        if "error" in box:
+            raise box["error"]
+        return box.get("out")
+
+    def _run_control(self) -> None:
+        """Run the work handed over by ``_on_serve_thread``."""
+        while True:
+            try:
+                fn, done, box = self._control.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                box["out"] = fn()
+            except Exception as exc:  # noqa: BLE001 - raised to the caller
+                box["error"] = exc
+            finally:
+                done.set()
+
+    def submit_rag(self, question_ids: Sequence[int],
+                   question_enc_ids: Sequence[int],
+                   params: Optional[SamplingParams] = None,
+                   request_id: Optional[str] = None,
+                   deadline_t: Optional[float] = None) -> TokenStream:
+        """Enqueue a fused-RAG request: retrieval and prompt assembly run
+        on the device in its admission. ``question_ids`` are the
+        question's tokens in the LLM vocabulary (no BOS),
+        ``question_enc_ids`` in the encoder's (with any query prefix).
+        The stream's ``source_ids`` get the retrieved corpus rows with
+        the first token."""
+        if self._fatal is not None:
+            raise EngineError("engine is dead") from self._fatal
+        fused = self._fused_rag
+        if fused is None:
+            raise EngineError("fused RAG is not enabled on this engine")
+        params = params or SamplingParams()
+        spec = fused.spec
+        ids = [int(t) for t in question_ids]
+        if len(ids) > spec.q_bucket:
+            # As submit(): cutting the question would answer another one.
+            raise EngineError(
+                f"question is {len(ids)} tokens but the fused-RAG "
+                f"question bucket is {spec.q_bucket}; use the host "
+                "retrieval path for long questions")
+        q_llm = np.zeros((spec.q_bucket,), np.int32)
+        q_llm[:len(ids)] = ids
+        q_enc = np.zeros((2, spec.enc_bucket), np.int32)
+        eids = list(question_enc_ids)[:spec.enc_bucket]
+        q_enc[0, :len(eids)] = eids
+        q_enc[1, :len(eids)] = 1
+        eff_max = min(params.max_tokens, self.cfg.max_cache_len - spec.bucket)
+        if eff_max < 1:
+            raise EngineError("fused-RAG bucket leaves no room to decode")
+        need = _ceil_div(spec.bucket + eff_max, self.cfg.page_size)
+        if need > self._n_pages - 1:
+            # An extent the pool can never hold would wait forever.
+            raise EngineError(
+                f"fused-RAG request needs {need} KV pages but the pool "
+                f"only has {self._n_pages - 1} (kv_pool_tokens too small)")
+        banned_np, bad_seq_np, bad_len_np = self._render_bad_words(params)
+        stream = self._new_stream(request_id, len(ids), eff_max)
+        req = _Request(stream=stream, prompt_ids=[], params=params,
+                       detok=IncrementalDetokenizer(self.tokenizer),
+                       stop=StopWordTrap(params.stop_words),
+                       eff_max=eff_max, extent=spec.bucket + eff_max,
+                       greedy=(params.top_k == 1 or params.temperature <= 0),
+                       banned_np=banned_np, bad_seq_np=bad_seq_np,
+                       bad_len_np=bad_len_np,
+                       deadline_t=self._resolve_deadline(stream, deadline_t),
+                       seq=next(self._arrival_seq), base_len=spec.bucket,
+                       rag=(q_llm, len(ids), q_enc))
+        return self._enqueue(req)
 
     def _reject_full(self, stream: TokenStream) -> None:
         """Refuse a submission at a full queue: count it, and retire its
@@ -1690,6 +1966,7 @@ class Engine:
         read here at the end of the step). False when there was nothing
         to do."""
         self._alive()
+        self._run_control()
         did = self._drain_completed()
         self._pull_pending()
         did |= self._cull_backlog()
@@ -1855,6 +2132,17 @@ class Engine:
         kind, members, buf, rows, rec = item
         t0 = time.monotonic()
         grid = self._ring.read(buf, rows)
+        if kind == "first":
+            for req in members.values():
+                if req.rag_aux is not None:
+                    # Fused RAG: [first token, prompt length, top_ids].
+                    aux, event = req.rag_aux
+                    if event is not None:
+                        event.synchronize()
+                    vals = aux.tolist()
+                    req.stream.rag_length = vals[1]
+                    req.stream.source_ids = vals[2:]
+                    req.rag_aux = None
         now = time.monotonic()
         wait = now - t0
         self._complete_marks(wait)
@@ -1977,11 +2265,13 @@ class Engine:
         gated = steps > 0 and self._inflight_rounds >= self._depth
         if gated and self._chunk_behind:
             return RoundPlan(decode_steps=0, active_decodes=len(armed))
-        inflight = [PrefillJob(key=r, remaining=len(r.prompt_ids) - r.pf_pos,
+        # A fused-RAG prompt is assembled on the device: it is charged the
+        # spec's whole bucket (its ``base_len``).
+        inflight = [PrefillJob(key=r, remaining=r.base_len - r.pf_pos,
                                deadline_t=r.deadline_t, seq=r.seq,
                                started=True)
                     for r in self._slots.values() if not r.prefill_done]
-        backlog = [PrefillJob(key=r, remaining=len(r.prompt_ids),
+        backlog = [PrefillJob(key=r, remaining=r.base_len,
                               deadline_t=r.deadline_t, seq=r.seq)
                    for r in self._backlog] if self._free_slots else []
         plan = self._sched.plan_round(
@@ -2029,8 +2319,10 @@ class Engine:
         """Match the prompt's full blocks against the prefix cache and
         take refs on the usable prefix. Returns (the prompt's block
         hashes, how many leading blocks to map read-only, their pages).
-        A full-cover match is capped one block short (COW demotion)."""
-        if self._prefix_cache is None:
+        A full-cover match is capped one block short (COW demotion).
+        Fused-RAG requests bypass the cache: the host never sees their
+        prompt."""
+        if self._prefix_cache is None or req.rag is not None:
             return [], 0, []
         page = self.cfg.page_size
         if req.block_hashes is None:  # backpressure retries re-enter here
@@ -2049,7 +2341,7 @@ class Engine:
         (they hold prompt KV only: decode writes land past the last full
         block). A block already cached (the COW-demoted tail) keeps its
         page private; it frees at retire."""
-        if self._prefix_cache is None:
+        if self._prefix_cache is None or req.rag is not None:
             return
         for i in range(k_use, len(hashes)):
             parent = hashes[i - 1] if i else None
@@ -2087,9 +2379,9 @@ class Engine:
         req.cache_refs = list(hashes[:k_use])
         req.cache_pages = set(hit_pages)
         start_tok = k_use * page
-        req.proj_pos = len(req.prompt_ids)
+        req.proj_pos = req.base_len
         req.pf_pos = start_tok
-        if self._prefix_cache is not None:
+        if self._prefix_cache is not None and req.rag is None:
             st = self._prefix_cache.stats
             st.lookups += 1
             st.lookup_tokens += len(req.prompt_ids)
@@ -2117,7 +2409,7 @@ class Engine:
         record_stage("engine_admit_pickup", qwait)
         if req.deadline_t is not None:
             slack = (req.deadline_t - now) - self._sched.cost.prefill_s(
-                len(req.prompt_ids) - start_tok)
+                req.base_len - start_tok)
             record_stage("sched_slack", max(slack, 0.0))
         tl = req.stream.timeline
         if tl is not None:
@@ -2148,7 +2440,10 @@ class Engine:
         grant keeps the one-program admission (``_admit_body``); otherwise
         a chunk padded to its bucket runs (``_chunk_extend_body``, or
         ``_chunk_final_body`` for the prompt's last tokens, which arms the
-        slot). Returns the prompt tokens prefilled."""
+        slot); a fused-RAG request runs its program whole
+        (``_dispatch_rag``). Returns the prompt tokens prefilled."""
+        if req.rag is not None:
+            return self._dispatch_rag(req)
         pf = req.pf
         if req.pf_pos > pf["start_tok"]:
             # Between chunks only: a started admission's first program
@@ -2194,6 +2489,43 @@ class Engine:
         if final:
             self._arm_slot(req)
         return n
+
+    def _dispatch_rag(self, req: _Request) -> int:
+        """A fused-RAG admission: retrieval, assembly and prefill are one
+        program, so it runs whole whatever the grant (a grant cannot split
+        an assembly done on the device; the scheduler charged the whole
+        bucket). Its programs are captured first if no corpus upload has
+        yet; then the page row and sampling inputs are staged as a
+        one-shot admission's, the question into ``_rag_in``, the program
+        runs, the aux row starts its copy into a pinned host buffer and
+        the slot is armed. Returns the bucket."""
+        fused, pf = self._fused_rag, req.pf
+        spec = fused.spec
+        self._capture_rag()
+        self._stage_admission(req, 0, 0, spec.bucket, None)
+        q_llm, q_len, q_enc = req.rag
+        host, dev_in = self._rag_in
+        host[:q_enc.size] = q_enc.reshape(-1)
+        host[q_enc.size:-1] = q_llm
+        host[-1] = q_len
+        self._host_to_device(dev_in, host)
+        self._admit_gen.manual_seed(pf["seed"])
+        t0 = time.monotonic()
+        self._replay(self._rag_graphs, self._rag_body, req.greedy)
+        pf["dispatch_s"] += time.monotonic() - t0
+        cuda = self.device.type == "cuda"
+        aux = torch.empty(self._rag_aux.shape, dtype=torch.int32,
+                          pin_memory=cuda)
+        aux.copy_(self._rag_aux, non_blocking=True)
+        event = torch.cuda.Event() if cuda else None
+        if event is not None:
+            event.record()
+        req.rag_aux = (aux, event)
+        self._bump("prefill_dispatches")
+        self._bump("rag_admissions")
+        req.pf_pos = spec.bucket
+        self._arm_slot(req)
+        return spec.bucket
 
     def _replay(self, table: dict, body, *key) -> None:
         """Run one device program: with graphs on, the replay of the

@@ -51,8 +51,9 @@ tail's. ``--materialized-tail`` builds the engine with
 ``EngineConfig(fused_tail=False)`` (the oracle) for its decode rounds.
 
 ``--prefill BUCKET`` profiles one prefill instead: a prompt of BUCKET
-tokens (a prefill bucket, so no row is padding) asking for one token,
-admitted by one ``_step`` (prefill, KV insert, first token to the host).
+tokens (any page multiple, the engine's one bucket, so no row is padding;
+1664 is the chatbot's fused-RAG bucket) asking for one token, admitted by
+one ``_step`` (prefill, KV insert, first token to the host).
 After a warm-up it times ``--rounds`` such prefills with the host clock,
 traces one more, and prints the prefill time, the device's busy share
 of it and its device time by kernel (the int4 matmul by path).
@@ -308,12 +309,16 @@ def profile_prefill(args) -> int:
     from ..serving.model_server import build_services
 
     bucket = args.prefill
+    # The bucket is the engine's only one, and its budget admits the
+    # whole prompt in one program (a measured budget would chunk it).
     ecfg = EngineConfig(max_slots=1, max_input_length=bucket,
                         max_output_length=1, kv_pool_tokens=None,
+                        prefill_buckets=(bucket,),
+                        sched_round_budget_tokens=bucket,
                         kv_quant=args.kv_quant, cuda_graphs=not args.eager)
-    if bucket not in ecfg.prefill_buckets:
-        raise SystemExit(f"--prefill {bucket} is not a prefill bucket "
-                         f"{ecfg.prefill_buckets}")
+    if bucket % ecfg.page_size:
+        raise SystemExit(f"--prefill {bucket} is not a prefill bucket: "
+                         f"use a multiple of the page size {ecfg.page_size}")
     engine, model_name = build_services(args.model, engine_cfg=ecfg,
                                         seed=args.seed, device=args.device,
                                         quantization=args.quantization)

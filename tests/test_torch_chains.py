@@ -412,10 +412,13 @@ def test_developer_rag_matches_the_reference(tmp_path):
     bot = QAChatbot(llm=EchoLLM(), index=index,
                     config=from_dict(AppConfig, _echo_config()))
     assert bot.index is index and bot.index.store.backend == "numpy"
-    with pytest.raises(ConfigError, match="fused RAG"):
-        QAChatbot(llm=EchoLLM(), embedder=HashEmbedder(dim=64),
-                  config=from_dict(AppConfig, _echo_config()),
-                  fused_rag=True)
+    # fused_rag=True asks for fused RAG; without an in-process engine the
+    # chatbot keeps the host path after ingest, as the reference's does.
+    asked = QAChatbot(llm=EchoLLM(), embedder=HashEmbedder(dim=64),
+                      config=from_dict(AppConfig, _echo_config()),
+                      fused_rag=True)
+    asked.ingest_docs(str(doc), "kb.txt")
+    assert not asked._fused_ready and asked.last_sources == []
 
 
 def test_degrade_to_llm_notice_and_llm_down():

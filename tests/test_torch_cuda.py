@@ -1234,3 +1234,121 @@ def test_embedding_service_on_the_card_matches_the_cpu(dev):
                                cpu.embed_documents(texts), atol=1e-5, rtol=0)
     np.testing.assert_allclose(card.embed_query("q"), cpu.embed_query("q"),
                                atol=1e-5, rtol=0)
+
+
+def _fused_setup(dev, engine, n, seed=0):
+    """Fused RAG on ``engine``: encoder-tiny (float32, seed 1) on the card,
+    a 128-token bucket of byte-tokenizer template parts, and a seeded
+    corpus of ``n`` rows; returns the spec."""
+    from generativeaiexamples_tpu_torch.engine.rag_fusion import FusedRagSpec
+    from generativeaiexamples_tpu_torch.models import encoder as enc
+    from generativeaiexamples_tpu_torch.models.configs import ENCODER_TINY
+    params = enc.init_params(ENCODER_TINY, seed=1, device=dev)
+    spec = FusedRagSpec(prefix_ids=(1, 10, 11), sep_ids=(12,),
+                        mid_ids=(13, 14), suffix_ids=(15,), top_k=3,
+                        ctx_budget=80, bucket=128, chunk_tokens=32,
+                        q_bucket=16, enc_bucket=32)
+    engine.enable_fused_rag(params, ENCODER_TINY, spec)
+    _fused_corpus(engine, spec, n, seed)
+    return spec
+
+
+def _fused_corpus(engine, spec, n, seed):
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(n, 64)).astype(np.float32)
+    toks = rng.integers(3, 250, size=(n, spec.chunk_tokens)).astype(np.int32)
+    lens = rng.integers(1, spec.chunk_tokens + 1, size=(n,)).astype(np.int32)
+    engine.set_rag_corpus(emb, toks, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int4"])
+def test_fused_admission_captured_matches_eager(dev, mode):
+    """The fused admission's captured programs give the eager engine's
+    greedy tokens, retrieved rows and assembled lengths, beside a plain
+    request, before and after the corpus outgrows its capacity (8 rows,
+    then 20: new buffers, captured again), at the 2-layer 7B width."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    params, cfg, kw = _model(dev, mode)
+    sp = SamplingParams(max_tokens=12, top_k=1, ignore_eos=True)
+    got = {}
+    for graphs_on in (True, False):
+        engine = _engine_on(dev, params, cfg, cuda_graphs=graphs_on, **kw)
+        spec = _fused_setup(dev, engine, 5)
+        assert len(engine._rag_graphs) == (2 if graphs_on else 0)
+        runs = []
+        for n in (5, 20):
+            if n == 20:
+                _fused_corpus(engine, spec, n, 0)
+                assert engine._fused_rag.capacity == 32
+                assert len(engine._rag_graphs) == (2 if graphs_on else 0)
+            fused = engine.submit_rag([40, 41, 42], [7, 8, 9, 10], sp)
+            plain = engine.submit(_PROMPTS[3], sp)
+            for _ in range(200):
+                if fused.finish_reason and plain.finish_reason:
+                    break
+                engine._step()
+            runs.append((fused.token_ids, fused.source_ids, fused.rag_length,
+                         plain.token_ids))
+        got[graphs_on] = runs
+        assert engine.stats["rag_admissions"] == 2
+        del engine
+    assert got[True] == got[False]
+    assert all(len(r[0]) == 12 and len(r[1]) == 3 for r in got[True])
+
+
+@pytest.mark.cuda
+def test_in_place_corpus_upload_leaves_a_round_in_flight_alone(dev):
+    """With the harvest worker running, a corpus upload of the same
+    capacity after every step (each lands while the step's round is in
+    flight) leaves a decoding request's greedy tokens as they were
+    without uploads; the uploads stay in place (same buffers, no new
+    capture), and a fused request afterwards reads the last corpus (its
+    rows equal an eager engine's over that corpus)."""
+    import time
+
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    params, cfg, kw = _model(dev, "bf16")
+    sp = SamplingParams(max_tokens=40, top_k=1, ignore_eos=True)
+    engine = _engine_on(dev, params, cfg, **kw)
+    spec = _fused_setup(dev, engine, 600)
+    programs = dict(engine._rag_graphs)
+    ptr = engine._fused_rag.corpus["emb"].data_ptr()
+
+    def serve(upload):
+        engine.clear_prefix_cache()
+        engine._start_harvest(2)
+        k = 0
+        try:
+            stream = engine.submit(_PROMPTS[4], sp)
+            deadline = time.monotonic() + 120
+            while stream.finish_reason is None:
+                assert time.monotonic() < deadline, "no finish in 120 s"
+                engine._wake.clear()
+                if not engine._step():
+                    engine._wake.wait(0.05)
+                if upload:
+                    k += 1
+                    _fused_corpus(engine, spec, 600, k)
+            return stream.token_ids, k
+        finally:
+            # Retires the finished request too, so the next run's
+            # clear_prefix_cache evicts its pages and it admits cold.
+            engine.stop()
+
+    quiet, _ = serve(False)
+    busy, last = serve(True)
+    assert busy == quiet and len(busy) == 40 and last > 1
+    assert engine._fused_rag.corpus["emb"].data_ptr() == ptr
+    assert engine._rag_graphs == programs
+    rows = {}
+    eager = _engine_on(dev, params, cfg, cuda_graphs=False, **kw)
+    _fused_corpus(eager, _fused_setup(dev, eager, 600), 600, last)
+    for name, e in (("graph", engine), ("eager", eager)):
+        fused = e.submit_rag([40, 41], [7, 8, 9], sp)
+        for _ in range(200):
+            if fused.finish_reason:
+                break
+            e._step()
+        rows[name] = fused.source_ids
+    assert rows["graph"] == rows["eager"] and len(rows["graph"]) == 3

@@ -744,7 +744,8 @@ def test_prewarm_shrinks_the_pool_when_the_card_runs_out(golden):
 UNPORTED = ("spec_", "kv_tier_", "kv_export_", "kv_restore_",
             "watchdog_", "sched_budget_recalibrations")
 PORT_ONLY = {"decode_rounds", "prefill_dispatches", "prefill_chunks",
-             "harvest_emit_ms", "active_slots", "free_pages", "pool_pages"}
+             "rag_admissions", "harvest_emit_ms", "active_slots",
+             "free_pages", "pool_pages"}
 
 
 def test_stats_keys_are_the_references_less_unported_plus_port_only(golden):
