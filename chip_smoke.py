@@ -147,7 +147,25 @@ Phases (each fails loudly: a failure exits non-zero and the final
    engine's greedy tokens for those assembled ids (cold, one-shot, in
    the fused bucket) equal the fused ones. Prints the fused TTFT beside
    the host path's and the fused admission's replay time.
-7. After the traced profiles, the model server's ``/profiler/start`` and
+7. Per mode, after the serve phases: speculative decoding
+   (``serve_spec``): an engine with ``spec_decode`` on the served weights
+   (its verify rounds captured per page window, greedy flag and rung)
+   serves draftable and serve prompts; launch counts by formula (each
+   verify round's 224 projections on #3 "wg" at M = 64, its lm_head
+   tiles on "wg" at the 8-row rung and "tc" at the 1-row one, #1/#2 only
+   in the classic rounds); greedy tokens equal to the plain served
+   engine's up to the first position whose top-2 logit gap is under
+   ``SPEC_TIE`` (where they part is printed); drafts accepted; a sampled
+   request's length; the calibrator's budget moves and costs; the verify
+   round's device time beside an 8-step decode round's and the gathered
+   attention's share. The host KV tier (``kv_tier_phase``): a
+   1000-token prompt's 7 cached pages evicted and offloaded, then
+   restored bit-equal with the prefix hit's tokens; ``suspend_session``
+   to a blob and ``resume_session`` on a second engine with the same
+   continuation; D2H and H2D ms per page. #3 is also checked and timed
+   at the verify shape (M = 64: 4096², w_gate, w_down, a 16000-column
+   head tile; ``time_verify_shapes``), rows on the kernels line.
+8. After the traced profiles, the model server's ``/profiler/start`` and
    ``/stop`` around one request on the int4 engine write a Chrome trace
    that must name ``paged_decode_split_kernel`` and an int4 kernel.
 
@@ -677,6 +695,7 @@ def check_int4_matmul(torch, dev):
         del q4s, dense, leaves
         torch.cuda.empty_cache()
     rows.update(time_head_tiles(torch, dev, gen))
+    rows.update(time_verify_shapes(torch, dev, gen))
     # #3's device time per 1024-row prefill: 32 layers of 4 projections
     # of 4096 x 4096, 2 of w_gate/w_up and 1 of w_down.
     mix = {(4096, 4096): 4, (4096, 11008): 2, (11008, 4096): 1}
@@ -695,7 +714,84 @@ def check_int4_matmul(torch, dev):
         f"N=11008, group 128, bf16 out): tc M=8 {row_err['tc']}, wg M=1024 "
         f"{row_err['wg']}")
     return [rows["tc"], rows["wg"]] + [rows[k] for k in sorted(rows)
-                                       if k.startswith("head")]
+                                       if k.startswith(("head", "verify"))]
+
+
+def time_verify_shapes(torch, dev, gen) -> dict:
+    """#3 at the speculative verify round's shape: M = 64 (8 slots x S =
+    8 scored positions), bf16 x, group 128, on the "wg" path: q/k/v/o's
+    4096 x 4096, w_gate's 4096 x 11008, w_down's 11008 x 4096 (bf16 out)
+    and a 16000-column lm_head tile read in place at the head's row
+    stride (float32 out), each checked against the plain version (bf16
+    out rtol 1e-2, float32 out rtol 1e-4, atol 1e-4 * max|ref|), timed
+    L2-cold beside its plain version, its bound and the library
+    yardstick. Returns the kernels line's rows "verify-<shape>"."""
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
+        _path, int4_matmul, int4_matmul_plain)
+
+    M, out = 64, {}
+    for name, K, N, width in (("qkvo", 4096, 4096, 4096),
+                              ("w_gate", 4096, 11008, 11008),
+                              ("w_down", 11008, 4096, 4096),
+                              ("head16000", 4096, 16000, 32000)):
+        w = torch.randn((K, width), generator=gen, device=dev) * K ** -0.5
+        leaf = quant.quantize_tensor_grouped(w, 128)
+        del w
+        head = width != N
+        out_dtype = torch.float32 if head else torch.bfloat16
+        wbytes = leaf["q4"].numel() + 4 * leaf["gscale"].numel()
+        copies = 1 + (120 << 20) // wbytes
+        leaves = [leaf] + [{k: v.clone() for k, v in leaf.items()}
+                           for _ in range(copies - 1)]
+        views = [(lf["q4"][:, :N], lf["gscale"][:, :N]) for lf in leaves]
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        if _path(M, K, N, 128, x.dtype) != "wg":
+            fail(f"verify shape {name} M={M} would not take the 'wg' path")
+        before = int4_matmul.launches_by_path["wg"]
+        got = int4_matmul(x, *views[0], out_dtype=out_dtype)
+        if int4_matmul.launches_by_path["wg"] != before + 1:
+            fail(f"verify shape {name} did not launch the 'wg' path")
+        ref = int4_matmul_plain(x, views[0][0].contiguous(),
+                                views[0][1].contiguous(), out_dtype=out_dtype)
+        peak = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        rtol = 1e-4 if head else 1e-2
+        if not (torch.isfinite(got.float()).all() and torch.allclose(
+                got.float(), ref.float(), atol=1e-4 * peak, rtol=rtol)):
+            fail(f"int4_matmul [wg] verify shape {name} disagrees with its "
+                 f"plain version: max abs err {err}")
+        ms = time_cuda(torch, [
+            (lambda q4=q4, sc=sc: int4_matmul(x, q4, sc, out_dtype=out_dtype))
+            for q4, sc in views], iters=100)
+        plain_ms = time_cuda(torch, lambda: int4_matmul_plain(
+            x, views[0][0], views[0][1], out_dtype=out_dtype), iters=3,
+            warmup=1)
+        lib_ms, lib_note = int4_library_ms(torch, dev, M, K, N, 128, 100)
+        nbytes = (K // 2 * N + 4 * (K // 128) * N + M * K * 2
+                  + M * N * (4 if head else 2))
+        flops = 2 * M * K * N
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / BF16_FLOPS * 1e3
+        bound = max(bytes_ms, flops_ms)
+        by = "bytes" if bytes_ms >= flops_ms else "operations"
+        say(f"kernel int4_matmul [wg] verify shape {name} M={M} K={K} N={N}"
+            f"{' (strided, in place)' if head else ''} group=128 "
+            f"x=bfloat16: ms={ms} plain_ms={plain_ms} bound_ms={bound} "
+            f"({by}; {nbytes} bytes, {flops} flops; {bound / ms:.1%} of it) "
+            f"library_ms={lib_ms} ({lib_note}); max abs err {err}")
+        out[f"verify-{name}"] = {
+            "name": "int4_matmul", "route": "cuda",
+            "source": "generativeaiexamples_tpu_torch/csrc/int4_matmul.cu",
+            "replaces": "generativeaiexamples_tpu/ops/int4_matmul.py:83",
+            "path": "wg", "shape": f"verify M={M} K={K} N={N}"
+                                   f"{' strided' if head else ''}",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+        del leaves, views
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_head_tiles(torch, dev, gen) -> dict:
@@ -1546,6 +1642,342 @@ def serve(torch, dev, card: str, quantization: str = "",
             "profile": (mode, engine, untraced)}
 
 
+# Speculative decoding: prompts whose answers can copy spans of them
+# (prompt lookup drafts from the context) beside the serve prompts; the
+# near-tie rule's threshold on the plain engine's top-2 logit gap where
+# the spec engine parts from it (bf16 rounding moves a 7B logit by a few
+# hundredths between two computation orders; the verify forward runs
+# #3 "wg" at M = 64 and a gathered attention where decode runs "tc" at
+# M = 8 and #1/#2).
+SPEC_PROMPTS = ["The cat sat on the mat. The dog sat on the log. " * 6,
+                "one two three four five six seven eight nine ten " * 5]
+SPEC_NEW = 40
+SPEC_TIE = 0.5
+
+
+def free_memory(torch) -> None:
+    """Hand the memory of the engines a phase dropped back to the card
+    (a cycle of references would otherwise hold their pools until the
+    collector runs) and print what stays allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"memory: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved")
+
+
+def first_parting(torch, engine, ids, plain, spec):
+    """None when ``spec`` equals ``plain``; else (position, top-2 gap of
+    the plain engine's logits there)."""
+    if spec == plain:
+        return None
+    k = next((j for j, (a, b) in enumerate(zip(plain, spec)) if a != b),
+             min(len(plain), len(spec)))
+    return k, top2_gap(torch, engine, ids + plain[:k])
+
+
+def serve_spec(torch, dev, card: str, served, mode: str,
+               quantization: str) -> dict:
+    """Speculative decoding at full width and depth on the served
+    engine's weights: an engine with ``spec_decode`` (captured verify
+    rounds per page window, greedy flag and rung) serves the spec and
+    serve prompts greedily in one batch (verify rounds at the 8-slot
+    rung), one draftable prompt alone (the 1-row rung) and a sampled
+    request, in a counted window: every verify round's 224 projections
+    on #3 "wg" at M = 64 and its lm_head tiles on "wg" (8 rows x S) or
+    "tc" (1 row x S), #1/#2 only in the classic rounds between them.
+    Greedy tokens equal the plain served engine's up to the first
+    position where the plain engine's top-2 logit gap is under
+    SPEC_TIE (where they part is printed); ``spec_accepted_tokens`` > 0;
+    the sampled request keeps its length. Prints the calibrator's budget
+    moves and calibrated costs, and the verify round's device time,
+    tokens per verify slot-step and the gathered attention's share
+    (``profile_decode.measure_verify``, untraced; ``profile_decode
+    --spec`` traces a verify round). Returns the counts, the verify
+    rounds' "wg" launches and the calibrated decode step."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import Engine, SamplingParams
+    from generativeaiexamples_tpu_torch.tools.profile_decode import \
+        measure_verify
+
+    t0 = time.monotonic()
+    spec = Engine(served.params, served.model_cfg, served.tokenizer,
+                  replace(served.cfg, spec_decode=True), device=dev)
+    S = spec._spec_S
+    say(f"spec [{mode}]: engine with S = {S} built in "
+        f"{time.monotonic() - t0:.1f} s: {len(spec._verify_graphs)} verify "
+        f"programs over windows {spec._windows} pages, graph pool "
+        f"{spec.graph_pool_bytes / 1e9:.2f} GB; measured verify "
+        f"{spec._sched.cost.verify_ms_per_token:.4f} ms per position, "
+        f"decode {spec._sched.cost.decode_step_ms:.3f} ms per step")
+    tok = spec.tokenizer
+    greedy_ids = [tok.encode(p) for p in SPEC_PROMPTS + SERVE_PROMPTS[:2]]
+    sp = SamplingParams(max_tokens=SPEC_NEW, temperature=0, ignore_eos=True)
+    sampled_sp = SamplingParams(max_tokens=24, temperature=0.8, top_k=40,
+                                ignore_eos=True, random_seed=3)
+    rungs = []
+    real = spec._dispatch_verify
+
+    def counted(drafts, rec=None):
+        rungs.append(spec._ba_for(len(spec._armed())))
+        return real(drafts, rec)
+    spec._dispatch_verify = counted
+    spec.start()
+    spec.submit(tok.encode("warm"), SamplingParams(max_tokens=2)).text()
+    wait_idle(spec)
+    stats0 = spec.stats
+    zero_launch_counts()
+    rungs.clear()
+    batch = [spec.submit(i, sp) for i in greedy_ids]
+    sampled = spec.submit(tok.encode(SPEC_PROMPTS[0]), sampled_sp)
+    for s in batch + [sampled]:
+        s.text()
+    alone = spec.submit(greedy_ids[0], sp)
+    alone.text()
+    torch.cuda.synchronize()
+    run = read_launch_counts(spec, stats0)
+    now = spec.stats
+    spec.stop()
+    del spec._dispatch_verify   # the class's method again, no cycle
+    V = now["spec_verify_rounds"] - stats0["spec_verify_rounds"]
+    v_one = rungs.count(1)
+    accepted = now["spec_accepted_tokens"] - stats0["spec_accepted_tokens"]
+    drafted = now["spec_draft_tokens"] - stats0["spec_draft_tokens"]
+    per_step = ((now["spec_verify_tokens"] - stats0["spec_verify_tokens"])
+                / max(1, now["spec_verify_slot_steps"]
+                      - stats0["spec_verify_slot_steps"]))
+    if V <= 0 or accepted <= 0:
+        fail(f"[{mode}] spec: {V} verify rounds, {accepted} drafts accepted "
+             f"of {drafted}")
+    if len(sampled.token_ids) != 24 or sampled.finish_reason != "length":
+        fail(f"[{mode}] spec: the sampled request gave "
+             f"{len(sampled.token_ids)} tokens, finish "
+             f"{sampled.finish_reason!r}")
+    # Launches by formula: classic steps run #1/#2 per layer and #3 "tc";
+    # a verify round runs its 224 projections at M = 64 on "wg" and its
+    # lm_head tiles at M = rung x S ("wg" at 8 rows, "tc" at 1).
+    L, tiles = served.model_cfg.num_layers, head_tiles(spec)
+    classic = run["decode_steps"] - V
+    attn = ("paged_attention_decode_int8" if served.cfg.kv_quant
+            else "paged_attention_decode")
+    want = {"paged_attention_decode": 0, "paged_attention_decode_int8": 0,
+            "int4_matmul": 0}
+    want[attn] = L * classic
+    want_path = {"tc": 0, "gemv": 0, "tile": 0, "wg": 0}
+    verify_wg = 0
+    if quantization:
+        verify_wg = 7 * L * V + tiles * (V - v_one)
+        want_path = {"tc": (7 * L + tiles) * classic + run["prefills"]
+                     + tiles * v_one, "gemv": 0, "tile": 0,
+                     "wg": 7 * L * run["prefill_dispatches"] + verify_wg}
+        want["int4_matmul"] = want_path["tc"] + want_path["wg"]
+    if run["launches"] != want or run["by_path"] != want_path:
+        fail(f"[{mode}] spec kernel launches {run['launches']} (int4 by path "
+             f"{run['by_path']}) over {classic} classic steps and {V} verify "
+             f"rounds ({v_one} at the 1-row rung), {run['prefills']} "
+             f"admissions; expected {want} ({want_path})")
+    say(f"spec [{mode}]: {V} verify rounds ({v_one} at 1 row) and "
+        f"{classic} classic steps; drafts accepted {accepted} of {drafted} "
+        f"({accepted / max(1, drafted):.1%}); {per_step:.3f} tokens per "
+        f"verify slot-step; launches {run['launches']} (int4 by path "
+        f"{run['by_path']}) as the formula says [{card}]")
+    # Greedy: the plain served engine on the same prompts, both cold.
+    served.clear_prefix_cache()
+    served.start()
+    plain = [served.submit(i, sp) for i in greedy_ids]
+    for s in plain:
+        s.text()
+    served.stop()
+    served.clear_prefix_cache()
+    for i, (ids, p, g) in enumerate(zip(greedy_ids, plain, batch)):
+        part = first_parting(torch, served, ids, p.token_ids, g.token_ids)
+        if part is None:
+            say(f"spec [{mode}]: prompt {i}: {len(g.token_ids)} greedy "
+                f"tokens equal the plain engine's")
+            continue
+        k, gap = part
+        if gap >= SPEC_TIE:
+            fail(f"[{mode}] spec prompt {i}: greedy token {k} is "
+                 f"{g.token_ids[k]}, the plain engine's {p.token_ids[k]} "
+                 f"with a top-2 logit gap of {gap} (>= {SPEC_TIE})")
+        say(f"spec [{mode}]: prompt {i}: equal to the plain engine's up to "
+            f"token {k}, where they part at a near-tie (top-2 gap {gap:.4f}"
+            f" < {SPEC_TIE})")
+    part = first_parting(torch, served, greedy_ids[0],
+                         plain[0].token_ids, alone.token_ids)
+    if part is not None and part[1] >= SPEC_TIE:
+        fail(f"[{mode}] spec: the lone draftable request parts from the "
+             f"plain engine at token {part[0]}, top-2 gap {part[1]}")
+    cost, prior = spec._sched.cost, spec._calib.prior if spec._calib \
+        else spec._sched.cost
+    say(f"spec [{mode}]: calibrator: {now['sched_budget_recalibrations']} "
+        f"budget moves, budget {now['sched_round_budget_tokens']}; decode "
+        f"{prior.decode_step_ms:.4f} -> {cost.decode_step_ms:.4f} ms/step, "
+        f"verify {prior.verify_ms_per_token:.5f} -> "
+        f"{cost.verify_ms_per_token:.5f} ms/position, prefill "
+        f"{prior.prefill_ms_per_token:.5f} -> "
+        f"{cost.prefill_ms_per_token:.5f} ms/token [{card}]")
+    ver = measure_verify(spec, 512, rounds=5, traced=False)
+    say(f"spec [{mode}]: 8 slots at ~512 tokens: verify round "
+        f"{ver['verify_ms']:.3f} ms (window {ver['window_pages']} pages) "
+        f"against an 8-step decode round {ver['decode_round_ms']:.3f} ms; "
+        f"{ver['verify_ms_per_position']:.4f} vs "
+        f"{ver['decode_ms_per_position']:.4f} ms per slot-position; break "
+        f"even at {ver['break_even_tokens_per_slot_step']:.2f} tokens per "
+        f"verify slot-step (this run: {per_step:.3f}); the gathered "
+        f"attention {ver['gathered_attention_ms']:.3f} ms "
+        f"({ver['gathered_attention_share']:.1%} of the round) [{card}]")
+    del spec
+    free_memory(torch)
+    return {"launches": run["launches"], "by_path": run["by_path"],
+            "verify_wg": verify_wg,
+            "calibrated_decode_ms": cost.decode_step_ms}
+
+
+# The host KV tier's phase: a 2-slot engine whose pool holds about two
+# requests, so three other prompts evict a served prompt's prefix.
+TIER_PROMPT = ("Passage: the host tier keeps evicted prefix pages in pinned "
+               "memory and copies them back at admission. " * 12)[:999]
+TIER_CHURN = [("Other passage %d: unrelated text fills the pool. " % i * 20)
+              [:999] for i in range(3)]
+
+
+def pool_pages_of(engine, ids) -> dict:
+    """Device copies of the pool pages of the cached blocks of ``ids``."""
+    from generativeaiexamples_tpu_torch.engine.prefix_cache import \
+        hash_blocks
+    out = {}
+    for h in hash_blocks(ids, engine.cfg.page_size):
+        pg = engine._prefix_cache.page_of(h)
+        if pg is not None:
+            out[h] = {k: v[:, pg].clone()
+                      for k, v in engine._state["cache"].items()}
+    return out
+
+
+def kv_tier_phase(torch, dev, card: str, served, mode: str,
+                  quantization: str) -> dict:
+    """The host KV tier at full width and depth on the served engine's
+    weights, on eager 2-slot engines, in a counted window: a 1000-token
+    prompt is served cold and again (a prefix hit), three other prompts
+    evict its 7 cached pages (offloaded through pinned memory), and the
+    prompt served again restores them: the restored pages are bit-equal to the offloaded
+    ones and the greedy tokens equal the hit's (the same pages through
+    the same program), the cold run's up to a near-tie. Then
+    ``suspend_session`` of the prompt, ``resume_session`` of the blob on
+    a second engine over the same parameters, and the prompt served
+    there: restored, with the hit's continuation. Prints the D2H and H2D
+    ms per page and GB/s (``Engine.measure_page_io``, CUDA events).
+    Returns the launch counts (checked as the serve phases')."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import Engine, SamplingParams
+
+    # Eager engines (their builds capture nothing): the tier's copies run
+    # eagerly in any engine, and tests/test_torch_cuda.py holds them in a
+    # graph engine.
+    cfg = replace(served.cfg, max_slots=2, kv_pool_tokens=2 * (1024 + 64),
+                  kv_host_pool_tokens=16 * 1024, cuda_graphs=False)
+    tok = served.tokenizer
+    ids = tok.encode(TIER_PROMPT)
+    sp = SamplingParams(max_tokens=16, temperature=0, ignore_eos=True)
+    t0 = time.monotonic()
+    eng = Engine(served.params, served.model_cfg, tok, cfg, device=dev)
+    # The resuming engine is built before the counted window: a build's
+    # warm-up launches count.
+    other = Engine(served.params, served.model_cfg, tok, cfg, device=dev)
+    say(f"kv tier [{mode}]: two engines with {eng.stats['pool_pages']} pool "
+        f"pages and a {cfg.kv_host_pool_tokens}-token host tier each built "
+        f"in {time.monotonic() - t0:.1f} s")
+    stats0, ostats0 = eng.stats, other.stats
+    zero_launch_counts()
+    eng.start()
+    cold = eng.submit(ids, sp)
+    cold.text()
+    hit = eng.submit(ids, sp)
+    hit.text()
+    wait_idle(eng)
+    eng.stop()
+    before = pool_pages_of(eng, ids)
+    n_blocks = len(before)
+    eng.start()
+    for text in TIER_CHURN:
+        eng.submit(tok.encode(text), sp).text()
+    deadline = time.monotonic() + 60
+    while eng.stats["kv_tier_offload_pages"] < n_blocks:
+        if time.monotonic() > deadline:
+            fail(f"[{mode}] kv tier: {eng.stats['kv_tier_offload_pages']} of "
+                 f"{n_blocks} pages offloaded")
+        time.sleep(0.01)
+    eng.stop()
+    if pool_pages_of(eng, ids):
+        fail(f"[{mode}] kv tier: the prompt's pages were not evicted")
+    eng.start()
+    warm = eng.submit(ids, sp)
+    warm.text()
+    wait_idle(eng)
+    eng.stop()
+    st = eng.stats
+    restored = st["kv_tier_restore_pages"] - stats0["kv_tier_restore_pages"]
+    after = pool_pages_of(eng, ids)
+    if restored != n_blocks or len(after) != n_blocks:
+        fail(f"[{mode}] kv tier: restored {restored} pages, {len(after)} "
+             f"cached, of {n_blocks}")
+    for h, leaves in after.items():
+        for name, t in leaves.items():
+            if not torch.equal(t, before[h][name]):
+                fail(f"[{mode}] kv tier: restored page {name} differs from "
+                     f"the offloaded bytes")
+    if warm.token_ids != hit.token_ids:
+        fail(f"[{mode}] kv tier: restored tokens {warm.token_ids} differ "
+             f"from the prefix hit's {hit.token_ids}")
+    blob = eng.suspend_session(ids)
+    if blob is None or eng.stats["kv_tier_suspended_blocks"] != n_blocks:
+        fail(f"[{mode}] kv tier: suspend gave no blob of {n_blocks} blocks")
+    n = other.resume_session(blob)
+    other.start()
+    resumed = other.submit(ids, sp)
+    resumed.text()
+    wait_idle(other)
+    other.stop()
+    ost = other.stats
+    if n != n_blocks or ost["kv_tier_restore_pages"] != n_blocks:
+        fail(f"[{mode}] kv tier: resume took {n} blocks, restored "
+             f"{ost['kv_tier_restore_pages']} of {n_blocks}")
+    if resumed.token_ids != hit.token_ids:
+        fail(f"[{mode}] kv tier: the resumed session continues "
+             f"{resumed.token_ids}, the hit {hit.token_ids}")
+    torch.cuda.synchronize()
+    run = read_launch_counts(eng, stats0)
+    for key in ("decode_steps", "prefills", "prefill_dispatches",
+                "prefill_chunks"):
+        run[key] += ost[key] - ostats0[key]
+    check_launch_counts(f"[{mode}] kv tier", run,
+                        served.model_cfg.num_layers, quantization,
+                        served.cfg.kv_quant, head_tiles(eng))
+    # After the counted window: a full forward launches kernels too.
+    part = first_parting(torch, served, ids, cold.token_ids, hit.token_ids)
+    if part is not None and part[1] >= SPEC_TIE:
+        fail(f"[{mode}] kv tier: the warm tokens part from the cold run at "
+             f"token {part[0]} with top-2 gap {part[1]}")
+    d2h, h2d = eng.measure_page_io(16)
+    page_bytes = (eng.cfg.page_size * eng._kv_bytes_per_token())
+    parting = ("" if part is None else f" (the cold run parts at token "
+               f"{part[0]}, top-2 gap {part[1]:.4f})")
+    say(f"kv tier [{mode}]: {n_blocks} pages offloaded and restored bit-"
+        f"equal, tokens = the prefix hit's{parting}"
+        f"; suspend -> {len(blob)} byte blob -> resume on a second engine: "
+        f"same continuation; page I/O "
+        f"({page_bytes} bytes a page): D2H {d2h:.4f} ms/page "
+        f"({page_bytes / d2h / 1e6:.2f} GB/s), H2D {h2d:.4f} ms/page "
+        f"({page_bytes / h2d / 1e6:.2f} GB/s) [{card}]")
+    del eng, other
+    free_memory(torch)
+    return run
+
+
 def zero_launch_counts() -> None:
     """Set every kernel's launch count to 0 (a replay adds its capture's
     counts, so the counts stay exact across captured programs)."""
@@ -1944,6 +2376,10 @@ def traced_profiles(torch, card: str, served: list) -> None:
         pre = measure_prefill(engine, 128, rounds=4)
         busy = dec["device_busy_ms_per_step"]
         step, step_1 = (min(untraced["step_ms"][d]) for d in (2, 1))
+        say(f"traced [{mode}]: the spec engine's calibrated decode step "
+            f"{untraced['calibrated_decode_ms']:.4f} ms beside this traced "
+            f"round's device {dec['device_ms_per_step']:.4f} ms/step (busy "
+            f"{busy:.4f}) [{card}]")
         kernels = {k: round(v, 3)
                    for k, v in dec["kernel_ms_per_step"].items()}
         say(f"traced [{mode}]: decode round (depth 2; traced-session step "
@@ -3067,6 +3503,18 @@ def main() -> int:
     quantized = serve(torch, dev, card, quantization="int4_awq",
                       kv_quant="int8")
     lap("serve_int4")
+    # Speculative decoding and the host KV tier on each mode's weights;
+    # their counts join the mode's in the kernels line.
+    for run, q in ((bf16, ""), (quantized, "int4_awq")):
+        mode, engine, untraced = run["profile"]
+        spec = serve_spec(torch, dev, card, engine, mode, q)
+        tier = kv_tier_phase(torch, dev, card, engine, mode, q)
+        for key in ("launches", "by_path"):
+            run[key] = {k: n + spec[key][k] + tier[key][k]
+                        for k, n in run[key].items()}
+        run["verify_wg"] = spec["verify_wg"]
+        untraced["calibrated_decode_ms"] = spec["calibrated_decode_ms"]
+    lap("serve_spec_kv_tier")
     # The RAG chatbot over each mode's weights; its counts join the
     # mode's in the kernels line.
     rag = serve_rag(torch, dev, card, [(bf16["profile"][1], ""),
@@ -3084,6 +3532,9 @@ def main() -> int:
         run = bf16 if row["name"] == "paged_attention_decode" else quantized
         row["launches"] = (run["by_path"][row["path"]] if "path" in row
                            else run["launches"][row["name"]])
+        if row.get("shape", "").startswith("verify"):
+            # The verify rounds' "wg" launches of the int4 spec phase.
+            row["launches"] = quantized["verify_wg"]
     say(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
 
     say(json.dumps({"kernels": kernels}))

@@ -7,12 +7,12 @@ of the reference package's ``chains/server.py``.
   POST /documentSearch   {content, num_docs} → [{score, source, content}]
 
 plus ``GET /health``, ``/metrics``, ``/debug/{requests,rounds,history,
-alerts,incidents}``, ``POST /control/incident``, ``/control/drain`` and
-``/control/undrain``. The KV-tier and disaggregation routes
-(``/control/kv_pages``, ``/control/kv_suspend``, ``/control/kv_resume``,
-``/control/prefill``) and mid-stream resume (a ``/generate`` body with a
-``resume`` block) wait for the engine's KV tier (ROADMAP A9): the routes
-answer 501 and a resume 409 ``resume_unsupported``. Examples are
+alerts,incidents}``, ``POST /control/incident``, ``/control/drain``,
+``/control/undrain``, the KV-tier session routes ``/control/kv_suspend``
+and ``/control/kv_resume``, and mid-stream resume (a ``/generate`` body
+with a ``resume`` block carrying the text already streamed). The fleet
+routes ``/control/kv_pages`` and ``/control/prefill`` wait for the KV
+tier's cross-replica half (ROADMAP A21) and answer 501. Examples are
 discovered by module path (``discover_example``).
 
 Sync chain generators run on a worker thread; chunks cross into the event
@@ -397,24 +397,46 @@ def create_app(example: BaseExample,
         # dump. Echoed back so callers can correlate without sending one.
         rid = obs_flight.adopt_request_id(request.headers)
 
-        # Mid-stream failover continuation (a ``resume`` block carrying
-        # the generated-so-far text) needs the engine's resume binding,
-        # which waits for the KV tier: refuse it honestly, so a router
-        # falls back to its error frame instead of a wrong continuation.
+        # Mid-stream failover continuation: a router re-submits a
+        # request whose replica died mid-stream with a ``resume`` block
+        # carrying the generated-so-far text. It is tokenized here and
+        # bound into the request's context (engine/resume.py);
+        # Engine.submit admits it as prompt + those ids and streams only
+        # what follows.
         resume_block = (body.get("resume")
                         if isinstance(body.get("resume"), dict) else None)
-        if resume_block is not None:
-            _shed("resume_unsupported")
-            return error_response(
-                409, "resume_unsupported",
-                "this replica cannot resume the stream (mid-stream "
-                "resume is not ported; ROADMAP A9)", rid)
+        resume_ids: Optional[list] = None
+        resume_attempt = 0
 
         # Drain gate FIRST: a draining replica admits nothing new (the
         # 429 tells the router/caller to go elsewhere) while the streams
-        # already in flight below run to completion.
-        if drain.draining:
+        # already in flight below run to completion. A resume is not new
+        # work, so a draining replica still takes it.
+        if drain.draining and resume_block is None:
             return _drain_reject(rid)
+
+        if resume_block is not None:
+            engine = getattr(getattr(example, "llm", None), "engine", None)
+            if engine is None or use_kb:
+                # No engine to replay into, or retrieval would run again
+                # and could diverge: refuse, so the router falls back to
+                # its error frame instead of a wrong continuation.
+                _shed("resume_unsupported")
+                return error_response(
+                    409, "resume_unsupported",
+                    "this replica cannot resume the stream ("
+                    + ("no engine" if engine is None
+                       else "retrieval-augmented request") + ")", rid)
+            resume_attempt = int(resume_block.get("attempt", 1) or 1)
+            text = str(resume_block.get("text", "") or "")
+            resume_ids = (engine.tokenizer.encode(text, add_bos=False)
+                          if text else [])
+            if len(resume_ids) >= num_tokens:
+                _shed("resume_exhausted")
+                return error_response(
+                    409, "resume_exhausted",
+                    f"resume replays {len(resume_ids)} tokens but the "
+                    f"request budget is {num_tokens}", rid)
 
         # Breaker fast-path: a generation path that keeps failing is
         # DOWN — reject in microseconds instead of queueing doomed work
@@ -483,6 +505,12 @@ def create_app(example: BaseExample,
             context (iterate_in_thread), so the timeline bound here is
             visible to every stage below it — including Engine.submit."""
             token = obs_flight.bind(timeline)
+            resume_token = None
+            if resume_ids is not None:
+                # Lazy: a chain without an engine never loads it.
+                from ..engine import resume as engine_resume
+                resume_token = engine_resume.bind_resume(
+                    {"ids": resume_ids, "attempt": resume_attempt})
             timer = obs_metrics.RequestTimer("chain_generate")
             emitted = False
             drain.inc()
@@ -513,6 +541,9 @@ def create_app(example: BaseExample,
             finally:
                 drain.dec()
                 timer.finish()
+                if resume_token is not None:
+                    from ..engine import resume as engine_resume
+                    engine_resume.unbind_resume(resume_token)
                 obs_flight.unbind(token)
                 # Engine-served requests were already completed at the
                 # stream's terminal transition (complete() is idempotent);
@@ -573,6 +604,9 @@ def create_app(example: BaseExample,
             headers={"Content-Type": "text/event-stream",
                      "Cache-Control": "no-cache",
                      "X-Request-ID": rid})
+        if resume_ids is not None:
+            # How much generated work the failover kept.
+            resp.headers["X-Resume-Replayed"] = str(len(resume_ids))
         try:
             await resp.prepare(request)
         except BaseException:
@@ -623,13 +657,85 @@ def create_app(example: BaseExample,
         return web.json_response(result)
 
     async def not_ported(request: web.Request) -> web.Response:
-        """The KV-tier and disaggregation control routes: 501 until the
-        engine's KV tier is ported (ROADMAP A9)."""
+        """The fleet control routes (cross-replica page export, the
+        disaggregated prefill): 501 until the KV tier's fleet half is
+        ported (ROADMAP A21)."""
         return error_response(
             501, "not_implemented",
-            f"{request.path} needs the engine's KV tier, which this "
-            f"package does not port yet (ROADMAP A9)",
+            f"{request.path} needs the KV tier's cross-replica half, "
+            f"which this package does not port yet (ROADMAP A21)",
             obs_flight.adopt_request_id(request.headers))
+
+    def _tier_engine():
+        """The served engine, or (status, error type, message) when the
+        KV-tier session routes cannot work here."""
+        engine = getattr(getattr(example, "llm", None), "engine", None)
+        if engine is None:
+            return None, (404, "no_engine",
+                          "this chain serves no in-process engine")
+        if getattr(engine, "_kv_tier", None) is None:
+            return None, (409, "kv_tier_disabled",
+                          "KV tiering is disabled on this replica "
+                          "(KV_HOST_POOL_TOKENS=0)")
+        return engine, None
+
+    async def kv_suspend(request: web.Request) -> web.Response:
+        """``POST /control/kv_suspend`` ``{"text": ...}`` (or
+        ``{"token_ids": [...]}``): demote an idle conversation's prefix
+        chain out of both KV tiers into a blob the caller keeps;
+        ``/control/kv_resume`` seeds it back later without recompute. 404
+        when nothing of the chain is cached."""
+        rid = obs_flight.adopt_request_id(request.headers)
+        engine, err = _tier_engine()
+        if err is not None:
+            return error_response(err[0], err[1], err[2], rid)
+        body = await request.json()
+        ids = body.get("token_ids")
+        if ids is None:
+            text = body.get("text", "")
+            if not text:
+                raise web.HTTPUnprocessableEntity(
+                    text="'text' or 'token_ids' is required")
+            ids = engine.tokenizer.encode(text)
+        try:
+            blob = await asyncio.wait_for(
+                asyncio.get_running_loop().run_in_executor(
+                    None, engine.suspend_session, [int(i) for i in ids]),
+                timeout=executor_timeout_s)
+        except asyncio.TimeoutError:
+            return error_response(504, "timeout", "kv suspend timed out",
+                                  rid)
+        except EngineError as exc:
+            return error_response(503, "engine_error", str(exc), rid)
+        if blob is None:
+            return error_response(
+                404, "not_cached",
+                "no block of this conversation is cached", rid)
+        return web.Response(body=blob, content_type="application/octet-stream",
+                            headers={"X-Request-ID": rid})
+
+    async def kv_resume(request: web.Request) -> web.Response:
+        """``POST /control/kv_resume`` with a suspend blob as the body:
+        seeds the session's blocks into the host tier; the conversation's
+        next turn restores them instead of prefilling."""
+        rid = obs_flight.adopt_request_id(request.headers)
+        engine, err = _tier_engine()
+        if err is not None:
+            return error_response(err[0], err[1], err[2], rid)
+        blob = await request.read()
+        try:
+            # Off the event loop: parsing a large blob must not stall the
+            # streams in flight.
+            n = await asyncio.wait_for(
+                asyncio.get_running_loop().run_in_executor(
+                    None, engine.resume_session, blob),
+                timeout=executor_timeout_s)
+        except asyncio.TimeoutError:
+            return error_response(504, "timeout", "kv resume timed out",
+                                  rid)
+        except (EngineError, ValueError) as exc:
+            return error_response(422, "bad_blob", str(exc), rid)
+        return web.json_response({"blocks": n, "request_id": rid})
 
     def _mirror_engine_stats() -> None:
         engine = getattr(getattr(example, "llm", None), "engine", None)
@@ -709,8 +815,8 @@ def create_app(example: BaseExample,
     app.router.add_post("/control/drain", control_drain)
     app.router.add_post("/control/undrain", control_undrain)
     app.router.add_get("/control/kv_pages", not_ported)
-    app.router.add_post("/control/kv_suspend", not_ported)
-    app.router.add_post("/control/kv_resume", not_ported)
+    app.router.add_post("/control/kv_suspend", kv_suspend)
+    app.router.add_post("/control/kv_resume", kv_resume)
     app.router.add_post("/control/prefill", not_ported)
     return app
 

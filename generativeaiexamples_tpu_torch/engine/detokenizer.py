@@ -21,6 +21,15 @@ class IncrementalDetokenizer:
         self._read = 0          # ids in [prefix:read] produced emitted text
         self._text = ""         # everything emitted so far
 
+    def prime(self, ids: list[int]) -> None:
+        """Seed context that was already emitted (a mid-stream resume):
+        the replayed ids count as emitted, so ``push`` decodes new tokens
+        against their tail (sentencepiece spaces stay right across the
+        boundary) while ``text`` and later chunks carry only new text."""
+        self._ids = [int(i) for i in ids]
+        self._read = len(self._ids)
+        self._prefix = max(0, self._read - 8)
+
     def push(self, token_id: int) -> str:
         self._ids.append(token_id)
         window = self._ids[self._prefix:]

@@ -81,8 +81,27 @@ port of the reference's ``engine/engine.py``.
   ``deadline_queue``); past it between two prompt chunks, or at a
   harvested token, it stops (finish ``deadline``).
 
-Waiting for later slices: speculative decoding, the KV tier, roles, the
-watchdog, the online cost calibrator, and the tensor-parallel tails.
+- **Speculative decoding** (``EngineConfig.spec_decode``): prompt-lookup
+  drafts (``engine/spec_decode.py``) scored by a verify round of S = K + 1
+  positions per slot (``models/llama.py`` ``apply_verify_paged``),
+  accepted on the device, captured per (page window, greedy, rung). A
+  verify round runs with the pipeline drained; a workload with nothing to
+  draft keeps its pipelined classic rounds.
+- **Online cost calibration** (``SCHED_ONLINE_CALIB``): pure rounds'
+  device times (CUDA events around their programs on the card) move the
+  step-cost model, and the round budget follows between rounds.
+- **Liveness watchdog** (``ENGINE_WATCHDOG_STALL_S``): work pending and no
+  progress for that long flips ``stalled``.
+- **Host KV tier** (``KV_HOST_POOL_TOKENS``, ``engine/kv_tier.py``):
+  evicted prefix pages are offloaded to pinned host memory, restored at
+  admission when cheaper than recompute, and a conversation's chain can
+  be suspended to a blob and resumed (``suspend_session`` /
+  ``resume_session``). ``submit`` takes a mid-stream resume bound by
+  ``engine/resume.py``.
+
+Waiting for later slices: the fleet half of the KV tier (cross-replica
+page transfer and the prefill handoff), disaggregation roles, and the
+tensor-parallel tails.
 """
 
 from __future__ import annotations
@@ -90,9 +109,12 @@ from __future__ import annotations
 import functools
 import gc
 import itertools
+import os
 import queue
+import sys
 import threading
 import time
+import traceback
 from dataclasses import dataclass, field
 from typing import Iterator, Optional, Sequence, Union
 
@@ -106,24 +128,32 @@ from ..obs import rounds as obs_rounds
 from ..obs.tracing import record_stage
 from ..models.tokenizer import Tokenizer
 from ..ops import int4_matmul
-from ..ops.fused_sampler import choose_tile, fused_unembed_sample
+from ..ops.fused_sampler import (choose_tile, fused_unembed_sample,
+                                 fused_verify_sample, verify_reference_tiled)
 from ..ops.kv_quant import quantize_rows
 from ..ops.paged_attention import kernel_supported
 from ..ops.quant import is_grouped, is_quantized
 from ..ops.sampling import (MASK_BITS, NEG_INF, apply_repetition_penalty,
                             mask_words, pack_mask, pack_mask_np, sample,
                             seen_mask, set_token_bits, unpack_mask)
+from ..utils import faults
 from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, EngineError, SchedulerFullError
 from ..utils.hbm import peak_bw
 from ..utils.logging import get_logger, log_event
 from . import graphs
+from . import kv_tier as kv_tier_mod
+from . import resume as engine_resume
 from .detokenizer import IncrementalDetokenizer, StopWordTrap
+from .kv_tier import KVTier
 from .prefix_cache import PrefixCache, hash_blocks, usable_prefix_tokens
 from .rag_fusion import FusedRag, FusedRagSpec
 from .sampling_params import SamplingParams
-from .scheduler import (PrefillJob, RoundPlan, StepCostModel,
-                        TokenBudgetScheduler)
+from .scheduler import (OnlineCalibrator, PrefillJob, RoundPlan,
+                        StepCostModel, TokenBudgetScheduler,
+                        online_calib_enabled)
+from .spec_decode import (AdaptiveDraftController, PromptLookupDrafter,
+                          SpecConfig, spec_enabled)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -157,8 +187,28 @@ _STATS_TEMPLATE = {
     # The fused tail's rows sampled and skipped (max_slots less the rung)
     # over decode steps; 0 under the materialized tail.
     "sampler_rows_sampled": 0, "sampler_rows_skipped": 0,
+    # Speculative decoding (engine/spec_decode.py): draft tokens
+    # proposed, drafts the verify rounds accepted, verify rounds run, the
+    # tokens they emitted (accepted drafts plus one correction or bonus
+    # token per slot) and the slots that rode them.
+    "spec_draft_tokens": 0, "spec_accepted_tokens": 0,
+    "spec_verify_rounds": 0, "spec_verify_tokens": 0,
+    "spec_verify_slot_steps": 0,
+    # The host KV tier (engine/kv_tier.py): prefix pages offloaded at
+    # eviction, pages restored at admission and the admissions that
+    # restored any, restores refused as dearer than recompute, blocks
+    # moved through session suspend/resume, and blobs refused as corrupt.
+    # All 0 with the tier off (KV_HOST_POOL_TOKENS=0).
+    "kv_tier_offload_pages": 0, "kv_tier_restore_pages": 0,
+    "kv_tier_restore_hits": 0, "kv_restore_skipped_cost": 0,
+    "kv_tier_suspended_blocks": 0, "kv_tier_resumed_blocks": 0,
+    "kv_restore_corrupt": 0,
+    # Times the liveness watchdog declared the engine stalled.
+    "watchdog_stalls": 0,
     # Rounds whose record completed (obs/rounds.py).
     "rounds_completed": 0,
+    # Times the online calibrator moved the round budget.
+    "sched_budget_recalibrations": 0,
     # Feature downgrades at construction: the port refuses a geometry its
     # kernels do not take (ConfigError) instead of serving it slower.
     "downgrades": 0,
@@ -173,7 +223,9 @@ _STATS_TEMPLATE = {
 # Keys ``Engine.stats`` adds when it is read (the prefix cache's keys only
 # while the cache is on).
 _STATS_READ_TIME = ("dispatch_queue_depth", "queue_waiting",
-                    "sched_prefill_share", "sched_cost_drift_ratio",
+                    "sched_prefill_share", "spec_acceptance_rate",
+                    "spec_tokens_per_step", "sched_cost_drift_ratio",
+                    "kv_tier_host_pages", "kv_restore_hit_rate",
                     "uptime_s", "active_slots", "free_pages", "pool_pages")
 
 
@@ -198,6 +250,15 @@ def _drop_tracebacks(exc: Optional[BaseException]) -> None:
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _pow2_ladder(top: int) -> tuple[int, ...]:
+    """(1, 2, 4, ..., top): the verify round's page windows."""
+    ladder, w = [], 1
+    while w < top:
+        ladder.append(w)
+        w *= 2
+    return tuple(ladder + [top])
 
 
 # The card's default sampler tile target: 2 tiles of 16000 for llama's
@@ -258,6 +319,17 @@ class EngineConfig:
     fused_tail: bool = True
     sampler_tile: Optional[int] = None
     sampler_cand_k: int = 64
+    # Speculative decoding (engine/spec_decode.py): prompt-lookup drafts
+    # scored by one verify round of S = K + 1 positions per slot. Greedy
+    # output equals the plain engine's; sampled output keeps its
+    # distribution. ENGINE_SPEC_DECODE beats ``spec_decode``;
+    # SPEC_MAX_DRAFT_TOKENS beats ``spec_max_draft_tokens`` (K).
+    spec_decode: bool = False
+    spec_max_draft_tokens: Optional[int] = None
+    # The host KV tier (engine/kv_tier.py), in tokens of host RAM for
+    # offloaded prefix pages; KV_HOST_POOL_TOKENS beats it, None defers to
+    # the env, 0 turns the tier off.
+    kv_host_pool_tokens: Optional[int] = None
 
     def __post_init__(self) -> None:
         if self.page_size <= 0:
@@ -285,6 +357,16 @@ class EngineConfig:
             raise ConfigError(
                 f"max_prefill_bucket={self.max_prefill_bucket} must be a "
                 f"multiple of page_size={self.page_size} (>= one page)")
+        if self.kv_host_pool_tokens is not None \
+                and self.kv_host_pool_tokens < 0:
+            raise ConfigError(
+                f"kv_host_pool_tokens={self.kv_host_pool_tokens} must be "
+                f">= 0 (0 turns the host KV tier off)")
+        if self.spec_max_draft_tokens is not None \
+                and self.spec_max_draft_tokens < 1:
+            raise ConfigError(
+                f"spec_max_draft_tokens={self.spec_max_draft_tokens} must "
+                f"be >= 1 (it sizes the verify round's K+1 positions)")
 
     @property
     def max_cache_len(self) -> int:
@@ -430,6 +512,14 @@ class _Request:
     # Fused-RAG payload: (q_llm (q_bucket,) int32, question length,
     # q_enc (2, enc_bucket) int32); its admission runs the fused program.
     rag: Optional[tuple] = None
+    # Speculative decoding: the request's prompt-lookup index over prompt
+    # and generated tokens, and its draft-length controller.
+    drafter: Optional[PromptLookupDrafter] = None
+    spec_ctrl: Optional[AdaptiveDraftController] = None
+    # A mid-stream resume: how many trailing prompt ids are replayed
+    # generated tokens (engine/resume.py); None otherwise. Pins the
+    # admission's sampling seed to the replay offset.
+    resume_offset: Optional[int] = None
     # The fused admission's [first, length, top_ids] copy to the host: a
     # pinned buffer and the event recorded after the copy.
     rag_aux: Optional[tuple] = None
@@ -550,6 +640,46 @@ class Engine:
         # The fused tail's active-row ladder (the reference's two rungs):
         # a round samples 1 row for one stream, else all B.
         self._ba_ladder = (1, B) if cfg.fused_tail and B > 1 else (B,)
+        # Speculative decoding: S = K + 1 positions per slot in a verify
+        # round, captured per (page window, greedy, rung); the window is
+        # the power-of-two page ladder up to the table's width (the verify
+        # attention gathers its window, so it pays for the pages it
+        # covers). The drafts planned for this step (serve thread only).
+        self._spec: Optional[SpecConfig] = (
+            SpecConfig.resolve(cfg.spec_max_draft_tokens)
+            if spec_enabled(cfg.spec_decode) else None)
+        self._spec_S = self._spec.max_draft_tokens + 1 if self._spec else 0
+        self._windows = _pow2_ladder(self._pmax)
+        self._draft_plan: Optional[dict] = None
+        # Rows of the static token grid a program writes: a decode round's
+        # steps, or a verify round's S emitted rows plus its accepted
+        # counts.
+        self._grid_rows = max(cfg.steps_per_round, self._spec_S + 1
+                              if self._spec else 0)
+        # The host KV tier (KV_HOST_POOL_TOKENS beats the config field;
+        # off without the prefix cache, whose hashes address it).
+        env_host = os.environ.get("KV_HOST_POOL_TOKENS", "")
+        host_tokens = (int(env_host) if env_host
+                       else (cfg.kv_host_pool_tokens or 0))
+        self._kv_tier: Optional[KVTier] = None
+        if cfg.prefix_cache and host_tokens > 0:
+            m = model_cfg
+            self._kv_tier = KVTier(
+                page_size=page, host_pool_tokens=host_tokens,
+                bytes_per_token=self._kv_bytes_per_token(),
+                meta={"kv_quant": cfg.kv_quant, "num_layers": m.num_layers,
+                      "num_kv_heads": m.num_kv_heads,
+                      "head_dim": m.head_dim, "dtype": cfg.dtype},
+                transfer_max_pages=int(os.environ.get(
+                    "KV_TRANSFER_MAX_PAGES", "32") or 32))
+        # Restores' timings not yet read ((pages, start event, end
+        # event)), the step's [start, end] events around its programs on
+        # the card (``_replay``), the side stream offloads copy on, and the
+        # online calibrator (``_build_device``).
+        self._io_pending: list[tuple] = []
+        self._span: Optional[list] = None
+        self._io_stream: Optional[torch.cuda.Stream] = None
+        self._calib: Optional[OnlineCalibrator] = None
 
         # Fused RAG (``enable_fused_rag``): the corpus and encoder, the
         # captured programs per greedy, the question inputs staged on the
@@ -602,7 +732,7 @@ class Engine:
         # worker runs); the worker reads it and posts finished requests
         # on ``_completed`` for the serve thread to retire.
         self._ring = _HostRing(2 * (cfg.dispatch_depth + 1),
-                               (cfg.steps_per_round, cfg.max_slots),
+                               (self._grid_rows, cfg.max_slots),
                                self.device)
         self._harvest_q: "queue.Queue[tuple]" = queue.Queue()
         self._inline: list[tuple] = []
@@ -620,6 +750,14 @@ class Engine:
         self._stats: dict[str, float] = dict(_STATS_TEMPLATE)
         self._stats["sched_round_budget_tokens"] = \
             self._sched.round_budget_tokens
+        # Liveness watchdog (ENGINE_WATCHDOG_STALL_S, 0 = off): work
+        # queued or in flight while no progress counter moves for that
+        # long flips ``stalled`` (the chain server's /health answers 503)
+        # and logs every thread's stack.
+        self._watchdog_stall_s = float(os.environ.get(
+            "ENGINE_WATCHDOG_STALL_S", "0") or 0)
+        self._watchdog_thread: Optional[threading.Thread] = None
+        self._stalled = False
 
     def _build_device(self) -> None:
         """Allocate the pool of ``_n_pages`` pages and the static state,
@@ -642,17 +780,24 @@ class Engine:
         self._extend_graphs: dict[tuple[int, str], graphs.Program] = {}
         self._final_graphs: dict[tuple[int, bool, bool],
                                  graphs.Program] = {}
+        self._verify_graphs: dict[tuple[int, bool, int],
+                                  graphs.Program] = {}
         self.graph_pool_bytes = 0
         cost = StepCostModel(slots=cfg.max_slots)
         if self._graphs_on:
             cost = self._prewarm()
         self._round_gen.manual_seed(cfg.seed)
+        # Online calibration (SCHED_ONLINE_CALIB, default on): the
+        # construction-time model is the prior, completed rounds' device
+        # times move it.
+        self._calib = (OnlineCalibrator(cost) if online_calib_enabled()
+                       else None)
         self._sched = TokenBudgetScheduler(
             cost, page_size=cfg.page_size,
             steps_per_round=cfg.steps_per_round,
             round_budget_tokens=cfg.sched_round_budget_tokens,
             chunk_tokens=cfg.sched_prefill_chunk_tokens,
-            max_one_shot_tokens=self._buckets[-1])
+            max_one_shot_tokens=self._buckets[-1], calibrator=self._calib)
 
     def _check_kernel_geometry(self) -> None:
         """On the card every decode layer launches the paged kernel and
@@ -763,8 +908,11 @@ class Engine:
             "bad_seq": z(B, self.MAX_BAD_SEQS, self.MAX_BAD_LEN),
             "bad_len": z(B, self.MAX_BAD_SEQS),
             "recent": z(B, self.MAX_BAD_LEN - 1),
-            "round_tokens": z(self.cfg.steps_per_round, B),
+            "round_tokens": z(self._grid_rows, B),
             "act_idx": z(B),
+            # A verify round's drafts and draft counts, staged per round.
+            "drafts": z(B, max(1, self._spec_S - 1)),
+            "n_draft": z(B),
             "admit": {"i32": z(sum(n for _, n in
                                    self._admit_i32_spans().values())),
                       "f32": z(len(self._ADMIT_F32), dtype=torch.float32),
@@ -872,6 +1020,12 @@ class Engine:
         out["sched_prefill_share"] = (
             round(out["sched_prefill_tokens"] / sched_total, 4)
             if sched_total else 0.0)
+        out["spec_acceptance_rate"] = (
+            round(out["spec_accepted_tokens"] / out["spec_draft_tokens"], 4)
+            if out["spec_draft_tokens"] else 0.0)
+        out["spec_tokens_per_step"] = (
+            round(out["spec_verify_tokens"] / out["spec_verify_slot_steps"],
+                  4) if out["spec_verify_slot_steps"] else 0.0)
         drift = self._drift_ratio
         out["sched_cost_drift_ratio"] = (round(drift, 4)
                                          if drift is not None else 0.0)
@@ -885,6 +1039,12 @@ class Engine:
         if cache is not None:
             out.update(cache.stats.snapshot())
             out["prefix_cache_pages"] = cache.cached_pages
+        tier = self._kv_tier
+        out["kv_tier_host_pages"] = tier.store.pages if tier else 0
+        lookups = out.get("prefix_cache_lookups", 0)
+        out["kv_restore_hit_rate"] = (
+            round(out["kv_tier_restore_hits"] / lookups, 4)
+            if lookups else 0.0)
         return out
 
     def _bump(self, key: str, n: int = 1) -> None:
@@ -1221,6 +1381,182 @@ class Engine:
         self._replay(self._round_graphs, self._round_body, steps, greedy, ba)
         return self._state["round_tokens"][:steps]
 
+    def _verify_rows(self, h: torch.Tensor, seen_pos: torch.Tensor,
+                     recent_pos: torch.Tensor, draft_grid: torch.Tensor,
+                     greedy: bool, ba: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The verify round's sampling tail over the S scored rows of each
+        slot (the reference's ``make_verify`` tail): each row is
+        penalized, banned and sampled under the slot state it would carry
+        after accepting the drafts before it (``seen_pos``, ``recent_pos``
+        (B, S, ...)). A greedy row accepts its draft iff it is the row's
+        argmax; a sampled row goes through rejection sampling
+        (``fused_verify_sample``, or ``verify_reference_tiled`` under the
+        materialized tail). Returns (accept (B, S) bool, the token each
+        row emits at a rejection or the bonus position (B, S) int32)."""
+        st, mcfg, B = self._state, self.model_cfg, self.cfg.max_slots
+        S, V = self._spec_S, mcfg.vocab_size
+        dev = h.device
+        if self.cfg.fused_tail:
+            act = st["act_idx"][:ba].long()
+            rows = act.clamp(max=B - 1)
+
+            def rep(name: str) -> torch.Tensor:
+                return st[name].index_select(0, rows).repeat_interleave(
+                    S, dim=0)
+
+            hn = llama.unembed_norm(self.params, mcfg, h)        # (B, S, D)
+            ha = llama.lm_head_input(
+                self.params, hn.index_select(0, rows).reshape(ba * S, -1))
+            hit, tail = self._bad_seq_hits(
+                rep("bad_seq"), rep("bad_len"),
+                recent_pos.index_select(0, rows).reshape(ba * S, -1))
+            draft_r = draft_grid.index_select(0, rows).reshape(ba * S)
+            common = dict(
+                temp=rep("temp"), top_k=rep("top_k"), top_p=rep("top_p"),
+                rep_pen=rep("rep_pen"),
+                seen_words=seen_pos.index_select(0, rows).reshape(
+                    ba * S, -1),
+                banned_words=rep("banned"), ban_tok=tail, ban_hit=hit,
+                tile=self._sampler_tile, cand_k=self.cfg.sampler_cand_k)
+
+            def tile_fn(t0, tile):
+                return llama.lm_head_tile(self.params, mcfg, ha, t0, tile,
+                                          prescaled=True)
+            if greedy:
+                out_r = fused_unembed_sample(tile_fn, V, noise=None,
+                                             greedy=True, **common)
+                acc_r = draft_r == out_r
+            else:
+                u = torch.rand((ba * S,), generator=self._round_gen,
+                               device=dev)
+                acc_r, out_r = fused_verify_sample(
+                    tile_fn, V, noise=self._round_gen, u=u,
+                    draft_ids=draft_r, **common)
+            acc = torch.zeros((B + 1, S), dtype=torch.bool, device=dev)
+            out = torch.zeros((B + 1, S), dtype=torch.int32, device=dev)
+            acc = acc.index_copy(0, act, acc_r.reshape(ba, S))[:B]
+            out = out.index_copy(0, act, out_r.reshape(ba, S))[:B]
+            return acc, out
+        # The materialized tail: (B*S, V) penalized logits.
+        pen = apply_repetition_penalty(
+            llama.unembed(self.params, mcfg, h).reshape(B * S, V),
+            unpack_mask(seen_pos.reshape(B * S, -1), V),
+            st["rep_pen"].repeat_interleave(S))
+        pen = torch.where(
+            unpack_mask(st["banned"].repeat_interleave(S, dim=0), V),
+            torch.full_like(pen, NEG_INF), pen)
+        hit, tail = self._bad_seq_hits(
+            st["bad_seq"].repeat_interleave(S, dim=0),
+            st["bad_len"].repeat_interleave(S, dim=0),
+            recent_pos.reshape(B * S, -1))
+        pen = pen.scatter_reduce(
+            1, torch.where(hit, tail, torch.zeros_like(tail)).long(),
+            torch.where(hit, torch.full_like(pen[:, :1], NEG_INF),
+                        torch.full_like(pen[:, :1], float("inf"))
+                        ).expand(hit.shape).contiguous(),
+            reduce="amin")
+        draft_r = draft_grid.reshape(B * S)
+        if greedy:
+            out_r = pen.float().argmax(dim=-1).to(torch.int32)
+            acc_r = draft_r == out_r
+        else:
+            u = torch.rand((B * S,), generator=self._round_gen, device=dev)
+            acc_r, out_r = verify_reference_tiled(
+                pen, self._round_gen, u, st["temp"].repeat_interleave(S),
+                st["top_k"].repeat_interleave(S),
+                st["top_p"].repeat_interleave(S), draft_r,
+                tile=self._sampler_tile)
+        return acc_r.reshape(B, S), out_r.reshape(B, S)
+
+    @torch.no_grad()
+    def _verify_body(self, window: int, greedy: bool, ba: int) -> None:
+        """One speculative verify round over every slot (the reference's
+        ``make_verify``), in place: score S positions per slot (its last
+        token and the ``n_draft`` drafts staged in ``drafts``) through
+        ``apply_verify_paged`` over the first ``window`` pages of the
+        table, sample every scored row (``_verify_rows``), and accept on
+        the device: each active slot emits its longest agreed draft
+        prefix plus one correction or bonus token, cut at eos or its
+        length as sequential decode would cut it. Rows 0..S-1 of
+        ``round_tokens`` get the emitted grid (-1 padded), row S the
+        accepted draft counts. ``pos`` advances past the consumed inputs
+        only, so rejected drafts' pool rows are never read."""
+        st, mcfg = self._state, self.model_cfg
+        B, S, page = self.cfg.max_slots, self._spec_S, self.cfg.page_size
+        eos = int(self.tokenizer.eos_id)
+        dev = self.device
+        pos, active = st["pos"], st["active"]
+        drafts, n_draft = st["drafts"][:, :S - 1], st["n_draft"]
+        offs = torch.arange(S, dtype=torch.int32, device=dev)
+        eff_pos = torch.where(active, pos, torch.zeros_like(pos))
+        positions = eff_pos[:, None] + offs[None, :]               # (B, S)
+        tokens = torch.cat([st["last_token"][:, None], drafts], dim=1)
+        # Inactive slots and rows past a slot's drafts write the trash
+        # page.
+        write_ok = active[:, None] & (offs[None, :] <= n_draft[:, None])
+        page_idx = (positions // page).clamp(0, self._pmax - 1).long()
+        page_of = torch.gather(st["table"], 1, page_idx)
+        wp = torch.where(write_ok, page_of, torch.zeros_like(page_of))
+        h, _ = llama.apply_verify_paged(
+            self.params, mcfg, tokens, positions, st["cache"],
+            st["table"][:, :window], eff_pos + S, wp, positions % page,
+            return_hidden=True)
+        # Row j's sampler state: what the slot would carry after accepting
+        # drafts 0..j-1 (only then is row j consumed).
+        seen_l, recent_l = [st["seen"]], [st["recent"]]
+        for j in range(1, S):
+            d = drafts[:, j - 1]
+            on = active & (j <= n_draft)
+            seen_l.append(set_token_bits(seen_l[-1], d, on))
+            recent_l.append(torch.where(
+                on[:, None], torch.cat([recent_l[-1][:, 1:], d[:, None]],
+                                       dim=1), recent_l[-1]))
+        drafts_ext = torch.cat(
+            [drafts, torch.full((B, 1), -1, dtype=torch.int32, device=dev)],
+            dim=1)
+        draft_grid = torch.where(offs[None, :] < n_draft[:, None],
+                                 drafts_ext, torch.full_like(drafts_ext, -1))
+        acc, out = self._verify_rows(h, torch.stack(seen_l, dim=1),
+                                     torch.stack(recent_l, dim=1),
+                                     draft_grid, greedy, ba)
+        # The longest agreed prefix, then the correction or bonus token
+        # of its first disagreeing (or bonus) row.
+        valid = offs[None, :] < n_draft[:, None]
+        a = torch.cumprod((acc & valid).to(torch.int32), dim=1).sum(dim=1)
+        corr = torch.gather(out, 1, a[:, None].long())
+        e = torch.where(offs[None, :] < a[:, None], drafts_ext, corr)
+        rem0 = st["remaining"]
+        stop_j = (((e == eos) & st["eos_ok"][:, None])
+                  | ((rem0[:, None] - (offs[None, :] + 1)) <= 0))
+        none_before = torch.cumprod(torch.cat(
+            [torch.ones((B, 1), dtype=torch.int32, device=dev),
+             (~stop_j[:, :-1]).to(torch.int32)], dim=1), dim=1)
+        emit = ((offs[None, :] <= a[:, None]) & (none_before > 0)
+                & active[:, None])
+        m = emit.sum(dim=1).to(torch.int32)
+        last_tok = torch.gather(e, 1, (m - 1).clamp(min=0)[:, None].long()
+                                )[:, 0]
+        finished = active & (emit & stop_j).any(dim=1)
+        seen, recent = st["seen"], st["recent"]
+        for j in range(S):
+            on = emit[:, j]
+            seen = set_token_bits(seen, e[:, j], on)
+            recent = torch.where(
+                on[:, None], torch.cat([recent[:, 1:], e[:, j:j + 1]],
+                                       dim=1), recent)
+        new = {"pos": torch.where(active, pos + m, pos),
+               "last_token": torch.where(active, last_tok,
+                                         st["last_token"]),
+               "active": active & ~finished,
+               "remaining": torch.where(active, rem0 - m, rem0),
+               "seen": seen, "recent": recent}
+        st["round_tokens"][:S].copy_(
+            torch.where(emit, e, torch.full_like(e, -1)).T)
+        st["round_tokens"][S].copy_(a * active)
+        for name, value in new.items():
+            st[name].copy_(value)
+
     def _ba_for(self, n: int) -> int:
         """The smallest active-row rung that covers ``n`` armed slots."""
         return next(b for b in self._ba_ladder if b >= max(1, n))
@@ -1235,8 +1571,10 @@ class Engine:
         smaller ones reuse its memory: per bucket C the admission
         ``(C, greedy)``, the chunk extensions ``(C, mode)`` and the final
         chunks ``(C, greedy, seed)``; then the decode-round rungs
-        ``(steps, greedy, ba)``, ``ba`` over the active-row ladder.
-        Sampled programs draw from a generator."""
+        ``(steps, greedy, ba)``, ``ba`` over the active-row ladder, and
+        with speculative decoding on the verify rounds
+        ``(window, greedy, ba)``, ``window`` over the page ladder. Sampled
+        programs draw from a generator."""
         for C in sorted(self._buckets, reverse=True):
             for greedy in (True, False):
                 yield (self._admit_graphs, (C, greedy),
@@ -1252,6 +1590,14 @@ class Engine:
                            functools.partial(self._chunk_final_body, C,
                                              greedy, seed),
                            None if greedy else self._admit_gen)
+        if self._spec is not None:
+            for window in sorted(self._windows, reverse=True):
+                for greedy in (True, False):
+                    for ba in self._ba_ladder:
+                        yield (self._verify_graphs, (window, greedy, ba),
+                               functools.partial(self._verify_body, window,
+                                                 greedy, ba),
+                               None if greedy else self._round_gen)
         for steps in graphs.round_rungs(self.cfg.steps_per_round):
             for greedy in (True, False):
                 for ba in self._ba_ladder:
@@ -1321,12 +1667,59 @@ class Engine:
             return start.elapsed_time(end) / replays
 
         steps, bucket = self.cfg.steps_per_round, self._buckets[-1]
+        B = self.cfg.max_slots
+        verify = 0.0
+        if self._spec is not None:
+            # The widest window: the gather's cost does not depend on
+            # which slots are live, so this prices a full-table round.
+            verify = ms(self._verify_graphs[
+                (self._windows[-1], True, self._ba_ladder[-1])]) / (
+                    self._spec_S * B)
+        d2h = h2d = 0.0
+        if self._kv_tier is not None:
+            d2h, h2d = self.measure_page_io(min(32, self._n_pages - 1))
         return StepCostModel(
-            decode_step_ms=ms(self._round_graphs[
-                (steps, True, self.cfg.max_slots)]) / steps,
+            decode_step_ms=ms(self._round_graphs[(steps, True, B)]) / steps,
             prefill_ms_per_token=ms(self._admit_graphs[(bucket, True)])
             / bucket,
-            slots=self.cfg.max_slots, source="measured")
+            verify_ms_per_token=verify, d2h_ms_per_page=d2h,
+            h2d_ms_per_page=h2d, slots=B, source="measured")
+
+    def measure_page_io(self, pages: int, repeats: int = 3
+                        ) -> tuple[float, float]:
+        """(D2H, H2D) device ms per KV page on the card, by CUDA events,
+        as the tier moves pages: the gather of ``pages`` pool pages (1..)
+        and its copy into pinned host memory; the copy back and its
+        scatter into the same pages (their bytes unchanged), at most the
+        pool's. The serve loop must be stopped."""
+        pages = min(pages, self._n_pages - 1)
+        idx = torch.arange(1, pages + 1, device=self.device)
+        cache = self._state["cache"]
+
+        def timed(fn) -> float:
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(repeats):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / repeats / pages
+
+        host = {k: torch.empty((v.shape[0], pages) + tuple(v.shape[2:]),
+                               dtype=v.dtype, pin_memory=True)
+                for k, v in cache.items()}
+
+        def d2h() -> None:
+            for k, v in cache.items():
+                host[k].copy_(v.index_select(1, idx), non_blocking=True)
+
+        def h2d() -> None:
+            for k, v in cache.items():
+                v.index_copy_(1, idx, host[k].to(self.device,
+                                                 non_blocking=True))
+        return timed(d2h), timed(h2d)
 
     # ------------------------------------------------------------ lifecycle
 
@@ -1429,6 +1822,8 @@ class Engine:
         self._state = self._admit_in = None
         self._round_graphs = self._admit_graphs = {}
         self._extend_graphs = self._final_graphs = {}
+        self._verify_graphs = {}
+        self._io_pending = []
         self._fused_rag = self._rag_in = self._rag_aux = None
         self._rag_graphs = {}
         self._slots = {}
@@ -1460,6 +1855,11 @@ class Engine:
             self._thread = threading.Thread(target=self._run, daemon=True,
                                             name="engine-loop")
             self._thread.start()
+        if self._watchdog_thread is None and self._watchdog_stall_s > 0:
+            self._watchdog_thread = threading.Thread(
+                target=self._watchdog_loop, daemon=True,
+                name="engine-watchdog")
+            self._watchdog_thread.start()
 
     def stop(self) -> None:
         self._stopped.set()
@@ -1469,6 +1869,10 @@ class Engine:
             if self._thread.is_alive():
                 raise EngineError("engine loop did not stop within 60s")
             self._thread = None
+        if self._watchdog_thread is not None:
+            self._watchdog_thread.join(timeout=5)
+            self._watchdog_thread = None
+            self._stalled = False
         # Work handed to the serve thread that it did not reach.
         self._run_control()
         self._stop_harvest()
@@ -1480,6 +1884,91 @@ class Engine:
         for req in self._drain_intake():
             if not req.done:
                 req.stream._finish("cancelled")
+
+    def reset(self) -> None:
+        """Stop serving and start over: fail every live request and every
+        queued control operation (a suspend queued before the reset must
+        not run against the rebuilt state), stop the loop and rebuild the
+        pool, the state and the captured programs. The pool's cached
+        prefixes are dropped; the host tier keeps its blocks."""
+        exc = EngineError("engine was reset")
+        self._fail_control_ops("engine was reset")
+        for req in list(self._slots.values()) + list(self._backlog):
+            if not req.done:
+                req.stream._fail(exc)
+        self.stop()
+        self._rebuild()
+
+    def _fail_control_ops(self, reason: str) -> None:
+        """Fail every queued control operation's caller; none of them
+        runs."""
+        while True:
+            try:
+                _fn, done, box = self._control.get_nowait()
+            except queue.Empty:
+                return
+            box["error"] = EngineError(reason)
+            done.set()
+
+    # ------------------------------------------------------------ watchdog
+
+    @property
+    def stalled(self) -> bool:
+        """The liveness watchdog's verdict: True while work is queued or
+        in flight and no progress counter has moved for
+        ``ENGINE_WATCHDOG_STALL_S``; it clears as soon as one moves."""
+        return self._stalled
+
+    def _progress_marks(self) -> tuple:
+        """The counters a live engine moves."""
+        with self._stats_lock:
+            s = self._stats
+            return (s["rounds_completed"], s["harvest_rounds"],
+                    s["first_readbacks"], s["prefills"],
+                    s["tokens_generated"])
+
+    def _work_pending(self) -> bool:
+        return (self._inflight_rounds > 0 or len(self._backlog) > 0
+                or self._pending.qsize() > 0)
+
+    def _watchdog_loop(self) -> None:
+        """Poll the progress counters; with work pending and nothing
+        moving for the threshold, declare a stall once: count it, log
+        every thread's stack and the last round record, flip
+        ``stalled``."""
+        poll = max(0.05, min(1.0, self._watchdog_stall_s / 4.0))
+        marks = self._progress_marks()
+        last_move = time.monotonic()
+        while not self._stopped.wait(poll):
+            now = time.monotonic()
+            cur = self._progress_marks()
+            if cur != marks or not self._work_pending():
+                if self._stalled:
+                    self._stalled = False
+                    log_event(logger, "engine_watchdog_recovered",
+                              stalled_s=round(now - last_move, 2))
+                marks, last_move = cur, now
+                continue
+            if self._stalled or now - last_move < self._watchdog_stall_s:
+                continue
+            self._stalled = True
+            self._bump("watchdog_stalls")
+            names = {t.ident: t.name for t in threading.enumerate()}
+            stacks = {f"{names.get(tid, '?')}:{tid}":
+                      "".join(traceback.format_stack(frame))[-2000:]
+                      for tid, frame in sys._current_frames().items()}
+            try:
+                last_round = self.rounds.snapshot(
+                    limit=1, engine_tag=self._engine_tag).get("rounds")
+            except Exception:  # noqa: BLE001 - diagnostics never raise
+                last_round = None
+            log_event(logger, "engine_watchdog_stall",
+                      stall_s=round(now - last_move, 2),
+                      threshold_s=self._watchdog_stall_s,
+                      queue_waiting=(len(self._backlog)
+                                     + self._pending.qsize()),
+                      inflight_rounds=self._inflight_rounds,
+                      last_round=last_round, stacks=stacks)
 
     def _start_harvest(self, depth: int) -> None:
         """Start the harvest worker with ``depth`` decode rounds allowed in
@@ -1643,8 +2132,20 @@ class Engine:
                 f"{self.cfg.max_input_length}")
         if len(prompt_ids) == 0:
             raise EngineError("empty prompt")
-        ids = [int(t) for t in prompt_ids]
-        eff_max = min(params.max_tokens, self.cfg.max_cache_len - len(ids))
+        # A mid-stream resume (engine/resume.py) admits prompt + the
+        # replayed generated ids: from here on they are prompt (the
+        # prefix cache and the host tier make them cheap) and the stream
+        # carries only new tokens. max_input_length bounds the original
+        # prompt; max_tokens counts the replayed ids.
+        rz = engine_resume.current_resume()
+        replay = [int(t) for t in (rz or {}).get("ids", ())]
+        ids = [int(t) for t in prompt_ids] + replay
+        eff_max = min(params.max_tokens - len(replay),
+                      self.cfg.max_cache_len - len(ids))
+        if replay and eff_max < 1:
+            raise EngineError(
+                f"resume replays {len(replay)} tokens but the request has "
+                f"no token budget left (max_tokens={params.max_tokens})")
         need = _ceil_div(len(ids) + eff_max, self.cfg.page_size)
         if need > self._n_pages - 1:
             raise EngineError(
@@ -1660,8 +2161,30 @@ class Engine:
                        banned_np=banned_np, bad_seq_np=bad_seq_np,
                        bad_len_np=bad_len_np,
                        deadline_t=self._resolve_deadline(stream, deadline_t),
-                       seq=next(self._arrival_seq), base_len=len(ids))
+                       seq=next(self._arrival_seq), base_len=len(ids),
+                       resume_offset=len(replay) if replay else None)
+        if replay:
+            # A fresh stop-word trap is right: text held back on the lost
+            # replica never reached the caller. The detokenizer takes the
+            # replayed ids as emitted context.
+            req.detok.prime(replay)
+            tl = stream.timeline
+            if tl is not None:
+                tl.annotate(resume_replayed=len(replay),
+                            resume_attempt=int((rz or {}).get("attempt", 1)))
+                tl.event("resume_admit", {"replayed": len(replay)})
+        self._attach_drafter(req, ids)
         return self._enqueue(req)
+
+    def _attach_drafter(self, req: _Request, context: Sequence[int]) -> None:
+        """With speculative decoding on, the request's prompt-lookup index
+        (built on the submitting thread) and its draft-length
+        controller."""
+        if self._spec is not None:
+            req.drafter = PromptLookupDrafter(
+                context, ngram_max=self._spec.ngram_max,
+                ngram_min=self._spec.ngram_min)
+            req.spec_ctrl = AdaptiveDraftController(self._spec)
 
     def _render_bad_words(self, params: SamplingParams
                           ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -1827,13 +2350,16 @@ class Engine:
             raise box["error"]
         return box.get("out")
 
-    def _run_control(self) -> None:
-        """Run the work handed over by ``_on_serve_thread``."""
+    def _run_control(self) -> bool:
+        """Run the work handed over by ``_on_serve_thread``; True when
+        there was some."""
+        did = False
         while True:
             try:
                 fn, done, box = self._control.get_nowait()
             except queue.Empty:
-                return
+                return did
+            did = True
             try:
                 box["out"] = fn()
             except Exception as exc:  # noqa: BLE001 - raised to the caller
@@ -1893,6 +2419,9 @@ class Engine:
                        deadline_t=self._resolve_deadline(stream, deadline_t),
                        seq=next(self._arrival_seq), base_len=spec.bucket,
                        rag=(q_llm, len(ids), q_enc))
+        # The prompt is assembled on the device: the drafter indexes the
+        # generated tokens only.
+        self._attach_drafter(req, ())
         return self._enqueue(req)
 
     def _reject_full(self, stream: TokenStream) -> None:
@@ -1966,10 +2495,18 @@ class Engine:
         read here at the end of the step). False when there was nothing
         to do."""
         self._alive()
-        self._run_control()
-        did = self._drain_completed()
+        did = self._run_control()
+        did |= self._drain_completed()
         self._pull_pending()
         did |= self._cull_backlog()
+        self._poll_io()
+        # Online calibration: fold new round evidence into the model
+        # before this round is planned (a version check when idle).
+        if self._calib is not None and self._sched.recalibrate():
+            with self._stats_lock:
+                self._stats["sched_round_budget_tokens"] = \
+                    self._sched.round_budget_tokens
+                self._stats["sched_budget_recalibrations"] += 1
         plan = self._plan_round()
         rec = None
         if plan.decode_steps or plan.chunks:
@@ -1981,7 +2518,9 @@ class Engine:
                 decode_steps=plan.decode_steps,
                 decode_cost_tokens=plan.decode_cost_tokens,
                 active_decodes=plan.active_decodes,
-                kind="decode" if plan.decode_steps else "prefill",
+                kind=("verify" if plan.decode_steps
+                      and self._draft_plan is not None
+                      else "decode" if plan.decode_steps else "prefill"),
                 on_complete=self._on_round_complete)
         try:
             work = self._execute_plan(plan, rec)
@@ -2004,8 +2543,16 @@ class Engine:
         the harvest will complete (or drop it when nothing was
         dispatched). True when anything was done."""
         dispatched = False
+        # CUDA events around the round's programs (``_replay``), for the
+        # cost calibrator.
+        self._span = ([None, None] if self.device.type == "cuda"
+                      else None)
         if plan.decode_steps:
-            self._dispatch_round(plan.decode_steps, rec)
+            if self._draft_plan is not None:
+                self._dispatch_verify(self._draft_plan, rec)
+                self._draft_plan = None
+            else:
+                self._dispatch_round(plan.decode_steps, rec)
             dispatched = True
             self._bump("sched_decode_tokens", plan.decode_cost_tokens)
         armed, prefilled, admitted, grants = self._run_chunks(plan.chunks,
@@ -2030,21 +2577,45 @@ class Engine:
             else:
                 if not dispatched:
                     rec.kind = "prefill"
-                elif prefilled:
+                elif prefilled and rec.kind == "decode":
                     rec.kind = "mixed"
+                span = self._span
+                if span is not None and span[1] is not None:
+                    rec.device_events = tuple(span)
                 self.rounds.seal(
                     rec, parts=parts, prefill_tokens=prefilled,
                     grants=grants, modeled_ms=self._modeled_round_ms(
-                        plan.decode_steps if dispatched else 0, prefilled))
+                        rec, plan.decode_steps if dispatched else 0,
+                        prefilled))
+        self._span = None
         return admitted or bool(prefilled) or dispatched
 
-    def _modeled_round_ms(self, decode_steps: int,
+    def _modeled_round_ms(self, rec, decode_steps: int,
                           prefill_tokens: int) -> float:
         """What the step-cost model predicts the round takes: the
         denominator of its drift ratio."""
         cost = self._sched.cost
-        return (cost.decode_round_ms(decode_steps)
-                + prefill_tokens * cost.prefill_ms_per_token)
+        modeled = prefill_tokens * cost.prefill_ms_per_token
+        if decode_steps and rec.verify_positions:
+            modeled += rec.verify_positions * (cost.verify_ms_per_token
+                                               or cost.prefill_ms_per_token)
+        else:
+            modeled += cost.decode_round_ms(decode_steps)
+        if rec.kv_restore_pages:
+            modeled += cost.restore_ms(rec.kv_restore_pages)
+        return modeled
+
+    def _round_device_ms(self, rec) -> float:
+        """A completed round's device time for the calibrator: on the
+        card the CUDA events around its programs, read only once the end
+        event has completed (``query`` does not wait; a round whose
+        events are not done yet feeds nothing); elsewhere the round
+        record's host-clock estimate."""
+        events = rec.device_events
+        if events is None:
+            return rec.device_ms if self.device.type != "cuda" else 0.0
+        start, end = events
+        return start.elapsed_time(end) if end.query() else 0.0
 
     def _on_round_complete(self, rec) -> None:
         """A round's record completed (on whichever thread harvested its
@@ -2061,6 +2632,20 @@ class Engine:
                 prev = self._drift_ratio
                 self._drift_ratio = (ratio if prev is None
                                      else prev + 0.2 * (ratio - prev))
+            # Only pure rounds are attributable: a mixed round's time
+            # cannot be split.
+            calib = self._calib
+            ms = self._round_device_ms(rec) if calib is not None else 0.0
+            if ms > 0:
+                if rec.kind == "decode" and not rec.prefill_tokens:
+                    calib.observe_decode(rec.decode_steps, ms)
+                elif rec.kind == "verify" and not rec.prefill_tokens:
+                    calib.observe_verify(rec.verify_positions, ms)
+                elif rec.kind == "prefill":
+                    # Per token the programs computed (their buckets): a
+                    # short prompt padded to a bucket would otherwise
+                    # price every prefill token as its whole bucket.
+                    calib.observe_prefill(rec.prefill_computed, ms)
             self._bump("rounds_completed")
             obs_rounds.record_round_metrics(rec, self._drift_ratio)
             obs_rounds.emit_round_span(rec)
@@ -2108,7 +2693,9 @@ class Engine:
         queued before it (the event; nothing to wait for on the CPU) and
         completes every marker read so far."""
         kind = item[0]
-        if kind == "mark":
+        if kind == "offload":
+            self._harvest_offload(item)
+        elif kind == "mark":
             self._marks.append(item[4])
         elif kind == "flush":
             t0 = time.monotonic()
@@ -2129,9 +2716,13 @@ class Engine:
         "first" output the prefill part) and the prefill parts of the
         markers read before it. Each request's timeline gets one event per
         round, none per token."""
-        kind, members, buf, rows, rec = item
+        kind, members, buf, rows, rec = item[:5]
         t0 = time.monotonic()
         grid = self._ring.read(buf, rows)
+        accs = None
+        if kind == "verify":
+            # The last row holds the accepted draft counts.
+            grid, accs = grid[:-1], grid[-1]
         if kind == "first":
             for req in members.values():
                 if req.rag_aux is not None:
@@ -2175,7 +2766,11 @@ class Engine:
             tl = members[slot].stream.timeline
             if n and tl is not None:
                 tl.event("decode_round", n)
+        accepted = 0
+        if accs is not None:
+            accepted = self._finish_verify(members, accs, item[5], emitted)
         self.rounds.complete_part(rec, tokens=sum(emitted.values()),
+                                  spec_accepted=accepted,
                                   harvest_wait_ms=wait * 1e3)
         # Last: the depth gate opens only once the round is accounted for,
         # and the serve thread is woken right after.
@@ -2255,6 +2850,23 @@ class Engine:
                    default=0)
         steps = graphs.rung_for(self.cfg.steps_per_round, need) \
             if need > 0 else 0
+        verify_cost = None
+        hold = False
+        self._draft_plan = None
+        if self._spec is not None and steps:
+            # A verify round needs the exact host context, so it runs
+            # only with the pipeline drained. With rounds in flight a
+            # slot that looks draftable holds the next round back until
+            # they drain; with nothing to draft the pipelined classic
+            # rounds go on.
+            if self._inflight_rounds == 0:
+                self._draft_plan = self._plan_drafts(armed.values())
+                if self._draft_plan is not None:
+                    steps = 1
+                    verify_cost = self._sched.cost.verify_cost_tokens(
+                        self._spec_S * len(armed))
+            else:
+                hold = self._any_draftable(armed.values())
         # The depth gate: no new round while ``_depth`` are in flight.
         # Prompt chunks may take the place of the next round unless
         # chunks already followed the last one: they are granted what is
@@ -2262,7 +2874,8 @@ class Engine:
         # rounds as at depth 1 (a request arriving beside decoding
         # streams waits for no extra round), and chunks never run back
         # to back ahead of the next round.
-        gated = steps > 0 and self._inflight_rounds >= self._depth
+        gated = steps > 0 and (hold
+                               or self._inflight_rounds >= self._depth)
         if gated and self._chunk_behind:
             return RoundPlan(decode_steps=0, active_decodes=len(armed))
         # A fused-RAG prompt is assembled on the device: it is charged the
@@ -2277,10 +2890,43 @@ class Engine:
         plan = self._sched.plan_round(
             decode_steps=steps, active_decodes=len(armed), inflight=inflight,
             backlog=backlog, now=time.monotonic(),
-            max_new=len(self._free_slots))
+            max_new=len(self._free_slots), decode_cost_tokens=verify_cost)
         if gated:
             plan.decode_steps = 0
         return plan
+
+    def _any_draftable(self, armed) -> bool:
+        """Could an armed slot propose a draft now? A hint read while
+        rounds are in flight (the host context may lag the device): it
+        decides whether to hold the next round for a verify round, never
+        what is drafted."""
+        for req in armed:
+            if (req.drafter is not None and req.stream.token_ids
+                    and min(req.spec_ctrl.k,
+                            req.eff_max - req.generated - 1) > 0
+                    and req.drafter.propose(1)):
+                return True
+        return False
+
+    def _plan_drafts(self, armed) -> Optional[dict]:
+        """Prompt-lookup proposals for a verify round, {slot: drafts}, or
+        None when no slot drafts (a classic round runs instead). A slot
+        whose first token is not read back yet drafts nothing (its index
+        lags the device) but still rides the round as one row. Drafts
+        never run past a request's remaining length, so no row writes
+        past its pages."""
+        plan: dict[int, list[int]] = {}
+        for req in armed:
+            if req.drafter is None or not req.stream.token_ids:
+                continue
+            k = min(req.spec_ctrl.k, self._spec.max_draft_tokens,
+                    req.eff_max - req.generated - 1)
+            if k <= 0:
+                continue
+            proposal = req.drafter.propose(k)
+            if proposal:
+                plan[req.slot] = proposal
+        return plan or None
 
     def _run_chunks(self, chunks, rec=None
                     ) -> tuple[list[_Request], int, bool, list]:
@@ -2297,18 +2943,19 @@ class Engine:
             if req.slot < 0:
                 if not self._free_slots:
                     break
-                ok = self._begin_prefill(req)
+                ok = self._begin_prefill(req, rec)
                 if ok is None:     # cancelled while it waited
                     admitted = True
                     continue
                 if not ok:         # pool backpressure: stop admitting
                     break
                 admitted = True
-            n = self._advance_prefill(req, grant)
+            n, computed = self._advance_prefill(req, grant)
             if n:
                 prefilled += n
                 grants.append((req.stream.request_id, n))
                 if rec is not None:
+                    rec.prefill_computed += computed
                     rec.hbm_bytes += (self._param_bytes
                                       + n * self._kv_bytes_per_token())
             if req.prefill_done:
@@ -2349,7 +2996,278 @@ class Engine:
                 req.cache_refs.append(hashes[i])
                 req.cache_pages.add(req.pages[i])
 
-    def _begin_prefill(self, req: _Request) -> Optional[bool]:
+    # ------------------------------------------------------ the host KV tier
+
+    def _index_tensor(self, pages) -> torch.Tensor:
+        """Page ids as an int64 device tensor, through a pinned buffer on
+        the card (a pageable copy would wait for every round in
+        flight)."""
+        src = torch.from_numpy(np.asarray(pages, np.int64))
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        return src.to(self.device, non_blocking=True)
+
+    def _offload_victims(self, victims: list, rec=None) -> None:
+        """Offload evicted refcount-0 prefix pages to the host tier: one
+        gather of the victims into device staging on the serve stream
+        (ordered before any later program overwrites the pages), then on
+        the card a copy into pinned host memory on a side stream under
+        CUDA events; the harvest waits for it and files the records, off
+        the scheduling path. A failure (an injected ``kv.offload`` too)
+        drops the pages, as the engine without a tier does."""
+        tier = self._kv_tier
+        if tier is None or not victims:
+            return
+        try:
+            faults.inject("kv.offload")
+            fresh = [(h, par, pg) for h, par, pg in victims
+                     if not tier.store.has(h)]
+            if not fresh:
+                return
+            idx = self._index_tensor([pg for _, _, pg in fresh])
+            staged = {k: v.index_select(1, idx)
+                      for k, v in self._state["cache"].items()}
+            events = None
+            if self.device.type == "cuda":
+                if self._io_stream is None:
+                    self._io_stream = torch.cuda.Stream(self.device)
+                io = self._io_stream
+                io.wait_stream(torch.cuda.current_stream(self.device))
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                host = {}
+                with torch.cuda.stream(io):
+                    events[0].record()
+                    for k, v in staged.items():
+                        host[k] = torch.empty(v.shape, dtype=v.dtype,
+                                              pin_memory=True)
+                        host[k].copy_(v, non_blocking=True)
+                        v.record_stream(io)
+                    events[1].record()
+            else:
+                host = staged
+            self._post(("offload", [(h, par) for h, par, _ in fresh], host,
+                        events, None))
+            if rec is not None:
+                rec.hbm_bytes += (len(fresh) * self.cfg.page_size
+                                  * self._kv_bytes_per_token())
+        except Exception:  # noqa: BLE001 - offload is best effort
+            logger.debug("kv offload failed; pages dropped", exc_info=True)
+
+    def _harvest_offload(self, item: tuple) -> None:
+        """The harvest's half of an offload: wait for the copy, split it
+        into per-block records for the host store, feed the D2H time (the
+        CUDA events' on the card) to the calibrator."""
+        _, metas, host, events, _ = item
+        t0 = time.monotonic()
+        if events is not None:
+            events[1].synchronize()
+            ms = events[0].elapsed_time(events[1])
+        else:
+            ms = (time.monotonic() - t0) * 1e3
+        tier = self._kv_tier
+        if tier is None:
+            return
+        for block in KVTier.split_pages(host, metas):
+            tier.store.put(block)
+        if self._calib is not None and events is not None:
+            self._calib.observe_d2h(len(metas), ms)
+        self._bump("kv_tier_offload_pages", len(metas))
+
+    def _poll_io(self) -> None:
+        """Feed the calibrator the restores whose CUDA events completed
+        (``query`` does not wait)."""
+        pending, self._io_pending = self._io_pending, []
+        for pages, start, end in pending:
+            if end.query():
+                if self._calib is not None:
+                    self._calib.observe_h2d(pages, start.elapsed_time(end))
+            else:
+                self._io_pending.append((pages, start, end))
+
+    def _plan_restore(self, req: _Request, hashes: list,
+                      k_use: int) -> list:
+        """The host-tier half of the admission lookup: the chain's
+        continuation ``hashes[k_use:]`` present in the host store, capped
+        one block short of a full cover like any prefix match, and priced
+        (``StepCostModel.restore_cheaper``; a refusal counts in
+        ``kv_restore_skipped_cost``). Returns the records to restore."""
+        tier, page = self._kv_tier, self.cfg.page_size
+        avail = tier.store.match_chain(hashes[k_use:])
+        if not avail:
+            return []
+        usable = usable_prefix_tokens(k_use + avail, len(req.prompt_ids),
+                                      page) // page
+        r = usable - k_use
+        if r <= 0:
+            return []
+        if not self._sched.cost.restore_cheaper(r, page):
+            self._bump("kv_restore_skipped_cost")
+            return []
+        recs = []
+        for h in hashes[k_use:k_use + r]:
+            record = tier.store.get(h)
+            if record is None:
+                break   # LRU raced: restore the run still held
+            recs.append(record)
+        return recs
+
+    def _restore_blocks(self, req: _Request, hashes: list, k_use: int,
+                        recs: list, rec=None) -> int:
+        """Copy host-tier blocks into the request's fresh pages: one copy
+        per pool leaf (from pinned memory on the card) and one scatter,
+        eagerly on the serve stream ahead of the prompt's chunk programs,
+        so the first chunk reads them in order. Their indices vary, so
+        this is not captured. The blocks enter the prefix cache as if
+        prefilled (one ref held by the request). Returns the pages
+        restored."""
+        page, r = self.cfg.page_size, len(recs)
+        t0 = time.monotonic()
+        faults.inject("kv.restore")
+        arrays = KVTier.stack_blocks(recs)          # name -> (L, r, ...)
+        pages = req.pages[k_use:k_use + r]
+        cache = self._state["cache"]
+        cuda = self.device.type == "cuda"
+        events = None
+        if cuda:
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        idx = self._index_tensor(pages)
+        for name, pool in cache.items():
+            src = arrays[name].to(pool.dtype)
+            if cuda:
+                src = src.pin_memory()
+            pool.index_copy_(1, idx, src.to(self.device, non_blocking=True))
+        dt = time.monotonic() - t0
+        if events is not None:
+            events[1].record()
+            self._io_pending.append((r, events[0], events[1]))
+        elif self._calib is not None:
+            self._calib.observe_h2d(r, dt * 1e3)
+        record_stage("engine_kv_restore", dt)
+        tl = req.stream.timeline
+        if tl is not None:
+            tl.stage("engine_kv_restore", dt)
+        for i, pg in enumerate(pages):
+            h = hashes[k_use + i]
+            parent = hashes[k_use + i - 1] if (k_use + i) else None
+            if self._prefix_cache.insert(h, parent, pg):
+                req.cache_refs.append(h)
+                req.cache_pages.add(pg)
+        with self._stats_lock:
+            self._stats["kv_tier_restore_pages"] += r
+            self._stats["kv_tier_restore_hits"] += 1
+        if rec is not None:
+            rec.kv_restore_pages += r
+            rec.hbm_bytes += r * page * self._kv_bytes_per_token()
+        return r
+
+    def _collect_blocks(self, hashes: list, start: int, stop: int,
+                        into_store: bool = True) -> list:
+        """Serve-thread body of an export or a suspend: the records of
+        ``hashes[start:stop]``, each from the host tier or gathered out of
+        the pool (one gather and one blocking copy: a control operation,
+        off the token path; long chains come in slices, so rounds run
+        between them). Stops at the first block in neither tier."""
+        tier = self._kv_tier
+        out: list = []
+        gather_meta: list = []   # (out index, hash, parent, page)
+        for i in range(start, min(stop, len(hashes))):
+            h = hashes[i]
+            record = tier.store.peek(h)
+            if record is not None:
+                out.append(record)
+                continue
+            pg = (self._prefix_cache.page_of(h)
+                  if self._prefix_cache is not None else None)
+            if pg is None:
+                break
+            gather_meta.append((len(out), h, hashes[i - 1] if i else None,
+                                pg))
+            out.append(None)
+        if gather_meta:
+            idx = self._index_tensor([pg for *_, pg in gather_meta])
+            host = {k: v.index_select(1, idx).cpu()
+                    for k, v in self._state["cache"].items()}
+            records = KVTier.split_pages(
+                host, [(h, par) for _, h, par, _ in gather_meta])
+            for (i, *_), record in zip(gather_meta, records):
+                out[i] = record
+                if into_store:
+                    tier.store.put(record)
+        return [r for r in out if r is not None]
+
+    def _require_tier(self) -> KVTier:
+        if self._kv_tier is None:
+            raise EngineError("KV tiering is disabled (KV_HOST_POOL_TOKENS=0)")
+        return self._kv_tier
+
+    def export_blob(self, hashes: Sequence[bytes],
+                    max_blocks: Optional[int] = None) -> tuple[bytes, int]:
+        """The leading cached blocks of a hash chain, serialized (at most
+        ``max_blocks``, default the tier's slice size): (blob, blocks); an
+        empty chain gives a blob of no blocks. The serve thread gathers,
+        the caller's thread serializes."""
+        tier = self._require_tier()
+        cap = int(max_blocks or tier.transfer_max_pages)
+        chain = list(hashes)
+        recs = self._on_serve_thread(
+            lambda: self._collect_blocks(chain, 0, cap))
+        return kv_tier_mod.to_blob(recs, tier.meta), len(recs)
+
+    def suspend_session(self, token_ids: Sequence[int]) -> Optional[bytes]:
+        """Demote an idle conversation's prefix chain out of both tiers
+        into a blob: its pool pages return to the free list and its host
+        copies go. Blocks a live request still maps (or that another
+        chain shares) stay where they are but go into the blob all the
+        same. None when nothing of the chain is cached."""
+        tier = self._require_tier()
+        hashes = hash_blocks(list(token_ids), self.cfg.page_size)
+        records: list = []
+        step = max(1, tier.transfer_max_pages)
+        for lo in range(0, len(hashes), step):
+            batch = self._on_serve_thread(
+                lambda lo=lo: self._collect_blocks(hashes, lo, lo + step,
+                                                   into_store=False))
+            records.extend(batch)
+            if len(batch) < min(step, len(hashes) - lo):
+                break   # the chain ended in this slice
+        if not records:
+            return None
+        n = len(records)
+
+        def demote() -> None:
+            for h in reversed(hashes[:n]):   # leaf first
+                tier.store.pop(h)
+                pg = self._prefix_cache.remove(h)
+                if pg is not None:
+                    self._free_pages.append(pg)
+            self._bump("kv_tier_suspended_blocks", n)
+        self._on_serve_thread(demote)
+        return kv_tier_mod.to_blob(records, tier.meta)
+
+    def resume_session(self, blob: bytes) -> int:
+        """Seed a suspended session's blocks into the host tier (no
+        device work: the conversation's next admission restores them).
+        Returns the blocks taken. A malformed blob (counted in
+        ``kv_restore_corrupt``) or another geometry raises
+        ``EngineError``."""
+        tier = self._require_tier()
+        try:
+            meta, records = kv_tier_mod.from_blob(blob)
+        except (ValueError, KeyError, TypeError) as exc:
+            self._bump("kv_restore_corrupt")
+            raise EngineError(f"malformed KV blob: {exc}") from exc
+        if not tier.compatible(meta):
+            raise EngineError(
+                f"KV blob geometry does not match this engine (blob "
+                f"{meta!r} vs engine {tier.meta!r})")
+        n = sum(1 for record in records if tier.store.put(record))
+        self._bump("kv_tier_resumed_blocks", n)
+        return n
+
+    def _begin_prefill(self, req: _Request, rec=None) -> Optional[bool]:
         """Admission, first half: the slot and pages (a prefix hit's
         cached pages first), prefix-cache refs, and the context the
         prefill programs share. Pool pressure evicts refcount-0 cached
@@ -2363,11 +3281,23 @@ class Engine:
         page = self.cfg.page_size
         n_alloc = _ceil_div(req.extent, page)
         hashes, k_use, hit_pages = self._prefix_lookup(req)
+        # The host tier: plan the priced restore of the chain's
+        # continuation before eviction, so this admission's own offloads
+        # cannot push its records out.
+        restore_recs: list = []
+        if self._kv_tier is not None and req.rag is None and hashes:
+            restore_recs = self._plan_restore(req, hashes, k_use)
         need_new = n_alloc - k_use
         if need_new > len(self._free_pages):
             if self._prefix_cache is not None:
+                victims: list = []
+                sink = None
+                if self._kv_tier is not None:
+                    sink = (lambda h, e:
+                            victims.append((h, e.parent, e.page)))
                 self._free_pages.extend(self._prefix_cache.evict(
-                    need_new - len(self._free_pages)))
+                    need_new - len(self._free_pages), sink=sink))
+                self._offload_victims(victims, rec)
             if need_new > len(self._free_pages):
                 if k_use:
                     self._prefix_cache.release(hashes[:k_use])
@@ -2378,7 +3308,17 @@ class Engine:
                                  for _ in range(need_new)]
         req.cache_refs = list(hashes[:k_use])
         req.cache_pages = set(hit_pages)
-        start_tok = k_use * page
+        restored = 0
+        if restore_recs:
+            try:
+                restored = self._restore_blocks(req, hashes, k_use,
+                                                restore_recs, rec)
+            except Exception:  # noqa: BLE001 - falls back to recompute
+                # The pages may hold part of the copy: the prefill
+                # recomputes over them from the pool-hit boundary.
+                logger.warning("kv restore failed; recomputing the prefix",
+                               exc_info=True)
+        start_tok = (k_use + restored) * page
         req.proj_pos = req.base_len
         req.pf_pos = start_tok
         if self._prefix_cache is not None and req.rag is None:
@@ -2397,10 +3337,15 @@ class Engine:
             mask = np.zeros((self.model_cfg.vocab_size,), bool)
             mask[np.asarray(req.prompt_ids[:start_tok], np.int64)] = True
             seen0 = pack_mask_np(mask)
+        # The admission's sampling seed. A resume's is a function of its
+        # replay offset alone, so the same seed continues the same way.
+        salt = (((req.resume_offset + 1) << 20)
+                if req.resume_offset is not None
+                else next(self._step_counter) << 16)
         req.pf = {"row": row, "start_tok": start_tok, "hashes": hashes,
-                  "k_use": k_use, "seen0": seen0, "dispatch_s": 0.0,
-                  "seed": ((self.cfg.seed << 32)
-                           ^ (next(self._step_counter) << 16)
+                  "k_use": k_use + restored, "seen0": seen0,
+                  "dispatch_s": 0.0,
+                  "seed": ((self.cfg.seed << 32) ^ salt
                            ^ req.params.random_seed)}
         # The queue wait, and the slack left at admission after the
         # modeled prefill of the uncached suffix (clamped at 0).
@@ -2434,14 +3379,16 @@ class Engine:
             event.record()
         self._post(("flush", {}, event, 0, None))
 
-    def _advance_prefill(self, req: _Request, grant: int) -> int:
+    def _advance_prefill(self, req: _Request, grant: int
+                         ) -> tuple[int, int]:
         """Admission, second half, once per round: run one prefill program
         for up to ``grant`` prompt tokens. A cold prompt that fits its
         grant keeps the one-program admission (``_admit_body``); otherwise
         a chunk padded to its bucket runs (``_chunk_extend_body``, or
         ``_chunk_final_body`` for the prompt's last tokens, which arms the
         slot); a fused-RAG request runs its program whole
-        (``_dispatch_rag``). Returns the prompt tokens prefilled."""
+        (``_dispatch_rag``). Returns (the prompt tokens prefilled, the
+        tokens the program computed: its bucket)."""
         if req.rag is not None:
             return self._dispatch_rag(req)
         pf = req.pf
@@ -2451,25 +3398,26 @@ class Engine:
             # first token.
             if req.stream.cancelled:
                 self._abort_prefill(req, "cancelled")
-                return 0
+                return 0, 0
             if req.deadline_t is not None \
                     and time.monotonic() > req.deadline_t:
                 self._bump("deadline_stops")
                 self._abort_prefill(req, "deadline")
-                return 0
+                return 0, 0
         total, page = len(req.prompt_ids), self.cfg.page_size
         n = min(grant, total - req.pf_pos, self._buckets[-1])
         final = req.pf_pos + n >= total
         if not final:
             n = (n // page) * page
             if n <= 0:
-                return 0
+                return 0, 0
         C = self._bucket_for(n)
         seeding = req.pf_pos == pf["start_tok"] and pf["seen0"] is not None
         self._stage_admission(req, req.pf_pos, n, C,
                               pf["seen0"] if seeding else None)
         if final:
             self._admit_gen.manual_seed(pf["seed"])
+        faults.inject("engine.dispatch")
         t0 = time.monotonic()
         if final and req.pf_pos == 0:
             self._replay(self._admit_graphs, self._admit_body, C, req.greedy)
@@ -2488,9 +3436,9 @@ class Engine:
         req.pf_pos += n
         if final:
             self._arm_slot(req)
-        return n
+        return n, C
 
-    def _dispatch_rag(self, req: _Request) -> int:
+    def _dispatch_rag(self, req: _Request) -> tuple[int, int]:
         """A fused-RAG admission: retrieval, assembly and prefill are one
         program, so it runs whole whatever the grant (a grant cannot split
         an assembly done on the device; the scheduler charged the whole
@@ -2498,7 +3446,7 @@ class Engine:
         yet; then the page row and sampling inputs are staged as a
         one-shot admission's, the question into ``_rag_in``, the program
         runs, the aux row starts its copy into a pinned host buffer and
-        the slot is armed. Returns the bucket."""
+        the slot is armed. Returns (the bucket, the bucket)."""
         fused, pf = self._fused_rag, req.pf
         spec = fused.spec
         self._capture_rag()
@@ -2510,6 +3458,7 @@ class Engine:
         host[-1] = q_len
         self._host_to_device(dev_in, host)
         self._admit_gen.manual_seed(pf["seed"])
+        faults.inject("engine.dispatch")
         t0 = time.monotonic()
         self._replay(self._rag_graphs, self._rag_body, req.greedy)
         pf["dispatch_s"] += time.monotonic() - t0
@@ -2525,16 +3474,24 @@ class Engine:
         self._bump("rag_admissions")
         req.pf_pos = spec.bucket
         self._arm_slot(req)
-        return spec.bucket
+        return spec.bucket, spec.bucket
 
     def _replay(self, table: dict, body, *key) -> None:
         """Run one device program: with graphs on, the replay of the
         capture ``table`` keeps under ``key`` (a missing one raises), else
         ``body(*key)`` eagerly."""
+        span = self._span
+        if span is not None and span[0] is None:
+            span[0] = torch.cuda.Event(enable_timing=True)
+            span[0].record()
         if self._graphs_on:
             table[key].replay()
         else:
             body(*key)
+        if span is not None:
+            if span[1] is None:
+                span[1] = torch.cuda.Event(enable_timing=True)
+            span[1].record()
 
     def _arm_slot(self, req: _Request) -> None:
         """Prefill complete: publish the prompt's blocks to the prefix
@@ -2602,14 +3559,12 @@ class Engine:
         slots, the pages its steps read and its estimated bytes: the
         weights once per step, and each slot's live pages (at its host
         position bound before the round) per step."""
+        faults.inject("engine.dispatch")
         members = self._armed()
         greedy = all(r.greedy for r in members.values())
         B = self.cfg.max_slots
         ba = self._ba_for(len(members))
-        if self.cfg.fused_tail:
-            act = np.full((B,), B, np.int32)
-            act[:len(members)] = sorted(members)
-            self._host_to_device(self._state["act_idx"], act)
+        self._stage_act_idx(members)
         toks = self._decode_round(steps, greedy, ba)
         buf = self._ring.copy(toks, self._alive)
         if rec is not None:
@@ -2636,6 +3591,107 @@ class Engine:
             self._bump("sampler_rows_sampled", ba * steps)
             self._bump("sampler_rows_skipped", (B - ba) * steps)
 
+    def _stage_act_idx(self, members: dict) -> None:
+        """Under the fused tail, the armed slots sorted and padded with B
+        into ``act_idx``."""
+        if self.cfg.fused_tail:
+            B = self.cfg.max_slots
+            act = np.full((B,), B, np.int32)
+            act[:len(members)] = sorted(members)
+            self._host_to_device(self._state["act_idx"], act)
+
+    def _dispatch_verify(self, drafts: dict, rec=None) -> None:
+        """One speculative verify round (the reference's
+        ``_dispatch_verify``): every armed slot rides it, the slots in
+        ``drafts`` with their proposals staged into ``drafts`` /
+        ``n_draft``, the others as one-token rows. The page window is the
+        smallest rung covering every scored position; the pipeline is
+        drained, so ``proj_pos`` is exact. Its (S + 1, B) grid (the
+        emitted tokens, then the accepted counts) goes to the harvest as
+        one copy."""
+        faults.inject("engine.dispatch")
+        members = self._armed()
+        S, B, page = self._spec_S, self.cfg.max_slots, self.cfg.page_size
+        need = max(min(r.proj_pos + S, r.extent) + 1
+                   for r in members.values())
+        pages = min(_ceil_div(need, page), self._pmax)
+        window = next(w for w in self._windows if w >= pages)
+        greedy = all(r.greedy for r in members.values())
+        ba = self._ba_for(len(members))
+        self._stage_act_idx(members)
+        draft_np = np.zeros((B, max(1, S - 1)), np.int32)
+        n_np = np.zeros((B,), np.int32)
+        drafted: dict[int, int] = {}
+        for slot, toks in drafts.items():
+            k = min(len(toks), S - 1)
+            draft_np[slot, :k] = toks[:k]
+            n_np[slot] = drafted[slot] = k
+        self._host_to_device(self._state["drafts"], draft_np)
+        self._host_to_device(self._state["n_draft"], n_np)
+        t0 = time.monotonic()
+        self._replay(self._verify_graphs, self._verify_body, window, greedy,
+                     ba)
+        dt = time.monotonic() - t0
+        buf = self._ring.copy(self._state["round_tokens"][:S + 1],
+                              self._alive)
+        record_stage("engine_verify", dt)
+        for req in members.values():
+            if req.stream.timeline is not None:
+                req.stream.timeline.stage("engine_verify", dt)
+        if rec is not None:
+            pages_read = sum(_ceil_div(r.proj_pos + 1, page)
+                             for r in members.values())
+            rec.decode_slots = len(members)
+            rec.spec_drafted = sum(drafted.values())
+            rec.verify_positions = S * len(members)
+            rec.pages_touched += pages_read
+            rec.hbm_bytes += (self._param_bytes + pages_read * page
+                              * self._kv_bytes_per_token())
+        for req in members.values():
+            req.proj_pos = min(req.proj_pos + S, req.extent - 1)
+        with self._pipe_lock:
+            self._inflight_rounds += 1
+            depth = self._inflight_rounds
+        with self._stats_lock:
+            self._stats["dispatch_depth_peak"] = max(
+                self._stats["dispatch_depth_peak"], depth)
+        self._post(("verify", members, buf, S + 1, rec, drafted))
+        self._chunk_behind = False
+        self._bump("decode_steps")
+        self._bump("spec_verify_rounds")
+        if self.cfg.fused_tail:
+            self._bump("sampler_rows_sampled", ba * S)
+            self._bump("sampler_rows_skipped", (B - ba) * S)
+
+    def _finish_verify(self, members: dict, accs: list, drafted: dict,
+                       emitted: dict) -> int:
+        """The harvest's bookkeeping of one verify round: the spec
+        stats, each request's draft and accept events and controller,
+        and the ``proj_pos`` re-anchor (the dispatch raised it by the
+        full S; ``base_len + generated - 1`` is the slot's exact device
+        position). Returns the drafts accepted."""
+        accept_total = 0
+        for slot, req in members.items():
+            k = drafted.get(slot, 0)
+            a = min(int(accs[slot]), k)
+            accept_total += a
+            if k > 0 and req.spec_ctrl is not None:
+                req.spec_ctrl.update(k, a)
+            tl = req.stream.timeline
+            if tl is not None and (k or emitted.get(slot)):
+                tl.event("spec_drafted", k)
+                tl.event("spec_accepted", a)
+            if req.prefill_done and not req.done:
+                req.proj_pos = min(req.extent - 1,
+                                   req.base_len + req.generated - 1)
+        with self._stats_lock:
+            self._stats["spec_draft_tokens"] += sum(drafted.values())
+            self._stats["spec_accepted_tokens"] += accept_total
+            self._stats["spec_verify_tokens"] += sum(emitted.values())
+            self._stats["spec_verify_slot_steps"] += sum(
+                1 for n in emitted.values() if n)
+        return accept_total
+
     def _emit_token(self, req: _Request, token: int, now: float) -> None:
         """Deliver one generated token, read back at host time ``now``
         (on the harvest thread, or the serve thread without one); finish
@@ -2645,6 +3701,10 @@ class Engine:
         req.generated += 1
         req.stream.token_ids.append(token)
         req.stream.token_times.append(now)
+        if req.drafter is not None:
+            # The prompt-lookup index follows the stream (drafts are only
+            # proposed with every round read back).
+            req.drafter.extend((token,))
         self._bump("tokens_generated")
         if req.stream.first_token_time is None:
             req.stream.first_token_time = now

@@ -131,6 +131,13 @@ class PrefixCache:
         so other threads may read it while the serve thread works."""
         return self._idle
 
+    def page_of(self, h: BlockHash) -> Optional[int]:
+        """The pool page holding a cached block, or None (the KV tier's
+        export probe: a cached page holds prompt KV only and does not
+        change while resident)."""
+        e = self._entries.get(h)
+        return e.page if e is not None else None
+
     def match(self, hashes: Sequence[BlockHash]) -> int:
         """Longest cached prefix, in blocks; the first miss ends every
         longer chain too."""
@@ -214,3 +221,14 @@ class PrefixCache:
             freed.append(victim.page)
         self.stats.evicted_pages += len(freed)
         return freed
+
+    def remove(self, h: BlockHash) -> Optional[int]:
+        """Demote one block (a session suspend): drop the entry and
+        return its page, only when it is reclaimable now (refcount 0, no
+        resident children); else None. Callers walk chains leaf first, so
+        shared interior blocks stay. Not counted as an eviction."""
+        e = self._entries.get(h)
+        if e is None or e.refcount or e.children:
+            return None
+        self._unlink(h, e)
+        return e.page

@@ -399,6 +399,97 @@ def apply_decode_paged(params: Params, cfg: LlamaConfig,
     return unembed(params, cfg, h), kv_cache
 
 
+def _gathered_window(pool_layer: torch.Tensor,
+                     scales_layer: Optional[torch.Tensor],
+                     block_table: torch.Tensor, cfg: LlamaConfig,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """One layer's slot windows gathered from the paged pool (the
+    reference's ``_gathered_window``): (N, KV, page, hd) over a (B, P)
+    table -> (B, P*page, KV, hd) in ``dtype``, int8 pages dequantized
+    through their row scales (``scales_layer`` (N, KV, page), or None)."""
+    B, P = block_table.shape
+    tbl = block_table.long()
+    g = pool_layer[tbl]                              # (B, P, KV, page, hd)
+    if scales_layer is not None:
+        g = dequantize_rows(g, scales_layer[tbl], dtype)
+    page = g.shape[3]
+    return g.to(dtype).transpose(2, 3).reshape(
+        B, P * page, cfg.num_kv_heads, cfg.head_dim)
+
+
+def apply_verify_paged(params: Params, cfg: LlamaConfig,
+                       tokens: torch.Tensor, positions: torch.Tensor,
+                       kv_cache: KVCache, block_table: torch.Tensor,
+                       kv_valid_len: torch.Tensor, write_pages: torch.Tensor,
+                       write_offsets: torch.Tensor, *,
+                       return_hidden: bool = False,
+                       ) -> tuple[torch.Tensor, KVCache]:
+    """Multi-token decode step over the paged pool: the speculative
+    verify forward (the reference's ``apply_verify_paged``).
+
+    Scores ``S`` consecutive positions per slot in one forward: the last
+    accepted token and up to S-1 drafts. tokens/positions: (B, S), each
+    row's positions contiguous (``pos .. pos+S-1``). block_table: (B, P)
+    window covering every scored position of a live row.
+    write_pages/write_offsets: (B, S) destination of each token's K/V
+    (page 0 = trash for inactive slots and rows past the slot's drafts).
+    kv_valid_len: (B,) = ``pos + S``; with causal masking draft j attends
+    the pool prefix plus drafts 0..j-1, as sequential decode would.
+
+    Attention is the reference's gather path on every backend (plain
+    PyTorch, no kernel): each layer gathers the slots' windows
+    (``_gathered_window``) and the S current rows join them in place at
+    their positions. The gather runs ``ceil(S / page)`` trash pages past
+    the table, so the rows of a slot near the end of its window (masked
+    garbage rows only) land inside it instead of being dropped. The layer
+    loop only reads the pool; the new K/V are written after it, int8
+    pools through ``quantize_rows``. Rejected drafts need no undo: the
+    engine does not advance ``pos`` past the accepted tokens, so their
+    rows are overwritten later and never read. The pool is updated in
+    place. Returns (logits (B, S, V) float32, or under ``return_hidden``
+    the hidden states (B, S, D) before the final norm; kv_cache)."""
+    B, S = tokens.shape
+    page = kv_cache["k"].shape[3]  # (L, N, KV, page, hd)
+    inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                cfg.rope_scaling_factor, device=tokens.device)
+    h = params["embed"][tokens.long()]
+    quant = kv_cache_quantized(kv_cache)
+    window = torch.nn.functional.pad(block_table, (0, -(-S // page)))
+    rows = torch.arange(B, device=tokens.device)[:, None]
+    pos = positions.long()
+    new_k, new_v = [], []
+    for i in range(cfg.num_layers):
+        kc, vc = kv_cache["k"][i], kv_cache["v"][i]
+        ksc = kv_cache["ks"][i] if quant else None
+        vsc = kv_cache["vs"][i] if quant else None
+
+        def attend(q, k, v, kc=kc, vc=vc, ksc=ksc, vsc=vsc):
+            kg = _gathered_window(kc, ksc, window, cfg, h.dtype)
+            vg = _gathered_window(vc, vsc, window, cfg, h.dtype)
+            kg[rows, pos] = k.to(kg.dtype)
+            vg[rows, pos] = v.to(vg.dtype)
+            new_k.append(k)
+            new_v.append(v)
+            return gqa_attention(q, kg, vg, positions, kv_valid_len)
+
+        h = decoder_layer(h, layer_params(params, i), cfg, positions,
+                          inv_freq, kv_valid_len, attend=attend)
+    wp, off = write_pages.long(), write_offsets.long()
+    for name, layers in (("k", new_k), ("v", new_v)):
+        pool = kv_cache[name]
+        for i, new in enumerate(layers):
+            # (B, S, KV, hd) rows into (page, :, offset) of layer i.
+            if quant:
+                q8, scales = quantize_rows(new)
+                pool[i, wp, :, off] = q8
+                kv_cache[name + "s"][i, wp, :, off] = scales
+            else:
+                pool[i, wp, :, off] = new.to(pool.dtype)
+    if return_hidden:
+        return h, kv_cache
+    return unembed(params, cfg, h), kv_cache
+
+
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` on storage-dtype operands with a float32 result
     (the reference's ``preferred_element_type=jnp.float32``). On the card

@@ -160,9 +160,14 @@ class RoundRecord:
         "active_decodes",
         # dispatch (scheduler thread, filled until seal)
         "decode_slots", "spec_drafted", "verify_positions",
-        "prefill_tokens", "grants", "pages_touched", "hbm_bytes",
+        "prefill_tokens", "prefill_computed", "grants", "pages_touched",
+        "hbm_bytes",
         "kv_restore_pages",
         "dispatch_ms", "modeled_ms", "t_dispatch_done",
+        # (start, end) CUDA events around the round's programs on the
+        # card (None elsewhere): the device time the cost calibrator
+        # reads once the end event has completed.
+        "device_events",
         # execution (harvest thread)
         "harvest_wait_ms", "first_readback_ms", "tokens_emitted",
         "first_tokens", "spec_accepted",
@@ -186,6 +191,9 @@ class RoundRecord:
         self.spec_drafted = 0
         self.verify_positions = 0
         self.prefill_tokens = 0
+        # The tokens the round's prefill programs computed (each padded to
+        # its bucket): the calibrator's denominator.
+        self.prefill_computed = 0
         self.grants: list[tuple[str, int]] = []
         self.pages_touched = 0
         self.hbm_bytes = 0
@@ -197,6 +205,7 @@ class RoundRecord:
         self.dispatch_ms = 0.0
         self.modeled_ms = 0.0
         self.t_dispatch_done = self.t_start
+        self.device_events = None
         self.harvest_wait_ms = 0.0
         self.first_readback_ms = 0.0
         self.tokens_emitted = 0

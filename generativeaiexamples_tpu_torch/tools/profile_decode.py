@@ -5,7 +5,7 @@
         [--steps 8] [--rounds 4] [--trace decode_trace.json] \\
         [--quantization int4_awq] [--kv-quant int8] [--prefill BUCKET] \\
         [--chunk C --prefix P] [--eager] [--dispatch-depth 2[,1,...]] \\
-        [--materialized-tail] [--tail-tiles 4000,8000,16000]
+        [--materialized-tail] [--tail-tiles 4000,8000,16000] [--spec]
 
 Builds the port's engine (random bf16 weights from ``--seed``, quantized
 on the device with ``--quantization``, over a ``--kv-quant`` pool), fills
@@ -65,6 +65,19 @@ its pages are in the prefix cache; then a prompt of those P tokens plus
 C-token extension that streams the P cached tokens from the pool ("seed"
 mode; "replace" at P = 0). That program is replayed ``--rounds`` times
 and timed with CUDA events, then traced once more by kernel.
+
+``--spec`` profiles one speculative verify round beside one
+``--steps``-step decode round, on an engine with speculative decoding
+on: every slot holds a ``--prompt-len`` prompt and K = S - 1 drafts
+(``measure_verify``). Both captured programs are replayed ``--rounds``
+times and timed with CUDA events (the slot state put back after), then
+traced once each; it prints each round's device ms, device ms per
+emitted slot-position (S per slot for the verify round, one per step for
+the decode round: the break-even tokens per verify slot-step is their
+ratio), kernels per round, the int4 matmul by path, and the gathered
+attention's share of the verify round (one layer's gather, in-place
+rows and attention at the round's shapes, replayed alone from a CUDA
+graph, times the layers).
 """
 
 from __future__ import annotations
@@ -465,6 +478,219 @@ def profile_chunk(args) -> int:
     return 0
 
 
+def measure_verify(engine, prompt_len: int, rounds: int, seed: int = 0,
+                   trace: str = "", traced: bool = True) -> dict:
+    """Device time of one verify round and of one decode round of
+    ``steps_per_round`` steps on the idle, unstarted spec ``engine``
+    (the ``--spec`` mode): every slot admitted with a ``prompt_len``
+    prompt, then S - 1 random drafts staged in every slot; each program
+    replayed ``rounds`` times under CUDA events (the host clock on the
+    CPU), the slot state restored after, then each traced once (kernels
+    per round, int4 launches by path). The gathered attention's share is
+    one layer's window gather, in-place rows and ``gqa_attention`` at the
+    round's shapes, timed alone, times the layers, over the verify
+    round's time (on the card replayed from a CUDA graph, as the round
+    runs it). ``traced`` False skips the traces (a profiler session
+    changes how the card runs graphs for the rest of the process)."""
+    from ..engine import SamplingParams
+    from ..models import llama
+    from ..ops.attention import gqa_attention
+    from ..ops.int4_matmul import int4_matmul
+
+    if engine._spec is None:
+        raise ValueError("the engine has speculative decoding off")
+    cuda = engine.device.type == "cuda"
+    B, S, page = engine.cfg.max_slots, engine._spec_S, engine.cfg.page_size
+    steps = engine.cfg.steps_per_round
+    rng = np.random.default_rng(seed)
+    V = engine.model_cfg.vocab_size
+    streams = [engine.submit([1] + list(rng.integers(3, min(V, 259),
+                                                     prompt_len - 1)),
+                             SamplingParams(max_tokens=engine.cfg
+                                            .max_output_length,
+                                            top_k=1, ignore_eos=True))
+               for _ in range(B)]
+    # Admission under an unbounded budget (put back after), so the slots
+    # arm within a few steps and none runs out of tokens meanwhile.
+    sched = engine._sched
+    pinned = (sched._budget_pinned, sched.round_budget_tokens)
+    sched._budget_pinned, sched.round_budget_tokens = True, 1 << 20
+    try:
+        for _ in range(8 * B):
+            if all(s.token_ids for s in streams):
+                break
+            engine._step()
+    finally:
+        sched._budget_pinned, sched.round_budget_tokens = pinned
+    members = engine._armed()
+    if len(members) != B:
+        raise RuntimeError(f"{len(members)} of {B} slots armed")
+    st = engine._state
+    engine._stage_act_idx(members)
+    drafts = rng.integers(3, min(V, 259), (B, st["drafts"].shape[1]))
+    engine._host_to_device(st["drafts"], drafts.astype(np.int32))
+    engine._host_to_device(st["n_draft"], np.full((B,), S - 1, np.int32))
+    need = max(min(r.proj_pos + S, r.extent) + 1 for r in members.values())
+    pages = min(-(-need // page), engine._pmax)
+    window = next(w for w in engine._windows if w >= pages)
+    saved = {k: st[k].clone() for k in engine._SLOT_KEYS}
+
+    def restore():
+        for k, v in saved.items():
+            st[k].copy_(v)
+
+    def verify():
+        engine._replay(engine._verify_graphs, engine._verify_body, window,
+                       True, B)
+
+    def decode():
+        engine._replay(engine._round_graphs, engine._round_body, steps,
+                       True, B)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn) -> float:
+        fn()
+        restore()
+        sync()
+        total = 0.0
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            fn()
+            if cuda:
+                end.record()
+            sync()
+            total += (start.elapsed_time(end) if cuda
+                      else (time.perf_counter() - t0) * 1e3)
+            restore()
+        return total / rounds
+
+    verify_ms, decode_ms = timed(verify), timed(decode)
+    # One layer's gathered attention at the verify round's shapes.
+    m = engine.model_cfg
+    cache = st["cache"]
+    quant = llama.kv_cache_quantized(cache)
+    dt = engine._dtype
+    gen = torch.Generator(device=engine.device).manual_seed(seed)
+    q = torch.randn((B, S, m.num_heads, m.head_dim), generator=gen,
+                    device=engine.device).to(dt)
+    kv = torch.randn((B, S, m.num_kv_heads, m.head_dim), generator=gen,
+                     device=engine.device).to(dt)
+    positions = st["pos"][:, None] + torch.arange(
+        S, dtype=torch.int32, device=engine.device)[None, :]
+    table = torch.nn.functional.pad(st["table"][:, :window],
+                                    (0, -(-S // page)))
+    rows = torch.arange(B, device=engine.device)[:, None]
+
+    def attention():
+        ks = cache["ks"][0] if quant else None
+        vs = cache["vs"][0] if quant else None
+        kg = llama._gathered_window(cache["k"][0], ks, table, m, dt)
+        vg = llama._gathered_window(cache["v"][0], vs, table, m, dt)
+        kg[rows, positions.long()] = kv
+        vg[rows, positions.long()] = kv
+        gqa_attention(q, kg, vg, positions, positions[:, 0] + S)
+
+    with torch.no_grad():
+        run_attention = attention
+        if cuda:
+            # Replayed from a CUDA graph, as in the captured round: issued
+            # one op at a time it would time the host's launches.
+            side = torch.cuda.Stream(engine.device)
+            side.wait_stream(torch.cuda.current_stream(engine.device))
+            with torch.cuda.stream(side):
+                attention()
+            torch.cuda.current_stream(engine.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                attention()
+            run_attention = graph.replay
+        attention_ms = timed(run_attention) * m.num_layers
+    out = {"card": _card(cuda), "window_pages": window, "S": S,
+           "slots": B, "steps": steps, "verify_ms": verify_ms,
+           "decode_round_ms": decode_ms,
+           "verify_ms_per_position": verify_ms / (B * S),
+           "decode_ms_per_position": decode_ms / (B * steps),
+           "break_even_tokens_per_slot_step":
+               (verify_ms / B) / (decode_ms / (B * steps)),
+           "gathered_attention_ms": attention_ms,
+           "gathered_attention_share": attention_ms / verify_ms}
+    for name, fn in ((("verify", verify), ("decode", decode)) if traced
+                     else ()):
+        int4_matmul.launches_by_path = dict.fromkeys(
+            int4_matmul.launches_by_path, 0)
+        with _profile() as prof:
+            fn()
+            sync()
+        restore()
+        if trace:
+            prof.export_chrome_trace(f"{trace}.{name}.json")
+        events = _device_events(prof)
+        kernels = _kernel_times(events)
+        out[name + "_traced"] = {
+            "device_ms": sum(us for us, _ in kernels.values()) / 1e3,
+            "busy_ms": _busy_us(events) / 1e3,
+            "kernels": len(events),
+            "int4_launches_by_path": dict(int4_matmul.launches_by_path),
+            "top_device_ops": [
+                {"name": k[:120], "ms": us / 1e3, "count": n}
+                for k, (us, n) in sorted(kernels.items(),
+                                         key=lambda kv: -kv[1][0])[:8]]}
+    for s in streams:
+        s.cancel()
+    for _ in range(4):
+        engine._step()
+    return out
+
+
+def profile_spec(args) -> int:
+    """The ``--spec`` mode (see the module docstring)."""
+    from ..engine import EngineConfig
+    from ..serving.model_server import build_services
+
+    ecfg = EngineConfig(max_slots=args.slots,
+                        max_input_length=max(args.prompt_len, 128),
+                        max_output_length=64, steps_per_round=args.steps,
+                        kv_pool_tokens=None, kv_quant=args.kv_quant,
+                        cuda_graphs=not args.eager, spec_decode=True)
+    engine, model_name = build_services(args.model, engine_cfg=ecfg,
+                                        seed=args.seed, device=args.device,
+                                        quantization=args.quantization)
+    out = measure_verify(engine, args.prompt_len, args.rounds, args.seed,
+                         args.trace)
+    engine.stop()
+    mode = (f"{args.quantization or 'bf16'} weights, "
+            f"{args.kv_quant or 'bf16'} KV")
+    print(f"{model_name} [{mode}] on {out['card']}: {out['slots']} slots, "
+          f"~{args.prompt_len}-token contexts, window {out['window_pages']} "
+          f"pages")
+    print(f"verify round (S = {out['S']}): {out['verify_ms']:.3f} ms; "
+          f"{out['steps']}-step decode round: {out['decode_round_ms']:.3f} "
+          f"ms; per slot-position {out['verify_ms_per_position']:.4f} vs "
+          f"{out['decode_ms_per_position']:.4f} ms; a verify round pays "
+          f"off above {out['break_even_tokens_per_slot_step']:.2f} tokens "
+          f"per slot")
+    print(f"gathered attention: {out['gathered_attention_ms']:.3f} ms "
+          f"({out['gathered_attention_share']:.1%} of the verify round)")
+    for name in ("verify", "decode"):
+        t = out[name + "_traced"]
+        print(f"traced {name}: device {t['device_ms']:.3f} ms (busy "
+              f"{t['busy_ms']:.3f}) over {t['kernels']} kernels; int4 "
+              f"{t['int4_launches_by_path']}")
+        for op in t["top_device_ops"]:
+            print(f"  {op['ms']:9.3f} ms  {op['count']:6d}x  "
+                  f"{op['name'][:90]}")
+    print(json.dumps({"model": model_name, "quantization": args.quantization,
+                      "kv_quant": args.kv_quant, **out}))
+    return 0
+
+
 def main(argv=None) -> int:
     from ..engine import EngineConfig
     from ..ops.quant import MODES
@@ -505,7 +731,12 @@ def main(argv=None) -> int:
     ap.add_argument("--tail-tiles", default="",
                     help="comma-separated sampler tiles to time the fused "
                          "tail at (all rows, sampled), e.g. 4000,8000,16000")
+    ap.add_argument("--spec", action="store_true",
+                    help="profile one speculative verify round beside a "
+                         "decode round instead")
     args = ap.parse_args(argv)
+    if args.spec:
+        return profile_spec(args)
     if args.prefill:
         return profile_prefill(args)
     if args.chunk:

@@ -665,16 +665,23 @@ def test_drain_transitions_and_unported_routes():
         resp = await client.post("/generate", json={"question": "hi"})
         assert resp.status == 200
         for method, path in (("GET", "/control/kv_pages?hashes=ab"),
-                             ("POST", "/control/kv_suspend"),
-                             ("POST", "/control/kv_resume"),
                              ("POST", "/control/prefill")):
             resp = await client.request(method, path, json={})
             assert resp.status == 501
-            assert "A9" in (await resp.json())["error"]["message"]
+            assert "A21" in (await resp.json())["error"]["message"]
+        # The session routes and a resume need an engine; this chain has
+        # none.
+        for path in ("/control/kv_suspend", "/control/kv_resume"):
+            resp = await client.post(path, json={"text": "t"})
+            assert resp.status == 404
+            assert (await resp.json())["error"]["type"] == "no_engine"
         resp = await client.post("/generate", json={
-            "question": "q", "resume": {"text": "abc", "attempt": 1}})
+            "question": "q", "use_knowledge_base": False,
+            "resume": {"text": "abc", "attempt": 1}})
         assert resp.status == 409
-        assert (await resp.json())["error"]["type"] == "resume_unsupported"
+        body = await resp.json()
+        assert body["error"]["type"] == "resume_unsupported"
+        assert "no engine" in body["error"]["message"]
         for path in ("/debug/requests", "/debug/rounds", "/debug/history",
                      "/debug/alerts", "/debug/incidents"):
             assert (await client.get(path)).status == 200, path
@@ -965,3 +972,210 @@ def test_rag_deadline_expired_before_output_is_504(rag_servers,
         assert status == 504, (side, text)
         assert json.loads(text)["error"]["type"] == "deadline_exceeded"
     assert rag_servers["engines"]["port"].stats["deadline_queue_drops"] >= 1
+
+
+# ------------------------------------------- KV tier routes and resume
+
+@pytest.fixture(scope="module")
+def tier_servers(tmp_path_factory):
+    """The port's chain server over the port's engine and the reference's
+    over the JAX engine, golden-tiny with the host KV tier on, no
+    retrieval (``use_knowledge_base`` false)."""
+    import jax.numpy as jnp
+    import torch
+
+    from generativeaiexamples_tpu.chains.examples.developer_rag import \
+        QAChatbot as JBot
+    from generativeaiexamples_tpu.chains.llm import EngineLLM as JEngineLLM
+    from generativeaiexamples_tpu.chains.server import create_app as jcreate
+    from generativeaiexamples_tpu.embed.encoder import \
+        HashEmbedder as JHash
+    from generativeaiexamples_tpu.engine import Engine as JEngine
+    from generativeaiexamples_tpu.engine import EngineConfig as JConfig
+    from generativeaiexamples_tpu.models.configs import GOLDEN_TINY as JCFG
+    from generativeaiexamples_tpu.models.import_hf import \
+        load_checkpoint as jload
+    from generativeaiexamples_tpu.models.tokenizer import \
+        get_tokenizer as jget
+    from generativeaiexamples_tpu.utils.app_config import \
+        AppConfig as JAppConfig
+    from generativeaiexamples_tpu.utils.configuration import \
+        from_dict as jfrom_dict
+    from generativeaiexamples_tpu_torch.engine import Engine, EngineConfig
+    from generativeaiexamples_tpu_torch.models.configs import GOLDEN_TINY
+    from generativeaiexamples_tpu_torch.models.import_hf import \
+        load_checkpoint
+    from generativeaiexamples_tpu_torch.models.tokenizer import get_tokenizer
+
+    kw = {**ENGINE_KW, "kv_host_pool_tokens": 4096,
+          "sched_round_budget_tokens": 448}
+    eng = Engine(load_checkpoint(GOLDEN, GOLDEN_TINY, dtype=torch.float32,
+                                 device="cpu"),
+                 GOLDEN_TINY, get_tokenizer(GOLDEN), EngineConfig(**kw),
+                 device="cpu")
+    jeng = JEngine(jload(GOLDEN, JCFG, dtype=jnp.float32), JCFG,
+                   jget(GOLDEN), JConfig(**kw))
+    cfg = {"embeddings": {"model_engine": "hash", "dimensions": 64}}
+    ours = QAChatbot(llm=EngineLLM(eng), embedder=HashEmbedder(dim=64),
+                     config=from_dict(AppConfig, cfg), fused_rag=False)
+    ref = JBot(llm=JEngineLLM(jeng), embedder=JHash(dim=64),
+               config=jfrom_dict(JAppConfig, cfg), fused_rag=False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GAIE_RUN_DIR", str(tmp_path_factory.mktemp("tier_run")))
+        app = create_app(ours, str(tmp_path_factory.mktemp("tier_up")))
+        japp = jcreate(ref, str(tmp_path_factory.mktemp("tier_jup")))
+    with _serve(app) as port, _serve(japp) as jref:
+        yield {"port": port, "ref": jref, "engines": {"port": eng,
+                                                       "ref": jeng},
+               "prompt": ours.config.prompts.chat_template.format(
+                   context_str="", query_str=QUESTION)}
+    eng.stop()
+    jeng.stop()
+
+
+def _raw(url, body=None, blob=None):
+    """(status, body bytes) of a JSON POST or a raw octet-stream POST."""
+    if body is not None:
+        data, kind = json.dumps(body).encode(), "application/json"
+    else:
+        data, kind = blob, "application/octet-stream"
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": kind})
+    try:
+        with urllib.request.urlopen(req, timeout=TIMEOUT) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def test_kv_session_routes_answer_as_the_references(tier_servers):
+    """Suspend a conversation on each server after a turn, resume each
+    blob on the other server: the same statuses and block counts, and the
+    refusals (nothing cached, no text, a malformed blob) match. The
+    resumed blocks then serve the next turn from the host tier."""
+    gen = {"question": QUESTION, "use_knowledge_base": False,
+           "num_tokens": 8}
+    out = _both(tier_servers, "/generate", gen)
+    assert out["port"][0] == out["ref"][0] == 200
+    assert out["port"][2] == out["ref"][2]
+    body = {"text": tier_servers["prompt"]}
+    blobs = {}
+    for side in ("port", "ref"):
+        url = tier_servers[side] + "/control/kv_suspend"
+        status, blobs[side] = _raw(url, body)
+        assert status == 200, side
+        # Suspended: nothing of the chain is cached any more.
+        status, text = _raw(url, body)
+        assert status == 404, side
+        assert json.loads(text)["error"]["type"] == "not_cached"
+        assert _raw(url, {})[0] == 422
+    counts = {}
+    for side, other in (("port", "ref"), ("ref", "port")):
+        status, text = _raw(tier_servers[side] + "/control/kv_resume",
+                            blob=blobs[other])
+        assert status == 200, (side, text)
+        counts[side] = json.loads(text)["blocks"]
+        status, text = _raw(tier_servers[side] + "/control/kv_resume",
+                            blob=b"junk")
+        assert status == 422
+        assert json.loads(text)["error"]["type"] == "bad_blob"
+    assert counts["port"] == counts["ref"] > 0
+    before = tier_servers["engines"]["port"].stats["kv_tier_restore_pages"]
+    again = _both(tier_servers, "/generate", gen)
+    assert again["port"][2] == again["ref"][2] == out["port"][2]
+    assert tier_servers["engines"]["port"].stats[
+        "kv_tier_restore_pages"] > before
+
+
+def test_midstream_resume_continues_the_unbroken_stream(tier_servers):
+    """A ``/generate`` resumed with the text already streamed answers
+    ``X-Resume-Replayed`` and streams exactly the rest of the unbroken
+    answer, on both servers. Exact only where the streamed head
+    tokenizes back to the ids that produced it (sentencepiece may split
+    a head differently), so the question is the first of a few whose
+    answer's head does."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    eng = tier_servers["engines"]["port"]
+    tok = eng.tokenizer
+    eng.start()
+    for question in (QUESTION, "Describe the engine.",
+                     "What is paged KV caching?"):
+        prompt = tier_servers["prompt"].replace(QUESTION, question)
+        run = eng.submit(tok.encode(prompt), SamplingParams(
+            max_tokens=24, top_k=1, stop_words=["</s>", "[INST]"]))
+        text, ids = run.text(), run.token_ids
+        cut = next((k for k in range(min(len(ids) - 1, 12), 0, -1)
+                    if tok.encode(tok.decode(ids[:k]),
+                                  add_bos=False) == ids[:k]
+                    and text.startswith(tok.decode(ids[:k]))), None)
+        if cut is not None:
+            break
+    assert cut is not None, "no question's answer head round-trips"
+    gen = {"question": question, "use_knowledge_base": False,
+           "num_tokens": 24}
+    full = _both(tier_servers, "/generate", gen)
+    assert full["port"][2] == full["ref"][2] == text
+    head = tok.decode(ids[:cut])
+    out = _both(tier_servers, "/generate",
+                {**gen, "resume": {"text": head, "attempt": 1}})
+    for side, (status, headers, body) in out.items():
+        assert status == 200, (side, body)
+        assert headers["X-Resume-Replayed"] == str(cut), side
+        assert head + body == text, side
+    status, _, body = _call(tier_servers["port"] + "/generate", {
+        **gen, "num_tokens": cut, "resume": {"text": head}})
+    assert status == 409
+    assert json.loads(body)["error"]["type"] == "resume_exhausted"
+
+
+def test_watchdog_flips_health_under_a_hung_dispatch(monkeypatch):
+    """ENGINE_WATCHDOG_STALL_S with ``engine.dispatch=hang``: work waits
+    and nothing moves, so ``/health`` answers 503 ``engine_stalled`` and
+    the stall is counted; once the hang clears the requests finish and
+    ``/health`` is 200 again."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
+                                                       SamplingParams)
+    from generativeaiexamples_tpu_torch.models.configs import GOLDEN_TINY
+    from generativeaiexamples_tpu_torch.models.import_hf import \
+        load_checkpoint
+    from generativeaiexamples_tpu_torch.models.tokenizer import get_tokenizer
+    monkeypatch.setenv("ENGINE_WATCHDOG_STALL_S", "0.2")
+    monkeypatch.setenv("FAULT_HANG_MAX_S", "60")
+    eng = Engine(load_checkpoint(GOLDEN, GOLDEN_TINY, dtype=torch.float32,
+                                 device="cpu"),
+                 GOLDEN_TINY, get_tokenizer(GOLDEN), EngineConfig(**ENGINE_KW),
+                 device="cpu")
+    example = QAChatbot(llm=EngineLLM(eng), embedder=HashEmbedder(dim=64),
+                        config=from_dict(AppConfig, _echo_config()),
+                        fused_rag=False)
+
+    def health(base):
+        status, _, text = _call(base + "/health")
+        return status, json.loads(text)["status"]
+
+    with _serve(create_app(example, tempfile.mkdtemp())) as base:
+        eng.start()
+        assert health(base) == (200, "ok")
+        faults.set_plan("engine.dispatch=hang")
+        sp = SamplingParams(max_tokens=6, top_k=1, ignore_eos=True)
+        try:
+            streams = [eng.submit(eng.tokenizer.encode("Paged KV"), sp),
+                       eng.submit(eng.tokenizer.encode("caching"), sp)]
+            deadline = time.monotonic() + TIMEOUT
+            while health(base) != (503, "engine_stalled"):
+                assert time.monotonic() < deadline, "never declared stalled"
+                time.sleep(0.05)
+            assert eng.stats["watchdog_stalls"] >= 1
+        finally:
+            faults.clear()
+        for s in streams:
+            s.text()
+            assert s.finish_reason == "length"
+        deadline = time.monotonic() + TIMEOUT
+        while health(base) != (200, "ok"):
+            assert time.monotonic() < deadline, "never recovered"
+            time.sleep(0.05)
+        assert not eng.stalled
+    eng.stop()

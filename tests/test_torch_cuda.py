@@ -1352,3 +1352,81 @@ def test_in_place_corpus_upload_leaves_a_round_in_flight_alone(dev):
             e._step()
         rows[name] = fused.source_ids
     assert rows["graph"] == rows["eager"] and len(rows["graph"]) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int4"])
+def test_verify_rounds_captured_match_eager(dev, mode):
+    """Speculative decoding's captured verify rounds (per page window,
+    greedy flag and rung) give the eager engine's greedy tokens, drafts
+    and accepted counts, and leave the same pool bytes (every page but the
+    trash page 0), at the 2-layer 7B width; a sampled request keeps its
+    length."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    params, cfg, kw = _model(dev, mode)
+    copy = [1] + [40, 41, 42, 43, 44, 45] * 20
+    sp = SamplingParams(max_tokens=20, top_k=1, ignore_eos=True)
+    sampled = SamplingParams(max_tokens=17, temperature=0.8, top_k=40,
+                             ignore_eos=True, random_seed=4)
+    got = {}
+    for graphs_on in (True, False):
+        engine = _engine_on(dev, params, cfg, cuda_graphs=graphs_on,
+                            spec_decode=True, **kw)
+        assert bool(engine._verify_graphs) == graphs_on
+        streams = _drive(engine, [copy, _PROMPTS[3], copy[:60]],
+                         [sp, sp, sampled])
+        stats = engine.stats
+        assert stats["spec_verify_rounds"] > 0
+        assert len(streams[2].token_ids) == 17
+        pool = {k: v[:, 1:].clone() for k, v in
+                engine._state["cache"].items()}
+        got[graphs_on] = ([s.token_ids for s in streams[:2]],
+                          stats["spec_draft_tokens"],
+                          stats["spec_accepted_tokens"], pool)
+        del engine
+    a, b = got[True], got[False]
+    assert a[:3] == b[:3]
+    for name in a[3]:
+        assert torch.equal(a[3][name], b[3][name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int4"])
+def test_tier_pages_round_trip_through_pinned_memory(dev, mode):
+    """On the card an evicted prefix goes out through pinned memory on a
+    side stream and comes back bit for bit: the restored pages equal the
+    offloaded ones and the warm turn gives the prefix hit's tokens; the
+    page copies are timed by CUDA events (positive D2H and H2D ms)."""
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    from generativeaiexamples_tpu_torch.engine.prefix_cache import \
+        hash_blocks
+    params, cfg, kw = _model(dev, mode)
+    kw = dict(kw, max_slots=2, kv_pool_tokens=5 * 128,
+              kv_host_pool_tokens=8192)
+    engine = _engine_on(dev, params, cfg, **kw)
+    sp = SamplingParams(max_tokens=8, top_k=1, ignore_eos=True)
+    target = [1] + [3 + (5 * i) % 250 for i in range(300)]
+    hashes = hash_blocks(target, engine.cfg.page_size)
+
+    def pages():
+        cache = engine._state["cache"]
+        return {h: {k: v[:, engine._prefix_cache.page_of(h)].clone()
+                    for k, v in cache.items()}
+                for h in hashes if engine._prefix_cache.page_of(h)}
+    _drive(engine, [target], [sp])
+    hit = _drive(engine, [target], [sp])[0].token_ids
+    engine._step()
+    before = pages()
+    assert len(before) == len(hashes) == 2
+    for j in range(3):
+        _drive(engine, [[1] + [7 + (11 * i + j) % 240 for i in range(300)]],
+               [sp])
+    assert not pages() and engine.stats["kv_tier_offload_pages"] >= 2
+    warm = _drive(engine, [target], [sp])[0].token_ids
+    assert engine.stats["kv_tier_restore_pages"] == 2
+    assert warm == hit
+    for h, leaves in pages().items():
+        for name, t in leaves.items():
+            assert torch.equal(t, before[h][name]), name
+    d2h, h2d = engine.measure_page_io(4)
+    assert d2h > 0 and h2d > 0

@@ -739,10 +739,10 @@ def test_prewarm_shrinks_the_pool_when_the_card_runs_out(golden):
 
 
 # Keys of the reference's stats for features the port has not ported
-# (speculative decoding, the KV tier and its exports and restores, the
-# watchdog, the online calibrator): no key, rather than a constant 0.
-UNPORTED = ("spec_", "kv_tier_", "kv_export_", "kv_restore_",
-            "watchdog_", "sched_budget_recalibrations")
+# (the KV tier's cross-replica transfer and handoff exports): no key,
+# rather than a constant 0.
+UNPORTED = ("kv_tier_transfer_pages", "kv_tier_export_pages",
+            "kv_export_shed")
 PORT_ONLY = {"decode_rounds", "prefill_dispatches", "prefill_chunks",
              "rag_admissions", "harvest_emit_ms", "active_slots",
              "free_pages", "pool_pages"}
