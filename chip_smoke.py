@@ -165,7 +165,25 @@ Phases (each fails loudly: a failure exits non-zero and the final
    continuation; D2H and H2D ms per page. #3 is also checked and timed
    at the verify shape (M = 64: 4096², w_gate, w_down, a 16000-column
    head tile; ``time_verify_shapes``), rows on the kernels line.
-8. After the traced profiles, the model server's ``/profiler/start`` and
+8. The fleet tier (``serve_fleet``) on the int4 weights: three replicas
+   of llama-2-7b-chat at full width and depth sharing one set of weight
+   tensors (r0 and r1 unified, r2 prefill; int8 pools and host tiers of
+   explicit size), each behind the port's chain server, the port's
+   router in front, over loopback HTTP: a ~2100-token ``/generate``
+   through the two-leg handoff (its text equal to a unified replica's
+   holding the prefix, the pages it lands bit-equal to r2's), the pull
+   leg by ``X-KV-Transfer-From`` and by the router
+   (``ROUTER_KV_TRANSFER=1``), a two-turn conversation's affinity, a
+   drain with a stream in flight, and a mid-stream failover replayed on
+   the sibling, in one counted window (the serve formula over the three
+   engines; added to the kernels line), with lone windows showing #3
+   "wg" on the prefill replica and #2 and #3 "tc" on a decode replica.
+   The engines read and write text with a tokenizer whose every id is
+   one character, so generated text round-trips (the failover replays
+   text). Prints each handoff leg's time, the blob's size, the TTFT
+   after a handoff against unified, the handoff price's answer and
+   inputs against the measured legs, and the router's overhead.
+9. After the traced profiles, the model server's ``/profiler/start`` and
    ``/stop`` around one request on the int4 engine write a Chrome trace
    that must name ``paged_decode_split_kernel`` and an int4 kernel.
 
@@ -180,6 +198,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -1245,9 +1264,11 @@ def check_model_quant(torch, dev, ref: QuantReference) -> None:
 
 # ------------------------------------------------------------- serve phase
 
-def serve_app(app):
+def serve_app(app, grace: Optional[float] = None):
     """Run an aiohttp app on a free local port in a thread; returns
-    (base url, stop function)."""
+    (base url, stop function). ``grace``: seconds the stop gives requests
+    in flight before it closes their connections (aiohttp's default
+    otherwise), so a stop mid-stream looks like a replica dying."""
     import asyncio
     import threading
 
@@ -1261,9 +1282,17 @@ def serve_app(app):
         asyncio.set_event_loop(loop)
 
         async def boot():
-            runner = web.AppRunner(app)
+            site_kw = {}
+            if grace is None:
+                runner = web.AppRunner(app)
+            else:
+                try:
+                    runner = web.AppRunner(app, shutdown_timeout=grace)
+                except TypeError:   # aiohttp before 3.9: a site argument
+                    runner = web.AppRunner(app)
+                    site_kw["shutdown_timeout"] = grace
             await runner.setup()
-            site = web.TCPSite(runner, "127.0.0.1", 0)
+            site = web.TCPSite(runner, "127.0.0.1", 0, **site_kw)
             await site.start()
             box["runner"] = runner
             box["port"] = runner.addresses[0][1]
@@ -3444,6 +3473,710 @@ def serve_rag(torch, dev, card: str, served: list) -> dict:
     return out
 
 
+# The fleet phase (``serve_fleet``): three replicas of llama-2-7b-chat at
+# full width and depth (int4-AWQ weights shared, each engine its own int8
+# pool and host tier) behind the port's router over loopback HTTP.
+FLEET_NEW = 32
+FLEET_CONTEXT = 1850          # codepoint tokens of a long context
+FLEET_DELAY = "engine.dispatch=delay:0.1"   # stretches a stream past a kill
+
+
+class CodepointTokenizer:
+    """Token ``i`` is the character ``chr(BASE + i)``, so every id sequence
+    the random weights emit round-trips through its text: the router's
+    failover replays the streamed text, and the byte tokenizer would drop
+    every id past 258. Text below ``BASE`` (the chat template, questions)
+    encodes as UTF-8 bytes (ids 3..258, as the byte tokenizer)."""
+
+    pad_id, bos_id, eos_id = 0, 1, 2
+    BASE = 0x20000
+
+    def __init__(self, vocab_size: int):
+        self._vocab = int(vocab_size)
+
+    @property
+    def vocab_size(self) -> int:
+        return self._vocab
+
+    def encode(self, text: str, *, add_bos: bool = True) -> list:
+        ids = []
+        for ch in text:
+            o = ord(ch)
+            if o >= self.BASE:
+                ids.append(o - self.BASE)
+            else:
+                ids.extend(b + 3 for b in ch.encode("utf-8"))
+        return [self.bos_id] + ids if add_bos else ids
+
+    def decode(self, ids) -> str:
+        return "".join(chr(self.BASE + int(i)) for i in ids)
+
+    def piece_id(self, piece: str):
+        ids = self.encode(piece, add_bos=False)
+        return ids[0] if len(ids) == 1 else None
+
+
+def fleet_text(tag: str, n: int) -> str:
+    """``n`` codepoint tokens from a seed named by ``tag``: a long context
+    that streams as 4-byte UTF-8 characters, one token each."""
+    import hashlib
+
+    import numpy as np
+    seed = int.from_bytes(hashlib.blake2b(tag.encode(),
+                                          digest_size=4).digest(), "little")
+    ids = np.random.default_rng(seed).integers(3, 32000, n)
+    return "".join(chr(CodepointTokenizer.BASE + int(i)) for i in ids)
+
+
+def fleet_call(url: str, body=None, headers=None, timeout: float = 300,
+               read: int = 0):
+    """(status, headers, body bytes) of a POST of ``body`` as UTF-8 JSON
+    (a GET when None). ``read`` > 0 returns the open response after that
+    many bytes instead (the caller reads the rest)."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(
+        body, ensure_ascii=False).encode("utf-8")
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        resp = urllib.request.urlopen(req, timeout=timeout)
+    except urllib.error.HTTPError as exc:
+        return exc.code, dict(exc.headers), exc.read()
+    if read:
+        return resp.status, dict(resp.headers), (resp, resp.read(read))
+    with resp:
+        return resp.status, dict(resp.headers), resp.read()
+
+
+def fleet_generate(url: str, body: dict, rid: str,
+                   headers=None) -> tuple:
+    """(headers, text, seconds to the first byte) of a streamed /generate
+    that must answer 200 with no error frame."""
+    t0 = time.monotonic()
+    status, hdrs, (resp, first) = fleet_call(
+        url + "/generate", body, {"X-Request-ID": rid, **(headers or {})},
+        read=1)
+    ttfb = time.monotonic() - t0
+    with resp:
+        text = (first + resp.read()).decode("utf-8")
+    if status != 200 or "[error]" in text or "event: error" in text:
+        fail(f"fleet: /generate {rid} on {url} answered {status}: "
+             f"{text[:300]!r}")
+    return hdrs, text, ttfb
+
+
+def timeline_of(recorder, rid: str, timeout: float = 10.0) -> dict:
+    """The completed timeline of ``rid`` in a flight recorder (a stream's
+    last byte may reach the client just before its timeline completes)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        for tl in recorder.snapshot(limit=1000)["completed"]:
+            if tl["request_id"] == rid:
+                return tl
+        if time.monotonic() > deadline:
+            fail(f"fleet: no completed timeline {rid!r}")
+        time.sleep(0.01)
+
+
+def stage_ms(tl: dict, name: str) -> float:
+    """The summed duration of a timeline's ``name`` stages."""
+    return sum(e.get("dur_ms", 0.0) for e in tl["events"]
+               if e["event"] == name)
+
+
+def serve_fleet(torch, dev, card: str, served) -> dict:
+    """The fleet tier on the card: three engines of llama-2-7b-chat at full
+    width and depth on the served int4-AWQ weights (one set of weight
+    tensors; each engine its own int8 pool, explicit size, and host tier),
+    r0 and r1 ``unified`` and r2 ``prefill``, each behind the port's chain
+    server, the port's router in front, all over loopback HTTP. Launch
+    counts are set to 0 just before the checks and read just after; they
+    hold to the serve phases' formula over the three engines' work
+    together and join the int4 mode's in the kernels line. Checks:
+
+    1. Handoff: a ~2100-token ``/generate`` (no knowledge base, > 4096
+       bytes) through the router takes the two-leg handoff (a handoff in
+       the counters, no fallback, no price-out); r2 exported pages; the
+       decode target admitted a prefix hit (restored pages; computed at
+       most one page plus the tail); its text equals, token for token,
+       the other unified replica's for the same request with the prefix
+       held locally (served cold, then again), and the cold text up to a
+       near-tie (a parting top-2 logit gap under ``SPEC_TIE``).
+    2. Pages: the decode target's pool pages of the chain equal r2's bit
+       for bit.
+    3. Pull: a prefill leg whose push misses (a dead target), then
+       ``X-KV-Transfer-From`` on the decode replica pulls the pages over
+       ``/control/kv_pages``; router-driven (``ROUTER_KV_TRANSFER=1``, a
+       second router over r0 and r1): a prompt placed on one replica,
+       that replica drained, the same prompt lands on the other with a
+       donor hint and pulls. Transfer pages > 0, text = the locally warm
+       text.
+    4. Affinity: a two-turn conversation's second turn lands on the
+       first turn's replica (the router's placement and affinity-hit
+       counters, the place event's matched blocks, the engine's prefix
+       hits).
+    5. Failover: the serving replica's site stops mid-stream; the router
+       replays the transcript on the sibling (``router_resume_total``
+       ok) and the stitched text equals an uninterrupted run up to a
+       near-tie.
+    6. Drain: r1 drained with a stream in flight takes no new placement
+       and its stream completes.
+    7. Launches: over a lone prefill leg only #3 "wg" and the admission's
+       lm_head row on "tc" move (r2); over a lone decode on a decode
+       replica, #2 and #3 "tc" (and "wg" for its tail chunk).
+
+    Prints each handoff leg's time (prefill, export = gather + serialize,
+    the blob's MB, push = wire + import, import alone, restore), the
+    decode TTFT after a handoff against the unified cold TTFT on the same
+    prompt, ``handoff_beats_prefill``'s answer and inputs against the
+    measured legs, and the router's overhead (router-observed first byte
+    minus the replica's) over 8 requests. Returns the launch counts."""
+    import statistics
+    import tempfile
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.chains.examples.developer_rag \
+        import QAChatbot
+    from generativeaiexamples_tpu_torch.chains.llm import EngineLLM
+    from generativeaiexamples_tpu_torch.chains.server import create_app
+    from generativeaiexamples_tpu_torch.embed.encoder import HashEmbedder
+    from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
+                                                       SamplingParams)
+    from generativeaiexamples_tpu_torch.engine import kv_tier
+    from generativeaiexamples_tpu_torch.obs import flight as obs_flight
+    from generativeaiexamples_tpu_torch.obs import metrics as obs_metrics
+    from generativeaiexamples_tpu_torch.router.server import (
+        ROUTER, create_router_app)
+    from generativeaiexamples_tpu_torch.router.table import \
+        handoff_beats_prefill
+    from generativeaiexamples_tpu_torch.utils import faults
+    from generativeaiexamples_tpu_torch.utils.app_config import AppConfig
+    from generativeaiexamples_tpu_torch.utils.configuration import from_dict
+
+    mode = "int4_awq weights, int8 KV"
+    # Earlier phases' engines (the RAG phase's 3000-token pools) go back
+    # to the card first: a reference cycle would otherwise hold them.
+    free_memory(torch)
+    mcfg = served.model_cfg
+    tok = CodepointTokenizer(mcfg.vocab_size)
+    page = 128
+    # A blob of a 2000-token prefix is ~0.5 GB: the fetch and the push
+    # get a bound that fits it (a deployment setting, read at build).
+    env0 = {k: os.environ.get(k) for k in ("KV_TRANSFER_TIMEOUT_S",
+                                           "ROUTER_KV_TRANSFER")}
+    os.environ["KV_TRANSFER_TIMEOUT_S"] = "60"
+    base_cfg = EngineConfig(
+        max_slots=4, max_input_length=2304, max_output_length=64,
+        prefill_buckets=(128, 512), page_size=page,
+        kv_pool_tokens=4 * (2304 + 128), kv_host_pool_tokens=6144,
+        dtype="bfloat16", kv_quant="int8", sched_round_budget_tokens=2048)
+    # The engines share the served weight tensors: each holds the same
+    # objects, and no engine writes them (a tensor's version counter
+    # moves on every in-place write).
+    weights0 = weight_marks(served.params)
+    t0 = time.monotonic()
+    engines = {}
+    for name, role in (("r0", "unified"), ("r1", "unified"),
+                       ("r2", "prefill")):
+        engines[name] = Engine(served.params, mcfg, tok,
+                               replace(base_cfg, role=role), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    for name, e in engines.items():
+        if e.params is not served.params \
+                or weight_marks(e.params) != weights0:
+            fail(f"fleet: engine {name} copied or wrote the served "
+                 f"weights")
+    say(f"fleet [{mode}]: r0/r1 unified, r2 prefill, one set of weights, "
+        f"{engines['r0'].stats['pool_pages']} pool pages and a "
+        f"{base_cfg.kv_host_pool_tokens}-token host tier each, built in "
+        f"{build_s:.1f} s")
+    cfg = from_dict(AppConfig, {"embeddings": {"model_engine": "hash",
+                                               "dimensions": 32}})
+    upload_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    urls, stops = {}, {}
+    for name, e in engines.items():
+        bot = QAChatbot(llm=EngineLLM(e), embedder=HashEmbedder(dim=32),
+                        config=cfg, fused_rag=False)
+        urls[name], stops[name] = serve_app(create_app(bot, upload_dir,
+                                                       config=cfg),
+                                            grace=0.2)
+    router_app = create_router_app(
+        [(n, urls[n]) for n in ("r0", "r1", "r2")], policy="affinity",
+        heartbeat_s=1.0, run_heartbeat=True)
+    router = router_app[ROUTER]
+    rurl, stop_router = serve_app(router_app)
+    stop_router2 = None
+    killed = set()
+
+    def snap(name: str) -> float:
+        return obs_metrics.REGISTRY.snapshot().get(name, 0.0)
+
+    def heartbeat(url: str = rurl) -> None:
+        fleet_call(url + "/control/heartbeat", {})
+
+    def body_of(tag: str, n_ctx: int = FLEET_CONTEXT,
+                new: int = FLEET_NEW) -> dict:
+        return {"question": f"What does passage {tag} describe?",
+                "context": fleet_text(tag, n_ctx),
+                "use_knowledge_base": False, "num_tokens": new}
+
+    def ids_of(body: dict) -> list:
+        return tok.encode(cfg.prompts.chat_template.format(
+            context_str=body["context"], query_str=body["question"]))
+
+    def warm_mirror(name: str, body: dict, tag: str) -> tuple:
+        """The text of ``body`` on replica ``name`` cold, then again with
+        its prompt pages held there (a prefix hit), and the cold TTFB."""
+        _, cold, ttfb = fleet_generate(urls[name], body, f"{tag}-cold")
+        _, warm, _ = fleet_generate(urls[name], body, f"{tag}-warm")
+        return cold, warm, ttfb
+
+    def parting(body: dict, a: str, b: str):
+        """None when the texts are equal; else (token, top-2 gap of the
+        served weights' logits there)."""
+        ids = ids_of(body)
+        return first_parting(torch, served, ids,
+                             tok.encode(a, add_bos=False),
+                             tok.encode(b, add_bos=False))
+
+    deferred = []   # near-tie checks, run after the counted window
+    try:
+        for name in ("r0", "r1"):
+            fleet_generate(urls[name], {"question": "warm up",
+                                        "use_knowledge_base": False,
+                                        "num_tokens": 2}, f"fleet-warm-{name}")
+        status, _, raw = fleet_call(urls["r2"] + "/control/prefill",
+                                    {"question": "warm up"})
+        if status != 200:
+            fail(f"fleet: r2's warm-up prefill leg answered {status}: {raw}")
+        # The warm-ups leave the chat template's first page cached on every
+        # replica (r2 also in its host tier, from the export): each long
+        # prompt below is a one-page hit and one chunk on any replica, so
+        # replicas compute the same pages for the same prompt.
+        for e in engines.values():
+            wait_idle(e)
+        heartbeat()
+        roles = {r["name"]: r["role"] for r in json.loads(
+            fleet_call(rurl + "/router/replicas")[2])["replicas"]}
+        if roles != {"r0": "unified", "r1": "unified", "r2": "prefill"}:
+            fail(f"fleet: the router sees roles {roles}")
+        torch.cuda.synchronize()
+        stats0 = {n: e.stats for n, e in engines.items()}
+        zero_launch_counts()
+
+        # 1-2. The handoff through the router.
+        body_a = body_of("A")
+        raw_len = len(json.dumps(body_a, ensure_ascii=False).encode())
+        h0 = snap("router_disagg_handoffs_total")
+        fb0 = {k: v for k, v in obs_metrics.REGISTRY.snapshot().items()
+               if k.startswith("router_disagg_fallbacks_total")}
+        ids_a = ids_of(body_a)
+        n_pages = len(ids_a) // page
+        held = {n: len(pool_pages_of(engines[n], ids_a)) for n in ("r0", "r1")}
+        before = {n: e.stats for n, e in engines.items()}
+        hdrs, text_a, ttfb_a = fleet_generate(rurl, body_a, "fleet-handoff")
+        dec = hdrs.get("X-Routed-Replica")
+        if dec not in ("r0", "r1"):
+            fail(f"fleet: the handoff's decode leg ran on {dec!r}")
+        uni = "r1" if dec == "r0" else "r0"
+        fb1 = {k: v for k, v in obs_metrics.REGISTRY.snapshot().items()
+               if k.startswith("router_disagg_fallbacks_total")}
+        if snap("router_disagg_handoffs_total") != h0 + 1 or fb1 != fb0:
+            fail(f"fleet: no completed handoff (handoffs "
+                 f"{snap('router_disagg_handoffs_total') - h0}, fallbacks "
+                 f"{fb0} -> {fb1}): a price-out or a fallback")
+        d_after, p_after = engines[dec].stats, engines["r2"].stats
+        exported = (p_after["kv_tier_export_pages"]
+                    - before["r2"]["kv_tier_export_pages"])
+        restored = (d_after["kv_tier_restore_pages"]
+                    - before[dec]["kv_tier_restore_pages"])
+        computed = (d_after["sched_prefill_tokens"]
+                    - before[dec]["sched_prefill_tokens"])
+        hit = (d_after["prefix_cache_hit_tokens"]
+               - before[dec]["prefix_cache_hit_tokens"])
+        if (exported != n_pages or restored != n_pages - held[dec]
+                or restored <= 0 or hit != n_pages * page):
+            fail(f"fleet: r2 exported {exported} pages of the {n_pages} the "
+                 f"prompt fills; {dec} held {held[dec]}, restored "
+                 f"{restored}, reused {hit} tokens")
+        if computed > len(ids_a) - (n_pages - 1) * page:
+            fail(f"fleet: {dec} computed {computed} of {len(ids_a)} prompt "
+                 f"tokens after the handoff: not a prefix hit")
+        got_pages, want_pages = (pool_pages_of(engines[dec], ids_a),
+                                 pool_pages_of(engines["r2"], ids_a))
+        if len(got_pages) != n_pages or set(got_pages) != set(want_pages):
+            fail(f"fleet: {dec} holds {len(got_pages)} pages of the chain, "
+                 f"r2 {len(want_pages)}")
+        for h, leaves in got_pages.items():
+            for leaf, t in leaves.items():
+                if not torch.equal(t, want_pages[h][leaf]):
+                    fail(f"fleet: {dec}'s page {leaf} of the chain differs "
+                         f"from r2's")
+        del got_pages, want_pages
+        rtl = router.flight.snapshot(limit=100)["completed"]
+        rtl = next(t for t in rtl if t["request_id"] == "fleet-handoff")
+        cap = next(r for r in json.loads(fleet_call(
+            rurl + "/router/replicas")[2])["replicas"]
+            if r["name"] == dec).get("capacity") or {}
+        cold_a, warm_a, ttfb_uni = warm_mirror(uni, body_a, "fleet-uni-A")
+        if text_a != warm_a:
+            fail(f"fleet: the handoff's text differs from {uni}'s with the "
+                 f"prefix held locally")
+        deferred.append(("handoff vs unified cold", body_a, cold_a, text_a))
+
+        # 3a. The pull leg: the push misses, the decode replica pulls.
+        body_b = body_of("B")
+        status, _, raw = fleet_call(
+            urls["r2"] + "/control/prefill", body_b,
+            {"X-KV-Push-To": "http://127.0.0.1:1"})
+        leg = json.loads(raw) if status == 200 else {}
+        if status != 200 or leg.get("pushed") or not leg.get("blocks"):
+            fail(f"fleet: the missed push answered {status}: {raw[:200]}")
+        t_before = engines["r0"].stats["kv_tier_transfer_pages"]
+        _, text_b, _ = fleet_generate(
+            urls["r0"], body_b, "fleet-pull",
+            {"X-KV-Transfer-From": urls["r2"]})
+        pulled = engines["r0"].stats["kv_tier_transfer_pages"] - t_before
+        if pulled <= 0:
+            fail("fleet: X-KV-Transfer-From moved no page")
+        _, warm_b, _ = warm_mirror("r1", body_b, "fleet-uni-B")
+        if text_b != warm_b:
+            fail("fleet: the pulled pages' text differs from r1's with the "
+                 "prefix held locally")
+
+        # 3b. Router-driven transfer over r0 and r1.
+        os.environ["ROUTER_KV_TRANSFER"] = "1"
+        router2_app = create_router_app(
+            [(n, urls[n]) for n in ("r0", "r1")], policy="affinity",
+            heartbeat_s=30.0, run_heartbeat=False)
+        r2url, stop_router2 = serve_app(router2_app)
+        heartbeat(r2url)
+        body_e = body_of("E")
+        hdrs, _, _ = fleet_generate(r2url, body_e, "fleet-rt-1")
+        donor = hdrs["X-Routed-Replica"]
+        other = "r1" if donor == "r0" else "r0"
+        _, warm_e, _ = fleet_generate(urls[donor], body_e, "fleet-rt-warm")
+        fleet_call(urls[donor] + "/control/drain", {})
+        heartbeat(r2url)
+        hints0 = snap("router_kv_transfer_hints_total")
+        t_before = engines[other].stats["kv_tier_transfer_pages"]
+        hdrs, text_e, _ = fleet_generate(r2url, body_e, "fleet-rt-2")
+        moved = engines[other].stats["kv_tier_transfer_pages"] - t_before
+        fleet_call(urls[donor] + "/control/undrain", {})
+        if (hdrs["X-Routed-Replica"] != other or moved <= 0
+                or snap("router_kv_transfer_hints_total") != hints0 + 1):
+            fail(f"fleet: router-driven transfer: placed on "
+                 f"{hdrs['X-Routed-Replica']}, {moved} pages pulled, "
+                 f"hints {snap('router_kv_transfer_hints_total') - hints0}")
+        if text_e != warm_e:
+            fail("fleet: the router-driven pull's text differs from the "
+                 "donor's warm text")
+        heartbeat()
+
+        # Leg times: a handoff driven leg by leg (prompt C). On r2 the
+        # three calls ``/control/prefill`` makes, timed one by one: the
+        # 1-token prefill, the export (gather + serialize) and the push
+        # into r0 (wire + import); then r0's decode; r1 cold on the same
+        # prompt for the unified TTFT.
+        body_c = body_of("C")
+        ids_c = ids_of(body_c)
+        r2 = engines["r2"]
+        pf0 = r2.stats
+        launches0 = launch_snapshot()
+        t1 = time.monotonic()
+        r2.stream_text(cfg.prompts.chat_template.format(
+            context_str=body_c["context"], query_str=body_c["question"]),
+            SamplingParams(max_tokens=1, top_k=1),
+            request_id="fleet-legs-prefill").text()
+        t2 = time.monotonic()
+        blob, n_blk = r2.export_handoff(ids_c)
+        t3 = time.monotonic()
+        if not kv_tier.push_blob(urls["r0"], blob, timeout_s=60):
+            fail("fleet: the timed push into r0 was refused")
+        t4 = time.monotonic()
+        leg = {"blocks": n_blk, "blob_bytes": len(blob),
+               "ms": {"prefill": (t2 - t1) * 1e3, "export": (t3 - t2) * 1e3,
+                      "push": (t4 - t3) * 1e3}}
+        t1 = time.monotonic()
+        kv_tier.from_blob(blob)
+        import_ms = (time.monotonic() - t1) * 1e3
+        del blob
+        torch.cuda.synchronize()
+        launches1 = launch_snapshot()
+        pf1 = engines["r2"].stats
+        check_lone_window("r2 prefill leg", launches0, launches1,
+                          pf0, pf1, mcfg.num_layers,
+                          head_tiles(engines["r2"]), want_steps=False)
+        d0 = engines["r0"].stats
+        _, text_c, ttfb_c = fleet_generate(urls["r0"], body_c,
+                                           "fleet-legs")
+        torch.cuda.synchronize()
+        launches2 = launch_snapshot()
+        check_lone_window("r0 decode after a push", launches1, launches2,
+                          d0, engines["r0"].stats, mcfg.num_layers,
+                          head_tiles(engines["r0"]), want_steps=True)
+        ltl = timeline_of(obs_flight.RECORDER, "fleet-legs")
+        _, _, ttfb_c_uni = fleet_generate(urls["r1"], body_c,
+                                          "fleet-legs-uni")
+        utl = timeline_of(obs_flight.RECORDER, "fleet-legs-uni")
+
+        # 4. Affinity: two turns of one conversation.
+        system = ("You answer questions about the fleet router. " * 30)
+        turn1 = {"question": "Which replica holds my prefix?",
+                 "context": system, "use_knowledge_base": False,
+                 "num_tokens": 8}
+        hits0 = snap("router_affinity_hits")
+        hdrs, answer1, _ = fleet_generate(rurl, turn1, "fleet-aff-1")
+        home = hdrs["X-Routed-Replica"]
+        placed0 = snap(f'router_placed_total{{replica="{home}"}}')
+        phit0 = engines[home].stats.get("prefix_cache_hit_tokens", 0)
+        turn2 = dict(turn1, question="And the next turn?",
+                     context=system + "\nUser: " + turn1["question"]
+                     + "\nAssistant: " + answer1)
+        hdrs, _, _ = fleet_generate(rurl, turn2, "fleet-aff-2")
+        atl = next(t for t in router.flight.snapshot(limit=100)["completed"]
+                   if t["request_id"] == "fleet-aff-2")
+        place = next(e["value"] for e in atl["events"]
+                     if e["event"] == "place")
+        phit = engines[home].stats.get("prefix_cache_hit_tokens", 0) - phit0
+        if (hdrs["X-Routed-Replica"] != home
+                or snap(f'router_placed_total{{replica="{home}"}}')
+                != placed0 + 1
+                or snap("router_affinity_hits") < hits0 + 1
+                or place["affinity_blocks"] <= 0 or phit <= 0):
+            fail(f"fleet: the second turn went to "
+                 f"{hdrs['X-Routed-Replica']} (first: {home}), affinity "
+                 f"blocks {place['affinity_blocks']}, prefix hit {phit}")
+
+        # Router overhead: 8 short requests, the router's first byte
+        # against the replica's.
+        overhead = []
+        for i in range(8):
+            rid = f"fleet-ovh-{i}"
+            fleet_generate(rurl, {"question": f"Short question {i}?",
+                                  "use_knowledge_base": False,
+                                  "num_tokens": 4}, rid)
+            r_tl = next(t for t in router.flight.snapshot(
+                limit=100)["completed"] if t["request_id"] == rid)
+            c_tl = timeline_of(obs_flight.RECORDER, rid)
+            overhead.append(r_tl["meta"]["ttft_ms"]
+                            - c_tl["meta"]["ttft_ms"])
+
+        # 6. Drain r1 with a stream of its own in flight.
+        faults.set_plan(FLEET_DELAY)
+        try:
+            held = None
+            for i in range(4):
+                status, hdrs, (resp, first) = fleet_call(
+                    rurl + "/generate",
+                    {"question": f"Drain stream {i}?", "num_tokens": 48,
+                     "use_knowledge_base": False},
+                    {"X-Request-ID": f"fleet-drain-{i}"}, read=1)
+                if status == 200 and hdrs["X-Routed-Replica"] == "r1":
+                    held = (resp, first, f"fleet-drain-{i}")
+                    break
+                with resp:
+                    resp.read()
+            if held is None:
+                fail("fleet: no router placement landed on r1")
+            fleet_call(urls["r1"] + "/control/drain", {})
+            heartbeat()
+            placed_r1 = snap('router_placed_total{replica="r1"}')
+            for i in range(4):
+                hdrs, _, _ = fleet_generate(rurl, {
+                    "question": f"While r1 drains {i}?", "num_tokens": 2,
+                    "use_knowledge_base": False}, f"fleet-drained-{i}")
+                if hdrs["X-Routed-Replica"] == "r1":
+                    fail("fleet: the draining r1 took a new placement")
+            with held[0] as resp:
+                rest = (held[1] + resp.read()).decode("utf-8")
+        finally:
+            faults.clear()
+        finish = timeline_of(obs_flight.RECORDER,
+                             held[2])["meta"].get("finish")
+        if snap('router_placed_total{replica="r1"}') != placed_r1 \
+                or "[error]" in rest or finish not in ("length", "eos"):
+            fail(f"fleet: r1's in-flight stream finished {finish!r} with "
+                 f"{len(rest)} characters while draining")
+        fleet_call(urls["r1"] + "/control/undrain", {})
+        heartbeat()
+
+        # 5. Failover: an uninterrupted run, then the same request with
+        # its replica's site stopped mid-stream.
+        body_f = {"question": "Tell a long story about replicas.",
+                  "context": system, "use_knowledge_base": False,
+                  "num_tokens": 64}
+        hdrs, full_f, _ = fleet_generate(rurl, body_f, "fleet-fo-ref")
+        resumes0 = snap('router_resume_total{outcome="ok"}')
+        faults.set_plan(FLEET_DELAY)
+        try:
+            status, hdrs, (resp, first) = fleet_call(
+                rurl + "/generate", body_f,
+                {"X-Request-ID": "fleet-fo-kill"}, read=1)
+            victim = hdrs.get("X-Routed-Replica")
+            if status != 200 or victim not in ("r0", "r1"):
+                fail(f"fleet: failover stream answered {status} on "
+                     f"{victim!r}")
+            stops[victim]()
+            killed.add(victim)
+            with resp:
+                stitched = (first + resp.read()).decode("utf-8")
+        finally:
+            faults.clear()
+        if ("[error]" in stitched or "event: error" in stitched
+                or snap('router_resume_total{outcome="ok"}')
+                != resumes0 + 1):
+            fail(f"fleet: no clean resume after stopping {victim}: "
+                 f"{stitched[-200:]!r}")
+        deferred.append(("failover vs uninterrupted", body_f, full_f,
+                         stitched))
+        # The stopped replica's engine retires its abandoned stream at its
+        # next harvested token: every engine idle, then the counts.
+        for e in engines.values():
+            wait_idle(e)
+        torch.cuda.synchronize()
+        run = read_launch_counts(engines["r0"], stats0["r0"])
+        run.update({k: sum(engines[n].stats[k] - stats0[n][k]
+                           for n in engines)
+                    for k in ("decode_steps", "prefills",
+                              "prefill_dispatches", "prefill_chunks",
+                              "sampler_rows_sampled",
+                              "sampler_rows_skipped")})
+        if weight_marks(served.params) != weights0:
+            fail("fleet: serving wrote the shared weights")
+        check_launch_counts(f"[{mode}] fleet", run, mcfg.num_layers,
+                            "int4_awq", "int8", head_tiles(engines["r0"]))
+        r2_work = {k: engines["r2"].stats[k] - stats0["r2"][k]
+                   for k in ("decode_steps", "prefills",
+                             "prefill_dispatches")}
+        dec_steps = {n: engines[n].stats["decode_steps"]
+                     - stats0[n]["decode_steps"] for n in ("r0", "r1")}
+        if r2_work["decode_steps"] or not r2_work["prefill_dispatches"] \
+                or not all(dec_steps.values()):
+            fail(f"fleet: r2's work {r2_work}, the decode replicas' steps "
+                 f"{dec_steps}")
+    finally:
+        faults.clear()
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if stop_router2 is not None:
+            stop_router2()
+        stop_router()
+        for name, stop in stops.items():
+            if name not in killed:
+                stop()
+        for e in engines.values():
+            e.stop()
+
+    # After the counted window: full forwards for the near-tie rule, the
+    # page I/O, and the legs.
+    for label, body, want, got in deferred:
+        part = parting(body, want, got)
+        if part is not None and part[1] >= SPEC_TIE:
+            fail(f"fleet: {label}: the texts part at token {part[0]} with "
+                 f"top-2 gap {part[1]}")
+        say(f"fleet [{mode}]: {label}: " + (
+            "equal" if part is None else
+            f"part at token {part[0]} (top-2 gap {part[1]:.4f}, a near-tie)"))
+    d2h, h2d = engines["r0"].measure_page_io(16)
+    mb = leg["blob_bytes"] / 1e6
+    pages_c = leg["blocks"]
+    restore_ms = stage_ms(ltl, "engine_kv_restore")
+    prefill_tok_ms = leg["ms"]["prefill"] / len(ids_c)
+    measured_page_ms = (leg["ms"]["export"] + leg["ms"]["push"]
+                        + restore_ms) / pages_c
+    say(f"fleet [{mode}]: handoff legs for a {len(ids_c)}-token prompt "
+        f"({pages_c} pages, blob {mb:.2f} MB): prefill "
+        f"{leg['ms']['prefill']:.2f} ms, export (gather + serialize) "
+        f"{leg['ms']['export']:.2f} ms, push (wire + import) "
+        f"{leg['ms']['push']:.2f} ms ({mb / leg['ms']['push'] * 1e3:.2f} "
+        f"MB/s), import alone (parse + CRC) {import_ms:.2f} ms, restore "
+        f"{restore_ms:.2f} ms (host), decode TTFT after the push "
+        f"{ltl['meta']['ttft_ms']:.2f} ms (first byte {ttfb_c * 1e3:.2f} "
+        f"ms) vs unified cold TTFT {utl['meta']['ttft_ms']:.2f} ms (first "
+        f"byte {ttfb_c_uni * 1e3:.2f} ms); page I/O D2H {d2h:.4f} / H2D "
+        f"{h2d:.4f} ms/page [{card}]")
+    say(f"fleet [{mode}]: through the router: handoff first byte "
+        f"{ttfb_a * 1e3:.2f} ms (prefill leg "
+        f"{stage_ms(rtl, 'router_disagg_prefill'):.2f} ms) vs {uni} cold "
+        f"{ttfb_uni * 1e3:.2f} ms for the same {len(ids_a)}-token prompt; "
+        f"computed on {dec} after the handoff: {computed} tokens [{card}]")
+    priced = handoff_beats_prefill(cap, raw_len)
+    per_page = (float(cap.get("d2h_ms_per_page", 0) or 0)
+                + float(cap.get("h2d_ms_per_page", 0) or 0))
+    say(f"fleet [{mode}]: handoff_beats_prefill -> {priced} on {dec}'s "
+        f"capacity (page_size {cap.get('page_size')}, d2h "
+        f"{cap.get('d2h_ms_per_page')} + h2d {cap.get('h2d_ms_per_page')} "
+        f"= {per_page} ms/page, prefill_ms_per_token "
+        f"{cap.get('prefill_ms_per_token')}) for {raw_len} bytes; measured "
+        f"here: {measured_page_ms:.3f} ms/page for the whole handoff vs "
+        f"{prefill_tok_ms * page:.3f} ms to prefill a page's tokens -> "
+        f"{measured_page_ms < prefill_tok_ms * page} [{card}]")
+    overhead.sort()
+    say(f"fleet [{mode}]: router overhead (router first byte - replica "
+        f"TTFT) over 8 requests: median "
+        f"{statistics.median(overhead):.2f} ms, range {overhead[0]:.2f}-"
+        f"{overhead[-1]:.2f} ms [{card}]")
+    say(f"fleet [{mode}]: launches {run['launches']} (int4 by path "
+        f"{run['by_path']}) over {run['decode_steps']} decode steps, "
+        f"{run['prefills']} admissions and {run['prefill_dispatches']} "
+        f"prefill programs on three replicas; r2 (prefill) {r2_work}")
+    del engines
+    free_memory(torch)
+    return run
+
+
+def weight_marks(tree) -> list:
+    """(address, in-place write count) of every tensor of a parameter
+    tree, in a fixed order: equal marks mean the same tensors, unwritten."""
+    import torch
+    if isinstance(tree, dict):
+        return [m for k in sorted(tree) for m in weight_marks(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [m for v in tree for m in weight_marks(v)]
+    if isinstance(tree, torch.Tensor):
+        return [(tree.data_ptr(), tree._version)]
+    return []
+
+
+def launch_snapshot() -> dict:
+    """The kernels' launch counts since ``zero_launch_counts``."""
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import int4_matmul
+    from generativeaiexamples_tpu_torch.ops.paged_attention import \
+        paged_attention_decode
+    return {"paged_attention_decode": paged_attention_decode.launches,
+            "paged_attention_decode_int8":
+                paged_attention_decode.int8_launches,
+            **dict(int4_matmul.launches_by_path)}
+
+
+def check_lone_window(label: str, c0: dict, c1: dict, s0: dict, s1: dict,
+                      L: int, n_tiles: int, want_steps: bool) -> None:
+    """One replica's work alone between two launch snapshots: int8
+    attention on every layer of its decode steps; #3 "tc" on every decode
+    projection and head tile and each admission's head row; "wg" on every
+    prefill program's projections; nothing else."""
+    d = {k: c1[k] - c0[k] for k in c0}
+    steps = s1["decode_steps"] - s0["decode_steps"]
+    prefills = s1["prefills"] - s0["prefills"]
+    programs = s1["prefill_dispatches"] - s0["prefill_dispatches"]
+    want = {"paged_attention_decode": 0,
+            "paged_attention_decode_int8": L * steps,
+            "tc": (7 * L + n_tiles) * steps + prefills, "gemv": 0,
+            "tile": 0, "wg": 7 * L * programs}
+    if d != want or not programs or bool(steps) != want_steps:
+        fail(f"fleet: {label}: launches {d} over {steps} decode steps, "
+             f"{prefills} admissions and {programs} prefill programs; "
+             f"expected {want}")
+    say(f"fleet: {label}: launches {d} ({steps} decode steps, {prefills} "
+        f"admissions, {programs} prefill programs)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3524,6 +4257,13 @@ def main() -> int:
         for key in ("launches", "by_path"):
             run[key] = {k: n + rag[q][key][k] for k, n in run[key].items()}
     lap("serve_rag")
+    # The fleet tier on the int4 weights: three replicas behind the
+    # router; its counts join the int4 mode's in the kernels line.
+    fleet = serve_fleet(torch, dev, card, quantized["profile"][1])
+    for key in ("launches", "by_path"):
+        quantized[key] = {k: n + fleet[key][k]
+                          for k, n in quantized[key].items()}
+    lap("serve_fleet")
     # Last: the first profiler session changes how the card runs graphs.
     traced_profiles(torch, card, [bf16.pop("profile"),
                                   quantized.pop("profile")])

@@ -9,11 +9,13 @@ of the reference package's ``chains/server.py``.
 plus ``GET /health``, ``/metrics``, ``/debug/{requests,rounds,history,
 alerts,incidents}``, ``POST /control/incident``, ``/control/drain``,
 ``/control/undrain``, the KV-tier session routes ``/control/kv_suspend``
-and ``/control/kv_resume``, and mid-stream resume (a ``/generate`` body
-with a ``resume`` block carrying the text already streamed). The fleet
-routes ``/control/kv_pages`` and ``/control/prefill`` wait for the KV
-tier's cross-replica half (ROADMAP A21) and answer 501. Examples are
-discovered by module path (``discover_example``).
+and ``/control/kv_resume``, the fleet routes ``/control/kv_pages`` (a
+sibling pulls prefix pages) and ``/control/prefill`` (the prefill leg of
+the disaggregated handoff, docs/disaggregation.md), the router's
+``X-KV-Transfer-From`` donor hint on ``/generate``, and mid-stream resume
+(a ``/generate`` body with a ``resume`` block carrying the text already
+streamed). Examples are discovered by module path
+(``discover_example``).
 
 Sync chain generators run on a worker thread; chunks cross into the event
 loop through an asyncio queue, so one slow generation never blocks other
@@ -74,7 +76,7 @@ from ..obs.tracing import instrumented
 from ..serving.streaming import iterate_in_thread
 from ..utils import resilience
 from ..utils.errors import (BreakerOpenError, ChainError, EngineError,
-                            SchedulerFullError)
+                            RoleMismatchError, SchedulerFullError)
 from ..utils.logging import get_logger
 from .base import BaseExample
 
@@ -160,10 +162,21 @@ def discover_example(spec: str) -> type[BaseExample]:
     raise ChainError(f"no BaseExample implementation found in {spec}")
 
 
+def _max_body_bytes(example) -> int:
+    """The largest request body the app reads: 100 MiB, or the served
+    engine's host KV tier plus 1 MiB of blob header when that is more, so
+    ``/control/kv_resume`` takes any blob the tier could hold (a 2000-token
+    prefix of a 7B int8 pool is about 0.5 GB)."""
+    engine = getattr(getattr(example, "llm", None), "engine", None)
+    tier = getattr(engine, "_kv_tier", None)
+    cap = tier.store.capacity_bytes if tier is not None else 0
+    return max(100 * 1024 ** 2, cap + (1 << 20))
+
+
 def create_app(example: BaseExample,
                upload_dir: str = "./uploaded_files",
                config=None) -> web.Application:
-    app = web.Application(client_max_size=100 * 1024 ** 2)
+    app = web.Application(client_max_size=_max_body_bytes(example))
 
     # Robustness knobs: app-config `serving` section, env-overridable
     # (REQUEST_DEADLINE_MS / CHAIN_EXECUTOR_TIMEOUT_S win over the file —
@@ -228,10 +241,11 @@ def create_app(example: BaseExample,
     def _obs_blocks() -> dict:
         """Fleet-observability blocks riding the heartbeat body:
         round-telemetry rolling aggregates (plus the wall-clock token
-        rate) and the modeled decode capacity from the scheduler's
-        step-cost model. Absent engine → absent blocks; each block
-        degrades to absence on its own (a health answer must never 500
-        over telemetry)."""
+        rate), the modeled decode capacity from the scheduler's step-cost
+        model with the handoff's pricing inputs, and the KV tier's
+        counters. Absent engine → absent blocks; each block degrades to
+        absence on its own (a health answer must never 500 over
+        telemetry)."""
         out: dict = {}
         engine = getattr(getattr(example, "llm", None), "engine", None)
         if engine is None:
@@ -269,14 +283,36 @@ def create_app(example: BaseExample,
                 out["capacity"] = {
                     "slots": int(engine.cfg.max_slots),
                     "decode_step_ms": round(step_ms, 4),
+                    "model_source": str(cost.source),
                     "capacity_tokens_per_sec": round(
                         engine.cfg.max_slots * 1e3 / step_ms, 1),
+                    # The router's handoff price
+                    # (table.handoff_beats_prefill) reads these: the
+                    # numbers this engine's own priced restore uses.
                     "prefill_ms_per_token": round(
                         float(cost.prefill_ms_per_token), 6),
+                    "h2d_ms_per_page": round(
+                        float(cost.h2d_ms_per_page), 4),
+                    "d2h_ms_per_page": round(
+                        float(cost.d2h_ms_per_page), 4),
                     "page_size": int(engine.cfg.page_size),
                 }
         except Exception:  # noqa: BLE001
             logger.debug("capacity block unavailable", exc_info=True)
+        try:
+            if getattr(engine, "_kv_tier", None) is not None:
+                stats = engine.stats
+                out["kv_tier"] = {
+                    "host_pages": int(stats.get("kv_tier_host_pages", 0)),
+                    "offload_pages": int(
+                        stats.get("kv_tier_offload_pages", 0)),
+                    "restore_pages": int(
+                        stats.get("kv_tier_restore_pages", 0)),
+                    "transfer_pages": int(
+                        stats.get("kv_tier_transfer_pages", 0)),
+                }
+        except Exception:  # noqa: BLE001
+            logger.debug("kv_tier block unavailable", exc_info=True)
         return out
 
     async def health(request: web.Request) -> web.Response:
@@ -397,6 +433,12 @@ def create_app(example: BaseExample,
         # dump. Echoed back so callers can correlate without sending one.
         rid = obs_flight.adopt_request_id(request.headers)
 
+        # Cross-replica KV transfer (docs/kv-tiering.md): the router's
+        # placement-miss hint naming a sibling that holds this prompt's
+        # prefix pages, bound into the request's context below so
+        # Engine.submit fetches them (a no-op with the tier off).
+        kv_donor = request.headers.get("X-KV-Transfer-From") or None
+
         # Mid-stream failover continuation: a router re-submits a
         # request whose replica died mid-stream with a ``resume`` block
         # carrying the generated-so-far text. It is tokenized here and
@@ -505,9 +547,13 @@ def create_app(example: BaseExample,
             context (iterate_in_thread), so the timeline bound here is
             visible to every stage below it — including Engine.submit."""
             token = obs_flight.bind(timeline)
+            kv_token = None
+            if kv_donor is not None:
+                # Lazy: a chain without an engine never loads it.
+                from ..engine import kv_tier
+                kv_token = kv_tier.bind_transfer_source(kv_donor)
             resume_token = None
             if resume_ids is not None:
-                # Lazy: a chain without an engine never loads it.
                 from ..engine import resume as engine_resume
                 resume_token = engine_resume.bind_resume(
                     {"ids": resume_ids, "attempt": resume_attempt})
@@ -544,6 +590,9 @@ def create_app(example: BaseExample,
                 if resume_token is not None:
                     from ..engine import resume as engine_resume
                     engine_resume.unbind_resume(resume_token)
+                if kv_token is not None:
+                    from ..engine import kv_tier
+                    kv_tier.unbind_transfer_source(kv_token)
                 obs_flight.unbind(token)
                 # Engine-served requests were already completed at the
                 # stream's terminal transition (complete() is idempotent);
@@ -581,6 +630,15 @@ def create_app(example: BaseExample,
             _shed("breaker_open")
             return error_response(503, "dependency_unavailable", str(exc),
                                   rid, retry_after_s=exc.retry_after_s)
+        except RoleMismatchError as exc:
+            # Misrouted, not broken: a prefill-role engine refusing a
+            # decode-bound request. The engine is fine, so the probe is
+            # released and the answer is a retryable 429, never a
+            # breaker-feeding 503.
+            release()
+            _shed("role_mismatch")
+            return error_response(429, "role_mismatch", str(exc), rid,
+                                  retry_after_s=1.0)
         except EngineError as exc:
             report(False)  # engine down/failing: feeds the fast-503 breaker
             return error_response(503, "engine_error", str(exc), rid)
@@ -656,19 +714,9 @@ def create_app(example: BaseExample,
             return error_response(500, "search_error", str(exc), rid)
         return web.json_response(result)
 
-    async def not_ported(request: web.Request) -> web.Response:
-        """The fleet control routes (cross-replica page export, the
-        disaggregated prefill): 501 until the KV tier's fleet half is
-        ported (ROADMAP A21)."""
-        return error_response(
-            501, "not_implemented",
-            f"{request.path} needs the KV tier's cross-replica half, "
-            f"which this package does not port yet (ROADMAP A21)",
-            obs_flight.adopt_request_id(request.headers))
-
     def _tier_engine():
         """The served engine, or (status, error type, message) when the
-        KV-tier session routes cannot work here."""
+        KV-tier control routes cannot work here."""
         engine = getattr(getattr(example, "llm", None), "engine", None)
         if engine is None:
             return None, (404, "no_engine",
@@ -678,6 +726,59 @@ def create_app(example: BaseExample,
                           "KV tiering is disabled on this replica "
                           "(KV_HOST_POOL_TOKENS=0)")
         return engine, None
+
+    # Donor-side export bound: at most KV_EXPORT_CONCURRENCY
+    # /control/kv_pages exports at once. Each is a page gather on the
+    # serve thread, taking time from decode rounds, so pulls past the cap
+    # are shed (429 + Retry-After, counted in kv_export_shed) instead of
+    # stalling every stream here. A counter, not a semaphore: refusing is
+    # the point.
+    kv_export_limit = max(1, int(os.environ.get(
+        "KV_EXPORT_CONCURRENCY", "2") or 2))
+    kv_export_active = [0]
+
+    async def kv_pages(request: web.Request) -> web.Response:
+        """``GET /control/kv_pages?hashes=<hex,...>``: the donor side of
+        the cross-replica prefix-page transfer (docs/kv-tiering.md). The
+        leading requested blocks held in either tier, as one KV-tier blob
+        capped at the engine's transfer page cap. A chain held nowhere
+        answers 200 with a blob of no blocks: absence is an answer."""
+        rid = obs_flight.adopt_request_id(request.headers)
+        engine, err = _tier_engine()
+        if err is not None:
+            return error_response(err[0], err[1], err[2], rid)
+        raw = request.query.get("hashes", "")
+        try:
+            hashes = [bytes.fromhex(h) for h in raw.split(",") if h]
+        except ValueError:
+            raise web.HTTPUnprocessableEntity(
+                text="hashes must be comma-separated hex block hashes")
+        if not hashes:
+            raise web.HTTPUnprocessableEntity(
+                text="at least one block hash is required")
+        if kv_export_active[0] >= kv_export_limit:
+            engine._bump("kv_export_shed")
+            return error_response(
+                429, "kv_export_busy",
+                f"{kv_export_active[0]} KV export(s) already in flight "
+                f"(cap {kv_export_limit}); retry or place cold", rid,
+                retry_after_s=1.0)
+        kv_export_active[0] += 1
+        try:
+            blob, n = await asyncio.wait_for(
+                asyncio.get_running_loop().run_in_executor(
+                    None, engine.export_blob, hashes),
+                timeout=executor_timeout_s)
+        except asyncio.TimeoutError:
+            return error_response(504, "timeout", "kv page export timed out",
+                                  rid)
+        except EngineError as exc:
+            return error_response(503, "engine_error", str(exc), rid)
+        finally:
+            kv_export_active[0] -= 1
+        return web.Response(body=blob, content_type="application/octet-stream",
+                            headers={"X-KV-Blocks": str(n),
+                                     "X-Request-ID": rid})
 
     async def kv_suspend(request: web.Request) -> web.Response:
         """``POST /control/kv_suspend`` ``{"text": ...}`` (or
@@ -736,6 +837,75 @@ def create_app(example: BaseExample,
         except (EngineError, ValueError) as exc:
             return error_response(422, "bad_blob", str(exc), rid)
         return web.json_response({"blocks": n, "request_id": rid})
+
+    async def control_prefill(request: web.Request) -> web.Response:
+        """``POST /control/prefill``: the prefill leg of the disaggregated
+        handoff (docs/disaggregation.md). Takes a ``/generate``-shaped
+        body, assembles the same prompt the decode replica's chain will
+        (the config's chat template), runs it as a 1-token greedy
+        generation, exports the finished prefix chain and pushes it to
+        the replica named by ``X-KV-Push-To`` (its ``/control/kv_resume``).
+        The decode replica then admits the real request as a prefix hit.
+        Every failure degrades to recompute there: the router takes any
+        non-200 as "skip the handoff", never as a request error."""
+        rid = obs_flight.adopt_request_id(request.headers)
+        engine, err = _tier_engine()
+        if err is not None:
+            return error_response(err[0], err[1], err[2], rid)
+        if drain.draining:
+            return _drain_reject(rid)
+        body = await request.json()
+        question = body.get("question", "")
+        context = body.get("context", "")
+        if not question:
+            raise web.HTTPUnprocessableEntity(text="'question' is required")
+        push_to = request.headers.get("X-KV-Push-To") or None
+        from ..engine import kv_tier
+        if push_to is not None and not kv_tier.donor_allowed(push_to):
+            return error_response(
+                403, "push_target_not_allowed",
+                f"push target {push_to} is outside KV_TRANSFER_ALLOW", rid)
+        # The prompt the decode replica's llm_chain assembles, byte for
+        # byte: the exported chain must hash the same token ids.
+        try:
+            prompt = example.config.prompts.chat_template.format(
+                context_str=context or "", query_str=question)
+        except Exception:  # noqa: BLE001 - an example without a template
+            prompt = f"{context}\n{question}" if context else question
+
+        def run_prefill() -> tuple[int, bool]:
+            from ..engine.sampling_params import SamplingParams
+            stream = engine.stream_text(
+                prompt, SamplingParams(max_tokens=1, top_k=1),
+                request_id=rid)
+            for _ in stream:   # the prefix pages are final after it
+                pass
+            out = engine.export_handoff(engine.tokenizer.encode(prompt))
+            if out is None:
+                return 0, False
+            blob, n = out
+            pushed = False
+            if push_to is not None:
+                pushed = kv_tier.push_blob(
+                    push_to, blob,
+                    timeout_s=engine._kv_tier.transfer_timeout_s)
+            return n, pushed
+
+        try:
+            n, pushed = await asyncio.wait_for(
+                asyncio.get_running_loop().run_in_executor(
+                    None, run_prefill),
+                timeout=executor_timeout_s)
+        except asyncio.TimeoutError:
+            return error_response(504, "timeout", "prefill handoff timed out",
+                                  rid)
+        except SchedulerFullError as exc:
+            return error_response(429, "queue_full", str(exc), rid,
+                                  retry_after_s=1.0)
+        except EngineError as exc:
+            return error_response(503, "engine_error", str(exc), rid)
+        return web.json_response(
+            {"blocks": n, "pushed": pushed, "request_id": rid})
 
     def _mirror_engine_stats() -> None:
         engine = getattr(getattr(example, "llm", None), "engine", None)
@@ -814,10 +984,10 @@ def create_app(example: BaseExample,
     app.router.add_post("/documentSearch", document_search)
     app.router.add_post("/control/drain", control_drain)
     app.router.add_post("/control/undrain", control_undrain)
-    app.router.add_get("/control/kv_pages", not_ported)
+    app.router.add_get("/control/kv_pages", kv_pages)
     app.router.add_post("/control/kv_suspend", kv_suspend)
     app.router.add_post("/control/kv_resume", kv_resume)
-    app.router.add_post("/control/prefill", not_ported)
+    app.router.add_post("/control/prefill", control_prefill)
     return app
 
 

@@ -98,10 +98,15 @@ port of the reference's ``engine/engine.py``.
   be suspended to a blob and resumed (``suspend_session`` /
   ``resume_session``). ``submit`` takes a mid-stream resume bound by
   ``engine/resume.py``.
+- **Fleet half of the tier** (docs/disaggregation.md, docs/kv-tiering.md):
+  ``submit`` fetches a prompt's missing prefix pages from the donor the
+  router named (``X-KV-Transfer-From``, bound by the chain server) into
+  the host tier, where the priced restore takes them;
+  ``export_handoff`` serializes a finished prompt's chain for the push
+  to a decode replica. A ``prefill``-role engine (``ENGINE_ROLE``)
+  refuses decode-bound requests with ``RoleMismatchError``.
 
-Waiting for later slices: the fleet half of the KV tier (cross-replica
-page transfer and the prefill handoff), disaggregation roles, and the
-tensor-parallel tails.
+Waiting for later slices: the tensor-parallel tails.
 """
 
 from __future__ import annotations
@@ -138,7 +143,8 @@ from ..ops.sampling import (MASK_BITS, NEG_INF, apply_repetition_penalty,
                             seen_mask, set_token_bits, unpack_mask)
 from ..utils import faults
 from ..utils.device import resolve_device
-from ..utils.errors import ConfigError, EngineError, SchedulerFullError
+from ..utils.errors import (ConfigError, EngineError, RoleMismatchError,
+                            SchedulerFullError)
 from ..utils.hbm import peak_bw
 from ..utils.logging import get_logger, log_event
 from . import graphs
@@ -156,6 +162,8 @@ from .spec_decode import (AdaptiveDraftController, PromptLookupDrafter,
                           SpecConfig, spec_enabled)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# Disaggregation roles (docs/disaggregation.md).
+ROLES = ("unified", "prefill", "decode")
 
 logger = get_logger(__name__)
 
@@ -203,6 +211,12 @@ _STATS_TEMPLATE = {
     "kv_tier_restore_hits": 0, "kv_restore_skipped_cost": 0,
     "kv_tier_suspended_blocks": 0, "kv_tier_resumed_blocks": 0,
     "kv_restore_corrupt": 0,
+    # The fleet half: pages imported from a sibling replica over
+    # /control/kv_pages, finished prefix pages exported for the
+    # prefill->decode handoff, and /control/kv_pages exports the chain
+    # server shed past KV_EXPORT_CONCURRENCY.
+    "kv_tier_transfer_pages": 0, "kv_tier_export_pages": 0,
+    "kv_export_shed": 0,
     # Times the liveness watchdog declared the engine stalled.
     "watchdog_stalls": 0,
     # Rounds whose record completed (obs/rounds.py).
@@ -330,6 +344,13 @@ class EngineConfig:
     # offloaded prefix pages; KV_HOST_POOL_TOKENS beats it, None defers to
     # the env, 0 turns the tier off.
     kv_host_pool_tokens: Optional[int] = None
+    # Disaggregation role (docs/disaggregation.md): "unified" serves
+    # everything; "prefill" refuses requests wanting more than
+    # ROLE_PREFILL_MAX_TOKENS output tokens (RoleMismatchError) and
+    # exports finished prefix pages to decode siblings; "decode"
+    # advertises itself for decode-bound placement (the router enforces
+    # it). ENGINE_ROLE beats this field.
+    role: str = "unified"
 
     def __post_init__(self) -> None:
         if self.page_size <= 0:
@@ -367,6 +388,10 @@ class EngineConfig:
             raise ConfigError(
                 f"spec_max_draft_tokens={self.spec_max_draft_tokens} must "
                 f"be >= 1 (it sizes the verify round's K+1 positions)")
+        if self.role not in ROLES:
+            raise ConfigError(
+                f"role={self.role!r} not supported; use 'unified', "
+                f"'prefill', or 'decode' (docs/disaggregation.md)")
 
     @property
     def max_cache_len(self) -> int:
@@ -671,7 +696,21 @@ class Engine:
                       "num_kv_heads": m.num_kv_heads,
                       "head_dim": m.head_dim, "dtype": cfg.dtype},
                 transfer_max_pages=int(os.environ.get(
-                    "KV_TRANSFER_MAX_PAGES", "32") or 32))
+                    "KV_TRANSFER_MAX_PAGES", "32") or 32),
+                transfer_timeout_s=float(os.environ.get(
+                    "KV_TRANSFER_TIMEOUT_S", "5") or 5))
+        # Disaggregation role: ENGINE_ROLE beats the config. A
+        # prefill-role engine refuses, at submit, requests wanting more
+        # than ROLE_PREFILL_MAX_TOKENS output tokens: its device belongs
+        # to prefills; decode rounds run on the decode replicas.
+        env_role = (os.environ.get("ENGINE_ROLE", "") or "").strip().lower()
+        if env_role and env_role not in ROLES:
+            raise ConfigError(
+                f"ENGINE_ROLE={env_role!r} not supported; use 'unified', "
+                f"'prefill', or 'decode' (docs/disaggregation.md)")
+        self.role: str = env_role or cfg.role
+        self._role_prefill_max_tokens = max(1, int(os.environ.get(
+            "ROLE_PREFILL_MAX_TOKENS", "4") or 4))
         # Restores' timings not yet read ((pages, start event, end
         # event)), the step's [start, end] events around its programs on
         # the card (``_replay``), the side stream offloads copy on, and the
@@ -2126,6 +2165,18 @@ class Engine:
         if self._fatal is not None:
             raise EngineError("engine is dead") from self._fatal
         params = params or SamplingParams()
+        if self.role == "prefill" \
+                and params.max_tokens > self._role_prefill_max_tokens \
+                and not (request_id or "").startswith("engine-prewarm"):
+            # A routing error, not a capacity one: the edges answer a
+            # retryable 429. Prewarm's own probes run before the replica
+            # takes traffic and need full decode rounds whatever the
+            # role.
+            raise RoleMismatchError(
+                f"prefill-role engine refuses decode-bound request "
+                f"(max_tokens={params.max_tokens} > role cap "
+                f"{self._role_prefill_max_tokens}); route it to a "
+                f"decode/unified replica")
         if len(prompt_ids) > self.cfg.max_input_length:
             raise EngineError(
                 f"prompt length {len(prompt_ids)} exceeds max_input_length "
@@ -2174,7 +2225,58 @@ class Engine:
                             resume_attempt=int((rz or {}).get("attempt", 1)))
                 tl.event("resume_admit", {"replayed": len(replay)})
         self._attach_drafter(req, ids)
+        if self._kv_tier is not None:
+            # The router's placement-miss hint: a bounded fetch on the
+            # caller's thread, so the serve thread does no network I/O.
+            self._transfer_prefetch(req)
         return self._enqueue(req)
+
+    def _transfer_prefetch(self, req: _Request) -> None:
+        """Cross-replica prefix-page import, on the submitting thread: when
+        the chain server bound a donor (``X-KV-Transfer-From``), fetch the
+        prompt-head blocks the host tier lacks from the donor's
+        ``/control/kv_pages`` into the host tier. The admission's priced
+        restore then copies them into the pool on the serve thread, as
+        any host-tier hit. Any failure or timeout places the request
+        cold."""
+        tier = self._kv_tier
+        src = kv_tier_mod.current_transfer_source()
+        if tier is None or src is None or not req.prompt_ids:
+            return
+        if not kv_tier_mod.donor_allowed(src):
+            # The hint header is client-suppliable on a replica reached
+            # directly: a donor outside KV_TRANSFER_ALLOW is ignored.
+            logger.warning("kv transfer: donor %s not in KV_TRANSFER_ALLOW; "
+                           "ignoring hint", src)
+            return
+        if req.block_hashes is None:
+            req.block_hashes = hash_blocks(req.prompt_ids, self.cfg.page_size)
+        missing = [h for h in req.block_hashes[:tier.transfer_max_pages]
+                   if not tier.store.has(h)]
+        if not missing:
+            return
+        got = kv_tier_mod.fetch_blocks(
+            src, missing, timeout_s=tier.transfer_timeout_s,
+            max_pages=tier.transfer_max_pages,
+            on_corrupt=lambda: self._bump("kv_restore_corrupt"))
+        if not got:
+            return
+        meta, records = got
+        if not tier.compatible(meta):
+            logger.warning("kv transfer: donor %s pool geometry does not "
+                           "match; ignoring payload", src)
+            return
+        # Only blocks this prompt asked for may land: an answer naming
+        # any other hash is a donor bug or an attempt to poison unrelated
+        # prefixes through the shared host store, dropped either way.
+        wanted = set(missing)
+        n = sum(1 for record in records
+                if record.hash in wanted and tier.store.put(record))
+        if n:
+            self._bump("kv_tier_transfer_pages", n)
+            tl = req.stream.timeline
+            if tl is not None:
+                tl.annotate(kv_transfer_pages=n)
 
     def _attach_drafter(self, req: _Request, context: Sequence[int]) -> None:
         """With speculative decoding on, the request's prompt-lookup index
@@ -2673,6 +2775,7 @@ class Engine:
                     item = self._harvest_q.get(timeout=0.05)
                 except queue.Empty:
                     continue
+                faults.inject("engine.harvest")  # chaos: a readback fault
                 self._read_back(item)
                 self._wake.set()
         except BaseException as exc:  # noqa: BLE001 - fanned out by _step
@@ -3266,6 +3369,32 @@ class Engine:
         n = sum(1 for record in records if tier.store.put(record))
         self._bump("kv_tier_resumed_blocks", n)
         return n
+
+    def export_handoff(self, token_ids: Sequence[int]
+                       ) -> Optional[tuple[bytes, int]]:
+        """Serialize a finished prompt's whole prefix chain for the push to
+        a decode replica (docs/disaggregation.md). Unlike
+        ``suspend_session`` the pages stay resident (this replica still
+        answers ``/control/kv_pages`` pulls for the prefix); unlike
+        ``export_blob`` the chain is not capped, but collected in slices
+        of the transfer cap, one serve-thread op each, so decode rounds
+        run between them. Returns ``(blob, blocks)``, or None when
+        nothing of the chain is cached. The serve thread gathers; the
+        caller's thread serializes."""
+        tier = self._require_tier()
+        hashes = hash_blocks(list(token_ids), self.cfg.page_size)
+        records: list = []
+        step = max(1, tier.transfer_max_pages)
+        for lo in range(0, len(hashes), step):
+            batch = self._on_serve_thread(
+                lambda lo=lo: self._collect_blocks(hashes, lo, lo + step))
+            records.extend(batch)
+            if len(batch) < min(step, len(hashes) - lo):
+                break   # the chain ended in this slice
+        if not records:
+            return None
+        self._bump("kv_tier_export_pages", len(records))
+        return kv_tier_mod.to_blob(records, tier.meta), len(records)
 
     def _begin_prefill(self, req: _Request, rec=None) -> Optional[bool]:
         """Admission, first half: the slot and pages (a prefix hit's

@@ -1,7 +1,6 @@
-"""Tiered KV store, the single-replica half: a host-RAM page tier under
-the prefix cache (the local part of the reference package's
-``engine/kv_tier.py``; the cross-replica transfer waits for the fleet's
-slice).
+"""Tiered KV store: a host-RAM page tier under the prefix cache, and the
+cross-replica page transfer between replicas (port of the reference
+package's ``engine/kv_tier.py``).
 
 - **Offload instead of drop.** Under pool pressure the engine evicts
   refcount-0 prefix pages as before, but first gathers their KV out of
@@ -14,6 +13,14 @@ slice).
 - **Suspend/resume.** The same per-block records serialize an idle
   conversation's prefix chain into a blob (``Engine.suspend_session``)
   that ``Engine.resume_session`` seeds back into the host tier.
+- **Cross-replica transfer.** A replica pulls a prompt's prefix pages
+  from a sibling that holds them (``fetch_blocks`` over the donor's
+  ``GET /control/kv_pages``, named by the router's
+  ``X-KV-Transfer-From`` hint), and a prefill-role replica pushes a
+  finished prompt's chain to its decode replica (``push_blob`` to
+  ``POST /control/kv_resume``). Both go over ``urllib`` on a bounded
+  worker thread: any failure answers None/False and the receiver
+  recomputes.
 
 Records hold CPU tensors in the pool's layout, one page each: ``(L, KV,
 page, hd)`` for ``k``/``v`` and ``(L, KV, page)`` for the int8 pool's
@@ -27,13 +34,22 @@ directions.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import threading
+import urllib.parse
+import urllib.request
 import zlib
+from contextvars import ContextVar
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+
+from ..utils import faults
+from ..utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 #: Blob magic and version. v1 carries no checksums; v2 adds a CRC32 per
 #: array section. The writer emits v2; the reader accepts both.
@@ -232,13 +248,16 @@ class KVTier:
 
     def __init__(self, *, page_size: int, host_pool_tokens: int,
                  bytes_per_token: int, meta: dict,
-                 transfer_max_pages: int = 32):
+                 transfer_max_pages: int = 32,
+                 transfer_timeout_s: float = 5.0):
         self.page_size = int(page_size)
         self.host_pool_tokens = int(host_pool_tokens)
         self.meta = dict(meta)
         self.meta["page_size"] = self.page_size
-        # Blocks per suspend slice (one control op each).
+        # Blocks per fetch and per export or suspend slice (one control
+        # op each), and the bound on one fetch or push.
         self.transfer_max_pages = int(transfer_max_pages)
+        self.transfer_timeout_s = float(transfer_timeout_s)
         # The token budget in bytes: the pool's bytes per token (int8
         # pools included).
         self.store = HostPageStore(self.host_pool_tokens
@@ -268,3 +287,145 @@ class KVTier:
                             arrays={name: a[:, i].clone()
                                     for name, a in arrays.items()})
                 for i, (h, parent) in enumerate(metas)]
+
+
+# ------------------------------------------------------- transfer plumbing
+
+#: The donor replica URL for the current request, bound by the chain
+#: server from the router's ``X-KV-Transfer-From`` hint. It rides the
+#: same copied context as the flight timeline, so ``Engine.submit`` sees
+#: it without a change to any chain's signature.
+_TRANSFER_SOURCE: ContextVar[Optional[str]] = ContextVar(
+    "kv_transfer_source", default=None)
+
+
+def bind_transfer_source(url: Optional[str]):
+    return _TRANSFER_SOURCE.set(url)
+
+
+def unbind_transfer_source(token) -> None:
+    _TRANSFER_SOURCE.reset(token)
+
+
+def current_transfer_source() -> Optional[str]:
+    return _TRANSFER_SOURCE.get()
+
+
+def donor_allowed(url: str) -> bool:
+    """Donor trust gate: ``KV_TRANSFER_ALLOW`` (comma-separated URL
+    prefixes) scopes whom a replica fetches pages from and pushes them
+    to. The hint header reaches a replica from its caller, so where
+    replicas are directly reachable this is the SSRF/poisoning boundary.
+    Empty (the default) trusts the hint like the other internal control
+    headers, which is right when only the router reaches the replicas
+    (docs/kv-tiering.md, trust model)."""
+    allow = os.environ.get("KV_TRANSFER_ALLOW", "").strip()
+    if not allow:
+        return True
+    for prefix in (p.strip() for p in allow.split(",") if p.strip()):
+        if url == prefix:
+            return True
+        if not url.startswith(prefix):
+            continue
+        # Boundary: a bare startswith would let `http://replica-1` admit
+        # `http://replica-1.attacker.example`. The character after the
+        # prefix must end the authority: a path or a port, or the prefix
+        # already ends there.
+        if prefix.endswith(("/", ":")) or url[len(prefix)] in "/:":
+            return True
+    return False
+
+
+def _bounded(work: Callable[[dict], None], timeout_s: float,
+             name: str) -> dict:
+    """Run ``work(box)`` on a daemon thread and wait at most
+    ``timeout_s``: a hung peer costs the caller exactly that. The box
+    holds what the work got so far ("result", "corrupt" or "error")."""
+    box: dict = {}
+
+    def run() -> None:
+        try:
+            faults.inject("kv.transfer")
+            work(box)
+        except Exception as exc:  # noqa: BLE001 - transfer is best effort
+            box["error"] = exc
+
+    t = threading.Thread(target=run, daemon=True, name=name)
+    t.start()
+    t.join(timeout_s)
+    return box
+
+
+def fetch_blocks(url: str, hashes: Sequence[bytes], *,
+                 timeout_s: float = 5.0, max_pages: int = 32,
+                 on_corrupt: Optional[Callable[[], None]] = None
+                 ) -> Optional[tuple[dict, list[BlockRecord]]]:
+    """Fetch up to ``max_pages`` blocks from a sibling replica's
+    ``GET /control/kv_pages``. Returns ``(meta, records)``, or None on any
+    failure: a timeout, a connection error, a non-200, a bad blob. A blob
+    that arrives but fails its framing or CRC check also calls
+    ``on_corrupt`` (the engine counts ``kv_restore_corrupt``): corruption
+    is a data-integrity event, not a network hiccup."""
+    want = list(hashes)[:max(1, int(max_pages))]
+    if not want:
+        return None
+    query = urllib.parse.urlencode({"hashes": ",".join(h.hex()
+                                                       for h in want)})
+
+    def work(box: dict) -> None:
+        with urllib.request.urlopen(
+                f"{url.rstrip('/')}/control/kv_pages?{query}",
+                timeout=timeout_s) as resp:
+            body = resp.read() if resp.status == 200 else b""
+        if not body:
+            box["result"] = None
+            return
+        try:
+            box["result"] = from_blob(body)
+        except (ValueError, KeyError, TypeError) as exc:
+            box["corrupt"] = exc
+
+    box = _bounded(work, timeout_s, "kv-transfer-fetch")
+    if "corrupt" in box:
+        logger.warning("kv transfer fetch from %s returned a corrupt blob "
+                       "(%s); placing cold", url, box["corrupt"])
+        if on_corrupt is not None:
+            on_corrupt()
+        return None
+    if "error" in box:
+        logger.debug("kv transfer fetch from %s failed: %s", url,
+                     box["error"])
+        return None
+    if "result" not in box:   # still running: a hung donor
+        logger.warning("kv transfer fetch from %s timed out after %.1fs; "
+                       "placing cold", url, timeout_s)
+        return None
+    return box["result"]
+
+
+def push_blob(url: str, blob: bytes, *, timeout_s: float = 5.0) -> bool:
+    """Push a serialized block chain to a sibling replica's ``POST
+    /control/kv_resume``: the push leg of the prefill/decode handoff
+    (docs/disaggregation.md). True when the receiver took it; False on
+    any failure (a timeout, a connection error, a refusal), after which
+    the decode side recomputes the prefix: slower, never wrong."""
+    if not blob:
+        return False
+
+    def work(box: dict) -> None:
+        req = urllib.request.Request(
+            f"{url.rstrip('/')}/control/kv_resume", data=blob,
+            headers={"Content-Type": "application/octet-stream"},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+            box["result"] = resp.status == 200
+
+    box = _bounded(work, timeout_s, "kv-transfer-push")
+    if "error" in box:
+        logger.debug("kv handoff push to %s failed: %s", url, box["error"])
+        return False
+    if "result" not in box:   # still running: a hung receiver
+        logger.warning("kv handoff push to %s timed out after %.1fs; the "
+                       "decode side will recompute", url, timeout_s)
+        return False
+    return bool(box["result"])

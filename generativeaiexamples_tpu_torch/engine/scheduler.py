@@ -109,6 +109,22 @@ class StepCostModel:
         return self.restore_ms(pages) \
             < pages * page_size * self.prefill_ms_per_token
 
+    def handoff_cheaper(self, pages: int, page_size: int) -> bool:
+        """The disaggregation pricing rule: is shipping ``pages`` finished
+        prefix pages donor device → host → wire → host → decode device
+        cheaper than the decode replica recomputing their tokens? The
+        handoff pays both transfer legs (``d2h`` on the donor, ``h2d`` on
+        the receiver); unmeasured legs (0) answer True, as
+        :meth:`restore_cheaper` does. Serialization and the wire are not
+        priced."""
+        if pages <= 0:
+            return False
+        per_page = self.d2h_ms_per_page + self.h2d_ms_per_page
+        if per_page <= 0:
+            return True
+        return pages * per_page \
+            < pages * page_size * self.prefill_ms_per_token
+
 
 def online_calib_enabled(default: bool = True) -> bool:
     """``SCHED_ONLINE_CALIB``: ``0``/``false``/``no``/``off`` pins the

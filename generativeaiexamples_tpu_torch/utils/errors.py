@@ -28,6 +28,13 @@ class SchedulerFullError(EngineError):
     """No queue capacity for a new request."""
 
 
+class RoleMismatchError(EngineError):
+    """A request was submitted to a replica whose disaggregation role
+    cannot serve it (a decode-bound request on a prefill-role engine). A
+    routing error, not an engine fault: edges map it to a retryable 429,
+    never a breaker trip (docs/disaggregation.md)."""
+
+
 class RetrievalError(FrameworkError):
     """Vector-store failure. ``reason`` labels which dependency failed
     (``retrieval`` / ``embed``) for degradation metrics."""

@@ -664,16 +664,14 @@ def test_drain_transitions_and_unported_routes():
         assert (await client.get("/health")).status == 200
         resp = await client.post("/generate", json={"question": "hi"})
         assert resp.status == 200
+        # The KV-tier routes (the fleet's page export and prefill leg
+        # too) and a resume need an engine; this chain has none.
         for method, path in (("GET", "/control/kv_pages?hashes=ab"),
-                             ("POST", "/control/prefill")):
-            resp = await client.request(method, path, json={})
-            assert resp.status == 501
-            assert "A21" in (await resp.json())["error"]["message"]
-        # The session routes and a resume need an engine; this chain has
-        # none.
-        for path in ("/control/kv_suspend", "/control/kv_resume"):
-            resp = await client.post(path, json={"text": "t"})
-            assert resp.status == 404
+                             ("POST", "/control/prefill"),
+                             ("POST", "/control/kv_suspend"),
+                             ("POST", "/control/kv_resume")):
+            resp = await client.request(method, path, json={"text": "t"})
+            assert resp.status == 404, path
             assert (await resp.json())["error"]["type"] == "no_engine"
         resp = await client.post("/generate", json={
             "question": "q", "use_knowledge_base": False,

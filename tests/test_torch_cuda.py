@@ -1430,3 +1430,76 @@ def test_tier_pages_round_trip_through_pinned_memory(dev, mode):
             assert torch.equal(t, before[h][name]), name
     d2h, h2d = engine.measure_page_io(4)
     assert d2h > 0 and h2d > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int4"])
+def test_handoff_push_restores_bit_equal_pages_on_a_second_engine(dev, mode):
+    """The disaggregated handoff between two engines on the card: the
+    source engine's ``export_handoff`` blob goes over ``push_blob`` to the
+    decode engine's chain server (``/control/kv_resume``), and the decode
+    engine's admission restores it: its pool pages equal the source
+    engine's bit for bit (int8 pages and their scales under int4), and
+    its greedy tokens equal the source engine's own prefix hit."""
+    import asyncio
+    import threading
+    from types import SimpleNamespace
+
+    from aiohttp import web
+
+    from generativeaiexamples_tpu_torch.chains.server import create_app
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    from generativeaiexamples_tpu_torch.engine import kv_tier
+    from generativeaiexamples_tpu_torch.engine.prefix_cache import \
+        hash_blocks
+    params, cfg, kw = _model(dev, mode)
+    kw = dict(kw, max_slots=2, kv_pool_tokens=8 * 128,
+              kv_host_pool_tokens=8192)
+    # The source is unified so it can also serve its own prefix hit, the
+    # tokens the decode engine must give.
+    src = _engine_on(dev, params, cfg, **kw)
+    dst = _engine_on(dev, params, cfg, role="decode", **kw)
+    target = [1] + [3 + (13 * i) % 250 for i in range(400)]
+    hashes = hash_blocks(target, src.cfg.page_size)
+    _drive(src, [target], [SamplingParams(max_tokens=1, top_k=1)])
+    src._step()
+    out = src.export_handoff(target)
+    assert out is not None and out[1] == len(hashes) == 3
+    blob = out[0]
+    loop, box, started = asyncio.new_event_loop(), {}, threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+
+        async def boot():
+            box["runner"] = web.AppRunner(create_app(SimpleNamespace(
+                llm=SimpleNamespace(engine=dst))))
+            await box["runner"].setup()
+            site = web.TCPSite(box["runner"], "127.0.0.1", 0)
+            await site.start()
+            box["port"] = box["runner"].addresses[0][1]
+        loop.run_until_complete(boot())
+        started.set()
+        loop.run_forever()
+        loop.run_until_complete(box["runner"].cleanup())
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    assert started.wait(60)
+    try:
+        assert kv_tier.push_blob(f"http://127.0.0.1:{box['port']}", blob,
+                                 timeout_s=60)
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+    assert dst.stats["kv_tier_resumed_blocks"] == 3
+    sp = SamplingParams(max_tokens=8, top_k=1, ignore_eos=True)
+    want = _drive(src, [target], [sp])[0].token_ids      # src's own hit
+    got = _drive(dst, [target], [sp])[0].token_ids
+    assert dst.stats["kv_tier_restore_pages"] == 3       # 400 > 3 pages
+    assert got == want
+    for h in hashes:
+        a, b = src._prefix_cache.page_of(h), dst._prefix_cache.page_of(h)
+        assert a is not None and b is not None
+        for name, pool in src._state["cache"].items():
+            assert torch.equal(pool[:, a], dst._state["cache"][name][:, b])

@@ -309,7 +309,8 @@ def test_completions_round_trip_int4_awq_int8_pool():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports, and neither jax nor the JAX
+    """Every module of the port imports (the router package included),
+    and neither jax nor the JAX
     package ends up loaded, nor any package the card's machine lacks:
     safetensors, transformers, tokenizers, sentencepiece, orbax (the
     port reads checkpoints and vocabularies with its own code, and
@@ -320,21 +321,33 @@ def test_port_imports_no_jax():
     pypdf (imported only to read an HTML or PDF document) and the vector
     stores' clients, pymilvus and psycopg2 (imported only by their
     connectors)."""
+    _check_imports([])
+
+
+def test_router_cli_imports_no_jax():
+    """The router's CLI (``router/__main__``, which ``walk_packages``
+    skips) loads no jax, no JAX package and no ``requests`` either: its
+    drain and undrain calls go over urllib."""
+    _check_imports(["generativeaiexamples_tpu_torch.router.__main__"])
+
+
+def _check_imports(extra: list) -> None:
     code = r"""
 import importlib, pkgutil, sys
 import generativeaiexamples_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
-for n in names:
+assert "generativeaiexamples_tpu_torch.router.server" in names, names
+for n in names + EXTRA:
     importlib.import_module(n)
 roots = ("jax", "generativeaiexamples_tpu", "safetensors", "transformers",
          "tokenizers", "sentencepiece", "orbax", "opentelemetry", "psutil",
          "requests", "yaml", "bs4", "pypdf", "pymilvus", "psycopg2")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
 print(len(names), bad)
-assert len(names) >= 60, names
+assert len(names) >= 84, names
 assert not bad, bad
-"""
+""".replace("EXTRA", repr(extra))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,

@@ -738,11 +738,10 @@ def test_prewarm_shrinks_the_pool_when_the_card_runs_out(golden):
         small.prewarm()
 
 
-# Keys of the reference's stats for features the port has not ported
-# (the KV tier's cross-replica transfer and handoff exports): no key,
-# rather than a constant 0.
-UNPORTED = ("kv_tier_transfer_pages", "kv_tier_export_pages",
-            "kv_export_shed")
+# Keys of the reference's stats for features the port has not ported: no
+# key, rather than a constant 0. None since the fleet tier brought the
+# KV tier's cross-replica transfer and handoff exports.
+UNPORTED = ()
 PORT_ONLY = {"decode_rounds", "prefill_dispatches", "prefill_chunks",
              "rag_admissions", "harvest_emit_ms", "active_slots",
              "free_pages", "pool_pages"}
