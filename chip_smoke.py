@@ -192,6 +192,7 @@ Exits 2 without printing a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -212,6 +213,21 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def env_set(**values: str):
+    """The environment with ``values`` set for the block, then restored."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def card_line() -> str:
@@ -531,7 +547,8 @@ def old_tile_call(torch, x, q4, scale, out_dtype):
     def call():
         err = _kernel()(
             _PATHS["tile"], _KERNEL_DTYPES[x.dtype],
-            _KERNEL_DTYPES[out_dtype], x.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            _KERNEL_DTYPES[out_dtype], x.data_ptr(), q4.data_ptr(),
+            scale.data_ptr(), None, out.data_ptr(),
             None, 0, None, 0, M, K, N, K // G, N, N,
             torch.cuda.current_stream().cuda_stream)
         if err:
@@ -885,6 +902,149 @@ def time_head_tiles(torch, dev, gen) -> dict:
     del head
     torch.cuda.empty_cache()
     return out
+
+
+def gptq_leaf(torch, gen, K: int, N: int, dev, group: int = 128) -> dict:
+    """A random GPTQ-format int4 leaf of a (K, N) weight: q4 nibbles in
+    [-8, 7], group scales and zero points as ``import_quantized`` makes
+    them from a checkpoint's 4-bit zeros uz, ``gbias = (7 - uz) * s``."""
+    G = K // group
+    q = torch.randint(-8, 8, (K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    q4 = (q[0::2] & 0x0F) | (q[1::2] << 4)
+    s = (torch.rand((G, N), generator=gen, device=dev) + 0.5) * (
+        0.02 * K ** -0.5)
+    uz = torch.randint(0, 16, (G, N), generator=gen, device=dev)
+    return {"q4": q4, "gscale": s, "gbias": (7.0 - uz.float()) * s}
+
+
+# The shapes #3 is checked at with GPTQ zero points: llama-2-7b's w_gate,
+# Nemotron-8B's w_up and w_down (K = 16384, the largest reduction here).
+GBIAS_SHAPES = (("7b-w_gate", 4096, 11008), ("nemotron-w_up", 4096, 16384),
+                ("nemotron-w_down", 16384, 4096))
+
+
+def check_int4_gbias(torch, dev) -> dict:
+    """#3 with GPTQ zero points (``gbias``) against its plain version at
+    ``GBIAS_SHAPES``, M in {1, 8} ("tc") and {64, 128, 1024} ("wg"), bf16
+    x, out bf16 and float32. The kernel sums the bf16 x it reads for the
+    zero-point term; the plain version (the reference's
+    ``_grouped_matmul``) sums float32 x, which here is the same bf16 x
+    widened exactly (a GPTQ leaf has no pre-scale), so the two differ
+    only in fp32 summation order: held to the tolerances of
+    ``check_int4_matmul`` (float32 out atol 1e-4 * max|ref|, rtol 1e-4;
+    bf16 out rtol 1e-2). Each case must launch its path once, counted in
+    ``int4_matmul.gbias_launches``. Then times, at every shape and M in
+    {1, 8, 64, 128, 1024}, the kernel with zero points beside the same
+    kernel without them (the AWQ format), the plain version, the bound
+    (the zero points' bytes included) and ``aten._weight_int4pack_mm``,
+    whose (scale, zero) pairs carry non-zero zero points and so compute
+    the same function. Returns the kernels line's rows: "gbias-tc" and
+    "gbias-wg" at Nemotron's w_up (M = 8 and 1024), "nemotron-tc" and
+    "nemotron-wg" without zero points at its w_down (K = 16384)."""
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
+        _path, int4_matmul, int4_matmul_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows, worst = {}, 0.0
+    for name, K, N in GBIAS_SHAPES:
+        leaf = gptq_leaf(torch, gen, K, N, dev)
+        for M in (1, 8, 64, 128, 1024):
+            x = torch.randn((M, K), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            path = "tc" if M <= 8 else "wg"
+            if _path(M, K, N, 128, x.dtype) != path:
+                fail(f"gbias M={M} K={K} N={N} would not take {path!r}")
+            for out_dtype, zeros in itertools.product(
+                    (torch.bfloat16, torch.float32), (True, False)):
+                gb = leaf["gbias"] if zeros else None
+                n0 = (int4_matmul.launches_by_path[path],
+                      int4_matmul.gbias_launches)
+                got = int4_matmul(x, leaf["q4"], leaf["gscale"], gbias=gb,
+                                  out_dtype=out_dtype)
+                if (int4_matmul.launches_by_path[path],
+                        int4_matmul.gbias_launches) != (n0[0] + 1,
+                                                        n0[1] + zeros):
+                    fail(f"gbias={zeros} M={M} K={K} N={N} did not launch "
+                         f"{path!r} once")
+                ref = int4_matmul_plain(x, leaf["q4"], leaf["gscale"],
+                                        gbias=gb, out_dtype=out_dtype)
+                peak = ref.float().abs().max().item()
+                err = (got.float() - ref.float()).abs().max().item()
+                rtol = 1e-4 if out_dtype == torch.float32 else 1e-2
+                if not (torch.isfinite(got.float()).all() and torch.allclose(
+                        got.float(), ref.float(), atol=1e-4 * peak,
+                        rtol=rtol)):
+                    fail(f"int4_matmul [{path}] gbias={zeros} M={M} K={K} "
+                         f"N={N} out={out_dtype} disagrees with its plain "
+                         f"version: max abs err {err} (max|ref| {peak})")
+                worst = max(worst, err / max(peak, 1e-30))
+                if out_dtype == torch.bfloat16 and M in (8, 1024):
+                    rows.setdefault((name, M), {})[zeros] = err
+        say(f"kernel int4_matmul with gbias {name} K={K} N={N}: M=1, 8 "
+            f"(tc), 64, 128, 1024 (wg) x bf16/f32 out agree with the plain "
+            f"version")
+        wbytes = leaf["q4"].numel() + 8 * leaf["gscale"].numel()
+        copies = 1 + (120 << 20) // wbytes
+        leaves = [leaf] + [{k: v.clone() for k, v in leaf.items()}
+                           for _ in range(copies - 1)]
+        for M in (1, 8, 64, 128, 1024):
+            x = torch.randn((M, K), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            path = "tc" if M <= 8 else "wg"
+            iters = 20 if M == 1024 else 200
+            ms = time_cuda(torch, [
+                (lambda lf=lf: int4_matmul(x, lf["q4"], lf["gscale"],
+                                           gbias=lf["gbias"]))
+                for lf in leaves], iters=iters)
+            awq_ms = time_cuda(torch, [
+                (lambda lf=lf: int4_matmul(x, lf["q4"], lf["gscale"]))
+                for lf in leaves], iters=iters)
+            plain_ms = time_cuda(torch, lambda: int4_matmul_plain(
+                x, leaf["q4"], leaf["gscale"], gbias=leaf["gbias"]),
+                iters=3, warmup=1)
+            lib_ms, lib_note = int4_library_ms(torch, dev, M, K, N, 128,
+                                               iters)
+            G = K // 128
+            flops = 2 * M * K * N + 2 * M * G * N
+            for with_zeros, t in ((True, ms), (False, awq_ms)):
+                nbytes = (K // 2 * N + (8 if with_zeros else 4) * G * N
+                          + M * K * 2 + M * N * 2)
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                flops_ms = flops / BF16_FLOPS * 1e3
+                bound = max(bytes_ms, flops_ms)
+                by = "bytes" if bytes_ms >= flops_ms else "operations"
+                say(f"kernel int4_matmul [{path}] {name} M={M} K={K} N={N} "
+                    f"group=128 x=bfloat16 "
+                    f"{'with gbias' if with_zeros else 'without gbias'}: "
+                    f"ms={t} plain_ms={plain_ms} bound_ms={bound} ({by}; "
+                    f"{nbytes} bytes, {flops} flops; {bound / t:.1%} of "
+                    f"it) library_ms={lib_ms} ({lib_note})"
+                    f"{f' ({t / awq_ms:.3f}x without)' if with_zeros else ''}")
+                key = (("gbias" if with_zeros else "nemotron")
+                       if M in (8, 1024) else None)
+                if key and ((with_zeros and name == "nemotron-w_up") or (
+                        not with_zeros and name == "nemotron-w_down")):
+                    rows[f"{key}-{path}"] = {
+                        "name": "int4_matmul", "route": "cuda",
+                        "source":
+                            "generativeaiexamples_tpu_torch/csrc/"
+                            "int4_matmul.cu",
+                        "replaces":
+                            "generativeaiexamples_tpu/ops/int4_matmul.py:83",
+                        "path": path,
+                        "shape": f"{name} M={M} K={K} N={N}"
+                                 f"{' gbias' if with_zeros else ''}",
+                        "launches": 0,
+                        "max_abs_err": rows[(name, M)][with_zeros],
+                        "ms": t, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "library_ms": lib_ms}
+        del leaves, leaf
+        torch.cuda.empty_cache()
+    say(f"kernel int4_matmul with and without gbias at these shapes: "
+        f"worst error over all cases relative to max|ref|: {worst}")
+    return {k: v for k, v in rows.items() if isinstance(k, str)}
 
 
 # ------------------------------------------------------ fused sampling tail
@@ -1537,7 +1697,7 @@ def check_chat_texts(engine, chat: dict, label: str) -> None:
         f"{s.token_ids[:8]}... ({len(s.token_ids)}, finish "
         f"{s.finish_reason}, distinct {len(set(s.token_ids))}) and text = "
         f"the eager engine's for seed 7")
-    del eager
+    eager.close()
 
 
 def serve(torch, dev, card: str, quantization: str = "",
@@ -1582,7 +1742,9 @@ def serve(torch, dev, card: str, quantization: str = "",
                   for t in llama.param_tensors(engine.params))
     say(f"serve [{mode}]: {name} L={mcfg.num_layers} D={mcfg.hidden_size} "
         f"H={mcfg.num_heads} KV={mcfg.num_kv_heads} hd={mcfg.head_dim} "
-        f"V={mcfg.vocab_size}, {n_bytes / 1e9:.2f} GB of weights, pool "
+        f"V={mcfg.vocab_size}, {n_bytes / 1e9:.2f} GB of weights ({n_bytes}"
+        f" B; the round records count {engine._param_bytes} B a step, the "
+        f"untied embedding table left out), pool "
         f"{engine.stats['pool_pages']} pages of {ecfg.page_size}, built in "
         f"{time.monotonic() - t0:.1f} s")
     base, stop_server = serve_app(create_server_app(engine,
@@ -2029,6 +2191,7 @@ def read_launch_counts(engine, stats0: dict) -> dict:
         "paged_attention_decode_int8": paged_attention_decode.int8_launches,
         "int4_matmul": int4_matmul.launches}
     out["by_path"] = dict(int4_matmul.launches_by_path)
+    out["gbias"] = int4_matmul.gbias_launches
     return out
 
 
@@ -2041,11 +2204,13 @@ def head_tiles(engine) -> int:
 
 
 def check_launch_counts(label: str, run: dict, L: int, quantization: str,
-                        kv_quant: str, n_tiles: int) -> None:
+                        kv_quant: str, n_tiles: int, per_layer: int = 7
+                        ) -> None:
     """Every layer of every decode step went through the pool's attention
     kernel, once; under int4 weights every projection through #3: one per
-    projection (7 per layer) per prefill program (one-shot admission or
-    chunk; the bucket's rows on "wg") and per decode step (the sampled
+    projection (``per_layer`` a layer: 7 for llama's swiglu, 6 for
+    GPT-Next's squared-ReLU MLP) per prefill program (one-shot admission
+    or chunk; the bucket's rows on "wg") and per decode step (the sampled
     rows on "tc"), plus the lm_head's ``n_tiles`` vocab tiles on "tc" per
     decode step (the fused tail) and its row per admission (its one-shot
     program or final chunk samples one row whole); none on "tile" or
@@ -2059,8 +2224,8 @@ def check_launch_counts(label: str, run: dict, L: int, quantization: str,
     want[attn] = L * steps
     want_path = {"tc": 0, "gemv": 0, "tile": 0, "wg": 0}
     if quantization in ("int4", "int4_awq"):
-        want_path = {"tc": (7 * L + n_tiles) * steps + prefills, "gemv": 0,
-                     "tile": 0, "wg": 7 * L * dispatches}
+        want_path = {"tc": (per_layer * L + n_tiles) * steps + prefills,
+                     "gemv": 0, "tile": 0, "wg": per_layer * L * dispatches}
         want["int4_matmul"] = want_path["tc"] + want_path["wg"]
     if (steps <= 0 or prefills <= 0 or run["launches"] != want
             or run["by_path"] != want_path):
@@ -2530,9 +2695,10 @@ def check_golden(torch, dev, card: str, quantization: str = "",
                         max_output_length=64, prefill_buckets=(64, 128, 256),
                         page_size=16, kv_pool_tokens=None, dtype="bfloat16",
                         kv_quant=kv_quant, sched_round_budget_tokens=1024)
-    engine, name = build_services("golden-tiny", model_path=GOLDEN,
-                                  engine_cfg=ecfg, device=dev,
-                                  quantization=quantization)
+    with env_set(GAIE_WEIGHT_CACHE="0"):     # convert on every run
+        engine, name = build_services("golden-tiny", model_path=GOLDEN,
+                                      engine_cfg=ecfg, device=dev,
+                                      quantization=quantization)
     tok = engine.tokenizer
     mcfg = engine.model_cfg
     base, stop_server = serve_app(create_server_app(engine,
@@ -2702,8 +2868,9 @@ def check_full_width_load(torch, dev, card: str) -> None:
         load_s = time.monotonic() - t0
         del params
         t0 = time.monotonic()
-        engine, _ = build_services("llama-2-7b-chat", model_path=tmp,
-                                   engine_cfg=ecfg, device=dev)
+        with env_set(GAIE_WEIGHT_CACHE="0"):
+            engine, _ = build_services("llama-2-7b-chat", model_path=tmp,
+                                       engine_cfg=ecfg, device=dev)
         build_s = time.monotonic() - t0
         if engine.model_cfg != cfg:
             fail(f"full width: build_services made {engine.model_cfg}, not "
@@ -2723,9 +2890,11 @@ def check_full_width_load(torch, dev, card: str) -> None:
         del engine
         torch.cuda.empty_cache()
         t0 = time.monotonic()
-        engine, _ = build_services("llama-2-7b-chat", model_path=tmp,
-                                   engine_cfg=replace(ecfg, kv_quant="int8"),
-                                   device=dev, quantization="int4_awq")
+        with env_set(GAIE_WEIGHT_CACHE="0"):
+            engine, _ = build_services(
+                "llama-2-7b-chat", model_path=tmp,
+                engine_cfg=replace(ecfg, kv_quant="int8"), device=dev,
+                quantization="int4_awq")
         build_q_s = time.monotonic() - t0
         int4_matmul.launches_by_path = dict.fromkeys(
             int4_matmul.launches_by_path, 0)
@@ -2742,7 +2911,8 @@ def check_full_width_load(torch, dev, card: str) -> None:
         f"{files} (+ index) written in {write_s:.1f} s; load_checkpoint to "
         f"bf16 on the card {load_s:.2f} s = {n_bytes / 1e9 / load_s:.2f} "
         f"GB/s (file pages cached by the write); build_services(model_path"
-        f"=...) in bf16 {build_s:.1f} s (load and engine construction), "
+        f"=...) in bf16 {build_s:.1f} s (load and engine construction; "
+        f"weight cache off, so no hash), "
         f"every tensor bit-equal to the fp16 -> bf16 cast in memory, one "
         f"greedy request: 16 tokens {text!r}; with int4_awq (group "
         f"{awq_group(cfg)}) + int8 KV {build_q_s:.1f} s, one greedy "
@@ -2750,9 +2920,12 @@ def check_full_width_load(torch, dev, card: str) -> None:
         f"[{card}]")
 
 
-def checkpoint_phase(torch, dev, card: str) -> None:
+def checkpoint_phase(torch, dev, card: str) -> dict:
     """(a) golden-tiny's trained weights, bf16 and int4 + int8 KV, through
-    the served path; (b) the full-width fp16 checkpoint load."""
+    the served path; (b) the full-width fp16 checkpoint load; (c) the
+    GPTQ, AWQ and NeMo formats and the weight cache
+    (``check_quantized_formats``, ``check_nemo_load``). Returns the GPTQ
+    run's #3 launches by path (its zero points' kernel rows)."""
     nll_bf16 = check_golden(torch, dev, card)
     nll_q = check_golden(torch, dev, card, quantization="int4",
                          kv_quant="int8")
@@ -2760,6 +2933,679 @@ def checkpoint_phase(torch, dev, card: str) -> None:
         f"int4 weights + int8 KV {nll_q:.4f} (delta "
         f"{nll_q - nll_bf16:+.4f}) [{card}]")
     check_full_width_load(torch, dev, card)
+    gptq = check_quantized_formats(torch, dev, card)
+    check_nemo_load(torch, dev, card)
+    return gptq
+
+
+# The pre-quantized checkpoints' geometry: llama-2-7b's width, 4 layers,
+# groups of 128 (the tensor-core paths' groups, as GPTQ and AWQ releases
+# use).
+QCKPT_LAYERS, QCKPT_GROUP = 4, 128
+# The gap under which the card's and the CPU's bf16 greedy tokens may
+# part: two computation orders move a logit of a 4-layer 7B-width model
+# by a few hundredths, so a parting is only accepted where the CPU
+# engine's own top-2 logits lie closer than this.
+QCKPT_TIE = 0.1
+
+
+def pack_int32(u4, dim: int):
+    """uint4 values (int32 tensor, 0..15) -> int32 packed along ``dim``,
+    value j at bits 4j (GPTQ's layout)."""
+    import torch
+    u = u4.movedim(dim, 0).to(torch.int64)
+    out = torch.zeros((u.shape[0] // 8, *u.shape[1:]), dtype=torch.int64,
+                      device=u.device)
+    for j in range(8):
+        out |= u[j::8] << (4 * j)
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.to(torch.int32).movedim(0, dim).contiguous()
+
+
+def quantized_state(torch, dev, cfg, fmt: str) -> dict:
+    """An HF-named GPTQ or AMMO-AWQ state dict of ``cfg`` made on the card
+    from seed 0 (fp16 embed, norms and lm_head as releases ship them):
+    GPTQ random 4-bit weights, zero points and fp16 scales; AWQ fp16
+    weights with their per-group amax and a pre-quant scale."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    D, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    q, kv, g = cfg.q_dim, cfg.kv_dim, QCKPT_GROUP
+    state = {}
+    for i in range(cfg.num_layers):
+        for proj, (K, N) in (("self_attn.q_proj", (D, q)),
+                             ("self_attn.k_proj", (D, kv)),
+                             ("self_attn.v_proj", (D, kv)),
+                             ("self_attn.o_proj", (q, D)),
+                             ("mlp.gate_proj", (D, F)),
+                             ("mlp.up_proj", (D, F)),
+                             ("mlp.down_proj", (F, D))):
+            base = f"model.layers.{i}.{proj}"
+            if fmt == "gptq":
+                u = torch.randint(0, 16, (K, N), generator=gen, device=dev,
+                                  dtype=torch.int32)
+                uz = torch.randint(0, 15, (K // g, N), generator=gen,
+                                   device=dev, dtype=torch.int32)
+                s = (torch.rand((K // g, N), generator=gen, device=dev)
+                     + 0.5) * (0.05 * K ** -0.5)
+                state[f"{base}.qweight"] = pack_int32(u, 0)
+                state[f"{base}.qzeros"] = pack_int32(uz, 1)
+                state[f"{base}.scales"] = s.to(torch.float16)
+                state[f"{base}.g_idx"] = torch.arange(
+                    K, device=dev, dtype=torch.int32) // g
+            else:
+                w = torch.randn((N, K), generator=gen, device=dev) * K ** -0.5
+                state[f"{base}.weight"] = w.to(torch.float16)
+                state[f"{base}.weight_quantizer._amax"] = w.abs().reshape(
+                    N, K // g, g).amax(-1)
+                state[f"{base}.input_quantizer._pre_quant_scale"] = (
+                    torch.rand((K,), generator=gen, device=dev) + 0.5)
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            state[f"model.layers.{i}.{name}.weight"] = (
+                1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+            ).to(torch.float16)
+    for key in ("model.embed_tokens.weight", "lm_head.weight"):
+        state[key] = (torch.randn((V, D), generator=gen, device=dev)
+                      * D ** -0.5).to(torch.float16)
+    state["model.norm.weight"] = torch.ones((D,), device=dev,
+                                            dtype=torch.float16)
+    return state
+
+
+def write_hf_dir(cfg, state: dict) -> str:
+    """``state`` in two safetensors shards in a temporary directory, with
+    a config.json of ``cfg`` and golden-tiny's tokenizer.model."""
+    import shutil
+    import tempfile
+
+    from generativeaiexamples_tpu_torch.models.safetensors import \
+        save_sharded
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_q_")
+    save_sharded(state, tmp, shards=2)
+    shutil.copy(os.path.join(GOLDEN, "tokenizer.model"), tmp)
+    with open(os.path.join(tmp, "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"],
+                   "vocab_size": cfg.vocab_size,
+                   "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers,
+                   "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "rms_norm_eps": cfg.rms_norm_eps,
+                   "torch_dtype": "float16"}, f)
+    return tmp
+
+
+def tokens_against_cpu(torch, engine, prompts, n_new: int, label: str):
+    """The engine's greedy tokens against the same engine's on the CPU
+    over the same leaves (the kernels' plain versions; for a GPTQ leaf
+    the reference's ``_grouped_matmul``), both in bf16, prefix caches
+    cold and one schedule (the budget pinned). Equal, or parted only
+    where the CPU engine's own top-2 logits lie within ``QCKPT_TIE``
+    (named). Returns the card's tokens."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import Engine
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    engine.clear_prefix_cache()
+    got = greedy_tokens(engine, prompts, n_new)
+    cpu = Engine(to_cpu(engine.params), engine.model_cfg, engine.tokenizer,
+                 replace(engine.cfg, sched_round_budget_tokens=engine.stats[
+                     "sched_round_budget_tokens"]), device="cpu")
+    want = greedy_tokens(cpu, prompts, n_new)
+    notes = []
+    for p, a, b in zip(prompts, got, want):
+        if a == b:
+            continue
+        k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap = top2_gap(torch, cpu, p + b[:k])
+        if gap >= QCKPT_TIE:
+            fail(f"{label}: prompt of {len(p)}: card greedy tokens {a} part "
+                 f"from the CPU engine's {b} at {k}, where the CPU's top-2 "
+                 f"logit gap is {gap} (>= {QCKPT_TIE})")
+        notes.append(f"prompt of {len(p)} parts at token {k}, a near tie "
+                     f"(CPU top-2 gap {gap:.4f})")
+    cpu.close()
+    return got, notes
+
+
+def check_quantized_formats(torch, dev, card: str) -> dict:
+    """``serve_quantized_formats`` with the weight cache on, in a
+    temporary directory of its own that is removed afterwards."""
+    import shutil
+    import tempfile
+
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_wc_")
+    try:
+        with env_set(GAIE_WEIGHT_CACHE_DIR=cache_dir, GAIE_WEIGHT_CACHE="1"):
+            return serve_quantized_formats(torch, dev, card)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def serve_quantized_formats(torch, dev, card: str) -> dict:
+    """GPTQ and AWQ checkpoints at llama-2-7b's width cut to
+    ``QCKPT_LAYERS`` layers, groups of 128, written by this script
+    (``quantized_state``: GPTQ with random zero points) into two
+    safetensors shards each, served through ``build_services(
+    "llama-2-7b-chat", model_path=DIR)`` in bf16 with a cold weight
+    cache. Each serves greedy
+    tokens for three prompts through its int4 leaves on #3's tensor-core
+    paths (GPTQ: every launch with zero points, "tc" and "wg" both),
+    equal to the same engine's on the CPU (``tokens_against_cpu``). Then
+    a second ``build_services`` of the GPTQ directory comes from the
+    weight cache: every leaf bit-equal to the first build's, the load
+    seconds both ways. Returns the GPTQ run's #3 launches by path."""
+    import shutil
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import EngineConfig
+    from generativeaiexamples_tpu_torch.models import weight_cache
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    from generativeaiexamples_tpu_torch.serving import model_server
+
+    cfg = replace(LLAMA2_7B, num_layers=QCKPT_LAYERS)
+    # Short buckets: the CPU engine prefills them too.
+    ecfg = EngineConfig(max_slots=4, max_input_length=64,
+                        max_output_length=16, prefill_buckets=(32, 64),
+                        page_size=16, kv_pool_tokens=None, dtype="bfloat16")
+    gptq_paths = None
+    for fmt in ("gptq", "awq"):
+        t0 = time.monotonic()
+        d = write_hf_dir(cfg, quantized_state(torch, dev, cfg, fmt))
+        write_s = time.monotonic() - t0
+        try:
+            engine, _ = model_server.build_services(
+                "llama-2-7b-chat", model_path=d, engine_cfg=ecfg,
+                device=dev)
+            load = dict(model_server.last_load)
+            if (engine.model_cfg != cfg or load["format"] != fmt
+                    or load["from_cache"]):
+                fail(f"{fmt}: build_services made {engine.model_cfg} "
+                     f"from a {load['format']} load (from cache "
+                     f"{load['from_cache']})")
+            want = {"gptq": {"q4", "gscale", "gbias"},
+                    "awq": {"q4", "gscale", "pre_scale"}}[fmt]
+            if set(engine.params["layers"]["w_down"]) != want:
+                fail(f"{fmt}: leaves "
+                     f"{set(engine.params['layers']['w_down'])}")
+            tok = engine.tokenizer
+            prompts = [tok.encode(p) for p in GOLDEN_PROMPTS]
+            zero_launch_counts()
+            stats0 = engine.stats
+            got, notes = tokens_against_cpu(
+                torch, engine, prompts, 8, f"{fmt} checkpoint")
+            # The CPU engine's calls count nothing: the card's run.
+            run = read_launch_counts(engine, stats0)
+            by_path = run["by_path"]
+            if not (by_path["tc"] and by_path["wg"]) or by_path[
+                    "gemv"] or by_path["tile"] or (
+                    fmt == "gptq" and run["gbias"] != by_path["tc"]
+                    + by_path["wg"]) or (fmt == "awq" and run["gbias"]):
+                fail(f"{fmt}: #3 launches {by_path}, with zero points "
+                     f"{run['gbias']}")
+            say(f"{fmt}: llama-2-7b width, {QCKPT_LAYERS} layers, group "
+                f"{QCKPT_GROUP}: written in {write_s:.1f} s; "
+                f"build_services(model_path=...) loaded it in "
+                f"{load['seconds']:.2f} s (cold cache) and served greedy "
+                f"tokens of {len(prompts)} prompts equal to the CPU "
+                f"engine's over the same leaves"
+                f"{' (' + '; '.join(notes) + ')' if notes else ''}; #3 "
+                f"launches {by_path}, {run['gbias']} with zero points "
+                f"[{card}]")
+            if fmt == "gptq":
+                gptq_paths = dict(by_path)
+                first = weight_cache.flatten(engine.params)
+                cold_s = load["seconds"]
+                engine.close()
+                engine, _ = model_server.build_services(
+                    "llama-2-7b-chat", model_path=d, engine_cfg=ecfg,
+                    device=dev)
+                load = dict(model_server.last_load)
+                again = weight_cache.flatten(engine.params)
+                if not load["from_cache"] or set(first) != set(again):
+                    fail(f"gptq: the second build was not served from "
+                         f"the weight cache: {load}")
+                for name, t in first.items():
+                    if (again[name].dtype != t.dtype
+                            or not torch.equal(again[name], t)):
+                        fail(f"gptq: cached leaf {name} differs from "
+                             f"the converted one")
+                n_bytes = sum(t.numel() * t.element_size()
+                              for t in first.values())
+                say(f"weight cache: the second build_services of the "
+                    f"GPTQ directory read its {len(first)} leaves "
+                    f"({n_bytes / 1e9:.3f} GB) back from the cache in "
+                    f"{load['seconds']:.2f} s against {cold_s:.2f} s to "
+                    f"convert (hash, load, cache write included), every "
+                    f"leaf bit-equal (identity {load['identity']}) "
+                    f"[{card}]")
+                del first, again
+            engine.close()
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return gptq_paths
+
+
+def check_nemo_load(torch, dev, card: str) -> None:
+    """A ``.nemo`` archive of Nemotron-8B's width (V 256000, F 16384)
+    cut to 2 layers: random bf16 weights from seed 0 with random
+    layernorm1p offsets, fused into megatron naming (``query_key_value``
+    per head group, ``dense_h_to_4h`` = W_up), saved with a
+    model_config.yaml into a tar; served through ``build_services(
+    "nemotron-8b-chat", model_path=DIR)``, which takes the depth from the
+    archive's config. Its greedy tokens equal those of an engine over the
+    same weights handed over as a numpy tree (``params_from_numpy``), and
+    every leaf is bit-equal to that tree's."""
+    import io
+    import shutil
+    import tarfile
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine import EngineConfig, Engine
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import NEMOTRON_8B
+    from generativeaiexamples_tpu_torch.models.convert import \
+        params_from_numpy
+    from generativeaiexamples_tpu_torch.serving import model_server
+
+    cfg = replace(NEMOTRON_8B, num_layers=2)
+    p = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for lay in (p["layers"], p):
+        for k in [k for k in lay if k.endswith(("_norm", "_norm_b"))]:
+            lay[k] = (0.1 * torch.randn(lay[k].shape, generator=gen,
+                                        device=dev)).to(torch.bfloat16)
+    L, KV, hd, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.hidden_size
+    g = cfg.num_heads // KV
+    P = "model.language_model."
+    state = {}
+    lay = p["layers"]
+    for i in range(L):
+        base = f"{P}encoder.layers.{i}."
+        qkv = torch.cat([lay["wq"][i].T.reshape(KV, g * hd, D),
+                         lay["wk"][i].T.reshape(KV, hd, D),
+                         lay["wv"][i].T.reshape(KV, hd, D)], dim=1)
+        state[base + "self_attention.query_key_value.weight"] = \
+            qkv.reshape(-1, D)
+        state[base + "self_attention.dense.weight"] = lay["wo"][i].T
+        state[base + "mlp.dense_h_to_4h.weight"] = lay["w_up"][i].T
+        state[base + "mlp.dense_4h_to_h.weight"] = lay["w_down"][i].T
+        for ours, theirs in (("attn_norm", "input_layernorm"),
+                             ("mlp_norm", "post_attention_layernorm")):
+            state[f"{base}{theirs}.weight"] = lay[ours][i]
+            state[f"{base}{theirs}.bias"] = lay[ours + "_b"][i]
+    state[P + "embedding.word_embeddings.weight"] = p["embed"]
+    state[P + "encoder.final_layernorm.weight"] = p["final_norm"]
+    state[P + "encoder.final_layernorm.bias"] = p["final_norm_b"]
+    state[P + "output_layer.weight"] = p["lm_head"].T
+    state = {k: v.contiguous().cpu() for k, v in state.items()}
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nemo_")
+    try:
+        buf = io.BytesIO()
+        torch.save(state, buf)
+        del state
+        yaml_text = (f"num_layers: {L}\nhidden_size: {D}\n"
+                     f"ffn_hidden_size: {cfg.intermediate_size}\n"
+                     f"num_attention_heads: {cfg.num_heads}\n"
+                     f"num_query_groups: {KV}\n"
+                     f"max_position_embeddings: "
+                     f"{cfg.max_position_embeddings}\n"
+                     f"normalization: layernorm1p\n"
+                     f"activation: squared-relu\n"
+                     f"tokenizer:\n  library: sentencepiece\n")
+        n_bytes = buf.tell()
+        with tarfile.open(os.path.join(tmp, "nemotron.nemo"), "w") as tar:
+            info = tarfile.TarInfo("model_config.yaml")
+            info.size = len(yaml_text.encode())
+            tar.addfile(info, io.BytesIO(yaml_text.encode()))
+            info = tarfile.TarInfo("model_weights.ckpt")
+            info.size = n_bytes
+            buf.seek(0)
+            tar.addfile(info, buf)
+        del buf
+        write_s = time.monotonic() - t0
+        ecfg = EngineConfig(max_slots=4, max_input_length=256,
+                            max_output_length=32, prefill_buckets=(128, 256),
+                            kv_pool_tokens=None, dtype="bfloat16")
+        tok = CodepointTokenizer(cfg.vocab_size)
+        with env_set(GAIE_WEIGHT_CACHE="0"):     # nothing to cache here
+            engine, _ = model_server.build_services(
+                "nemotron-8b-chat", model_path=tmp, engine_cfg=ecfg,
+                device=dev, tokenizer=tok)
+        load = dict(model_server.last_load)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if engine.model_cfg != cfg or load["format"] != "nemo":
+        fail(f"nemo: build_services made {engine.model_cfg} from "
+             f"{load['format']}")
+    t1 = time.monotonic()
+    tree = {k: ({n: np.asarray(t.float().cpu()) for n, t in v.items()}
+                if isinstance(v, dict) else np.asarray(v.float().cpu()))
+            for k, v in p.items()}
+    del p
+    ref = params_from_numpy(tree, dev, torch.bfloat16, cfg=cfg)
+    numpy_s = time.monotonic() - t1
+    del tree
+    loaded = llama_leaves(engine.params)
+    for name, t in llama_leaves(ref).items():
+        got = loaded[name]
+        if got.dtype != t.dtype or not torch.equal(got, t):
+            fail(f"nemo: loaded leaf {name} differs from the numpy tree's")
+    prompts = [tok.encode(x) for x in SERVE_PROMPTS[:3]]
+    got = greedy_tokens(engine, prompts, 12)
+    engine.close()
+    other = Engine(ref, cfg, tok, ecfg, device=dev)
+    want = greedy_tokens(other, prompts, 12)
+    other.close()
+    del ref
+    if got != want:
+        fail(f"nemo: the archive's engine gave {got}, the numpy tree's "
+             f"{want}")
+    say(f"nemo: Nemotron-8B width (V {cfg.vocab_size}, F "
+        f"{cfg.intermediate_size}) cut to {L} layers, {n_bytes / 1e9:.3f} GB "
+        f"of bf16 megatron tensors: archive written in {write_s:.1f} s, "
+        f"build_services(model_path=...) read and placed it in "
+        f"{load['seconds']:.2f} s (numpy tree {numpy_s:.1f} s); every leaf "
+        f"bit-equal to the numpy tree's and greedy tokens of "
+        f"{len(prompts)} prompts equal [{card}]")
+    torch.cuda.empty_cache()
+
+
+def llama_leaves(params) -> dict:
+    """Every tensor of a parameter tree by ``/``-joined name."""
+    from generativeaiexamples_tpu_torch.models.weight_cache import flatten
+    return flatten(params)
+
+
+# ------------------------------------------------------- Nemotron-8B phase
+
+class NemotronReference:
+    """The GPT-Next family's model check and its CPU reference:
+    Nemotron-8B's full width (V 256000, F 16384, layernorm1p,
+    squared-ReLU) cut to 2 layers, float32 weights from seed 0 with random
+    layernorm1p offsets, TF32 off; as made (float32 KV) and quantized on
+    the card to int4_awq (group 128) over an int8 KV pool. Greedy tokens
+    of prompts of 40, 125 and 300 tokens (plus bos), 8 new each, from the
+    engine on the CPU with the same parameters (the kernels' plain
+    versions), in a thread from the start, as ``QuantReference``."""
+
+    N_NEW = 8
+
+    def __init__(self, torch, dev):
+        import threading
+        from dataclasses import replace
+
+        from generativeaiexamples_tpu_torch.engine import Engine, EngineConfig
+        from generativeaiexamples_tpu_torch.models import llama
+        from generativeaiexamples_tpu_torch.models.configs import NEMOTRON_8B
+        from generativeaiexamples_tpu_torch.ops.quant import quantize_params
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.cfg = replace(NEMOTRON_8B, num_layers=2)
+        raw = llama.init_params(self.cfg, seed=0, dtype=torch.float32,
+                                device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for lay in (raw["layers"], raw):
+            for k in [k for k in lay if k.endswith(("_norm", "_norm_b"))]:
+                lay[k] = 0.1 * torch.randn(lay[k].shape, generator=gen,
+                                           device=dev)
+        self.params = {
+            "f32": raw,
+            "int4": quantize_params(raw, "int4_awq", group_size=128)}
+        self.ecfg = {q: EngineConfig(
+            max_slots=4, max_input_length=512, max_output_length=16,
+            prefill_buckets=(128, 512), dtype="float32", kv_pool_tokens=None,
+            kv_quant="int8" if q == "int4" else "",
+            sched_round_budget_tokens=4096) for q in self.params}
+        self.prompts = [[1] + [3 + (7 * i + j) % 256 for i in range(n)]
+                        for j, n in ((0, 40), (1, 125), (2, 300))]
+
+        def to_cpu(tree):
+            if isinstance(tree, dict):
+                return {k: to_cpu(v) for k, v in tree.items()}
+            return tree.cpu()
+
+        cpu = {q: to_cpu(p) for q, p in self.params.items()}
+        self._box: dict = {}
+        self.t0 = time.monotonic()
+
+        def run():
+            try:
+                for q, p in cpu.items():
+                    self._box[q] = greedy_tokens(
+                        Engine(p, self.cfg, CodepointTokenizer(
+                            self.cfg.vocab_size), self.ecfg[q],
+                               device="cpu"), self.prompts, self.N_NEW)
+            except BaseException as exc:  # noqa: BLE001 - re-raised on join
+                self._box["error"] = exc
+            self._box["seconds"] = time.monotonic() - self.t0
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def cpu_tokens(self, q: str):
+        self._thread.join()
+        if "error" in self._box:
+            fail(f"the Nemotron CPU reference failed: {self._box['error']!r}")
+        return self._box[q], self._box["seconds"]
+
+
+def check_nemotron_model(torch, dev, ref: NemotronReference) -> None:
+    """``NemotronReference``'s model on the card: for each of its two
+    modes, the captured engine's and an eager engine's greedy tokens equal
+    the CPU engine's; the kernels ran on every decode layer (#1 or #2)
+    and, under int4 with float32 activations, #3's "gemv" on 6
+    projections a layer per decode step plus the head tiles and "tile"
+    on 6 a layer per prefill program."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import Engine
+
+    L = ref.cfg.num_layers
+    for q, params in ref.params.items():
+        t0 = time.monotonic()
+        tok = CodepointTokenizer(ref.cfg.vocab_size)
+        engine = Engine(params, ref.cfg, tok, ref.ecfg[q], device=dev)
+        zero_launch_counts()
+        stats0 = engine.stats
+        got = greedy_tokens(engine, ref.prompts, ref.N_NEW)
+        run = read_launch_counts(engine, stats0)
+        n_tiles = head_tiles(engine)
+        engine.close()
+        steps, dispatches = run["decode_steps"], run["prefill_dispatches"]
+        attn = ("paged_attention_decode_int8" if q == "int4"
+                else "paged_attention_decode")
+        want_path = ({"tc": 0, "gemv": (6 * L + n_tiles) * steps
+                      + run["prefills"], "tile": 6 * L * dispatches,
+                      "wg": 0} if q == "int4"
+                     else dict.fromkeys(run["by_path"], 0))
+        if run["launches"][attn] != L * steps or run["by_path"] != want_path:
+            fail(f"nemotron 2-layer [{q}]: launches {run['launches']}, #3 "
+                 f"{run['by_path']} over {steps} steps; expected {attn} "
+                 f"{L * steps}, #3 {want_path}")
+        eager = Engine(params, ref.cfg, tok, replace(ref.ecfg[q],
+                                                     cuda_graphs=False),
+                       device=dev)
+        e_got = greedy_tokens(eager, ref.prompts, ref.N_NEW)
+        eager.close()
+        if e_got != got:
+            fail(f"nemotron 2-layer [{q}]: captured programs gave {got}, "
+                 f"the eager engine {e_got}")
+        t_card = time.monotonic() - t0
+        want, t_cpu = ref.cpu_tokens(q)
+        for p, a, b in zip(ref.prompts, got, want):
+            if len(a) != ref.N_NEW or a != b:
+                fail(f"nemotron 2-layer [{q}]: card greedy tokens {a} differ "
+                     f"from the CPU engine's {b} (prompt of {len(p)})")
+        say(f"model check: 2-layer Nemotron-8B width (layernorm1p, "
+            f"squared-ReLU, V {ref.cfg.vocab_size}), float32 "
+            f"{'int4_awq weights + int8 KV' if q == 'int4' else 'weights'}: "
+            f"captured and eager card engines' greedy tokens equal the CPU "
+            f"engine's for prompts of {[len(p) for p in ref.prompts]} tokens "
+            f"(launches {run['launches']}, #3 {run['by_path']}; card "
+            f"{t_card:.1f} s, CPU {t_cpu:.1f} s from the start, in a thread)")
+    del ref.params
+    torch.cuda.empty_cache()
+
+
+def serve_nemotron(torch, dev, card: str, quantization: str = "",
+                   kv_quant: str = "") -> dict:
+    """The second family's main path: nemotron-8b-chat (GPT-Next:
+    layernorm1p, squared-ReLU MLP, V 256000) at full width and depth, bf16
+    random weights made on the card from seed 0 (quantized there to
+    ``quantization``, over a ``kv_quant`` pool), 8 slots, page 128,
+    through ``build_services`` and the port's aiohttp app, with the
+    codepoint tokenizer (random weights sample ids past the bytes).
+    Counted window: the serve prompts as concurrent greedy
+    /v1/completions and the chat requests (``serve_chat``: a greedy chat,
+    a seeded sampled one, a deadline); #1 or #2 32 times a decode step,
+    under int4 #3 "tc" (6 L + 16) a step plus each admission's head row
+    and "wg" 6 L a prefill program. After it ``check_chat_texts``, and the
+    served engine's greedy tokens (prefix cache cleared) equal an eager
+    engine's and an eager engine's with the materialized tail (the whole
+    (8, 256000) logits), planning under the served budget. Every engine
+    is closed at the end. Returns the window's launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
+                                                       SamplingParams)
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.serving.model_server import (
+        build_services, create_server_app)
+
+    t0 = time.monotonic()
+    mode = (f"nemotron {quantization or 'bf16'} weights, "
+            f"{kv_quant or 'bf16'} KV")
+    ecfg = EngineConfig(max_slots=8, max_input_length=1024,
+                        max_output_length=64, prefill_buckets=(128, 512, 1024),
+                        page_size=128, kv_pool_tokens=8 * (1024 + 64),
+                        dtype="bfloat16", kv_quant=kv_quant)
+    engine, name = build_services(
+        "nemotron-8b-chat", engine_cfg=ecfg, seed=0, device=dev,
+        quantization=quantization, tokenizer=CodepointTokenizer(256000))
+    mcfg = engine.model_cfg
+    if (mcfg.norm, mcfg.mlp, mcfg.vocab_size, mcfg.num_layers,
+            mcfg.intermediate_size) != ("layernorm1p", "squared_relu",
+                                        256000, 32, 16384):
+        fail(f"nemotron-8b-chat is {mcfg}")
+    built = time.monotonic() - t0
+    engine.prewarm()
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in llama.param_tensors(engine.params))
+    say(f"serve [{mode}]: {name} L={mcfg.num_layers} D={mcfg.hidden_size} "
+        f"F={mcfg.intermediate_size} H={mcfg.num_heads} V={mcfg.vocab_size} "
+        f"{mcfg.norm}/{mcfg.mlp}, {n_bytes / 1e9:.2f} GB of weights, "
+        f"{engine._param_bytes / 1e9:.2f} GB streamed a step, pool "
+        f"{engine.stats['pool_pages']} pages; built in {built:.1f} s, "
+        f"prewarmed in {time.monotonic() - t0 - built:.1f} s")
+    base, stop_server = serve_app(create_server_app(engine,
+                                                    model_name=name))
+    try:
+        bodies = [{"prompt": p, "max_tokens": 32, "temperature": 0,
+                   "stream": i == 1} for i, p in enumerate(SERVE_PROMPTS)]
+        post(base + "/v1/completions", {"prompt": "warm", "max_tokens": 2,
+                                        "temperature": 0})
+        stats0 = engine.stats
+        tok0 = stats0["tokens_generated"]
+        zero_launch_counts()
+        t1 = time.monotonic()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            outs = list(pool.map(
+                lambda b: post(base + "/v1/completions", b), bodies))
+        wall = time.monotonic() - t1
+        tokens_http = engine.stats["tokens_generated"] - tok0
+        stream = engine.submit(engine.tokenizer.encode(ENGINE_PROMPT),
+                               SamplingParams(max_tokens=32, ignore_eos=True,
+                                              temperature=0))
+        stream.text()
+        chat = serve_chat(base, engine, mode, card)
+        torch.cuda.synchronize()
+        run = read_launch_counts(engine, stats0)
+    finally:
+        stop_server()
+        engine.stop()
+    for i, raw in enumerate(outs):
+        if bodies[i]["stream"]:
+            events = [ln[6:] for ln in raw.splitlines()
+                      if ln.startswith("data: ")]
+            if not events or events[-1] != "[DONE]":
+                fail(f"[{mode}] request {i}: SSE stream did not end")
+        elif not 1 <= json.loads(raw)["usage"]["completion_tokens"] <= 32:
+            fail(f"[{mode}] request {i}: {raw[:200]}")
+    if len(stream.token_ids) != 32 or not all(
+            0 <= t < mcfg.vocab_size for t in stream.token_ids):
+        fail(f"[{mode}] ignore_eos request gave {stream.token_ids}")
+    check_launch_counts(f"[{mode}]", run, mcfg.num_layers, quantization,
+                        kv_quant, head_tiles(engine),
+                        per_layer=len(llama.projection_keys(mcfg)))
+    check_chat_texts(engine, chat, mode)
+    decode_s = stream.finish_time - stream.first_token_time
+    say(f"serve [{mode}]: {len(bodies)} concurrent /v1/completions in "
+        f"{wall:.3f} s, {tokens_http} tokens ({tokens_http / wall:.1f} tok/s "
+        f"aggregate); single ignore_eos request: TTFT {stream.ttft_ms:.1f} "
+        f"ms, decode {31 / decode_s:.1f} tok/s; launches {run['launches']} "
+        f"(int4 by path {run['by_path']}) over {run['decode_steps']} decode "
+        f"steps and {run['prefills']} prefills [{card}]")
+    # Captured = eager = materialized tail, one schedule: the served
+    # engine's budget is held where the online calibrator left it (a
+    # move mid-run would chunk a prompt that the pinned engines admit
+    # whole, and an int8 pool rounds the two differently).
+    ids = [engine.tokenizer.encode(p) for p in SERVE_PROMPTS]
+    sp = SamplingParams(max_tokens=16, temperature=0, ignore_eos=True)
+    engine.clear_prefix_cache()
+    runs = {}
+    with engine.pinned_round_budget() as budget:
+        for label, kw in (("graphs", None),
+                          ("eager", {"cuda_graphs": False}),
+                          ("materialized", {"cuda_graphs": False,
+                                            "fused_tail": False})):
+            eng = engine if kw is None else Engine(
+                engine.params, mcfg, engine.tokenizer,
+                replace(engine.cfg, sched_round_budget_tokens=budget, **kw),
+                device=dev)
+            chunks0 = eng.stats["prefill_chunks"]
+            streams = [eng.submit(i, sp) for i in ids]
+            for _ in range(100):
+                if all(s.finish_reason is not None for s in streams):
+                    break
+                eng._step()
+            runs[label] = ([s.token_ids for s in streams],
+                           eng.stats["prefill_chunks"] - chunks0)
+            if eng is not engine:
+                eng.close()
+    for other in ("eager", "materialized"):
+        for i, (a, b) in enumerate(zip(runs["graphs"][0], runs[other][0])):
+            if a != b or len(a) != 16:
+                k = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+                fail(f"[{mode}] prompt {i}: the captured programs' greedy "
+                     f"tokens {a} part from the {other} engine's {b} at {k} "
+                     f"(top-2 logit gap "
+                     f"{top2_gap(torch, engine, ids[i] + a[:k])}; chunk "
+                     f"programs {runs['graphs'][1]} against "
+                     f"{runs[other][1]}, budget {budget})")
+    say(f"serve [{mode}]: greedy tokens of the {len(ids)} serve prompts "
+        f"equal: captured programs, eager engine, eager engine with the "
+        f"materialized tail over V={mcfg.vocab_size} "
+        f"({time.monotonic() - t0:.1f} s in the phase) [{card}]")
+    engine.close()
+    free_memory(torch)
+    return {"launches": run["launches"], "by_path": run["by_path"]}
 
 
 # ------------------------------------------------------------- RAG phase
@@ -4202,6 +5048,7 @@ def main() -> int:
         t0 = time.monotonic()
 
     quant_ref = QuantReference(torch, dev)
+    nemo_ref = NemotronReference(torch, dev)
     lap("quant_reference_start")
 
     took = build.build_all()
@@ -4222,14 +5069,26 @@ def main() -> int:
     lap("attention")
     kernels.extend(check_int4_matmul(torch, dev))
     lap("int4_matmul")
+    gbias_rows = check_int4_gbias(torch, dev)
+    lap("int4_gbias")
     check_fused_tail(torch, dev, card)
     lap("fused_tail")
     check_model(torch, dev)
     lap("model")
     check_model_quant(torch, dev, quant_ref)
     lap("model_quant")
-    checkpoint_phase(torch, dev, card)
+    gptq_paths = checkpoint_phase(torch, dev, card)
     lap("checkpoint")
+    # The second family at full width and depth; its engines are closed
+    # before the llama-2 phases.
+    serve_nemotron(torch, dev, card)
+    lap("serve_nemotron_bf16")
+    nemo_int4 = serve_nemotron(torch, dev, card, quantization="int4_awq",
+                               kv_quant="int8")
+    lap("serve_nemotron_int4")
+    # Its CPU reference has run in a thread since the start.
+    check_nemotron_model(torch, dev, nemo_ref)
+    lap("model_nemotron")
     # Each path's kernels take their launch counts from that path's run.
     bf16 = serve(torch, dev, card)
     lap("serve_bf16")
@@ -4275,6 +5134,12 @@ def main() -> int:
         if row.get("shape", "").startswith("verify"):
             # The verify rounds' "wg" launches of the int4 spec phase.
             row["launches"] = quantized["verify_wg"]
+    # #3 with GPTQ zero points: the GPTQ checkpoint's run; at Nemotron's
+    # shapes: the int4 Nemotron serve window.
+    for key, row in sorted(gbias_rows.items()):
+        row["launches"] = (gptq_paths if key.startswith("gbias")
+                           else nemo_int4["by_path"])[row["path"]]
+        kernels.append(row)
     say(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
 
     say(json.dumps({"kernels": kernels}))

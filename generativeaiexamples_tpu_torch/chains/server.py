@@ -175,7 +175,12 @@ def _max_body_bytes(example) -> int:
 
 def create_app(example: BaseExample,
                upload_dir: str = "./uploaded_files",
-               config=None) -> web.Application:
+               config=None, *, close_engine: bool = False
+               ) -> web.Application:
+    """The chain server over ``example``. ``close_engine``: at shutdown
+    close the example's in-process engine (``EngineLLM``), handing its
+    device memory back (``Engine.close``); off when the engine outlives
+    the app."""
     app = web.Application(client_max_size=_max_body_bytes(example))
 
     # Robustness knobs: app-config `serving` section, env-overridable
@@ -953,6 +958,9 @@ def create_app(example: BaseExample,
 
     async def _obs_stop(_app) -> None:
         obs_stack.stop()
+        engine = getattr(getattr(example, "llm", None), "engine", None)
+        if close_engine and engine is not None:
+            engine.close()
 
     app.on_startup.append(_obs_start)
     app.on_cleanup.append(_obs_stop)
@@ -994,7 +1002,8 @@ def create_app(example: BaseExample,
 def main(argv: Optional[list[str]] = None) -> None:
     """CLI: ``python -m generativeaiexamples_tpu_torch.chains.server``
     (an in-process engine is passed to ``create_app`` by code; the CLI
-    serves the configured ``openai-compat`` or ``echo`` LLM)."""
+    serves the configured ``openai-compat`` or ``echo`` LLM, and closes
+    an example's in-process engine at shutdown)."""
     import argparse
 
     parser = argparse.ArgumentParser(description="RAG chain server")
@@ -1027,7 +1036,9 @@ def main(argv: Optional[list[str]] = None) -> None:
 
     example_cls = discover_example(args.example)
     example = example_cls()
-    web.run_app(create_app(example, args.upload_dir),
+    # The example (and any in-process engine its LLM holds) lives and
+    # dies with this app.
+    web.run_app(create_app(example, args.upload_dir, close_engine=True),
                 host=args.host, port=args.port)
 
 

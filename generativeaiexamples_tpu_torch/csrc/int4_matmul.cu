@@ -9,9 +9,12 @@
 // both sign-extended. Scales are per output channel (N,) or per group of
 // `group` reduction rows (G, N), G = K / group; a group's partial sum is
 // multiplied by its float32 scale as ops/quant.py `_grouped_matmul` does
-// (per channel is the case group = K). Sums are float32. Rows of q4 and
-// of grouped scales are ldq bytes and lds floats apart (N for a whole
-// weight, more for a column slice of a wider one); columns are packed.
+// (per channel is the case group = K). Sums are float32. GPTQ zero
+// points (gbias, (G, N) float32 beside grouped scales, null when absent)
+// add sum_g (sum_{k in g} x[m, k]) * gbias[g, n] on the tensor-core
+// paths; the others refuse them. Rows of q4 and of grouped scales (and
+// gbias) are ldq bytes and lds floats apart (N for a whole weight, more
+// for a column slice of a wider one); columns are packed.
 //
 // Four paths; the caller names one (ops/int4_matmul.py `_path`) and a
 // path that does not take the shape returns cudaErrorInvalidValue (no
@@ -98,6 +101,14 @@
 // exact in fp32, so the path differs from the plain version only in the
 // order of the fp32 sums.
 //
+// - GPTQ zero points: with gbias the stage also stages its gbias row, and
+//   each k16 step runs a fifth MMA whose A is all ones: its C fragment
+//   holds sum_k x[slot, k] over the warp's steps for the lane's slots 2t,
+//   2t + 1, laid out as the partial's, so the stage epilogue adds
+//   xsum * gbias[g, column] beside part * scale. The ones and x are exact
+//   in bf16, so the row sums differ from the plain version's only in
+//   their fp32 order.
+//
 // Split-K on the "gemv" path: the S blocks of a column tile write fp32
 // partials to a workspace, and the last of them to finish (a per-tile
 // counter) sums the S partials in a fixed order, so the result does not
@@ -159,6 +170,17 @@
 //   no atomics); S minimises (waves of blocks) x (stages per block), so
 //   at M = 128 it is 4 at 4096 x 4096 and w_down, 3 at w_gate, and 1
 //   once the tiles alone fill a wave (M = 1024).
+// - GPTQ zero points: after a stage lands, 128 consumer threads each sum
+//   one token row of the staged x tile (both 64-k halves; the swizzle
+//   permutes 16-byte chunks within a row, so the sum ignores it) into a
+//   per-slot array in shared memory; a named barrier over the consumers
+//   publishes it, and the stage epilogue adds xsum[token] * gbias[g, col]
+//   (one float2 of gbias per stage, loaded with the scales) beside
+//   part * scale. The next write of a slot's sums comes after three more
+//   such barriers, so no consumer still reads them. The barrier makes the
+//   call 2.2-2.5x the time without zero points; summing in the producer
+//   warp behind an mbarrier instead measured 2.9-3.3x (one warp cannot
+//   keep up with a stage).
 // - No programmatic dependent launch: the next launch starts after this
 //   one completes, as a plain launch does.
 // - Sums: weights are exact in bf16 and bf16 x bf16 products exact in
@@ -392,7 +414,8 @@ constexpr int kTcPitch = kTcCols + 32;
 constexpr int kTcXPitch = 2 * kTcK + 16;          // bytes per row of x
 constexpr int kTcScaleOff = kTcRows * kTcPitch;
 constexpr int kTcXOff = kTcScaleOff + 4 * kTcCols;
-constexpr int kTcStage = kTcXOff + 8 * kTcXPitch;  // bytes per stage
+constexpr int kTcBiasOff = kTcXOff + 8 * kTcXPitch;  // the gbias row
+constexpr int kTcStage = kTcBiasOff + 4 * kTcCols;  // bytes per stage
 constexpr int kTcSmem = kTcRing * kTcStage;
 static_assert(kTcStage % 16 == 0, "16-byte copies");
 static_assert((kTcKWarps + 1) * 8 * kTcCols * 4 <= kTcSmem,
@@ -455,9 +478,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned int a0,
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// One k16 step of a warp on a staged slot: 4 MMA tiles of 16 columns.
-template <bool FRESH>
-__device__ __forceinline__ void tc_step(float (&c)[4][4], const char* wrow,
+// bf16 pair (1, 1): an all-ones A register.
+constexpr unsigned int kOnes = 0x3F803F80u;
+
+// One k16 step of a warp on a staged slot: 4 MMA tiles of 16 columns;
+// with XSUM a fifth MMA of ones sums the step's x rows into xs (slots
+// 2t, 2t + 1 in xs[0], xs[1]).
+template <bool FRESH, bool XSUM>
+__device__ __forceinline__ void tc_step(float (&c)[4][4], float (&xs)[4],
+                                        const char* wrow,
                                         const char* xrow) {
   // A: packed rows t and t + 4 of the step, columns 4g.. and 32 + 4g..;
   // B: x[g, 2t ..] and x[g, 8 + 2t ..] of the step.
@@ -483,19 +512,23 @@ __device__ __forceinline__ void tc_step(float (&c)[4][4], const char* wrow,
                     nibble_pair(w[1][0], wh[1][0], j),
                     nibble_pair(w[1][1], wh[1][1], j), b0, b1);
   }
+  if constexpr (XSUM) mma_bf16<FRESH>(xs, kOnes, kOnes, kOnes, kOnes, b0, b1);
 }
 
 // The "tc" path (see the note at the top). Grid (slabs, S), clusters of
 // (1, S): block y (its rank in the cluster) takes stages
 // [y * n / S, (y + 1) * n / S) of the n = ceil(K / kTcK).
 // PER_CHANNEL: scale is (N,), applied once at the end; else (G, N) with
-// group a multiple of kTcK, so each stage lies in one group.
-template <typename TO, bool PER_CHANNEL>
+// group a multiple of kTcK, so each stage lies in one group. GBIAS (grouped
+// only): gbias (G, N) zero points, row stride lds.
+template <typename TO, bool PER_CHANNEL, bool GBIAS>
 __global__ void __launch_bounds__(32 * kTcWarps, kTcPerSm)
 int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
                 const int8_t* __restrict__ q4,
-                const float* __restrict__ scale, TO* __restrict__ out,
+                const float* __restrict__ scale,
+                const float* __restrict__ gbias, TO* __restrict__ out,
                 int M, int K, int N, int group, int ldq, int lds) {
+  static_assert(!(PER_CHANNEL && GBIAS), "zero points need groups");
   extern __shared__ __align__(16) char ring[];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -534,6 +567,15 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
       cp_async16(slot + kTcScaleOff + 16 * tid,
                  ok ? scale + gi * lds + gn : scale, ok);
     }
+    // The gbias row, by the threads after those that copy x.
+    const int bt = tid - kTcCols / 4 - 8 * (2 * kTcK / 16);
+    if (GBIAS && bt >= 0 && bt < kTcCols / 4) {
+      const int gn = n0 + 4 * bt;
+      const bool ok = gn < N;
+      const long long gi = (long long)st * kTcK / group;
+      cp_async16(slot + kTcBiasOff + 16 * bt,
+                 ok ? gbias + gi * lds + gn : gbias, ok);
+    }
   };
   auto issue_x = [&](int st) {  // the (8, 128) tile of x
     char* slot = ring + (st % kTcRing) * kTcStage;
@@ -549,7 +591,10 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
 
-  float acc[4][4], part[4][4];
+  static_assert(kTcCols / 4 + 8 * (2 * kTcK / 16) + kTcCols / 4 <=
+                    32 * kTcWarps,
+                "the scale row, x and the gbias row have a thread each");
+  float acc[4][4], part[4][4], xs[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -586,16 +631,18 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int s = 0; s < kTcSteps; ++s) {
         if (16 * s >= kleft) break;
-        tc_step<false>(acc, wrow + 8 * s * kTcPitch, xrow + 32 * s);
+        tc_step<false, false>(acc, xs, wrow + 8 * s * kTcPitch,
+                              xrow + 32 * s);
       }
     } else if (kleft > 0) {
       // The stage's k16 steps into a fresh partial sum, which is then
       // added to the running sum times the stage's group scales.
-      tc_step<true>(part, wrow, xrow);
+      tc_step<true, GBIAS>(part, xs, wrow, xrow);
 #pragma unroll
       for (int s = 1; s < kTcSteps; ++s) {
         if (16 * s >= kleft) break;
-        tc_step<false>(part, wrow + 8 * s * kTcPitch, xrow + 32 * s);
+        tc_step<false, GBIAS>(part, xs, wrow + 8 * s * kTcPitch,
+                              xrow + 32 * s);
       }
       const float4 sa = *reinterpret_cast<const float4*>(
           slot + kTcScaleOff + 4 * (cw * 64 + 4 * g));
@@ -609,6 +656,23 @@ int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
         acc[j][1] = fmaf(part[j][1], fa[j], acc[j][1]);
         acc[j][2] = fmaf(part[j][2], fb[j], acc[j][2]);
         acc[j][3] = fmaf(part[j][3], fb[j], acc[j][3]);
+      }
+      if constexpr (GBIAS) {
+        // This warp's share of the stage's row sums times the zero points
+        // (the k warps' shares add up in the reduction).
+        const float4 za = *reinterpret_cast<const float4*>(
+            slot + kTcBiasOff + 4 * (cw * 64 + 4 * g));
+        const float4 zb = *reinterpret_cast<const float4*>(
+            slot + kTcBiasOff + 4 * (cw * 64 + 32 + 4 * g));
+        const float ga[4] = {za.x, za.y, za.z, za.w};
+        const float gb[4] = {zb.x, zb.y, zb.z, zb.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[j][0] = fmaf(xs[0], ga[j], acc[j][0]);
+          acc[j][1] = fmaf(xs[1], ga[j], acc[j][1]);
+          acc[j][2] = fmaf(xs[0], gb[j], acc[j][2]);
+          acc[j][3] = fmaf(xs[1], gb[j], acc[j][3]);
+        }
       }
     }
   }
@@ -810,15 +874,20 @@ __device__ __forceinline__ void store2(TO* p, float a, float b) {
 // bf16, boxes of 64 k x 128 tokens; q4_map: q4 (K/2, N) bytes, boxes of
 // 128 columns x 64 rows; both with 128-byte swizzle. PER_CHANNEL: scale
 // is (N,), applied once at the end; else (G, N) with group a multiple of
-// kWgK, so each stage lies in one group.
-template <typename TO, bool PER_CHANNEL>
+// kWgK, so each stage lies in one group. GBIAS (grouped only): gbias (G,
+// N) zero points, row stride lds.
+template <typename TO, bool PER_CHANNEL, bool GBIAS>
 __global__ void __launch_bounds__(kWgThreads, 1)
 int4_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap q4_map,
-                  const float* __restrict__ scale, TO* __restrict__ out,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ gbias, TO* __restrict__ out,
                   int M, int K, int N, int group, int lds) {
+  static_assert(!(PER_CHANNEL && GBIAS), "zero points need groups");
   extern __shared__ char smem_raw[];
   __shared__ __align__(8) uint64_t full[kWgRing], empty[kWgRing];
+  // Per slot: each token's sum of the staged x (GBIAS only).
+  __shared__ __align__(8) float xsum[GBIAS ? kWgRing : 1][kWgTokens];
   // The swizzle is a function of the shared address: align the ring.
   char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
@@ -874,11 +943,38 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 
     for (int i = 0; i < n_mine; ++i) {
       const int slot = i % kWgRing;
-      float2 sc = make_float2(0.f, 0.f);
+      float2 sc = make_float2(0.f, 0.f), zb = make_float2(0.f, 0.f);
+      const long long gi = (long long)((st0 + i) * kWgK / group) * lds + gn;
       if (!PER_CHANNEL && col_ok)
-        sc = __ldg(reinterpret_cast<const float2*>(
-            scale + (long long)((st0 + i) * kWgK / group) * lds + gn));
+        sc = __ldg(reinterpret_cast<const float2*>(scale + gi));
+      if (GBIAS && col_ok)
+        zb = __ldg(reinterpret_cast<const float2*>(gbias + gi));
       mbar_wait(&full[slot], (i / kWgRing) & 1);
+      if constexpr (GBIAS) {
+        // Thread tid < 128 sums token row tid of the stage (2 x 128
+        // bytes); the barrier publishes the sums to every consumer.
+        if (tid < kWgTokens) {
+          const char* row = ring + slot * kWgStage + tid * 128;
+          float v = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              const uint4 u = *reinterpret_cast<const uint4*>(
+                  row + h * kWgXHalf + 16 * c);
+              const unsigned int w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float2 f = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(&w4[e]));
+                v += f.x + f.y;
+              }
+            }
+          }
+          xsum[slot][tid] = v;
+        }
+        asm volatile("bar.sync 2, %0;" ::"n"(128 * kWgConsumers) : "memory");
+      }
       const char* sq = ring + slot * kWgStage + kWgQ4Off;
       // A of step s: packed rows 8 s + t (k pair 2t) and 8 s + t + 4 (k
       // pair 2t + 8), bytes 0 (column col: MMA row g) and 1 (col + 1: row
@@ -911,6 +1007,17 @@ int4_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
           acc[4 * j + 1] = fmaf(part[4 * j + 1], sc.x, acc[4 * j + 1]);
           acc[4 * j + 2] = fmaf(part[4 * j + 2], sc.y, acc[4 * j + 2]);
           acc[4 * j + 3] = fmaf(part[4 * j + 3], sc.y, acc[4 * j + 3]);
+        }
+      }
+      if constexpr (GBIAS) {
+#pragma unroll
+        for (int j = 0; j < kWgAcc / 4; ++j) {
+          const float2 xt = *reinterpret_cast<const float2*>(
+              &xsum[slot][8 * j + 2 * t]);
+          acc[4 * j] = fmaf(xt.x, zb.x, acc[4 * j]);
+          acc[4 * j + 1] = fmaf(xt.y, zb.x, acc[4 * j + 1]);
+          acc[4 * j + 2] = fmaf(xt.x, zb.y, acc[4 * j + 2]);
+          acc[4 * j + 3] = fmaf(xt.y, zb.y, acc[4 * j + 3]);
         }
       }
     }
@@ -1156,11 +1263,11 @@ int launch_gemv(const void* x, const int8_t* q4, const float* scale,
 
 // The "tc" path (bf16 x). Needs no scratch: split-K reduces within a
 // cluster.
-template <typename TO, bool PER_CHANNEL>
+template <typename TO, bool PER_CHANNEL, bool GBIAS>
 int launch_mma_kernel(const void* x, const int8_t* q4, const float* scale,
-                      void* out, int M, int K, int N, int group, int ldq,
-                      int lds, cudaStream_t stream) {
-  auto kernel = int4_mma_kernel<TO, PER_CHANNEL>;
+                      const float* gbias, void* out, int M, int K, int N,
+                      int group, int ldq, int lds, cudaStream_t stream) {
+  auto kernel = int4_mma_kernel<TO, PER_CHANNEL, GBIAS>;
   // More than 48 KB of shared memory needs an opt-in, once per device.
   static unsigned int opted_in = 0;  // bit d: device d
   int dev = 0;
@@ -1197,25 +1304,30 @@ int launch_mma_kernel(const void* x, const int8_t* q4, const float* scale,
   cfg.numAttrs = S > 1 ? 2 : 1;
   return (int)cudaLaunchKernelEx(&cfg, kernel,
                                  static_cast<const __nv_bfloat16*>(x), q4,
-                                 scale, static_cast<TO*>(out), M, K, N,
-                                 group, ldq, lds);
+                                 scale, gbias, static_cast<TO*>(out), M, K,
+                                 N, group, ldq, lds);
 }
 
 template <typename TO>
 int launch_mma(const void* x, const int8_t* q4, const float* scale,
-               void* out, int M, int K, int N, int group, int ldq,
-               int lds, cudaStream_t stream) {
+               const float* gbias, void* out, int M, int K, int N, int group,
+               int ldq, int lds, cudaStream_t stream) {
   const bool per_channel = group == K;
   if (M > 8 || K % 16 || N % 16 || (!per_channel && group % kTcK) ||
       reinterpret_cast<uintptr_t>(q4) % 16 ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(scale) % 16 || ldq % 16 || lds % 4)
+      reinterpret_cast<uintptr_t>(scale) % 16 ||
+      reinterpret_cast<uintptr_t>(gbias) % 16 || ldq % 16 || lds % 4 ||
+      (per_channel && gbias != nullptr))
     return (int)cudaErrorInvalidValue;
   if (per_channel)
-    return launch_mma_kernel<TO, true>(x, q4, scale, out, M, K, N, group,
-                                       ldq, lds, stream);
-  return launch_mma_kernel<TO, false>(x, q4, scale, out, M, K, N, group,
-                                      ldq, lds, stream);
+    return launch_mma_kernel<TO, true, false>(x, q4, scale, gbias, out, M, K,
+                                              N, group, ldq, lds, stream);
+  if (gbias != nullptr)
+    return launch_mma_kernel<TO, false, true>(x, q4, scale, gbias, out, M, K,
+                                              N, group, ldq, lds, stream);
+  return launch_mma_kernel<TO, false, false>(x, q4, scale, gbias, out, M, K,
+                                             N, group, ldq, lds, stream);
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the
@@ -1266,11 +1378,11 @@ bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
 
 // The "wg" path (bf16 x). Needs no scratch: split-K reduces within a
 // cluster.
-template <typename TO, bool PER_CHANNEL>
+template <typename TO, bool PER_CHANNEL, bool GBIAS>
 int launch_wg_kernel(const void* x, const int8_t* q4, const float* scale,
-                     void* out, int M, int K, int N, int group, int ldq,
-                     int lds, cudaStream_t stream) {
-  auto kernel = int4_wgmma_kernel<TO, PER_CHANNEL>;
+                     const float* gbias, void* out, int M, int K, int N,
+                     int group, int ldq, int lds, cudaStream_t stream) {
+  auto kernel = int4_wgmma_kernel<TO, PER_CHANNEL, GBIAS>;
   static unsigned int opted_in = 0;  // bit d: device d
   int dev = 0;
   cudaGetDevice(&dev);
@@ -1320,7 +1432,7 @@ int launch_wg_kernel(const void* x, const int8_t* q4, const float* scale,
   attr[0].val.clusterDim.z = S;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, x_map, q4_map, scale,
+  return (int)cudaLaunchKernelEx(&cfg, kernel, x_map, q4_map, scale, gbias,
                                  static_cast<TO*>(out), M, K, N, group, lds);
 }
 
@@ -1328,19 +1440,24 @@ int launch_wg_kernel(const void* x, const int8_t* q4, const float* scale,
 // steps tile K and a group is whole stages.
 template <typename TO>
 int launch_wg(const void* x, const int8_t* q4, const float* scale,
-              void* out, int M, int K, int N, int group, int ldq, int lds,
-              cudaStream_t stream) {
+              const float* gbias, void* out, int M, int K, int N, int group,
+              int ldq, int lds, cudaStream_t stream) {
   const bool per_channel = group == K;
   if (K % 16 || N % 16 || (!per_channel && group % kWgK) ||
       reinterpret_cast<uintptr_t>(q4) % 16 ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(scale) % 16 || ldq % 16 || lds % 4)
+      reinterpret_cast<uintptr_t>(scale) % 16 ||
+      reinterpret_cast<uintptr_t>(gbias) % 8 || ldq % 16 || lds % 4 ||
+      (per_channel && gbias != nullptr))
     return (int)cudaErrorInvalidValue;
   if (per_channel)
-    return launch_wg_kernel<TO, true>(x, q4, scale, out, M, K, N, group,
-                                      ldq, lds, stream);
-  return launch_wg_kernel<TO, false>(x, q4, scale, out, M, K, N, group,
-                                     ldq, lds, stream);
+    return launch_wg_kernel<TO, true, false>(x, q4, scale, gbias, out, M, K,
+                                             N, group, ldq, lds, stream);
+  if (gbias != nullptr)
+    return launch_wg_kernel<TO, false, true>(x, q4, scale, gbias, out, M, K,
+                                             N, group, ldq, lds, stream);
+  return launch_wg_kernel<TO, false, false>(x, q4, scale, gbias, out, M, K,
+                                            N, group, ldq, lds, stream);
 }
 
 // Path codes, as ops/int4_matmul.py passes them.
@@ -1351,14 +1468,17 @@ constexpr int kPathWg = 3;
 
 template <typename T, typename TO>
 int launch(int path, const void* x, const int8_t* q4, const float* scale,
-           void* out, float* ws, long long ws_floats, int* counters,
-           int n_counters, int M, int K, int N, int group, int ldq, int lds,
-           cudaStream_t stream) {
+           const float* gbias, void* out, float* ws, long long ws_floats,
+           int* counters, int n_counters, int M, int K, int N, int group,
+           int ldq, int lds, cudaStream_t stream) {
+  // Zero points are applied on the tensor-core paths only.
+  if (gbias != nullptr && path != kPathTc && path != kPathWg)
+    return (int)cudaErrorInvalidValue;
   switch (path) {
     case kPathTc:
       if constexpr (std::is_same_v<T, __nv_bfloat16>)
-        return launch_mma<TO>(x, q4, scale, out, M, K, N, group, ldq, lds,
-                              stream);
+        return launch_mma<TO>(x, q4, scale, gbias, out, M, K, N, group, ldq,
+                              lds, stream);
       return (int)cudaErrorInvalidValue;  // tensor cores take bf16 x only
     case kPathGemv:
       return launch_gemv<T, TO>(x, q4, scale, out, ws, ws_floats, counters,
@@ -1369,8 +1489,8 @@ int launch(int path, const void* x, const int8_t* q4, const float* scale,
                                                  N, group, ldq, lds, stream);
     case kPathWg:
       if constexpr (std::is_same_v<T, __nv_bfloat16>)
-        return launch_wg<TO>(x, q4, scale, out, M, K, N, group, ldq, lds,
-                             stream);
+        return launch_wg<TO>(x, q4, scale, gbias, out, M, K, N, group, ldq,
+                             lds, stream);
       return (int)cudaErrorInvalidValue;  // tensor cores take bf16 x only
     default:
       return (int)cudaErrorInvalidValue;
@@ -1383,9 +1503,11 @@ int launch(int path, const void* x, const int8_t* q4, const float* scale,
 // top); a path that does not take the shape or dtype returns
 // cudaErrorInvalidValue and launches nothing. x_dtype, out_dtype: 0 =
 // bfloat16, 1 = float32. scale is (K / group, N) float32 (group = K: per
-// channel). ws (ws_floats fp32) and counters (n_counters ints, all 0) are
-// the "gemv" path's split-K scratch, owned by the caller and left as
-// found; the other paths ignore them. ldq and lds are the row strides
+// channel); gbias is null or GPTQ zero points of the grouped scales'
+// shape and row stride ("tc" and "wg" only). ws (ws_floats fp32) and
+// counters (n_counters ints, all 0) are the "gemv" path's split-K
+// scratch, owned by the caller and left as found; the other paths ignore
+// them. ldq and lds are the row strides
 // of q4 (bytes) and of grouped scales (floats), at least N: a column
 // slice of a wider weight (an lm_head vocab tile) is read in place. The
 // tensor-core paths need both 16-byte aligned (ldq % 16, lds % 4), the
@@ -1394,35 +1516,36 @@ int launch(int path, const void* x, const int8_t* q4, const float* scale,
 // cudaGetLastError() after the launch.
 extern "C" int int4_matmul(int path, int x_dtype, int out_dtype,
                            const void* x, const void* q4, const void* scale,
-                           void* out, void* ws, long long ws_floats,
-                           void* counters, int n_counters, int M, int K,
-                           int N, int group, int ldq, int lds,
-                           void* stream) {
+                           const void* gbias, void* out, void* ws,
+                           long long ws_floats, void* counters,
+                           int n_counters, int M, int K, int N, int group,
+                           int ldq, int lds, void* stream) {
   if (M < 1 || K < 2 || K % 2 || N < 1 || group < 1 || K % group ||
       ldq < N || (group < K && lds < N))
     return (int)cudaErrorInvalidValue;
   const int8_t* q = static_cast<const int8_t*>(q4);
   const float* s = static_cast<const float*>(scale);
+  const float* z = static_cast<const float*>(gbias);
   float* w = static_cast<float*>(ws);
   int* c = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_dtype * 2 + out_dtype) {
     case 0:
       return launch<__nv_bfloat16, __nv_bfloat16>(
-          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group, ldq,
-          lds, st);
+          path, x, q, s, z, out, w, ws_floats, c, n_counters, M, K, N, group,
+          ldq, lds, st);
     case 1:
       return launch<__nv_bfloat16, float>(
-          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group, ldq,
-          lds, st);
+          path, x, q, s, z, out, w, ws_floats, c, n_counters, M, K, N, group,
+          ldq, lds, st);
     case 2:
       return launch<float, __nv_bfloat16>(
-          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group, ldq,
-          lds, st);
+          path, x, q, s, z, out, w, ws_floats, c, n_counters, M, K, N, group,
+          ldq, lds, st);
     case 3:
       return launch<float, float>(
-          path, x, q, s, out, w, ws_floats, c, n_counters, M, K, N, group, ldq,
-          lds, st);
+          path, x, q, s, z, out, w, ws_floats, c, n_counters, M, K, N, group,
+          ldq, lds, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -651,11 +651,11 @@ class Engine:
         # lies before its start, inside the prompt's pages.
         self._row_pages = self._pmax + self._buckets[-1] // page
         self._prefix_pages = _ceil_div(cfg.max_input_length, page)
-        if self.device.type == "cuda":
-            self._check_kernel_geometry()
         V, B = model_cfg.vocab_size, cfg.max_slots
         self._sampler_tile = choose_tile(V, cfg.sampler_tile or (
             CARD_TILE if self.device.type == "cuda" else None))
+        if self.device.type == "cuda":
+            self._check_kernel_geometry()
         if (cfg.sampler_tile is not None and V % MASK_BITS == 0
                 and self._sampler_tile == V):
             raise ConfigError(
@@ -755,8 +755,13 @@ class Engine:
         self._flight_override: Optional[obs_flight.FlightRecorder] = None
         self._rounds_override: Optional[obs_rounds.RoundRecorder] = None
         self._engine_tag = f"e{next(_ENGINE_TAGS)}"
-        self._param_bytes = sum(t.numel() * t.element_size()
-                                for t in llama.param_tensors(params))
+        # Weight bytes a forward streams: every leaf but an untied
+        # embedding table, of which a step gathers only its tokens' rows
+        # (Nemotron's 256000-row table is 2.1 GB of its 17.1).
+        self._param_bytes = sum(
+            t.numel() * t.element_size() for k, v in params.items()
+            if k != "embed" or "lm_head" not in params
+            for t in llama.param_tensors(v))
         self._hbm_peak = peak_bw(self.device)
         # EWMA of round wall over the step-cost model's prediction, updated
         # per completed round (``sched_cost_drift_ratio``).
@@ -842,7 +847,10 @@ class Engine:
         """On the card every decode layer launches the paged kernel and
         every int4 projection the int4 kernel: refuse, before any pool is
         allocated, a geometry either kernel does not take, and GPTQ zero
-        points (``gbias``), which the int4 kernel does not apply."""
+        points (``gbias``) on a product that would not land on a
+        tensor-core path ("tc"/"wg", the paths that apply them: bf16
+        activations, K and N multiples of 16, groups of a multiple of
+        128), the lm_head at the sampler's tile width as well as whole."""
         m, page = self.model_cfg, self.cfg.page_size
         if not kernel_supported(page, m.num_heads, m.num_kv_heads,
                                 m.head_dim):
@@ -856,15 +864,21 @@ class Engine:
         for name, w in leaves.items():
             if not (is_quantized(w) and "q4" in w):
                 continue
-            if "gbias" in w:
-                raise ConfigError(
-                    f"{name}: int4 weights with GPTQ zero points (gbias) "
-                    f"are not served by the int4 kernel")
             K, N = 2 * w["q4"].shape[-2], w["q4"].shape[-1]
             group = K // w["gscale"].shape[-2] if is_grouped(w) else 0
             if not int4_matmul.supported(K, N, group):
                 raise ConfigError(f"{name}: the int4 kernel does not take "
                                   f"K={K}, N={N}, group {group}")
+            widths = {N, self._sampler_tile} if name == "lm_head" else {N}
+            if "gbias" in w and not all(
+                    int4_matmul.tensor_cores(K, n, group, self._dtype)
+                    for n in widths):
+                raise ConfigError(
+                    f"{name}: GPTQ zero points (gbias) run on the int4 "
+                    f"kernel's tensor-core paths only: bfloat16 "
+                    f"activations (the engine runs {self.cfg.dtype}), K and "
+                    f"N {sorted(widths)} multiples of 16, groups of a "
+                    f"multiple of 128 (K={K}, group {group})")
 
     # -------------------------------------------------------------- sizing
 
@@ -1857,15 +1871,6 @@ class Engine:
         loop is stopped; whatever it held is gone, every reference to the
         failed serve's tensors (its error, its requests and outputs)
         before the cache is emptied."""
-        self._fatal = None
-        self._state = self._admit_in = None
-        self._round_graphs = self._admit_graphs = {}
-        self._extend_graphs = self._final_graphs = {}
-        self._verify_graphs = {}
-        self._io_pending = []
-        self._fused_rag = self._rag_in = self._rag_aux = None
-        self._rag_graphs = {}
-        self._slots = {}
         self._free_slots = list(range(self.cfg.max_slots))
         self._drain_intake()
         self._completed = queue.Queue()
@@ -1875,10 +1880,7 @@ class Engine:
         self._inflight_rounds = 0
         self._chunk_behind = False
         self._ring.reset()
-        if self.device.type == "cuda":
-            gc.collect()
-            torch.cuda.synchronize(self.device)
-            torch.cuda.empty_cache()
+        self._drop_device_state()
         self._build_device()
         with self._stats_lock:
             self._stats["sched_round_budget_tokens"] = \
@@ -1923,6 +1925,39 @@ class Engine:
         for req in self._drain_intake():
             if not req.done:
                 req.stream._finish("cancelled")
+
+    def close(self) -> None:
+        """Stop serving and hand the engine's device memory back: the pool
+        and slot state, the staged admission arrays, every captured
+        program and the graph pool behind them, the fused-RAG buffers, and
+        the engine's hold on the parameters (weights that another holder
+        still references stay allocated for it). A closed engine serves
+        nothing more; closing it again does nothing."""
+        if self.params is None:
+            return
+        self.stop()
+        self._admit_arrays = self._admit_host = self._graph_pool = None
+        self._round_gen = self._admit_gen = None
+        self.params = None
+        self._drop_device_state()
+
+    def _drop_device_state(self) -> None:
+        """Drop the pool, the state, every captured program and the fused
+        RAG buffers (the serve loop is stopped), and hand their memory
+        back to the card."""
+        self._fatal = None
+        self._state = self._admit_in = None
+        self._round_graphs = self._admit_graphs = {}
+        self._extend_graphs = self._final_graphs = {}
+        self._verify_graphs = {}
+        self._io_pending = []
+        self._fused_rag = self._rag_in = self._rag_aux = None
+        self._rag_graphs = {}
+        self._slots = {}
+        if self.device.type == "cuda":
+            gc.collect()
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
 
     def reset(self) -> None:
         """Stop serving and start over: fail every live request and every
@@ -2052,6 +2087,13 @@ class Engine:
         """Raise if the engine failed (a wait on the harvest gives up)."""
         if self._fatal is not None:
             raise EngineError("the engine failed") from self._fatal
+
+    def pinned_round_budget(self, tokens: Optional[int] = None):
+        """Context manager: the scheduler's round budget held at
+        ``tokens`` (default: where the online calibrator left it) for the
+        block, so runs compared with each other plan the same chunks.
+        Yields the held budget; drive the engine from one thread."""
+        return self._sched.pinned_budget(tokens)
 
     def clear_prefix_cache(self) -> int:
         """Evict every cached page no live request maps back to the free

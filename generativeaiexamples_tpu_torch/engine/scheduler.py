@@ -26,6 +26,7 @@ of the rounds' programs.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import threading
@@ -348,6 +349,20 @@ class TokenBudgetScheduler:
                 cap = min(cap, max(self.page_size, self.max_one_shot_tokens))
             self.chunk_tokens = cap
         return True
+
+    @contextlib.contextmanager
+    def pinned_budget(self, tokens: Optional[int] = None):
+        """The round budget held for the block at ``tokens`` (default:
+        where it stands), which ``recalibrate`` then leaves alone; the
+        budget and its pin are put back after. Yields the held budget."""
+        saved = (self._budget_pinned, self.round_budget_tokens)
+        self._budget_pinned = True
+        if tokens is not None:
+            self.round_budget_tokens = max(self.page_size, int(tokens))
+        try:
+            yield self.round_budget_tokens
+        finally:
+            self._budget_pinned, self.round_budget_tokens = saved
 
     def slack_s(self, job: PrefillJob, now: float) -> float:
         """Seconds to spare if this job's prefill started now; +inf

@@ -146,16 +146,48 @@ _HF_FIELDS = {
 }
 
 
+# NeMo ``model_config.yaml`` fields -> LlamaConfig fields.
+_NEMO_FIELDS = {
+    "num_layers": "num_layers", "hidden_size": "hidden_size",
+    "ffn_hidden_size": "intermediate_size",
+    "num_attention_heads": "num_heads", "num_query_groups": "num_kv_heads",
+    "kv_channels": "head_dim",
+    "max_position_embeddings": "max_position_embeddings",
+    "layernorm_epsilon": "rms_norm_eps", "rotary_base": "rope_theta",
+}
+
+
+def _nemo_geometry(path: str) -> dict:
+    """The geometry fields of a ``.nemo`` archive's model_config.yaml in
+    ``path`` ({} when the directory holds none)."""
+    from .import_nemo import find_nemo, read_archive_config
+    try:
+        nemo = find_nemo(path)
+    except Exception:  # noqa: BLE001 - no archive: nothing to read
+        return {}
+    conf = read_archive_config(nemo)
+    return {ours: conf[theirs] for theirs, ours in _NEMO_FIELDS.items()
+            if isinstance(conf.get(theirs), (int, float))
+            and not isinstance(conf.get(theirs), bool)}
+
+
 def config_for_checkpoint(path: str, base: LlamaConfig) -> LlamaConfig:
-    """``base`` with the geometry a checkpoint directory's HF
-    ``config.json`` states, where it has one (a depth-cut or renamed
-    checkpoint then loads under its own geometry); ``base`` unchanged
-    otherwise. A config.json without ``head_dim`` implies
-    hidden_size / num_attention_heads, and one without
-    ``num_key_value_heads`` implies as many KV heads as heads."""
+    """``base`` with the geometry a checkpoint directory states, where it
+    does: an HF ``config.json``, or the ``model_config.yaml`` of a
+    ``.nemo`` archive (a depth-cut or renamed checkpoint then loads under
+    its own geometry); ``base`` unchanged otherwise. A config without a
+    head width implies hidden_size / num_attention_heads, and one without
+    a KV head count implies as many KV heads as heads."""
     cfg_file = os.path.join(path, "config.json")
     if not os.path.isfile(cfg_file):
-        return base
+        kw = _nemo_geometry(path) if os.path.isdir(path) else {}
+        if not kw:
+            return base
+        if "head_dim" not in kw and "hidden_size" in kw and "num_heads" in kw:
+            kw["head_dim"] = kw["hidden_size"] // kw["num_heads"]
+        if "num_kv_heads" not in kw and "num_heads" in kw:
+            kw["num_kv_heads"] = kw["num_heads"]
+        return replace(base, **kw)
     with open(cfg_file) as f:
         hf = json.load(f)
     kw = {ours: hf[theirs] for theirs, ours in _HF_FIELDS.items()

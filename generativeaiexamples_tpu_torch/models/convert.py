@@ -3,10 +3,13 @@ port's parameters.
 
 The tree is keyed exactly as the reference's ``llama.init_params`` keys it
 (``embed``, ``layers/{attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up,
-w_down}``, ``final_norm``, ``lm_head``) and keeps its ``(D, out)`` weight
-orientation: ``models/llama.py`` computes ``x @ W`` on the same layout, so
-nothing is transposed here. The same numpy parameters can therefore drive
-both packages.
+w_down}``, ``final_norm``, ``lm_head``; a GPT-Next tree has no ``w_gate``
+and adds the layernorm1p offsets ``*_norm_b``/``final_norm_b`` and, where
+its config says, the biases ``bq``/``bk``/``bv``/``bo``/``b_up``/
+``b_down``) and keeps its ``(D, out)`` weight orientation:
+``models/llama.py`` computes ``x @ W`` on the same layout, so nothing is
+transposed here. The same numpy parameters can therefore drive both
+packages.
 """
 
 from __future__ import annotations
@@ -18,9 +21,25 @@ import torch
 
 from ..utils.errors import ConfigError
 from .configs import LlamaConfig
+from .llama import bias_shapes, projection_keys
 
+# The llama-2 tree's layer leaves (the layout a tree is read as when no
+# config is given).
 _LAYER_KEYS = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                "w_up", "w_down")
+# Leaves that are never quantized.
+_RAW_KEYS = ("embed", "final_norm", "final_norm_b", "attn_norm", "mlp_norm",
+             "attn_norm_b", "mlp_norm_b", "bq", "bk", "bv", "bo", "b_up",
+             "b_down")
+
+
+def layer_keys(cfg: Optional[LlamaConfig]) -> tuple[str, ...]:
+    """The layer leaves of ``cfg``'s tree (llama-2's without a config)."""
+    if cfg is None:
+        return _LAYER_KEYS
+    return (("attn_norm", "mlp_norm") + projection_keys(cfg)
+            + tuple(k[len("layers/"):] for k in bias_shapes(cfg)
+                    if k.startswith("layers/")))
 
 
 def _to_tensor(a: Any, device: torch.device,
@@ -46,9 +65,11 @@ def _expected_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
         "layers/attn_norm": (L, D), "layers/mlp_norm": (L, D),
         "layers/wq": (L, D, q), "layers/wk": (L, D, kv),
         "layers/wv": (L, D, kv), "layers/wo": (L, q, D),
-        "layers/w_gate": (L, D, F), "layers/w_up": (L, D, F),
-        "layers/w_down": (L, F, D),
+        "layers/w_up": (L, D, F), "layers/w_down": (L, F, D),
+        **bias_shapes(cfg),
     }
+    if cfg.mlp != "squared_relu":
+        shapes["layers/w_gate"] = (L, D, F)
     if not cfg.tie_word_embeddings:
         shapes["lm_head"] = (D, V)
     return shapes
@@ -106,38 +127,42 @@ def params_from_numpy(tree: Mapping[str, Any],
     """numpy parameter tree -> the port's parameter dict on ``device``.
 
     Raw leaves are cast to ``dtype``. Quantized projection leaves (the
-    reference's ``quantize_params`` output: int8 ``q``/``q4`` and float32
-    ``scale``/``gscale``/``gbias``/``pre_scale``) keep their dtypes, bit
-    for bit. Keys outside the llama-2 family (biases, experts, layernorm
-    offsets) are refused rather than dropped. With ``cfg`` every shape is
-    checked too."""
+    reference's ``quantize_params`` output, or a GPTQ/AWQ import: int8
+    ``q``/``q4`` and float32 ``scale``/``gscale``/``gbias``/``pre_scale``)
+    keep their dtypes, bit for bit. The layout is ``cfg``'s family
+    (llama-2's without a config): a key outside it (experts, or a bias
+    the config does not have) is refused rather than dropped, and with
+    ``cfg`` every shape is checked too."""
     dev = torch.device(device)
     layers_in = tree.get("layers")
     if not isinstance(layers_in, Mapping):
         raise ConfigError("parameter tree has no 'layers' mapping")
-    extra = set(layers_in) - set(_LAYER_KEYS)
-    missing = set(_LAYER_KEYS) - set(layers_in)
-    top_extra = set(tree) - {"embed", "layers", "final_norm", "lm_head"}
+    keys = layer_keys(cfg)
+    top = {"embed", "layers", "final_norm", "lm_head"}
+    if cfg is not None and cfg.norm == "layernorm1p":
+        top.add("final_norm_b")
+    extra = set(layers_in) - set(keys)
+    missing = set(keys) - set(layers_in)
+    top_extra = set(tree) - top
     if extra or missing or top_extra:
         raise ConfigError(
-            f"parameter tree is not a llama-2 layout: unexpected "
+            f"parameter tree is not this config's layout: unexpected "
             f"{sorted(extra | top_extra)}, missing {sorted(missing)}")
-    for name in ("embed", "final_norm", "attn_norm", "mlp_norm"):
-        leaf = tree[name] if name in tree else layers_in[name]
+    for name in _RAW_KEYS:
+        leaf = tree[name] if name in tree else layers_in.get(name)
         if isinstance(leaf, Mapping):
             raise ConfigError(f"{name} cannot be a quantized leaf")
     out: dict[str, Any] = {
         "embed": _to_tensor(tree["embed"], dev, dtype),
-        "layers": {k: _leaf(layers_in[k], dev, dtype) for k in _LAYER_KEYS},
+        "layers": {k: _leaf(layers_in[k], dev, dtype) for k in keys},
         "final_norm": _to_tensor(tree["final_norm"], dev, dtype),
     }
-    if "lm_head" in tree:
-        out["lm_head"] = _leaf(tree["lm_head"], dev, dtype)
+    for name in ("final_norm_b", "lm_head"):
+        if name in tree:
+            out[name] = _leaf(tree[name], dev, dtype)
     if cfg is not None:
-        flat = {"embed": out["embed"], "final_norm": out["final_norm"],
-                **{f"layers/{k}": v for k, v in out["layers"].items()}}
-        if "lm_head" in out:
-            flat["lm_head"] = out["lm_head"]
+        flat = {k: v for k, v in out.items() if k != "layers"}
+        flat.update({f"layers/{k}": v for k, v in out["layers"].items()})
         want = _expected_shapes(cfg)
         if set(flat) != set(want):
             raise ConfigError(f"parameter leaves {sorted(flat)} do not match "

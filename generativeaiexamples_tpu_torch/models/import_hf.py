@@ -11,11 +11,13 @@ is read (its raw bytes to the device, then the transpose and the cast
 there), so host memory holds about one tensor at a time (a 7B checkpoint
 would take ~27 GB of float32 host arrays the other way).
 
-Quantized (GPTQ, AWQ) and NeMo checkpoints are recognized and refused
-with ``UnsupportedFormatError``: their import waits in ``ROADMAP.md``
-A10. The format is read with the port's own safetensors reader
-(``models/safetensors.py``); no ``safetensors`` or ``transformers``
-package is needed.
+Quantized (GPTQ, AWQ) checkpoints go to ``models/import_quantized.py``
+and NeMo archives to ``models/import_nemo.py``, as the reference's
+``load_checkpoint`` sends them; a directory with no recognized files
+raises ``UnsupportedFormatError``. The format is read with the port's own
+safetensors reader (``models/safetensors.py``); no ``safetensors`` or
+``transformers`` package is needed. HF and Meta names are llama-2's: a
+GPT-Next checkpoint comes as a ``.nemo`` archive.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, ModelLoadError, UnsupportedFormatError
 from . import llama
 from .configs import LlamaConfig
-from .convert import _LAYER_KEYS, _expected_shapes
+from .convert import _expected_shapes, layer_keys
 from .safetensors import iter_file, tensor_names
 
 _HF_LAYER_KEYS = {
@@ -64,10 +66,6 @@ _META_LAYER_KEYS = {
 # Mixtral expert and router tensors: recognized so they are refused, not
 # skipped (the port serves dense llama geometries only).
 _MOE_RE = re.compile(r"block_sparse_moe\.")
-
-UNSUPPORTED_WHY = ("its import is not ported yet (ROADMAP.md A10: "
-                   "quantized and NeMo checkpoints)")
-
 
 def _unpermute_rope(w: torch.Tensor, n_heads: int,
                     head_dim: int) -> torch.Tensor:
@@ -116,8 +114,7 @@ def sniff_quantized_format(path: str) -> str:
 
 def detect_checkpoint_format(path: str) -> str:
     """Sniff a checkpoint directory by its files: 'safetensors',
-    'pytorch_bin' or 'meta_pth', or 'nemo', 'gptq', 'awq' (which
-    ``load_checkpoint`` refuses)."""
+    'pytorch_bin', 'meta_pth', 'nemo', 'gptq' or 'awq'."""
     if not os.path.isdir(path):
         raise ModelLoadError(f"checkpoint directory {path!r} does not exist")
     names = os.listdir(path)
@@ -196,7 +193,8 @@ def _iter_meta_pth(path: str) -> Iterator[tuple[str, torch.Tensor]]:
         yield key, parts[0] if dim is None else torch.cat(parts, dim=dim)
 
 
-# The formats ``load_checkpoint`` reads, and the reader of each.
+# The formats read through ``params_from_named_tensors``, and the reader
+# of each (GPTQ, AWQ and NeMo have importers of their own).
 LOADABLE_FORMATS: dict[str, Callable[[str], Iterator[tuple[str, Any]]]] = {
     "safetensors": _iter_safetensors,
     "pytorch_bin": _iter_torch_bin,
@@ -258,6 +256,9 @@ def params_from_named_tensors(
             continue
         name, idx, kind = spec
         flat = name if idx is None else f"layers/{name}"
+        if flat not in shapes:
+            raise ConfigError(f"{key}: the config's {cfg.mlp} MLP has no "
+                              f"{flat}")
         want = shapes[flat][1:] if idx is not None else shapes[flat]
         t = raw.detach().to(dev)
         if kind == "q":
@@ -285,7 +286,7 @@ def params_from_named_tensors(
                              f"layer's) {sorted(missing)}")
     params: llama.Params = {
         "embed": out["embed"],
-        "layers": {k: out[f"layers/{k}"] for k in _LAYER_KEYS},
+        "layers": {k: out[f"layers/{k}"] for k in layer_keys(cfg)},
         "final_norm": out["final_norm"],
     }
     if "lm_head" in out:
@@ -298,12 +299,16 @@ def load_checkpoint(path: str, cfg: LlamaConfig,
                     device: Union[str, torch.device] = "cuda"
                     ) -> llama.Params:
     """Load a checkpoint directory (its format sniffed) onto ``device`` in
-    ``dtype``. GPTQ, AWQ and NeMo directories raise
-    ``UnsupportedFormatError``."""
+    ``dtype``: GPTQ and AWQ through ``import_quantized`` (group-wise int4
+    leaves), a ``.nemo`` archive through ``import_nemo``, the rest by
+    name through ``params_from_named_tensors``."""
     fmt = detect_checkpoint_format(path)
-    if fmt not in LOADABLE_FORMATS:
-        raise UnsupportedFormatError(
-            f"{path} is a {fmt} checkpoint; {UNSUPPORTED_WHY}")
+    if fmt in ("gptq", "awq"):
+        from .import_quantized import load_quantized_checkpoint
+        return load_quantized_checkpoint(path, cfg, dtype, device, fmt=fmt)
+    if fmt == "nemo":
+        from .import_nemo import load_nemo_checkpoint
+        return load_nemo_checkpoint(path, cfg, dtype, device)
     return params_from_named_tensors(LOADABLE_FORMATS[fmt](path), cfg,
                                      dtype, device)
 

@@ -1,6 +1,7 @@
 """Llama-family decoder in PyTorch — port of the reference's
-``models/llama.py`` for the llama-2 geometry (rmsnorm, swiglu, no biases,
-dense MLP).
+``models/llama.py`` for its dense families: llama-2 (rmsnorm, swiglu, no
+biases) and GPT-Next/Nemotron (layernorm1p, squared-ReLU MLP without a
+gate, optional biases).
 
 Parameters are a plain dict of tensors keyed and shaped exactly like the
 reference's parameter tree, so weights carry across without transposes
@@ -11,8 +12,11 @@ forward is ``x @ W``:
   layers:
     attn_norm: (L, D)         mlp_norm: (L, D)
     wq: (L, D, H*hd)  wk: (L, D, KV*hd)  wv: (L, D, KV*hd)  wo: (L, H*hd, D)
-    w_gate/w_up: (L, D, F)    w_down: (L, F, D)
-  final_norm:  (D,)
+    w_gate/w_up: (L, D, F)    w_down: (L, F, D)   (no w_gate: squared_relu)
+    attn_norm_b/mlp_norm_b: (L, D)                 [layernorm1p]
+    bq: (L, H*hd)  bk/bv: (L, KV*hd)  bo: (L, D)   [attn_bias]
+    b_up: (L, F)   b_down: (L, D)                  [mlp_bias]
+  final_norm:  (D,)            final_norm_b: (D,)  [layernorm1p]
   lm_head:     (D, V)          (absent when embeddings are tied)
 
 After ``ops.quant.quantize_params`` each projection and ``lm_head`` is a
@@ -35,7 +39,7 @@ from ..ops.kv_quant import SCALE_DTYPE, dequantize_rows, quantize_rows
 from ..ops.paged_attention import paged_attention_decode
 from ..ops.quant import matmul as qmm
 from ..ops.quant import matmul_f32 as qmm_f32
-from ..ops.rmsnorm import rmsnorm
+from ..ops.rmsnorm import layernorm1p, rmsnorm
 from ..ops.rope import apply_rope, rope_frequencies
 from ..utils.errors import ConfigError
 from .configs import LlamaConfig
@@ -44,15 +48,43 @@ Params = dict[str, Any]
 KVCache = dict[str, torch.Tensor]  # {"k", "v"[, "ks", "vs"]}
 
 
+NORMS = ("rmsnorm", "layernorm1p")
+MLPS = ("swiglu", "squared_relu")
+
+
 def check_supported(cfg: LlamaConfig) -> None:
-    """This slice serves the llama-2 family only; other architecture
-    branches of the reference (MoE, layernorm1p, squared-ReLU, biases)
-    wait for later slices."""
-    if (cfg.num_experts or cfg.norm != "rmsnorm" or cfg.mlp != "swiglu"
-            or cfg.attn_bias or cfg.mlp_bias):
-        raise ConfigError(
-            "the port serves rmsnorm/swiglu llama geometries without "
-            "biases or experts; this config needs a later slice")
+    """The port serves the reference's dense families (llama-2 and
+    GPT-Next); mixture-of-experts configs wait for a later slice."""
+    if cfg.num_experts:
+        raise ConfigError("mixture-of-experts configs are not served by "
+                          "the port yet")
+    if cfg.norm not in NORMS or cfg.mlp not in MLPS:
+        raise ConfigError(f"unknown norm {cfg.norm!r} or mlp {cfg.mlp!r}; "
+                          f"known: {NORMS}, {MLPS}")
+
+
+def projection_keys(cfg: LlamaConfig) -> tuple[str, ...]:
+    """The layer's weight matrices, in forward order: six without a gate
+    (squared_relu), seven with one."""
+    mlp = (("w_up", "w_down") if cfg.mlp == "squared_relu"
+           else ("w_gate", "w_up", "w_down"))
+    return ("wq", "wk", "wv", "wo") + mlp
+
+
+def bias_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
+    """Every bias and norm-offset leaf ``cfg`` adds (layer leaves keyed
+    ``layers/...``), with its shape."""
+    D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    out: dict[str, tuple[int, ...]] = {}
+    if cfg.norm == "layernorm1p":
+        out.update({"layers/attn_norm_b": (L, D),
+                    "layers/mlp_norm_b": (L, D), "final_norm_b": (D,)})
+    if cfg.attn_bias:
+        out.update({"layers/bq": (L, cfg.q_dim), "layers/bk": (L, cfg.kv_dim),
+                    "layers/bv": (L, cfg.kv_dim), "layers/bo": (L, D)})
+    if cfg.mlp_bias and cfg.mlp == "squared_relu":
+        out.update({"layers/b_up": (L, F), "layers/b_down": (L, D)})
+    return out
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0,
@@ -79,22 +111,32 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
                             * fan_in ** -0.5)
         return out
 
+    # layernorm1p stores its weights centred at 0 (applied as 1 + w).
+    norm_w = torch.zeros if cfg.norm == "layernorm1p" else torch.ones
     layers = {
-        "attn_norm": torch.ones((L, D), dtype=dtype, device=device),
-        "mlp_norm": torch.ones((L, D), dtype=dtype, device=device),
+        "attn_norm": norm_w((L, D), dtype=dtype, device=device),
+        "mlp_norm": norm_w((L, D), dtype=dtype, device=device),
         "wq": norm((L, D, H * hd), D),
         "wk": norm((L, D, KV * hd), D),
         "wv": norm((L, D, KV * hd), D),
         "wo": norm((L, H * hd, D), H * hd),
-        "w_gate": norm((L, D, F), D),
-        "w_up": norm((L, D, F), D),
-        "w_down": norm((L, F, D), F),
     }
+    if cfg.mlp != "squared_relu":
+        layers["w_gate"] = norm((L, D, F), D)
+    layers["w_up"] = norm((L, D, F), D)
+    layers["w_down"] = norm((L, F, D), F)
     params: Params = {
         "embed": norm((V, D), D),
         "layers": layers,
-        "final_norm": torch.ones((D,), dtype=dtype, device=device),
+        "final_norm": norm_w((D,), dtype=dtype, device=device),
     }
+    # Biases and norm offsets start at zero, as the reference's do.
+    for key, shape in bias_shapes(cfg).items():
+        t = torch.zeros(shape, dtype=dtype, device=device)
+        if key.startswith("layers/"):
+            layers[key[len("layers/"):]] = t
+        else:
+            params[key] = t
     if not cfg.tie_word_embeddings:
         params["lm_head"] = norm((D, V), D)
     return params
@@ -155,14 +197,27 @@ def kv_cache_quantized(kv_cache: KVCache) -> bool:
     return "ks" in kv_cache
 
 
-def _dense_mlp(x: torch.Tensor, lp: dict[str, Any]) -> torch.Tensor:
+def _dense_mlp(x: torch.Tensor, lp: dict[str, Any],
+               cfg: LlamaConfig) -> torch.Tensor:
+    if cfg.mlp == "squared_relu":
+        # GPT-Next: relu(x W_up + b_up)^2 W_down + b_down, no gate.
+        up = qmm(x, lp["w_up"])
+        if "b_up" in lp:
+            up = up + lp["b_up"]
+        out = qmm(torch.relu(up).square(), lp["w_down"])
+        if "b_down" in lp:
+            out = out + lp["b_down"]
+        return out
     gate = torch.nn.functional.silu(qmm(x, lp["w_gate"]))
     return qmm(gate * qmm(x, lp["w_up"]), lp["w_down"])
 
 
 def block_norm(x: torch.Tensor, lp: dict[str, Any], key: str,
                cfg: LlamaConfig) -> torch.Tensor:
-    """The per-block normalization (rmsnorm for this family)."""
+    """The per-block normalization: rmsnorm (llama) or layernorm1p
+    (GPT-Next), by config."""
+    if cfg.norm == "layernorm1p":
+        return layernorm1p(x, lp[key], lp[key + "_b"], cfg.rms_norm_eps)
     return rmsnorm(x, lp[key], cfg.rms_norm_eps)
 
 
@@ -182,9 +237,12 @@ def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
     cache raises."""
     B, S, _ = h.shape
     x = block_norm(h, lp, "attn_norm", cfg)
-    q = qmm(x, lp["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = qmm(x, lp["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = qmm(x, lp["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = qmm(x, lp["wq"]), qmm(x, lp["wk"]), qmm(x, lp["wv"])
+    if "bq" in lp:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     q, k = apply_rope(q, k, positions, inv_freq)
     if attend is not None:
         attn = attend(q, k, v)
@@ -196,14 +254,20 @@ def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
         attn = gqa_attention(q, kc, vc, positions, kv_valid_len)
     else:
         attn = gqa_attention(q, k, v, positions, kv_valid_len)
-    h = h + qmm(attn.reshape(B, S, cfg.q_dim), lp["wo"])
+    attn_out = qmm(attn.reshape(B, S, cfg.q_dim), lp["wo"])
+    if "bo" in lp:
+        attn_out = attn_out + lp["bo"]
+    h = h + attn_out
     x = block_norm(h, lp, "mlp_norm", cfg)
-    return h + _dense_mlp(x, lp)
+    return h + _dense_mlp(x, lp, cfg)
 
 
 def unembed_norm(params: Params, cfg: LlamaConfig,
                  h: torch.Tensor) -> torch.Tensor:
     """The final-norm half of ``unembed``."""
+    if cfg.norm == "layernorm1p":
+        return layernorm1p(h, params["final_norm"], params["final_norm_b"],
+                           cfg.rms_norm_eps)
     return rmsnorm(h, params["final_norm"], cfg.rms_norm_eps)
 
 

@@ -17,8 +17,15 @@ plain version only for CPU tensors. The paths:
 - ``"tile"``: everything else (float32 x at M > 8, or a bf16 shape the
   tensor-core paths refuse), a tiled fp32 product.
 
+GPTQ's zero points (``gbias``, (G, N) float32 beside grouped scales) add
+``sum_g (sum_{k in g} x[m, k]) * gbias[g, n]``; the tensor-core paths
+("tc", "wg") add it per stage inside the kernel, and the float32 paths
+("gemv", "tile") refuse it with ``ConfigError`` (the engine refuses such
+a leaf on the card unless it lands on a tensor-core path).
+
 Each launch adds one to ``int4_matmul.launches`` and to its path's entry
-of ``int4_matmul.launches_by_path``. ``int4_matmul_plain`` unpacks the
+of ``int4_matmul.launches_by_path`` (and a launch with ``gbias`` to
+``int4_matmul.gbias_launches``). ``int4_matmul_plain`` unpacks the
 nibbles and computes what ``ops/quant.py``'s XLA-style branches compute:
 a float32 dot with the per-channel scale after it, or per-group float32
 partial dots times their scales (``_grouped_matmul``). Every path sums in
@@ -33,6 +40,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from ..utils.errors import ConfigError
 
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _INT32_MAX = 2 ** 31 - 1
@@ -94,16 +103,21 @@ def _path(M: int, K: int, N: int, group: int, x_dtype: torch.dtype) -> str:
     (float32 x keeps full precision: tensor cores would round it to TF32),
     which needs ``N % 4 == 0`` and an even group; the rest to the tiled
     path, which takes any shape."""
-    tensor_cores = (x_dtype == torch.bfloat16 and K % 16 == 0
-                    and N % 16 == 0
-                    and (group == K or group % _TC_GROUP == 0))
+    on_tc = tensor_cores(K, N, group, x_dtype)
     if M > _DECODE_MAX_M:
-        return "wg" if tensor_cores else "tile"
-    if tensor_cores:
+        return "wg" if on_tc else "tile"
+    if on_tc:
         return "tc"
     if N % 4 == 0 and group % 2 == 0:
         return "gemv"
     return "tile"
+
+
+def tensor_cores(K: int, N: int, group: int, x_dtype: torch.dtype) -> bool:
+    """Whether ``_path`` sends this geometry to a tensor-core path ("tc"
+    at M <= 8, "wg" above) at every M: the paths that apply ``gbias``."""
+    return (x_dtype == torch.bfloat16 and K % 16 == 0 and N % 16 == 0
+            and (group == K or group % _TC_GROUP == 0))
 
 
 def _check_args(x, q4, scale, out_dtype) -> None:
@@ -165,7 +179,7 @@ def _kernel():
     if _fn is None:
         from ..kernels import build
         fn = build.load("int4_matmul").int4_matmul
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
                        + [ctypes.c_longlong, ctypes.c_void_p]
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -173,7 +187,24 @@ def _kernel():
     return _fn
 
 
+def _check_gbias(gbias: torch.Tensor, scale: torch.Tensor) -> None:
+    """GPTQ zero points sit beside grouped scales: the same (G, N) float32
+    shape, device and row stride (a vocab slice of both is read at the
+    scales' stride)."""
+    if scale.dim() != 2:
+        raise ValueError("gbias needs grouped (G, N) scales")
+    if (gbias.shape != scale.shape or gbias.dtype != torch.float32
+            or gbias.device != scale.device):
+        raise ValueError(f"gbias {tuple(gbias.shape)} {gbias.dtype} must "
+                         f"match the float32 scales {tuple(scale.shape)}")
+    if gbias.stride(-1) != 1 or (scale.shape[0] > 1
+                                 and gbias.stride(0) != scale.stride(0)):
+        raise ValueError(f"gbias strides {gbias.stride()} differ from the "
+                         f"scales' {scale.stride()}")
+
+
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
+                gbias: Optional[torch.Tensor] = None,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x @ unpack(q4) * scale`` without materializing the unpacked
     weight.
@@ -183,15 +214,23 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
                row 2r in the low nibble, row 2r+1 in the high one)
     scale:     (N,) per-output-channel, or (G, N) per group of K/G
                reduction rows (AWQ), float32
-    q4 and a (G, N) scale may be column slices of wider tensors (an
-    lm_head vocab tile): their rows are read in place at their stride,
-    never copied. A stride the launched path cannot take raises.
+    gbias:     optional (G, N) float32 GPTQ zero points beside grouped
+               scales: adds ``sum_g (sum_{k in g} x[m, k]) * gbias[g, n]``
+    q4 and a (G, N) scale (and gbias) may be column slices of wider
+    tensors (an lm_head vocab tile): their rows are read in place at
+    their stride, never copied. A stride the launched path cannot take
+    raises.
     out_dtype: bfloat16 or float32 (default: x's dtype)
     Returns (..., N). CPU tensors take the plain version; CUDA tensors
-    launch the kernel path ``_path`` names (or raise)."""
+    launch the kernel path ``_path`` names (or raise). Only the
+    tensor-core paths apply ``gbias``: on "gemv" or "tile" it raises
+    ``ConfigError``."""
     _check_args(x, q4, scale, out_dtype)
+    if gbias is not None:
+        _check_gbias(gbias, scale)
     if x.device.type == "cpu":
-        return int4_matmul_plain(x, q4, scale, out_dtype=out_dtype)
+        return int4_matmul_plain(x, q4, scale, gbias=gbias,
+                                 out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     K2, N = q4.shape
@@ -211,16 +250,22 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"M={M} K={K} N={N} overflows the kernel's 32-bit "
                          f"offsets")
     path = _path(M, K, N, K // G, x.dtype)
+    if gbias is not None and path not in ("tc", "wg"):
+        raise ConfigError(f"GPTQ zero points (gbias) run on the tensor-core "
+                          f"paths only (bfloat16 x, K and N multiples of 16, "
+                          f"groups of a multiple of {_TC_GROUP}); this call "
+                          f"takes {path!r}")
     ldq, lds = _strides(q4, scale, path)
     if path != "tile":
         # The "gemv" path loads q4 as 4-byte words; the tensor-core paths
         # copy 16-byte pieces of q4, x and the scales ("wg" by TMA, which
         # needs 16-byte aligned tensors). x is realigned; a weight or its
         # scales are not copied.
-        tensor_cores = path in ("tc", "wg")
-        align = 16 if tensor_cores else 4
-        if q4.data_ptr() % align or (tensor_cores
-                                     and scale.data_ptr() % 16):
+        on_tc = path in ("tc", "wg")
+        align = 16 if on_tc else 4
+        if q4.data_ptr() % align or (on_tc and (
+                scale.data_ptr() % 16 or (gbias is not None
+                                          and gbias.data_ptr() % 16))):
             raise ValueError(f"the {path!r} path needs q4 (and, on tensor "
                              f"cores, the scales) on a {align}-byte "
                              f"boundary")
@@ -236,7 +281,9 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
             err = _kernel()(
                 _PATHS[path], _KERNEL_DTYPES[x.dtype],
                 _KERNEL_DTYPES[out_dtype], x2.data_ptr(), q4.data_ptr(),
-                scale.data_ptr(), out.data_ptr(),
+                scale.data_ptr(),
+                gbias.data_ptr() if gbias is not None else None,
+                out.data_ptr(),
                 ws.data_ptr() if ws is not None else None,
                 ws.numel() if ws is not None else 0,
                 counters.data_ptr() if counters is not None else None,
@@ -247,23 +294,30 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
                                f"with CUDA error {err}")
         int4_matmul.launches += 1
         int4_matmul.launches_by_path[path] += 1
+        if gbias is not None:
+            int4_matmul.gbias_launches += 1
     return out.reshape(*lead, N)
 
 
-# Kernel launches since the count was last set to 0, in all and by path
-# (CPU calls don't count).
+# Kernel launches since the count was last set to 0, in all, by path and
+# with zero points (CPU calls don't count).
 int4_matmul.launches = 0
 int4_matmul.launches_by_path = {path: 0 for path in _PATHS}
+int4_matmul.gbias_launches = 0
 
 
 def int4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
-                      *, out_dtype: Optional[torch.dtype] = None
+                      *, gbias: Optional[torch.Tensor] = None,
+                      out_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
     """Plain PyTorch version: unpack, then a float32 dot with the
     per-channel scale after it, or per-group float32 partial dots times
-    their scales (``quant._grouped_matmul``)."""
+    their scales plus the zero-point term (``quant._grouped_matmul``)."""
     from .quant import _dot_f32, _grouped_matmul, _unpack4
     q = _unpack4(q4)
     if scale.dim() == 2:
-        return _grouped_matmul(x, q, {"gscale": scale}, out_dtype=out_dtype)
+        w = {"gscale": scale}
+        if gbias is not None:
+            w["gbias"] = gbias
+        return _grouped_matmul(x, q, w, out_dtype=out_dtype)
     return (_dot_f32(x, q) * scale).to(out_dtype or x.dtype)

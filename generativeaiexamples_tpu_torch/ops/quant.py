@@ -24,7 +24,6 @@ from typing import Any, Optional, Union
 
 import torch
 
-from ..utils.errors import ConfigError
 
 QTensor = dict[str, torch.Tensor]
 
@@ -146,20 +145,19 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _int4(x: torch.Tensor, w: QTensor,
           out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     """An int4 leaf's product through ``ops/int4_matmul.py``. AWQ's
-    activation smoothing folds into the inputs; GPTQ's ``gbias`` term is
-    not in the kernel, so such a leaf is refused on the card."""
+    activation smoothing folds into the inputs; GPTQ's zero-point term
+    (``gbias``) goes to the kernel, which adds it per group. On the CPU a
+    GPTQ leaf keeps the reference's ``_grouped_matmul`` (its zero-point
+    term sums the float32 inputs)."""
     from .int4_matmul import int4_matmul
-    if "gbias" in w:
-        if x.is_cuda:
-            raise ConfigError("int4 weights with GPTQ zero points (gbias) "
-                              "are not served by the int4 kernel")
-        out = _grouped_matmul(x, _unpack4(w["q4"]), w, out_dtype=out_dtype)
-        return out
+    if "gbias" in w and not x.is_cuda:
+        return _grouped_matmul(x, _unpack4(w["q4"]), w, out_dtype=out_dtype)
     xin = x
     if "pre_scale" in w:
         xin = (x.float() * w["pre_scale"]).to(x.dtype)
     scale = w["gscale"] if is_grouped(w) else w["scale"]
-    return int4_matmul(xin, w["q4"], scale, out_dtype=out_dtype)
+    return int4_matmul(xin, w["q4"], scale, gbias=w.get("gbias"),
+                       out_dtype=out_dtype)
 
 
 def matmul(x: torch.Tensor, w: Union[torch.Tensor, QTensor]) -> torch.Tensor:

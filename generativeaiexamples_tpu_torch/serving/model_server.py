@@ -9,11 +9,19 @@ With ``--model-path`` (default ``$MODEL_PATH``) ``build_services`` follows
 the reference's order: the tokenizer from the directory
 (``tokenizer.model``, else ``tokenizer.json``), the weights loaded onto
 the device in the engine's dtype (``models/import_hf.py``: safetensors,
-``pytorch_model*.bin`` or Meta ``consolidated.*.pth``; quantized and NeMo
-directories are refused), then, with ``--quantization``, quantized there.
-The geometry is the registry model's, overridden by the directory's
-``config.json`` where it has one. Without a path the server makes random
-weights on the device from ``--seed`` and serves the byte tokenizer.
+``pytorch_model*.bin`` or Meta ``consolidated.*.pth``; GPTQ and AWQ
+directories through ``models/import_quantized.py``, a ``.nemo`` archive
+through ``models/import_nemo.py``), then, with ``--quantization``,
+quantized there. The geometry is the registry model's, overridden by the
+directory's ``config.json`` (or a ``.nemo``'s ``model_config.yaml``)
+where it has one. The served tree is cached on disk
+(``models/weight_cache.py``) under ``name-dtype-quant-hash``, the hash
+being the directory's content hash (``fast_hash_dir``), so a restart
+skips the conversion; ``GAIE_SKIP_HASH=1`` skips both the hash and the
+cache, ``GAIE_WEIGHT_CACHE=0`` the cache. Without a path the server makes
+random weights on the device from ``--seed`` and serves the byte
+tokenizer. ``nemotron-8b-chat`` serves the GPT-Next family
+(layernorm1p, squared-ReLU MLP).
 
 The embedder behind ``/v1/embeddings`` (``build_embedder``) is the
 e5-large-v2 checkpoint in ``--embedder-path``, else ``encoder-tiny`` with
@@ -40,6 +48,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import hashlib
 import os
 import tempfile
 import time
@@ -51,12 +60,11 @@ import torch
 from aiohttp import web
 
 from ..engine.engine import _DTYPES, Engine, EngineConfig
-from ..models import llama
+from ..models import llama, weight_cache
 from ..models.configs import (LlamaConfig, config_for_checkpoint,
                               get_model_config)
-from ..models.import_hf import (LOADABLE_FORMATS, UNSUPPORTED_WHY,
-                                detect_checkpoint_format, load_checkpoint)
-from ..models.tokenizer import get_tokenizer
+from ..models.import_hf import detect_checkpoint_format, load_checkpoint
+from ..models.tokenizer import Tokenizer, get_tokenizer
 from ..obs import alerts as obs_alerts
 from ..obs import flight as obs_flight
 from ..obs import history as obs_history
@@ -65,10 +73,32 @@ from ..obs import metrics as obs_metrics
 from ..obs import rounds as obs_rounds
 from ..ops.quant import MODES, quantize_params, weight_mode
 from ..utils.device import resolve_device
-from ..utils.errors import ConfigError, UnsupportedFormatError
+from ..utils.errors import ConfigError
 from ..utils.logging import bootstrap_logging, get_logger, write_pid_file
 
 logger = get_logger(__name__)
+
+
+def fast_hash_dir(path: str, workers: int = 8) -> str:
+    """Content hash of a model directory: the sha1 of every file (read in
+    parallel), joined in path order with the relative paths (the
+    reference's ``fast_hash_dir``)."""
+    files = sorted(os.path.join(root, n) for root, _, names in os.walk(path)
+                   for n in names)
+
+    def hash_one(p: str) -> str:
+        h = hashlib.sha1()
+        with open(p, "rb") as f:
+            for block in iter(lambda: f.read(1 << 20), b""):
+                h.update(block)
+        return h.hexdigest()
+
+    top = hashlib.sha1()
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for p, digest in zip(files, pool.map(hash_one, files)):
+            top.update(os.path.relpath(p, path).encode())
+            top.update(digest.encode())
+    return top.hexdigest()
 
 
 def awq_group(cfg: LlamaConfig) -> int:
@@ -84,21 +114,34 @@ def awq_group(cfg: LlamaConfig) -> int:
     return group
 
 
+# What the last ``build_services`` with a model path did: the checkpoint
+# format, the cache identity (None without a content hash), whether the
+# tree came from the weight cache, and the load seconds (conversion or
+# cache read, to the device).
+last_load: dict = {}
+
+
 def build_services(model_name: str = "llama-2-7b-chat", *,
                    engine_cfg: EngineConfig = EngineConfig(),
                    seed: int = 0,
                    device: Union[str, torch.device] = "cuda",
-                   tokenizer: str = "byte",
+                   tokenizer: Union[str, Tokenizer] = "byte",
                    quantization: str = "",
                    model_path: str = "") -> tuple[Engine, str]:
     """An engine for registry model ``model_name`` in the engine config's
-    dtype on ``device``: with ``model_path``, the checkpoint there and its
-    own tokenizer (the geometry from its ``config.json`` where it has
-    one); else random weights made on the device from ``seed`` and the
-    ``tokenizer`` spec. With ``quantization`` (one of
+    dtype on ``device``: with ``model_path``, the checkpoint there
+    (HF, Meta, GPTQ, AWQ or ``.nemo``; the geometry from its
+    ``config.json`` or ``model_config.yaml`` where it has one) and its own
+    tokenizer; else random weights made on the device from ``seed`` and
+    the ``tokenizer`` spec. A ``Tokenizer`` object passed as
+    ``tokenizer`` is used either way. With ``quantization`` (one of
     ``ops.quant.MODES``) the weights are quantized on the device
-    (int4_awq groups: ``awq_group``). The KV pool's mode is
-    ``engine_cfg.kv_quant``. Returns (engine, model name)."""
+    (int4_awq groups: ``awq_group``; leaves a GPTQ/AWQ checkpoint
+    quantized already stay as they are). A checkpoint's served tree goes
+    through the weight cache, keyed ``name-dtype-quant-hash``
+    (``GAIE_SKIP_HASH`` skips the hash and the cache,
+    ``GAIE_WEIGHT_CACHE=0`` the cache and so the hash). The KV pool's mode
+    is ``engine_cfg.kv_quant``. Returns (engine, model name)."""
     if quantization and quantization not in MODES:
         raise ValueError(f"quantization={quantization!r}: use one of "
                          f"{MODES} or ''")
@@ -106,24 +149,64 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
     cfg = get_model_config(model_name)
     dtype = _DTYPES[engine_cfg.dtype]
     if model_path:
-        # The format first: a refused checkpoint fails before anything
-        # else is read.
+        # The format first: an unrecognised directory fails before
+        # anything else is read.
         fmt = detect_checkpoint_format(model_path)
-        if fmt not in LOADABLE_FORMATS:
-            raise UnsupportedFormatError(
-                f"{model_path} is a {fmt} checkpoint; {UNSUPPORTED_WHY}")
         cfg = config_for_checkpoint(model_path, cfg)
-        tok = get_tokenizer(model_path)
-        params = load_checkpoint(model_path, cfg, dtype=dtype, device=dev)
+        llama.check_supported(cfg)
+        tok = (tokenizer if not isinstance(tokenizer, str)
+               else get_tokenizer(model_path))
+        params = _load_served_tree(model_name, model_path, fmt, cfg,
+                                   engine_cfg.dtype, quantization, dev)
     else:
-        tok = get_tokenizer(tokenizer)
+        tok = (get_tokenizer(tokenizer) if isinstance(tokenizer, str)
+               else tokenizer)
         params = llama.init_params(cfg, seed=seed, dtype=dtype, device=dev)
-    if quantization:
-        group = awq_group(cfg) if quantization == "int4_awq" else 128
-        params = quantize_params(params, mode=quantization, group_size=group)
+        if quantization:
+            params = _quantize(params, cfg, quantization)
     engine = Engine(params, cfg, tok,
                     dataclasses.replace(engine_cfg, seed=seed), device=dev)
     return engine, model_name
+
+
+def _quantize(params: llama.Params, cfg: LlamaConfig,
+              quantization: str) -> llama.Params:
+    group = awq_group(cfg) if quantization == "int4_awq" else 128
+    return quantize_params(params, mode=quantization, group_size=group)
+
+
+def _load_served_tree(model_name: str, model_path: str, fmt: str,
+                      cfg: LlamaConfig, dtype: str, quantization: str,
+                      dev: torch.device) -> llama.Params:
+    """The served tree of a checkpoint: loaded (and quantized) on the
+    device, or read back from the weight cache when the directory's
+    content hash names an entry."""
+    def convert() -> llama.Params:
+        p = load_checkpoint(model_path, cfg, dtype=_DTYPES[dtype],
+                            device=dev)
+        return _quantize(p, cfg, quantization) if quantization else p
+
+    t0 = time.monotonic()
+    base = f"{model_name}-{dtype}-{quantization or 'raw'}"
+    identity, from_cache = None, False
+    if os.environ.get("GAIE_SKIP_HASH") or not weight_cache.enabled():
+        # Without the content hash an updated checkpoint at the same path
+        # would be served stale from the cache: skip both. With the cache
+        # off the hash names nothing: skip it too.
+        params = convert()
+    else:
+        identity = f"{base}-{fast_hash_dir(model_path)[:12]}"
+        params, from_cache = weight_cache.cached_or_convert(
+            identity, convert, prune_prefix=base + "-", device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    last_load.clear()
+    last_load.update(format=fmt, identity=identity, from_cache=from_cache,
+                     seconds=time.monotonic() - t0)
+    logger.info("model %s (%s) loaded in %.1f s%s", model_path, fmt,
+                last_load["seconds"],
+                " from the weight cache" if from_cache else "")
+    return params
 
 
 def build_embedder(embedder_path: str = "",
@@ -315,13 +398,16 @@ def add_profiler_routes(app: web.Application, engine: Engine) -> None:
 
 
 def create_server_app(engine: Engine, embed_service=None,
-                      model_name: str = "model") -> web.Application:
+                      model_name: str = "model", *,
+                      close_engine: bool = False) -> web.Application:
     """One app over one engine (and optional embedder): ``/health``, the
     OpenAI routes,
     ``/v1/score``, ``/metrics``, the ``/debug/*`` and ``/control/incident``
     routes and the profiler routes (see the module docstring). The
     retained telemetry's sampler starts with the app and stops at its
-    cleanup, as does the engine."""
+    cleanup, as does the engine; with ``close_engine`` the cleanup
+    closes it (``Engine.close``: its device memory goes back), as the
+    CLI's shutdown does."""
     from .openai_api import add_openai_routes
 
     app = web.Application()
@@ -379,7 +465,10 @@ def create_server_app(engine: Engine, embed_service=None,
 
     async def _cleanup(_app) -> None:
         obs_stack.stop()
-        engine.stop()
+        if close_engine:
+            engine.close()
+        else:
+            engine.stop()
 
     app.router.add_get("/health", health)
     app.router.add_get("/metrics", metrics_endpoint)
@@ -406,10 +495,11 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--model-path",
                         default=os.environ.get("MODEL_PATH", ""),
                         help="checkpoint directory (safetensors, "
-                             "pytorch_model*.bin or Meta .pth, with its "
-                             "tokenizer.model or tokenizer.json); default "
-                             "$MODEL_PATH; none: random weights from "
-                             "--seed and the byte tokenizer")
+                             "pytorch_model*.bin, Meta .pth, GPTQ, AWQ or "
+                             "a .nemo archive, with its tokenizer.model "
+                             "or tokenizer.json); default $MODEL_PATH; "
+                             "none: random weights from --seed and the "
+                             "byte tokenizer")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--dtype", default="bfloat16",
@@ -462,5 +552,6 @@ def main(argv: Optional[list[str]] = None) -> None:
     # traffic; the pool shrinks if the card runs out of memory.
     engine.prewarm()
     engine.start()
-    web.run_app(create_server_app(engine, embed_service, name),
+    web.run_app(create_server_app(engine, embed_service, name,
+                                  close_engine=True),
                 host=args.host, port=args.port)

@@ -7,8 +7,10 @@
         [--chunk C --prefix P] [--eager] [--dispatch-depth 2[,1,...]] \\
         [--materialized-tail] [--tail-tiles 4000,8000,16000] [--spec]
 
-Builds the port's engine (random bf16 weights from ``--seed``, quantized
-on the device with ``--quantization``, over a ``--kv-quant`` pool), fills
+Builds the port's engine for ``--model`` (a registry name: llama-2-7b-chat
+by default, or nemotron-8b-chat for the GPT-Next family; random bf16
+weights from ``--seed``, quantized on the device with ``--quantization``,
+over a ``--kv-quant`` pool), fills
 every slot with a ``--prompt-len`` prompt, and drives the serve loop's
 ``_step`` on this thread: after a warm-up round it times ``--rounds``
 decode rounds of ``--steps`` steps with the host clock (each round ends
@@ -512,16 +514,11 @@ def measure_verify(engine, prompt_len: int, rounds: int, seed: int = 0,
                for _ in range(B)]
     # Admission under an unbounded budget (put back after), so the slots
     # arm within a few steps and none runs out of tokens meanwhile.
-    sched = engine._sched
-    pinned = (sched._budget_pinned, sched.round_budget_tokens)
-    sched._budget_pinned, sched.round_budget_tokens = True, 1 << 20
-    try:
+    with engine.pinned_round_budget(1 << 20):
         for _ in range(8 * B):
             if all(s.token_ids for s in streams):
                 break
             engine._step()
-    finally:
-        sched._budget_pinned, sched.round_budget_tokens = pinned
     members = engine._armed()
     if len(members) != B:
         raise RuntimeError(f"{len(members)} of {B} slots armed")

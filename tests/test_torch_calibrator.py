@@ -125,6 +125,27 @@ def test_scheduler_recalibrate_moves_unpinned_budget_only():
         (sched.round_budget_tokens, sched.chunk_tokens)
 
 
+def test_pinned_budget_holds_then_lets_go():
+    """``pinned_budget`` holds the budget where it stands (or at a given
+    value) through new evidence, and afterwards the calibrator moves it
+    again."""
+    prior = StepCostModel(decode_step_ms=100.0, prefill_ms_per_token=0.01)
+    cal = OnlineCalibrator(prior, warmup=1)
+    sched = TokenBudgetScheduler(prior, page_size=PAGE, steps_per_round=4,
+                                 calibrator=cal)
+    big = sched.round_budget_tokens
+    with sched.pinned_budget() as held:
+        assert held == big
+        for _ in range(50):
+            cal.observe_decode(4, 8.0)
+            cal.observe_prefill(16, 2.0)
+        assert not sched.recalibrate() and sched.round_budget_tokens == big
+        with sched.pinned_budget(1) as low:
+            assert low == PAGE == sched.round_budget_tokens
+        assert sched.round_budget_tokens == big
+    assert sched.recalibrate() and sched.round_budget_tokens < big
+
+
 def _engine(monkeypatch, calib: str, **kw):
     monkeypatch.setenv("SCHED_ONLINE_CALIB", calib)
     params = llama.init_params(LLAMA_TINY, seed=5, dtype=torch.float32)

@@ -597,8 +597,14 @@ def test_int4_path_refuses_a_shape_outside_its_gate(dev, monkeypatch):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     err = ti4._kernel()(
         ti4._PATHS["wg"], 0, 0, x.data_ptr(), q4.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), None, 0, None, 0, M, K, N, 128, N,
-        N, torch.cuda.current_stream().cuda_stream)
+        scale.data_ptr(), None, out.data_ptr(), None, 0, None, 0, M, K, N,
+        128, N, N, torch.cuda.current_stream().cuda_stream)
+    assert err == 1
+    # Zero points on a path without the term: refused as well.
+    err = ti4._kernel()(
+        ti4._PATHS["tile"], 0, 0, x.data_ptr(), q4.data_ptr(),
+        scale.data_ptr(), scale.data_ptr(), out.data_ptr(), None, 0, None,
+        0, M, K, N, 128, N, N, torch.cuda.current_stream().cuda_stream)
     assert err == 1
     monkeypatch.setattr(ti4, "_path", lambda *args: "wg")
     before = dict(ti4.int4_matmul.launches_by_path)
@@ -691,9 +697,82 @@ def test_int4_kernel_leading_dims_and_quant_matmul(dev):
     assert got.shape == (2, 3, 64)
     torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(),
                                rtol=1e-4)
+    # GPTQ zero points: float32 x (the "gemv"/"tile" paths) refuses them;
+    # bf16 x over groups of 128 runs them through the kernel's
+    # tensor-core paths, equal to the reference's _grouped_matmul.
     leaf["gbias"] = torch.zeros_like(leaf["gscale"])
     with pytest.raises(ConfigError, match="gbias"):
         quant.matmul(x, leaf)
+    w = (torch.randn(256, 64, generator=g) * 0.05).to(dev)
+    gl = dict(quant.quantize_tensor_grouped(w, 128))
+    gl["gbias"] = torch.randn(gl["gscale"].shape, generator=g).to(dev) \
+        * gl["gscale"]
+    for M in (3, 40):
+        xb = torch.randn(2, M, 256, generator=g).to(dev).to(torch.bfloat16)
+        n0 = ti4.int4_matmul.gbias_launches
+        got = quant.matmul_f32(xb, gl)
+        assert ti4.int4_matmul.gbias_launches == n0 + 1
+        ref = quant._grouped_matmul(xb, quant._unpack4(gl["q4"]), gl,
+                                    out_dtype=torch.float32)
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-4 * ref.abs().max().item())
+
+
+# GPTQ zero points on the tensor-core paths: (M, K, N); "tc" at M <= 8,
+# "wg" above, with K past one stage, a ragged token tile and a head
+# tile's width.
+GBIAS_CASES = [(1, 256, 128), (8, 1024, 384), (5, 4096, 16000),
+               (9, 512, 256), (64, 1024, 384), (200, 384, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", GBIAS_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_int4_gbias_matches_plain(dev, M, K, N, out_dtype):
+    """#3 with GPTQ zero points against its plain version (the
+    reference's _grouped_matmul, which sums float32 x: here the same bf16
+    x widened, so only the fp32 order differs): float32 out rtol 1e-4,
+    bf16 out rtol 1e-2, atol 1e-4 * max|ref|. The launch counts under
+    its path and with zero points."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    g = torch.Generator().manual_seed(M * 7 + K)
+    q = torch.randint(-8, 8, (K, N), generator=g, dtype=torch.int8)
+    q4 = ((q[0::2] & 0x0F) | (q[1::2] << 4)).to(dev)
+    s = (torch.rand((K // 128, N), generator=g) + 0.5).to(dev) * 0.01
+    zb = (7 - torch.randint(0, 16, s.shape, generator=g)).to(dev) * s
+    x = torch.randn(M, K, generator=g).to(dev).to(torch.bfloat16)
+    path = "tc" if M <= 8 else "wg"
+    n0 = (ti4.int4_matmul.launches_by_path[path],
+          ti4.int4_matmul.gbias_launches)
+    got = ti4.int4_matmul(x, q4, s, gbias=zb, out_dtype=out_dtype)
+    assert (ti4.int4_matmul.launches_by_path[path],
+            ti4.int4_matmul.gbias_launches) == (n0[0] + 1, n0[1] + 1)
+    ref = ti4.int4_matmul_plain(x, q4, s, gbias=zb, out_dtype=out_dtype)
+    rtol = 1e-4 if out_dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=1e-4 * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_int4_gbias_reads_a_head_tile_in_place(dev):
+    """A vocab slice of a GPTQ head (q4, scales and zero points read at
+    the head's row stride, never copied) equals the plain version on
+    contiguous copies."""
+    from generativeaiexamples_tpu_torch.ops import int4_matmul as ti4
+    g = torch.Generator().manual_seed(3)
+    K, V, t0, tile = 512, 4096, 1024, 1024
+    q4 = torch.randint(-128, 128, (K // 2, V), generator=g,
+                       dtype=torch.int8).to(dev)
+    s = (torch.rand((K // 128, V), generator=g) * 0.01).to(dev)
+    zb = torch.randn((K // 128, V), generator=g).to(dev) * s
+    x = torch.randn(4, K, generator=g).to(dev).to(torch.bfloat16)
+    sl = (q4[:, t0:t0 + tile], s[:, t0:t0 + tile], zb[:, t0:t0 + tile])
+    got = ti4.int4_matmul(x, *sl[:2], gbias=sl[2], out_dtype=torch.float32)
+    ref = ti4.int4_matmul_plain(x, *(t.contiguous() for t in sl[:2]),
+                                gbias=sl[2].contiguous(),
+                                out_dtype=torch.float32)
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-4 * ref.abs().max().item())
 
 
 # ------------------------------------------------------ engine CUDA graphs
@@ -1503,3 +1582,78 @@ def test_handoff_push_restores_bit_equal_pages_on_a_second_engine(dev, mode):
         assert a is not None and b is not None
         for name, pool in src._state["cache"].items():
             assert torch.equal(pool[:, a], dst._state["cache"][name][:, b])
+
+
+# ------------------------------------------------------ GPT-Next, close()
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int4"])
+def test_nemotron_two_layers_captured_matches_eager(dev, mode):
+    """Nemotron-8B's full width cut to 2 layers (layernorm1p, squared-ReLU
+    MLP, V = 256000), random weights from seed 0: the captured engine's
+    greedy tokens equal the eager engine's (bf16, and int4-AWQ + int8
+    KV); under int4 every decode step launches #3 "tc" 6 times a layer
+    plus once per head tile, and #2 once a layer."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import SamplingParams, graphs
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import NEMOTRON_8B
+    cfg = replace(NEMOTRON_8B, num_layers=2)
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                               device=dev)
+    if mode == "int4":
+        params = quant.quantize_params(params, "int4_awq", group_size=128)
+    kw = dict(_GRAPH_KW, dtype="bfloat16",
+              kv_quant="int8" if mode == "int4" else "")
+    sps = [SamplingParams(max_tokens=12, top_k=1, ignore_eos=True)] * 3
+    got = {}
+    for graphs_on in (True, False):
+        engine = _engine_on(dev, params, cfg, cuda_graphs=graphs_on, **kw)
+        graphs.set_launch_counts(dict.fromkeys(graphs.launch_counts(), 0))
+        streams = _drive(engine, _PROMPTS[:3], sps)
+        counts = graphs.launch_counts()
+        steps, prefills = (engine.stats["decode_steps"],
+                           engine.stats["prefills"])
+        tiles = cfg.vocab_size // engine._sampler_tile
+        got[graphs_on] = [s.token_ids for s in streams]
+        engine.close()
+        if mode == "int4":
+            assert counts["int4_matmul/tc"] == (6 * 2 + tiles) * steps \
+                + prefills
+            assert counts["paged_attention_decode_int8"] == 2 * steps
+        else:
+            assert counts["paged_attention_decode"] == 2 * steps
+    assert got[True] == got[False]
+
+
+@pytest.mark.cuda
+def test_close_returns_the_engines_memory(dev, monkeypatch):
+    """``Engine.close`` hands back everything the engine allocated (pool,
+    state, captured programs and their graph pool) and its hold on the
+    parameters: with the weights dropped, ``memory_allocated`` is back at
+    its baseline. cuBLAS keeps a workspace per stream for the process's
+    life (the captured programs point into it), so both engines here
+    capture on one stream and the baseline is taken after the first."""
+    import gc
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    stream = torch.cuda.Stream(dev)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: stream)
+
+    def life() -> int:
+        params, cfg, kw = _model(dev, "bf16", num_layers=1)
+        engine = _engine_on(dev, params, cfg, **kw)
+        del params
+        _drive(engine, _PROMPTS[:2], [SamplingParams(
+            max_tokens=4, top_k=1, ignore_eos=True)] * 2)
+        peak = torch.cuda.memory_allocated(dev)
+        engine.close()
+        assert engine.params is None
+        engine.close()                               # a second close: no-op
+        gc.collect()
+        return peak
+
+    life()
+    base = torch.cuda.memory_allocated(dev)
+    assert life() > base + (768 << 20)           # 0.92 GB of weights
+    assert torch.cuda.memory_allocated(dev) == base

@@ -345,7 +345,7 @@ roots = ("jax", "generativeaiexamples_tpu", "safetensors", "transformers",
          "requests", "yaml", "bs4", "pypdf", "pymilvus", "psycopg2")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
 print(len(names), bad)
-assert len(names) >= 84, names
+assert len(names) >= 87, names
 assert not bad, bad
 """.replace("EXTRA", repr(extra))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

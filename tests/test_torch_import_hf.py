@@ -296,26 +296,35 @@ def test_safetensors_dir_matches_hf(hf_model, hf_params, tmp_path):
     _assert_trees_equal(got, hf_params)
 
 
-# ------------------------------------------------------------- refusals
+# ------------------------------------------------ GPTQ, AWQ and NeMo dirs
+
+# llama-tiny's reduction dims (128, 352) take groups of 32.
+QGROUP = 32
+
 
 def _gptq_dir(d):
-    st.save_file({"model.layers.0.self_attn.q_proj.qweight":
-                  torch.zeros(2, 2, dtype=torch.int32)},
-                 str(d / "model.safetensors"))
+    from torch_checkpoints import gptq_state, write_state
+    write_state(d, gptq_state(LLAMA_TINY, QGROUP)[0], "safetensors")
 
 
 def _awq_dir(d):
-    torch.save({"model.layers.0.self_attn.q_proj.weight_quantizer._amax":
-                torch.ones(2)}, d / "pytorch_model.bin")
+    from torch_checkpoints import awq_state
+    torch.save(awq_state(LLAMA_TINY, QGROUP)[0], d / "pytorch_model.bin")
 
 
 def _nemo_dir(d):
-    (d / "model.nemo").write_bytes(b"")
+    from torch_checkpoints import megatron_state, nemo_yaml, write_nemo
+    from generativeaiexamples_tpu_torch.models import llama
+    tree = llama.init_params(LLAMA_TINY, seed=4, dtype=torch.float32)
+    tree = {k: ({n: t.numpy() for n, t in v.items()} if isinstance(v, dict)
+                else v.numpy()) for k, v in tree.items()}
+    write_nemo(str(d / "model.nemo"), megatron_state(tree, LLAMA_TINY),
+               nemo_yaml(LLAMA_TINY))
 
 
 def _gptq_bin_dir(d):
-    torch.save({"model.layers.0.mlp.up_proj.qweight":
-                torch.zeros(2, dtype=torch.int32)}, d / "model.pt")
+    from torch_checkpoints import gptq_state
+    torch.save(gptq_state(LLAMA_TINY, QGROUP, seed=2)[0], d / "model.pt")
 
 
 @pytest.mark.parametrize("make,fmt", [(_gptq_dir, "gptq"), (_awq_dir, "awq"),
@@ -323,11 +332,31 @@ def _gptq_bin_dir(d):
                                       (_gptq_bin_dir, "gptq")],
                          ids=["gptq", "awq", "nemo", "gptq-pt"])
 def test_quantized_and_nemo_dirs_are_refused(tmp_path, make, fmt):
+    """Once refused, these formats now load: each directory is sniffed,
+    loaded by ``load_checkpoint`` to the tree the JAX package's
+    ``load_checkpoint`` makes of it (bit for bit: group-wise int4 leaves
+    for GPTQ and AWQ, raw leaves for NeMo), and runs a finite forward."""
+    from generativeaiexamples_tpu.models.configs import LLAMA_TINY as JCFG
+    from generativeaiexamples_tpu.models.import_hf import \
+        load_checkpoint as jload
+    from generativeaiexamples_tpu_torch.models import llama
     make(tmp_path)
     assert import_hf.detect_checkpoint_format(str(tmp_path)) == fmt
-    with pytest.raises(UnsupportedFormatError, match="A10"):
-        import_hf.load_checkpoint(str(tmp_path), LLAMA_TINY,
-                                  dtype=torch.float32, device="cpu")
+    got = import_hf.load_checkpoint(str(tmp_path), LLAMA_TINY,
+                                    dtype=torch.float32, device="cpu")
+    want = params_from_numpy(jax.tree.map(np.asarray, jload(
+        str(tmp_path), JCFG, dtype=jnp.float32)), "cpu", torch.float32,
+        cfg=LLAMA_TINY)
+    _assert_trees_equal(got, want)
+    leaf = got["layers"]["w_up"]
+    if fmt == "nemo":
+        assert isinstance(leaf, torch.Tensor)
+    else:
+        assert set(leaf) == {"gptq": {"q4", "gscale", "gbias"},
+                             "awq": {"q4", "gscale", "pre_scale"}}[fmt]
+    logits, _ = llama.apply(got, LLAMA_TINY, torch.tensor([[1, 2, 3]]),
+                            torch.arange(3)[None, :])
+    assert torch.isfinite(logits).all()
 
 
 def test_bad_checkpoints_raise_typed_errors(tmp_path):

@@ -367,23 +367,48 @@ def test_int4_hopper_gate():
 
 
 def test_gbias_refused_on_cuda():
-    """GPTQ zero points are not in the int4 kernel: an engine on the card
-    refuses them before allocating its pool, and the product refuses a
-    card tensor."""
+    """GPTQ zero points run on the int4 kernel's tensor-core paths only:
+    an engine on the card takes a GPTQ leaf whose products land there
+    (bf16 activations, groups of a multiple of 128, K and N multiples of
+    16, the lm_head at the sampler tile too) and refuses, before
+    allocating its pool, one that would not, as it refuses a geometry
+    outside the int4 gate."""
     from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import GPTNEXT_TINY
     params = tq.quantize_params(
         llama.init_params(LLAMA_TINY, seed=0, dtype=torch.float32),
         "int4_awq", group_size=32)
     gate = SimpleNamespace(model_cfg=LLAMA_TINY,
-                           cfg=EngineConfig(page_size=16), params=params)
+                           cfg=EngineConfig(page_size=16), params=params,
+                           _dtype=torch.bfloat16, _sampler_tile=512)
     Engine._check_kernel_geometry(gate)             # passes as made
+    # Groups of 32 would take the float32 paths, which have no zero-point
+    # term.
     params["layers"]["w_up"]["gbias"] = torch.zeros_like(
         params["layers"]["w_up"]["gscale"])
     with pytest.raises(ConfigError, match="gbias"):
         Engine._check_kernel_geometry(gate)
-    w = {k: v[0] for k, v in params["layers"]["w_up"].items()}
+    # Groups of 128 on a bf16 engine: taken, layers and head alike.
+    gq = tq.quantize_params(
+        llama.init_params(GPTNEXT_TINY, seed=0, dtype=torch.float32),
+        "int4_awq", group_size=128)
+    for leaf in [*gq["layers"].values(), gq["lm_head"]]:
+        if tq.is_quantized(leaf):
+            leaf["gbias"] = torch.zeros_like(leaf["gscale"])
+    gate = SimpleNamespace(model_cfg=GPTNEXT_TINY,
+                           cfg=EngineConfig(page_size=16), params=gq,
+                           _dtype=torch.bfloat16, _sampler_tile=256)
+    Engine._check_kernel_geometry(gate)
+    assert tint4.tensor_cores(256, 512, 128, torch.bfloat16)
+    # ... but not on a float32 engine (its products take "gemv"/"tile"),
+    # nor with a head tile that is not a multiple of 16.
+    gate._dtype = torch.float32
     with pytest.raises(ConfigError, match="gbias"):
-        tq.matmul(SimpleNamespace(is_cuda=True), w)
+        Engine._check_kernel_geometry(gate)
+    assert not tint4.tensor_cores(256, 512, 128, torch.float32)
+    gate._dtype, gate._sampler_tile = torch.bfloat16, 8
+    with pytest.raises(ConfigError, match="gbias"):
+        Engine._check_kernel_geometry(gate)
     # A geometry outside the int4 gate (here K = 0) is refused too.
     gate.params = {"layers": {"w_up": {
         "q4": torch.zeros((1, 0, 8), dtype=torch.int8),

@@ -29,7 +29,7 @@ from generativeaiexamples_tpu_torch.serving import model_server
 from generativeaiexamples_tpu_torch.serving.model_server import (
     build_services, create_server_app)
 from generativeaiexamples_tpu_torch.utils.errors import (
-    ConfigError, UnsupportedFormatError)
+    ConfigError)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "golden_tiny")
 
@@ -43,6 +43,13 @@ ENGINE_KW = dict(max_slots=2, max_input_length=256, max_output_length=64,
                  dtype="float32", kv_pool_tokens=None)
 PROMPTS = ["Paged KV caching shares", "Continuous batching admits",
            "The router sends each request"]
+
+
+@pytest.fixture(autouse=True)
+def weight_cache_in_tmp(tmp_path, monkeypatch):
+    """``build_services(model_path=...)`` caches the served tree: keep it
+    out of the home directory."""
+    monkeypatch.setenv("GAIE_WEIGHT_CACHE_DIR", str(tmp_path / "wc"))
 
 
 @pytest.fixture(scope="module")
@@ -257,16 +264,64 @@ def test_int4_checkpoint_server_and_awq_refusal():
 
 
 def test_cli_refuses_a_quantized_checkpoint(tmp_path, monkeypatch):
-    """``python -m ...serving NAME --model-path DIR`` on a GPTQ directory
-    fails with the typed error before it serves anything; $MODEL_PATH
-    is the flag's default."""
-    from generativeaiexamples_tpu_torch.models.safetensors import save_file
-    save_file({"model.layers.0.self_attn.q_proj.qweight":
-               torch.zeros(2, 2, dtype=torch.int32)},
-              str(tmp_path / "model.safetensors"))
-    with pytest.raises(UnsupportedFormatError, match="gptq"):
-        model_server.main(["golden-tiny", "--model-path", str(tmp_path),
+    """``python -m ...serving NAME --model-path DIR`` serves a GPTQ
+    directory (golden-tiny's geometry, group 16, with its tokenizer and
+    config.json): one greedy /v1/completions through the CLI's app equals
+    the same engine's tokens, and its shutdown closes the engine. An
+    act-order GPTQ directory is refused with ``ModelLoadError`` before
+    anything is served; $MODEL_PATH is the flag's default."""
+    import shutil
+
+    from conftest import serve_app
+    from torch_checkpoints import gptq_state, write_state
+    from generativeaiexamples_tpu_torch.utils.errors import ModelLoadError
+    good, bad = tmp_path / "gptq", tmp_path / "act_order"
+    for d, act in ((good, False), (bad, True)):
+        write_state(d, gptq_state(CFG, 16, act_order=act)[0], "safetensors")
+        for f in ("tokenizer.model", "config.json"):
+            shutil.copy(os.path.join(GOLDEN, f), d / f)
+    seen = {}
+
+    def run_app(app, host, port):
+        import asyncio
+        with serve_app(app) as base:
+            status, raw = _post(base + "/v1/completions", {
+                "prompt": PROMPTS[0], "max_tokens": 8, "temperature": 0})
+            seen["status"], seen["out"] = status, json.loads(raw)
+        seen["engine"] = engine_box[0]
+        asyncio.run(app.cleanup())          # the server's shutdown
+
+    engine_box = []
+    real_build = model_server.build_services
+
+    def build(*a, **k):
+        out = real_build(*a, **k)
+        engine_box.append(out[0])
+        return out
+
+    monkeypatch.setattr(model_server.web, "run_app", run_app)
+    monkeypatch.setattr(model_server, "build_services", build)
+    argv = ["golden-tiny", "--model-path", str(good), "--device", "cpu",
+            "--dtype", "float32", "--no-embedder", "--max-batch-size", "2",
+            "--max-input-length", "64", "--max-output-length", "16",
+            "--kv-pool-tokens", "512"]
+    model_server.main(argv)
+    assert seen["status"] == 200
+    engine = seen["engine"]
+    assert engine.params is None, "the CLI's shutdown did not close"
+    assert model_server.last_load["format"] == "gptq"
+    text = seen["out"]["choices"][0]["text"]
+    # The same checkpoint in a fresh engine gives the same text.
+    ref, _ = real_build("golden-tiny", model_path=str(good), device="cpu",
+                        engine_cfg=EngineConfig(**ENGINE_KW))
+    assert "gbias" in ref.params["layers"]["wq"]
+    want = ref.generate_text(PROMPTS[0], SamplingParams(max_tokens=8,
+                                                        top_k=1))
+    ref.close()
+    assert text == want and len(text) > 3
+    with pytest.raises(ModelLoadError, match="act-order"):
+        model_server.main(["golden-tiny", "--model-path", str(bad),
                            "--device", "cpu", "--dtype", "float32"])
-    monkeypatch.setenv("MODEL_PATH", str(tmp_path))
-    with pytest.raises(UnsupportedFormatError, match="gptq"):
+    monkeypatch.setenv("MODEL_PATH", str(bad))
+    with pytest.raises(ModelLoadError, match="act-order"):
         model_server.main(["golden-tiny", "--device", "cpu"])

@@ -697,6 +697,87 @@ def test_prewarm_serves_and_scrubs_its_dummies(golden):
     assert eng.stats["requests"] == 1 and B == eng.cfg.max_slots
 
 
+@pytest.mark.parametrize("server", ["model", "chain"])
+@pytest.mark.parametrize("close_engine", [False, True])
+def test_server_shutdown_closes_the_engine_when_asked(golden, server,
+                                                      close_engine):
+    """With ``close_engine`` (both servers' CLIs pass it) both
+    servers' shutdown closes their in-process engine: its parameters and
+    state are dropped, and a second close does nothing. Otherwise the
+    model server stops its engine, the chain server leaves it running,
+    and it serves on after the app."""
+    from generativeaiexamples_tpu_torch.chains.examples.developer_rag \
+        import QAChatbot
+    from generativeaiexamples_tpu_torch.chains.llm import EngineLLM
+    from generativeaiexamples_tpu_torch.chains.server import create_app
+    from generativeaiexamples_tpu_torch.embed.encoder import HashEmbedder
+    from generativeaiexamples_tpu_torch.utils.app_config import AppConfig
+    from generativeaiexamples_tpu_torch.utils.configuration import \
+        from_dict
+    eng = _engine(golden)
+    if server == "model":
+        app = create_server_app(eng, model_name="golden",
+                                close_engine=close_engine)
+    else:
+        cfg = from_dict(AppConfig, {"embeddings": {
+            "model_engine": "hash", "dimensions": 32}})
+        bot = QAChatbot(llm=EngineLLM(eng), embedder=HashEmbedder(dim=32),
+                        config=cfg, fused_rag=False)
+        app = create_app(bot, config=cfg, close_engine=close_engine)
+    with _serve(app) as base:
+        with urllib.request.urlopen(base + "/health",
+                                    timeout=TIMEOUT) as resp:
+            assert resp.status == 200
+    assert (eng._thread is None) == (server == "model" or close_engine)
+    if close_engine:
+        assert eng.params is None and eng._state is None
+        eng.close()
+    else:
+        eng.stop()
+        s = eng.submit(golden[1].encode("x"), SamplingParams(max_tokens=2))
+        _drive(eng, [s])
+        assert len(s.token_ids) == 2
+        eng.close()
+        assert eng.params is None
+
+
+def test_chain_server_cli_closes_its_engine(golden, monkeypatch, tmp_path):
+    """The chain server's CLI owns the example it builds: its app closes
+    the example's in-process engine at shutdown."""
+    from aiohttp import web
+
+    from generativeaiexamples_tpu_torch.chains import server as chain_server
+    from generativeaiexamples_tpu_torch.chains.examples.developer_rag \
+        import QAChatbot
+    from generativeaiexamples_tpu_torch.chains.llm import EngineLLM
+    from generativeaiexamples_tpu_torch.embed.encoder import HashEmbedder
+    from generativeaiexamples_tpu_torch.utils.app_config import AppConfig
+    from generativeaiexamples_tpu_torch.utils.configuration import \
+        from_dict
+    eng = _engine(golden)
+    cfg = from_dict(AppConfig, {"embeddings": {
+        "model_engine": "hash", "dimensions": 32}})
+
+    class Example(QAChatbot):
+        def __init__(self):
+            super().__init__(llm=EngineLLM(eng),
+                             embedder=HashEmbedder(dim=32), config=cfg,
+                             fused_rag=False)
+
+    apps = []
+    monkeypatch.setenv("GAIE_RUN_DIR", str(tmp_path))
+    monkeypatch.setattr(chain_server, "discover_example",
+                        lambda spec: Example)
+    monkeypatch.setattr(web, "run_app", lambda app, **kw: apps.append(app))
+    chain_server.main(["--upload-dir", str(tmp_path / "up")])
+    with _serve(apps[0]) as base:
+        with urllib.request.urlopen(base + "/health",
+                                    timeout=TIMEOUT) as resp:
+            assert resp.status == 200
+    assert eng._thread is None
+    assert eng.params is None and eng._state is None
+
+
 def test_prewarm_shrinks_the_pool_when_the_card_runs_out(golden):
     """An out-of-memory error in prewarm's serve shrinks the pool by the
     reference's rule and rebuilds the engine at that size; the retry
