@@ -147,6 +147,29 @@ Phases (each fails loudly: a failure exits non-zero and the final
    engine's greedy tokens for those assembled ids (cold, one-shot, in
    the fused bucket) equal the fused ones. Prints the fused TTFT beside
    the host path's and the fused admission's replay time.
+   Inside each mode's RAG window, the application periphery
+   (``serve_periphery``, timed as a phase of its own) on the same
+   engine, embedder and chain server: the model server (now with the
+   Triton generate extension and the job routes) and the gRPC
+   ``LLMService``; one greedy 64-token prompt through Triton generate
+   and generate_stream (``TritonShimClient``), /v1/jobs (``JobsClient``,
+   one answered at submit or after polls, one 202 then polls), gRPC
+   unary and stream, ``TorchLLM`` over gRPC and HTTP and
+   ``TorchLlamaIndexLLM``, each text equal to /v1/completions'; the web
+   frontend in front of the chain server (/api/generate = /generate,
+   /api/search = /documentSearch; in the last mode a .pptx and a .docx
+   built with zipfile through /api/upload, each then the top hit for
+   its own text); the multimodal assistant through the chain server's
+   ``--example`` path (a deck uploaded; the answer equal to the engine's
+   greedy text for the prompt it assembled; the fact check); in the
+   first mode the streaming ingest pipeline over docs/*.md into a fresh
+   ``exact-cuda`` store (chunk texts and ids equal to the /uploadDocument
+   index's, top-4 ids equal or named near-ties). Every request runs in a
+   launch-count window of its own, checked by the serve formula and
+   added to the kernels line. Prints each front end's first byte and
+   total ms against /v1/completions', the frontend's first byte against
+   the chain server's, and the pipeline's chunks/s against
+   /uploadDocument's.
 7. Per mode, after the serve phases: speculative decoding
    (``serve_spec``): an engine with ``spec_decode`` on the served weights
    (its verify rounds captured per page window, greedy flag and rung)
@@ -3634,15 +3657,12 @@ def upload(base: str, path: str) -> dict:
     """POST one file to the chain server's /uploadDocument (multipart)."""
     import urllib.error
     import urllib.request
-    boundary = os.urandom(12).hex()
-    with open(path, "rb") as f:
-        payload = f.read()
-    data = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\";"
-            f" filename=\"{os.path.basename(path)}\"\r\nContent-Type: "
-            f"text/markdown\r\n\r\n").encode() + payload + \
-        f"\r\n--{boundary}--\r\n".encode()
-    req = urllib.request.Request(base + "/uploadDocument", data=data, headers={
-        "Content-Type": f"multipart/form-data; boundary={boundary}"})
+
+    from generativeaiexamples_tpu_torch.frontend.chat_client import (
+        multipart_body)
+    data, ctype = multipart_body(path)
+    req = urllib.request.Request(base + "/uploadDocument", data=data,
+                                 headers={"Content-Type": ctype})
     try:
         with urllib.request.urlopen(req, timeout=600) as resp:
             return json.loads(resp.read())
@@ -3651,11 +3671,14 @@ def upload(base: str, path: str) -> dict:
              f"{exc.read().decode()[:300]}")
 
 
-def stream_generate(base: str, body: dict, rid: str) -> tuple:
-    """(seconds to the first byte, text) of a streamed /generate."""
+def stream_generate(base: str, body: dict, rid: str,
+                    path: str = "/generate") -> tuple:
+    """(seconds to the first byte, text, seconds to the end) of a streamed
+    POST to ``base + path``: the chain server's /generate, or the
+    frontend's /api/generate."""
     import urllib.error
     import urllib.request
-    req = urllib.request.Request(base + "/generate",
+    req = urllib.request.Request(base + path,
                                  data=json.dumps(body).encode(), headers={
                                      "Content-Type": "application/json",
                                      "X-Request-ID": rid})
@@ -3665,9 +3688,10 @@ def stream_generate(base: str, body: dict, rid: str) -> tuple:
             first = resp.read(1)
             ttfb = time.monotonic() - t0
             text = (first + resp.read()).decode()
+            total = time.monotonic() - t0
     except urllib.error.HTTPError as exc:
-        fail(f"/generate answered {exc.code}: {exc.read().decode()[:300]}")
-    return ttfb, text
+        fail(f"{path} answered {exc.code}: {exc.read().decode()[:300]}")
+    return ttfb, text, total
 
 
 def check_rag_encoder(torch, dev, svc) -> None:
@@ -3810,7 +3834,7 @@ def rag_stage_times(base: str, mode: str, card: str) -> None:
     rows = []
     for i in range(3):
         rid = f"rag-ttft-{mode.split()[0]}-{i}"
-        ttfb, _ = stream_generate(base, {
+        ttfb, _, _ = stream_generate(base, {
             "question": RAG_QUESTIONS[i], "use_knowledge_base": True,
             "num_tokens": 4}, rid)
         _, text = call(base + "/debug/requests?limit=50")
@@ -3884,7 +3908,7 @@ def fused_stage_times(base: str, mode: str, card: str) -> dict:
     rows = []
     for i in range(3):
         rid = f"rag-fused-ttft-{mode.split()[0]}-{i}"
-        ttfb, _ = stream_generate(base, {
+        ttfb, _, _ = stream_generate(base, {
             "question": RAG_QUESTIONS[i], "use_knowledge_base": True,
             "num_tokens": 4}, rid)
         _, text = call(base + "/debug/requests?limit=50")
@@ -4114,7 +4138,7 @@ def serve_rag_fused(torch, dev, card: str, engine, svc, index, cfg,
     return run
 
 
-def serve_rag(torch, dev, card: str, served: list) -> dict:
+def serve_rag(torch, dev, card: str, served: list, then=None) -> dict:
     """The RAG chatbot's main path on the card: the e5-large-v2 embedder
     (float32, seed 0, byte tokenizer; checked against the CPU at 2
     layers), an ``exact-cuda`` store and the port's chain server over a
@@ -4129,7 +4153,9 @@ def serve_rag(torch, dev, card: str, served: list) -> dict:
     the degraded counter at 0; in the bf16 mode also one /generate
     through ``OpenAICompatLLM`` against the model server and one
     /v1/embeddings. Prints the ingest, embed, search and TTFT times.
-    Returns the launch counts by mode."""
+    ``then``, when given, is called at the end of each mode with what the
+    mode holds (``serve_periphery``'s argument). Returns the launch
+    counts by mode."""
     import shutil
     import tempfile
 
@@ -4169,8 +4195,8 @@ def serve_rag(torch, dev, card: str, served: list) -> dict:
     # tokens stream as visible text; the byte tokenizer would drop every
     # id past 258.
     tok = get_tokenizer(golden_dir())
-    index, out = None, {}
-    for engine0, quantization in served:
+    index, out, upload_run = None, {}, None
+    for i_mode, (engine0, quantization) in enumerate(served):
         mode = f"{quantization or 'bf16'} weights, " \
                f"{engine0.cfg.kv_quant or 'bf16'} KV"
         ecfg = EngineConfig(max_slots=8, max_input_length=3000,
@@ -4199,6 +4225,7 @@ def serve_rag(torch, dev, card: str, served: list) -> dict:
                 for n in names:
                     upload(base, os.path.join(docs_dir(), n))
                 ingest_s = time.monotonic() - t0
+                upload_run = (len(index), ingest_s)
                 if len(names) != 18 or len(index.sources()) != 18:
                     fail(f"ingested {index.sources()} of {names}")
                 say(f"rag ingest: {len(names)} docs ({size} bytes) -> "
@@ -4285,7 +4312,7 @@ def serve_rag(torch, dev, card: str, served: list) -> dict:
                 rbase, stop_remote = serve_app(create_app(remote,
                                                           upload_dir))
                 try:
-                    _, text = stream_generate(rbase, {
+                    _, text, _ = stream_generate(rbase, {
                         "question": RAG_QUESTIONS[0],
                         "use_knowledge_base": True,
                         "num_tokens": RAG_NEW}, "rag-remote")
@@ -4307,6 +4334,13 @@ def serve_rag(torch, dev, card: str, served: list) -> dict:
                     f"against the model server's /v1/completions = the "
                     f"in-process text; /v1/embeddings {svc.dim}-d within "
                     f"{err:.2g} of the service")
+            if then is not None:
+                then({"engine": engine, "svc": svc, "index": index,
+                      "cfg": cfg, "base": base, "texts": texts,
+                      "mode": mode, "quantization": quantization,
+                      "first": i_mode == 0,
+                      "last": i_mode == len(served) - 1,
+                      "upload": upload_run})
         finally:
             stop_chain()
             engine.stop()
@@ -4317,6 +4351,429 @@ def serve_rag(torch, dev, card: str, served: list) -> dict:
         torch.cuda.empty_cache()
     shutil.rmtree(upload_dir, ignore_errors=True)
     return out
+
+
+# The application periphery (``serve_periphery``), inside each mode's RAG
+# window on its engine, embedder, store and chain server.
+PERIPHERY_PROMPT = ("Question: what does the paged KV pool of a serving "
+                    "engine hold, and why is it paged? Answer:")
+PERIPHERY_NEW = 64
+ASSISTANT_QUESTION = "What does the fused admission program run?"
+DECK_SLIDES = [
+    ("Fused admission", "The fused admission program runs retrieval, "
+     "prompt assembly and prefill as one captured program on the card.",
+     "Say that the corpus lives in static device buffers."),
+    ("Paged KV pool", "The pool holds the keys and values of every slot "
+     "in pages of 128 tokens.", ""),
+]
+MEMO_LINES = ["Kernel memo: the split-K pass writes partial sums into a "
+              "float32 scratch, and the merge pass adds them.",
+              "The int4 matmul takes the tc path at small M."]
+
+
+def office_files(dirpath: str) -> tuple:
+    """(deck.pptx, memo.docx) in ``dirpath``, built with zipfile: two
+    slides with text runs, speaker notes on the first (through its
+    relationship file) and an image; a memo of two paragraphs."""
+    import zipfile
+    a = "http://schemas.openxmlformats.org/drawingml/2006/main"
+    rel = ("http://schemas.openxmlformats.org/officeDocument/2006/"
+           "relationships/")
+    deck = os.path.join(dirpath, "deck.pptx")
+    with zipfile.ZipFile(deck, "w") as z:
+        for i, (title, body, notes) in enumerate(DECK_SLIDES, 1):
+            z.writestr(f"ppt/slides/slide{i}.xml",
+                       f'<p:sld xmlns:p="p" xmlns:a="{a}"><a:t>{title}</a:t>'
+                       f'<a:t>{body}</a:t></p:sld>')
+            targets = [("image", f"../media/image{i}.png")]
+            if notes:
+                z.writestr(f"ppt/notesSlides/notesSlide{i}.xml",
+                           f'<p:notes xmlns:p="p" xmlns:a="{a}"><a:t>'
+                           f'{notes}</a:t></p:notes>')
+                targets.append(("notesSlide",
+                                f"../notesSlides/notesSlide{i}.xml"))
+            z.writestr(f"ppt/slides/_rels/slide{i}.xml.rels", (
+                '<Relationships xmlns="http://schemas.openxmlformats.org/'
+                'package/2006/relationships">' + "".join(
+                    f'<Relationship Id="rId{j}" Type="{rel}{kind}" '
+                    f'Target="{t}"/>' for j, (kind, t) in enumerate(targets))
+                + "</Relationships>"))
+            z.writestr(f"ppt/media/image{i}.png", b"\x89PNG" + bytes(16))
+    memo = os.path.join(dirpath, "memo.docx")
+    w = "http://schemas.openxmlformats.org/wordprocessingml/2006/main"
+    with zipfile.ZipFile(memo, "w") as z:
+        z.writestr("word/document.xml", f'<w:document xmlns:w="{w}"><w:body>'
+                   + "".join(f"<w:p><w:r><w:t>{line}</w:t></w:r></w:p>"
+                             for line in MEMO_LINES) + "</w:body></w:document>")
+    return deck, memo
+
+
+def timed_text(pieces) -> tuple:
+    """(text, ms to the first piece, ms to the end) of an iterator of
+    text pieces, timed from the call that makes it."""
+    t0 = time.monotonic()
+    first, parts = None, []
+    for piece in pieces():
+        if first is None and piece:
+            first = time.monotonic()
+        parts.append(piece)
+    end = time.monotonic()
+    return ("".join(parts), ((first or end) - t0) * 1e3, (end - t0) * 1e3)
+
+
+def completion_pieces(base: str, body: dict):
+    """The text deltas of a streamed /v1/completions."""
+    from generativeaiexamples_tpu_torch.serving.client import (
+        iter_sse_data, post_with_retry)
+    with post_with_retry(base + "/v1/completions", {**body, "stream": True},
+                         timeout=300) as resp:
+        for data in iter_sse_data(resp):
+            if data == "[DONE]":
+                return
+            yield json.loads(data)["choices"][0].get("text") or ""
+
+
+def check_same_index(svc, want_index, got_index, questions) -> None:
+    """Two indexes of the same corpus: the same chunk texts under the same
+    ids, and the same top-4 ids for each question, or near-ties: the
+    first index's exact scores of the two id lists within the bf16
+    rounding bound position by position (named)."""
+    import numpy as np
+
+    ids = sorted(want_index._docs)
+    if ids != sorted(got_index._docs) or any(
+            want_index.get(i).text != got_index.get(i).text for i in ids):
+        fail("the ingest pipeline's chunks differ from /uploadDocument's")
+    a = want_index.store._data[:want_index.store._n]
+    b = got_index.store._data[:got_index.store._n]
+    err = float(abs(a - b).max())
+    for q in questions:
+        got = [d.id for d in got_index.similarity_search(q, k=4)]
+        want = [d.id for d in want_index.similarity_search(q, k=4)]
+        if got == want:
+            continue
+        vec = np.asarray(svc.embed_query(q), np.float32)
+        exact = a @ vec
+        gap = max(abs(exact[x] - exact[y]) for x, y in zip(got, want))
+        bound = 2.0 ** -8 * float(np.linalg.norm(vec)) * float(
+            np.linalg.norm(a, axis=1).max())
+        say(f"ingest: {q!r}: ids {got} against {want}: near-ties, exact "
+            f"scores apart by at most {gap:.3g} position by position "
+            f"(bf16 bound {bound:.3g})")
+        if len(got) != 4 or gap > bound:
+            fail(f"ingest: top-4 ids {got} for {q!r}, /uploadDocument's "
+                 f"index {want}")
+    say(f"ingest: {len(ids)} chunks, texts and ids equal to "
+        f"/uploadDocument's; stored vectors within {err:.3g}; top-4 ids of "
+        f"{len(questions)} questions equal (or named near-ties)")
+
+
+def serve_periphery(torch, dev, card: str, rag: dict) -> dict:
+    """The application periphery over one mode's RAG engine (``rag``:
+    what ``serve_rag`` holds for the mode: engine, embedder, index,
+    config, chain server, its cold /generate texts, the upload rate).
+    The model server (with the Triton and job routes) and the gRPC
+    service on the engine: one greedy 64-token prompt through Triton
+    generate and generate_stream, /v1/jobs (one 200 or 202, and one 202
+    then polls on a jobs app without a grace period), gRPC unary and
+    stream, ``TorchLLM`` over gRPC and HTTP and ``TorchLlamaIndexLLM``,
+    each text equal to /v1/completions'; the web frontend in front of
+    the chain server (/api/generate = /generate, /api/search =
+    /documentSearch; in the last mode a .pptx and a .docx through
+    /api/upload, each then found); the multimodal assistant through the
+    chain server's ``--example`` path (a deck uploaded, one greedy
+    answer equal to the engine's for the prompt it assembled, then the
+    fact check); in the first mode the ingest pipeline over docs/*.md
+    into a fresh ``exact-cuda`` store against the /uploadDocument index.
+    Every request runs in its own launch-count window (the prefix cache
+    cleared before it), checked by the serve phases' formula. Prints
+    each front end's first byte and total ms. Returns the launch
+    counts."""
+    import shutil
+    import tempfile
+
+    from aiohttp import web
+
+    from generativeaiexamples_tpu_torch.assistant.guardrails import \
+        fact_check
+    from generativeaiexamples_tpu_torch.chains.llm import EngineLLM
+    from generativeaiexamples_tpu_torch.chains.readers import read_document
+    from generativeaiexamples_tpu_torch.chains.server import (
+        create_app, discover_example)
+    from generativeaiexamples_tpu_torch.chains.splitter import (
+        TokenTextSplitter, cap_context)
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+    from generativeaiexamples_tpu_torch.frontend.chat_client import (
+        ChatClient, multipart_body)
+    from generativeaiexamples_tpu_torch.frontend.server import \
+        create_app as frontend_app
+    from generativeaiexamples_tpu_torch.ingest import (FilesystemSource,
+                                                       IngestPipeline)
+    from generativeaiexamples_tpu_torch.integrations.langchain_torch import \
+        TorchLLM
+    from generativeaiexamples_tpu_torch.integrations.llamaindex_torch import \
+        TorchLlamaIndexLLM
+    from generativeaiexamples_tpu_torch.retrieval.docstore import \
+        DocumentIndex
+    from generativeaiexamples_tpu_torch.retrieval.store import \
+        store_from_config
+    from generativeaiexamples_tpu_torch.serving import jobs_api
+    from generativeaiexamples_tpu_torch.serving.client import (
+        JobsClient, TritonShimClient, post_with_retry)
+    from generativeaiexamples_tpu_torch.serving.model_server import \
+        create_server_app
+    from generativeaiexamples_tpu_torch.utils.app_config import AppConfig
+    from generativeaiexamples_tpu_torch.utils.configuration import from_dict
+    from generativeaiexamples_tpu_torch.utils.errors import ConfigError
+
+    engine, svc, mode = rag["engine"], rag["svc"], rag["mode"]
+    quantization, name = rag["quantization"], "llama-2-7b-chat"
+    total = {"launches": {}, "by_path": {}}
+
+    def counted(label: str, fn):
+        """``fn()`` in a launch-count window of its own, the prefix cache
+        cleared before it."""
+        engine.stop()
+        engine.clear_prefix_cache()
+        torch.cuda.synchronize()
+        stats0 = engine.stats
+        zero_launch_counts()
+        out = fn()
+        wait_idle(engine)
+        torch.cuda.synchronize()
+        run = read_launch_counts(engine, stats0)
+        check_launch_counts(f"[{mode}] {label}", run,
+                            engine.model_cfg.num_layers, quantization,
+                            engine.cfg.kv_quant, head_tiles(engine))
+        for key in ("launches", "by_path"):
+            for k, n in run[key].items():
+                total[key][k] = total[key].get(k, 0) + n
+        return out
+
+    # 1. The model server's front ends, each against /v1/completions.
+    try:
+        from generativeaiexamples_tpu_torch.serving.grpc_server import (
+            GrpcLLMClient, require_grpc, serve_grpc)
+        require_grpc()
+        have_grpc = True
+    except ConfigError as exc:
+        have_grpc = False
+        say(f"periphery [{mode}]: the gRPC front end was not driven: the "
+            f"grpc package is not installed here ({exc})")
+    mbase, stop_model = serve_app(create_server_app(engine, svc, name))
+    jobs_now = web.Application()
+    jobs_api.add_jobs_routes(jobs_now, engine, name, sync_wait=0.0)
+    jbase, stop_jobs = serve_app(jobs_now)
+    grpc_srv = (serve_grpc(engine, name, svc,
+                           max_output=engine.cfg.max_output_length,
+                           host="127.0.0.1", port=0) if have_grpc else None)
+    P, N = PERIPHERY_PROMPT, PERIPHERY_NEW
+    body = {"prompt": P, "max_tokens": N, "temperature": 0}
+    times, jobs_status = {}, {}
+    try:
+        want = counted("completions", lambda: json.loads(post(
+            mbase + "/v1/completions", body))["choices"][0]["text"])
+        if len(want) < 8:
+            fail(f"[{mode}] /v1/completions gave {want!r}")
+        triton = TritonShimClient(mbase, name)
+        jobs = JobsClient(mbase, poll_interval=0.01)
+        polled = JobsClient(jbase, poll_interval=0.01)
+
+        def job(client, key):
+            def run():
+                snap = client.submit(P, max_tokens=N, temperature=0)
+                jobs_status[key] = snap["status"]
+                yield snap["text"] if snap["status"] == "done" else \
+                    client.wait(snap["id"])["text"]
+            return run
+        paths = {
+            "/v1/completions (stream)": lambda: completion_pieces(mbase,
+                                                                  body),
+            "triton generate": lambda: iter([triton.generate(P, N)]),
+            "triton generate_stream": lambda: triton.generate_stream(P, N),
+            "jobs": job(jobs, "jobs"),
+            "jobs 202 -> poll": job(polled, "jobs 202 -> poll"),
+            "TorchLLM http": lambda: (c.text for c in TorchLLM(
+                server_url=mbase, mode="http", tokens=N)._stream(P,
+                                                                 stop=[])),
+        }
+        if have_grpc:
+            target = f"127.0.0.1:{grpc_srv._bound_port}"
+            grpc_client = GrpcLLMClient(target)
+            grpc_client.wait_ready()
+            paths.update({
+                "grpc unary": lambda: iter([grpc_client.generate(
+                    P, max_tokens=N)]),
+                "grpc stream": lambda: grpc_client.generate_stream(
+                    P, max_tokens=N),
+                "TorchLLM grpc": lambda: (c.text for c in TorchLLM(
+                    server_url=target, mode="grpc", tokens=N)._stream(
+                        P, stop=[])),
+            })
+        li_mode, li_url = (("grpc", f"127.0.0.1:{grpc_srv._bound_port}")
+                           if have_grpc else ("http", mbase))
+        paths["TorchLlamaIndexLLM " + li_mode] = lambda: (
+            r.delta for r in TorchLlamaIndexLLM(
+                server_url=li_url, mode=li_mode,
+                tokens=N).stream_complete(P))
+        for label, fn in paths.items():
+            text, first, end = counted(label, lambda: timed_text(fn))
+            if text != want:
+                fail(f"[{mode}] {label} gave {text!r}; /v1/completions "
+                     f"{want!r}")
+            times[label] = (first, end)
+        if jobs_status["jobs 202 -> poll"] != "running":
+            fail(f"[{mode}] the job without a grace period answered "
+                 f"{jobs_status['jobs 202 -> poll']} at submit, not 202")
+        if have_grpc:
+            vec = grpc_client.embed([RAG_QUESTIONS[0]])[0]
+            err = float(abs(vec - svc.embed_documents(
+                [RAG_QUESTIONS[0]])[0]).max())
+            if err > 1e-5:
+                fail(f"[{mode}] gRPC Embed is {err} from the service")
+            grpc_client.close()
+    finally:
+        if grpc_srv is not None:
+            grpc_srv.stop(grace=None)
+        stop_jobs()
+        stop_model()
+    base_ms = times["/v1/completions (stream)"]
+    say(f"periphery [{mode}]: {len(times)} front ends x {N} greedy tokens, "
+        f"each text = /v1/completions' ({len(want)} chars); first byte / "
+        f"total ms: " + "; ".join(f"{k} {a:.1f} / {b:.1f}"
+                                  for k, (a, b) in times.items())
+        + f"; jobs at submit: {jobs_status['jobs']} (1 s grace), "
+        f"{jobs_status['jobs 202 -> poll']} (none) [{card}]")
+    say(f"periphery [{mode}]: each front end's total beyond "
+        f"/v1/completions' streamed {base_ms[1]:.1f} ms: " + ", ".join(
+            f"{k} {b - base_ms[1]:+.1f}" for k, (a, b) in times.items()
+            if k != "/v1/completions (stream)") + f" ms [{card}]")
+
+    # 2. The web frontend in front of the chain server.
+    base = rag["base"]
+    fbase, stop_front = serve_app(frontend_app(ChatClient(base)))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_periphery_")
+    try:
+        q = {"question": RAG_QUESTIONS[0], "use_knowledge_base": True,
+             "num_tokens": RAG_NEW}
+        direct = counted("chain /generate", lambda: stream_generate(
+            base, q, f"periphery-chain-{mode}"))
+        proxied = counted("frontend /api/generate", lambda: stream_generate(
+            fbase, q, f"periphery-front-{mode}", path="/api/generate"))
+        if not direct[1] == proxied[1] == rag["texts"][0]:
+            fail(f"[{mode}] /api/generate gave {proxied[1]!r}, /generate "
+                 f"{direct[1]!r}, serve_rag's /generate {rag['texts'][0]!r}")
+        s = {"content": RAG_QUESTIONS[0], "num_docs": 4}
+        if json.loads(post(fbase + "/api/search", s)) != json.loads(
+                post(base + "/documentSearch", s)):
+            fail(f"[{mode}] /api/search differs from /documentSearch")
+        say(f"periphery [{mode}]: frontend /api/generate = the chain "
+            f"server's /generate ({len(direct[1])} chars); first byte "
+            f"{proxied[0] * 1e3:.1f} ms through the frontend against "
+            f"{direct[0] * 1e3:.1f} ms direct (total "
+            f"{proxied[2] * 1e3:.1f} / {direct[2] * 1e3:.1f}); "
+            f"/api/search = /documentSearch [{card}]")
+        deck, memo = office_files(tmp)
+        if rag["last"]:
+            # The embedder's weights are random: each file's chunk is
+            # looked for by its own text among every hit, and its rank
+            # printed.
+            ranks = []
+            splitter = TokenTextSplitter(
+                chunk_size=rag["cfg"].text_splitter.chunk_size,
+                chunk_overlap=rag["cfg"].text_splitter.chunk_overlap)
+            for path in (deck, memo):
+                data, ctype = multipart_body(path)
+                with post_with_retry(fbase + "/api/upload", data=data,
+                                     headers={"Content-Type": ctype},
+                                     timeout=300) as resp:
+                    entry = json.loads(resp.read())
+                chunks = splitter.split_text(read_document(path))
+                hits = json.loads(post(base + "/documentSearch", {
+                    "content": chunks[0], "num_docs": len(rag["index"])}))
+                found = [i for i, h in enumerate(hits)
+                         if h["source"] == os.path.basename(path)]
+                if entry["status"] != "ingested" or sorted(
+                        hits[i]["content"] for i in found) != sorted(chunks):
+                    fail(f"[{mode}] {path} through /api/upload: {entry}; "
+                         f"/documentSearch does not return its chunks")
+                ranks.append(f"{os.path.basename(path)} ({len(chunks)} "
+                             f"chunks) first at rank {found[0] + 1} of "
+                             f"{len(hits)}")
+            say(f"periphery [{mode}]: deck.pptx and memo.docx uploaded "
+                f"through /api/upload (read by the assistant's parsers), "
+                f"each found by /documentSearch for its own first chunk: "
+                f"{', '.join(ranks)}")
+
+        # 3. The multimodal assistant through the --example path.
+        cls = discover_example("generativeaiexamples_tpu_torch.assistant."
+                               "assistant")
+        acfg = from_dict(AppConfig, {"vector_store": {"name": "exact-cuda"}})
+        asst = cls(llm=EngineLLM(engine), embedder=svc, config=acfg,
+                   feedback_path=os.path.join(tmp, "feedback.jsonl"))
+        abase, stop_asst = serve_app(create_app(asst, os.path.join(
+            tmp, "assistant")))
+        try:
+            upload(abase, deck)
+            docs = asst.index.similarity_search(
+                ASSISTANT_QUESTION, k=acfg.retriever.top_k)
+            context = "\n\n".join(cap_context(
+                [d.text for d in docs],
+                max_tokens=acfg.retriever.max_context_tokens,
+                tokenizer=asst.splitter.tok))
+            prompt = asst._prompt(context, ASSISTANT_QUESTION)
+            _, text, _ = counted("assistant /generate",
+                                 lambda: stream_generate(
+                abase, {"question": ASSISTANT_QUESTION,
+                        "use_knowledge_base": True,
+                        "num_tokens": RAG_NEW}, f"assistant-{mode}"))
+        finally:
+            stop_asst()
+        answer, _, suffix = text.partition("\n\n[fact check:")
+        engine.stop()
+        engine.clear_prefix_cache()
+        want_answer = engine.generate_text(prompt, SamplingParams(
+            max_tokens=RAG_NEW, top_k=1, stop_words=["</s>", "[INST]"]))
+        if answer != want_answer or len(answer) < 8:
+            fail(f"[{mode}] the assistant answered {answer!r}; the engine's "
+                 f"greedy text for its prompt is {want_answer!r}")
+        verdict = counted("fact check", lambda: fact_check(
+            asst.llm, context, ASSISTANT_QUESTION, answer))
+        slides = sorted({d.metadata.get("slide") for d in docs})
+        say(f"periphery [{mode}]: assistant over deck.pptx "
+            f"({len(asst.index)} chunks; retrieved slides {slides}): "
+            f"answer = the engine's greedy text for its "
+            f"{len(engine.tokenizer.encode(prompt))}-token prompt "
+            f"({len(answer)} chars); fact check in /generate: "
+            f"{'appended' if suffix else 'no verdict parsed'}; on its own: "
+            f"supported={verdict.supported}, "
+            f"{len(verdict.explanation)} chars of explanation")
+    finally:
+        stop_front()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 4. The ingest pipeline against the /uploadDocument index.
+    if rag["first"]:
+        cfg = rag["cfg"]
+        pidx = DocumentIndex(svc, store=store_from_config(cfg.vector_store,
+                                                          svc.dim))
+        t0 = time.monotonic()
+        stats = IngestPipeline(
+            FilesystemSource(os.path.join(docs_dir(), "*.md")), pidx,
+            chunk_size=cfg.text_splitter.chunk_size,
+            chunk_overlap=cfg.text_splitter.chunk_overlap,
+            batch_size=32).run_sync()
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        check_same_index(svc, rag["index"], pidx, RAG_QUESTIONS)
+        n_up, up_s = rag["upload"]
+        say(f"ingest pipeline: {stats.items_in} files -> "
+            f"{stats.chunks_stored} chunks in {stats.batches} batches of "
+            f"up to 32 in {secs:.2f} s ({stats.chunks_stored / secs:.1f} "
+            f"chunks/s) against /uploadDocument's {n_up} chunks in "
+            f"{up_s:.2f} s ({n_up / up_s:.1f} chunks/s) [{card}]")
+        del pidx
+    return total
 
 
 # The fleet phase (``serve_fleet``): three replicas of llama-2-7b-chat at
@@ -5107,15 +5564,27 @@ def main() -> int:
         run["verify_wg"] = spec["verify_wg"]
         untraced["calibrated_decode_ms"] = spec["calibrated_decode_ms"]
     lap("serve_spec_kv_tier")
-    # The RAG chatbot over each mode's weights; its counts join the
-    # mode's in the kernels line.
+    # The RAG chatbot over each mode's weights, and inside each mode's
+    # window the application periphery on the same engine, embedder and
+    # chain server (timed apart); both counts join the mode's in the
+    # kernels line.
+    periphery, periphery_s = {}, []
+
+    def run_periphery(held: dict) -> None:
+        t1 = time.monotonic()
+        periphery[held["quantization"]] = serve_periphery(torch, dev, card,
+                                                          held)
+        periphery_s.append(time.monotonic() - t1)
     rag = serve_rag(torch, dev, card, [(bf16["profile"][1], ""),
                                        (quantized["profile"][1],
-                                        "int4_awq")])
+                                        "int4_awq")], then=run_periphery)
     for run, q in ((bf16, ""), (quantized, "int4_awq")):
         for key in ("launches", "by_path"):
-            run[key] = {k: n + rag[q][key][k] for k, n in run[key].items()}
+            run[key] = {k: n + rag[q][key][k] + periphery[q][key].get(k, 0)
+                        for k, n in run[key].items()}
     lap("serve_rag")
+    phases["serve_rag"] = round(phases["serve_rag"] - sum(periphery_s), 1)
+    phases["serve_periphery"] = round(sum(periphery_s), 1)
     # The fleet tier on the int4 weights: three replicas behind the
     # router; its counts join the int4 mode's in the kernels line.
     fleet = serve_fleet(torch, dev, card, quantized["profile"][1])

@@ -1,5 +1,5 @@
 """Document readers: file → plain text (a copy of the reference package's
-``chains/readers.py``; the pptx/docx parsers are not ported yet).
+``chains/readers.py``; .pptx and .docx through ``assistant/parsers.py``).
 
 The reference leans on LlamaIndex's PDFReader/UnstructuredReader
 (reference: examples/developer_rag/chains.py:58-66). First-party readers
@@ -71,13 +71,13 @@ def read_pdf(path: str) -> str:
 
 
 def _read_pptx(path: str) -> str:
-    raise ChainError("pptx documents need the assistant parsers, which "
-                     "this package does not port yet (ROADMAP A17)")
+    from ..assistant.parsers import read_pptx
+    return read_pptx(path)
 
 
 def _read_docx(path: str) -> str:
-    raise ChainError("docx documents need the assistant parsers, which "
-                     "this package does not port yet (ROADMAP A17)")
+    from ..assistant.parsers import read_docx
+    return read_docx(path)
 
 
 _READERS = {

@@ -95,6 +95,16 @@ def server_span(name: str, headers: Optional[dict] = None,
         yield span
 
 
+def inject_context(headers: Optional[dict] = None) -> dict:
+    """A copy of ``headers`` with the current trace context injected as
+    W3C headers (unchanged when tracing is off)."""
+    headers = dict(headers or {})
+    if enabled():
+        from opentelemetry.propagate import inject
+        inject(headers)
+    return headers
+
+
 def instrumented(name: str):
     """Decorator for aiohttp handlers: wraps in a server span carrying the
     request's W3C context. No-op (identity passthrough of the handler's

@@ -3,9 +3,12 @@
     python -m generativeaiexamples_tpu_torch.serving llama-2-7b-chat \\
         --port 8000 [--model-path DIR] [--device cuda] [--seed 0] \\
         [--kv-pool-tokens N] [--quantization {int8,int4,int4_awq}] \\
-        [--kv-quant int8] [--embedder-path DIR | --no-embedder]
+        [--kv-quant int8] [--embedder-path DIR | --no-embedder] \\
+        [--grpc-port 8001]
 
-With ``--model-path`` (default ``$MODEL_PATH``) ``build_services`` follows
+With ``--model-path`` (default ``$MODEL_PATH``, else the one model
+directory under ``$AZUREML_MODEL_DIR`` on an AzureML managed endpoint:
+``resolve_azureml_model_dir``) ``build_services`` follows
 the reference's order: the tokenizer from the directory
 (``tokenizer.model``, else ``tokenizer.json``), the weights loaded onto
 the device in the engine's dtype (``models/import_hf.py``: safetensors,
@@ -30,7 +33,10 @@ random weights; ``--no-embedder`` serves none (the route then answers
 
 Routes: ``/health`` (with the weight and KV quantization modes); the
 OpenAI routes of ``serving/openai_api.py`` (``/v1/completions``,
-``/v1/chat/completions``, ``/v1/models``, ``/v1/embeddings``);
+``/v1/chat/completions``, ``/v1/models``, ``/v1/embeddings``); the
+Triton generate extension of ``serving/triton_shim.py``
+(``/v2/models/{model}/generate[_stream]``, the ready endpoints); the job
+routes of ``serving/jobs_api.py`` (``/v1/jobs``, submit then poll);
 ``POST /v1/score`` (per-token NLL and perplexity of a text
 or token list, ``models/llama.py`` ``score``); ``/metrics`` (Prometheus
 text: the engine's stats as ``engine_*`` gauges, the round metrics, the
@@ -40,7 +46,10 @@ records), ``/debug/history``, ``/debug/alerts``, ``/debug/incidents`` and
 ``POST /control/incident`` (the retained telemetry, inert with
 ``HISTORY_INTERVAL_S=0``); ``POST /profiler/start`` (body ``{"dir": ...}``)
 and ``POST /profiler/stop``, a ``torch.profiler`` session whose Chrome
-trace lands in that directory.
+trace lands in that directory. The CLI also serves the gRPC
+``LLMService`` of ``serving/grpc_server.py`` on ``--grpc-port`` (default
+8001; 0 serves none; without the ``grpcio`` package a port other than 0
+raises ``ConfigError``).
 """
 
 from __future__ import annotations
@@ -101,6 +110,31 @@ def fast_hash_dir(path: str, workers: int = 8) -> str:
     return top.hexdigest()
 
 
+def resolve_azureml_model_dir(model_path: str = "") -> str:
+    """The checkpoint directory on an AzureML managed endpoint: with no
+    explicit ``model_path`` and ``AZUREML_MODEL_DIR`` set, the model lives
+    one level under it (``$AZUREML_MODEL_DIR/<model_name>``), the first
+    directory there in name order (MLflow puts ``MLmodel``, ``conda.yaml``
+    and hidden files beside it). ``model_path`` unchanged otherwise;
+    ``ConfigError`` when that directory holds no model directory."""
+    if model_path:
+        return model_path
+    aml = os.environ.get("AZUREML_MODEL_DIR", "")
+    if not aml:
+        return model_path
+    aml = os.path.abspath(aml)
+    entries = [n for n in sorted(os.listdir(aml))
+               if os.path.isdir(os.path.join(aml, n))
+               and not n.startswith(".")] if os.path.isdir(aml) else []
+    if not entries:
+        raise ConfigError(
+            f"AZUREML_MODEL_DIR={aml} contains no model directory: "
+            "AzureML folder structure not recognized")
+    resolved = os.path.join(aml, entries[0])
+    logger.info("AzureML detected: model dir %s", resolved)
+    return resolved
+
+
 def awq_group(cfg: LlamaConfig) -> int:
     """The int4_awq group for ``cfg``: AWQ's usual 128, or the largest of
     64 and 32 that divides every reduction dim (the tiny geometries).
@@ -148,6 +182,7 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
     dev = resolve_device(device)
     cfg = get_model_config(model_name)
     dtype = _DTYPES[engine_cfg.dtype]
+    model_path = resolve_azureml_model_dir(model_path)
     if model_path:
         # The format first: an unrecognised directory fails before
         # anything else is read.
@@ -401,14 +436,16 @@ def create_server_app(engine: Engine, embed_service=None,
                       model_name: str = "model", *,
                       close_engine: bool = False) -> web.Application:
     """One app over one engine (and optional embedder): ``/health``, the
-    OpenAI routes,
+    OpenAI routes, the Triton generate extension, the job routes,
     ``/v1/score``, ``/metrics``, the ``/debug/*`` and ``/control/incident``
     routes and the profiler routes (see the module docstring). The
     retained telemetry's sampler starts with the app and stops at its
     cleanup, as does the engine; with ``close_engine`` the cleanup
     closes it (``Engine.close``: its device memory goes back), as the
     CLI's shutdown does."""
+    from .jobs_api import add_jobs_routes
     from .openai_api import add_openai_routes
+    from .triton_shim import add_triton_routes
 
     app = web.Application()
 
@@ -480,6 +517,10 @@ def create_server_app(engine: Engine, embed_service=None,
     app.router.add_post("/control/incident", control_incident)
     add_openai_routes(app, engine, model_name, embed_service=embed_service,
                       max_output=engine.cfg.max_output_length)
+    add_triton_routes(app, engine, model_name,
+                      max_output=engine.cfg.max_output_length)
+    add_jobs_routes(app, engine, model_name,
+                    max_output=engine.cfg.max_output_length)
     add_score_route(app, engine, model_name)
     add_profiler_routes(app, engine)
     app.on_startup.append(_obs_start)
@@ -530,7 +571,13 @@ def main(argv: Optional[list[str]] = None) -> None:
                         help="serve no embedder (/v1/embeddings: 501)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--grpc-port", type=int, default=8001,
+                        help="gRPC LLMService port (0 serves none)")
     args = parser.parse_args(argv)
+    if args.grpc_port:
+        # Refused before the weights load, not after.
+        from .grpc_server import require_grpc
+        require_grpc()
     engine_cfg = EngineConfig(
         max_slots=args.max_batch_size,
         max_input_length=args.max_input_length,
@@ -552,6 +599,16 @@ def main(argv: Optional[list[str]] = None) -> None:
     # traffic; the pool shrinks if the card runs out of memory.
     engine.prewarm()
     engine.start()
-    web.run_app(create_server_app(engine, embed_service, name,
-                                  close_engine=True),
-                host=args.host, port=args.port)
+    grpc_server = None  # held: a grpc.Server stops when collected
+    if args.grpc_port:
+        from .grpc_server import serve_grpc
+        grpc_server = serve_grpc(engine, name, embed_service,
+                                 max_output=engine.cfg.max_output_length,
+                                 host=args.host, port=args.grpc_port)
+    try:
+        web.run_app(create_server_app(engine, embed_service, name,
+                                      close_engine=True),
+                    host=args.host, port=args.port)
+    finally:
+        if grpc_server is not None:
+            grpc_server.stop(grace=1.0)

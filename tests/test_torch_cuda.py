@@ -1657,3 +1657,163 @@ def test_close_returns_the_engines_memory(dev, monkeypatch):
     base = torch.cuda.memory_allocated(dev)
     assert life() > base + (768 << 20)           # 0.92 GB of weights
     assert torch.cuda.memory_allocated(dev) == base
+
+
+def _front_end_call(url, body=None, data=None, headers=None):
+    """The body of a GET, a JSON POST or a raw POST, decoded."""
+    import json
+    import urllib.request
+    if body is not None:
+        data = json.dumps(body).encode()
+        headers = {"Content-Type": "application/json"}
+    req = urllib.request.Request(url, data=data, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return resp.read().decode()
+
+
+def _kernels_in(fn, mode):
+    """Run ``fn`` with the launch counts set to 0 before it; assert that
+    the mode's kernels launched inside it."""
+    from generativeaiexamples_tpu_torch.engine import graphs
+    graphs.set_launch_counts(dict.fromkeys(graphs.launch_counts(), 0))
+    out = fn()
+    torch.cuda.synchronize()
+    counts = graphs.launch_counts()
+    if mode == "bf16":
+        assert counts["paged_attention_decode"] > 0, counts
+    else:
+        assert counts["paged_attention_decode_int8"] > 0, counts
+        assert counts["int4_matmul/tc"] > 0, counts
+        assert counts["int4_matmul/wg"] > 0, counts
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int4"])
+def test_front_ends_on_the_card_give_the_completions_text(dev, mode,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """The model server's Triton generate and stream and its job routes
+    (a 202 then a poll), and the web frontend's /api/generate in front of
+    a chain server, over a 1-layer 7B-width graph engine on the card with
+    golden-tiny's 32,000-piece vocabulary: each greedy text is the one
+    /v1/completions (or the chain server's /generate) gives, and the
+    mode's kernels launch inside each request's window."""
+    import asyncio
+    import contextlib
+    import json
+    import os
+    import threading
+    import zipfile
+
+    from aiohttp import web
+
+    from generativeaiexamples_tpu_torch.chains.examples.developer_rag import \
+        QAChatbot
+    from generativeaiexamples_tpu_torch.chains.llm import EngineLLM
+    from generativeaiexamples_tpu_torch.chains.server import create_app
+    from generativeaiexamples_tpu_torch.embed.encoder import HashEmbedder
+    from generativeaiexamples_tpu_torch.engine import Engine, EngineConfig
+    from generativeaiexamples_tpu_torch.frontend.chat_client import (
+        ChatClient, multipart_body)
+    from generativeaiexamples_tpu_torch.frontend.server import \
+        create_app as frontend_app
+    from generativeaiexamples_tpu_torch.models.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.serving import jobs_api
+    from generativeaiexamples_tpu_torch.serving.client import (
+        JobsClient, TritonShimClient)
+    from generativeaiexamples_tpu_torch.serving.model_server import \
+        create_server_app
+    from generativeaiexamples_tpu_torch.utils.app_config import AppConfig
+    from generativeaiexamples_tpu_torch.utils.configuration import from_dict
+
+    @contextlib.contextmanager
+    def serve(app):
+        loop = asyncio.new_event_loop()
+        box, started = {}, threading.Event()
+
+        def run():
+            asyncio.set_event_loop(loop)
+
+            async def boot():
+                box["runner"] = web.AppRunner(app)
+                await box["runner"].setup()
+                site = web.TCPSite(box["runner"], "127.0.0.1", 0)
+                await site.start()
+                box["port"] = box["runner"].addresses[0][1]
+            loop.run_until_complete(boot())
+            started.set()
+            loop.run_forever()
+            loop.run_until_complete(box["runner"].cleanup())
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        assert started.wait(120)
+        try:
+            yield f"http://127.0.0.1:{box['port']}"
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            t.join(120)
+
+    monkeypatch.setenv("GAIE_RUN_DIR", str(tmp_path))
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "fixtures", "golden_tiny")
+    params, cfg, kw = _model(dev, mode, num_layers=1)
+    engine = Engine(params, cfg, get_tokenizer(golden),
+                    EngineConfig(**{**kw, "max_output_length": 32}),
+                    device=dev)
+    prompt, new = "The paged pool of the engine holds", 24
+    jobs_now = web.Application()
+    jobs_api.add_jobs_routes(jobs_now, engine, "llama", sync_wait=0.0)
+    with serve(create_server_app(engine, None, "llama")) as base, \
+            serve(jobs_now) as jobs_base:
+        want = _kernels_in(lambda: json.loads(_front_end_call(
+            base + "/v1/completions", {"prompt": prompt, "max_tokens": new,
+                                       "temperature": 0}))["choices"][0]
+            ["text"], mode)
+        assert len(want) > 3
+        triton = TritonShimClient(base, "llama")
+        assert _kernels_in(lambda: triton.generate(prompt, new), mode) == want
+        assert _kernels_in(lambda: "".join(triton.generate_stream(
+            prompt, new)), mode) == want
+        jobs = JobsClient(jobs_base, poll_interval=0.02)
+
+        def job():
+            snap = jobs.submit(prompt, max_tokens=new, temperature=0)
+            assert snap["status"] == "running"
+            return jobs.wait(snap["id"])["text"]
+        assert _kernels_in(job, mode) == want
+    engine.stop()
+    cfg_chain = from_dict(AppConfig, {
+        "embeddings": {"model_engine": "hash", "dimensions": 64},
+        "text_splitter": {"chunk_size": 100, "chunk_overlap": 20},
+        "retriever": {"top_k": 2, "max_context_tokens": 200}})
+    bot = QAChatbot(llm=EngineLLM(engine), embedder=HashEmbedder(64),
+                    config=cfg_chain, fused_rag=False)
+    deck = tmp_path / "deck.pptx"
+    with zipfile.ZipFile(deck, "w") as z:
+        z.writestr("ppt/slides/slide1.xml", '<p:sld xmlns:p="p" xmlns:a='
+                   '"http://schemas.openxmlformats.org/drawingml/2006/main">'
+                   '<a:t>The paged pool holds the keys and values of every '
+                   'slot.</a:t></p:sld>')
+    with serve(create_app(bot, str(tmp_path / "up"))) as chain, \
+            serve(frontend_app(ChatClient(chain))) as front:
+        body, ctype = multipart_body(str(deck))
+        assert json.loads(_front_end_call(
+            front + "/api/upload", data=body,
+            headers={"Content-Type": ctype}))["status"] == "ingested"
+        q = {"question": "What does the paged pool hold?",
+             "use_knowledge_base": True, "num_tokens": new}
+        engine.stop()
+        engine.clear_prefix_cache()
+        direct = _kernels_in(lambda: _front_end_call(chain + "/generate", q),
+                             mode)
+        engine.stop()
+        engine.clear_prefix_cache()
+        proxied = _kernels_in(lambda: _front_end_call(
+            front + "/api/generate", q), mode)
+        assert proxied == direct and len(direct) > 3
+        hits = json.loads(_front_end_call(front + "/api/search", {
+            "content": q["question"], "num_docs": 1}))
+        assert hits[0]["source"] == "deck.pptx"
+    engine.close()

@@ -318,9 +318,13 @@ def test_port_imports_no_jax():
     opentelemetry (imported only once tracing is switched on), psutil
     (the process gauges read /proc), requests (the chains' HTTP client
     is urllib), yaml (imported only to read a YAML config), bs4 and
-    pypdf (imported only to read an HTML or PDF document) and the vector
+    pypdf (imported only to read an HTML or PDF document), the vector
     stores' clients, pymilvus and psycopg2 (imported only by their
-    connectors)."""
+    connectors), grpc (imported only when a gRPC server or client is
+    built), riva (only when speech is configured), kafka (only when a
+    ``KafkaSource`` builds its consumer), langchain_core and llama_index
+    (the connectors fall back to structural stand-ins). The generated
+    protobuf module loads google.protobuf, which the card has."""
     _check_imports([])
 
 
@@ -337,15 +341,19 @@ import importlib, pkgutil, sys
 import generativeaiexamples_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
-assert "generativeaiexamples_tpu_torch.router.server" in names, names
+for n in ("router.server", "serving.grpc_server", "frontend.server",
+          "ingest.pipeline", "assistant.assistant",
+          "integrations.llamaindex_torch"):
+    assert "generativeaiexamples_tpu_torch." + n in names, names
 for n in names + EXTRA:
     importlib.import_module(n)
 roots = ("jax", "generativeaiexamples_tpu", "safetensors", "transformers",
          "tokenizers", "sentencepiece", "orbax", "opentelemetry", "psutil",
-         "requests", "yaml", "bs4", "pypdf", "pymilvus", "psycopg2")
+         "requests", "yaml", "bs4", "pypdf", "pymilvus", "psycopg2",
+         "grpc", "riva", "kafka", "langchain_core", "llama_index")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
 print(len(names), bad)
-assert len(names) >= 87, names
+assert len(names) >= 108, names
 assert not bad, bad
 """.replace("EXTRA", repr(extra))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -304,7 +304,7 @@ def test_cli_refuses_a_quantized_checkpoint(tmp_path, monkeypatch):
     argv = ["golden-tiny", "--model-path", str(good), "--device", "cpu",
             "--dtype", "float32", "--no-embedder", "--max-batch-size", "2",
             "--max-input-length", "64", "--max-output-length", "16",
-            "--kv-pool-tokens", "512"]
+            "--kv-pool-tokens", "512", "--grpc-port", "0"]
     model_server.main(argv)
     assert seen["status"] == 200
     engine = seen["engine"]
@@ -321,7 +321,9 @@ def test_cli_refuses_a_quantized_checkpoint(tmp_path, monkeypatch):
     assert text == want and len(text) > 3
     with pytest.raises(ModelLoadError, match="act-order"):
         model_server.main(["golden-tiny", "--model-path", str(bad),
-                           "--device", "cpu", "--dtype", "float32"])
+                           "--device", "cpu", "--dtype", "float32",
+                           "--grpc-port", "0"])
     monkeypatch.setenv("MODEL_PATH", str(bad))
     with pytest.raises(ModelLoadError, match="act-order"):
-        model_server.main(["golden-tiny", "--device", "cpu"])
+        model_server.main(["golden-tiny", "--device", "cpu",
+                           "--grpc-port", "0"])
