@@ -5,6 +5,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --golden-readings`` builds the kernels and
+prints only the readings the golden gate's limits were set from.)
+
 Phases (each fails loudly: a failure exits non-zero and the final
 ``{"ok": true, ...}`` line is never printed):
 
@@ -209,6 +212,23 @@ Phases (each fails loudly: a failure exits non-zero and the final
 9. After the traced profiles, the model server's ``/profiler/start`` and
    ``/stop`` around one request on the int4 engine write a Chrome trace
    that must name ``paged_decode_split_kernel`` and an int4 kernel.
+
+10. Customization and evaluation (``customize``, after the Nemotron
+   phases and before the llama-2 serve phases, while no engine holds the
+   card): #3 under autograd at llama-2-7b's projection shapes and M =
+   2048 (AWQ and GPTQ leaves; dx against a dequantized bf16 product's,
+   forward and backward timed); the raw head's logits product under
+   autograd; then on llama-2-7b-chat at full width and depth (random bf16
+   weights, seed 0) LoRA (rank 8 on wq..wo, Adam 1e-2, 8 steps of 4 x
+   512) over the bf16 base and QLoRA over the base quantized to int4_awq
+   (first gradients against the dequantized bf16 base's; the training
+   window's #3 "wg" forwards and backward products counted, added to the
+   kernels line), each base's digest unchanged, each merged tree served
+   with its launch counts and the eager engine's tokens; full-parameter
+   SFT (AdamW, notebook 10's masked batch); the golden tool trained on
+   the card, exported, read back bit-equal and scored through
+   /v1/score; and the live eval through the chain server on it
+   (retrieval metrics equal to a CPU index's; exact-cuda beside).
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -2961,12 +2981,13 @@ def checkpoint_phase(torch, dev, card: str) -> dict:
     return gptq
 
 
-# The pre-quantized checkpoints' geometry: llama-2-7b's width, 4 layers,
-# groups of 128 (the tensor-core paths' groups, as GPTQ and AWQ releases
-# use).
-QCKPT_LAYERS, QCKPT_GROUP = 4, 128
+# The pre-quantized checkpoints' geometry: llama-2-7b's width, 2 layers
+# (4 until the customize phase joined the smoke: their CPU engines took
+# ~140 s of it), groups of 128 (the tensor-core paths' groups, as GPTQ
+# and AWQ releases use).
+QCKPT_LAYERS, QCKPT_GROUP = 2, 128
 # The gap under which the card's and the CPU's bf16 greedy tokens may
-# part: two computation orders move a logit of a 4-layer 7B-width model
+# part: two computation orders move a logit of a 2-layer 7B-width model
 # by a few hundredths, so a parting is only accepted where the CPU
 # engine's own top-2 logits lie closer than this.
 QCKPT_TIE = 0.1
@@ -5434,6 +5455,750 @@ def serve_fleet(torch, dev, card: str, served) -> dict:
     return run
 
 
+# ------------------------------------------------------- customize phase
+
+# The 7B training batches: LoRA/QLoRA (the reference test's recipe: rank
+# 8 on wq..wo, Adam 1e-2) on one fixed batch, and full-parameter SFT at
+# notebook 10's batch shape (prompt masked out of the loss, ``length``
+# passed).
+TUNE_B, TUNE_S, TUNE_STEPS, TUNE_RANK = 4, 512, 8, 8
+SFT_B, SFT_S, SFT_PROMPT, SFT_STEPS, SFT_LR = 2, 256, 96, 4, 3e-4
+# #3's backward is checked at every 7B projection shape at the training
+# batch's rows, B x S.
+INT4_BWD_SHAPES = (("wq", 4096, 4096), ("w_gate", 4096, 11008),
+                   ("w_down", 11008, 4096))
+# The bf16 tolerances (relative to max|ref|): the int4 backward against
+# the product through a dequantized bf16 copy (both round the weight and
+# the result to bf16, at different points: a few ulps of the largest
+# entry), and the QLoRA adapters' first gradients against the same loss
+# with every int4 leaf dequantized to bf16 (relative Frobenius error over
+# 32 layers of bf16 activations). A product that lost its backward (an
+# MLP with no gradient) misses either by far more.
+INT4_BWD_ATOL, QLORA_GRAD_RTOL = 2e-2, 1e-1
+TUNE_PROMPTS = ["Tell me about paged attention. " * 3, "a" * 126,
+                "Summarize the fine-tuning run:"]
+TUNE_NEW = 16
+# The live eval of the card-trained golden-tiny: chunks of 150 tokens, 32
+# answer tokens, 6 questions from 6 chunks, a 200-token context cap so the
+# chain's prompts fit golden-tiny's 512 positions.
+EVAL_ARGS = ["--chunk-size", "150", "--chunk-overlap", "30",
+             "--max-questions", "6", "--max-chunks", "6", "--num-tokens",
+             "32", "--max-context-tokens", "200", "--model-name",
+             "golden-tiny"]
+
+
+def int4_row(shape: str, path: str, err: float, ms: float, plain_ms: float,
+             bound: float, by: str, lib_ms) -> dict:
+    """A kernels-line row of #3 (launches filled in by ``main``)."""
+    return {"name": "int4_matmul", "route": "cuda",
+            "source": "generativeaiexamples_tpu_torch/csrc/int4_matmul.cu",
+            "replaces": "generativeaiexamples_tpu/ops/int4_matmul.py:83",
+            "path": path, "shape": shape, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms}
+
+
+def int4_bound(M: int, K: int, N: int, G: int) -> tuple:
+    """(bound ms, what bounds it) of an (M, K) x (K, N) int4 product with
+    G group scales, bf16 in and out: each byte read or written once, the
+    multiply-adds at the bf16 tensor-core peak."""
+    nbytes = K // 2 * N + 4 * G * N + M * K * 2 + M * N * 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = 2 * M * K * N / BF16_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")
+
+
+def check_int4_backward(torch, dev, card: str) -> dict:
+    """#3 under autograd (``int4_matmul_grad``, which ``quant.matmul``
+    takes when x requires grad) at llama-2-7b's projection shapes and M =
+    B x S = 2048 rows, for an AWQ leaf (groups of 128 with a pre-scale)
+    and a GPTQ leaf (zero points): the forward must launch "wg" once and
+    the backward count once, and autograd's dx must equal autograd's dx
+    through a dequantized bf16 copy of the weight (``INT4_BWD_ATOL`` x
+    max|ref|). Then times the forward kernel, the backward product
+    (``int4_matmul_dx``), the plain version, a dense bf16 product of
+    each direction and ``aten._weight_int4pack_mm`` at the AWQ leaf.
+    Returns the kernels line's row for w_gate (the training window's
+    launches are added by ``main``) and its backward times."""
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
+        int4_matmul, int4_matmul_dx, int4_matmul_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    M = TUNE_B * TUNE_S
+    row = None
+    for name, K, N in INT4_BWD_SHAPES:
+        w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        awq = quant.quantize_tensor_grouped(w, 128)
+        awq["pre_scale"] = torch.rand((K,), generator=gen, device=dev) + 0.5
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        dy = torch.randn((M, N), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        errs = {}
+        for fmt, leaf in (("awq", awq),
+                          ("gptq", gptq_leaf(torch, gen, K, N, dev))):
+            n0 = (int4_matmul.launches_by_path["wg"],
+                  int4_matmul.backward_launches)
+            x1 = x.clone().requires_grad_(True)
+            y1 = quant.matmul(x1, leaf)
+            y1.backward(dy)
+            if (int4_matmul.launches_by_path["wg"],
+                    int4_matmul.backward_launches) != (n0[0] + 1, n0[1] + 1):
+                fail(f"int4 backward {fmt} {name}: the forward did not "
+                     f"launch 'wg' once and the backward run once")
+            x2 = x.clone().requires_grad_(True)
+            (x2 @ quant.dequantize(leaf, torch.bfloat16)).backward(dy)
+            ref, got = x2.grad.float(), x1.grad.float()
+            peak = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            if not (torch.isfinite(got).all() and err <= INT4_BWD_ATOL
+                    * peak):
+                fail(f"int4 backward {fmt} {name} M={M} K={K} N={N}: dx "
+                     f"max abs err {err} against the dequantized bf16 "
+                     f"product (max|ref| {peak}; tolerance "
+                     f"{INT4_BWD_ATOL} x max|ref|)")
+            errs[fmt] = (err, peak)
+            del x1, x2, y1
+        G = K // 128
+        xin = (x.float() * awq["pre_scale"]).to(torch.bfloat16)
+        q4, gs = awq["q4"], awq["gscale"]
+        fwd_ms = time_cuda(torch, lambda: int4_matmul(xin, q4, gs), iters=20)
+        bwd_ms = time_cuda(torch, lambda: int4_matmul_dx(
+            dy, q4, gs, dtype=torch.bfloat16), iters=20)
+        plain_ms = time_cuda(torch, lambda: int4_matmul_plain(xin, q4, gs),
+                             iters=3, warmup=1)
+        wd = quant.dequantize(awq, torch.bfloat16)
+        mm_ms = time_cuda(torch, lambda: x @ wd, iters=20)
+        mm_t_ms = time_cuda(torch, lambda: dy @ wd.T, iters=20)
+        lib_ms, lib_note = int4_library_ms(torch, dev, M, K, N, 128, 20)
+        bound, by = int4_bound(M, K, N, G)
+        say(f"int4 backward {name} M={M} K={K} N={N} group 128: dx equals "
+            f"the dequantized bf16 product's (max abs err / max|ref|: awq "
+            f"{errs['awq'][0]} / {errs['awq'][1]}, gptq {errs['gptq'][0]} / "
+            f"{errs['gptq'][1]}); forward wg "
+            f"{fwd_ms:.5f} ms, backward (bf16 dequantize + cuBLAS) "
+            f"{bwd_ms:.5f} ms, bound {bound:.5f} ms ({by}) each way; plain "
+            f"{plain_ms:.4f} ms; dense bf16 x @ W {mm_ms:.5f} ms, dy @ W^T "
+            f"{mm_t_ms:.5f} ms; library {lib_ms} ({lib_note}) [{card}]")
+        if name == "w_gate":
+            row = int4_row(f"qlora M={M} K={K} N={N} awq", "wg",
+                           errs["awq"][0], fwd_ms, plain_ms, bound, by,
+                           lib_ms)
+            row.update(backward_ms=bwd_ms, backward_bound_ms=bound,
+                       backward_launches=0)
+        del w, awq, wd, x, dy, xin
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_mm_f32_backward(torch, dev, card: str) -> None:
+    """The logits product of a raw bf16 head (``quant.matmul_f32``: one
+    ``torch.mm(..., out_dtype=torch.float32)`` on the card, which has no
+    registered derivative) under autograd: it goes through
+    ``quant._MatmulF32Fn``, and its backward gives dx and dW equal to a
+    float32 product's (rtol 1e-2: bf16 gradients)."""
+    from generativeaiexamples_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((256, 4096), generator=gen,
+                    device=dev).to(torch.bfloat16).requires_grad_(True)
+    w = (torch.randn((4096, 32000), generator=gen, device=dev)
+         * 4096 ** -0.5).to(torch.bfloat16).requires_grad_(True)
+    dy = torch.randn((256, 32000), generator=gen, device=dev)
+    y = quant.matmul_f32(x, w)
+    # y is a view of the Function's (M, N) output.
+    fn = type(y.grad_fn.next_functions[0][0]).__name__
+    if y.dtype != torch.float32 or "_MatmulF32Fn" not in fn:
+        fail(f"matmul_f32 gave {y.dtype} through {fn}, not "
+             f"quant._MatmulF32Fn")
+    y.backward(dy)
+    xf = x.detach().float().requires_grad_(True)
+    wf = w.detach().float().requires_grad_(True)
+    (xf @ wf).backward(dy)
+    for label, got, ref in (("dx", x.grad, xf.grad), ("dW", w.grad, wf.grad)):
+        err = (got.float() - ref).abs().max().item()
+        peak = ref.abs().max().item()
+        if not torch.allclose(got.float(), ref, rtol=1e-2, atol=1e-2 * peak):
+            fail(f"matmul_f32 backward {label}: max abs err {err} "
+                 f"(max|ref| {peak})")
+    say(f"logits product backward: torch.mm(out_dtype=float32) under "
+        f"autograd through {fn} gives dx and dW "
+        f"equal to the float32 product's [{card}]")
+
+
+def tree_digest(torch, tree) -> list:
+    """(address, in-place write count, checksum) of every tensor of a
+    parameter tree: a position-weighted sum of its bytes, 64 Mi bytes at
+    a time, so equal digests mean unwritten, bit-equal tensors."""
+    from generativeaiexamples_tpu_torch.models import llama
+    step = 64 << 20
+    weights = (torch.arange(step, device=tree["embed"].device) % 65521) + 1
+    out = []
+    for t in llama.param_tensors(tree):
+        b = t.detach().contiguous().view(-1).view(torch.uint8)
+        s = 0
+        for i in range(0, b.numel(), step):
+            c = b[i:i + step]
+            s += int((c.to(torch.int64) * weights[:c.numel()]).sum())
+        out.append((t.data_ptr(), t._version, s))
+    return out
+
+
+def tune_batch(torch, dev, V: int, seed: int) -> dict:
+    """A fixed LM batch of random tokens, TUNE_B x TUNE_S, all in the
+    loss."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(3, V, (TUNE_B, TUNE_S + 1), generator=gen,
+                         device=dev)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+            "mask": torch.ones((TUNE_B, TUNE_S), dtype=torch.int32,
+                               device=dev)}
+
+
+def train_lora(torch, dev, card: str, cfg, base, label: str,
+               ref_grads=None) -> tuple:
+    """TUNE_STEPS Adam(1e-2) steps of rank-TUNE_RANK adapters on wq..wo
+    over the frozen ``base`` (merged in bf16, so the activations stay
+    bf16), one fixed batch. Checks: the loss falls, the base's digest is
+    unchanged and no base leaf requires or holds a gradient, every ``b``
+    moved; with ``ref_grads`` (target -> (grad a, grad b) at the same
+    initial adapters) the first step's gradients equal them within
+    ``QLORA_GRAD_RTOL``. Prints step ms, tokens/s and peak memory.
+    Returns (adapters, stats, the training window's launch counts)."""
+    from generativeaiexamples_tpu_torch.engine import graphs
+    from generativeaiexamples_tpu_torch.lora import (init_lora,
+                                                     lora_parameters,
+                                                     make_lora_train_step)
+    from generativeaiexamples_tpu_torch.models import llama
+
+    lora = init_lora(cfg, base, torch.Generator(device=dev).manual_seed(1),
+                     rank=TUNE_RANK)
+    step = make_lora_train_step(
+        cfg, torch.optim.Adam(lora_parameters(lora), lr=1e-2),
+        dtype=torch.bfloat16)
+    batch = tune_batch(torch, dev, cfg.vocab_size, 2)
+    digest = tree_digest(torch, base)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    losses, times, grad_err = [], [], {}
+    for i in range(TUNE_STEPS):
+        t0 = time.monotonic()
+        losses.append(float(step(lora, base, batch)))
+        times.append(time.monotonic() - t0)
+        if i == 0 and ref_grads is not None:
+            # At b = 0 the gradient of a is exactly 0 on both sides.
+            for name, ab in lora.items():
+                ga, gb = ab["a"].grad, ab["b"].grad.float()
+                ref_a, ref_b = ref_grads[name]
+                if ga.abs().max().item() or ref_a.abs().max().item():
+                    fail(f"{label}: the first gradient of {name}.a is not "
+                         f"0 at b = 0")
+                grad_err[name + ".b"] = ((gb - ref_b).norm()
+                                         / ref_b.norm()).item()
+    torch.cuda.synchronize()
+    counts = graphs.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not losses[-1] < losses[0] - 0.01:
+        fail(f"{label}: the loss did not fall over {TUNE_STEPS} steps: "
+             f"{losses}")
+    if tree_digest(torch, base) != digest or any(
+            t.requires_grad or t.grad is not None
+            for t in llama.param_tensors(base)):
+        fail(f"{label}: the frozen base changed or took a gradient")
+    if not all(ab["b"].detach().abs().max().item() > 0
+               for ab in lora.values()):
+        fail(f"{label}: an adapter's b did not move")
+    if grad_err and max(grad_err.values()) > QLORA_GRAD_RTOL:
+        fail(f"{label}: first-step adapter gradients against the "
+             f"dequantized bf16 base's: relative errors {grad_err} "
+             f"(tolerance {QLORA_GRAD_RTOL})")
+    step_ms = 1e3 * sorted(times[1:])[len(times[1:]) // 2]
+    stats = {"losses": losses, "step_ms": step_ms,
+             "first_step_ms": 1e3 * times[0], "peak_bytes": peak,
+             "tokens_per_s": TUNE_B * TUNE_S / step_ms * 1e3,
+             "grad_err": grad_err}
+    say(f"{label}: rank {TUNE_RANK} on wq..wo, Adam 1e-2, batch "
+        f"{TUNE_B} x {TUNE_S}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"over {TUNE_STEPS} steps; step {step_ms:.1f} ms median (first "
+        f"{1e3 * times[0]:.1f} ms), {stats['tokens_per_s']:.0f} tokens/s; "
+        f"peak {peak / 2**30:.2f} GiB allocated; base digest unchanged"
+        + (f"; first-step gradients against the dequantized bf16 base: "
+           f"worst relative error {max(grad_err.values()):.2e} "
+           f"({', '.join(f'{k} {v:.1e}' for k, v in grad_err.items())})"
+           if grad_err else "") + f" [{card}]")
+    return lora, stats, counts
+
+
+def serve_tuned(torch, dev, card: str, cfg, params, label: str,
+                quantization: str, kv_quant: str) -> dict:
+    """A tuned tree served: TUNE_PROMPTS through a captured engine, its
+    launch counts set to 0 before and read after (``check_launch_counts``:
+    #1 or #2 in every decode layer, #3 on every int4 projection; 3 a
+    layer once wq..wo are merged), and the same greedy tokens from an
+    eager engine (the budget pinned on both). Returns the counts."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.engine import Engine, EngineConfig
+    from generativeaiexamples_tpu_torch.models.tokenizer import \
+        ByteTokenizer
+
+    ecfg = EngineConfig(max_slots=4, max_input_length=256,
+                        max_output_length=32, prefill_buckets=(128, 256),
+                        page_size=128, kv_pool_tokens=4 * (256 + 32),
+                        dtype="bfloat16", kv_quant=kv_quant,
+                        sched_round_budget_tokens=1024)
+    tok = ByteTokenizer()
+    prompts = [tok.encode(p) for p in TUNE_PROMPTS]
+    t0 = time.monotonic()
+    engine = Engine(params, cfg, tok, ecfg, device=dev)
+    built = time.monotonic() - t0
+    greedy_tokens(engine, [tok.encode("warm")], 2)
+    torch.cuda.synchronize()
+    stats0 = engine.stats
+    zero_launch_counts()
+    got = greedy_tokens(engine, prompts, TUNE_NEW)
+    torch.cuda.synchronize()
+    run = read_launch_counts(engine, stats0)
+    n_tiles = head_tiles(engine)
+    engine.close()
+    check_launch_counts(label, run, cfg.num_layers, quantization, kv_quant,
+                        n_tiles, per_layer=3 if quantization else 7)
+    eager = Engine(params, cfg, tok, replace(ecfg, cuda_graphs=False),
+                   device=dev)
+    want = greedy_tokens(eager, prompts, TUNE_NEW)
+    eager.close()
+    if got != want:
+        fail(f"{label}: served greedy tokens {got} differ from the eager "
+             f"engine's {want}")
+    say(f"{label}: the merged tree served (built in {built:.1f} s): greedy "
+        f"tokens of {len(prompts)} prompts equal the eager engine's; "
+        f"launches {run['launches']} (int4 by path {run['by_path']}) over "
+        f"{run['decode_steps']} decode steps and {run['prefills']} "
+        f"admissions [{card}]")
+    return run
+
+
+def qlora_reference_grads(torch, cfg, qbase, lora_seed: int) -> dict:
+    """The QLoRA loss's first gradients with every int4 leaf of ``qbase``
+    dequantized to bf16 (plain bf16 products, no kernel), at the
+    adapters ``train_lora`` starts from."""
+    from generativeaiexamples_tpu_torch.lora import init_lora, merge_lora
+    from generativeaiexamples_tpu_torch.ops.quant import (dequantize,
+                                                          is_quantized)
+    from generativeaiexamples_tpu_torch.training import forward_loss
+
+    dev = qbase["embed"].device
+    lora = init_lora(cfg, qbase,
+                     torch.Generator(device=dev).manual_seed(lora_seed),
+                     rank=TUNE_RANK)
+    deq = {**qbase, "layers": {
+        k: (dequantize(v, torch.bfloat16)
+            if is_quantized(v) and k not in lora else v)
+        for k, v in qbase["layers"].items()}}
+    deq["lm_head"] = dequantize(qbase["lm_head"], torch.bfloat16)
+    loss = forward_loss(merge_lora(deq, lora, dtype=torch.bfloat16), cfg,
+                        tune_batch(torch, dev, cfg.vocab_size, 2))
+    loss.backward()
+    out = {k: (ab["a"].grad.float(), ab["b"].grad.float())
+           for k, ab in lora.items()}
+    del deq, lora, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def sft_batch(torch, dev, V: int) -> dict:
+    """Notebook 10's batch shape at SFT_B x SFT_S: random prompt and
+    response tokens, the first SFT_PROMPT positions out of the loss, the
+    second row right-padded after 200 tokens; ``length`` counts the real
+    tokens."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(3, V, (SFT_B, SFT_S + 1), generator=gen,
+                         device=dev)
+    length = torch.tensor([SFT_S, 200][:SFT_B], device=dev)
+    pos = torch.arange(SFT_S + 1, device=dev)
+    toks = torch.where(pos[None] <= length[:, None], toks, 0)
+    mask = ((pos[None, 1:] > SFT_PROMPT)
+            & (pos[None, 1:] <= length[:, None])).to(torch.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:], "mask": mask,
+            "length": length}
+
+
+def train_sft(torch, dev, card: str, cfg, params) -> dict:
+    """Full-parameter SFT of ``params`` (bf16, made trainable here):
+    ``torch.optim.AdamW`` (optax's decay 1e-4; moments in bf16, the
+    parameters' dtype, one leaf at a time) for SFT_STEPS steps on
+    ``sft_batch`` at full depth; the loss must fall, and running out of
+    memory fails (59.25 GiB at its first measurement, PERF.md). Prints
+    step ms, tokens/s and peak memory."""
+    from generativeaiexamples_tpu_torch.training import (make_train_step,
+                                                         trainable)
+
+    batch = sft_batch(torch, dev, cfg.vocab_size)
+    optim = torch.optim.AdamW(trainable(params), lr=SFT_LR,
+                              weight_decay=1e-4, foreach=False)
+    step = make_train_step(cfg, optim)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    try:
+        for _ in range(SFT_STEPS):
+            t0 = time.monotonic()
+            losses.append(float(step(params, batch)))
+            times.append(time.monotonic() - t0)
+    except torch.cuda.OutOfMemoryError as exc:
+        fail(f"sft: {cfg.num_layers} layers do not fit the card: {exc}")
+    peak = torch.cuda.max_memory_allocated()
+    n_states = sum(len(s) for s in optim.state.values())
+    if not losses[-1] < losses[0]:
+        fail(f"sft: the loss did not fall over {SFT_STEPS} steps: {losses}")
+    step_ms = 1e3 * sorted(times[1:])[len(times[1:]) // 2]
+    tokens = int(batch["length"].sum())
+    say(f"sft: full-parameter AdamW (lr {SFT_LR}, decay 1e-4, bf16 moments) "
+        f"at all {cfg.num_layers} layers, batch {SFT_B} x {SFT_S} "
+        f"(prompt {SFT_PROMPT} out of the loss, lengths "
+        f"{batch['length'].tolist()}): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {SFT_STEPS} steps; step {step_ms:.1f} ms "
+        f"median (first {1e3 * times[0]:.1f} ms), {tokens / step_ms * 1e3:.0f} "
+        f"tokens/s; peak {peak / 2**30:.2f} GiB allocated ({n_states} "
+        f"optimizer state tensors) [{card}]")
+    for t in trainable(params):
+        t.grad = None
+        t.requires_grad_(False)
+    del optim, step
+    return {"losses": losses, "step_ms": step_ms, "peak_bytes": peak,
+            "tokens_per_s": tokens / step_ms * 1e3}
+
+
+# The golden gate. GOLDEN_REF_BARE is the reference tool's own reading
+# of CORPUS_SNIPPET alone at its default 300 steps (the JAX package's
+# tools/make_golden_checkpoint.py trained on the CPU over today's
+# docs/*.md, scored through its /v1/score). GOLDEN_BARE_MARGIN and
+# GOLDEN_CTX_LIMIT (the snippet in its corpus context) were set from
+# ``--golden-readings`` on an H100 (PERF.md, PR 18): the default trainer
+# reads 6.5353 / 4.7963 at seed 0 (3.80-4.80 in context at seeds 0-2),
+# the faulty trainers of GOLDEN_FAULTY, which each run trains and scores
+# beside it, 6.6871 / 6.2210 (a third of the steps) and 6.2554 / 5.5191
+# (the MLP never trained): the snippet alone does not part a dropped
+# gradient from a sound trainer, in its context it does.
+GOLDEN_REF_BARE = 6.6152
+GOLDEN_BARE_MARGIN = 0.05
+GOLDEN_CTX_LIMIT = 5.15
+GOLDEN_FAULTY = (("100 steps", {"steps": 100}),
+                 ("mlp frozen", {"frozen": ("w_gate", "w_up", "w_down")}))
+
+
+def snippet_in_context() -> tuple:
+    """(docs/architecture.md from its start through CORPUS_SNIPPET's span,
+    the characters before the span): the snippet as the training corpus
+    holds it (a line break where the snippet has a space)."""
+    with open(os.path.join(docs_dir(), "architecture.md")) as f:
+        text = f.read()
+    i = text.index(CORPUS_SNIPPET[:40])
+    return text[:i + len(CORPUS_SNIPPET)], i
+
+
+def score_dir(torch, dev, path: str) -> tuple:
+    """(mean NLL of CORPUS_SNIPPET alone, mean NLL of its tokens in its
+    corpus context (``snippet_in_context``, per token), both through
+    ``/v1/score`` of the model server over the checkpoint at ``path``,
+    bf16 on the card; and the engine, kept for the live eval, its server
+    stopped)."""
+    from generativeaiexamples_tpu_torch.engine import EngineConfig
+    from generativeaiexamples_tpu_torch.serving.model_server import (
+        build_services, create_server_app)
+
+    ecfg = EngineConfig(max_slots=4, max_input_length=384,
+                        max_output_length=128,
+                        prefill_buckets=(64, 128, 384), page_size=16,
+                        kv_pool_tokens=None, dtype="bfloat16",
+                        sched_round_budget_tokens=1024)
+    with env_set(GAIE_WEIGHT_CACHE="0"):
+        engine, name = build_services("golden-tiny", model_path=path,
+                                      engine_cfg=ecfg, device=dev)
+    head, before = snippet_in_context()
+    ids = engine.tokenizer.encode(head)
+    n = len(engine.tokenizer.encode(head[:before]))
+    base, stop = serve_app(create_server_app(engine, model_name=name))
+    try:
+        bare = json.loads(post(base + "/v1/score", {"text": CORPUS_SNIPPET}))
+        ctx = json.loads(post(base + "/v1/score", {"tokens": ids,
+                                                   "per_token": True}))
+    finally:
+        stop()
+        engine.stop()
+    # nll[t] scores token t + 1: the snippet's tokens are n onward.
+    in_ctx = sum(ctx["nll"][n - 1:]) / len(ctx["nll"][n - 1:])
+    return bare["mean_nll"], in_ctx, engine
+
+
+def golden_run(torch, dev, out: str, frozen: tuple = (), **kw) -> dict:
+    """The port's golden tool on the card with ``kw`` over its defaults
+    (300 steps of batch 16, seq 128, lr 3e-3, AdamW decay 1e-4; float32),
+    the layer leaves named in ``frozen`` left out of the optimizer (a
+    dropped gradient), exported to ``out`` (fp16 safetensors through the
+    port's writer, config.json, tokenizer.model) and scored
+    (``score_dir``): {"losses", "train_s", "bare", "ctx", "engine",
+    "params" (the trained tree)}."""
+    from generativeaiexamples_tpu_torch import training
+    from generativeaiexamples_tpu_torch.models.configs import GOLDEN_TINY
+    from generativeaiexamples_tpu_torch.tools import make_golden_checkpoint \
+        as golden
+
+    tokenizer = os.path.join(golden_dir(), "tokenizer.model")
+    plain = training.trainable
+
+    def some(params):
+        # ``trainable`` recurses through the module's name, so this drops
+        # the frozen leaves at the layers level.
+        return plain({k: v for k, v in params.items() if k not in frozen})
+
+    training.trainable = some
+    t0 = time.monotonic()
+    try:
+        params, losses = golden.train(docs_dir(), tokenizer, device=dev,
+                                      log=lambda *_: None, **kw)
+    finally:
+        training.trainable = plain
+    torch.cuda.synchronize()
+    train_s = time.monotonic() - t0
+    golden.export_hf(params, GOLDEN_TINY, out, tokenizer)
+    bare, ctx, engine = score_dir(torch, dev, out)
+    return {"losses": losses, "train_s": train_s, "bare": bare, "ctx": ctx,
+            "engine": engine, "params": params}
+
+
+def golden_on_card(torch, dev, card: str) -> tuple:
+    """The golden tool on the card: golden-tiny trained with the tool's
+    defaults, every exported tensor read back bit-equal to the fp16 cast
+    of the trained tree, and served. /v1/score of CORPUS_SNIPPET alone
+    must be no worse than the reference tool's own reading plus
+    ``GOLDEN_BARE_MARGIN``, and of the snippet in its corpus context under
+    ``GOLDEN_CTX_LIMIT``; each trainer of ``GOLDEN_FAULTY``, trained and
+    scored in the same run, must miss one or both. Printed beside the
+    committed fixture's scores. Returns (the served engine, the
+    directory that holds the exports)."""
+    import tempfile
+
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import GOLDEN_TINY
+    from generativeaiexamples_tpu_torch.models.import_hf import \
+        load_checkpoint
+
+    fixture_bare, fixture_ctx, fixture_engine = score_dir(torch, dev,
+                                                          golden_dir())
+    fixture_engine.close()
+    root = tempfile.mkdtemp(prefix="chip_smoke_golden_")
+    faulty = {}
+    for i, (label, kw) in enumerate(GOLDEN_FAULTY):
+        run = golden_run(torch, dev, os.path.join(root, f"faulty{i}"), **kw)
+        run["engine"].close()
+        faulty[label] = (run["bare"], run["ctx"])
+    out = os.path.join(root, "default")
+    run = golden_run(torch, dev, out)
+    losses, train_s = run["losses"], run["train_s"]
+    back = load_checkpoint(out, GOLDEN_TINY, dtype=torch.float16, device=dev)
+    for a, b in zip(llama.param_tensors(back),
+                    llama.param_tensors(run["params"])):
+        if not torch.equal(a, b.to(torch.float16)):
+            fail("golden: an exported tensor did not read back bit-equal")
+    del back
+    bare, in_ctx, engine = run["bare"], run["ctx"], run["engine"]
+    bare_limit = GOLDEN_REF_BARE + GOLDEN_BARE_MARGIN
+    say(f"golden: {len(losses)} steps of 16 x 128 trained on the card in "
+        f"{train_s:.1f} s ({len(losses) * 16 * 128 / train_s:.0f} "
+        f"tokens/s; loss {losses[0]:.3f} -> {losses[-1]:.3f}), exported "
+        f"and read back bit-equal; /v1/score NLL of the corpus snippet "
+        f"alone {bare} (limit {bare_limit}: the reference tool's "
+        f"{GOLDEN_REF_BARE} + {GOLDEN_BARE_MARGIN}), in its corpus context "
+        f"{in_ctx} (limit {GOLDEN_CTX_LIMIT}); faulty trainers "
+        + ", ".join(f"{k} {b} / {c}" for k, (b, c) in faulty.items())
+        + f"; the committed fixture {fixture_bare} / {fixture_ctx} (bf16 "
+        f"engines) [{card}]")
+    if not (bare <= bare_limit and in_ctx < GOLDEN_CTX_LIMIT):
+        fail(f"golden: the card-trained checkpoint scores the corpus "
+             f"snippet at {bare} nats alone (limit {bare_limit}) and "
+             f"{in_ctx} in its context (limit {GOLDEN_CTX_LIMIT})")
+    passed = [k for k, (b, c) in faulty.items()
+              if b <= bare_limit and c < GOLDEN_CTX_LIMIT]
+    if passed:
+        fail(f"golden: faulty trainers {passed} meet both limits, so the "
+             f"gate does not tell a sound trainer from them: {faulty}")
+    return engine, root
+
+
+def golden_readings(torch, dev, card: str) -> None:
+    """The readings the golden gate's limits were set from (``python3
+    chip_smoke.py --golden-readings``): /v1/score of CORPUS_SNIPPET alone
+    and in its context for the tool's default trainer at seeds 0-2, for
+    faulty trainers (fewer steps, a smaller lr, the MLP leaves left out
+    of the optimizer: a dropped gradient) and for the committed fixture,
+    printed as one JSON object."""
+    import shutil
+    import tempfile
+
+    fb, fc, fe = score_dir(torch, dev, golden_dir())
+    fe.close()
+    out = {"fixture": [fb, fc]}
+    root = tempfile.mkdtemp(prefix="chip_smoke_golden_")
+    runs = [("default seed 0", {}), ("default seed 1", {"seed": 1}),
+            ("default seed 2", {"seed": 2}), ("30 steps", {"steps": 30}),
+            ("100 steps", {"steps": 100}), ("lr / 10", {"lr": 3e-4}),
+            ("lr / 100", {"lr": 3e-5}), GOLDEN_FAULTY[1]]
+    try:
+        for i, (label, kw) in enumerate(runs):
+            run = golden_run(torch, dev, os.path.join(root, str(i)), **kw)
+            run["engine"].close()
+            out[label] = [run["bare"], run["ctx"], run["losses"][-1]]
+            say(f"golden readings: {label}: alone {run['bare']}, in context "
+                f"{run['ctx']}, final train loss {run['losses'][-1]} "
+                f"[{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"golden_readings": out}), flush=True)
+
+
+def live_eval_on_card(torch, dev, card: str, engine) -> dict:
+    """The port's live eval (``tools/eval/live.py``) through the chain
+    server on the card-trained golden-tiny (the engine judges too) with
+    the hash embedder over docs/*.md and the ``exact`` store. The same
+    questions then go through an index built on the CPU (hash embedder,
+    exact store): equal ranked ids and retrieval metrics; and through an
+    ``exact-cuda`` index on the card, whose bf16 rows may reorder
+    near-ties: its metrics are printed beside and any question whose
+    ranking differs is named."""
+    from generativeaiexamples_tpu_torch.chains.examples.developer_rag import \
+        QAChatbot
+    from generativeaiexamples_tpu_torch.chains.llm import EchoLLM
+    from generativeaiexamples_tpu_torch.tools.eval import live
+    from generativeaiexamples_tpu_torch.tools.eval.metrics import \
+        retrieval_metrics
+
+    t0 = time.monotonic()
+    args = live.parser().parse_args(EVAL_ARGS + ["--corpus", docs_dir()])
+    art = live.run_live(args, engine=engine)
+    eval_s = time.monotonic() - t0
+    m = art["metrics"]
+    gen = art["generation"]
+    if gen["answers"] != m["num_questions"] or not m["num_questions"] \
+            or gen["non_empty"] != gen["answers"]:
+        fail(f"live eval: {gen} for {m['num_questions']} questions")
+    qs = art["questions"]
+
+    def ranked(store: str):
+        """The questions' top-k ids from a fresh index in ``store``."""
+        ex = QAChatbot(llm=EchoLLM(), config=live.chatbot_config(
+            live.parser().parse_args(EVAL_ARGS + ["--corpus", docs_dir(),
+                                                  "--store", store])),
+            fused_rag=False)
+        live.ingest_corpus(ex, docs_dir())
+        return [[h.id for h in ex.index.similarity_search(q["question"],
+                                                          k=args.top_k)]
+                for q in qs]
+
+    def agg(ids_per_q):
+        rs = [retrieval_metrics(ids, q["gt_doc_id"], args.top_k)
+              for ids, q in zip(ids_per_q, qs)]
+        rs = [r for r in rs if r is not None]
+        return {k: round(sum(r[k] for r in rs) / len(rs), 4)
+                for k in ("ndcg", "hit", "mrr")}
+
+    cpu_ids = ranked("exact")
+    if cpu_ids != [q["context_ids"] for q in qs]:
+        fail(f"live eval: the CPU index ranks {cpu_ids}, the card run "
+             f"{[q['context_ids'] for q in qs]}")
+    cpu_m = agg(cpu_ids)
+    if cpu_m != {k: m["retrieval"][k] for k in ("ndcg", "hit", "mrr")}:
+        fail(f"live eval: retrieval {m['retrieval']} against the CPU "
+             f"index's {cpu_m}")
+    cuda_ids = ranked("exact-cuda")
+    differ = [i for i, (a, b) in enumerate(zip(cuda_ids, cpu_ids)) if a != b]
+    say(f"live eval: {m['num_questions']} questions "
+        f"({m['synthetic_modes']}) over {art['corpus']['chunks']} chunks "
+        f"answered through the chain server on the card-trained golden-tiny "
+        f"in {eval_s:.1f} s; retrieval (exact) {m['retrieval']} = the CPU "
+        f"index's; exact-cuda {agg(cuda_ids)}"
+        f"{f', rankings differ at questions {differ}' if differ else ', same rankings'}; "
+        f"judge {m['judge']} ({art['judge_prompts_clipped']} prompts "
+        f"clipped to the context); faithfulness {m['faithfulness']} "
+        f"({m['faithfulness_scored']} scored), context precision "
+        f"{m['context_precision']} ({m['context_precision_scored']} scored)"
+        f"; answers {gen} [{card}]")
+    return {"retrieval": m["retrieval"], "judge": m["judge"],
+            "seconds": eval_s}
+
+
+def customize(torch, dev, card: str) -> dict:
+    """Training and evaluation on the card (llama-2-7b-chat at full width
+    and depth, random bf16 weights from seed 0): (a) #3's backward at the
+    projection shapes and the logits product's backward; (b) LoRA over the
+    bf16 base, then the merged tree served; (c) QLoRA over the base
+    quantized on the card to int4_awq, its first gradients against the
+    dequantized bf16 base's, the training window's #3 launches ("wg" and
+    backward) counted, then the merged tree served over an int8 KV pool;
+    (d) full-parameter SFT; (e) the golden tool; (f) the live eval.
+    Returns the kernels line's QLoRA row and each served tree's counts."""
+    from generativeaiexamples_tpu_torch.lora import merge_lora
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    from generativeaiexamples_tpu_torch.ops.quant import quantize_params
+
+    free_memory(torch)
+    row = check_int4_backward(torch, dev, card)
+    check_mm_f32_backward(torch, dev, card)
+    cfg = LLAMA2_7B
+    base = llama.init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    lora, bf16_stats, _ = train_lora(torch, dev, card, cfg, base,
+                                     "lora [bf16 base]")
+    with torch.no_grad():
+        merged = merge_lora(base, lora, dtype=torch.bfloat16)
+    del lora
+    bf16_run = serve_tuned(torch, dev, card, cfg, merged, "lora [bf16 base]",
+                           "", "")
+    del merged
+    free_memory(torch)
+
+    qbase = quantize_params(base, "int4_awq", 128)
+    ref = qlora_reference_grads(torch, cfg, qbase, 1)
+    lora, q_stats, counts = train_lora(torch, dev, card, cfg, qbase,
+                                       "qlora [int4_awq base]", ref)
+    del ref
+    L = cfg.num_layers
+    want = {"int4_matmul/wg": (3 * L + 1) * TUNE_STEPS,
+            "int4_matmul_backward": (3 * L + 1) * TUNE_STEPS,
+            "int4_matmul/tc": 0, "int4_matmul/gemv": 0,
+            "int4_matmul/tile": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"qlora: training window launches {got}, expected {want} (the "
+             f"3 MLP projections of each layer and the head, per step)")
+    row["launches"] = got["int4_matmul/wg"]
+    row["backward_launches"] = got["int4_matmul_backward"]
+    with torch.no_grad():
+        merged = merge_lora(qbase, lora, dtype=torch.bfloat16)
+    del lora
+    q_run = serve_tuned(torch, dev, card, cfg, merged,
+                        "qlora [int4_awq base, int8 KV]", "int4_awq", "int8")
+    del merged, qbase
+    free_memory(torch)
+
+    sft = train_sft(torch, dev, card, cfg, base)
+    del base
+    free_memory(torch)
+
+    engine, golden_path = golden_on_card(torch, dev, card)
+    try:
+        live_eval_on_card(torch, dev, card, engine)
+    finally:
+        engine.close()
+        import shutil
+        shutil.rmtree(golden_path, ignore_errors=True)
+    free_memory(torch)
+    return {"row": row, "bf16": bf16_run, "int4": q_run,
+            "lora": bf16_stats, "qlora": q_stats, "sft": sft}
+
+
 def weight_marks(tree) -> list:
     """(address, in-place write count) of every tensor of a parameter
     tree, in a fixed order: equal marks mean the same tensors, unwritten."""
@@ -5496,6 +6261,11 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    if sys.argv[1:] == ["--golden-readings"]:
+        build.build_all()
+        golden_readings(torch, dev, card)
+        return 0
+
     phases = {}
     t0 = time.monotonic()
 
@@ -5546,6 +6316,10 @@ def main() -> int:
     # Its CPU reference has run in a thread since the start.
     check_nemotron_model(torch, dev, nemo_ref)
     lap("model_nemotron")
+    # Training and evaluation, while no engine holds the card; the tuned
+    # trees' serve counts join each mode's in the kernels line.
+    custom = customize(torch, dev, card)
+    lap("customize")
     # Each path's kernels take their launch counts from that path's run.
     bf16 = serve(torch, dev, card)
     lap("serve_bf16")
@@ -5592,6 +6366,9 @@ def main() -> int:
         quantized[key] = {k: n + fleet[key][k]
                           for k, n in quantized[key].items()}
     lap("serve_fleet")
+    for run, q in ((bf16, "bf16"), (quantized, "int4")):
+        for key in ("launches", "by_path"):
+            run[key] = {k: n + custom[q][key][k] for k, n in run[key].items()}
     # Last: the first profiler session changes how the card runs graphs.
     traced_profiles(torch, card, [bf16.pop("profile"),
                                   quantized.pop("profile")])
@@ -5603,6 +6380,9 @@ def main() -> int:
         if row.get("shape", "").startswith("verify"):
             # The verify rounds' "wg" launches of the int4 spec phase.
             row["launches"] = quantized["verify_wg"]
+    # #3 under autograd: the QLoRA training window's "wg" forwards and
+    # backward products.
+    kernels.append(custom["row"])
     # #3 with GPTQ zero points: the GPTQ checkpoint's run; at Nemotron's
     # shapes: the int4 Nemotron serve window.
     for key, row in sorted(gbias_rows.items()):

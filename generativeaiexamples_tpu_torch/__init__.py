@@ -2,7 +2,12 @@
 
 The JAX package ``generativeaiexamples_tpu`` is the reference; this package
 mirrors its module layout (``ops/``, ``models/``, ``engine/``,
-``serving/``) and imports nothing from it. Plain tensor code is PyTorch;
+``serving/``, ``chains/``, ``embed/``, ``retrieval/``, ``router/``,
+``obs/``, ``utils/``, ``assistant/``, ``frontend/``, ``ingest/``,
+``integrations/``; ``training.py`` and ``lora.py`` for fine-tuning on
+torch autograd; ``tools/`` with ``profile_decode``,
+``make_golden_checkpoint`` and the ``eval`` suite) and imports nothing
+from it. Plain tensor code is PyTorch;
 each Pallas kernel of the reference becomes a hand-written Hopper kernel
 under ``csrc/``, built at first use by ``kernels/build.py``.
 

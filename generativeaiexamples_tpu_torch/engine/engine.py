@@ -612,6 +612,18 @@ class _HostRing:
             self._cond.notify_all()
 
 
+def _mixed_float_leaves(params: llama.Params, dtype: torch.dtype
+                        ) -> list[str]:
+    """The raw floating-point leaves of ``params`` whose dtype is not
+    ``dtype`` (a QLoRA merge's float32 projections beside bf16 leaves).
+    Quantized dict leaves keep float32 scales by design and are not
+    looked at."""
+    flat = [(k, v) for k, v in params.items() if k != "layers"]
+    flat += [(f"layers/{k}", v) for k, v in params["layers"].items()]
+    return sorted(k for k, v in flat if isinstance(v, torch.Tensor)
+                  and v.is_floating_point() and v.dtype != dtype)
+
+
 class Engine:
     """Continuous-batching engine over one model on one device."""
 
@@ -631,6 +643,12 @@ class Engine:
             raise ConfigError(
                 f"params are {embed.dtype} on {embed.device}; the engine "
                 f"runs {self._dtype} on {self.device}")
+        mixed = _mixed_float_leaves(params, self._dtype)
+        if mixed:
+            raise ConfigError(
+                f"raw leaves {mixed} are not {self._dtype}, the engine's "
+                f"dtype (its captured programs take one activation dtype); "
+                f"cast them first, e.g. lora.merge_lora(..., dtype=)")
         self.params = params
         self.model_cfg = model_cfg
         self.cfg = cfg

@@ -30,12 +30,14 @@ LaunchCounts = dict[str, int]
 
 def launch_counts() -> LaunchCounts:
     """The kernels' launch counters now: #1 and #2 by pool kind, #3 in
-    all, with GPTQ zero points and by path (``int4_matmul/<path>``)."""
+    all, with GPTQ zero points, by path (``int4_matmul/<path>``) and its
+    backward products (QLoRA training)."""
     out = {"paged_attention_decode": paged_attention_decode.launches,
            "paged_attention_decode_int8":
                paged_attention_decode.int8_launches,
            "int4_matmul": int4_matmul.launches,
-           "int4_matmul_gbias": int4_matmul.gbias_launches}
+           "int4_matmul_gbias": int4_matmul.gbias_launches,
+           "int4_matmul_backward": int4_matmul.backward_launches}
     for path, n in int4_matmul.launches_by_path.items():
         out[f"int4_matmul/{path}"] = n
     return out
@@ -48,6 +50,7 @@ def set_launch_counts(counts: LaunchCounts) -> None:
         "paged_attention_decode_int8"]
     int4_matmul.launches = counts["int4_matmul"]
     int4_matmul.gbias_launches = counts.get("int4_matmul_gbias", 0)
+    int4_matmul.backward_launches = counts.get("int4_matmul_backward", 0)
     for key, n in counts.items():
         if key.startswith("int4_matmul/"):
             int4_matmul.launches_by_path[key.split("/", 1)[1]] = n

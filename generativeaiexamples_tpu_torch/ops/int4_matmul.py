@@ -25,7 +25,17 @@ a leaf on the card unless it lands on a tensor-core path).
 
 Each launch adds one to ``int4_matmul.launches`` and to its path's entry
 of ``int4_matmul.launches_by_path`` (and a launch with ``gbias`` to
-``int4_matmul.gbias_launches``). ``int4_matmul_plain`` unpacks the
+``int4_matmul.gbias_launches``).
+
+Under autograd (QLoRA: a frozen int4 base under trainable adapters)
+``int4_matmul_grad`` runs the same forward inside a
+``torch.autograd.Function`` whose backward gives ``dx`` only (the weights
+are frozen): ``dy @ (unpack(q4) * scale [+ gbias per group])^T``. The
+reference has no backward kernel (XLA differentiates its
+``_grouped_matmul``), so on the card the backward dequantizes the weight
+into a bf16 transient and runs one cuBLAS product with float32
+accumulation (``int4_matmul_dx``, counted in
+``int4_matmul.backward_launches``). ``int4_matmul_plain`` unpacks the
 nibbles and computes what ``ops/quant.py``'s XLA-style branches compute:
 a float32 dot with the per-channel scale after it, or per-group float32
 partial dots times their scales (``_grouped_matmul``). Every path sums in
@@ -300,10 +310,71 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor, *,
 
 
 # Kernel launches since the count was last set to 0, in all, by path and
-# with zero points (CPU calls don't count).
+# with zero points, and backward products on the card (CPU calls don't
+# count).
 int4_matmul.launches = 0
 int4_matmul.launches_by_path = {path: 0 for path in _PATHS}
 int4_matmul.gbias_launches = 0
+int4_matmul.backward_launches = 0
+
+
+def int4_matmul_dx(dy: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
+                   *, gbias: Optional[torch.Tensor] = None,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The input gradient of ``int4_matmul``: ``dy (..., N) @ W^T`` with W
+    = ``unpack(q4) * scale`` (+ the group's ``gbias``), in ``dtype``
+    (x's). No AWQ ``pre_scale`` is folded in: that multiplies the inputs
+    before the kernel, and autograd differentiates it there. For bf16
+    ``dy`` on the card W is dequantized into a bf16 transient (``q *
+    scale`` rounded once; the stated bf16 tolerances of the checks cover
+    it) and one cuBLAS product sums in float32 with a float32 result;
+    otherwise W is float32 and so is the product. Counted in
+    ``int4_matmul.backward_launches`` on the card."""
+    from .quant import _mm_f32, dequantize
+    if dy.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dy.device}")
+    leaf = {"q4": q4, "gscale" if scale.dim() == 2 else "scale": scale}
+    if gbias is not None:
+        leaf["gbias"] = gbias
+    d2 = dy.reshape(-1, q4.shape[1])
+    if dy.is_cuda and dy.dtype == torch.bfloat16:
+        dx = _mm_f32(d2, dequantize(leaf, torch.bfloat16).T)
+    else:
+        dx = d2.float() @ dequantize(leaf, torch.float32).T
+    if dy.is_cuda:
+        int4_matmul.backward_launches += 1
+    return dx.to(dtype).reshape(*dy.shape[:-1], 2 * q4.shape[0])
+
+
+class _Int4MatmulFn(torch.autograd.Function):
+    """``int4_matmul`` with a backward for ``x``; q4, scale and gbias are
+    frozen and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q4, scale, gbias, out_dtype):
+        ctx.save_for_backward(q4, scale, gbias)
+        ctx.x_dtype = x.dtype
+        return int4_matmul(x, q4, scale, gbias=gbias, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q4, scale, gbias = ctx.saved_tensors
+        dx = int4_matmul_dx(dy, q4, scale, gbias=gbias, dtype=ctx.x_dtype)
+        return dx, None, None, None, None
+
+
+def int4_matmul_grad(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
+                     *, gbias: Optional[torch.Tensor] = None,
+                     out_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
+    """``int4_matmul`` that autograd differentiates with respect to ``x``
+    (the forward is the same call: the kernel on the card, the plain
+    version on the CPU). The weight leaves must not require grad: a
+    quantized base is frozen."""
+    if any(t is not None and t.requires_grad for t in (q4, scale, gbias)):
+        raise ValueError("int4 weights are frozen: q4, scale and gbias must "
+                         "not require grad")
+    return _Int4MatmulFn.apply(x, q4, scale, gbias, out_dtype)
 
 
 def int4_matmul_plain(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,

@@ -123,6 +123,36 @@ def dequantize(w: QTensor, dtype: torch.dtype = torch.bfloat16
     return (q * w["scale"][..., None, :]).to(dtype)
 
 
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) bf16 x (K, N) bf16 or int8 -> (M, N) float32: one cuBLAS
+    bf16 GEMM with f32 accumulation and an f32 output on the card; the
+    same arithmetic on widened operands elsewhere."""
+    if x.is_cuda:
+        return torch.mm(x, w.to(torch.bfloat16), out_dtype=torch.float32)
+    return torch.matmul(x.float(), w.float())
+
+
+class _MatmulF32Fn(torch.autograd.Function):
+    """``_mm_f32`` under autograd: PyTorch registers no derivative for
+    ``torch.mm(..., out_dtype=)``, so the gradients are written out, in
+    float32 and then cast: ``dx = dy @ w^T``, ``dw = x^T @ dy``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (dy.float() @ w.float().T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.float().T @ dy.float()).to(w.dtype)
+        return dx, dw
+
+
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with a float32 result, for a raw or int8 ``w``. Compact
     operands stay compact: on the card a bf16 ``x`` and 2-D ``w`` go
@@ -133,11 +163,15 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     more bytes than the bf16 weight itself, until a W8A16 kernel exists.
     Elsewhere the operands are widened, which gives the same arithmetic
     (bf16 and int8 values are exact in f32; float32 matmuls run in full
-    precision, TF32 off by default)."""
+    precision, TF32 off by default). Under autograd the card's product
+    goes through ``_MatmulF32Fn``, which supplies its gradients."""
     if x.is_cuda and w.dim() == 2 and x.dtype == torch.bfloat16 and (
             w.dtype in (torch.bfloat16, torch.int8)):
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w.to(torch.bfloat16),
-                       out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _MatmulF32Fn.apply(x2, w)
+        else:
+            out = _mm_f32(x2, w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
@@ -148,16 +182,21 @@ def _int4(x: torch.Tensor, w: QTensor,
     activation smoothing folds into the inputs; GPTQ's zero-point term
     (``gbias``) goes to the kernel, which adds it per group. On the CPU a
     GPTQ leaf keeps the reference's ``_grouped_matmul`` (its zero-point
-    term sums the float32 inputs)."""
-    from .int4_matmul import int4_matmul
+    term sums the float32 inputs). When autograd records ``x``'s graph
+    (QLoRA) the product goes through ``int4_matmul_grad``, whose backward
+    gives the inputs' gradient; the AWQ multiply before it is
+    differentiated by autograd. Serving runs under ``no_grad`` and calls
+    the kernel directly."""
+    from .int4_matmul import int4_matmul, int4_matmul_grad
     if "gbias" in w and not x.is_cuda:
         return _grouped_matmul(x, _unpack4(w["q4"]), w, out_dtype=out_dtype)
     xin = x
     if "pre_scale" in w:
         xin = (x.float() * w["pre_scale"]).to(x.dtype)
     scale = w["gscale"] if is_grouped(w) else w["scale"]
-    return int4_matmul(xin, w["q4"], scale, gbias=w.get("gbias"),
-                       out_dtype=out_dtype)
+    fn = (int4_matmul_grad if torch.is_grad_enabled() and xin.requires_grad
+          else int4_matmul)
+    return fn(xin, w["q4"], scale, gbias=w.get("gbias"), out_dtype=out_dtype)
 
 
 def matmul(x: torch.Tensor, w: Union[torch.Tensor, QTensor]) -> torch.Tensor:

@@ -1817,3 +1817,159 @@ def test_front_ends_on_the_card_give_the_completions_text(dev, mode,
             "content": q["question"], "num_docs": 1}))
         assert hits[0]["source"] == "deck.pptx"
     engine.close()
+
+
+# ------------------------------------------ training: #3 under autograd
+
+def _int4_train_leaf(kind, K, N, dev, seed=0):
+    """A (K, N) int4 leaf on ``dev``: per channel, AWQ (groups of 128 and a
+    pre-scale) or GPTQ (groups of 128 and zero points)."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((K, N), generator=g) * K ** -0.5
+    if kind == "channel":
+        leaf = quant.quantize_tensor(w, 4)
+    else:
+        leaf = quant.quantize_tensor_grouped(w, 128)
+    if kind == "awq":
+        leaf["pre_scale"] = torch.rand((K,), generator=g) + 0.5
+    if kind == "gptq":
+        leaf["gbias"] = 0.01 * torch.randn(leaf["gscale"].shape, generator=g)
+    return {k: v.to(dev) for k, v in leaf.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["channel", "awq", "gptq"])
+@pytest.mark.parametrize("M", [9, 300])
+def test_int4_backward_matches_the_dequantized_product(dev, kind, M):
+    """bf16 x through ``quant.matmul`` under autograd: the kernel forward
+    ("wg") and ``int4_matmul_dx`` (counted) give autograd's dx through a
+    dequantized bf16 copy of the weight, within 2e-2 x max|ref| (both
+    round the weight and the result to bf16 at different points)."""
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import int4_matmul
+    K, N = 512, 384
+    leaf = _int4_train_leaf(kind, K, N, dev)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((M, K), generator=g).to(torch.bfloat16).to(dev)
+    dy = torch.randn((M, N), generator=g).to(torch.bfloat16).to(dev)
+    n0 = (int4_matmul.launches_by_path["wg"], int4_matmul.backward_launches)
+    x1 = x.clone().requires_grad_(True)
+    quant.matmul(x1, leaf).backward(dy)
+    assert (int4_matmul.launches_by_path["wg"],
+            int4_matmul.backward_launches) == (n0[0] + 1, n0[1] + 1)
+    x2 = x.clone().requires_grad_(True)
+    (x2 @ quant.dequantize(leaf, torch.bfloat16)).backward(dy)
+    torch.cuda.synchronize()
+    ref = x2.grad.float()
+    assert (x1.grad.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["channel", "awq"])
+def test_int4_backward_float32_matches_the_plain_version(dev, kind):
+    """float32 x ("tile" forward, a float32 backward product) against
+    autograd through the plain version on the card (rtol 1e-4: both sum
+    float32 in another order)."""
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
+        int4_matmul_grad, int4_matmul_plain)
+    leaf = _int4_train_leaf(kind, 512, 384, dev)
+    scale = leaf.get("gscale", leaf.get("scale"))
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((40, 512), generator=g).to(dev)
+    dy = torch.randn((40, 384), generator=g).to(dev)
+    x1 = x.clone().requires_grad_(True)
+    int4_matmul_grad(x1, leaf["q4"], scale).backward(dy)
+    x2 = x.clone().requires_grad_(True)
+    int4_matmul_plain(x2, leaf["q4"], scale).backward(dy)
+    torch.testing.assert_close(x1.grad, x2.grad, rtol=1e-4,
+                               atol=1e-4 * x2.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_logits_product_backward_runs_on_the_card(dev):
+    """``matmul_f32`` of bf16 x and a raw bf16 head is one
+    ``torch.mm(..., out_dtype=float32)`` on the card, which has no
+    registered derivative: under autograd it goes through
+    ``quant._MatmulF32Fn``, whose backward gives the float32 product's dx
+    and dW (rtol 1e-2, bf16 grads)."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((64, 256), generator=g).to(torch.bfloat16).to(dev)
+    w = (torch.randn((256, 1000), generator=g) / 16).to(torch.bfloat16).to(
+        dev)
+    dy = torch.randn((64, 1000), generator=g).to(dev)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y = quant.matmul_f32(x, w)
+    assert y.dtype == torch.float32
+    # y is a view of the Function's (M, N) output.
+    assert "_MatmulF32Fn" in type(y.grad_fn.next_functions[0][0]).__name__
+    y.backward(dy)
+    xf = x.detach().float().requires_grad_(True)
+    wf = w.detach().float().requires_grad_(True)
+    (xf @ wf).backward(dy)
+    for got, ref in ((x.grad, xf.grad), (w.grad, wf.grad)):
+        torch.testing.assert_close(got.float(), ref, rtol=1e-2,
+                                   atol=1e-2 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qlora_step_on_the_card_matches_the_cpu(dev, dtype):
+    """One QLoRA step (rank 8 on wq..wo over an int4_awq base of a
+    2-layer 7B-shaped model, merged in the base's dtype) on the card and
+    on the CPU from the same parameters and adapters: equal losses and
+    first gradients (float32: rtol 1e-4 on the loss and 1e-3 relative
+    error of each gradient; bf16: 1e-2 and 5e-2), and on the card every
+    int4 product of the step (3 a layer and the head) launched #3 and
+    its backward once."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.lora import (init_lora,
+                                                     lora_parameters,
+                                                     make_lora_train_step)
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import int4_matmul
+
+    cfg = replace(LLAMA2_7B, num_layers=2, hidden_size=256,
+                  intermediate_size=512, num_heads=2, num_kv_heads=2,
+                  head_dim=128, vocab_size=512)
+    base = quant.quantize_params(llama.init_params(cfg, 0, dtype=dtype),
+                                 "int4_awq", 128)
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(3, cfg.vocab_size, (2, 65), generator=g)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "mask": torch.ones((2, 64), dtype=torch.int32)}
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        return tree.to(d)
+
+    out = {}
+    for d in ("cpu", dev):
+        b = to(base, d)
+        lora = init_lora(cfg, b, torch.Generator().manual_seed(1), rank=8)
+        # A non-zero b, so both adapters' gradients are non-zero.
+        with torch.no_grad():
+            for ab in lora.values():
+                ab["b"].copy_(0.01 * torch.randn(
+                    ab["b"].shape, generator=torch.Generator().manual_seed(
+                        5)).to(ab["b"].device))
+        step = make_lora_train_step(
+            cfg, torch.optim.Adam(lora_parameters(lora), lr=1e-2),
+            dtype=dtype)
+        n0 = (int4_matmul.launches, int4_matmul.backward_launches)
+        loss = float(step(lora, b, to(batch, d)))
+        n1 = (int4_matmul.launches, int4_matmul.backward_launches)
+        out[str(d)] = (loss, {k: (ab["a"].grad.float().cpu(),
+                                  ab["b"].grad.float().cpu())
+                              for k, ab in lora.items()}, n1[0] - n0[0],
+                       n1[1] - n0[1])
+    (lc, gc, _, _), (lg, gg, launched, backward) = out["cpu"], out[str(dev)]
+    assert launched == backward == 3 * cfg.num_layers + 1
+    loss_tol, grad_tol = ((1e-4, 1e-3) if dtype == torch.float32
+                          else (1e-2, 5e-2))
+    assert abs(lg - lc) <= loss_tol * abs(lc)
+    for k in gc:
+        for a, b in zip(gg[k], gc[k]):
+            assert ((a - b).norm() / b.norm()).item() <= grad_tol, k

@@ -335,6 +335,12 @@ def test_router_cli_imports_no_jax():
     _check_imports(["generativeaiexamples_tpu_torch.router.__main__"])
 
 
+def test_eval_cli_imports_no_jax():
+    """The eval CLI (``tools/eval/__main__``, which ``walk_packages``
+    skips) builds the port's chatbot and loads no jax either."""
+    _check_imports(["generativeaiexamples_tpu_torch.tools.eval.__main__"])
+
+
 def _check_imports(extra: list) -> None:
     code = r"""
 import importlib, pkgutil, sys
@@ -343,7 +349,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
 for n in ("router.server", "serving.grpc_server", "frontend.server",
           "ingest.pipeline", "assistant.assistant",
-          "integrations.llamaindex_torch"):
+          "integrations.llamaindex_torch", "lora", "training",
+          "tools.eval.live", "tools.make_golden_checkpoint"):
     assert "generativeaiexamples_tpu_torch." + n in names, names
 for n in names + EXTRA:
     importlib.import_module(n)
