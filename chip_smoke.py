@@ -87,7 +87,7 @@ Phases (each fails loudly: a failure exits non-zero and the final
    at 8 and 1 rows and at tiles of 4000, 8000 and 16000; materialized)
    are timed untraced, and traced last beside a traced lm_head tile
    product, which must run no copy kernel.
-   Then each mode's admission path at full depth on the same weights
+   Then each mode's admission path on the same weights cut to 8 layers
    (``serve_admission``): an engine for 3000-token prompts serves a
    shared-system-prompt pair (the second a prefix hit: hit tokens, warm
    against cold TTFT) and a 2900-token prompt arriving while 4 streams
@@ -192,8 +192,8 @@ Phases (each fails loudly: a failure exits non-zero and the final
    at the verify shape (M = 64: 4096², w_gate, w_down, a 16000-column
    head tile; ``time_verify_shapes``), rows on the kernels line.
 8. The fleet tier (``serve_fleet``) on the int4 weights: three replicas
-   of llama-2-7b-chat at full width and depth sharing one set of weight
-   tensors (r0 and r1 unified, r2 prefill; int8 pools and host tiers of
+   of llama-2-7b-chat at full width, cut to ``FLEET_LAYERS`` (8) layers,
+   sharing one set of weight tensors (r0 and r1 unified, r2 prefill; int8 pools and host tiers of
    explicit size), each behind the port's chain server, the port's
    router in front, over loopback HTTP: a ~2100-token ``/generate``
    through the two-leg handoff (its text equal to a unified replica's
@@ -229,6 +229,24 @@ Phases (each fails loudly: a failure exits non-zero and the final
    the card, exported, read back bit-equal and scored through
    /v1/score; and the live eval through the chain server on it
    (retrieval metrics equal to a CPU index's; exact-cuda beside).
+
+11. The mixture-of-experts family (Mixtral-8x7B: 8 experts, top-2,
+   sparse capacity-routed; H 32, KV 8, so G = 4 query heads a kv head),
+   after the Nemotron phases: #1 and #2 held against their plain versions
+   at G = 4 in the kernel phase (the same lengths, tolerances and bit-exact
+   appends; timed L2-cold beside their bound), and #3 at its N = 1024
+   ``wk``/``wv`` shape; ``check_family_model``: 2 layers at full width in
+   float32 and int4_awq + int8 KV, captured and eager card engines against
+   the CPU engine's greedy tokens (``FamilyReference``, a thread from the
+   start, as Nemotron's), then ``check_moe_routing`` (route_topk card =
+   CPU at T = 8 and 1024; sparse = dense in bf16 with nothing dropped);
+   ``serve_family`` (Nemotron's phase)
+   in bf16 and int4_awq (experts bf16) + int8 KV at full width cut to
+   ``MIXTRAL_LAYERS`` = 24 of 32 layers (the bf16 tree of 32 does not fit
+   the card), from ``fresh_slot_state``
+   where runs are compared (under MoE an idle slot's row claims expert
+   capacity too), with the decode step, the MoE layers' share of it and
+   a 1024-token prefill printed.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -313,10 +331,13 @@ def time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
 
 # ------------------------------------------------------------ kernel phase
 
-def check_paged_attention(torch, dev, dtype, quant: bool = False):
+def check_paged_attention(torch, dev, dtype, quant: bool = False,
+                          kv_heads: int = 32):
     """The paged decode kernel against its plain version at llama-2-7b
     decode shapes: B=8, H=KV=32, hd=128, page=128, layer 1 of an L=2
-    pool, lengths covering 0, page-1, page, page+1 and long contexts. q
+    pool, lengths covering 0, page-1, page, page+1 and long contexts, or
+    with ``kv_heads`` 8 at Mixtral-8x7B's (H 32, KV 8: G = 4 query heads a
+    kv head, the kernel's ``MAXG = 8`` instantiations). q
     and cur_k/cur_v are in ``dtype``; the pools too (#1), or, under
     ``quant`` (#2), int8 pools with bf16 scale pools made by
     ``quantize_rows`` from random rows.
@@ -337,7 +358,7 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False):
         paged_attention_decode, paged_attention_decode_plain,
         paged_attention_decode_quant_plain)
 
-    B, H, KV, hd, page, L = 8, 32, 32, 128, 128, 2
+    B, H, KV, hd, page, L = 8, 32, kv_heads, 128, 128, 2
     lengths = [0, 1, 127, 128, 129, 1000, 2047, 3000]
     W = max(-(-(n + 1) // page) for n in lengths)
     N = 1 + B * W
@@ -367,6 +388,8 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False):
         torch.int32)
     layer = 1
     name = "paged_attention_decode" + ("_int8" if quant else "")
+    shape = f"G={H // KV}" + (" (Mixtral-8x7B: H 32, KV 8)" if KV != H
+                              else " (llama-2-7b: H = KV = 32)")
 
     def kernel(p):
         scales = {"pool_ks": p[2], "pool_vs": p[3]} if quant else {}
@@ -444,28 +467,32 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False):
         fail(f"{name} read rows at or past a slot's length")
     del poison
     if dtype == torch.float32:
-        say(f"kernel {name} float32: max_abs_err={err} (atol {atol}); "
-            f"appends bit-exact, no row past a length read")
+        say(f"kernel {name} float32 {shape}: max_abs_err={err} (atol "
+            f"{atol}); appends bit-exact, no row past a length read")
         return None
 
     warm_ms = time_cuda(torch, lambda: kernel(new), iters=50)
     plain_ms = time_cuda(torch, lambda: plain(ref_pools), iters=5, warmup=1)
     del new, ref_pools, pools
     torch.cuda.empty_cache()
-    ms, bound, by, layers = time_attention(torch, dev, dtype, quant, lengths)
-    say(f"kernel {name}: max_abs_err={err} ms={ms} (L2-cold: {layers} "
+    ms, bound, by, layers = time_attention(torch, dev, dtype, quant, lengths,
+                                           KV)
+    say(f"kernel {name} {shape}: max_abs_err={err} ms={ms} (L2-cold: "
+        f"{layers} "
         f"pool layers cycled) warm_l2_ms={warm_ms} (one pool, every call "
         f"on the same rows) plain_ms={plain_ms} bound_ms={bound} ({by}; "
         f"{bound / ms:.1%} of it) library_ms=null (no single PyTorch call "
         f"computes paged attention{' over int8 pages' if quant else ''} "
         f"with the in-place append)")
     uni_ms, uni_bound, uni_by, uni_layers = time_attention(
-        torch, dev, dtype, quant, [2048] * B)
-    say(f"kernel {name} uniform {B} x 2048 rows: ms={uni_ms} (L2-cold: "
+        torch, dev, dtype, quant, [2048] * B, KV)
+    say(f"kernel {name} {shape} uniform {B} x 2048 rows: ms={uni_ms} "
+        f"(L2-cold: "
         f"{uni_layers} pool layers cycled) bound_ms={uni_bound} ({uni_by}; "
         f"{uni_bound / uni_ms:.1%} of it)")
     return {
         "name": name,
+        "shape": shape,
         "route": "cuda",
         "source": "generativeaiexamples_tpu_torch/csrc/paged_attention.cu",
         "replaces": ("generativeaiexamples_tpu/ops/paged_attention.py:"
@@ -506,10 +533,11 @@ def attention_bound(B, H, KV, hd, W, lengths, quant, e=2):
     return flops_ms, "operations", kv_bytes
 
 
-def time_attention(torch, dev, dtype, quant, lengths):
+def time_attention(torch, dev, dtype, quant, lengths, kv_heads=32):
     """L2-cold device time of one paged attention call (bf16 or float32
     q; bf16/f32 pools, or int8 pools under ``quant``) at llama-2-7b decode
-    shapes (H = KV = 32, hd = page = 128) over ``lengths``: the timed
+    shapes (H = KV = 32, hd = page = 128), or Mixtral's with ``kv_heads``
+    8, over ``lengths``: the timed
     calls cycle the ``layer`` argument over a pool with enough layers that
     more than 100 MB of live rows are read between two reads of one row
     (the L2 cache holds 50 MB). Returns (ms, bound ms, what bounds it,
@@ -518,7 +546,7 @@ def time_attention(torch, dev, dtype, quant, lengths):
     from generativeaiexamples_tpu_torch.ops.paged_attention import \
         paged_attention_decode
 
-    B, H, KV, hd, page = len(lengths), 32, 32, 128, 128
+    B, H, KV, hd, page = len(lengths), 32, kv_heads, 128, 128
     W = max(-(-(n + 1) // page) for n in lengths)
     N = 1 + B * W
     e = torch.empty((), dtype=dtype).element_size()
@@ -601,10 +629,16 @@ def old_tile_call(torch, x, q4, scale, out_dtype):
     return call
 
 
+# #3's row shapes on the result line: llama-2-7b's w_gate, and
+# Mixtral-8x7B's wk/wv (N = KV 8 x head_dim 128), by the rows' key prefix.
+ROW_SHAPES = {(4096, 11008): "", (4096, 1024): "mixtral_"}
+
+
 def check_int4_matmul(torch, dev):
     """The packed-int4 kernel against its plain version at every
     projection shape of llama-2-7b, (K, N) in {(4096, 4096), (4096, 11008),
-    (11008, 4096), (4096, 32000)}, M in {1, 3, 8, 9, 128, 200, 1024} (the
+    (11008, 4096), (4096, 32000)}, and Mixtral-8x7B's wk/wv, (4096, 1024)
+    (its other int4 projections have llama-2-7b's shapes), M in {1, 3, 8, 9, 128, 200, 1024} (the
     logits row, a partly filled decode batch, a full one, the smallest
     prefill, the commonest prefill bucket, a partial token tile, the
     largest bucket here), per channel and group 128, x bf16 and float32,
@@ -622,13 +656,14 @@ def check_int4_matmul(torch, dev):
     old "tile" kernel on the same x; and the GEMV (float32 x) at M = 8 on
     w_gate. Returns the kernel's rows of the result line: "tc" at the
     decode step's w_gate shape (M = 8) and "wg" at a 1024-row prefill's
-    (M = 1024)."""
+    (M = 1024), and the same two at Mixtral's wk/wv shape."""
     from generativeaiexamples_tpu_torch.ops import quant
     from generativeaiexamples_tpu_torch.ops.int4_matmul import (
         _path, int4_matmul, int4_matmul_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    shapes = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+    shapes = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+              (4096, 1024)]
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     rows = {}
@@ -678,10 +713,10 @@ def check_int4_matmul(torch, dev):
                                  f"{peak})")
                         worst[out_dtype] = max(worst[out_dtype],
                                                err / max(peak, 1e-30))
-                        if (M in (8, 1024) and (K, N) == (4096, 11008)
+                        if (M in (8, 1024) and (K, N) in ROW_SHAPES
                                 and group == 128 and bf16
                                 and out_dtype == torch.bfloat16):
-                            row_err[path] = err
+                            row_err[ROW_SHAPES[(K, N)] + path] = err
         say(f"kernel int4_matmul K={K} N={N}: M=1, 3, 8 (tc for bf16 x, "
             f"gemv for f32 x), 9, 128, 200, 1024 (wg for bf16 x, tile for "
             f"f32 x) x per-channel, group 128 x bf16/f32 in and out agree "
@@ -753,10 +788,13 @@ def check_int4_matmul(torch, dev):
                 f"{bound / ms:.1%} of it) library_ms={lib_ms}{lib_x} "
                 f"({lib_note}){lib_factor} dense_bf16_mm_ms={dense_ms}"
                 f"{tile}")
-            if (M, K, N) in ((8, 4096, 11008), (1024, 4096, 11008)) and (
+            if M in (8, 1024) and (K, N) in ROW_SHAPES and (
                     path in ("tc", "wg")):
-                rows[path] = {
+                key = ROW_SHAPES[(K, N)] + path
+                rows[key] = {
                     "name": "int4_matmul",
+                    **({"shape": f"mixtral wk/wv M={M} K={K} N={N}"}
+                       if key.startswith("mixtral") else {}),
                     "route": "cuda",
                     "source":
                         "generativeaiexamples_tpu_torch/csrc/int4_matmul.cu",
@@ -764,7 +802,7 @@ def check_int4_matmul(torch, dev):
                         "generativeaiexamples_tpu/ops/int4_matmul.py:83",
                     "path": path,
                     "launches": 0,
-                    "max_abs_err": row_err[path],
+                    "max_abs_err": row_err[key],
                     "ms": ms,
                     "plain_ms": plain_ms,
                     "bound_ms": bound,
@@ -793,7 +831,8 @@ def check_int4_matmul(torch, dev):
         f"N=11008, group 128, bf16 out): tc M=8 {row_err['tc']}, wg M=1024 "
         f"{row_err['wg']}")
     return [rows["tc"], rows["wg"]] + [rows[k] for k in sorted(rows)
-                                       if k.startswith(("head", "verify"))]
+                                       if k.startswith(("head", "verify",
+                                                        "mixtral"))]
 
 
 def time_verify_shapes(torch, dev, gen) -> dict:
@@ -2252,7 +2291,8 @@ def check_launch_counts(label: str, run: dict, L: int, quantization: str,
     """Every layer of every decode step went through the pool's attention
     kernel, once; under int4 weights every projection through #3: one per
     projection (``per_layer`` a layer: 7 for llama's swiglu, 6 for
-    GPT-Next's squared-ReLU MLP) per prefill program (one-shot admission
+    GPT-Next's squared-ReLU MLP, 4 for Mixtral's attention beside its
+    bf16 experts) per prefill program (one-shot admission
     or chunk; the bucket's rows on "wg") and per decode step (the sampled
     rows on "tc"), plus the lm_head's ``n_tiles`` vocab tiles on "tc" per
     decode step (the fused tail) and its row per admission (its one-shot
@@ -2289,10 +2329,19 @@ DOC_PROMPT = ("Passage: the engine plans each round under a token budget. "
               * 50)[:2899]
 
 
+# The admission phase's 3000-token engines run the served 7B weights cut
+# to this many layers: the phase checks chunking beside decode rounds,
+# prefix hits and launch counts, which the depth does not change, and at
+# 32 layers its four engines' capture took 160 s of a slow host's smoke,
+# which must end within 1200 s.
+ADMISSION_LAYERS = 8
+
+
 def serve_admission(torch, dev, card: str, served, mode: str,
                     quantization: str) -> dict:
-    """The admission path at full depth, on the served engine's weights:
-    an engine for 3000-token prompts (buckets to 3072, 8 slots) serves,
+    """The admission path on the served engine's weights cut to their
+    first ``ADMISSION_LAYERS`` layers (views): an engine for 3000-token
+    prompts (buckets to 3072, 8 slots) serves,
     through its serve thread, a shared-system-prompt pair one after the
     other (the second maps the first's cached pages: hit tokens, warm
     against cold TTFT) and then a 2900-token prompt that arrives while 4
@@ -2308,8 +2357,11 @@ def serve_admission(torch, dev, card: str, served, mode: str,
     from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
                                                        SamplingParams)
 
+    from dataclasses import replace
+
     tok = served.tokenizer
-    mcfg = served.model_cfg
+    mcfg = replace(served.model_cfg, num_layers=ADMISSION_LAYERS)
+    params = depth_cut(served.params, ADMISSION_LAYERS)
     base = dict(max_slots=8, max_input_length=3000, max_output_length=320,
                 page_size=128, kv_pool_tokens=8 * (3072 + 320),
                 dtype="bfloat16", kv_quant=served.cfg.kv_quant)
@@ -2321,7 +2373,7 @@ def serve_admission(torch, dev, card: str, served, mode: str,
     results = {}
     for label, pin in (("measured", None), ("pinned high", 8192)):
         t0 = time.monotonic()
-        engine = Engine(served.params, mcfg, tok, EngineConfig(
+        engine = Engine(params, mcfg, tok, EngineConfig(
             **base, sched_round_budget_tokens=pin), device=dev)
         programs = sum(len(t) for t in (
             engine._round_graphs, engine._admit_graphs,
@@ -2381,7 +2433,9 @@ def serve_admission(torch, dev, card: str, served, mode: str,
                  - before["sched_interleaved_rounds"])
         budget = engine.stats["sched_round_budget_tokens"]
         results[label] = dict(hit=hit, chunks=chunks, run=run)
-        say(f"admission [{mode}] ({label} budget {budget} tokens; {programs}"
+        say(f"admission [{mode}] ({mcfg.num_layers} of "
+            f"{served.model_cfg.num_layers} layers; {label} budget {budget} "
+            f"tokens; {programs}"
             f" programs captured in {build_s:.1f} s, graph pool "
             f"{engine.graph_pool_bytes} bytes): shared-system-prompt pair of"
             f" {len(pair[0])} and {len(pair[1])} tokens: {hit} hit tokens, "
@@ -3374,61 +3428,96 @@ def llama_leaves(params) -> dict:
     return flatten(params)
 
 
-# ------------------------------------------------------- Nemotron-8B phase
+# ----------------------------------- the second and third families' phases
 
-class NemotronReference:
-    """The GPT-Next family's model check and its CPU reference:
-    Nemotron-8B's full width (V 256000, F 16384, layernorm1p,
-    squared-ReLU) cut to 2 layers, float32 weights from seed 0 with random
-    layernorm1p offsets, TF32 off; as made (float32 KV) and quantized on
-    the card to int4_awq (group 128) over an int8 KV pool. Greedy tokens
-    of prompts of 40, 125 and 300 tokens (plus bos), 8 new each, from the
-    engine on the CPU with the same parameters (the kernels' plain
-    versions), in a thread from the start, as ``QuantReference``."""
+# Mixtral-8x7B's depth served on one 80 GB card. One layer is 2.90 GB in
+# bf16 (1,451,270,144 parameters, the 8 experts 1,409,286,144 of them);
+# 32 layers plus the embedding and head are 93.4 GB. 24 layers (70.2 GB)
+# leave room for the KV pool, the captured programs' memory pool and an
+# eager comparison engine.
+MIXTRAL_LAYERS = 24
+# Bound of sparse_moe_ffn against the dense all-experts oracle in bf16 at
+# full width, relative to max|dense|: both sum the same bf16 products in
+# fp32 within each expert, then round the expert's output to bf16 before
+# the gate weights (dense: summed over all 8 experts in bf16 by einsum),
+# so they part by a few bf16 ulps of the largest output (2^-8 each).
+MOE_BF16_RTOL = 2e-2
+
+
+def host_memory_gb() -> tuple:
+    """(total, available) host memory in GB, from /proc/meminfo."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, _, rest = line.partition(":")
+            info[key] = int(rest.split()[0]) * 1024
+    return info["MemTotal"] / 1e9, info["MemAvailable"] / 1e9
+
+
+def tree_to(tree, device, memo=None):
+    """``tree`` copied to ``device``, a tensor shared by two trees (the
+    raw leaves quantization leaves alone) copied once and shared again."""
+    memo = {} if memo is None else memo
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, memo) for k, v in tree.items()}
+    if id(tree) not in memo:
+        memo[id(tree)] = tree.to(device)
+    return memo[id(tree)]
+
+
+class FamilyReference:
+    """A model family's 2-layer check and its CPU reference: ``cfg``'s
+    full width (Nemotron-8B: V 256000, F 16384, layernorm1p,
+    squared-ReLU; Mixtral-8x7B: 8 experts, top-2, H 32 / KV 8) cut to 2
+    layers, float32 weights from seed 0 on the card with random norm
+    weights (0.1 N(0, 1) about each norm's identity: 0 for layernorm1p's
+    weights and offsets, 1 for rmsnorm's), TF32 off; as made (float32 KV)
+    and quantized on the card to int4_awq (group 128; Mixtral's experts
+    and router stay float32) over an int8 KV pool. Both trees go to the
+    host, sharing the leaves quantization left raw, and leave the card;
+    greedy tokens of prompts of 40, 125 and 300 tokens (plus bos), 8 new
+    each, from the engine on the CPU with the same parameters (the
+    kernels' plain versions), in a thread from the start, as
+    ``QuantReference``."""
 
     N_NEW = 8
 
-    def __init__(self, torch, dev):
+    def __init__(self, torch, dev, cfg):
         import threading
         from dataclasses import replace
 
         from generativeaiexamples_tpu_torch.engine import Engine, EngineConfig
         from generativeaiexamples_tpu_torch.models import llama
-        from generativeaiexamples_tpu_torch.models.configs import NEMOTRON_8B
         from generativeaiexamples_tpu_torch.ops.quant import quantize_params
 
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.cfg = replace(NEMOTRON_8B, num_layers=2)
+        self.cfg = replace(cfg, num_layers=2)
         raw = llama.init_params(self.cfg, seed=0, dtype=torch.float32,
                                 device=dev)
         gen = torch.Generator(device=dev).manual_seed(1)
         for lay in (raw["layers"], raw):
             for k in [k for k in lay if k.endswith(("_norm", "_norm_b"))]:
-                lay[k] = 0.1 * torch.randn(lay[k].shape, generator=gen,
-                                           device=dev)
-        self.params = {
-            "f32": raw,
-            "int4": quantize_params(raw, "int4_awq", group_size=128)}
+                unit = cfg.norm == "rmsnorm"
+                lay[k] = unit + 0.1 * torch.randn(lay[k].shape, generator=gen,
+                                                  device=dev)
+        card = {"f32": raw,
+                "int4": quantize_params(raw, "int4_awq", group_size=128)}
+        self.cpu = tree_to(card, "cpu")
+        del card, raw
+        torch.cuda.empty_cache()
         self.ecfg = {q: EngineConfig(
             max_slots=4, max_input_length=512, max_output_length=16,
             prefill_buckets=(128, 512), dtype="float32", kv_pool_tokens=None,
             kv_quant="int8" if q == "int4" else "",
-            sched_round_budget_tokens=4096) for q in self.params}
+            sched_round_budget_tokens=4096) for q in self.cpu}
         self.prompts = [[1] + [3 + (7 * i + j) % 256 for i in range(n)]
                         for j, n in ((0, 40), (1, 125), (2, 300))]
-
-        def to_cpu(tree):
-            if isinstance(tree, dict):
-                return {k: to_cpu(v) for k, v in tree.items()}
-            return tree.cpu()
-
-        cpu = {q: to_cpu(p) for q, p in self.params.items()}
         self._box: dict = {}
         self.t0 = time.monotonic()
 
         def run():
             try:
-                for q, p in cpu.items():
+                for q, p in self.cpu.items():
                     self._box[q] = greedy_tokens(
                         Engine(p, self.cfg, CodepointTokenizer(
                             self.cfg.vocab_size), self.ecfg[q],
@@ -3443,24 +3532,30 @@ class NemotronReference:
     def cpu_tokens(self, q: str):
         self._thread.join()
         if "error" in self._box:
-            fail(f"the Nemotron CPU reference failed: {self._box['error']!r}")
+            fail(f"the CPU reference failed: {self._box['error']!r}")
         return self._box[q], self._box["seconds"]
 
 
-def check_nemotron_model(torch, dev, ref: NemotronReference) -> None:
-    """``NemotronReference``'s model on the card: for each of its two
-    modes, the captured engine's and an eager engine's greedy tokens equal
-    the CPU engine's; the kernels ran on every decode layer (#1 or #2)
-    and, under int4 with float32 activations, #3's "gemv" on 6
-    projections a layer per decode step plus the head tiles and "tile"
-    on 6 a layer per prefill program."""
+def check_family_model(torch, dev, ref: FamilyReference, label: str) -> None:
+    """``ref``'s model on the card: for each of its two modes, the captured
+    engine's and an eager engine's greedy tokens equal the CPU engine's;
+    the kernels ran on every decode layer (#1 or #2) and, under int4 with
+    float32 activations, #3's "gemv" on the int4 projections (6 a layer
+    for GPT-Next, Mixtral's 4 attention ones) per decode step plus the
+    head tiles and "tile" on them per prefill program. For an MoE family
+    then ``check_moe_routing`` on the float32 tree. The trees leave the
+    card at the end."""
     from dataclasses import replace
 
     from generativeaiexamples_tpu_torch.engine import Engine
 
     L = ref.cfg.num_layers
-    for q, params in ref.params.items():
+    memo: dict = {}
+    for q, cpu_params in ref.cpu.items():
         t0 = time.monotonic()
+        params = tree_to(cpu_params, dev, memo)
+        per_layer = sum(isinstance(v, dict)
+                        for v in params["layers"].values())
         tok = CodepointTokenizer(ref.cfg.vocab_size)
         engine = Engine(params, ref.cfg, tok, ref.ecfg[q], device=dev)
         zero_launch_counts()
@@ -3472,56 +3567,191 @@ def check_nemotron_model(torch, dev, ref: NemotronReference) -> None:
         steps, dispatches = run["decode_steps"], run["prefill_dispatches"]
         attn = ("paged_attention_decode_int8" if q == "int4"
                 else "paged_attention_decode")
-        want_path = ({"tc": 0, "gemv": (6 * L + n_tiles) * steps
-                      + run["prefills"], "tile": 6 * L * dispatches,
+        want_path = ({"tc": 0, "gemv": (per_layer * L + n_tiles) * steps
+                      + run["prefills"], "tile": per_layer * L * dispatches,
                       "wg": 0} if q == "int4"
                      else dict.fromkeys(run["by_path"], 0))
-        if run["launches"][attn] != L * steps or run["by_path"] != want_path:
-            fail(f"nemotron 2-layer [{q}]: launches {run['launches']}, #3 "
-                 f"{run['by_path']} over {steps} steps; expected {attn} "
-                 f"{L * steps}, #3 {want_path}")
+        if (run["launches"][attn] != L * steps or run["by_path"] != want_path
+                or (q == "int4") != (per_layer > 0)):
+            fail(f"{label} [{q}]: launches {run['launches']}, #3 "
+                 f"{run['by_path']} over {steps} steps ({per_layer} int4 "
+                 f"leaves a layer); expected {attn} {L * steps}, #3 "
+                 f"{want_path}")
         eager = Engine(params, ref.cfg, tok, replace(ref.ecfg[q],
                                                      cuda_graphs=False),
                        device=dev)
         e_got = greedy_tokens(eager, ref.prompts, ref.N_NEW)
         eager.close()
         if e_got != got:
-            fail(f"nemotron 2-layer [{q}]: captured programs gave {got}, "
-                 f"the eager engine {e_got}")
+            fail(f"{label} [{q}]: captured programs gave {got}, the eager "
+                 f"engine {e_got}")
         t_card = time.monotonic() - t0
         want, t_cpu = ref.cpu_tokens(q)
         for p, a, b in zip(ref.prompts, got, want):
             if len(a) != ref.N_NEW or a != b:
-                fail(f"nemotron 2-layer [{q}]: card greedy tokens {a} differ "
-                     f"from the CPU engine's {b} (prompt of {len(p)})")
-        say(f"model check: 2-layer Nemotron-8B width (layernorm1p, "
-            f"squared-ReLU, V {ref.cfg.vocab_size}), float32 "
+                fail(f"{label} [{q}]: card greedy tokens {a} differ from "
+                     f"the CPU engine's {b} (prompt of {len(p)})")
+        say(f"model check: 2-layer {label}, float32 "
             f"{'int4_awq weights + int8 KV' if q == 'int4' else 'weights'}: "
             f"captured and eager card engines' greedy tokens equal the CPU "
             f"engine's for prompts of {[len(p) for p in ref.prompts]} tokens "
             f"(launches {run['launches']}, #3 {run['by_path']}; card "
             f"{t_card:.1f} s, CPU {t_cpu:.1f} s from the start, in a thread)")
-    del ref.params
-    torch.cuda.empty_cache()
+    if ref.cfg.num_experts:
+        check_moe_routing(torch, dev, tree_to(ref.cpu["f32"], dev, memo),
+                          ref.cfg)
+    del ref.cpu, memo, params
+    free_memory(torch)
 
 
-def serve_nemotron(torch, dev, card: str, quantization: str = "",
-                   kv_quant: str = "") -> dict:
-    """The second family's main path: nemotron-8b-chat (GPT-Next:
-    layernorm1p, squared-ReLU MLP, V 256000) at full width and depth, bf16
+def check_moe_routing(torch, dev, params, cfg) -> None:
+    """The MoE layer's routing and its sparse form on the card at full
+    width: ``route_topk`` on the card and on the CPU gives identical
+    expert, slot and keep (weights within 1e-6) for the same float32
+    logits, at T = 8 (the decode step's slots; capacity 4) and T = 1024
+    (the largest prefill bucket; capacity 512), with an all-zero row and
+    a repeated row among them (ties); and ``sparse_moe_ffn`` with a
+    capacity factor of E / k (C = T: nothing can drop) equals the dense
+    all-experts oracle (``moe_impl="dense"``) on layer 0's weights in
+    bf16 within ``MOE_BF16_RTOL`` of max|dense|, on every row whose bf16
+    and float32 router logits pick the same experts (at least 95%)."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.parallel.moe import (expert_capacity,
+                                                             route_topk)
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for T in (8, 1024):
+        logits = torch.randn((T, E), generator=gen, device=dev)
+        logits[1] = 0.0
+        logits[3] = logits[2]
+        C = expert_capacity(T, E, k, cfg.moe_capacity_factor)
+        got = route_topk(logits, k, C)
+        want = route_topk(logits.cpu(), k, C)
+        for name, g, w in zip(("expert", "slot", "weight", "keep"), got,
+                              want):
+            g = g.cpu()
+            same = (torch.allclose(g, w, atol=1e-6, rtol=0)
+                    if name == "weight" else torch.equal(g, w))
+            if not same:
+                fail(f"route_topk T={T}: the card's {name} differs from the "
+                     f"CPU's")
+        say(f"moe routing T={T} (capacity {C}): card = CPU for expert, slot "
+            f"and keep; {int((~got[3]).sum())} of {T * k} claims dropped")
+    lay = llama.layer_params(params, 0)
+    lp = {key: lay[key].to(torch.bfloat16)
+          for key in ("router", "w_gate", "w_up", "w_down")}
+    roomy = replace(cfg, moe_capacity_factor=E / k)
+    for T in (8, 1024):
+        x = torch.randn((1, T, cfg.hidden_size), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        sparse = llama._moe_mlp(x, lp, roomy).float()[0]
+        dense = llama._moe_mlp(x, lp, replace(roomy, moe_impl="dense"))
+        dense = dense.float()[0]
+        # The dense oracle routes on bf16 logits (the activations' dtype),
+        # the sparse path on float32 ones, as in the reference: a row whose
+        # two logits are within a bf16 rounding of each other may take
+        # another expert in each. Such rows are counted and left out.
+        pick = [torch.sort(lg, dim=-1, descending=True,
+                           stable=True)[1][:, :k].sort(dim=-1)[0]
+                for lg in (x[0].float() @ lp["router"].float(),
+                           x[0] @ lp["router"])]
+        same = (pick[0] == pick[1]).all(dim=-1)
+        peak = dense.abs().max().item()
+        err = (sparse - dense)[same].abs().max().item()
+        if not (torch.isfinite(sparse).all() and err <= MOE_BF16_RTOL * peak
+                and int(same.sum()) >= 0.95 * T):
+            fail(f"sparse_moe_ffn T={T} parts from the dense oracle in bf16: "
+                 f"max abs err {err} over the {int(same.sum())} of {T} rows "
+                 f"that both route alike (max|dense| {peak}, bound "
+                 f"{MOE_BF16_RTOL} x)")
+        say(f"moe sparse = dense T={T} bf16 (capacity factor {E / k:g}, no "
+            f"drop): max abs err {err} = {err / peak:.2e} x max|dense| "
+            f"{peak} (bound {MOE_BF16_RTOL}) over {int(same.sum())} of {T} "
+            f"rows; {T - int(same.sum())} rows route apart (bf16 against "
+            f"float32 router logits)")
+
+
+@contextlib.contextmanager
+def served_depth(name: str, layers: Optional[int]):
+    """Registry model ``name`` cut to ``layers`` layers (None: its full
+    depth) while the block runs (``build_services`` reads the registry);
+    yields the full-depth config."""
+    from dataclasses import replace
+
+    from generativeaiexamples_tpu_torch.models import configs
+    full = configs.MODEL_REGISTRY[name]
+    if layers is not None:
+        configs.MODEL_REGISTRY[name] = replace(full, num_layers=layers)
+    try:
+        yield full
+    finally:
+        configs.MODEL_REGISTRY[name] = full
+
+
+def fresh_slot_state(torch, engine) -> None:
+    """Put an idle engine's slot order and its slots' last tokens back to
+    construction state. Under MoE a request's tokens depend on the slots
+    beside it: every decode step routes all ``max_slots`` rows, an idle
+    slot's row (its last token at position 0) claims expert capacity too,
+    and rows claim in slot order (the reference's semantics, which the
+    port keeps). Two runs of a request compared with each other start
+    from one slot history: this one, a fresh engine's."""
+    if engine.stats["active_slots"]:
+        fail("fresh_slot_state needs an idle engine")
+    engine._free_slots[:] = range(engine.cfg.max_slots)
+    engine._state["last_token"].zero_()
+    torch.cuda.synchronize()
+
+
+def moe_share(torch, engine, step_ms: float) -> dict:
+    """Device time of one decode step's MoE layers: ``_moe_mlp`` on 8
+    rows (the decode step's slots, bf16) of each layer's weights in turn
+    (so each call reads its experts cold), CUDA-graph replay; its byte
+    bound (the router and all 8 experts' weights, which every decode step
+    streams: each expert holds a capacity buffer); and the share of the
+    host-clock step ``step_ms`` the layers take."""
+    from generativeaiexamples_tpu_torch.models import llama
+    cfg, L = engine.model_cfg, engine.model_cfg.num_layers
+    gen = torch.Generator(device=engine.device).manual_seed(5)
+    x = torch.randn((8, 1, cfg.hidden_size), generator=gen,
+                    device=engine.device).to(torch.bfloat16)
+    layers = [llama.layer_params(engine.params, i) for i in range(L)]
+    ms = time_cuda(torch, [(lambda lp=lp: llama._moe_mlp(x, lp, cfg))
+                           for lp in layers], iters=2 * L, warmup=L)
+    nbytes = sum(layers[0][k].numel() * layers[0][k].element_size()
+                 for k in ("router", "w_gate", "w_up", "w_down"))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"moe_ms": ms, "moe_bound_ms": bound, "moe_bytes": nbytes,
+            "moe_share": L * ms / step_ms}
+
+
+def serve_family(torch, dev, card: str, name: str, quantization: str = "",
+                 kv_quant: str = "", layers: Optional[int] = None) -> dict:
+    """A second family's main path: registry model ``name`` at full width
+    (nemotron-8b-chat, GPT-Next with V 256000, at full depth;
+    mixtral-8x7b-instruct, sparse MoE with G = 4, cut to ``layers``), bf16
     random weights made on the card from seed 0 (quantized there to
-    ``quantization``, over a ``kv_quant`` pool), 8 slots, page 128,
-    through ``build_services`` and the port's aiohttp app, with the
-    codepoint tokenizer (random weights sample ids past the bytes).
-    Counted window: the serve prompts as concurrent greedy
-    /v1/completions and the chat requests (``serve_chat``: a greedy chat,
-    a seeded sampled one, a deadline); #1 or #2 32 times a decode step,
-    under int4 #3 "tc" (6 L + 16) a step plus each admission's head row
-    and "wg" 6 L a prefill program. After it ``check_chat_texts``, and the
-    served engine's greedy tokens (prefix cache cleared) equal an eager
-    engine's and an eager engine's with the materialized tail (the whole
-    (8, 256000) logits), planning under the served budget. Every engine
-    is closed at the end. Returns the window's launch counts."""
+    ``quantization``; Mixtral's experts and router stay bf16), over a
+    ``kv_quant`` pool, 8 slots, page 128, buckets to 1024, through
+    ``build_services`` and the port's aiohttp app, with the codepoint
+    tokenizer (random weights sample ids past the bytes). Counted window:
+    the serve prompts as concurrent greedy /v1/completions, an ignore_eos
+    request and the chat requests (``serve_chat``, from
+    ``fresh_slot_state``); #1 or #2 L times a decode step, under int4 #3
+    "tc" (P L + head tiles) a step plus each admission's head row and
+    "wg" P L a prefill program (P the layer's int4 projections: 6 for
+    GPT-Next, Mixtral's 4 attention ones). After it ``check_chat_texts``;
+    the decode step (8 slots at ~560 tokens, host clock at dispatch depth
+    2) beside the bytes it streams and their bound, for MoE the MoE
+    layers' share of it (``moe_share``), and a 1024-token prefill; then
+    the served engine's greedy tokens (prefix cache cleared) equal an
+    eager engine's and an eager engine's with the materialized tail (the
+    whole (8, V) logits), all three planning one schedule from one slot
+    history (the served budget and chunk cap; under MoE the budget held
+    at 4096). Every engine is closed at the end. Returns the window's
+    launch counts."""
     from concurrent.futures import ThreadPoolExecutor
     from dataclasses import replace
 
@@ -3530,33 +3760,43 @@ def serve_nemotron(torch, dev, card: str, quantization: str = "",
     from generativeaiexamples_tpu_torch.models import llama
     from generativeaiexamples_tpu_torch.serving.model_server import (
         build_services, create_server_app)
+    from generativeaiexamples_tpu_torch.tools.profile_decode import (
+        measure_decode, measure_prefill)
 
     t0 = time.monotonic()
-    mode = (f"nemotron {quantization or 'bf16'} weights, "
+    mode = (f"{name.split('-')[0]} {quantization or 'bf16'} weights, "
             f"{kv_quant or 'bf16'} KV")
     ecfg = EngineConfig(max_slots=8, max_input_length=1024,
                         max_output_length=64, prefill_buckets=(128, 512, 1024),
                         page_size=128, kv_pool_tokens=8 * (1024 + 64),
                         dtype="bfloat16", kv_quant=kv_quant)
-    engine, name = build_services(
-        "nemotron-8b-chat", engine_cfg=ecfg, seed=0, device=dev,
-        quantization=quantization, tokenizer=CodepointTokenizer(256000))
+    with served_depth(name, layers) as full:
+        engine, name = build_services(
+            name, engine_cfg=ecfg, seed=0, device=dev,
+            quantization=quantization,
+            tokenizer=CodepointTokenizer(full.vocab_size))
     mcfg = engine.model_cfg
-    if (mcfg.norm, mcfg.mlp, mcfg.vocab_size, mcfg.num_layers,
-            mcfg.intermediate_size) != ("layernorm1p", "squared_relu",
-                                        256000, 32, 16384):
-        fail(f"nemotron-8b-chat is {mcfg}")
+    if mcfg != replace(full, num_layers=layers or full.num_layers):
+        fail(f"{name} is {mcfg}")
     built = time.monotonic() - t0
     engine.prewarm()
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size()
                   for t in llama.param_tensors(engine.params))
-    say(f"serve [{mode}]: {name} L={mcfg.num_layers} D={mcfg.hidden_size} "
-        f"F={mcfg.intermediate_size} H={mcfg.num_heads} V={mcfg.vocab_size} "
-        f"{mcfg.norm}/{mcfg.mlp}, {n_bytes / 1e9:.2f} GB of weights, "
-        f"{engine._param_bytes / 1e9:.2f} GB streamed a step, pool "
-        f"{engine.stats['pool_pages']} pages; built in {built:.1f} s, "
-        f"prewarmed in {time.monotonic() - t0 - built:.1f} s")
+    per_layer = sum(isinstance(v, dict)
+                    for v in engine.params["layers"].values())
+    moe = (f" E={mcfg.num_experts} k={mcfg.num_experts_per_tok}"
+           if mcfg.num_experts else "")
+    say(f"serve [{mode}]: {name} at full width, L={mcfg.num_layers} of "
+        f"{full.num_layers} D={mcfg.hidden_size} "
+        f"F={mcfg.intermediate_size}{moe} H={mcfg.num_heads} "
+        f"KV={mcfg.num_kv_heads} V={mcfg.vocab_size} {mcfg.norm}/"
+        f"{mcfg.mlp}, {n_bytes / 1e9:.2f} GB of weights ({per_layer} int4 "
+        f"leaves a layer), {engine._param_bytes / 1e9:.2f} GB streamed a "
+        f"step, pool {engine.stats['pool_pages']} pages; built in "
+        f"{built:.1f} s, prewarmed in {time.monotonic() - t0 - built:.1f} s; "
+        f"card memory {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     base, stop_server = serve_app(create_server_app(engine,
                                                     model_name=name))
     try:
@@ -3577,6 +3817,8 @@ def serve_nemotron(torch, dev, card: str, quantization: str = "",
                                SamplingParams(max_tokens=32, ignore_eos=True,
                                               temperature=0))
         stream.text()
+        wait_idle(engine)
+        fresh_slot_state(torch, engine)   # as the chat checks' reruns
         chat = serve_chat(base, engine, mode, card)
         torch.cuda.synchronize()
         run = read_launch_counts(engine, stats0)
@@ -3595,8 +3837,8 @@ def serve_nemotron(torch, dev, card: str, quantization: str = "",
             0 <= t < mcfg.vocab_size for t in stream.token_ids):
         fail(f"[{mode}] ignore_eos request gave {stream.token_ids}")
     check_launch_counts(f"[{mode}]", run, mcfg.num_layers, quantization,
-                        kv_quant, head_tiles(engine),
-                        per_layer=len(llama.projection_keys(mcfg)))
+                        kv_quant, head_tiles(engine), per_layer=per_layer)
+    fresh_slot_state(torch, engine)
     check_chat_texts(engine, chat, mode)
     decode_s = stream.finish_time - stream.first_token_time
     say(f"serve [{mode}]: {len(bodies)} concurrent /v1/completions in "
@@ -3605,22 +3847,46 @@ def serve_nemotron(torch, dev, card: str, quantization: str = "",
         f"ms, decode {31 / decode_s:.1f} tok/s; launches {run['launches']} "
         f"(int4 by path {run['by_path']}) over {run['decode_steps']} decode "
         f"steps and {run['prefills']} prefills [{card}]")
-    # Captured = eager = materialized tail, one schedule: the served
-    # engine's budget is held where the online calibrator left it (a
-    # move mid-run would chunk a prompt that the pinned engines admit
-    # whole, and an int8 pool rounds the two differently).
+    # The step (and the MoE layers' share), untraced; a 1024-token prefill.
+    dec = measure_decode(engine, 8, 512, rounds=4, dispatch_depth=2,
+                         traced=False)
+    share = ""
+    if mcfg.num_experts:
+        m = moe_share(torch, engine, dec["step_ms"])
+        share = (f"; MoE layer (8 rows, bf16 experts, L2-cold) "
+                 f"{m['moe_ms']:.4f} ms against its {m['moe_bound_ms']:.4f} "
+                 f"ms byte bound ({m['moe_bytes']} bytes), x "
+                 f"{mcfg.num_layers} = {m['moe_share']:.1%} of the step")
+    with engine.pinned_round_budget(1024):    # one program, not chunks
+        pre = measure_prefill(engine, 1024, rounds=2, traced=False)
+    say(f"serve [{mode}]: decode step {dec['step_ms']:.3f} ms (8 slots at "
+        f"~{dec['context']} tokens, host clock, dispatch depth 2), "
+        f"{dec['step_bytes']} bytes a step, byte bound "
+        f"{dec['step_bound_ms']:.3f} ms "
+        f"({dec['step_bound_ms'] / dec['step_ms']:.1%} of it){share}; "
+        f"prefill of a 1024-token bucket {pre['prefill_ms']:.3f} ms [{card}]")
+    # Captured = eager = materialized tail, one schedule from one slot
+    # history (``fresh_slot_state``). The served engine's planner carries
+    # state from its traffic (the scarcity rotation); under MoE a
+    # different schedule is a different result (rows compete for expert
+    # capacity, and a chunk's padding rows claim slots), so there the
+    # budget is held at 4096, where no rotation occurs.
     ids = [engine.tokenizer.encode(p) for p in SERVE_PROMPTS]
     sp = SamplingParams(max_tokens=16, temperature=0, ignore_eos=True)
     engine.clear_prefix_cache()
+    fresh_slot_state(torch, engine)
+    chunk = engine._sched.chunk_tokens
     runs = {}
-    with engine.pinned_round_budget() as budget:
+    with engine.pinned_round_budget(
+            4096 if mcfg.num_experts else None) as budget:
         for label, kw in (("graphs", None),
                           ("eager", {"cuda_graphs": False}),
                           ("materialized", {"cuda_graphs": False,
                                             "fused_tail": False})):
             eng = engine if kw is None else Engine(
                 engine.params, mcfg, engine.tokenizer,
-                replace(engine.cfg, sched_round_budget_tokens=budget, **kw),
+                replace(engine.cfg, sched_round_budget_tokens=budget,
+                        sched_prefill_chunk_tokens=chunk, **kw),
                 device=dev)
             chunks0 = eng.stats["prefill_chunks"]
             streams = [eng.submit(i, sp) for i in ids]
@@ -4909,10 +5175,28 @@ def stage_ms(tl: dict, name: str) -> float:
                if e["event"] == name)
 
 
+# The fleet's replicas run the served 7B weights cut to this many layers:
+# the phase checks routing, handoff, transfer and failover, which the
+# depth does not change, and at 32 layers its three engines' construction
+# alone took 84.5 s of a smoke that must end within 1200 s.
+FLEET_LAYERS = 8
+
+
+def depth_cut(params, layers: int):
+    """``params`` cut to its first ``layers`` layers: views of the stacked
+    layer leaves (quantized dict leaves leaf by leaf), the rest shared."""
+    cut = {k: ({n: t[:layers] for n, t in v.items()} if isinstance(v, dict)
+               else v[:layers])
+           for k, v in params["layers"].items()}
+    return {**params, "layers": cut}
+
+
 def serve_fleet(torch, dev, card: str, served) -> dict:
     """The fleet tier on the card: three engines of llama-2-7b-chat at full
-    width and depth on the served int4-AWQ weights (one set of weight
-    tensors; each engine its own int8 pool, explicit size, and host tier),
+    width on the served int4-AWQ weights cut to their first
+    ``FLEET_LAYERS`` layers (one set of weight tensors, views of the
+    served ones; each engine its own int8 pool, explicit size, and host
+    tier),
     r0 and r1 ``unified`` and r2 ``prefill``, each behind the port's chain
     server, the port's router in front, all over loopback HTTP. Launch
     counts are set to 0 just before the checks and read just after; they
@@ -4959,6 +5243,7 @@ def serve_fleet(torch, dev, card: str, served) -> dict:
     import statistics
     import tempfile
     from dataclasses import replace
+    from types import SimpleNamespace
 
     from generativeaiexamples_tpu_torch.chains.examples.developer_rag \
         import QAChatbot
@@ -4982,7 +5267,11 @@ def serve_fleet(torch, dev, card: str, served) -> dict:
     # Earlier phases' engines (the RAG phase's 3000-token pools) go back
     # to the card first: a reference cycle would otherwise hold them.
     free_memory(torch)
-    mcfg = served.model_cfg
+    mcfg = replace(served.model_cfg, num_layers=FLEET_LAYERS)
+    params = depth_cut(served.params, FLEET_LAYERS)
+    # The near-tie checks' forward runs the fleet's model.
+    model = SimpleNamespace(params=params, model_cfg=mcfg,
+                            device=served.device)
     tok = CodepointTokenizer(mcfg.vocab_size)
     page = 128
     # A blob of a 2000-token prefix is ~0.5 GB: the fetch and the push
@@ -4998,21 +5287,22 @@ def serve_fleet(torch, dev, card: str, served) -> dict:
     # The engines share the served weight tensors: each holds the same
     # objects, and no engine writes them (a tensor's version counter
     # moves on every in-place write).
-    weights0 = weight_marks(served.params)
+    weights0 = weight_marks(params)
     t0 = time.monotonic()
     engines = {}
     for name, role in (("r0", "unified"), ("r1", "unified"),
                        ("r2", "prefill")):
-        engines[name] = Engine(served.params, mcfg, tok,
+        engines[name] = Engine(params, mcfg, tok,
                                replace(base_cfg, role=role), device=dev)
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     for name, e in engines.items():
-        if e.params is not served.params \
+        if e.params is not params \
                 or weight_marks(e.params) != weights0:
             fail(f"fleet: engine {name} copied or wrote the served "
                  f"weights")
-    say(f"fleet [{mode}]: r0/r1 unified, r2 prefill, one set of weights, "
+    say(f"fleet [{mode}]: r0/r1 unified, r2 prefill, one set of weights "
+        f"({FLEET_LAYERS} of {served.model_cfg.num_layers} layers), "
         f"{engines['r0'].stats['pool_pages']} pool pages and a "
         f"{base_cfg.kv_host_pool_tokens}-token host tier each, built in "
         f"{build_s:.1f} s")
@@ -5061,7 +5351,7 @@ def serve_fleet(torch, dev, card: str, served) -> dict:
         """None when the texts are equal; else (token, top-2 gap of the
         served weights' logits there)."""
         ids = ids_of(body)
-        return first_parting(torch, served, ids,
+        return first_parting(torch, model, ids,
                              tok.encode(a, add_bos=False),
                              tok.encode(b, add_bos=False))
 
@@ -5282,8 +5572,7 @@ def serve_fleet(torch, dev, card: str, served) -> dict:
             fleet_generate(rurl, {"question": f"Short question {i}?",
                                   "use_knowledge_base": False,
                                   "num_tokens": 4}, rid)
-            r_tl = next(t for t in router.flight.snapshot(
-                limit=100)["completed"] if t["request_id"] == rid)
+            r_tl = timeline_of(router.flight, rid)
             c_tl = timeline_of(obs_flight.RECORDER, rid)
             overhead.append(r_tl["meta"]["ttft_ms"]
                             - c_tl["meta"]["ttft_ms"])
@@ -5368,7 +5657,7 @@ def serve_fleet(torch, dev, card: str, served) -> dict:
                               "prefill_dispatches", "prefill_chunks",
                               "sampler_rows_sampled",
                               "sampler_rows_skipped")})
-        if weight_marks(served.params) != weights0:
+        if weight_marks(params) != weights0:
             fail("fleet: serving wrote the shared weights")
         check_launch_counts(f"[{mode}] fleet", run, mcfg.num_layers,
                             "int4_awq", "int8", head_tiles(engines["r0"]))
@@ -6274,8 +6563,16 @@ def main() -> int:
         phases[name] = round(time.monotonic() - t0, 1)
         t0 = time.monotonic()
 
+    from generativeaiexamples_tpu_torch.models.configs import (MIXTRAL_8X7B,
+                                                               NEMOTRON_8B)
     quant_ref = QuantReference(torch, dev)
-    nemo_ref = NemotronReference(torch, dev)
+    total, avail = host_memory_gb()
+    say(f"host memory: {total:.1f} GB, {avail:.1f} GB available")
+    nemo_ref = FamilyReference(torch, dev, NEMOTRON_8B)
+    mixtral_ref = FamilyReference(torch, dev, MIXTRAL_8X7B)
+    total, avail = host_memory_gb()
+    say(f"host memory: {total:.1f} GB, {avail:.1f} GB available with the "
+        f"three CPU references made")
     lap("quant_reference_start")
 
     took = build.build_all()
@@ -6292,6 +6589,12 @@ def main() -> int:
     check_paged_attention(torch, dev, torch.float32, quant=True)
     kernels.append(check_paged_attention(torch, dev, torch.bfloat16,
                                          quant=True))
+    # Mixtral's GQA groups: G = 4 query heads a kv head.
+    for quant in (False, True):
+        check_paged_attention(torch, dev, torch.float32, quant=quant,
+                              kv_heads=8)
+        kernels.append(check_paged_attention(torch, dev, torch.bfloat16,
+                                             quant=quant, kv_heads=8))
     torch.cuda.empty_cache()
     lap("attention")
     kernels.extend(check_int4_matmul(torch, dev))
@@ -6308,14 +6611,26 @@ def main() -> int:
     lap("checkpoint")
     # The second family at full width and depth; its engines are closed
     # before the llama-2 phases.
-    serve_nemotron(torch, dev, card)
+    serve_family(torch, dev, card, "nemotron-8b-chat")
     lap("serve_nemotron_bf16")
-    nemo_int4 = serve_nemotron(torch, dev, card, quantization="int4_awq",
-                               kv_quant="int8")
+    nemo_int4 = serve_family(torch, dev, card, "nemotron-8b-chat",
+                             quantization="int4_awq", kv_quant="int8")
     lap("serve_nemotron_int4")
     # Its CPU reference has run in a thread since the start.
-    check_nemotron_model(torch, dev, nemo_ref)
+    check_family_model(torch, dev, nemo_ref, "Nemotron-8B width "
+                       "(layernorm1p, squared-ReLU, V 256000)")
     lap("model_nemotron")
+    # The MoE family: its 2-layer model check against its CPU reference
+    # (in a thread since the start), then served at full width.
+    check_family_model(torch, dev, mixtral_ref, "Mixtral-8x7B width (8 "
+                       "experts, top-2, H 32 / KV 8)")
+    lap("model_mixtral")
+    mixtral = {q: serve_family(torch, dev, card, "mixtral-8x7b-instruct",
+                               quantization=quant, kv_quant=kv,
+                               layers=MIXTRAL_LAYERS)
+               for q, quant, kv in (("bf16", "", ""),
+                                    ("int4", "int4_awq", "int8"))}
+    lap("serve_mixtral")
     # Training and evaluation, while no engine holds the card; the tuned
     # trees' serve counts join each mode's in the kernels line.
     custom = customize(torch, dev, card)
@@ -6380,6 +6695,12 @@ def main() -> int:
         if row.get("shape", "").startswith("verify"):
             # The verify rounds' "wg" launches of the int4 spec phase.
             row["launches"] = quantized["verify_wg"]
+        if row.get("shape", "").startswith(("G=4", "mixtral")):
+            # Mixtral's shapes: its serve windows' counts.
+            run = mixtral["int4" if row["name"] != "paged_attention_decode"
+                          else "bf16"]
+            row["launches"] = (run["by_path"][row["path"]] if "path" in row
+                               else run["launches"][row["name"]])
     # #3 under autograd: the QLoRA training window's "wg" forwards and
     # backward products.
     kernels.append(custom["row"])

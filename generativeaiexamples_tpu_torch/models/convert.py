@@ -3,7 +3,9 @@ port's parameters.
 
 The tree is keyed exactly as the reference's ``llama.init_params`` keys it
 (``embed``, ``layers/{attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up,
-w_down}``, ``final_norm``, ``lm_head``; a GPT-Next tree has no ``w_gate``
+w_down}``, ``final_norm``, ``lm_head``; a Mixtral tree adds the router
+``(L, D, E)`` and its expert stacks are 4-D, ``(L, E, D, F)`` and
+``(L, E, F, D)``; a GPT-Next tree has no ``w_gate``
 and adds the layernorm1p offsets ``*_norm_b``/``final_norm_b`` and, where
 its config says, the biases ``bq``/``bk``/``bv``/``bo``/``b_up``/
 ``b_down``) and keeps its ``(D, out)`` weight orientation:
@@ -21,7 +23,7 @@ import torch
 
 from ..utils.errors import ConfigError
 from .configs import LlamaConfig
-from .llama import bias_shapes, projection_keys
+from .llama import bias_shapes, projection_keys, projection_shapes
 
 # The llama-2 tree's layer leaves (the layout a tree is read as when no
 # config is given).
@@ -30,7 +32,7 @@ _LAYER_KEYS = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
 # Leaves that are never quantized.
 _RAW_KEYS = ("embed", "final_norm", "final_norm_b", "attn_norm", "mlp_norm",
              "attn_norm_b", "mlp_norm_b", "bq", "bk", "bv", "bo", "b_up",
-             "b_down")
+             "b_down", "router")
 
 
 def layer_keys(cfg: Optional[LlamaConfig]) -> tuple[str, ...]:
@@ -58,18 +60,13 @@ def _to_tensor(a: Any, device: torch.device,
 
 def _expected_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
     """Shape of every leaf for ``cfg`` (layer leaves under ``layers/``)."""
-    D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    q, kv, V = cfg.q_dim, cfg.kv_dim, cfg.vocab_size
+    D, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
     shapes = {
         "embed": (V, D), "final_norm": (D,),
         "layers/attn_norm": (L, D), "layers/mlp_norm": (L, D),
-        "layers/wq": (L, D, q), "layers/wk": (L, D, kv),
-        "layers/wv": (L, D, kv), "layers/wo": (L, q, D),
-        "layers/w_up": (L, D, F), "layers/w_down": (L, F, D),
+        **{f"layers/{k}": s for k, s in projection_shapes(cfg).items()},
         **bias_shapes(cfg),
     }
-    if cfg.mlp != "squared_relu":
-        shapes["layers/w_gate"] = (L, D, F)
     if not cfg.tie_word_embeddings:
         shapes["lm_head"] = (D, V)
     return shapes
@@ -130,9 +127,9 @@ def params_from_numpy(tree: Mapping[str, Any],
     reference's ``quantize_params`` output, or a GPTQ/AWQ import: int8
     ``q``/``q4`` and float32 ``scale``/``gscale``/``gbias``/``pre_scale``)
     keep their dtypes, bit for bit. The layout is ``cfg``'s family
-    (llama-2's without a config): a key outside it (experts, or a bias
-    the config does not have) is refused rather than dropped, and with
-    ``cfg`` every shape is checked too."""
+    (llama-2's without a config): a key outside it (experts without an
+    MoE config, or a bias the config does not have) is refused rather
+    than dropped, and with ``cfg`` every shape is checked too."""
     dev = torch.device(device)
     layers_in = tree.get("layers")
     if not isinstance(layers_in, Mapping):

@@ -16,8 +16,11 @@ and NeMo archives to ``models/import_nemo.py``, as the reference's
 ``load_checkpoint`` sends them; a directory with no recognized files
 raises ``UnsupportedFormatError``. The format is read with the port's own
 safetensors reader (``models/safetensors.py``); no ``safetensors`` or
-``transformers`` package is needed. HF and Meta names are llama-2's: a
-GPT-Next checkpoint comes as a ``.nemo`` archive.
+``transformers`` package is needed. HF and Meta names are llama-2's, and
+HF's also Mixtral's (``block_sparse_moe.gate`` -> ``router``,
+``block_sparse_moe.experts.{e}.w1/w3/w2`` -> the ``w_gate``/``w_up``/
+``w_down`` expert stacks); a GPT-Next checkpoint comes as a ``.nemo``
+archive.
 """
 
 from __future__ import annotations
@@ -63,9 +66,12 @@ _META_LAYER_KEYS = {
     "feed_forward.w3.weight": ("w_up", "T"),
 }
 
-# Mixtral expert and router tensors: recognized so they are refused, not
-# skipped (the port serves dense llama geometries only).
-_MOE_RE = re.compile(r"block_sparse_moe\.")
+# Mixtral's router and expert tensors (``block_sparse_moe.*``): w1 is the
+# gate, w3 the up and w2 the down projection, stacked [layer][expert].
+_HF_MOE_GATE = "block_sparse_moe.gate.weight"
+_MOE_EXPERT_RE = re.compile(
+    r"block_sparse_moe\.experts\.(\d+)\.w([123])\.weight$")
+_MOE_W_TO_NAME = {"1": "w_gate", "3": "w_up", "2": "w_down"}
 
 def _unpermute_rope(w: torch.Tensor, n_heads: int,
                     head_dim: int) -> torch.Tensor:
@@ -203,9 +209,12 @@ LOADABLE_FORMATS: dict[str, Callable[[str], Iterator[tuple[str, Any]]]] = {
 
 
 def _leaf_spec(key: str, cfg: LlamaConfig
-               ) -> Optional[tuple[str, Optional[int], str]]:
-    """(leaf, layer index or None, transform) for one checkpoint name, or
-    None for a tensor that carries no weight (rotary buffers)."""
+               ) -> Optional[tuple[str, Union[None, int, tuple[int, int]],
+                                   str]]:
+    """(leaf, index, transform) for one checkpoint name, or None for a
+    tensor that carries no weight (rotary buffers). The index is None for
+    a top-level leaf, the layer for a layer leaf, and (layer, expert) for
+    a Mixtral expert's matrix."""
     key = key.removeprefix("model.")
     if key in ("embed_tokens.weight", "tok_embeddings.weight"):
         return "embed", None, "plain"
@@ -226,10 +235,20 @@ def _leaf_spec(key: str, cfg: LlamaConfig
     if rest in _META_LAYER_KEYS:
         name, kind = _META_LAYER_KEYS[rest]
         return name, idx, kind
-    if _MOE_RE.match(rest):
-        raise ConfigError(
-            f"{key}: a mixture-of-experts tensor; the port serves "
-            f"rmsnorm/swiglu llama geometries without biases or experts")
+    if rest.startswith("block_sparse_moe.") and not cfg.num_experts:
+        raise ConfigError(f"{key}: a mixture-of-experts tensor, and the "
+                          f"config has no experts")
+    if rest == _HF_MOE_GATE:
+        return "router", idx, "T"
+    em = _MOE_EXPERT_RE.match(rest)
+    if em:
+        e = int(em.group(1))
+        if e >= cfg.num_experts:
+            raise ConfigError(f"{key}: expert {e} is past the config's "
+                              f"{cfg.num_experts} experts")
+        return _MOE_W_TO_NAME[em.group(2)], (idx, e), "T"
+    if rest.startswith("block_sparse_moe."):
+        raise ConfigError(f"{key}: an unknown mixture-of-experts tensor")
     return None
 
 
@@ -256,10 +275,13 @@ def params_from_named_tensors(
             continue
         name, idx, kind = spec
         flat = name if idx is None else f"layers/{name}"
-        if flat not in shapes:
-            raise ConfigError(f"{key}: the config's {cfg.mlp} MLP has no "
-                              f"{flat}")
-        want = shapes[flat][1:] if idx is not None else shapes[flat]
+        if flat not in shapes or (isinstance(idx, tuple)
+                                  != (len(shapes[flat]) == 4)):
+            raise ConfigError(f"{key}: the config's "
+                              f"{'MoE' if cfg.num_experts else cfg.mlp} "
+                              f"MLP has no such {flat}")
+        n_idx = 0 if idx is None else 1 if isinstance(idx, int) else 2
+        want = shapes[flat][n_idx:]
         t = raw.detach().to(dev)
         if kind == "q":
             t = _unpermute_rope(t, cfg.num_heads, cfg.head_dim)
@@ -276,9 +298,13 @@ def params_from_named_tensors(
         (out[flat] if idx is None else out[flat][idx]).copy_(t)
         filled.setdefault(flat, set()).add(idx)
         del t
+    # A layer leaf needs every layer, an expert stack every (layer,
+    # expert) pair.
     missing = [k for k in shapes if k != "lm_head" and not (
         k in filled and (not k.startswith("layers/")
-                         or len(filled[k]) == cfg.num_layers))]
+                         or len(filled[k]) == cfg.num_layers * (
+                             cfg.num_experts if len(shapes[k]) == 4
+                             else 1)))]
     if "lm_head" not in out and not cfg.tie_word_embeddings:
         missing.append("lm_head")
     if missing:

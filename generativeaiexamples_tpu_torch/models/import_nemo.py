@@ -33,7 +33,7 @@ from typing import Any, Union
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.errors import ModelLoadError
+from ..utils.errors import ConfigError, ModelLoadError
 from .configs import LlamaConfig
 from .convert import _expected_shapes, layer_keys
 from .llama import Params
@@ -150,6 +150,11 @@ def load_nemo_checkpoint(path: str, cfg: LlamaConfig,
     parameter tree on ``device`` in ``dtype``. A ``num_layers`` in
     ``model_config.yaml`` other than the config's, a missing tensor or a
     shape the config does not give raise ``ModelLoadError``."""
+    if cfg.num_experts:
+        # The reference's NeMo importer is dense-only too.
+        raise ConfigError(f"{path}: a mixture-of-experts geometry "
+                          f"({cfg.num_experts} experts) has no NeMo "
+                          f"import; load an HF checkpoint")
     nemo_path = find_nemo(path)
     config, tensors = read_archive(nemo_path)
     declared = config.get("num_layers")

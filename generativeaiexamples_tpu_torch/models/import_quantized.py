@@ -31,7 +31,7 @@ from typing import Iterator, Union
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.errors import ModelLoadError
+from ..utils.errors import ConfigError, ModelLoadError
 from .configs import LlamaConfig
 from .llama import Params, projection_keys
 from .safetensors import iter_file
@@ -129,6 +129,11 @@ def load_quantized_checkpoint(path: str, cfg: LlamaConfig,
     stacked over the layers; embeddings, norms and lm_head in ``dtype``.
     ``fmt`` ("gptq" or "awq") skips the sniffing when the caller already
     did it."""
+    if cfg.num_experts:
+        # The reference's GPTQ/AWQ importer is dense-only too.
+        raise ConfigError(f"{path}: a mixture-of-experts geometry "
+                          f"({cfg.num_experts} experts) has no GPTQ/AWQ "
+                          f"import; load an HF checkpoint")
     from .import_hf import sniff_quantized_format
     fmt = fmt or sniff_quantized_format(path)
     if fmt not in ("gptq", "awq"):

@@ -1,7 +1,8 @@
 """Llama-family decoder in PyTorch — port of the reference's
-``models/llama.py`` for its dense families: llama-2 (rmsnorm, swiglu, no
-biases) and GPT-Next/Nemotron (layernorm1p, squared-ReLU MLP without a
-gate, optional biases).
+``models/llama.py``: llama-2 (rmsnorm, swiglu, no biases), Mixtral (its
+MLP a sparse mixture of swiglu experts, ``parallel/moe.py``) and
+GPT-Next/Nemotron (layernorm1p, squared-ReLU MLP without a gate,
+optional biases).
 
 Parameters are a plain dict of tensors keyed and shaped exactly like the
 reference's parameter tree, so weights carry across without transposes
@@ -13,6 +14,8 @@ forward is ``x @ W``:
     attn_norm: (L, D)         mlp_norm: (L, D)
     wq: (L, D, H*hd)  wk: (L, D, KV*hd)  wv: (L, D, KV*hd)  wo: (L, H*hd, D)
     w_gate/w_up: (L, D, F)    w_down: (L, F, D)   (no w_gate: squared_relu)
+    router: (L, D, E)  w_gate/w_up: (L, E, D, F)  w_down: (L, E, F, D)
+                                                   [num_experts: E experts]
     attn_norm_b/mlp_norm_b: (L, D)                 [layernorm1p]
     bq: (L, H*hd)  bk/bv: (L, KV*hd)  bo: (L, D)   [attn_bias]
     b_up: (L, F)   b_down: (L, D)                  [mlp_bias]
@@ -21,7 +24,8 @@ forward is ``x @ W``:
 
 After ``ops.quant.quantize_params`` each projection and ``lm_head`` is a
 dict leaf of the same stacked shape (``ops/quant.py``), and every
-``x @ W`` goes through ``ops.quant.matmul``.
+``x @ W`` goes through ``ops.quant.matmul``; the router and the 4-D
+expert stacks stay raw, as in the reference.
 
 The reference scans over stacked layers; here a Python loop walks them
 (``layer_params``), and KV caches and the paged pool are updated in place
@@ -41,6 +45,7 @@ from ..ops.quant import matmul as qmm
 from ..ops.quant import matmul_f32 as qmm_f32
 from ..ops.rmsnorm import layernorm1p, rmsnorm
 from ..ops.rope import apply_rope, rope_frequencies
+from ..parallel.moe import sparse_moe_ffn, topk_lowest_index_first
 from ..utils.errors import ConfigError
 from .configs import LlamaConfig
 
@@ -50,25 +55,43 @@ KVCache = dict[str, torch.Tensor]  # {"k", "v"[, "ks", "vs"]}
 
 NORMS = ("rmsnorm", "layernorm1p")
 MLPS = ("swiglu", "squared_relu")
+MOE_IMPLS = ("sparse", "dense")
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    """The port serves the reference's dense families (llama-2 and
-    GPT-Next); mixture-of-experts configs wait for a later slice."""
-    if cfg.num_experts:
-        raise ConfigError("mixture-of-experts configs are not served by "
-                          "the port yet")
+    """The port serves the reference's families: llama-2, Mixtral (its
+    ``moe_impl`` "sparse", the default, or "dense", the zero-gated
+    all-experts oracle) and GPT-Next."""
     if cfg.norm not in NORMS or cfg.mlp not in MLPS:
         raise ConfigError(f"unknown norm {cfg.norm!r} or mlp {cfg.mlp!r}; "
                           f"known: {NORMS}, {MLPS}")
+    if cfg.num_experts and cfg.moe_impl not in MOE_IMPLS:
+        raise ConfigError(f"unknown moe_impl {cfg.moe_impl!r}; expected "
+                          f"'sparse' or 'dense'")
 
 
 def projection_keys(cfg: LlamaConfig) -> tuple[str, ...]:
     """The layer's weight matrices, in forward order: six without a gate
-    (squared_relu), seven with one."""
-    mlp = (("w_up", "w_down") if cfg.mlp == "squared_relu"
-           else ("w_gate", "w_up", "w_down"))
-    return ("wq", "wk", "wv", "wo") + mlp
+    (squared_relu), seven with one; an MoE layer's router and its three
+    expert stacks (``(E, D, F)`` a layer) after the attention's four."""
+    return tuple(projection_shapes(cfg))
+
+
+def projection_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
+    """The stacked shape of every layer weight matrix, in forward
+    order."""
+    D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    shapes = {"wq": (L, D, cfg.q_dim), "wk": (L, D, cfg.kv_dim),
+              "wv": (L, D, cfg.kv_dim), "wo": (L, cfg.q_dim, D)}
+    if cfg.num_experts:
+        E = cfg.num_experts
+        shapes.update({"router": (L, D, E), "w_gate": (L, E, D, F),
+                       "w_up": (L, E, D, F), "w_down": (L, E, F, D)})
+        return shapes
+    if cfg.mlp != "squared_relu":
+        shapes["w_gate"] = (L, D, F)
+    shapes.update({"w_up": (L, D, F), "w_down": (L, F, D)})
+    return shapes
 
 
 def bias_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
@@ -82,7 +105,7 @@ def bias_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
     if cfg.attn_bias:
         out.update({"layers/bq": (L, cfg.q_dim), "layers/bk": (L, cfg.kv_dim),
                     "layers/bv": (L, cfg.kv_dim), "layers/bo": (L, D)})
-    if cfg.mlp_bias and cfg.mlp == "squared_relu":
+    if cfg.mlp_bias and cfg.mlp == "squared_relu" and not cfg.num_experts:
         out.update({"layers/b_up": (L, F), "layers/b_down": (L, D)})
     return out
 
@@ -93,12 +116,13 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     """Random-init parameter tree, made on ``device`` from ``seed`` (for
     tests and benchmarks; normal(0, 1/sqrt(fan_in)) like the reference,
     though the two frameworks' random streams differ). Leaves are drawn in
-    float32 slabs of at most 64 Mi elements along their leading axis, so
-    the float32 transient stays small beside the weights."""
+    float32 slabs of at most 64 Mi elements along their leading axis (one
+    layer at a time where a layer is larger: Mixtral's ``w_gate`` is
+    1.88 GB of float32 a layer), so the float32 transient stays small
+    beside the weights."""
     check_supported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    H, KV, hd, V = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size
+    D, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
 
     def norm(shape, fan_in):
         out = torch.empty(shape, dtype=dtype, device=device)
@@ -116,15 +140,10 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     layers = {
         "attn_norm": norm_w((L, D), dtype=dtype, device=device),
         "mlp_norm": norm_w((L, D), dtype=dtype, device=device),
-        "wq": norm((L, D, H * hd), D),
-        "wk": norm((L, D, KV * hd), D),
-        "wv": norm((L, D, KV * hd), D),
-        "wo": norm((L, H * hd, D), H * hd),
     }
-    if cfg.mlp != "squared_relu":
-        layers["w_gate"] = norm((L, D, F), D)
-    layers["w_up"] = norm((L, D, F), D)
-    layers["w_down"] = norm((L, F, D), F)
+    # Each matrix's fan-in is its input width, the second-to-last axis.
+    for key, shape in projection_shapes(cfg).items():
+        layers[key] = norm(shape, shape[-2])
     params: Params = {
         "embed": norm((V, D), D),
         "layers": layers,
@@ -212,6 +231,30 @@ def _dense_mlp(x: torch.Tensor, lp: dict[str, Any],
     return qmm(gate * qmm(x, lp["w_up"]), lp["w_down"])
 
 
+def _moe_mlp(x: torch.Tensor, lp: dict[str, Any],
+             cfg: LlamaConfig) -> torch.Tensor:
+    """Mixtral MLP. The default is the sparse top-k capacity-routed path
+    (``parallel/moe.py``, O(tokens * k) expert products);
+    ``moe_impl="dense"`` is the zero-gated all-experts formulation
+    (O(tokens * E), no capacity drops), the parity oracle: router logits
+    in the activations' dtype, as the reference's."""
+    if cfg.moe_impl == "sparse":
+        return sparse_moe_ffn(x, lp, cfg)
+    if cfg.moe_impl != "dense":
+        raise ConfigError(f"unknown moe_impl {cfg.moe_impl!r}; expected "
+                          f"'sparse' or 'dense'")
+    logits = x @ lp["router"].to(x.dtype)                           # (B,S,E)
+    weights, idx = topk_lowest_index_first(logits,
+                                           cfg.num_experts_per_tok)
+    weights = torch.softmax(weights.float(), dim=-1).to(x.dtype)
+    gates = torch.zeros_like(logits).scatter(-1, idx, weights)
+    gate = torch.nn.functional.silu(
+        torch.einsum("bsd,edf->bsef", x, lp["w_gate"]))
+    up = torch.einsum("bsd,edf->bsef", x, lp["w_up"])
+    down = torch.einsum("bsef,efd->bsed", gate * up, lp["w_down"])
+    return torch.einsum("bsed,bse->bsd", down, gates)
+
+
 def block_norm(x: torch.Tensor, lp: dict[str, Any], key: str,
                cfg: LlamaConfig) -> torch.Tensor:
     """The per-block normalization: rmsnorm (llama) or layernorm1p
@@ -259,7 +302,8 @@ def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
         attn_out = attn_out + lp["bo"]
     h = h + attn_out
     x = block_norm(h, lp, "mlp_norm", cfg)
-    return h + _dense_mlp(x, lp, cfg)
+    mlp = _moe_mlp(x, lp, cfg) if cfg.num_experts else _dense_mlp(x, lp, cfg)
+    return h + mlp
 
 
 def unembed_norm(params: Params, cfg: LlamaConfig,

@@ -252,7 +252,8 @@ def quantize_params(params: dict[str, Any], mode: str = "int8",
     (group-wise). Stacked ``(L, K, N)`` weights are quantized one layer at
     a time on their own device, so the float32 transient is one layer's
     slice, never the stack (7B's stacked ``w_gate`` in float32 would be
-    5.8 GB)."""
+    5.8 GB). Leaves of more than three dimensions (MoE expert stacks)
+    and the MoE router stay raw."""
     if mode not in MODES:
         raise ValueError(f"unknown quantization mode {mode!r}")
 
@@ -270,7 +271,10 @@ def quantize_params(params: dict[str, Any], mode: str = "int8",
     out = dict(params)
     layers = dict(params["layers"])
     for key in _QUANT_LAYER_KEYS:
-        if key in layers and not is_quantized(layers[key]):
+        # Mixtral's expert stacks (L, E, K, N) keep full precision, as in
+        # the reference: the experts run as batched library products.
+        if (key in layers and not is_quantized(layers[key])
+                and layers[key].dim() <= 3):
             layers[key] = quant(layers[key])
     out["layers"] = layers
     if "lm_head" in out and not is_quantized(out["lm_head"]):

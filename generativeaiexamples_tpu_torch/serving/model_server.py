@@ -148,6 +148,18 @@ def awq_group(cfg: LlamaConfig) -> int:
     return group
 
 
+# The reference CLI's model types, each served as its default registry
+# model (the reference's ``MODEL_TYPES`` and ``_TYPE_DEFAULT_NAME``): the
+# port's CLI takes a type where it takes a model name.
+TYPE_DEFAULT_NAME = {
+    "llama": "llama-2-7b-chat",
+    "codellama": "codellama-13b-instruct",
+    "gptnext": "nemotron-8b-chat",
+    "mixtral": "mixtral-8x7b-instruct",
+    "dev": "llama-tiny",
+}
+
+
 # What the last ``build_services`` with a model path did: the checkpoint
 # format, the cache identity (None without a content hash), whether the
 # tree came from the weight cache, and the load seconds (conversion or
@@ -532,7 +544,12 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser = argparse.ArgumentParser(
         description="Serve a llama checkpoint directory, or a registry "
                     "model with random weights, over HTTP")
-    parser.add_argument("model_name", nargs="?", default="llama-2-7b-chat")
+    parser.add_argument("model_name", nargs="?", default="llama-2-7b-chat",
+                        help="a registry model (llama-2-7b-chat, "
+                             "mixtral-8x7b-instruct, nemotron-8b-chat, ...) "
+                             "or one of the reference's model types "
+                             f"{tuple(TYPE_DEFAULT_NAME)}, served as its "
+                             "default model")
     parser.add_argument("--model-path",
                         default=os.environ.get("MODEL_PATH", ""),
                         help="checkpoint directory (safetensors, "
@@ -585,7 +602,8 @@ def main(argv: Optional[list[str]] = None) -> None:
         page_size=args.page_size, dtype=args.dtype,
         kv_pool_tokens=args.kv_pool_tokens or "auto",
         kv_quant=args.kv_quant)
-    engine, name = build_services(args.model_name, engine_cfg=engine_cfg,
+    model_name = TYPE_DEFAULT_NAME.get(args.model_name, args.model_name)
+    engine, name = build_services(model_name, engine_cfg=engine_cfg,
                                   seed=args.seed, device=args.device,
                                   quantization=args.quantization,
                                   model_path=args.model_path)
