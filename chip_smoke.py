@@ -6,7 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --golden-readings`` builds the kernels and
-prints only the readings the golden gate's limits were set from.)
+prints only the readings the golden gate's limits were set from.
+``python3 chip_smoke.py --tp 4`` runs only the tensor-parallel phases,
+phase 12 below, on a machine with four cards.)
 
 Phases (each fails loudly: a failure exits non-zero and the final
 ``{"ok": true, ...}`` line is never printed):
@@ -247,6 +249,24 @@ Phases (each fails loudly: a failure exits non-zero and the final
    where runs are compared (under MoE an idle slot's row claims expert
    capacity too), with the decode step, the MoE layers' share of it and
    a 1024-token prefill printed.
+12. Tensor parallelism. The default run checks the three kernels at the
+   shapes each rank gives them at tp = 4 (``check_tp_shards``: #1/#2 at
+   Llama-2-70B's H 16 / KV 2, G = 8, and Mixtral's H 8 / KV 2; #3 at every
+   70B shard shape, M = 1, 8, 128, 1024), printed beside their bounds.
+   ``--tp 4`` (four cards) runs only: the same kernel check, then
+   ``tp_parity`` on four spawned ranks in one NCCL group (Llama-2-70B's
+   width; 2 layers float32 with TF32 off: logits within 1e-4 x max|logit|
+   of the one-card model on rank 0's card, greedy tokens equal but at a
+   near tie, the sharded fused tail equal to the materialized one, spec
+   decoding greedy and sampled (``fused_verify_sample_tp``); 8 layers
+   bf16: greedy tokens up to the first near tie, its top-2 gap printed;
+   #1 once per layer per decode step on every rank; the all-reduce and
+   header times), then ``serve_tp_cli``: llama-2-70b-chat at all 80
+   layers through the model server's CLI at ``--tensor-parallelism 4``
+   in bf16 and in int4_awq + int8 KV, and mixtral-8x7b-instruct at all
+   32 layers in bf16, each rank's launch counts read around 4
+   completions and the timed requests (decode step, all-reduce share,
+   a 1000-token prefill), and a clean SIGTERM exit.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -332,13 +352,15 @@ def time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
 # ------------------------------------------------------------ kernel phase
 
 def check_paged_attention(torch, dev, dtype, quant: bool = False,
-                          kv_heads: int = 32):
+                          kv_heads: int = 32, heads: int = 32,
+                          label: str = ""):
     """The paged decode kernel against its plain version at llama-2-7b
     decode shapes: B=8, H=KV=32, hd=128, page=128, layer 1 of an L=2
     pool, lengths covering 0, page-1, page, page+1 and long contexts, or
     with ``kv_heads`` 8 at Mixtral-8x7B's (H 32, KV 8: G = 4 query heads a
-    kv head, the kernel's ``MAXG = 8`` instantiations). q
-    and cur_k/cur_v are in ``dtype``; the pools too (#1), or, under
+    kv head, the kernel's ``MAXG = 8`` instantiations), or with ``heads``
+    and ``kv_heads`` a tensor-parallel rank's shard (``label`` names it).
+    q and cur_k/cur_v are in ``dtype``; the pools too (#1), or, under
     ``quant`` (#2), int8 pools with bf16 scale pools made by
     ``quantize_rows`` from random rows.
 
@@ -358,7 +380,7 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False,
         paged_attention_decode, paged_attention_decode_plain,
         paged_attention_decode_quant_plain)
 
-    B, H, KV, hd, page, L = 8, 32, kv_heads, 128, 128, 2
+    B, H, KV, hd, page, L = 8, heads, kv_heads, 128, 128, 2
     lengths = [0, 1, 127, 128, 129, 1000, 2047, 3000]
     W = max(-(-(n + 1) // page) for n in lengths)
     N = 1 + B * W
@@ -388,7 +410,8 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False,
         torch.int32)
     layer = 1
     name = "paged_attention_decode" + ("_int8" if quant else "")
-    shape = f"G={H // KV}" + (" (Mixtral-8x7B: H 32, KV 8)" if KV != H
+    shape = f"G={H // KV}" + (f" ({label}: H {H}, KV {KV})" if label else
+                              " (Mixtral-8x7B: H 32, KV 8)" if KV != H
                               else " (llama-2-7b: H = KV = 32)")
 
     def kernel(p):
@@ -476,7 +499,7 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False,
     del new, ref_pools, pools
     torch.cuda.empty_cache()
     ms, bound, by, layers = time_attention(torch, dev, dtype, quant, lengths,
-                                           KV)
+                                           KV, H)
     say(f"kernel {name} {shape}: max_abs_err={err} ms={ms} (L2-cold: "
         f"{layers} "
         f"pool layers cycled) warm_l2_ms={warm_ms} (one pool, every call "
@@ -485,7 +508,7 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False,
         f"computes paged attention{' over int8 pages' if quant else ''} "
         f"with the in-place append)")
     uni_ms, uni_bound, uni_by, uni_layers = time_attention(
-        torch, dev, dtype, quant, [2048] * B, KV)
+        torch, dev, dtype, quant, [2048] * B, KV, H)
     say(f"kernel {name} {shape} uniform {B} x 2048 rows: ms={uni_ms} "
         f"(L2-cold: "
         f"{uni_layers} pool layers cycled) bound_ms={uni_bound} ({uni_by}; "
@@ -533,7 +556,8 @@ def attention_bound(B, H, KV, hd, W, lengths, quant, e=2):
     return flops_ms, "operations", kv_bytes
 
 
-def time_attention(torch, dev, dtype, quant, lengths, kv_heads=32):
+def time_attention(torch, dev, dtype, quant, lengths, kv_heads=32,
+                   heads=32):
     """L2-cold device time of one paged attention call (bf16 or float32
     q; bf16/f32 pools, or int8 pools under ``quant``) at llama-2-7b decode
     shapes (H = KV = 32, hd = page = 128), or Mixtral's with ``kv_heads``
@@ -546,7 +570,7 @@ def time_attention(torch, dev, dtype, quant, lengths, kv_heads=32):
     from generativeaiexamples_tpu_torch.ops.paged_attention import \
         paged_attention_decode
 
-    B, H, KV, hd, page = len(lengths), 32, kv_heads, 128, 128
+    B, H, KV, hd, page = len(lengths), heads, kv_heads, 128, 128
     W = max(-(-(n + 1) // page) for n in lengths)
     N = 1 + B * W
     e = torch.empty((), dtype=dtype).element_size()
@@ -6534,6 +6558,737 @@ def check_lone_window(label: str, c0: dict, c1: dict, s0: dict, s1: dict,
         f"admissions, {programs} prefill programs)")
 
 
+# ------------------------------------------------- tensor-parallel serving
+
+# #3 at Llama-2-70B's per-rank shapes under tp = 4: (name, K, N).
+TP4_INT4_SHAPES = (("wq", 8192, 2048), ("wk/wv", 8192, 256),
+                   ("wo", 2048, 8192), ("w_gate/w_up", 8192, 7168),
+                   ("w_down", 7168, 8192), ("lm_head", 8192, 8000))
+TP4_ROWS = (1, 8, 128, 1024)
+# #1/#2 at the per-rank head counts under tp = 4: (label, H, KV).
+TP4_HEADS = (("Llama-2-70B at tp = 4", 16, 2),
+             ("Mixtral-8x7B at tp = 4", 8, 2))
+
+
+def check_tp_shards(torch, dev) -> dict:
+    """The three kernels at the shapes each rank gives them under tp = 4:
+    #1 and #2 at Llama-2-70B's shard (H 16 / KV 2: G = 8, the kernel's
+    full ``MAXG = 8`` group) and Mixtral-8x7B's (H 8 / KV 2: G = 4),
+    float32 and bf16, held to their plain versions as
+    ``check_paged_attention`` holds them and timed L2-cold with their
+    bounds; #3 (bf16 x, group 128, the int4_awq format) at every 70B
+    shard shape (wq, wk/wv, wo, w_gate/w_up, w_down, the head's vocab
+    shard) at M = 1 and 8 ("tc") and 128 and 1024 ("wg"), held to its
+    plain version (bf16 out rtol 1e-2, float32 out for the head rtol
+    1e-4, atol 1e-4 * max|ref|) and timed L2-cold beside its plain
+    version, its bound and the library yardstick. Returns the rows,
+    keyed by kernel and shape."""
+    rows = {}
+    for label, H, KV in TP4_HEADS:
+        for quant in (False, True):
+            check_paged_attention(torch, dev, torch.float32, quant=quant,
+                                  kv_heads=KV, heads=H, label=label)
+            row = check_paged_attention(torch, dev, torch.bfloat16,
+                                        quant=quant, kv_heads=KV, heads=H,
+                                        label=label)
+            rows[f"{row['name']} {label}"] = row
+            torch.cuda.empty_cache()
+    rows.update(check_int4_shards(torch, dev))
+    return rows
+
+
+def check_int4_shards(torch, dev) -> dict:
+    """#3 at ``TP4_INT4_SHAPES`` x ``TP4_ROWS`` (``check_tp_shards``)."""
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
+        _path, int4_matmul, int4_matmul_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows = {}
+    for name, K, N in TP4_INT4_SHAPES:
+        w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        leaf = quant.quantize_tensor_grouped(w, 128)
+        del w
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        wbytes = leaf["q4"].numel() + 4 * leaf["gscale"].numel()
+        q4s = [leaf["q4"].clone() for _ in range(1 + (120 << 20) // wbytes)]
+        for M in TP4_ROWS:
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            path = "tc" if M <= 8 else "wg"
+            if _path(M, K, N, 128, x.dtype) != path:
+                fail(f"int4_matmul M={M} K={K} N={N} would not take the "
+                     f"{path!r} path")
+            before = int4_matmul.launches_by_path[path]
+            got = int4_matmul(x, leaf["q4"], leaf["gscale"],
+                              out_dtype=out_dtype)
+            if int4_matmul.launches_by_path[path] != before + 1:
+                fail(f"int4_matmul M={M} K={K} N={N} did not launch the "
+                     f"{path!r} path")
+            ref = int4_matmul_plain(x, leaf["q4"], leaf["gscale"],
+                                    out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            peak = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            rtol = 1e-4 if out_dtype == torch.float32 else 1e-2
+            if not (got.shape == (M, N) and torch.isfinite(got.float()).all()
+                    and torch.allclose(got.float(), ref.float(),
+                                       atol=1e-4 * peak, rtol=rtol)):
+                fail(f"int4_matmul [{path}] {name} shard M={M} K={K} N={N} "
+                     f"disagrees with its plain version: max abs err {err} "
+                     f"(max|ref| {peak})")
+            iters = 20 if M == 1024 else 200
+            ms = time_cuda(torch, [
+                (lambda q4=q4: int4_matmul(x, q4, leaf["gscale"],
+                                           out_dtype=out_dtype))
+                for q4 in q4s], iters=iters)
+            plain_ms = time_cuda(torch, lambda: int4_matmul_plain(
+                x, leaf["q4"], leaf["gscale"], out_dtype=out_dtype),
+                iters=3, warmup=1)
+            lib_ms, lib_note = int4_library_ms(torch, dev, M, K, N, 128,
+                                               iters)
+            e_out = 4 if out_dtype == torch.float32 else 2
+            nbytes = (K // 2 * N + 4 * (K // 128) * N + M * K * 2
+                      + M * N * e_out)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            flops_ms = 2 * M * K * N / BF16_FLOPS * 1e3
+            bound = max(bytes_ms, flops_ms)
+            by = "bytes" if bytes_ms >= flops_ms else "operations"
+            say(f"kernel int4_matmul [{path}] 70B tp=4 shard {name} M={M} "
+                f"K={K} N={N} group=128: max_abs_err={err} ms={ms} "
+                f"plain_ms={plain_ms} bound_ms={bound} ({by}; "
+                f"{bound / ms:.1%} of it) library_ms={lib_ms} ({lib_note})")
+            rows[f"int4_matmul {name} M={M}"] = int4_row(
+                f"70B tp=4 {name} M={M} K={K} N={N}", path, err, ms,
+                plain_ms, bound, by, lib_ms)
+        del q4s, leaf
+        torch.cuda.empty_cache()
+    return rows
+
+
+# The tensor-parallel parity run (``--tp``): Llama-2-70B's width, cut in
+# depth; float32 (TF32 off) at 2 layers, bf16 at 8.
+TP_F32_LAYERS = 2
+TP_BF16_LAYERS = 8
+TP_PROMPTS = ["Tell me about tensor parallelism. " * 3,
+              "The quick brown fox jumps over the lazy dog. " * 4]
+TP_SPEC_PROMPT = "The cat sat on the mat. The dog sat on the log. " * 6
+TP_NEW = 24
+# A parting of greedy tokens counts as a near tie below this top-2 logit
+# gap of the one-card model: bf16 rounds at other places when the sums
+# are split over ranks (about 2^-8 of a logit of size 1).
+TP_TIE = {"float32": 1e-3, "bfloat16": 0.05}
+# Float32 logits of the tp run against the one-card run: atol relative
+# to max|logit| (sums over 28672 products in another order).
+TP_LOGIT_RTOL = 1e-4
+
+
+def tp_engine_cfg(dtype: str, vocab_size: int, **kw):
+    """The parity engines' config: 4 slots, prompts up to 512 tokens,
+    the tail streamed in tiles of 8000 at a 32000 vocab (each rank's
+    whole vocab shard at tp = 4, and the one-card engine's tile too, so
+    both draw the same noise; the default for a smaller vocab)."""
+    from generativeaiexamples_tpu_torch.engine import EngineConfig
+    return EngineConfig(max_slots=4, max_input_length=512,
+                        max_output_length=64, prefill_buckets=(256, 512),
+                        dtype=dtype, kv_pool_tokens=8192,
+                        sampler_tile=8000 if vocab_size >= 32000 else None,
+                        seed=0, **kw)
+
+
+def tp_serve(engine, requests) -> Optional[list]:
+    """The leader serves ``requests`` ((prompt ids, SamplingParams)) one
+    after another and closes; a follower replays until the close. Returns
+    the leader's token lists (None on a follower)."""
+    if not engine.leader:
+        engine.follow()
+        engine.close()
+        return None
+    engine.start()
+    try:
+        outs = []
+        for ids, sp in requests:
+            stream = engine.submit(ids, sp)
+            stream.text()
+            outs.append(list(stream.token_ids))
+        return outs
+    finally:
+        engine.close()
+
+
+def parting_index(a: list, b: list) -> Optional[int]:
+    """The first index where two token lists differ (None if equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def logits_gap(torch, params, cfg, ids: list) -> float:
+    """The top-2 logit gap of the token after ``ids`` (one-card model,
+    full forward)."""
+    from generativeaiexamples_tpu_torch.models import llama
+    dev = params["embed"].device
+    with torch.no_grad():
+        t = torch.tensor([ids], dtype=torch.int32, device=dev)
+        pos = torch.arange(len(ids), dtype=torch.int32, device=dev)[None, :]
+        top = llama.apply(params, cfg, t, pos)[0][0, -1].float().topk(2)
+    return float(top.values[0] - top.values[1])
+
+
+def time_collectives(torch, dev, mesh, D: int) -> dict:
+    """Device ms of one all-reduce at the decode step's shape (8 rows of
+    D, bf16) and a 1024-row prefill's, each from one CUDA graph of many
+    (captured as the engine captures them), and the host ms of one round
+    header broadcast over the gloo group (a pickled header of an 8-slot
+    round's staged writes)."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.parallel import comm
+    out = {}
+    for rows, n in ((8, 160), (1024, 20)):
+        x = torch.zeros((rows, D), dtype=torch.bfloat16, device=dev)
+        for _ in range(3):
+            comm.all_reduce_(x, mesh)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                comm.all_reduce_(x, mesh)
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"all_reduce_{rows}_ms"] = start.elapsed_time(end) / n
+        del graph
+    header = ("run", "_round_body", (8, True, 8),
+              [("copy", "act_idx", np.arange(8, dtype=np.int32))])
+    t0 = time.monotonic()
+    for _ in range(50):
+        if mesh.leader:
+            comm.broadcast_header(header, mesh)
+        else:
+            comm.receive_header(mesh)
+    out["header_ms"] = (time.monotonic() - t0) / 50 * 1e3
+    return out
+
+
+def tp_parity(torch, dev, mesh, base=None, layers=(TP_F32_LAYERS,
+                                                      TP_BF16_LAYERS)) -> dict:
+    """The tensor-parallel model against the one-card model, on every rank
+    of ``mesh`` (the leader, rank 0, also runs the one-card model on its
+    card, with the same seed; ``base``: the geometry, Llama-2-70B's by
+    default, cut to ``layers``). Returns the leader's comparisons, and on
+    every rank its launch counts over the tp engines' serves and the
+    collectives' times."""
+    import dataclasses
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine import Engine, SamplingParams
+    from generativeaiexamples_tpu_torch.engine import graphs
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_70B
+    from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
+
+    base = base or LLAMA2_70B
+    tok = ByteTokenizer()
+    lead = mesh.leader
+    res = {"rank": mesh.rank}
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["comm"] = time_collectives(torch, dev, mesh, base.hidden_size)
+    greedy = SamplingParams(max_tokens=TP_NEW, top_k=1, ignore_eos=True)
+    sampled = SamplingParams(max_tokens=TP_NEW, temperature=0.8, top_k=40,
+                             top_p=0.9, ignore_eos=True)
+    prompts = [tok.encode(p) for p in TP_PROMPTS]
+    spec_ids = tok.encode(TP_SPEC_PROMPT)
+
+    def engine(params, cfg, dtype, m=mesh, **kw):
+        return Engine(params, cfg, tok,
+                      tp_engine_cfg(dtype, cfg.vocab_size, **kw),
+                      device=dev, mesh=m)
+
+    def counted(eng, requests):
+        before = graphs.launch_counts()
+        steps0 = eng.stats["decode_steps"]
+        outs = tp_serve(eng, requests)
+        return outs, graphs.count_delta(before, graphs.launch_counts()), (
+            eng.stats["decode_steps"] - steps0)
+
+    # float32, TF32 off: logits, then engines.
+    cfg = dataclasses.replace(base, num_layers=layers[0])
+    shard = llama.init_params(cfg, 0, torch.float32, dev, mesh=mesh)
+    ids = np.random.default_rng(0).integers(3, 259, (1, 64))
+    t = torch.tensor(ids, dtype=torch.int32, device=dev)
+    pos = torch.arange(64, dtype=torch.int32, device=dev)[None, :]
+    with torch.no_grad():
+        logits = llama.apply(shard, cfg, t, pos, mesh=mesh)[0]
+    f32 = {}
+    f32["greedy"], res["f32_counts"], res["f32_steps"] = counted(
+        engine(shard, cfg, "float32"), [(p, greedy) for p in prompts])
+    f32["sampled"] = tp_serve(engine(shard, cfg, "float32"),
+                              [(p, sampled) for p in prompts])
+    f32["materialized"] = tp_serve(
+        engine(shard, cfg, "float32", fused_tail=False),
+        [(p, greedy) for p in prompts])
+    spec = engine(shard, cfg, "float32", spec_decode=True,
+                  spec_max_draft_tokens=4)
+    f32["spec"] = tp_serve(spec, [(spec_ids, greedy)])
+    res["spec_greedy_rounds"] = spec.stats["spec_verify_rounds"]
+    spec = engine(shard, cfg, "float32", spec_decode=True,
+                  spec_max_draft_tokens=4)
+    # Near-greedy sampling keeps to the copy pattern, so drafts land; the
+    # round is still a sampled one (fused_verify_sample_tp).
+    f32["spec_sampled"] = tp_serve(spec, [(spec_ids, SamplingParams(
+        max_tokens=TP_NEW, temperature=0.05, ignore_eos=True))])
+    res["spec_sampled_rounds"] = spec.stats["spec_verify_rounds"]
+    del spec
+    f32["plain_spec_prompt"] = tp_serve(engine(shard, cfg, "float32"),
+                                        [(spec_ids, greedy)])
+    if lead:
+        full = llama.init_params(cfg, 0, torch.float32, dev)
+        with torch.no_grad():
+            ref = llama.apply(full, cfg, t, pos)[0]
+        res["f32_logit_err"] = (logits - ref).abs().max().item()
+        res["f32_logit_peak"] = ref.abs().max().item()
+        one = {"greedy": tp_serve(engine(full, cfg, "float32", m=None),
+                                  [(p, greedy) for p in prompts]),
+               "sampled": tp_serve(engine(full, cfg, "float32", m=None),
+                                   [(p, sampled) for p in prompts])}
+        res["f32"] = {"tp": f32, "one": one}
+        res["f32_gaps"] = [
+            logits_gap(torch, full, cfg, p + a[:i]) if i is not None
+            else None for p, a, b in zip(prompts, f32["greedy"],
+                                         one["greedy"])
+            for i in [parting_index(a, b)]]
+        at = parting_index(f32["spec"][0], f32["plain_spec_prompt"][0])
+        res["spec_gap"] = (None if at is None else logits_gap(
+            torch, full, cfg, spec_ids + f32["plain_spec_prompt"][0][:at]))
+        del full
+    del shard, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # bf16 at more depth: greedy tokens up to the first near tie.
+    cfg = dataclasses.replace(base, num_layers=layers[1])
+    shard = llama.init_params(cfg, 0, torch.bfloat16, dev, mesh=mesh)
+    tp_out, res["bf16_counts"], res["bf16_steps"] = counted(
+        engine(shard, cfg, "bfloat16"), [(p, greedy) for p in prompts])
+    del shard
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if lead:
+        full = llama.init_params(cfg, 0, torch.bfloat16, dev)
+        one = tp_serve(engine(full, cfg, "bfloat16", m=None),
+                       [(p, greedy) for p in prompts])
+        res["bf16"] = {"tp": tp_out, "one": one}
+        res["bf16_gaps"] = [
+            logits_gap(torch, full, cfg, p + a[:i]) if i is not None
+            else None for p, a, b in zip(prompts, tp_out, one)
+            for i in [parting_index(a, b)]]
+        res["bf16_min_gap"] = min(
+            logits_gap(torch, full, cfg, p + a[:j])
+            for p, a in zip(prompts, one) for j in range(len(a)))
+        del full
+    return res
+
+
+def tp_rank_main(rank: int, world: int, init_method: str, queue,
+                 task: str) -> None:
+    """One rank of a ``--tp`` run (a spawned process on card ``rank``):
+    join the NCCL group, run ``task``, put (rank, "ok", result) or
+    (rank, "error", traceback) on ``queue``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        from generativeaiexamples_tpu_torch.parallel.mesh import (
+            MeshPlan, make_mesh, maybe_init_distributed)
+        # A rank that hangs fails the group within 300 s.
+        maybe_init_distributed(init_method, world, rank, device="cuda",
+                               timeout_s=300)
+        mesh = make_mesh(MeshPlan(tp=world), device="cuda")
+        dev = torch.device("cuda", rank)
+        if task != "parity":
+            raise ValueError(f"unknown task {task!r}")
+        queue.put((rank, "ok", tp_parity(torch, dev, mesh)))
+    except BaseException:  # noqa: BLE001 - reported, then re-raised
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(world: int, task: str, timeout: float) -> list:
+    """``task`` on ``world`` spawned ranks; their results in rank order.
+    A rank's error, a rank that dies, or one past ``timeout`` fails."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=tp_rank_main, args=(r, world, init, q, task),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            try:
+                rank, status, out = q.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [p.name for p in procs
+                        if not p.is_alive() and p.exitcode not in (0, None)]
+                if dead or time.monotonic() > deadline:
+                    fail(f"tp {task}: ranks {dead or 'timed out'} without "
+                         f"a result")
+                continue
+            if status != "ok":
+                fail(f"tp {task}: rank {rank} failed:\n{out}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return [results[r] for r in range(world)]
+
+
+def check_tp_parity(results: list, L: tuple) -> dict:
+    """The leader's comparisons of ``tp_parity`` and every rank's launch
+    counts: #1 once per layer per decode step on every rank."""
+    lead = results[0]
+    err, peak = lead["f32_logit_err"], lead["f32_logit_peak"]
+    say(f"tp parity float32, 70B width, {L[0]} layers (TF32 off): logits "
+        f"max abs err {err} against max|logit| {peak} (tolerance "
+        f"{TP_LOGIT_RTOL} x max|logit|)")
+    if not err <= TP_LOGIT_RTOL * peak:
+        fail(f"tp float32 logits disagree with the one-card model: {err}")
+
+    def parted(label, tp_out, one_out, gaps, tie):
+        for i, (a, b) in enumerate(zip(tp_out, one_out)):
+            at = parting_index(a, b)
+            gap = gaps[i] if gaps else None
+            say(f"tp parity {label} prompt {i}: tp tokens {a}; one-card "
+                f"{b}; first parting {at}"
+                + (f" at a top-2 gap of {gap}" if at is not None else ""))
+            if at is not None and not (gap is not None and gap < tie):
+                fail(f"tp {label} greedy tokens part from the one-card "
+                     f"model's at token {at} (top-2 gap {gap}, not a near "
+                     f"tie below {tie})")
+
+    f32 = lead["f32"]
+    parted("float32", f32["tp"]["greedy"], f32["one"]["greedy"],
+           lead["f32_gaps"], TP_TIE["float32"])
+    if f32["tp"]["materialized"] != f32["tp"]["greedy"]:
+        fail(f"tp sharded fused tail {f32['tp']['greedy']} != materialized "
+             f"tail {f32['tp']['materialized']}")
+    say("tp parity float32: the sharded fused tail's greedy tokens equal "
+        "the materialized tail's")
+    same = sum(x == y for a, b in zip(f32["tp"]["sampled"],
+                                      f32["one"]["sampled"])
+               for x, y in zip(a, b))
+    say(f"tp parity float32 sampled (temperature 0.8, top_k 40, top_p "
+        f"0.9; same generator seed, tiles of 8000): {same} of "
+        f"{sum(map(len, f32['one']['sampled']))} tokens equal the one-card "
+        f"engine's (tp {f32['tp']['sampled']}, one-card "
+        f"{f32['one']['sampled']})")
+    for out in f32["tp"]["sampled"] + f32["tp"]["spec_sampled"]:
+        if len(out) != TP_NEW or not all(0 <= x < 32000 for x in out):
+            fail(f"tp sampled tokens out of range: {out}")
+    if (lead["spec_greedy_rounds"] <= 0 or lead["spec_sampled_rounds"] <= 0):
+        fail(f"tp spec decoding ran no verify round (greedy "
+             f"{lead['spec_greedy_rounds']}, sampled "
+             f"{lead['spec_sampled_rounds']})")
+    at = parting_index(f32["tp"]["spec"][0], f32["tp"]["plain_spec_prompt"][0])
+    gap = lead["spec_gap"]
+    say(f"tp spec decoding: greedy {lead['spec_greedy_rounds']} verify "
+        f"rounds, tokens {f32['tp']['spec'][0]} against the plain engine's "
+        f"{f32['tp']['plain_spec_prompt'][0]} (first parting {at}"
+        + (f", top-2 gap {gap}" if at is not None else "") + "); sampled "
+        f"{lead['spec_sampled_rounds']} verify rounds through "
+        f"fused_verify_sample_tp, tokens {f32['tp']['spec_sampled'][0]}")
+    if at is not None and not gap < TP_TIE["float32"]:
+        fail("tp spec decoding's greedy tokens part from the plain "
+             "engine's away from a near tie")
+    bf16 = lead["bf16"]
+    parted("bf16", bf16["tp"], bf16["one"], lead["bf16_gaps"],
+           TP_TIE["bfloat16"])
+    say(f"tp parity bf16, {L[1]} layers: smallest top-2 gap along the "
+        f"one-card tokens {lead['bf16_min_gap']}")
+    for r in results:
+        for key, layers, steps in (("f32_counts", L[0], lead["f32_steps"]),
+                                   ("bf16_counts", L[1], lead["bf16_steps"])):
+            n = r[key].get("paged_attention_decode", 0)
+            if steps <= 0 or n != layers * steps:
+                fail(f"tp rank {r['rank']}: #1 launched {n} times over "
+                     f"{steps} decode steps of {layers} layers ({key})")
+    say(f"tp parity launches: #1 on every rank once per layer per decode "
+        f"step ({lead['f32_steps']} and {lead['bf16_steps']} steps)")
+    comm_ms = lead.get("comm")
+    if comm_ms is None:       # a rehearsal on the CPU times nothing
+        return None
+    say(f"tp collectives (rank 0): all-reduce of 8 x 8192 bf16 "
+        f"{comm_ms['all_reduce_8_ms']} ms, of 1024 x 8192 "
+        f"{comm_ms['all_reduce_1024_ms']} ms (CUDA-graph replay); header "
+        f"broadcast {comm_ms['header_ms']} ms (host clock, gloo)")
+    return comm_ms
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def served_weight_bytes(cfg, tp: int, quantization: str) -> int:
+    """The weight bytes one rank streams per decode step: its share of
+    every projection and of the head (int4_awq: packed nibbles and group
+    scales), not the embedding table (a step gathers its tokens' rows)."""
+    from generativeaiexamples_tpu_torch.models import llama
+    total = 0
+    shapes = dict(llama.projection_shapes(cfg))
+    shapes["lm_head"] = (cfg.hidden_size, cfg.vocab_size)
+    for key, shape in shapes.items():
+        n = 1
+        for d in shape:
+            n *= d
+        quant = quantization and len(shape) <= 3 and key != "router"
+        K = shape[-2]
+        total += (n // 2 + 4 * (n // K) * (K // 128)) if quant else 2 * n
+    return total // tp
+
+
+def serve_tp_cli(name: str, tp: int, quantization: str = "",
+                 kv_quant: str = "", layers: int = 0, device: str = "cuda",
+                 check_launches: bool = True) -> dict:
+    """A registry model served at tp = ``tp`` through the model server's
+    CLI (``python -m generativeaiexamples_tpu_torch.serving NAME
+    --tensor-parallelism TP --no-embedder``): rank 0 serves, ``tp - 1``
+    follower processes replay. Each rank's launch counts are read
+    (``/debug/launches``) around the served requests: 4 concurrent
+    /v1/completions (2 greedy, 2 sampled), one stream's decode (a
+    1-token request, then a 65-token one: the step on the host clock),
+    8 streams' decode the same way, and a 1000-token prompt's prefill
+    (bucket 1024; a 1-token request on the host clock). Every rank's
+    #1 (bf16 pool) or #2 (int8) must have run once per layer per decode
+    step, and under int4 weights #3 once per projection as
+    ``check_launch_counts`` counts it. Then SIGTERM: the server and its
+    followers must exit 0."""
+    import signal
+    import tempfile
+
+    port = free_port()
+    cmd = [sys.executable, "-m", "generativeaiexamples_tpu_torch.serving",
+           name, "--device", device, "--no-embedder", "--grpc-port", "0",
+           "--port", str(port), "--max-input-length", "1024",
+           "--max-output-length", "80", "--max-batch-size", "8"]
+    cmd += (["--tensor-parallelism", str(tp)] if device == "cuda" else
+            ["--world-size", str(tp), "--dtype", "float32"])
+    if quantization:
+        cmd += ["--quantization", quantization]
+    if kv_quant:
+        cmd += ["--kv-quant", kv_quant]
+    label = f"{name} tp={tp} {quantization or 'bf16'}" + (
+        f" + {kv_quant} KV" if kv_quant else "")
+    log_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tp_"),
+                            "server.log")
+    env = dict(os.environ, HISTORY_INTERVAL_S="0")
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+    base = f"http://127.0.0.1:{port}"
+    out: dict = {"label": label}
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"{label}: the server exited with {proc.returncode} "
+                     f"before answering; log {log_path}:\n"
+                     + open(log_path).read()[-3000:])
+            try:
+                health = json.loads(call(base + "/health", timeout=10)[1])
+                break
+            except OSError:
+                if time.monotonic() - t0 > 900:
+                    fail(f"{label}: no /health within 900 s")
+                time.sleep(2)
+        out["startup_s"] = time.monotonic() - t0
+        if health.get("tp") != tp:
+            fail(f"{label}: /health says tp {health.get('tp')}")
+        c0 = json.loads(call(base + "/debug/launches")[1])["ranks"]
+        s0 = health["engine"]
+        bodies = [{"prompt": p, "max_tokens": 32, "temperature": temp,
+                   "top_p": 0.9, "ignore_eos": True}
+                  for p, temp in zip(TP_PROMPTS * 2, (0, 0, 0.8, 0.8))]
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(4) as pool:
+            texts = list(pool.map(
+                lambda b: json.loads(post(base + "/v1/completions", b)),
+                bodies))
+        for body, resp in zip(bodies, texts):
+            if resp["usage"]["completion_tokens"] != 32:
+                fail(f"{label}: a completion gave {resp['usage']}")
+        out["texts"] = [r["choices"][0]["text"] for r in texts]
+
+        def timed(body, n=1):
+            t = time.monotonic()
+            with ThreadPoolExecutor(n) as pool:
+                list(pool.map(lambda b: post(base + "/v1/completions", b),
+                              [body] * n))
+            return (time.monotonic() - t) * 1e3
+
+        one = {"prompt": TP_PROMPTS[0], "max_tokens": 1, "temperature": 0}
+        many = dict(one, max_tokens=65, ignore_eos=True)
+        for n in (1, 8):
+            first = timed(one, n)
+            out[f"step_ms_{n}"] = (timed(many, n) - first) / 64
+        prompt = ("Long context for the prefill timing. " * 40)[:1000]
+        timed({"prompt": prompt, "max_tokens": 1, "temperature": 0})
+        out["prefill_1024_ms"] = timed({"prompt": prompt[::-1],
+                                        "max_tokens": 1, "temperature": 0})
+        health = json.loads(call(base + "/health")[1])
+        c1 = json.loads(call(base + "/debug/launches")[1])["ranks"]
+        s1 = health["engine"]
+        run = {k: s1[k] - s0[k] for k in ("decode_steps", "prefills",
+                                         "prefill_dispatches")}
+        out["run"] = run
+        out["launches"] = []
+        for rank, (a, b) in enumerate(zip(c0, c1)):
+            delta = {k: b[k] - a.get(k, 0) for k in b}
+            out["launches"].append(delta)
+            if not check_launches:
+                continue
+            got = dict(run, launches={
+                k: delta[k] for k in ("paged_attention_decode",
+                                      "paged_attention_decode_int8",
+                                      "int4_matmul")},
+                by_path={p: delta.get(f"int4_matmul/{p}", 0)
+                         for p in ("tc", "gemv", "tile", "wg")})
+            check_launch_counts(f"{label} rank {rank}", got, layers,
+                                quantization, kv_quant, n_tiles=1,
+                                per_layer=4 if "mixtral" in name else 7)
+        if check_launches:
+            say(f"{label}: on every one of the {tp} ranks #1/#2 and #3 "
+                f"launched as counted over {run['decode_steps']} decode "
+                f"steps, {run['prefills']} admissions, "
+                f"{run['prefill_dispatches']} prefill programs: "
+                f"{out['launches'][0]}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            fail(f"{label}: the server did not exit within 180 s of "
+                 f"SIGTERM")
+    if rc != 0:
+        fail(f"{label}: the server exited with {rc}; log {log_path}:\n"
+             + open(log_path).read()[-3000:])
+    say(f"{label}: started in {out['startup_s']:.1f} s; texts "
+        f"{[t[:24] for t in out['texts']]}")
+    return out
+
+
+def main_tp(torch, tp: int) -> int:
+    """``--tp N``: the multi-card phases only (see the module docstring,
+    phase 12). Fails on fewer than ``tp`` cards."""
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.kernels import build
+    from generativeaiexamples_tpu_torch.models.configs import (LLAMA2_70B,
+                                                               MIXTRAL_8X7B)
+    if torch.cuda.device_count() < tp:
+        fail(f"--tp {tp} needs {tp} cards; this machine has "
+             f"{torch.cuda.device_count()}")
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    say(f"cards: {card.splitlines()}")
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    phases: dict = {}
+    t0 = time.monotonic()
+
+    def lap(name):
+        nonlocal t0
+        phases[name] = round(time.monotonic() - t0, 1)
+        t0 = time.monotonic()
+
+    took = build.build_all()
+    say(f"kernel build: {', '.join(f'{k} {v:.1f} s' for k, v in took.items())}")
+    lap("build")
+    shard_rows = check_tp_shards(torch, dev)
+    torch.cuda.empty_cache()
+    lap("tp_shards")
+    results = run_ranks(tp, "parity", timeout=900)
+    comm_ms = check_tp_parity(results, (TP_F32_LAYERS, TP_BF16_LAYERS))
+    lap("tp_parity")
+    L = LLAMA2_70B.num_layers
+    served = {}
+    for key, quant, kv in (("bf16", "", ""), ("int4", "int4_awq", "int8")):
+        served[key] = serve_tp_cli("llama-2-70b-chat", tp, quant, kv, L)
+        lap(f"serve_70b_{key}")
+    served["mixtral"] = serve_tp_cli("mixtral-8x7b-instruct", tp, layers=32)
+    lap("serve_mixtral")
+    for key, cfg, quant in (("bf16", LLAMA2_70B, ""),
+                            ("int4", LLAMA2_70B, "int4_awq"),
+                            ("mixtral", MIXTRAL_8X7B, "")):
+        run = served[key]
+        wbytes = served_weight_bytes(cfg, tp, quant)
+        bound = wbytes / HBM_BYTES_PER_S * 1e3
+        n_ar = 2 * cfg.num_layers + 1
+        ar = n_ar * comm_ms["all_reduce_8_ms"]
+        say(f"tp={tp} {run['label']}: decode step (host clock, 64 steps "
+            f"after the first token) 1 stream {run['step_ms_1']:.3f} ms, 8 "
+            f"streams {run['step_ms_8']:.3f} ms against a per-card byte "
+            f"bound of {bound:.3f} ms ({wbytes} weight bytes a rank); "
+            f"{n_ar} all-reduces a step at {comm_ms['all_reduce_8_ms']:.5f} "
+            f"ms each = {ar:.3f} ms ({ar / run['step_ms_8']:.1%} of the "
+            f"8-stream step); a 1000-token prompt's prefill (bucket 1024, "
+            f"host clock, HTTP included) {run['prefill_1024_ms']:.1f} ms")
+    # The kernels line: each row's launches from rank 0 of the serve that
+    # runs its shape (70B bf16: #1; 70B int4 + int8 KV: #2 and #3; Mixtral
+    # bf16: #1 at G = 4).
+    kernels = []
+    for key, row in shard_rows.items():
+        if "Mixtral" in key:
+            if row["name"] != "paged_attention_decode":
+                continue
+            row["launches"] = served["mixtral"]["launches"][0][row["name"]]
+        elif row["name"] == "paged_attention_decode":
+            row["launches"] = served["bf16"]["launches"][0][row["name"]]
+        elif row["name"] == "paged_attention_decode_int8":
+            row["launches"] = served["int4"]["launches"][0][row["name"]]
+        else:
+            if not row["shape"].startswith(("70B tp=4 w_gate/w_up M=8",
+                                            "70B tp=4 w_gate/w_up M=1024",
+                                            "70B tp=4 lm_head M=8")):
+                continue
+            row["launches"] = served["int4"]["launches"][0][
+                f"int4_matmul/{row['path']}"]
+        kernels.append(row)
+    say(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
+    say(json.dumps({"kernels": kernels}))
+    say(card)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6544,6 +7299,10 @@ def main() -> int:
         from generativeaiexamples_tpu_torch.kernels import build
     except ImportError as exc:
         fail(f"the port package is not importable here: {exc}")
+    if sys.argv[1:2] == ["--tp"]:
+        if len(sys.argv) != 3 or not sys.argv[2].isdigit():
+            fail("usage: chip_smoke.py --tp N")
+        return main_tp(torch, int(sys.argv[2]))
     dev = torch.device("cuda", 0)
     card = card_line()
     say(f"card: {card}")
@@ -6597,6 +7356,11 @@ def main() -> int:
                                              quant=quant, kv_heads=8))
     torch.cuda.empty_cache()
     lap("attention")
+    # The kernels at each rank's shapes under tp = 4 (printed; the
+    # multi-card run, ``--tp 4``, serves them and puts them in its line).
+    check_tp_shards(torch, dev)
+    torch.cuda.empty_cache()
+    lap("tp_shards")
     kernels.extend(check_int4_matmul(torch, dev))
     lap("int4_matmul")
     gbias_rows = check_int4_gbias(torch, dev)

@@ -106,7 +106,20 @@ port of the reference's ``engine/engine.py``.
   to a decode replica. A ``prefill``-role engine (``ENGINE_ROLE``)
   refuses decode-bound requests with ``RoleMismatchError``.
 
-Waiting for later slices: the tensor-parallel tails.
+- **Tensor parallelism** (``Engine(..., mesh=)``, ``parallel/``): one
+  process per card, each an ``Engine`` over its tp shard of the weights
+  and of the pool (kv heads over tp). The tp leader (rank 0 of the
+  group) plans and serves; every program it runs goes first to its
+  followers as a header (the program's key and the host writes staged
+  since the last one: ``_replay``), and each follower's ``follow`` loop
+  applies the writes and runs the same program, so the collectives inside
+  meet. The vocab-sharded tail (``fused_unembed_sample_tp``) ends with the
+  same tokens on every rank, so no rank reads another's. A vocab that does
+  not split in whole mask words downgrades to the materialized tail,
+  observably (``downgrades``). On the card a geometry the paged kernel
+  cannot take per rank (head counts that do not divide tp) is refused;
+  the host KV tier, the fleet handoff and fused RAG are refused at
+  tp > 1 (ROADMAP A21).
 """
 
 from __future__ import annotations
@@ -134,10 +147,15 @@ from ..obs.tracing import record_stage
 from ..models.tokenizer import Tokenizer
 from ..ops import int4_matmul
 from ..ops.fused_sampler import (choose_tile, fused_unembed_sample,
-                                 fused_verify_sample, verify_reference_tiled)
+                                 fused_unembed_sample_tp,
+                                 fused_verify_sample, fused_verify_sample_tp,
+                                 tp_shardable, verify_reference_tiled)
 from ..ops.kv_quant import quantize_rows
 from ..ops.paged_attention import kernel_supported
 from ..ops.quant import is_grouped, is_quantized
+from ..parallel import comm
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import llama_param_specs, shard_params
 from ..ops.sampling import (MASK_BITS, NEG_INF, apply_repetition_penalty,
                             mask_words, pack_mask, pack_mask_np, sample,
                             seen_mask, set_token_bits, unpack_mask)
@@ -223,8 +241,10 @@ _STATS_TEMPLATE = {
     "rounds_completed": 0,
     # Times the online calibrator moved the round budget.
     "sched_budget_recalibrations": 0,
-    # Feature downgrades at construction: the port refuses a geometry its
-    # kernels do not take (ConfigError) instead of serving it slower.
+    # Feature downgrades at construction (``Engine.downgrades``): a vocab
+    # that does not shard over tp in whole mask words takes the
+    # materialized tail. A geometry the kernels do not take is refused on
+    # the card (ConfigError) instead of served slower.
     "downgrades": 0,
     # Port-only: decode rounds dispatched, prefill programs run (one-shot
     # admissions, fused-RAG admissions and chunks) and of those the chunk
@@ -625,7 +645,8 @@ def _mixed_float_leaves(params: llama.Params, dtype: torch.dtype
 
 
 class Engine:
-    """Continuous-batching engine over one model on one device."""
+    """Continuous-batching engine over one model on one device, or on one
+    rank of a tensor-parallel group (``mesh``: module docstring)."""
 
     # Device-side multi-token bad-words table: up to MAX_BAD_SEQS
     # sequences per request, each up to MAX_BAD_LEN tokens.
@@ -634,10 +655,30 @@ class Engine:
 
     def __init__(self, params: llama.Params, model_cfg: LlamaConfig,
                  tokenizer: Tokenizer, cfg: EngineConfig = EngineConfig(),
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 mesh: Optional[Mesh] = None):
         llama.check_supported(model_cfg)
         self.device = resolve_device(device)
         self._dtype = _DTYPES[cfg.dtype]
+        self.mesh = mesh
+        self._sharded = comm.sharded(mesh)
+        # Construction-time feature downgrades, observable (``downgrades``).
+        self._downgrades: list[dict] = []
+        self._check_topology(model_cfg)
+        if self._sharded and params["embed"].shape[0] == model_cfg.vocab_size:
+            # A whole tree: keep this rank's shard of it.
+            params = shard_params(params, mesh,
+                                  llama_param_specs(model_cfg, mesh))
+        self._tpl = llama.tp_layout(model_cfg, mesh)
+        # The rank's own geometry: its query and kv heads, F and V shards.
+        self._local_cfg = self._tpl.cfg
+        # The leader plans and serves; a follower replays its programs.
+        self.leader = mesh is None or mesh.leader
+        # Host writes and admission seeds staged since the leader's last
+        # program, sent ahead of the next one (``_replay``); recorded only
+        # once construction is done (a follower constructs alike).
+        self._ops: list[tuple] = []
+        self._recording = False
         embed = params["embed"]
         if embed.device.type != self.device.type or embed.dtype != self._dtype:
             raise ConfigError(
@@ -670,19 +711,35 @@ class Engine:
         self._row_pages = self._pmax + self._buckets[-1] // page
         self._prefix_pages = _ceil_div(cfg.max_input_length, page)
         V, B = model_cfg.vocab_size, cfg.max_slots
-        self._sampler_tile = choose_tile(V, cfg.sampler_tile or (
-            CARD_TILE if self.device.type == "cuda" else None))
+        # The tail: fused (streamed vocab tiles), sharded over the vocab
+        # under tp, or materialized. A vocab that does not shard in whole
+        # mask words downgrades to the materialized tail, observably.
+        self._tail_fused = cfg.fused_tail
+        self._tail_sharded = False
+        if self._tail_fused and self._sharded:
+            if tp_shardable(V, mesh.tp):
+                self._tail_sharded = True
+            else:
+                self._tail_fused = False
+                self._note_downgrade(
+                    "fused_sampler", "materialized_tail",
+                    f"vocab_size={V} does not split over tp={mesh.tp} "
+                    f"into whole {MASK_BITS}-token mask words")
+        self._sampler_tile = choose_tile(
+            V // mesh.tp if self._tail_sharded else V,
+            cfg.sampler_tile or (CARD_TILE if self.device.type == "cuda"
+                                 else None))
         if self.device.type == "cuda":
             self._check_kernel_geometry()
         if (cfg.sampler_tile is not None and V % MASK_BITS == 0
-                and self._sampler_tile == V):
+                and not self._tail_sharded and self._sampler_tile == V):
             raise ConfigError(
                 f"sampler_tile={cfg.sampler_tile} streams the {V}-token "
                 f"vocab as one tile: the materialized tail is "
                 f"fused_tail=False")
         # The fused tail's active-row ladder (the reference's two rungs):
         # a round samples 1 row for one stream, else all B.
-        self._ba_ladder = (1, B) if cfg.fused_tail and B > 1 else (B,)
+        self._ba_ladder = (1, B) if self._tail_fused and B > 1 else (B,)
         # Speculative decoding: S = K + 1 positions per slot in a verify
         # round, captured per (page window, greedy, rung); the window is
         # the power-of-two page ladder up to the table's width (the verify
@@ -706,6 +763,7 @@ class Engine:
                        else (cfg.kv_host_pool_tokens or 0))
         self._kv_tier: Optional[KVTier] = None
         if cfg.prefix_cache and host_tokens > 0:
+            self._refuse_sharded("the host KV tier")
             m = model_cfg
             self._kv_tier = KVTier(
                 page_size=page, host_pool_tokens=host_tokens,
@@ -757,6 +815,8 @@ class Engine:
         self._graph_pool = None
         self.rag_graph_bytes = 0
         self._n_pages = 1 + self._resolve_pool_pages()
+        # NCCL's communicator exists before any program captures on it.
+        comm.warm_up(mesh, self.device)
         self._build_device()
 
         self._slots: dict[int, _Request] = {}
@@ -820,6 +880,145 @@ class Engine:
             "ENGINE_WATCHDOG_STALL_S", "0") or 0)
         self._watchdog_thread: Optional[threading.Thread] = None
         self._stalled = False
+        self._recording = self._sharded and self.leader
+        self._closing = False
+        with self._stats_lock:
+            self._stats["downgrades"] = len(self._downgrades)
+
+    # ------------------------------------------------- tensor parallelism
+
+    def _check_topology(self, model_cfg: LlamaConfig) -> None:
+        """The reference's topology gates, and the port's own: serving
+        shards over tp only (pp would idle each stage 1/pp of every
+        round); sp's ring-attention prefill and ep's expert parallelism
+        are not ported (ROADMAP A12); on the card the paged kernel runs on
+        each rank's heads, so head counts that do not divide tp are
+        refused (the reference falls back to its gather path there); the
+        mesh's device is the engine's."""
+        mesh = self.mesh
+        if mesh is None:
+            return
+        pp = int(mesh.shape.get("pp", 1))
+        if pp > 1:
+            raise ConfigError(
+                f"serving requires pp == 1 (mesh has pp={pp}): the decode "
+                f"engine dispatches all layers as one program per round, "
+                f"so pipeline stages would idle 1/pp of every round; shard "
+                f"serving over tp instead (pp is training-only)")
+        for axis in ("sp", "ep"):
+            if int(mesh.shape.get(axis, 1)) > 1:
+                raise ConfigError(
+                    f"serving over {axis}={mesh.shape[axis]} is not ported "
+                    f"yet (ROADMAP A12): shard serving over tp")
+        if mesh.device.type != self.device.type:
+            raise ConfigError(f"the mesh runs on {mesh.device}, the engine "
+                              f"on {self.device}")
+        if (self.device.type == "cuda"
+                and not llama.kernel_tp_compatible(model_cfg, mesh)):
+            raise ConfigError(
+                f"the paged decode kernel cannot run on each rank's shard: "
+                f"heads {model_cfg.num_heads}/{model_cfg.num_kv_heads} must "
+                f"divide tp={mesh.shape.get('tp', 1)}; the card refuses "
+                f"the plain gather path the reference falls back to")
+
+    def _refuse_sharded(self, feature: str) -> None:
+        """``ConfigError`` for a feature not served under tp > 1 yet."""
+        if self._sharded:
+            raise ConfigError(f"{feature} is not served at tp > 1 yet "
+                              f"(ROADMAP A21)")
+
+    def _note_downgrade(self, feature: str, fallback: str,
+                        reason: str) -> None:
+        """Record a construction-time feature downgrade observably: one
+        structured ``engine_feature_downgrade`` event and the
+        ``downgrades`` stat (the reference's ``_note_downgrade``)."""
+        self._downgrades.append({"feature": feature, "fallback": fallback,
+                                 "reason": reason})
+        log_event(logger, "engine_feature_downgrade", feature=feature,
+                  fallback=fallback, reason=reason)
+
+    @property
+    def downgrades(self) -> list[dict]:
+        """The construction-time downgrades, each ``{feature, fallback,
+        reason}``."""
+        return [dict(d) for d in self._downgrades]
+
+    def _program_table(self, body_name: str) -> dict:
+        """The captured programs a header names by their body."""
+        return {"_admit_body": self._admit_graphs,
+                "_chunk_extend_body": self._extend_graphs,
+                "_chunk_final_body": self._final_graphs,
+                "_round_body": self._round_graphs,
+                "_verify_body": self._verify_graphs}[body_name]
+
+    def _state_name(self, dst: torch.Tensor) -> str:
+        """The name a follower finds ``dst`` under: a slot-state tensor's
+        key, or ``admit/<key>``."""
+        for key, t in self._state.items():
+            if t is dst:
+                return key
+        for key, t in self._state["admit"].items():
+            if t is dst:
+                return f"admit/{key}"
+        raise EngineError("a host write to an unnamed device tensor")
+
+    def _state_tensor(self, name: str) -> torch.Tensor:
+        if name.startswith("admit/"):
+            return self._state["admit"][name[len("admit/"):]]
+        return self._state[name]
+
+    def _apply_op(self, op: tuple) -> None:
+        """One staged host write, on a follower as on its leader."""
+        kind = op[0]
+        if kind == "copy":
+            self._host_to_device(self._state_tensor(op[1]), op[2])
+        elif kind == "deactivate":
+            self._state["active"][op[1]].fill_(False)
+        elif kind == "admit_seed":
+            self._admit_gen.manual_seed(op[1])
+        else:
+            raise EngineError(f"unknown staged write {kind!r}")
+
+    def follow(self) -> None:
+        """A follower's loop: take each header from the leader, apply its
+        staged writes and run its program, until the leader closes
+        (returns) or rebuilds (rebuilds too). An error propagates: the
+        caller ends the process, and the group with it."""
+        if self.leader:
+            raise EngineError("follow() runs on a follower rank")
+        while True:
+            header = comm.receive_header(self.mesh)
+            kind = header[0]
+            if kind == "close":
+                return
+            if kind == "rebuild":
+                self._rebuild()
+                continue
+            if kind == "counts":
+                comm.gather_to_leader(graphs.launch_counts(), self.mesh)
+                continue
+            _, body_name, key, ops = header
+            for op in ops:
+                self._apply_op(op)
+            self._replay(self._program_table(body_name),
+                         getattr(self, body_name), *key)
+
+    def _broadcast(self, header: tuple) -> None:
+        if self._recording:
+            comm.broadcast_header(header, self.mesh)
+
+    def rank_launch_counts(self) -> list[dict]:
+        """Each rank's kernel launch counters (``engine/graphs.py``
+        ``launch_counts``), in rank order: this process's, and under tp
+        every follower's, gathered on the serve thread between two
+        programs."""
+        if not self._recording:
+            return [graphs.launch_counts()]
+
+        def gather() -> list[dict]:
+            comm.broadcast_header(("counts",), self.mesh)
+            return comm.gather_to_leader(graphs.launch_counts(), self.mesh)
+        return self._on_serve_thread(gather)
 
     def _build_device(self) -> None:
         """Allocate the pool of ``_n_pages`` pages and the static state,
@@ -869,6 +1068,8 @@ class Engine:
         tensor-core path ("tc"/"wg", the paths that apply them: bf16
         activations, K and N multiples of 16, groups of a multiple of
         128), the lm_head at the sampler's tile width as well as whole."""
+        # A rank's heads under tp have the whole model's group size
+        # (``_check_topology``), so the whole model's geometry decides.
         m, page = self.model_cfg, self.cfg.page_size
         if not kernel_supported(page, m.num_heads, m.num_kv_heads,
                                 m.head_dim):
@@ -905,8 +1106,9 @@ class Engine:
         (int8 rows plus one bf16 scale each under kv_quant); False: the
         dense bytes of a prefill bucket's KV, which stays in the compute
         dtype until the insert quantizes it (sizing the prefill reserve
-        with pooled bytes would under-reserve by ~2x under kv_quant)."""
-        m = self.model_cfg
+        with pooled bytes would under-reserve by ~2x under kv_quant).
+        Under tp, this rank's kv heads."""
+        m = self._local_cfg
         if pooled and self.cfg.kv_quant:
             return m.num_layers * m.num_kv_heads * 2 * (m.head_dim + 2)
         return (2 * m.num_layers * m.num_kv_heads * m.head_dim
@@ -940,6 +1142,13 @@ class Engine:
         self._pool_reserve = reserve
         pages = int(0.9 * (free - reserve)) // (
             cfg.page_size * self._kv_bytes_per_token())
+        if self._sharded:
+            # Every rank's pool has the same pages: the smallest fit.
+            agreed = torch.tensor([pages], device=self.device)
+            torch.distributed.all_reduce(
+                agreed, op=torch.distributed.ReduceOp.MIN,
+                group=self.mesh.tp_group)
+            pages = int(agreed.item())
         return min(full, max(self._pmax, pages))
 
     # Slot-state fields that do not start at 0, and the value they start at.
@@ -963,7 +1172,7 @@ class Engine:
 
         st = {
             "cache": llama.init_paged_kv_cache(
-                self.model_cfg, self._n_pages, self.cfg.page_size,
+                self._local_cfg, self._n_pages, self.cfg.page_size,
                 self._dtype, device=dev,
                 quantized=self.cfg.kv_quant == "int8"),
             "table": z(B, self._pmax),
@@ -1137,13 +1346,17 @@ class Engine:
         tokens = a["tokens"][:bucket][None, :]
         length = a["length"]
         positions = torch.arange(bucket, dtype=torch.int32, device=dev)[None, :]
-        cache = llama.init_kv_cache(mcfg, 1, bucket, self._dtype, device=dev)
+        cache = llama.init_kv_cache(self._local_cfg, 1, bucket, self._dtype,
+                                    device=dev)
         hn, cache = llama.apply(self.params, mcfg, tokens, positions, cache,
-                                kv_valid_len=length, return_hidden=True)
+                                kv_valid_len=length, return_hidden=True,
+                                mesh=self.mesh)
         # Only the last prompt row is projected (the reference projects
-        # every row and takes this one).
+        # every row and takes this one); under tp every rank gathers it
+        # whole.
         last = llama.project_logits(
-            self.params, hn.index_select(1, (length - 1).long())[:, 0])
+            self.params, hn.index_select(1, (length - 1).long())[:, 0],
+            self.mesh)
         V = mcfg.vocab_size
         seen = seen_mask(tokens, length, V)                           # (1, V)
         last = apply_repetition_penalty(last, seen, a["rep_pen"])
@@ -1169,7 +1382,7 @@ class Engine:
         rows the decode kernel appends. The pool and the slot state are
         updated in place (the reference returned a new state from a
         donated jit)."""
-        mcfg, a = self.model_cfg, self._admit_in
+        mcfg, a = self._local_cfg, self._admit_in
         page, L = self.cfg.page_size, mcfg.num_layers
         nb = k_new.shape[2] // page
         dest = a["row"][:nb].long()
@@ -1273,7 +1486,7 @@ class Engine:
             self.params, self.model_cfg, a["tokens"][:C][None], positions,
             self._state["cache"], a["row"][None], a["length"],
             a["start"] // self.cfg.page_size,
-            prefix_pages=self._prefix_pages if prefix else 0)
+            prefix_pages=self._prefix_pages if prefix else 0, mesh=self.mesh)
         return h
 
     @torch.no_grad()
@@ -1296,7 +1509,8 @@ class Engine:
         seen = self._chunk_seen(C, "seed" if seed else "accum")
         idx = (a["length"] - a["start"] - 1).clamp(0, C - 1)
         last = llama.unembed(self.params, mcfg,
-                             h.index_select(1, idx.long()))[:, 0]  # (1, V)
+                             h.index_select(1, idx.long()),
+                             self.mesh)[:, 0]                     # (1, V)
         V = mcfg.vocab_size
         last = apply_repetition_penalty(last, unpack_mask(seen, V)[None],
                                         a["rep_pen"])
@@ -1350,7 +1564,7 @@ class Engine:
                                        take("recent"))
         # AWQ's activation smoothing once per step, not once per tile.
         ha = llama.lm_head_input(self.params, hn.index_select(0, rows))
-        tok_a = fused_unembed_sample(
+        tok_a = self._tail_sample()(
             lambda t0, tile: llama.lm_head_tile(self.params, mcfg, ha, t0,
                                                 tile, prescaled=True),
             mcfg.vocab_size, noise=self._round_gen, temp=take("temp"),
@@ -1362,6 +1576,13 @@ class Engine:
         tok = torch.zeros((B + 1,), dtype=torch.int32, device=h.device)
         return tok.index_copy(0, act, tok_a)[:B]
 
+    def _tail_sample(self):
+        """``fused_unembed_sample``, or under a sharded tail its tp form
+        over this rank's vocab shard."""
+        if self._tail_sharded:
+            return functools.partial(fused_unembed_sample_tp, self.mesh)
+        return fused_unembed_sample
+
     def _materialized_tail(self, h: torch.Tensor,
                            greedy: bool) -> torch.Tensor:
         """The materialized tail (``fused_tail=False``, the oracle): (B, V)
@@ -1369,8 +1590,8 @@ class Engine:
         full sort. Returns (B,) int32."""
         st, mcfg, V = self._state, self.model_cfg, self.model_cfg.vocab_size
         pen = apply_repetition_penalty(
-            llama.unembed(self.params, mcfg, h), unpack_mask(st["seen"], V),
-            st["rep_pen"])
+            llama.unembed(self.params, mcfg, h, self.mesh),
+            unpack_mask(st["seen"], V), st["rep_pen"])
         pen = torch.where(unpack_mask(st["banned"], V),
                           torch.full_like(pen, NEG_INF), pen)
         hit, tail = self._bad_seq_hits(st["bad_seq"], st["bad_len"],
@@ -1413,8 +1634,8 @@ class Engine:
         h, _ = llama.apply_decode_paged(
             self.params, mcfg, st["last_token"][:, None],
             eff_pos[:, None], st["cache"], st["table"], wp,
-            eff_pos % page, return_hidden=True)
-        if self.cfg.fused_tail:
+            eff_pos % page, return_hidden=True, mesh=self.mesh)
+        if self._tail_fused:
             tok = self._fused_tail(h[:, 0], greedy, ba)
         else:
             tok = self._materialized_tail(h[:, 0], greedy)
@@ -1468,7 +1689,7 @@ class Engine:
         st, mcfg, B = self._state, self.model_cfg, self.cfg.max_slots
         S, V = self._spec_S, mcfg.vocab_size
         dev = h.device
-        if self.cfg.fused_tail:
+        if self._tail_fused:
             act = st["act_idx"][:ba].long()
             rows = act.clamp(max=B - 1)
 
@@ -1495,13 +1716,15 @@ class Engine:
                 return llama.lm_head_tile(self.params, mcfg, ha, t0, tile,
                                           prescaled=True)
             if greedy:
-                out_r = fused_unembed_sample(tile_fn, V, noise=None,
-                                             greedy=True, **common)
+                out_r = self._tail_sample()(tile_fn, V, noise=None,
+                                            greedy=True, **common)
                 acc_r = draft_r == out_r
             else:
                 u = torch.rand((ba * S,), generator=self._round_gen,
                                device=dev)
-                acc_r, out_r = fused_verify_sample(
+                verify = (functools.partial(fused_verify_sample_tp, self.mesh)
+                          if self._tail_sharded else fused_verify_sample)
+                acc_r, out_r = verify(
                     tile_fn, V, noise=self._round_gen, u=u,
                     draft_ids=draft_r, **common)
             acc = torch.zeros((B + 1, S), dtype=torch.bool, device=dev)
@@ -1511,7 +1734,7 @@ class Engine:
             return acc, out
         # The materialized tail: (B*S, V) penalized logits.
         pen = apply_repetition_penalty(
-            llama.unembed(self.params, mcfg, h).reshape(B * S, V),
+            llama.unembed(self.params, mcfg, h, self.mesh).reshape(B * S, V),
             unpack_mask(seen_pos.reshape(B * S, -1), V),
             st["rep_pen"].repeat_interleave(S))
         pen = torch.where(
@@ -1572,7 +1795,7 @@ class Engine:
         h, _ = llama.apply_verify_paged(
             self.params, mcfg, tokens, positions, st["cache"],
             st["table"][:, :window], eff_pos + S, wp, positions % page,
-            return_hidden=True)
+            return_hidden=True, mesh=self.mesh)
         # Row j's sampler state: what the slot would carry after accepting
         # drafts 0..j-1 (only then is row j consumed).
         seen_l, recent_l = [st["seen"]], [st["recent"]]
@@ -1822,7 +2045,9 @@ class Engine:
             except torch.cuda.OutOfMemoryError as exc:
                 new_pages = max(self._pmax + 1,
                                 int((self._n_pages - 1) * 0.8) + 1)
-                if (attempt == self.PREWARM_RETRIES
+                # Under tp every rank would have to shrink alike: a
+                # sharded engine is sized by kv_pool_tokens instead.
+                if (attempt == self.PREWARM_RETRIES or self._sharded
                         or new_pages >= self._n_pages):
                     raise
                 # The failed serve's frames (its device tensors) hang off
@@ -1846,7 +2071,7 @@ class Engine:
         ids = [min(3, self.model_cfg.vocab_size - 1)] * \
             self.cfg.max_input_length
         streams = []
-        if self.cfg.max_slots > 1 and self.cfg.fused_tail:
+        if self.cfg.max_slots > 1 and self._tail_fused:
             # Submitted together before the loop starts and long enough
             # (three rounds) that their decoding overlaps even when the
             # budget admits them a step apart: rounds over both take the
@@ -1898,8 +2123,11 @@ class Engine:
         self._inflight_rounds = 0
         self._chunk_behind = False
         self._ring.reset()
+        self._ops = []
+        recording, self._recording = self._recording, False
         self._drop_device_state()
         self._build_device()
+        self._recording = recording
         with self._stats_lock:
             self._stats["sched_round_budget_tokens"] = \
                 self._sched.round_budget_tokens
@@ -1953,7 +2181,10 @@ class Engine:
         nothing more; closing it again does nothing."""
         if self.params is None:
             return
+        self._closing = True
         self.stop()
+        self._broadcast(("close",))
+        self._recording = False
         self._admit_arrays = self._admit_host = self._graph_pool = None
         self._round_gen = self._admit_gen = None
         self.params = None
@@ -1989,6 +2220,7 @@ class Engine:
             if not req.done:
                 req.stream._fail(exc)
         self.stop()
+        self._broadcast(("rebuild",))
         self._rebuild()
 
     def _fail_control_ops(self, reason: str) -> None:
@@ -2390,7 +2622,8 @@ class Engine:
         card captures the program. A new spec drops the old one's
         programs. Refused: a bucket that is not a page multiple or leaves
         the cache no room (the reference's refusals), and encoder
-        parameters on another device."""
+        parameters on another device, and tp > 1 (ROADMAP A21)."""
+        self._refuse_sharded("fused RAG")
         if spec.bucket % self.cfg.page_size:
             raise EngineError("fused-RAG bucket must be a page multiple")
         if spec.bucket + 1 > self.cfg.max_cache_len:
@@ -3362,6 +3595,7 @@ class Engine:
         return [r for r in out if r is not None]
 
     def _require_tier(self) -> KVTier:
+        self._refuse_sharded("the host KV tier and the fleet handoff")
         if self._kv_tier is None:
             raise EngineError("KV tiering is disabled (KV_HOST_POOL_TOKENS=0)")
         return self._kv_tier
@@ -3606,6 +3840,8 @@ class Engine:
                               pf["seen0"] if seeding else None)
         if final:
             self._admit_gen.manual_seed(pf["seed"])
+            if self._recording:
+                self._ops.append(("admit_seed", pf["seed"]))
         faults.inject("engine.dispatch")
         t0 = time.monotonic()
         if final and req.pf_pos == 0:
@@ -3668,7 +3904,13 @@ class Engine:
     def _replay(self, table: dict, body, *key) -> None:
         """Run one device program: with graphs on, the replay of the
         capture ``table`` keeps under ``key`` (a missing one raises), else
-        ``body(*key)`` eagerly."""
+        ``body(*key)`` eagerly. A tp leader first sends its followers the
+        program's header with the host writes staged since the last
+        one."""
+        if self._recording:
+            ops, self._ops = self._ops, []
+            comm.broadcast_header(("run", body.__name__, key, ops),
+                                  self.mesh)
         span = self._span
         if span is not None and span[0] is None:
             span[0] = torch.cuda.Event(enable_timing=True)
@@ -3732,6 +3974,8 @@ class Engine:
         pageable memory would wait for every round in flight); the caching
         host allocator keeps that buffer until the copy has run, so each
         program in flight keeps its own source."""
+        if self._recording:
+            self._ops.append(("copy", self._state_name(dst), arr.copy()))
         src = torch.from_numpy(arr)
         if self.device.type == "cuda":
             src = src.pin_memory()
@@ -3776,14 +4020,14 @@ class Engine:
         self._chunk_behind = False
         self._bump("decode_rounds")
         self._bump("decode_steps", steps)
-        if self.cfg.fused_tail:
+        if self._tail_fused:
             self._bump("sampler_rows_sampled", ba * steps)
             self._bump("sampler_rows_skipped", (B - ba) * steps)
 
     def _stage_act_idx(self, members: dict) -> None:
         """Under the fused tail, the armed slots sorted and padded with B
         into ``act_idx``."""
-        if self.cfg.fused_tail:
+        if self._tail_fused:
             B = self.cfg.max_slots
             act = np.full((B,), B, np.int32)
             act[:len(members)] = sorted(members)
@@ -3848,7 +4092,7 @@ class Engine:
         self._chunk_behind = False
         self._bump("decode_steps")
         self._bump("spec_verify_rounds")
-        if self.cfg.fused_tail:
+        if self._tail_fused:
             self._bump("sampler_rows_sampled", ba * S)
             self._bump("sampler_rows_skipped", (B - ba) * S)
 
@@ -3937,6 +4181,8 @@ class Engine:
         assignment of a Python value would copy it from pageable host
         memory, which waits for every round in flight."""
         self._state["active"][req.slot].fill_(False)
+        if self._recording:
+            self._ops.append(("deactivate", req.slot))
         self._retire(req, req.stream.finish_reason or "cancelled")
 
     def _retire(self, req: _Request, finish: str) -> None:

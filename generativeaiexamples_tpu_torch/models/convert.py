@@ -21,6 +21,8 @@ from typing import Any, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import llama_param_specs, shard_params
 from ..utils.errors import ConfigError
 from .configs import LlamaConfig
 from .llama import bias_shapes, projection_keys, projection_shapes
@@ -105,10 +107,10 @@ def _check_leaf(name: str, leaf: Any, shape: tuple[int, ...]) -> None:
         ok = ok and tuple(leaf["scale"].shape) == lead + (N,)
     else:
         gs = leaf["gscale"]
-        G = gs.shape[-2] if gs.dim() >= 2 else 0
+        G = gs.shape[-2] if len(gs.shape) >= 2 else 0
         ok = ok and G > 0 and K % G == 0 and tuple(gs.shape) == lead + (G, N)
         if "gbias" in leaf:
-            ok = ok and leaf["gbias"].shape == gs.shape
+            ok = ok and tuple(leaf["gbias"].shape) == tuple(gs.shape)
     if "pre_scale" in leaf:
         ok = ok and tuple(leaf["pre_scale"].shape) == lead + (K,)
     if not ok:
@@ -120,7 +122,8 @@ def _check_leaf(name: str, leaf: Any, shape: tuple[int, ...]) -> None:
 def params_from_numpy(tree: Mapping[str, Any],
                       device: Union[str, torch.device] = "cuda",
                       dtype: torch.dtype = torch.bfloat16,
-                      cfg: Optional[LlamaConfig] = None) -> dict[str, Any]:
+                      cfg: Optional[LlamaConfig] = None,
+                      mesh: Optional[Mesh] = None) -> dict[str, Any]:
     """numpy parameter tree -> the port's parameter dict on ``device``.
 
     Raw leaves are cast to ``dtype``. Quantized projection leaves (the
@@ -129,8 +132,15 @@ def params_from_numpy(tree: Mapping[str, Any],
     keep their dtypes, bit for bit. The layout is ``cfg``'s family
     (llama-2's without a config): a key outside it (experts without an
     MoE config, or a bias the config does not have) is refused rather
-    than dropped, and with ``cfg`` every shape is checked too."""
+    than dropped, and with ``cfg`` every shape is checked too.
+
+    ``mesh`` (``cfg`` required): the result is this rank's shard of the
+    tree (``parallel/sharding.py``), cut from the numpy arrays before
+    anything goes to ``device``."""
     dev = torch.device(device)
+    if mesh is not None and cfg is None:
+        raise ConfigError("params_from_numpy under a mesh needs the config "
+                          "(its sharding rules)")
     layers_in = tree.get("layers")
     if not isinstance(layers_in, Mapping):
         raise ConfigError("parameter tree has no 'layers' mapping")
@@ -149,6 +159,20 @@ def params_from_numpy(tree: Mapping[str, Any],
         leaf = tree[name] if name in tree else layers_in.get(name)
         if isinstance(leaf, Mapping):
             raise ConfigError(f"{name} cannot be a quantized leaf")
+    if cfg is not None:
+        flat = {k: v for k, v in tree.items() if k != "layers"}
+        flat.update({f"layers/{k}": v for k, v in layers_in.items()})
+        want = _expected_shapes(cfg)
+        if set(flat) != set(want):
+            raise ConfigError(f"parameter leaves {sorted(flat)} do not match "
+                              f"the config's {sorted(want)}")
+        for k, shape in want.items():
+            _check_leaf(k, flat[k], shape)
+    if mesh is not None:
+        tree = shard_params(
+            {k: (dict(v) if isinstance(v, Mapping) else v)
+             for k, v in tree.items()}, mesh, llama_param_specs(cfg, mesh))
+        layers_in = tree["layers"]
     out: dict[str, Any] = {
         "embed": _to_tensor(tree["embed"], dev, dtype),
         "layers": {k: _leaf(layers_in[k], dev, dtype) for k in keys},
@@ -157,13 +181,4 @@ def params_from_numpy(tree: Mapping[str, Any],
     for name in ("final_norm_b", "lm_head"):
         if name in tree:
             out[name] = _leaf(tree[name], dev, dtype)
-    if cfg is not None:
-        flat = {k: v for k, v in out.items() if k != "layers"}
-        flat.update({f"layers/{k}": v for k, v in out["layers"].items()})
-        want = _expected_shapes(cfg)
-        if set(flat) != set(want):
-            raise ConfigError(f"parameter leaves {sorted(flat)} do not match "
-                              f"the config's {sorted(want)}")
-        for k, shape in want.items():
-            _check_leaf(k, flat[k], shape)
     return out

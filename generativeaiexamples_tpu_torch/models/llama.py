@@ -34,6 +34,7 @@ where the reference threaded them through its scan carry.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, replace
 from typing import Any, Iterator, Optional, Union
 
 import torch
@@ -43,10 +44,16 @@ from ..ops.kv_quant import SCALE_DTYPE, dequantize_rows, quantize_rows
 from ..ops.paged_attention import paged_attention_decode
 from ..ops.quant import matmul as qmm
 from ..ops.quant import matmul_f32 as qmm_f32
+from ..ops.quant import MODES as QUANT_MODES
+from ..ops.quant import quantizable, quantize_leaf
 from ..ops.rmsnorm import layernorm1p, rmsnorm
 from ..ops.rope import apply_rope, rope_frequencies
+from ..parallel.comm import all_gather, all_reduce_, sharded
+from ..parallel.mesh import Mesh
 from ..parallel.moe import sparse_moe_ffn, topk_lowest_index_first
-from ..utils.errors import ConfigError
+from ..parallel.sharding import (llama_param_specs, quantized_leaf_specs,
+                                 shard_array)
+from ..utils.errors import ConfigError, ShardingError
 from .configs import LlamaConfig
 
 Params = dict[str, Any]
@@ -112,28 +119,87 @@ def bias_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
 
 def init_params(cfg: LlamaConfig, seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16,
-                device: Union[str, torch.device] = "cpu") -> Params:
+                device: Union[str, torch.device] = "cpu", *,
+                mesh: Optional[Mesh] = None, quantization: str = "",
+                group_size: int = 128) -> Params:
     """Random-init parameter tree, made on ``device`` from ``seed`` (for
     tests and benchmarks; normal(0, 1/sqrt(fan_in)) like the reference,
     though the two frameworks' random streams differ). Leaves are drawn in
     float32 slabs of at most 64 Mi elements along their leading axis (one
     layer at a time where a layer is larger: Mixtral's ``w_gate`` is
     1.88 GB of float32 a layer), so the float32 transient stays small
-    beside the weights."""
+    beside the weights.
+
+    ``quantization`` (an ``ops.quant`` mode; ``group_size`` for
+    int4_awq) quantizes each projection and the head as
+    ``ops.quant.quantize_params`` would, slab by slab (a slab of the
+    stacked leaves is whole layers). Under ``mesh`` every rank draws every
+    full leaf, slab by slab, from the same seed and keeps only its block
+    (``parallel/sharding.py``), quantized before it is split (a
+    per-channel scale over K/tp rows of a row-parallel weight would not
+    be the whole weight's): a sharded tree is the unsharded tree of the
+    same seed, split, and no rank ever holds a whole stacked leaf."""
     check_supported(cfg)
+    if quantization and quantization not in QUANT_MODES:
+        raise ValueError(f"unknown quantization mode {quantization!r}")
+    if mesh is not None and mesh.shape.get("pp", 1) > 1:
+        raise ShardingError("init_params splits leaves across ranks over "
+                            "tp/ep only: pp would split the layer stack")
     gen = torch.Generator(device=device).manual_seed(seed)
     D, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    specs = llama_param_specs(cfg, mesh) if mesh is not None else None
 
-    def norm(shape, fan_in):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        row = out[0].numel()
+    def split(w, spec):
+        if spec is None:
+            return w
+        if isinstance(w, dict):
+            sub = quantized_leaf_specs(w, spec)
+            return {k: shard_array(v, sub[k], mesh) for k, v in w.items()}
+        return shard_array(w, spec, mesh)
+
+    def quantize(w):
+        return quantize_leaf(w, quantization, group_size) if quantization \
+            else w
+
+    def slabs(shape, fan_in):
+        row = 1
+        for n in shape[1:]:
+            row *= n
         step = max(1, (64 << 20) // row)
         for i in range(0, shape[0], step):
             n = min(step, shape[0] - i)
-            out[i:i + n] = (torch.randn((n, *shape[1:]), generator=gen,
-                                        device=device, dtype=torch.float32)
-                            * fan_in ** -0.5)
-        return out
+            yield (torch.randn((n, *shape[1:]), generator=gen, device=device,
+                               dtype=torch.float32)
+                   * fan_in ** -0.5).to(dtype)
+
+    def whole(shape, fan_in, spec=None, quant=False):
+        """A leaf assembled whole (the embedding, the head), then
+        quantized and split."""
+        out = torch.empty(shape, dtype=dtype, device=device)
+        at = 0
+        for slab in slabs(shape, fan_in):
+            out[at:at + slab.shape[0]] = slab
+            at += slab.shape[0]
+        return split(quantize(out) if quant else out, spec)
+
+    def stacked(shape, fan_in, spec=None, quant=False):
+        """A stacked layer leaf, slab by slab (whole layers each): each
+        slab quantized and split, then written into this rank's leaf."""
+        out, at = None, 0
+        for slab in slabs(shape, fan_in):
+            part = split(quantize(slab) if quant else slab, spec)
+            parts = part if isinstance(part, dict) else {"": part}
+            if out is None:
+                out = {k: torch.empty((shape[0], *v.shape[1:]),
+                                      dtype=v.dtype, device=device)
+                       for k, v in parts.items()}
+            for k, v in parts.items():
+                out[k][at:at + v.shape[0]] = v
+            at += slab.shape[0]
+        return out if isinstance(part, dict) else out[""]
+
+    def layer_spec(key):
+        return None if specs is None else specs["layers"][key]
 
     # layernorm1p stores its weights centred at 0 (applied as 1 + w).
     norm_w = torch.zeros if cfg.norm == "layernorm1p" else torch.ones
@@ -143,9 +209,10 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     }
     # Each matrix's fan-in is its input width, the second-to-last axis.
     for key, shape in projection_shapes(cfg).items():
-        layers[key] = norm(shape, shape[-2])
+        layers[key] = stacked(shape, shape[-2], layer_spec(key),
+                              quant=quantizable(key, shape))
     params: Params = {
-        "embed": norm((V, D), D),
+        "embed": whole((V, D), D, None if specs is None else specs["embed"]),
         "layers": layers,
         "final_norm": norm_w((D,), dtype=dtype, device=device),
     }
@@ -153,12 +220,16 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     for key, shape in bias_shapes(cfg).items():
         t = torch.zeros(shape, dtype=dtype, device=device)
         if key.startswith("layers/"):
-            layers[key[len("layers/"):]] = t
+            layers[key[len("layers/"):]] = split(t, layer_spec(
+                key[len("layers/"):]))
         else:
             params[key] = t
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = norm((D, V), D)
+        params["lm_head"] = whole((D, V), D, None if specs is None
+                                  else specs["lm_head"],
+                                  quant=quantizable("lm_head", (D, V)))
     return params
+
 
 
 def layer_params(params: Params, i: int) -> dict[str, Any]:
@@ -216,30 +287,116 @@ def kv_cache_quantized(kv_cache: KVCache) -> bool:
     return "ks" in kv_cache
 
 
+def kernel_tp_compatible(cfg: LlamaConfig, mesh: Optional[Mesh]) -> bool:
+    """Whether each rank can run the paged decode kernel on its own shard
+    (the reference's gate for its shard_mapped kernel call): only tp may
+    split attention state, and both head counts must divide it."""
+    if mesh is None:
+        return True
+    tp = mesh.shape.get("tp", 1)
+    if mesh.shape.get("pp", 1) != 1:
+        return False
+    return (cfg.num_kv_heads % tp == 0 and cfg.num_heads % tp == 0
+            and (cfg.num_kv_heads // tp) > 0)
+
+
+@dataclass(frozen=True)
+class TPLayout:
+    """One rank's share of the model under a mesh (``tp_layout``).
+
+    ``cfg`` is the rank's geometry: its query heads (H/tp when they
+    divide tp, else all H: attention then runs whole on every rank), its
+    kv heads, its F/tp MLP columns and its V/tp vocab rows. ``kv_select``
+    names the global kv heads a rank keeps when wk/wv stay replicated
+    (kv heads do not divide tp): the heads its query heads read, so its
+    pool holds those alone."""
+    cfg: LlamaConfig
+    mesh: Optional[Mesh]
+    q_sharded: bool
+    kv_select: Optional[tuple[int, ...]]
+
+
+def tp_layout(cfg: LlamaConfig, mesh: Optional[Mesh]) -> TPLayout:
+    """This rank's ``TPLayout`` under ``mesh`` (the whole model without
+    one, or at tp = 1). The splits are ``llama_param_specs``'."""
+    if not sharded(mesh):
+        return TPLayout(cfg, None, False, None)
+    tp, r = mesh.tp, mesh.tp_rank
+    for name, n in (("intermediate_size", cfg.intermediate_size),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ShardingError(f"{name}={n} does not split over tp={tp}")
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q_sharded = H % tp == 0
+    heads = H // tp if q_sharded else H
+    select = None
+    if KV % tp == 0:
+        kv_heads = KV // tp
+    else:
+        # wk/wv replicated: keep the kv heads this rank's query heads read
+        # (one per group, in head order), so the local grouping is even.
+        G = H // KV
+        first = r * heads if q_sharded else 0
+        need = sorted({(first + j) // G for j in range(heads)})
+        per = [sum(1 for j in range(heads) if (first + j) // G == k)
+               for k in need]
+        if len(set(per)) != 1:
+            # Uneven groups on this rank: one kv row per query head.
+            need = [(first + j) // G for j in range(heads)]
+        select, kv_heads = tuple(need), len(need)
+    local = replace(cfg, num_heads=heads, num_kv_heads=kv_heads,
+                    intermediate_size=cfg.intermediate_size // tp,
+                    vocab_size=cfg.vocab_size // tp)
+    return TPLayout(local, mesh, q_sharded, select)
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor,
+                 tpl: Optional[TPLayout] = None) -> torch.Tensor:
+    """Token embedding rows. Under a mesh the table is split over the
+    vocab: each rank looks up the ids of its own range (zeros for the
+    others) and one all-reduce completes every row."""
+    table = params["embed"]
+    if tpl is None or tpl.mesh is None:
+        return table[tokens.long()]
+    Vl = table.shape[0]
+    local = tokens.long() - tpl.mesh.tp_rank * Vl
+    inside = (local >= 0) & (local < Vl)
+    rows = table[local.clamp(0, Vl - 1)]
+    return all_reduce_(torch.where(inside[..., None], rows,
+                                   torch.zeros_like(rows)), tpl.mesh)
+
+
 def _dense_mlp(x: torch.Tensor, lp: dict[str, Any],
-               cfg: LlamaConfig) -> torch.Tensor:
+               cfg: LlamaConfig, mesh: Optional[Mesh] = None
+               ) -> torch.Tensor:
+    """The dense MLP. Under a mesh each rank holds F/tp columns of the
+    up projections and the matching rows of ``w_down``: its product is a
+    partial sum, completed by one all-reduce; the replicated ``b_down``
+    is added once, after it."""
     if cfg.mlp == "squared_relu":
         # GPT-Next: relu(x W_up + b_up)^2 W_down + b_down, no gate.
         up = qmm(x, lp["w_up"])
         if "b_up" in lp:
             up = up + lp["b_up"]
-        out = qmm(torch.relu(up).square(), lp["w_down"])
+        out = all_reduce_(qmm(torch.relu(up).square(), lp["w_down"]), mesh)
         if "b_down" in lp:
             out = out + lp["b_down"]
         return out
     gate = torch.nn.functional.silu(qmm(x, lp["w_gate"]))
-    return qmm(gate * qmm(x, lp["w_up"]), lp["w_down"])
+    return all_reduce_(qmm(gate * qmm(x, lp["w_up"]), lp["w_down"]), mesh)
 
 
 def _moe_mlp(x: torch.Tensor, lp: dict[str, Any],
-             cfg: LlamaConfig) -> torch.Tensor:
+             cfg: LlamaConfig, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Mixtral MLP. The default is the sparse top-k capacity-routed path
     (``parallel/moe.py``, O(tokens * k) expert products);
     ``moe_impl="dense"`` is the zero-gated all-experts formulation
     (O(tokens * E), no capacity drops), the parity oracle: router logits
-    in the activations' dtype, as the reference's."""
+    in the activations' dtype, as the reference's. Under a mesh each rank
+    runs its F/tp columns of every expert and one all-reduce completes the
+    combined rows."""
     if cfg.moe_impl == "sparse":
-        return sparse_moe_ffn(x, lp, cfg)
+        return sparse_moe_ffn(x, lp, cfg, mesh=mesh)
     if cfg.moe_impl != "dense":
         raise ConfigError(f"unknown moe_impl {cfg.moe_impl!r}; expected "
                           f"'sparse' or 'dense'")
@@ -252,7 +409,7 @@ def _moe_mlp(x: torch.Tensor, lp: dict[str, Any],
         torch.einsum("bsd,edf->bsef", x, lp["w_gate"]))
     up = torch.einsum("bsd,edf->bsef", x, lp["w_up"])
     down = torch.einsum("bsef,efd->bsed", gate * up, lp["w_down"])
-    return torch.einsum("bsed,bse->bsd", down, gates)
+    return all_reduce_(torch.einsum("bsed,bse->bsd", down, gates), mesh)
 
 
 def block_norm(x: torch.Tensor, lp: dict[str, Any], key: str,
@@ -269,7 +426,8 @@ def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
                   inv_freq: torch.Tensor,
                   kv_valid_len: Optional[torch.Tensor],
                   cache_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-                  attend=None) -> torch.Tensor:
+                  attend=None, tpl: Optional[TPLayout] = None
+                  ) -> torch.Tensor:
     """One transformer block, shared by ``apply``, ``apply_decode_paged``
     and ``apply_prefill_paged`` (the last two supply
     ``attend(q, k, v) -> attn``).
@@ -277,15 +435,28 @@ def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
     cache_kv: optional (kc, vc) of shape (B, T, KV, hd), updated IN PLACE
     with this chunk's K/V at rows ``positions[b]``, by device-side index
     (no host read, so a CUDA graph can capture it); a position past the
-    cache raises."""
+    cache raises.
+
+    ``tpl``: this rank's share under a mesh (``tp_layout``; ``cfg`` is
+    then the whole model's). The rank projects its own query and kv heads
+    (the heads of ``tpl.kv_select`` out of replicated wk/wv), attends with
+    them, and its ``wo`` and down products are partial sums that one
+    all-reduce each completes; the replicated ``bo`` and ``b_down`` are
+    added once, after it."""
+    mesh = None
+    if tpl is not None:
+        cfg, mesh = tpl.cfg, tpl.mesh
     B, S, _ = h.shape
     x = block_norm(h, lp, "attn_norm", cfg)
     q, k, v = qmm(x, lp["wq"]), qmm(x, lp["wk"]), qmm(x, lp["wv"])
     if "bq" in lp:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
+    if tpl is not None and tpl.kv_select is not None:
+        sel = list(tpl.kv_select)
+        k, v = k[:, :, sel], v[:, :, sel]
     q, k = apply_rope(q, k, positions, inv_freq)
     if attend is not None:
         attn = attend(q, k, v)
@@ -298,11 +469,14 @@ def decoder_layer(h: torch.Tensor, lp: dict[str, Any],
     else:
         attn = gqa_attention(q, k, v, positions, kv_valid_len)
     attn_out = qmm(attn.reshape(B, S, cfg.q_dim), lp["wo"])
+    if tpl is not None and tpl.q_sharded:
+        all_reduce_(attn_out, mesh)
     if "bo" in lp:
         attn_out = attn_out + lp["bo"]
     h = h + attn_out
     x = block_norm(h, lp, "mlp_norm", cfg)
-    mlp = _moe_mlp(x, lp, cfg) if cfg.num_experts else _dense_mlp(x, lp, cfg)
+    mlp = (_moe_mlp(x, lp, cfg, mesh) if cfg.num_experts
+           else _dense_mlp(x, lp, cfg, mesh))
     return h + mlp
 
 
@@ -315,17 +489,23 @@ def unembed_norm(params: Params, cfg: LlamaConfig,
     return rmsnorm(h, params["final_norm"], cfg.rms_norm_eps)
 
 
-def unembed(params: Params, cfg: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
+def unembed(params: Params, cfg: LlamaConfig, h: torch.Tensor,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Final norm + output projection: (..., D) -> (..., V) float32."""
-    return project_logits(params, unembed_norm(params, cfg, h))
+    return project_logits(params, unembed_norm(params, cfg, h), mesh)
 
 
-def project_logits(params: Params, hn: torch.Tensor) -> torch.Tensor:
-    """Already-normed hidden states -> float32 logits."""
+def project_logits(params: Params, hn: torch.Tensor,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Already-normed hidden states -> float32 logits. Under a mesh each
+    rank projects onto its vocab shard and the shards are gathered in
+    rank order (vocab order): every rank holds the whole (..., V)."""
     head = params.get("lm_head")
-    if head is None:
-        return qmm_f32(hn, params["embed"].T)
-    return qmm_f32(hn, head)
+    local = qmm_f32(hn, params["embed"].T if head is None else head)
+    if not sharded(mesh):
+        return local
+    g = all_gather(local, mesh)                         # (n, ..., V/n)
+    return torch.movedim(g, 0, -2).reshape(*local.shape[:-1], -1)
 
 
 # A quantized head's leaves that carry the vocab axis last (sliced per
@@ -372,7 +552,7 @@ def lm_head_tile(params: Params, cfg: LlamaConfig, hn: torch.Tensor,
 def apply(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
           positions: torch.Tensor, kv_cache: Optional[KVCache] = None,
           kv_valid_len: Optional[torch.Tensor] = None, *,
-          return_hidden: bool = False,
+          return_hidden: bool = False, mesh: Optional[Mesh] = None,
           ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Forward pass (prefill / full sequence).
 
@@ -382,8 +562,13 @@ def apply(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     kv_valid_len: (B,) valid keys per row; defaults to
         ``positions[:, -1] + 1`` with a cache, else causal masking only.
     Returns (logits (B, S, V) float32, or the final-normed hidden states
-    under ``return_hidden``; the cache or None)."""
-    h = params["embed"][tokens.long()]
+    under ``return_hidden``; the cache or None).
+
+    ``mesh``: ``params`` are this rank's shard (``parallel/sharding.py``)
+    and ``kv_cache`` holds its kv heads (``tp_layout``); every rank runs
+    the call with the same inputs and gets the same outputs."""
+    tpl = tp_layout(cfg, mesh)
+    h = embed_tokens(params, tokens, tpl)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 cfg.rope_scaling_factor, device=h.device)
     if kv_cache is not None and kv_valid_len is None:
@@ -392,10 +577,10 @@ def apply(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
         cache_kv = (None if kv_cache is None
                     else (kv_cache["k"][i], kv_cache["v"][i]))
         h = decoder_layer(h, layer_params(params, i), cfg, positions,
-                          inv_freq, kv_valid_len, cache_kv)
+                          inv_freq, kv_valid_len, cache_kv, tpl=tpl)
     if return_hidden:
         return unembed_norm(params, cfg, h), kv_cache
-    return unembed(params, cfg, h), kv_cache
+    return unembed(params, cfg, h, mesh), kv_cache
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -466,6 +651,7 @@ def apply_decode_paged(params: Params, cfg: LlamaConfig,
                        kv_cache: KVCache, block_table: torch.Tensor,
                        write_page: torch.Tensor, write_offset: torch.Tensor,
                        *, return_hidden: bool = False,
+                       mesh: Optional[Mesh] = None,
                        ) -> tuple[torch.Tensor, KVCache]:
     """Single-token decode step over the paged KV pool.
 
@@ -482,8 +668,13 @@ def apply_decode_paged(params: Params, cfg: LlamaConfig,
     K/V pass in the compute dtype: the kernel quantizes its appended row.
     The pool is updated in place. Returns (logits (B, 1, V) float32, or
     under ``return_hidden`` the hidden states (B, 1, D) before the final
-    norm, for the fused tail; kv_cache)."""
-    h = params["embed"][tokens.long()]
+    norm, for the fused tail; kv_cache).
+
+    ``mesh`` (the reference's shard_mapped kernel call): each rank runs
+    the kernel on its own query heads and its kv heads' pool shard; the
+    table, positions and write targets are the same on every rank."""
+    tpl = tp_layout(cfg, mesh)
+    h = embed_tokens(params, tokens, tpl)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 cfg.rope_scaling_factor, device=h.device)
     lengths = positions[:, 0].to(torch.int32)
@@ -501,10 +692,10 @@ def apply_decode_paged(params: Params, cfg: LlamaConfig,
                 write_offset, i, **scales)
             return attn[:, None]
         h = decoder_layer(h, layer_params(params, i), cfg, positions,
-                          inv_freq, None, attend=attend)
+                          inv_freq, None, attend=attend, tpl=tpl)
     if return_hidden:
         return h, kv_cache
-    return unembed(params, cfg, h), kv_cache
+    return unembed(params, cfg, h, mesh), kv_cache
 
 
 def _gathered_window(pool_layer: torch.Tensor,
@@ -531,6 +722,7 @@ def apply_verify_paged(params: Params, cfg: LlamaConfig,
                        kv_valid_len: torch.Tensor, write_pages: torch.Tensor,
                        write_offsets: torch.Tensor, *,
                        return_hidden: bool = False,
+                       mesh: Optional[Mesh] = None,
                        ) -> tuple[torch.Tensor, KVCache]:
     """Multi-token decode step over the paged pool: the speculative
     verify forward (the reference's ``apply_verify_paged``).
@@ -555,12 +747,14 @@ def apply_verify_paged(params: Params, cfg: LlamaConfig,
     engine does not advance ``pos`` past the accepted tokens, so their
     rows are overwritten later and never read. The pool is updated in
     place. Returns (logits (B, S, V) float32, or under ``return_hidden``
-    the hidden states (B, S, D) before the final norm; kv_cache)."""
+    the hidden states (B, S, D) before the final norm; kv_cache).
+    ``mesh``: as ``apply_decode_paged``'s, each rank on its own heads."""
     B, S = tokens.shape
     page = kv_cache["k"].shape[3]  # (L, N, KV, page, hd)
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 cfg.rope_scaling_factor, device=tokens.device)
-    h = params["embed"][tokens.long()]
+    tpl = tp_layout(cfg, mesh)
+    h = embed_tokens(params, tokens, tpl)
     quant = kv_cache_quantized(kv_cache)
     window = torch.nn.functional.pad(block_table, (0, -(-S // page)))
     rows = torch.arange(B, device=tokens.device)[:, None]
@@ -572,8 +766,8 @@ def apply_verify_paged(params: Params, cfg: LlamaConfig,
         vsc = kv_cache["vs"][i] if quant else None
 
         def attend(q, k, v, kc=kc, vc=vc, ksc=ksc, vsc=vsc):
-            kg = _gathered_window(kc, ksc, window, cfg, h.dtype)
-            vg = _gathered_window(vc, vsc, window, cfg, h.dtype)
+            kg = _gathered_window(kc, ksc, window, tpl.cfg, h.dtype)
+            vg = _gathered_window(vc, vsc, window, tpl.cfg, h.dtype)
             kg[rows, pos] = k.to(kg.dtype)
             vg[rows, pos] = v.to(vg.dtype)
             new_k.append(k)
@@ -581,7 +775,7 @@ def apply_verify_paged(params: Params, cfg: LlamaConfig,
             return gqa_attention(q, kg, vg, positions, kv_valid_len)
 
         h = decoder_layer(h, layer_params(params, i), cfg, positions,
-                          inv_freq, kv_valid_len, attend=attend)
+                          inv_freq, kv_valid_len, attend=attend, tpl=tpl)
     wp, off = write_pages.long(), write_offsets.long()
     for name, layers in (("k", new_k), ("v", new_v)):
         pool = kv_cache[name]
@@ -595,7 +789,7 @@ def apply_verify_paged(params: Params, cfg: LlamaConfig,
                 pool[i, wp, :, off] = new.to(pool.dtype)
     if return_hidden:
         return h, kv_cache
-    return unembed(params, cfg, h), kv_cache
+    return unembed(params, cfg, h, mesh), kv_cache
 
 
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -716,6 +910,7 @@ def apply_prefill_paged(params: Params, cfg: LlamaConfig,
                         kv_valid_len: torch.Tensor,
                         start_page_idx: torch.Tensor, *,
                         prefix_pages: Optional[int] = None,
+                        mesh: Optional[Mesh] = None,
                         ) -> tuple[torch.Tensor, KVCache]:
     """One chunk of a prompt's prefill over the paged KV pool (B = 1): the
     chunk attends the prefix already in the slot's pages plus itself, and
@@ -737,7 +932,8 @@ def apply_prefill_paged(params: Params, cfg: LlamaConfig,
     after it in one scatter (int8 pools through ``quantize_rows``, one
     layer at a time, giving the reference's bytes). The pool is updated
     in place. Returns (hidden states (1, C, D) before the final norm,
-    the pool): the caller unembeds only the rows it samples."""
+    the pool): the caller unembeds only the rows it samples. ``mesh``: as
+    ``apply_decode_paged``'s, each rank on its own heads."""
     B, C = tokens.shape
     if B != 1:
         raise ValueError("apply_prefill_paged is single-request (B=1)")
@@ -747,7 +943,8 @@ def apply_prefill_paged(params: Params, cfg: LlamaConfig,
     nb = C // page
     inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                 cfg.rope_scaling_factor, device=tokens.device)
-    h = params["embed"][tokens.long()]
+    tpl = tp_layout(cfg, mesh)
+    h = embed_tokens(params, tokens, tpl)
     start = positions[0, 0]
     quant = kv_cache_quantized(kv_cache)
     window = block_table if prefix_pages is None else \
@@ -763,14 +960,14 @@ def apply_prefill_paged(params: Params, cfg: LlamaConfig,
             new_v.append(v[0])
             return _paged_prefix_attention(
                 q, k, v, kc, vc, ksc, vsc, window, start, kv_valid_len,
-                page, cfg)
+                page, tpl.cfg)
 
         h = decoder_layer(h, layer_params(params, i), cfg, positions,
-                          inv_freq, kv_valid_len, attend=attend)
+                          inv_freq, kv_valid_len, attend=attend, tpl=tpl)
     dest = (start_page_idx.reshape(()).long()
             + torch.arange(nb, device=tokens.device))
     dest = block_table[0].long().index_select(0, dest)
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    KV, hd = tpl.cfg.num_kv_heads, cfg.head_dim
     for name, rows in (("k", new_k), ("v", new_v)):
         pool = kv_cache[name]
         for i, r in enumerate(rows):

@@ -1,5 +1,5 @@
 """Vocab-tiled fused unembed + sampling for the decode round — port of the
-reference's ``ops/fused_sampler.py`` (its single-device functions).
+reference's ``ops/fused_sampler.py``.
 
 The materialized tail builds, every step, a ``(B, V)`` float32 logit
 tensor, a penalized copy, two ``(B, V)`` bool masks, and sorts the whole
@@ -34,6 +34,18 @@ reference. The candidate merge keeps the reference's order among equal
 values (the carry first, then ascending id): a stable descending sort of
 the concatenation, not ``torch.topk``, whose order among ties is
 unspecified.
+
+Tensor parallelism (``fused_unembed_sample_tp``, ``fused_verify_sample_tp``):
+each rank streams the tiles of its own vocab shard and its carries merge
+across ranks once at the end (``merge_running_max``, ``merge_candidates``,
+``merge_lse``: pure functions of the carries gathered rank-major, the
+gather kept apart in ``parallel/comm.py``), so no rank materializes
+``(B, V)`` and every rank ends with the same tokens. Ties go to the lowest
+shard, which holds the lowest vocab ids: the one-card stream's rule. The
+noise is keyed by global tile: a callable gets the global tile index, and
+a generator is drawn for every tile of the vocab in order, each rank
+keeping its own, so a sharded tail and a one-card tail of the same tile
+width draw the same tokens from the same generator state.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from ..parallel.comm import all_gather, all_reduce_
+from ..parallel.mesh import Mesh
 from ..utils.errors import ConfigError
 from .sampling import MASK_BITS, NEG_INF, gumbel_noise, unpack_mask
 
@@ -66,6 +80,15 @@ def choose_tile(vocab_size: int, target: Optional[int] = None) -> int:
             return t
     raise ConfigError(f"sampler tile {target} is below one {MASK_BITS}-token "
                       f"mask word")
+
+
+def tp_shardable(vocab_size: int, n_shards: int) -> bool:
+    """Whether the vocab stream can shard over ``n_shards`` ranks: each
+    shard an equal slice whose tiles still cover whole mask words (the
+    reference's rule). Failing geometries keep the materialized tail (the
+    engine records a downgrade)."""
+    return (n_shards > 1 and vocab_size % n_shards == 0
+            and (vocab_size // n_shards) % MASK_BITS == 0)
 
 
 def _slice_tile_mask(words: torch.Tensor, t0: int, tile: int,
@@ -353,6 +376,167 @@ def fused_verify_sample(tile_logits_fn: TileFn, vocab_size: int, *,
         n_tiles, tile, R, cand_k, device)
     return _finalize_verify(cv, ci, cp, lse, brid, sd, sfound, npid, u=u,
                             temp=temp, top_k=top_k, top_p=top_p,
+                            draft_ids=draft_ids, vocab_size=vocab_size,
+                            cand_k=cand_k)
+
+
+# ----------------------------------------------------- cross-rank merges
+
+
+def merge_running_max(vals: torch.Tensor, ids: torch.Tensor) -> tuple:
+    """Per-shard running-argmax carries, gathered ``(n_shards, B)``, into
+    one: the largest value wins, ties the lowest shard (the lowest vocab
+    ids: the one-card stream's tie rule)."""
+    win = vals.argmax(dim=0, keepdim=True)           # first max
+    return vals.gather(0, win)[0], ids.gather(0, win)[0]
+
+
+def merge_candidates(cv: torch.Tensor, ci: torch.Tensor, cp: torch.Tensor,
+                     cand_k: int) -> tuple:
+    """Per-shard candidate carries, gathered ``(n_shards, B, cand_k)``,
+    into the global top ``cand_k``: shard-major rows and a stable
+    descending sort, so equal values keep ascending ids. Every global
+    top-``cand_k`` element is in its own shard's, so the merge is
+    exact."""
+    def flat(a):
+        return a.movedim(0, 1).reshape(a.shape[1], -1)
+    av, ai, ap = flat(cv), flat(ci), flat(cp)
+    top = torch.sort(av, dim=-1, descending=True, stable=True)
+    sel = top.indices[:, :cand_k]
+    return top.values[:, :cand_k], ai.gather(1, sel), ap.gather(1, sel)
+
+
+def merge_lse(lse: torch.Tensor) -> torch.Tensor:
+    """Per-shard logsumexps, gathered ``(n_shards, B)``, into one."""
+    return torch.logsumexp(lse, dim=0)
+
+
+def _gather_rows(mesh: Mesh, *rows: torch.Tensor) -> list[torch.Tensor]:
+    """Each (B, ...) tensor gathered ``(n_shards, B, ...)``, tensors of a
+    dtype packed into one collective."""
+    out: list = [None] * len(rows)
+    for dtype in dict.fromkeys(r.dtype for r in rows):
+        idx = [i for i, r in enumerate(rows) if r.dtype == dtype]
+        B = rows[idx[0]].shape[0]
+        flat = [rows[i].reshape(B, -1) for i in idx]
+        g = all_gather(torch.cat(flat, dim=1), mesh)        # (n, B, sum)
+        at = 0
+        for i, f in zip(idx, flat):
+            out[i] = g[:, :, at:at + f.shape[1]].reshape(
+                g.shape[0], *rows[i].shape)
+            at += f.shape[1]
+    return out
+
+
+def shard_geometry(mesh: Mesh, vocab_size: int,
+                   tile: Optional[int]) -> tuple[int, int, int]:
+    """(n_shards, V per shard, tile) of a vocab stream sharded over
+    ``mesh``'s tp axis; ``ValueError`` where ``tp_shardable`` says no."""
+    n_shards = int(mesh.shape["tp"])
+    if not tp_shardable(vocab_size, n_shards):
+        raise ValueError(
+            f"vocab_size={vocab_size} cannot shard over tp={n_shards} in "
+            f"whole {MASK_BITS}-token mask words")
+    v_local = vocab_size // n_shards
+    return n_shards, v_local, choose_tile(v_local, tile)
+
+
+def _shard_noise(noise: Noise, rows: int, tile: int, first: int,
+                 n_tiles: int, total: int, device) -> Callable:
+    """``noise_tile(t)`` for the ``n_tiles`` tiles from global tile
+    ``first``: a callable is asked for the global tile; a generator
+    draws all ``total`` tiles in order and this rank keeps its own, so
+    the generator ends where a one-card stream leaves it."""
+    if not isinstance(noise, torch.Generator):
+        return lambda t: noise(first + t)
+    drawn = [gumbel_noise((rows, tile), noise, device) for _ in range(total)]
+    mine = drawn[first:first + n_tiles]
+    return lambda t: mine[t]
+
+
+def _local_tiles(local_tile_fn: TileFn, tile: int, base: int, **penalties):
+    """``masked_tile(t)`` over a shard: the projection at the local
+    offset, the penalties and masks at the global one."""
+    def masked_tile(t: int):
+        t0 = base + t * tile
+        return t0, _penalize_tile(local_tile_fn(t * tile, tile), t0, tile,
+                                  **penalties)
+    return masked_tile
+
+
+def fused_unembed_sample_tp(mesh: Mesh, local_tile_fn: TileFn,
+                            vocab_size: int, *, noise: Optional[Noise],
+                            temp, top_k, top_p, rep_pen, seen_words,
+                            banned_words, ban_tok=None, ban_hit=None,
+                            greedy: bool = False, tile: Optional[int] = None,
+                            cand_k: Optional[int] = None) -> torch.Tensor:
+    """``fused_unembed_sample`` with the vocab stream sharded over the
+    mesh's tp ranks (the reference's ``fused_unembed_sample_tp``):
+    ``local_tile_fn(t0, tile)`` projects onto this rank's shard at local
+    offset ``t0`` (``models/llama.py`` ``lm_head_tile`` on the rank's
+    head). The carries merge in one gather per dtype; the returned (B,)
+    tokens are the same on every rank."""
+    n_shards, v_local, tile = shard_geometry(mesh, vocab_size, tile)
+    cand_k = cand_k or DEFAULT_CAND_K
+    n_tiles = v_local // tile
+    B, device = temp.shape[0], temp.device
+    masked_tile = _local_tiles(
+        local_tile_fn, tile, mesh.tp_rank * v_local, seen_words=seen_words,
+        banned_words=banned_words, rep_pen=rep_pen, ban_tok=ban_tok,
+        ban_hit=ban_hit)
+    if greedy:
+        best, best_id = _greedy_stream(masked_tile, n_tiles, tile, B, device)
+        return merge_running_max(*_gather_rows(mesh, best, best_id))[1]
+    tf = torch.clamp(temp.float(), min=1e-6)[:, None]
+    noise_tile = _shard_noise(noise, B, tile, mesh.tp_rank * n_tiles,
+                              n_tiles, n_shards * n_tiles, device)
+    cv, ci, cp, lse, bpert, bpid, braw, brid = _sample_stream(
+        masked_tile, noise_tile, tf, n_tiles, tile, B, cand_k, device)
+    gv, gi, gp, glse, gbpert, gbpid, gbraw, gbrid = _gather_rows(
+        mesh, cv, ci, cp, lse, bpert, bpid, braw, brid)
+    cv, ci, cp = merge_candidates(gv, gi, gp, cand_k)
+    bpid = merge_running_max(gbpert, gbpid)[1]
+    brid = merge_running_max(gbraw, gbrid)[1]
+    return _finalize_sample(cv, ci, cp, merge_lse(glse), bpid, brid,
+                            temp=temp, top_k=top_k, top_p=top_p,
+                            vocab_size=vocab_size, cand_k=cand_k)
+
+
+def fused_verify_sample_tp(mesh: Mesh, local_tile_fn: TileFn,
+                           vocab_size: int, *, noise: Noise, u, temp, top_k,
+                           top_p, rep_pen, seen_words, banned_words,
+                           draft_ids, ban_tok=None, ban_hit=None,
+                           tile: Optional[int] = None,
+                           cand_k: Optional[int] = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_verify_sample`` with the vocab stream sharded over the
+    mesh's tp ranks (the reference's ``fused_verify_sample_tp``). The
+    draft's scaled logit lives on one shard, so its value and whether it
+    was seen are sums over ranks (the reference's ``psum``). The verdicts
+    are the same on every rank."""
+    n_shards, v_local, tile = shard_geometry(mesh, vocab_size, tile)
+    cand_k = cand_k or DEFAULT_CAND_K
+    n_tiles = v_local // tile
+    R, device = temp.shape[0], temp.device
+    masked_tile = _local_tiles(
+        local_tile_fn, tile, mesh.tp_rank * v_local, seen_words=seen_words,
+        banned_words=banned_words, rep_pen=rep_pen, ban_tok=ban_tok,
+        ban_hit=ban_hit)
+    tf = torch.clamp(temp.float(), min=1e-6)[:, None]
+    noise_tile = _shard_noise(noise, R, tile, mesh.tp_rank * n_tiles,
+                              n_tiles, n_shards * n_tiles, device)
+    cv, ci, cp, lse, braw, brid, sd, sfound, npert, npid = _verify_stream(
+        masked_tile, noise_tile, tf, draft_ids, n_tiles, tile, R, cand_k,
+        device)
+    gv, gi, gp, glse, gbraw, gbrid, gnpert, gnpid = _gather_rows(
+        mesh, cv, ci, cp, lse, braw, brid, npert, npid)
+    cv, ci, cp = merge_candidates(gv, gi, gp, cand_k)
+    brid = merge_running_max(gbraw, gbrid)[1]
+    npid = merge_running_max(gnpert, gnpid)[1]
+    sd = all_reduce_(sd.clone(), mesh)
+    sfound = all_reduce_(sfound.to(torch.int32), mesh) > 0
+    return _finalize_verify(cv, ci, cp, merge_lse(glse), brid, sd, sfound,
+                            npid, u=u, temp=temp, top_k=top_k, top_p=top_p,
                             draft_ids=draft_ids, vocab_size=vocab_size,
                             cand_k=cand_k)
 

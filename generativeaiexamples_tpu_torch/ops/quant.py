@@ -33,6 +33,17 @@ _QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 MODES = ("int8", "int4", "int4_awq")
 
 
+def quantizable(key: str, shape: tuple) -> bool:
+    """Whether quantization replaces the leaf under ``key`` (a layer key,
+    or ``lm_head``) of ``shape``: the projections and the head. The MoE
+    router and Mixtral's expert stacks (L, E, K, N) keep full precision,
+    as in the reference: the experts run as batched library products.
+    The one rule of ``quantize_params`` and of ``llama.init_params``'s
+    quantized draw."""
+    return key == "lm_head" or (key in _QUANT_LAYER_KEYS
+                                and len(shape) <= 3)
+
+
 def is_quantized(w: Any) -> bool:
     return isinstance(w, dict) and (
         ("scale" in w or "gscale" in w) and ("q" in w or "q4" in w))
@@ -244,6 +255,15 @@ def _grouped_matmul(x: torch.Tensor, q: torch.Tensor, w: QTensor,
     return y.reshape(*lead, N).to(out_dtype or x.dtype)
 
 
+def quantize_leaf(w: torch.Tensor, mode: str, group_size: int = 128
+                  ) -> QTensor:
+    """``w`` (..., K, N) quantized as ``quantize_params`` quantizes a
+    projection in ``mode`` (leading axes are independent weights)."""
+    if mode == "int4_awq":
+        return quantize_tensor_grouped(w, group_size)
+    return quantize_tensor(w, 8 if mode == "int8" else 4)
+
+
 def quantize_params(params: dict[str, Any], mode: str = "int8",
                     group_size: int = 128) -> dict[str, Any]:
     """Quantize a llama parameter dict's projection weights in place of
@@ -257,24 +277,18 @@ def quantize_params(params: dict[str, Any], mode: str = "int8",
     if mode not in MODES:
         raise ValueError(f"unknown quantization mode {mode!r}")
 
-    def quant2d(w):
-        if mode == "int4_awq":
-            return quantize_tensor_grouped(w, group_size)
-        return quantize_tensor(w, 8 if mode == "int8" else 4)
-
     def quant(w):
         if w.dim() == 3:
-            parts = [quant2d(w[i]) for i in range(w.shape[0])]
+            parts = [quantize_leaf(w[i], mode, group_size)
+                     for i in range(w.shape[0])]
             return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
-        return quant2d(w)
+        return quantize_leaf(w, mode, group_size)
 
     out = dict(params)
     layers = dict(params["layers"])
     for key in _QUANT_LAYER_KEYS:
-        # Mixtral's expert stacks (L, E, K, N) keep full precision, as in
-        # the reference: the experts run as batched library products.
         if (key in layers and not is_quantized(layers[key])
-                and layers[key].dim() <= 3):
+                and quantizable(key, tuple(layers[key].shape))):
             layers[key] = quant(layers[key])
     out["layers"] = layers
     if "lm_head" in out and not is_quantized(out["lm_head"]):

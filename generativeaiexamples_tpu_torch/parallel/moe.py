@@ -20,16 +20,24 @@ ops, and each expert's SwiGLU is a batched library product over the
   the combine gathers each claim's row and sums a token's ``k`` claims in
   claim order, with no atomics, so graph replays give the same bits.
 
-The expert-parallel functions (``ep_*``) wait for the multi-GPU slice.
+Under tensor parallelism (``sparse_moe_ffn(..., mesh=)``) every rank
+holds F/tp columns of each expert's ``w_gate``/``w_up`` and the matching
+rows of ``w_down`` (``parallel/sharding.py``); routing is replicated
+(the same float32 router logits on every rank), each rank's combine is a
+partial sum, and one all-reduce completes it: what the reference
+computes under GSPMD with the same specs. The expert-parallel functions
+(``ep_*``) are not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from ..models.configs import LlamaConfig
+from .comm import all_reduce_
+from .mesh import Mesh
 
 
 def expert_capacity(n_tokens: int, n_experts: int, k: int,
@@ -112,10 +120,12 @@ def _expert_ffn(expert_in: torch.Tensor, w_gate: torch.Tensor,
 
 
 def sparse_moe_ffn(x: torch.Tensor, lp: dict[str, Any],
-                   cfg: LlamaConfig) -> torch.Tensor:
+                   cfg: LlamaConfig,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Sparse MoE layer: (B, S, D) -> (B, S, D), top-k experts per token.
     The router logits are float32 (the reference's), the experts run in
-    the activations' dtype."""
+    the activations' dtype. ``mesh``: ``lp``'s experts are this rank's
+    F/tp shard and the combined rows are all-reduced."""
     B, S, D = x.shape
     T = B * S
     x_flat = x.reshape(T, D)
@@ -127,5 +137,5 @@ def sparse_moe_ffn(x: torch.Tensor, lp: dict[str, Any],
     expert_in = _dispatch(x_flat, expert, slot, keep, cfg.num_experts, C)
     expert_out = _expert_ffn(expert_in, lp["w_gate"], lp["w_up"],
                              lp["w_down"])
-    return _combine(expert_out, expert, slot, weight, keep, T).reshape(
-        B, S, D)
+    out = _combine(expert_out, expert, slot, weight, keep, T)
+    return all_reduce_(out, mesh).reshape(B, S, D)

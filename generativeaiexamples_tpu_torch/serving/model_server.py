@@ -4,7 +4,8 @@
         --port 8000 [--model-path DIR] [--device cuda] [--seed 0] \\
         [--kv-pool-tokens N] [--quantization {int8,int4,int4_awq}] \\
         [--kv-quant int8] [--embedder-path DIR | --no-embedder] \\
-        [--grpc-port 8001]
+        [--grpc-port 8001] [--world-size N] [--tensor-parallelism TP] \\
+        [--pipeline-parallelism 1]
 
 With ``--model-path`` (default ``$MODEL_PATH``, else the one model
 directory under ``$AZUREML_MODEL_DIR`` on an AzureML managed endpoint:
@@ -25,6 +26,18 @@ cache, ``GAIE_WEIGHT_CACHE=0`` the cache. Without a path the server makes
 random weights on the device from ``--seed`` and serves the byte
 tokenizer. ``nemotron-8b-chat`` serves the GPT-Next family
 (layernorm1p, squared-ReLU MLP).
+
+Tensor parallelism (``--world-size``, ``--tensor-parallelism``,
+``--pipeline-parallelism``, the reference's flags; one card unless
+they ask for more: ``cli_topology``): at a world of more than one the
+CLI spawns ``world - 1`` follower processes (``torch.multiprocessing``,
+spawn), one per card, joins them in an NCCL group (gloo with ``--device
+cpu``) and serves from rank 0; each rank makes its own shard of the
+random weights (``llama.init_params(..., mesh=)``) and runs its
+``Engine`` over it, the followers in ``Engine.follow``. A follower that
+dies takes the server down: ``/health`` answers 503 and the process
+exits. A checkpoint directory at tp > 1 is refused (each rank would load
+the whole tree; ROADMAP A22), as are pp > 1 and multi-host runs.
 
 The embedder behind ``/v1/embeddings`` (``build_embedder``) is the
 e5-large-v2 checkpoint in ``--embedder-path``, else ``encoder-tiny`` with
@@ -59,13 +72,17 @@ import asyncio
 import dataclasses
 import hashlib
 import os
+import socket
+import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from aiohttp import web
 
 from ..engine.engine import _DTYPES, Engine, EngineConfig
@@ -81,8 +98,10 @@ from ..obs import incidents as obs_incidents
 from ..obs import metrics as obs_metrics
 from ..obs import rounds as obs_rounds
 from ..ops.quant import MODES, quantize_params, weight_mode
+from ..parallel.mesh import (Mesh, MeshPlan, make_mesh,
+                             maybe_init_distributed)
 from ..utils.device import resolve_device
-from ..utils.errors import ConfigError
+from ..utils.errors import ConfigError, EngineError
 from ..utils.logging import bootstrap_logging, get_logger, write_pid_file
 
 logger = get_logger(__name__)
@@ -135,17 +154,85 @@ def resolve_azureml_model_dir(model_path: str = "") -> str:
     return resolved
 
 
-def awq_group(cfg: LlamaConfig) -> int:
+def awq_group(cfg: LlamaConfig, mesh: Optional[Mesh] = None) -> int:
     """The int4_awq group for ``cfg``: AWQ's usual 128, or the largest of
-    64 and 32 that divides every reduction dim (the tiny geometries).
-    Raises ``ConfigError`` when none does."""
-    dims = (cfg.hidden_size, cfg.q_dim, cfg.intermediate_size)
+    64 and 32 that divides every reduction dim a rank holds (the tiny
+    geometries; under ``mesh`` the K/tp rows of wo and w_down that
+    ``llama.tp_layout`` gives a rank, so each keeps whole groups:
+    llama-2-7b's F/4 = 2752 takes 64). Raises ``ConfigError`` when none
+    does."""
+    local = llama.tp_layout(cfg, mesh).cfg
+    dims = (local.hidden_size, local.q_dim, local.intermediate_size)
     group = next((g for g in (128, 64, 32)
                   if all(d % g == 0 for d in dims)), None)
     if group is None:
         raise ConfigError(f"no int4_awq group of 128, 64 or 32 divides the "
                           f"reduction dims {dims}; use int4 (per channel)")
     return group
+
+
+def resolve_topology(world_size: int = 0, tp: int = 0, pp: int = 1,
+                     available: Optional[int] = None) -> tuple[int, int, int]:
+    """(world, tp, pp) with the reference's defaulting rules: the world
+    defaults to every available device, tp to world / pp, and TP·PP must
+    equal the world size. ``pp > 1`` is refused before anything loads:
+    decode runs all layers as one program per round, so pipeline stages
+    would idle 1/pp of every round. ``available``: the cards by default
+    (``torch.cuda.device_count()``)."""
+    if pp > 1:
+        raise ConfigError(
+            f"serving requires pp == 1 (got pp={pp}): decode runs all "
+            f"layers as one program per round; shard serving over tp "
+            f"instead — pp is training-only")
+    if available is None:
+        available = torch.cuda.device_count()
+    world = world_size or available
+    if world > available:
+        raise ConfigError(
+            f"world size {world} exceeds available devices {available}")
+    tp = tp or max(1, world // pp)
+    if tp * pp != world:
+        raise ConfigError(
+            f"tensor parallelism ({tp}) x pipeline parallelism ({pp}) "
+            f"must equal world size ({world})")
+    return world, tp, pp
+
+
+# Why a checkpoint directory is refused at tp > 1.
+_CHECKPOINT_AT_TP = ("a checkpoint directory at tp > 1 is not served yet: "
+                     "each rank would load the whole tree (ROADMAP A22)")
+
+
+def cli_topology(args: argparse.Namespace,
+                 available: Optional[int] = None) -> tuple[int, int, int]:
+    """The CLI's (world, tp, pp). One process unless ``--world-size`` or
+    ``--tensor-parallelism`` asks for more: the reference's world defaults
+    to every local device, but the port does not yet serve at tp > 1 all
+    that it serves on one card (a checkpoint directory, ROADMAP A22;
+    ``/v1/score``, A21). An explicit world (``--tensor-parallelism`` times
+    pp when ``--world-size`` is not given) follows ``resolve_topology``'s
+    rules; above one it is refused, before any process starts, with a
+    checkpoint directory (``--model-path``, ``$MODEL_PATH`` or AzureML's)
+    or with a ``--device`` that names one card (rank r runs on card r).
+    ``available``: the local cards by default, the world asked for with
+    ``--device cpu``."""
+    pp = args.pipeline_parallelism
+    if not (args.world_size or args.tensor_parallelism):
+        return resolve_topology(1, 0, pp, available=1)
+    asked = args.world_size or args.tensor_parallelism * pp
+    dev = torch.device(args.device)
+    if available is None:
+        available = torch.cuda.device_count() if dev.type != "cpu" else asked
+    world, tp, pp = resolve_topology(asked, args.tensor_parallelism, pp,
+                                     available=available)
+    if world > 1:
+        if dev.index is not None:
+            raise ConfigError(
+                f"--device {args.device} names one card, but a world of "
+                f"{world} runs rank r on card r: pass --device cuda")
+        if resolve_azureml_model_dir(args.model_path):
+            raise ConfigError(_CHECKPOINT_AT_TP)
+    return world, tp, pp
 
 
 # The reference CLI's model types, each served as its default registry
@@ -173,7 +260,8 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
                    device: Union[str, torch.device] = "cuda",
                    tokenizer: Union[str, Tokenizer] = "byte",
                    quantization: str = "",
-                   model_path: str = "") -> tuple[Engine, str]:
+                   model_path: str = "", world_size: int = 0, tp: int = 0,
+                   pp: int = 1) -> tuple[Engine, str]:
     """An engine for registry model ``model_name`` in the engine config's
     dtype on ``device``: with ``model_path``, the checkpoint there
     (HF, Meta, GPTQ, AWQ or ``.nemo``; the geometry from its
@@ -187,14 +275,32 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
     through the weight cache, keyed ``name-dtype-quant-hash``
     (``GAIE_SKIP_HASH`` skips the hash and the cache,
     ``GAIE_WEIGHT_CACHE=0`` the cache and so the hash). The KV pool's mode
-    is ``engine_cfg.kv_quant``. Returns (engine, model name)."""
+    is ``engine_cfg.kv_quant``. ``world_size``, ``tp``, ``pp``: the
+    topology (``resolve_topology``'s rules; the world defaults to the
+    process group's, one process without one): at a world of more than
+    one, every rank of the initialized process group calls this and gets
+    its engine over its tensor-parallel shard (random weights only: each
+    rank makes its own). Returns (engine, model name)."""
     if quantization and quantization not in MODES:
         raise ValueError(f"quantization={quantization!r}: use one of "
                          f"{MODES} or ''")
     dev = resolve_device(device)
+    grouped = dist.is_initialized()
+    world = world_size or (dist.get_world_size() if grouped else 1)
+    world, tp, pp = resolve_topology(world, tp, pp, available=world)
+    mesh = None
+    if world > 1:
+        if not grouped or dist.get_world_size() != world:
+            raise ConfigError(
+                f"a world of {world} needs one process per rank in an "
+                f"initialized process group (maybe_init_distributed; the "
+                f"CLI spawns them)")
+        mesh = make_mesh(MeshPlan(tp=tp, pp=pp), device=dev)
     cfg = get_model_config(model_name)
     dtype = _DTYPES[engine_cfg.dtype]
     model_path = resolve_azureml_model_dir(model_path)
+    if model_path and mesh is not None and mesh.tp > 1:
+        raise ConfigError(_CHECKPOINT_AT_TP)
     if model_path:
         # The format first: an unrecognised directory fails before
         # anything else is read.
@@ -208,11 +314,17 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
     else:
         tok = (get_tokenizer(tokenizer) if isinstance(tokenizer, str)
                else tokenizer)
-        params = llama.init_params(cfg, seed=seed, dtype=dtype, device=dev)
-        if quantization:
-            params = _quantize(params, cfg, quantization)
+        # Quantized slab by slab; under tp each rank draws every leaf
+        # whole, quantizes it and keeps its block: the tp = 1 tree of
+        # this seed, split.
+        params = llama.init_params(
+            cfg, seed=seed, dtype=dtype, device=dev, mesh=mesh,
+            quantization=quantization,
+            group_size=(awq_group(cfg, mesh) if quantization == "int4_awq"
+                        else 128))
     engine = Engine(params, cfg, tok,
-                    dataclasses.replace(engine_cfg, seed=seed), device=dev)
+                    dataclasses.replace(engine_cfg, seed=seed), device=dev,
+                    mesh=mesh)
     return engine, model_name
 
 
@@ -325,6 +437,9 @@ def add_score_route(app: web.Application, engine: Engine,
         if len(ids) > max_score:
             raise web.HTTPRequestEntityTooLarge(max_size=max_score,
                                                 actual_size=len(ids))
+        if engine.mesh is not None and engine.mesh.tp > 1:
+            raise web.HTTPNotImplemented(
+                text="/v1/score is not served at tp > 1 yet (ROADMAP A21)")
 
         def run() -> np.ndarray:
             tokens = torch.tensor([ids], dtype=torch.int32,
@@ -462,11 +577,25 @@ def create_server_app(engine: Engine, embed_service=None,
     app = web.Application()
 
     async def health(request: web.Request) -> web.Response:
+        fatal = engine._fatal
+        if fatal is not None:
+            # The serve loop failed, or a tensor-parallel follower died.
+            return web.json_response(
+                {"status": "error", "model": model_name,
+                 "error": repr(fatal)}, status=503)
         return web.json_response(
             {"status": "ok", "model": model_name,
              "quantization": weight_mode(engine.params["layers"]["wq"]),
              "kv_quant": engine.cfg.kv_quant,
+             "tp": engine.mesh.tp if engine.mesh is not None else 1,
              "engine": dict(engine.stats)})
+
+    async def debug_launches(request: web.Request) -> web.Response:
+        # Each rank's kernel launch counters, gathered between two
+        # programs (``Engine.rank_launch_counts``).
+        ranks = await asyncio.get_running_loop().run_in_executor(
+            None, engine.rank_launch_counts)
+        return web.json_response({"ranks": ranks})
 
     def _mirror_engine_stats() -> None:
         obs_metrics.record_engine_stats(engine.stats)
@@ -522,6 +651,7 @@ def create_server_app(engine: Engine, embed_service=None,
     app.router.add_get("/health", health)
     app.router.add_get("/metrics", metrics_endpoint)
     app.router.add_get("/debug/requests", debug_requests)
+    app.router.add_get("/debug/launches", debug_launches)
     app.router.add_get("/debug/rounds", debug_rounds)
     app.router.add_get("/debug/history", debug_history)
     app.router.add_get("/debug/alerts", debug_alerts)
@@ -540,7 +670,7 @@ def create_server_app(engine: Engine, embed_service=None,
     return app
 
 
-def main(argv: Optional[list[str]] = None) -> None:
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Serve a llama checkpoint directory, or a registry "
                     "model with random weights, over HTTP")
@@ -590,11 +720,19 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--grpc-port", type=int, default=8001,
                         help="gRPC LLMService port (0 serves none)")
-    args = parser.parse_args(argv)
-    if args.grpc_port:
-        # Refused before the weights load, not after.
-        from .grpc_server import require_grpc
-        require_grpc()
+    parser.add_argument("--world-size", type=int, default=0,
+                        help="devices to use, one process each (default: "
+                             "tp x pp with --tensor-parallelism, else 1)")
+    parser.add_argument("--tensor-parallelism", type=int, default=0,
+                        help="tp degree (default: world size / pp)")
+    parser.add_argument("--pipeline-parallelism", type=int, default=1,
+                        help="pp degree: serving refuses pp > 1")
+    return parser
+
+
+def _build_rank(args: argparse.Namespace, world: int, tp: int
+                ) -> tuple[Engine, str]:
+    """This rank's engine for the CLI's arguments."""
     engine_cfg = EngineConfig(
         max_slots=args.max_batch_size,
         max_input_length=args.max_input_length,
@@ -603,10 +741,89 @@ def main(argv: Optional[list[str]] = None) -> None:
         kv_pool_tokens=args.kv_pool_tokens or "auto",
         kv_quant=args.kv_quant)
     model_name = TYPE_DEFAULT_NAME.get(args.model_name, args.model_name)
-    engine, name = build_services(model_name, engine_cfg=engine_cfg,
-                                  seed=args.seed, device=args.device,
-                                  quantization=args.quantization,
-                                  model_path=args.model_path)
+    return build_services(model_name, engine_cfg=engine_cfg,
+                          seed=args.seed, device=args.device,
+                          quantization=args.quantization,
+                          model_path=args.model_path, world_size=world,
+                          tp=tp)
+
+
+def _follower_main(argv: list[str], rank: int, world: int, tp: int,
+                   init_method: str) -> None:
+    """A tensor-parallel follower process of the CLI: join the group,
+    build this rank's engine, replay the leader's programs until it
+    closes. It exits when the leader's process goes away."""
+    import signal
+
+    # The leader ends the group (its shutdown closes this loop); an
+    # interrupt meant for the server must not kill a rank under it.
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    args = _parser().parse_args(argv)
+    bootstrap_logging()
+    parent = os.getppid()
+
+    def watch_parent() -> None:
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        logger.error("tp rank %d: the leader's process is gone", rank)
+        os._exit(1)
+    threading.Thread(target=watch_parent, daemon=True).start()
+    maybe_init_distributed(init_method, world, rank, device=args.device)
+    engine, _ = _build_rank(args, world, tp)
+    engine.follow()
+    engine.close()
+    dist.destroy_process_group()
+
+
+def _spawn_followers(argv: list[str], world: int, tp: int,
+                     init_method: str) -> list:
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_follower_main,
+                         args=(argv, rank, world, tp, init_method),
+                         name=f"tp-rank-{rank}", daemon=True)
+             for rank in range(1, world)]
+    for proc in procs:
+        proc.start()
+    return procs
+
+
+def _watch_followers(procs: list, engine: Engine) -> None:
+    """A follower that exits while rank 0 serves fails the engine (its
+    ``/health`` answers 503) and, a moment later, the server: the group
+    cannot run a program without it."""
+    def watch() -> None:
+        while not engine._closing:
+            for proc in procs:
+                if not proc.is_alive() and not engine._closing:
+                    engine._fatal = EngineError(
+                        f"tensor-parallel {proc.name} exited with code "
+                        f"{proc.exitcode}")
+                    logger.error("%s", engine._fatal)
+                    time.sleep(2.0)
+                    os._exit(1)
+            time.sleep(0.5)
+    threading.Thread(target=watch, daemon=True,
+                     name="tp-followers-watch").start()
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    if args.grpc_port:
+        # Refused before the weights load, not after.
+        from .grpc_server import require_grpc
+        require_grpc()
+    world, tp, _pp = cli_topology(args)
+    followers = []
+    if world > 1:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            init_method = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+        followers = _spawn_followers(argv, world, tp, init_method)
+        maybe_init_distributed(init_method, world, 0, device=args.device)
+    engine, name = _build_rank(args, world, tp)
+    if followers:
+        _watch_followers(followers, engine)
     embed_service = (None if args.no_embedder else
                      build_embedder(args.embedder_path, device=args.device))
     bootstrap_logging()
@@ -630,3 +847,9 @@ def main(argv: Optional[list[str]] = None) -> None:
     finally:
         if grpc_server is not None:
             grpc_server.stop(grace=1.0)
+        if followers:
+            # The app's cleanup closed the engine, which closed the
+            # followers' loops.
+            for proc in followers:
+                proc.join(timeout=60)
+            dist.destroy_process_group()

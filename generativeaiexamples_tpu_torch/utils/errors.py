@@ -58,3 +58,8 @@ class BreakerOpenError(FrameworkError):
 
 class ChainError(FrameworkError):
     """Chain-server / example pipeline failure."""
+
+
+class ShardingError(FrameworkError):
+    """Invalid mesh/sharding request (e.g. TP*PP != device count;
+    reference: model_server/__init__.py:103-110)."""
