@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 (``python3 chip_smoke.py --golden-readings`` builds the kernels and
 prints only the readings the golden gate's limits were set from.
 ``python3 chip_smoke.py --tp 4`` runs only the tensor-parallel phases,
-phase 12 below, on a machine with four cards.)
+phases 12 and 13 below, on a machine with four cards.)
 
 Phases (each fails loudly: a failure exits non-zero and the final
 ``{"ok": true, ...}`` line is never printed):
@@ -267,6 +267,20 @@ Phases (each fails loudly: a failure exits non-zero and the final
    32 layers in bf16, each rank's launch counts read around 4
    completions and the timed requests (decode step, all-reduce share,
    a 1000-token prefill), and a clean SIGTERM exit.
+13. Checkpoints at tp (``--tp 4`` only, ``tp_checkpoint_phase``):
+   Llama-2-70B's width cut to ``TP_CKPT_LAYERS`` = 2 layers, written
+   from seed 0 by the port's writer as a bf16 safetensors directory and
+   a GPTQ directory (group 128), each served through the CLI at
+   ``--tensor-parallelism 4 --model-path`` (bf16 in float32, GPTQ in
+   bf16): every rank's device peak over its load at most 1.1x its shard
+   and its host RSS growth under 40% of the checkpoint; greedy texts
+   equal the engines' built from the seed-0 shards; #1 (and #3) launches
+   as counted on every rank; ``/v1/score`` in float32 against one card
+   within 1e-4 x max|NLL|. Then on four spawned ranks a session
+   suspended and resumed (the uninterrupted run's tokens; the float32
+   shards read back from each rank's weight-cache entry), a tp = 4
+   handoff continued on one card (tokens equal up to a near tie), and
+   fused RAG over ``docs/*.md`` chunks equal to the host path.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -2310,8 +2324,8 @@ def head_tiles(engine) -> int:
 
 
 def check_launch_counts(label: str, run: dict, L: int, quantization: str,
-                        kv_quant: str, n_tiles: int, per_layer: int = 7
-                        ) -> None:
+                        kv_quant: str, n_tiles: int, per_layer: int = 7,
+                        head: bool = True) -> None:
     """Every layer of every decode step went through the pool's attention
     kernel, once; under int4 weights every projection through #3: one per
     projection (``per_layer`` a layer: 7 for llama's swiglu, 6 for
@@ -2320,8 +2334,9 @@ def check_launch_counts(label: str, run: dict, L: int, quantization: str,
     or chunk; the bucket's rows on "wg") and per decode step (the sampled
     rows on "tc"), plus the lm_head's ``n_tiles`` vocab tiles on "tc" per
     decode step (the fused tail) and its row per admission (its one-shot
-    program or final chunk samples one row whole); none on "tile" or
-    "gemv"; the other pool kind's kernel never."""
+    program or final chunk samples one row whole; none of these with a
+    raw head, ``head`` False); none on "tile" or "gemv"; the other pool
+    kind's kernel never."""
     steps, prefills = run["decode_steps"], run["prefills"]
     dispatches = run["prefill_dispatches"]
     attn = "paged_attention_decode_int8" if kv_quant else \
@@ -2334,6 +2349,10 @@ def check_launch_counts(label: str, run: dict, L: int, quantization: str,
         want_path = {"tc": (per_layer * L + n_tiles) * steps + prefills,
                      "gemv": 0, "tile": 0, "wg": per_layer * L * dispatches}
         want["int4_matmul"] = want_path["tc"] + want_path["wg"]
+    if not head and quantization:
+        # A raw head (a GPTQ checkpoint's): no #3 launch for the tail.
+        want_path["tc"] -= n_tiles * steps + prefills
+        want["int4_matmul"] -= n_tiles * steps + prefills
     if (steps <= 0 or prefills <= 0 or run["launches"] != want
             or run["by_path"] != want_path):
         fail(f"{label} kernel launches {run['launches']} (int4 by path "
@@ -6901,10 +6920,11 @@ def tp_parity(torch, dev, mesh, base=None, layers=(TP_F32_LAYERS,
 
 
 def tp_rank_main(rank: int, world: int, init_method: str, queue,
-                 task: str) -> None:
-    """One rank of a ``--tp`` run (a spawned process on card ``rank``):
-    join the NCCL group, run ``task``, put (rank, "ok", result) or
-    (rank, "error", traceback) on ``queue``."""
+                 task: str, arg=None, device: str = "cuda") -> None:
+    """One rank of a ``--tp`` run (a spawned process on card ``rank``, or
+    a gloo rank on the CPU with ``device="cpu"``): join the group, run
+    ``task`` ("parity", or "ckpt" with ``arg``), put (rank, "ok", result)
+    or (rank, "error", traceback) on ``queue``."""
     import traceback
 
     import torch
@@ -6912,14 +6932,21 @@ def tp_rank_main(rank: int, world: int, init_method: str, queue,
     try:
         from generativeaiexamples_tpu_torch.parallel.mesh import (
             MeshPlan, make_mesh, maybe_init_distributed)
+        if device == "cpu":
+            torch.set_num_threads(1)
         # A rank that hangs fails the group within 300 s.
-        maybe_init_distributed(init_method, world, rank, device="cuda",
+        maybe_init_distributed(init_method, world, rank, device=device,
                                timeout_s=300)
-        mesh = make_mesh(MeshPlan(tp=world), device="cuda")
-        dev = torch.device("cuda", rank)
-        if task != "parity":
+        mesh = make_mesh(MeshPlan(tp=world), device=device)
+        dev = (torch.device("cuda", rank) if device == "cuda"
+               else torch.device("cpu"))
+        if task == "parity":
+            out = tp_parity(torch, dev, mesh)
+        elif task == "ckpt":
+            out = tp_ckpt_rank(torch, dev, mesh, arg)
+        else:
             raise ValueError(f"unknown task {task!r}")
-        queue.put((rank, "ok", tp_parity(torch, dev, mesh)))
+        queue.put((rank, "ok", out))
     except BaseException:  # noqa: BLE001 - reported, then re-raised
         queue.put((rank, "error", traceback.format_exc()))
         raise
@@ -6928,9 +6955,11 @@ def tp_rank_main(rank: int, world: int, init_method: str, queue,
             dist.destroy_process_group()
 
 
-def run_ranks(world: int, task: str, timeout: float) -> list:
-    """``task`` on ``world`` spawned ranks; their results in rank order.
-    A rank's error, a rank that dies, or one past ``timeout`` fails."""
+def run_ranks(world: int, task: str, timeout: float, arg=None,
+              device: str = "cuda") -> list:
+    """``task`` on ``world`` spawned ranks (``tp_rank_main`` on
+    ``device``); their results in rank order. A rank's error, a rank
+    that dies, or one past ``timeout`` fails."""
     import queue as queue_mod
 
     import torch.multiprocessing as mp
@@ -6938,8 +6967,10 @@ def run_ranks(world: int, task: str, timeout: float) -> list:
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     init = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=tp_rank_main, args=(r, world, init, q, task),
-                         daemon=True) for r in range(world)]
+    procs = [ctx.Process(target=tp_rank_main,
+                         args=(r, world, init, q, task, arg, device),
+                         daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
     results, deadline = {}, time.monotonic() + timeout
@@ -7203,6 +7234,596 @@ def serve_tp_cli(name: str, tp: int, quantization: str = "",
     return out
 
 
+# The checkpoint phase of ``--tp`` (phase 13): Llama-2-70B's width cut to
+# this many layers, written from seed 0 by the port's writer as a bf16
+# safetensors directory and a GPTQ directory of group 128, each with
+# golden-tiny's 32,000-piece tokenizer. At 4 layers the phase took 421 s
+# of four cards; 2 keep the whole --tp run within its chip budget.
+TP_CKPT_LAYERS = 2
+# The CLI's engine for those serves, and the reference engines built the
+# same way (``tp_ckpt_engine_cfg``): 8 slots, 1024-token prompts, a fixed
+# pool (the one-card reference runs on card 0 after the servers exit).
+TP_CKPT_CLI = ["--max-input-length", "1024", "--max-output-length", "80",
+               "--max-batch-size", "8", "--kv-pool-tokens", "16384"]
+TP_CKPT_NEW = 24
+TP_SCORE_TEXT = ("Tensor parallelism splits each weight of the model over "
+                 "the cards, and every card computes its share. ") * 10
+# A rank's device peak over its load against its shard's bytes, and its
+# host resident growth against the checkpoint's bytes.
+TP_LOAD_DEVICE_SLACK = 1.1
+TP_LOAD_RSS_SHARE = 0.4
+TP_SCORE_RTOL = 1e-4
+TP_RAG_QUESTIONS = ["How does the engine admit a long prompt?",
+                    "What does the host KV tier keep?"]
+_HF_PROJ = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+            "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+            "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+            "w_down": "mlp.down_proj"}
+
+
+def tp_ckpt_cfg(layers: int = 0, base=None):
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_70B
+    return dataclasses.replace(base or LLAMA2_70B,
+                               num_layers=layers or TP_CKPT_LAYERS)
+
+
+def tp_ckpt_engine_cfg(dtype: str, **kw):
+    """The CLI's engine config for ``TP_CKPT_CLI`` (``_build_rank``'s)."""
+    from generativeaiexamples_tpu_torch.engine import EngineConfig
+    return EngineConfig(max_slots=8, max_input_length=1024,
+                        max_output_length=80, page_size=128, dtype=dtype,
+                        kv_pool_tokens=16384, seed=0, **kw)
+
+
+def pack_u4(u, axis: int):
+    """uint4 values (numpy) -> int32 words along ``axis``, value j at bits
+    4j (GPTQ's packing)."""
+    import numpy as np
+    u = np.moveaxis(u.astype(np.uint32), axis, 0)
+    out = np.zeros((u.shape[0] // 8, *u.shape[1:]), np.uint32)
+    for j in range(8):
+        out |= u[j::8] << (4 * j)
+    return np.ascontiguousarray(np.moveaxis(out.view(np.int32), 0, axis))
+
+
+def gptq_parts(torch, w, group: int = 128) -> tuple:
+    """GPTQ's stored (qweight, qzeros, scales) of a (K, N) weight, on the
+    host: per (group, column) an asymmetric 4-bit grid, w ~ (u - 1 - uz) *
+    s with fp16 s. Groups lie along K, so a rank's block of the result is
+    the result of its block."""
+    K, N = w.shape
+    g = w.float().reshape(K // group, group, N)
+    lo, hi = g.amin(1), g.amax(1)
+    s = ((hi - lo) / 15).clamp_min(1e-6).half().float()
+    z = torch.clamp(torch.round(-lo / s), 1, 15)
+    u = torch.clamp(torch.round(g / s[:, None]) + z[:, None], 0, 15)
+    qweight = pack_u4(u.reshape(K, N).to(torch.uint8).cpu().numpy(), 0)
+    qzeros = pack_u4((z - 1).to(torch.uint8).cpu().numpy(), 1)
+    return (torch.from_numpy(qweight), torch.from_numpy(qzeros),
+            s.half().cpu())
+
+
+def write_tp_checkpoints(torch, dev, cfg, root: str) -> dict:
+    """The seed-0 bf16 tree of ``cfg`` (made on ``dev``) written by the
+    port's writer (``save_sharded``) as an HF safetensors directory and a
+    GPTQ directory of group 128 (its projections through ``gptq_parts``),
+    each with a ``config.json`` and golden-tiny's tokenizer. Returns
+    {"bf16": dir, "gptq": dir, "bytes": {kind: tensor bytes}}."""
+    import shutil
+
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.safetensors import \
+        save_sharded
+    tree = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    hf = {"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+          "intermediate_size": cfg.intermediate_size,
+          "num_hidden_layers": cfg.num_layers,
+          "num_attention_heads": cfg.num_heads,
+          "num_key_value_heads": cfg.num_kv_heads,
+          "max_position_embeddings": cfg.max_position_embeddings,
+          "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta}
+    top = {"model.embed_tokens.weight": tree["embed"],
+           "model.norm.weight": tree["final_norm"],
+           "lm_head.weight": tree["lm_head"].T}
+    lay = tree["layers"]
+    out = {"bytes": {}}
+    for kind in ("bf16", "gptq"):
+        d = os.path.join(root, f"llama-2-70b-{kind}-{cfg.num_layers}l")
+        os.makedirs(d, exist_ok=True)
+        state = dict(top)
+        for i in range(cfg.num_layers):
+            base = f"model.layers.{i}."
+            state[base + "input_layernorm.weight"] = lay["attn_norm"][i]
+            state[base + "post_attention_layernorm.weight"] = \
+                lay["mlp_norm"][i]
+            for key, proj in _HF_PROJ.items():
+                w = lay[key][i]
+                if kind == "bf16":
+                    state[f"{base}{proj}.weight"] = w.T
+                    continue
+                qw, qz, sc = gptq_parts(torch, w)
+                state.update({f"{base}{proj}.qweight": qw,
+                              f"{base}{proj}.qzeros": qz,
+                              f"{base}{proj}.scales": sc})
+        out["bytes"][kind] = sum(t.numel() * t.element_size()
+                                 for t in state.values())
+        save_sharded(state, d, shards=8)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(hf, f)
+        shutil.copy(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 GOLDEN, "tokenizer.model"), d)
+        out[kind] = d
+        del state
+    del tree, top, lay
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_gptq_shard(torch, dev, cfg, mesh) -> dict:
+    """This rank's GPTQ tree made from its own seed-0 bf16 shard
+    (``init_params(..., mesh=)``) through ``gptq_parts`` and the port's
+    ``gptq_leaf``: the bytes a rank reads from the GPTQ directory."""
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.import_quantized import \
+        gptq_leaf
+    shard = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev,
+                              mesh=mesh)
+    layers = dict(shard["layers"])
+    for key in _HF_PROJ:
+        parts = [gptq_leaf(*(t.to(dev) for t in gptq_parts(
+            torch, layers[key][i]))) for i in range(cfg.num_layers)]
+        layers[key] = {k: torch.stack([p[k] for p in parts])
+                       for k in parts[0]}
+        del parts
+    return dict(shard, layers=layers)
+
+
+def tp_ckpt_rank(torch, dev, mesh, arg: dict) -> dict:
+    """One rank of the checkpoint phase (``arg``: the directories, the
+    prompts). Every rank returns its launch counts around its serves; the
+    leader also: the reference engines' texts (float32 from the seed-0
+    shard, bf16 from the GPTQ shard of ``tp_gptq_shard``), then on
+    ``build_services`` over the bf16 directory at float32 (its weight
+    cache entries written by the CLI's start: each rank's load report) a
+    session served, suspended, resumed and served again, a handoff
+    export of another prompt (its blob, for the one-card engine), and
+    fused RAG with encoder-tiny over a corpus of ``docs/*.md`` chunks:
+    each question's fused tokens beside the host path's (the plain
+    engine's greedy tokens for the ids the fused program assembled) and
+    both TTFTs."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine import (Engine,
+                                                       SamplingParams)
+    from generativeaiexamples_tpu_torch.engine import graphs
+    from generativeaiexamples_tpu_torch.engine.rag_fusion import (
+        FusedRagSpec, build_prompt_parts, corpus_rows)
+    from generativeaiexamples_tpu_torch.models import encoder as enc
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import ENCODER_TINY
+    from generativeaiexamples_tpu_torch.models.tokenizer import get_tokenizer
+    from generativeaiexamples_tpu_torch.serving import model_server as ms
+
+    cfg = tp_ckpt_cfg(arg["layers"], arg.get("base"))
+    tok = get_tokenizer(arg["bf16"])
+    greedy = SamplingParams(max_tokens=arg["new"], top_k=1, ignore_eos=True)
+    res: dict = {"rank": mesh.rank, "counts": {}}
+
+    def run(name, engine, fn):
+        before = graphs.launch_counts()
+        steps0 = engine.stats["decode_steps"]
+        if not engine.leader:
+            engine.follow()
+            engine.close()
+            out = None
+        else:
+            engine.start()
+            try:
+                out = fn(engine)
+            finally:
+                steps = engine.stats["decode_steps"] - steps0
+                engine.close()
+            res[f"{name}_steps"] = steps
+        res["counts"][name] = graphs.count_delta(before,
+                                                 graphs.launch_counts())
+        return out
+
+    def texts(engine):
+        return [engine.submit(tok.encode(p), greedy).text()
+                for p in arg["prompts"]]
+
+    # The references: the seed's float32 shard, and its GPTQ shard.
+    shard = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev,
+                              mesh=mesh)
+    shard = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+                 else v.float()) for k, v in shard.items()}
+    res["ref_f32"] = run("ref_f32", Engine(
+        shard, cfg, tok, tp_ckpt_engine_cfg("float32"), device=dev,
+        mesh=mesh), texts)
+    del shard
+    torch.cuda.empty_cache()
+    res["ref_gptq"] = run("ref_gptq", Engine(
+        tp_gptq_shard(torch, dev, cfg, mesh), cfg, tok,
+        tp_ckpt_engine_cfg("bfloat16"), device=dev, mesh=mesh), texts)
+    torch.cuda.empty_cache()
+
+    # The tier, suspend/resume and the handoff, on the checkpoint's
+    # float32 shards (read back from the weight cache).
+    engine, _ = ms.build_services(
+        "llama-2-70b-chat", engine_cfg=tp_ckpt_engine_cfg(
+            "float32", kv_host_pool_tokens=32768), device=dev,
+        model_path=arg["bf16"], world_size=mesh.tp)
+    res["cache_load"] = dict(ms.last_load)
+
+    def tier(engine):
+        out = {}
+        hist = tok.encode(arg["prompts"][0] * 6)
+        s = engine.submit(hist, greedy)
+        s.text()
+        out["cold"] = list(s.token_ids)
+        t0 = time.monotonic()
+        blob = engine.suspend_session(hist)
+        out["suspend_ms"] = (time.monotonic() - t0) * 1e3
+        out["suspend_bytes"] = len(blob)
+        t0 = time.monotonic()
+        out["resumed"] = engine.resume_session(blob)
+        out["resume_ms"] = (time.monotonic() - t0) * 1e3
+        r0 = engine.stats["kv_tier_restore_pages"]
+        s = engine.submit(hist, greedy)
+        s.text()
+        out["warm"] = list(s.token_ids)
+        out["restored"] = engine.stats["kv_tier_restore_pages"] - r0
+        other = tok.encode(arg["prompts"][1] * 6)
+        s = engine.submit(other, greedy)
+        s.text()
+        out["handoff_ids"], out["handoff_tokens"] = other, list(s.token_ids)
+        t0 = time.monotonic()
+        out["handoff"] = engine.export_handoff(other)
+        out["handoff_ms"] = (time.monotonic() - t0) * 1e3
+        return out
+    res["tier"] = run("tier", engine, tier)
+    del engine
+    torch.cuda.empty_cache()
+
+    # Fused RAG on the seed's bf16 shard.
+    shard = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev,
+                              mesh=mesh)
+    engine = Engine(shard, cfg, tok, tp_ckpt_engine_cfg("bfloat16"),
+                    device=dev, mesh=mesh)
+
+    def rag(engine):
+        enc_params = enc.init_params(ENCODER_TINY, seed=0,
+                                     dtype=torch.float32, device=dev)
+        chunks = arg["chunks"]
+        parts = build_prompt_parts(arg["template"], tok)
+        spec = FusedRagSpec(**parts, top_k=4, ctx_budget=600, bucket=1024,
+                            chunk_tokens=160, q_bucket=64, enc_bucket=128)
+        toks, lens = corpus_rows(chunks, tok, spec.chunk_tokens)
+        gen = np.random.default_rng(0)
+        emb = gen.standard_normal((len(chunks), ENCODER_TINY.hidden_size)
+                                  ).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        engine.enable_fused_rag(enc_params, ENCODER_TINY, spec)
+        engine.set_rag_corpus(emb, toks, lens)
+        out = []
+        for q in arg["questions"]:
+            q_ids = tok.encode(q, add_bos=False)
+            q_enc = [101] + [3 + ord(c) % 500 for c in q][:100] + [102]
+            s = engine.submit_rag(q_ids, q_enc, greedy)
+            s.text()
+            rows = list(s.source_ids)
+            ids = numpy_assembly(spec, [list(t[:n]) for t, n in
+                                        zip(toks, lens)], rows, q_ids)
+            h = engine.submit(ids, greedy)
+            h.text()
+            out.append({"fused": list(s.token_ids), "rows": rows,
+                        "length": s.rag_length, "assembled": len(ids),
+                        "host": list(h.token_ids),
+                        "fused_ttft_ms": s.ttft_ms,
+                        "host_ttft_ms": h.ttft_ms})
+        return out
+    res["rag"] = run("rag", engine, rag)
+    return res
+
+
+def serve_tp_ckpt_cli(path: str, tp: int, dtype: str, prompts: list,
+                      new: int, score_text: str = "", device: str = "cuda"
+                      ) -> dict:
+    """A checkpoint directory served through the model server's CLI at
+    ``--tensor-parallelism`` ``tp`` (``--world-size`` on the CPU):
+    each rank's load report (``/debug/load``), greedy completions of
+    ``prompts`` one after another with each rank's launch counts read
+    just before and after (``/debug/launches``), ``/v1/score`` of
+    ``score_text`` per token, a clean SIGTERM exit."""
+    import signal
+    import tempfile
+
+    port = free_port()
+    cmd = [sys.executable, "-m", "generativeaiexamples_tpu_torch.serving",
+           "llama-2-70b-chat", "--model-path", path, "--device", device,
+           "--dtype", dtype, "--no-embedder", "--grpc-port", "0",
+           "--port", str(port), *TP_CKPT_CLI]
+    cmd += (["--tensor-parallelism", str(tp)] if device == "cuda" else
+            ["--world-size", str(tp)])
+    label = f"checkpoint {os.path.basename(path)} tp={tp} {dtype}"
+    log_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"),
+                            "server.log")
+    env = dict(os.environ, HISTORY_INTERVAL_S="0")
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                env=env, start_new_session=True)
+    base = f"http://127.0.0.1:{port}"
+    out: dict = {"label": label}
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"{label}: the server exited with {proc.returncode} "
+                     f"before answering; log {log_path}:\n"
+                     + open(log_path).read()[-3000:])
+            try:
+                health = json.loads(call(base + "/health", timeout=10)[1])
+                break
+            except OSError:
+                if time.monotonic() - t0 > 900:
+                    fail(f"{label}: no /health within 900 s")
+                time.sleep(2)
+        out["startup_s"] = time.monotonic() - t0
+        if health.get("tp") != tp:
+            fail(f"{label}: /health says tp {health.get('tp')}")
+        out["load"] = json.loads(call(base + "/debug/load")[1])["ranks"]
+        c0 = json.loads(call(base + "/debug/launches")[1])["ranks"]
+        s0 = health["engine"]
+        out["texts"] = []
+        for p in prompts:
+            resp = json.loads(post(base + "/v1/completions", {
+                "prompt": p, "max_tokens": new, "temperature": 0,
+                "ignore_eos": True}))
+            if resp["usage"]["completion_tokens"] != new:
+                fail(f"{label}: a completion gave {resp['usage']}")
+            out["texts"].append(resp["choices"][0]["text"])
+        c1 = json.loads(call(base + "/debug/launches")[1])["ranks"]
+        s1 = json.loads(call(base + "/health")[1])["engine"]
+        out["run"] = {k: s1[k] - s0[k] for k in ("decode_steps", "prefills",
+                                                 "prefill_dispatches")}
+        out["launches"] = [{k: b[k] - a.get(k, 0) for k in b}
+                           for a, b in zip(c0, c1)]
+        if score_text:
+            t = time.monotonic()
+            out["score"] = json.loads(post(base + "/v1/score", {
+                "text": score_text, "per_token": True}))
+            out["score_ms"] = (time.monotonic() - t) * 1e3
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            fail(f"{label}: the server did not exit within 180 s of "
+                 f"SIGTERM")
+    if rc != 0:
+        fail(f"{label}: the server exited with {rc}; log {log_path}:\n"
+             + open(log_path).read()[-3000:])
+    return out
+
+
+def check_tp_load(label: str, load: list, tree_bytes: int,
+                  on_card: bool = True) -> list:
+    """Each rank's cold load report: the device peak over the load at most
+    ``TP_LOAD_DEVICE_SLACK`` x its served shard's bytes, the host resident
+    growth under ``TP_LOAD_RSS_SHARE`` of the checkpoint's bytes (checked
+    ``on_card`` only: a CPU rehearsal's tree is host memory)."""
+    rows, over = [], []
+    for r in load:
+        if r.get("from_cache"):
+            fail(f"{label} rank {r['rank']}: the cold start read the "
+                 f"weight cache")
+        dev_ratio = r["max_memory_allocated"] / r["tree_bytes"]
+        rss_ratio = r["rss_growth"] / tree_bytes
+        say(f"{label} rank {r['rank']}: loaded in {r['seconds']:.2f} s; "
+            f"device peak {r['max_memory_allocated']} B against its shard's "
+            f"{r['tree_bytes']} B ({dev_ratio:.4f}x, limit "
+            f"{TP_LOAD_DEVICE_SLACK}); host RSS growth {r['rss_growth']} B "
+            f"(peak {r['rss_peak']} B during the load, {r['rss_before']} B "
+            f"resident before it) against the checkpoint's {tree_bytes} B "
+            f"({rss_ratio:.4f}, limit {TP_LOAD_RSS_SHARE})")
+        if on_card and r["rss_peak"] <= 0:
+            fail(f"{label} rank {r['rank']}: no resident-memory reading")
+        if on_card and (dev_ratio > TP_LOAD_DEVICE_SLACK
+                        or rss_ratio >= TP_LOAD_RSS_SHARE):
+            over.append(f"rank {r['rank']}: {dev_ratio:.3f}x its shard on "
+                        f"the card, host growth {rss_ratio:.3f} of the tree")
+        rows.append({"rank": r["rank"], "seconds": r["seconds"],
+                     "device_ratio": dev_ratio, "rss_ratio": rss_ratio})
+    if over:
+        fail(f"{label}: over the load limits: {over}")
+    return rows
+
+
+def tp_checkpoint_phase(torch, tp: int, device: str = "cuda", base=None,
+                        layers: int = 0, check_launches: bool = True
+                        ) -> dict:
+    """Phase 13 (``--tp``): checkpoints read rank by rank at Llama-2-70B's
+    width, cut to ``TP_CKPT_LAYERS``: ``write_tp_checkpoints``, each
+    directory through the CLI (the bf16 one served in float32, the GPTQ
+    one in bf16): the cold load's memory (``check_tp_load``), greedy texts
+    equal to the engines built from the seed-0 shards in the same config
+    (``tp_ckpt_rank``: the same bytes and programs, so exactly), every
+    rank's #1 (and #3 under GPTQ) once per layer per decode step (and per
+    projection); ``/v1/score`` in float32 against the one-card score on
+    card 0 within ``TP_SCORE_RTOL`` x max|NLL|; suspend/resume with the
+    uninterrupted run's tokens, the tp handoff continued on one card
+    (tokens equal up to a near tie, its gap printed); fused RAG's tokens
+    equal the host path's. Returns the numbers it printed."""
+    import shutil
+    import tempfile
+
+    from generativeaiexamples_tpu_torch.engine import Engine, SamplingParams
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.import_hf import \
+        load_checkpoint
+    from generativeaiexamples_tpu_torch.models.tokenizer import get_tokenizer
+
+    cfg = tp_ckpt_cfg(layers, base)
+    L = cfg.num_layers
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        "cpu")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_dirs_")
+    saved_cache = os.environ.get("GAIE_WEIGHT_CACHE_DIR")
+    os.environ["GAIE_WEIGHT_CACHE_DIR"] = os.path.join(root, "weight_cache")
+    out: dict = {}
+    try:
+        t0 = time.monotonic()
+        dirs = write_tp_checkpoints(torch, dev, cfg, root)
+        out["write_s"] = time.monotonic() - t0
+        say(f"tp checkpoints: 70B width, {L} layers, written in "
+            f"{out['write_s']:.1f} s: bf16 {dirs['bytes']['bf16']} B, GPTQ "
+            f"group 128 {dirs['bytes']['gptq']} B")
+        served = {
+            "f32": serve_tp_ckpt_cli(dirs["bf16"], tp, "float32", TP_PROMPTS,
+                                     TP_CKPT_NEW, TP_SCORE_TEXT,
+                                     device=device),
+            "gptq": serve_tp_ckpt_cli(dirs["gptq"], tp, "bfloat16",
+                                      TP_PROMPTS, TP_CKPT_NEW,
+                                      device=device)}
+        out["load"] = {
+            key: check_tp_load(served[key]["label"], served[key]["load"],
+                               dirs["bytes"][kind], device == "cuda")
+            for key, kind in (("f32", "bf16"), ("gptq", "gptq"))}
+        docs = sorted(os.path.join("docs", n) for n in os.listdir("docs")
+                      if n.endswith(".md"))[:4]
+        chunks = [c for d in docs for c in
+                  open(d, encoding="utf-8").read().split("\n\n")
+                  if len(c) > 200][:64]
+        arg = {"bf16": dirs["bf16"], "layers": L, "base": base,
+               "prompts": TP_PROMPTS, "new": TP_CKPT_NEW, "chunks": chunks,
+               "questions": TP_RAG_QUESTIONS,
+               "template": ("[INST] <<SYS>>\nAnswer from the context.\n"
+                            "<</SYS>>\nContext: {context_str}\n\nQuestion: "
+                            "{query_str} [/INST]")}
+        results = run_ranks(tp, "ckpt", timeout=900, arg=arg, device=device)
+        lead = results[0]
+        for key, ref in (("f32", "ref_f32"), ("gptq", "ref_gptq")):
+            got = served[key]["texts"]
+            say(f"{served[key]['label']}: started in "
+                f"{served[key]['startup_s']:.1f} s; texts "
+                f"{[t[:32] for t in got]}")
+            if got != lead[ref]:
+                fail(f"{served[key]['label']}: texts {got} differ from the "
+                     f"engine's on the seed's shards {lead[ref]}")
+            run = served[key]["run"]
+            for r, delta in enumerate(served[key]["launches"]):
+                if not check_launches:
+                    continue
+                check_launch_counts(
+                    f"{served[key]['label']} rank {r}",
+                    dict(run, launches={k: delta.get(k, 0) for k in (
+                        "paged_attention_decode",
+                        "paged_attention_decode_int8", "int4_matmul")},
+                        by_path={p: delta.get(f"int4_matmul/{p}", 0)
+                                 for p in ("tc", "gemv", "tile", "wg")}),
+                    L, "int4" if key == "gptq" else "", "", n_tiles=0,
+                    head=False)
+        say(f"tp checkpoints: the CLI's greedy texts equal the engines' on "
+            f"the seed's shards (float32 and GPTQ); launches as counted on "
+            f"every rank")
+        out["served"] = {k: {"startup_s": v["startup_s"],
+                             "launches": v["launches"][0], "run": v["run"]}
+                         for k, v in served.items()}
+        # The one-card references on card 0.
+        tok = get_tokenizer(dirs["bf16"])
+        full = load_checkpoint(dirs["bf16"], cfg, torch.float32, dev)
+        ids = tok.encode(TP_SCORE_TEXT)
+        with torch.no_grad():
+            one = llama.score(full, cfg, torch.tensor(
+                [ids], dtype=torch.int32, device=dev))[0].double().cpu()
+        tp_nll = torch.tensor(served["f32"]["score"]["nll"],
+                              dtype=torch.float64)
+        err = float((tp_nll - one).abs().max())
+        peak = float(one.abs().max())
+        out["score"] = {"err": err, "peak": peak, "tokens": len(ids),
+                        "ms": served["f32"]["score_ms"]}
+        say(f"tp checkpoints: /v1/score at tp={tp} in float32 over "
+            f"{len(ids)} tokens ({served['f32']['score_ms']:.1f} ms, HTTP "
+            f"included) against one card: max abs err {err} against "
+            f"max|NLL| {peak} (tolerance {TP_SCORE_RTOL} x max|NLL|; the "
+            f"server rounds to 1e-6)")
+        if not err <= TP_SCORE_RTOL * peak + 1e-6:
+            fail(f"tp /v1/score disagrees with one card: {err}")
+        tier = lead["tier"]
+        say(f"tp checkpoints: float32 shards from the weight cache in "
+            f"{lead['cache_load']['seconds']:.2f} s on rank 0 (from_cache "
+            f"{lead['cache_load']['from_cache']}); suspend "
+            f"{tier['suspend_ms']:.1f} ms ({tier['suspend_bytes']} B), "
+            f"resume {tier['resume_ms']:.1f} ms, {tier['restored']} pages "
+            f"restored; handoff export {tier['handoff_ms']:.1f} ms")
+        if (not lead["cache_load"]["from_cache"] or tier["restored"] <= 0
+                or tier["warm"] != tier["cold"]):
+            fail(f"tp tier: cache {lead['cache_load']['from_cache']}, "
+                 f"restored {tier['restored']}, warm {tier['warm']} vs cold "
+                 f"{tier['cold']}")
+        blob, blocks = tier["handoff"]
+        decode = Engine(full, cfg, tok, tp_ckpt_engine_cfg(
+            "float32", kv_host_pool_tokens=32768), device=dev)
+        try:
+            if decode.resume_session(blob) != blocks:
+                fail("the one-card engine did not take every handoff block")
+            decode.start()
+            s = decode.submit(tier["handoff_ids"], SamplingParams(
+                max_tokens=TP_CKPT_NEW, top_k=1, ignore_eos=True))
+            s.text()
+            restored = decode.stats["kv_tier_restore_pages"]
+        finally:
+            decode.close()
+        one_tokens, tp_tokens = list(s.token_ids), tier["handoff_tokens"]
+        at = parting_index(tp_tokens, one_tokens)
+        gap = (None if at is None else logits_gap(
+            torch, full, cfg, tier["handoff_ids"] + one_tokens[:at]))
+        out["handoff"] = {"blocks": blocks, "restored": restored,
+                          "parting": at, "gap": gap,
+                          "export_ms": tier["handoff_ms"]}
+        say(f"tp checkpoints: the tp={tp} handoff ({blocks} blocks) "
+            f"continued on one card with {restored} pages restored: tokens "
+            f"{one_tokens} against tp's {tp_tokens}, first parting {at}"
+            + (f" at a top-2 gap of {gap}" if at is not None else ""))
+        if restored <= 0 or (at is not None
+                             and not gap < TP_TIE["float32"]):
+            fail("the handoff's continuation parts from tp's away from a "
+                 "near tie")
+        del full
+        for q in lead["rag"]:
+            say(f"tp fused RAG: rows {q['rows']}, assembled {q['length']} "
+                f"tokens (numpy {q['assembled']}); fused {q['fused']} vs "
+                f"host path {q['host']}; TTFT fused {q['fused_ttft_ms']:.1f}"
+                f" ms, host path {q['host_ttft_ms']:.1f} ms (engine, host "
+                f"clock)")
+            if q["fused"] != q["host"] or q["length"] != q["assembled"]:
+                fail("tp fused RAG differs from the host path")
+        out["rag"] = lead["rag"]
+        for r in results:
+            for name, n_layers in (("ref_f32", L), ("tier", L),
+                                   ("rag", L)):
+                n = r["counts"][name].get("paged_attention_decode", 0)
+                steps = lead[f"{name}_steps"]
+                if check_launches and (steps <= 0 or n != n_layers * steps):
+                    fail(f"tp rank {r['rank']} {name}: #1 launched {n} "
+                         f"times over {steps} steps of {n_layers} layers")
+            n3 = r["counts"]["ref_gptq"].get("int4_matmul", 0)
+            if check_launches and n3 <= 0:
+                fail(f"tp rank {r['rank']}: #3 never ran on the GPTQ shard")
+        out["rank_counts"] = [r["counts"] for r in results]
+        return out
+    finally:
+        if saved_cache is None:
+            os.environ.pop("GAIE_WEIGHT_CACHE_DIR", None)
+        else:
+            os.environ["GAIE_WEIGHT_CACHE_DIR"] = saved_cache
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main_tp(torch, tp: int) -> int:
     """``--tp N``: the multi-card phases only (see the module docstring,
     phase 12). Fails on fewer than ``tp`` cards."""
@@ -7243,6 +7864,8 @@ def main_tp(torch, tp: int) -> int:
         lap(f"serve_70b_{key}")
     served["mixtral"] = serve_tp_cli("mixtral-8x7b-instruct", tp, layers=32)
     lap("serve_mixtral")
+    ckpt = tp_checkpoint_phase(torch, tp)
+    lap("checkpoints")
     for key, cfg, quant in (("bf16", LLAMA2_70B, ""),
                             ("int4", LLAMA2_70B, "int4_awq"),
                             ("mixtral", MIXTRAL_8X7B, "")):
@@ -7280,6 +7903,7 @@ def main_tp(torch, tp: int) -> int:
             row["launches"] = served["int4"]["launches"][0][
                 f"int4_matmul/{row['path']}"]
         kernels.append(row)
+    say(f"tp checkpoints summary: {json.dumps(ckpt, default=str)}")
     say(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -117,13 +117,27 @@ port of the reference's ``engine/engine.py``.
   same tokens on every rank, so no rank reads another's. A vocab that does
   not split in whole mask words downgrades to the materialized tail,
   observably (``downgrades``). On the card a geometry the paged kernel
-  cannot take per rank (head counts that do not divide tp) is refused;
-  the host KV tier, the fleet handoff and fused RAG are refused at
-  tp > 1 (ROADMAP A21).
+  cannot take per rank (head counts that do not divide tp) is refused.
+  The work that is not a captured program goes to the followers as a
+  header of its own: ``score`` (the tp forward over a dense cache), the
+  host tier's page gathers and scatters (the leader keeps the one host
+  store, of whole-model blocks: each offload or export gathers every
+  rank's kv heads into them, each restore broadcasts them and every rank
+  takes its heads, so a blob is the one a one-card engine writes and
+  moves between topologies), fused RAG's install and corpus (the
+  encoder and the corpus replicated on every rank by broadcasts from the
+  leader; the leader's retrieved rows broadcast inside the captured
+  admission, so every rank assembles the same prompt), and ``prewarm``'s
+  attempts (every allocation that may run out is made outside any
+  collective and its outcome agreed over the header group, so all ranks
+  shrink and rebuild to one page count). A failed collective or an
+  out-of-memory error inside one ends the engine (``_fatal``): nothing
+  carries on past it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import itertools
@@ -139,7 +153,7 @@ from typing import Iterator, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..models import llama
+from ..models import llama, weight_cache
 from ..models.configs import LlamaConfig
 from ..obs import flight as obs_flight
 from ..obs import rounds as obs_rounds
@@ -270,6 +284,11 @@ def engine_stat_keys() -> tuple[str, ...]:
     from .prefix_cache import CacheStats
     return (tuple(_STATS_TEMPLATE) + _STATS_READ_TIME
             + tuple(CacheStats().snapshot()) + ("prefix_cache_pages",))
+
+
+class _AgreedOOM(torch.cuda.OutOfMemoryError):
+    """An out-of-memory error every tensor-parallel rank raised together
+    (``Engine._agreed``): the group is still in step."""
 
 
 def _drop_tracebacks(exc: Optional[BaseException]) -> None:
@@ -763,11 +782,12 @@ class Engine:
                        else (cfg.kv_host_pool_tokens or 0))
         self._kv_tier: Optional[KVTier] = None
         if cfg.prefix_cache and host_tokens > 0:
-            self._refuse_sharded("the host KV tier")
+            # Under tp the leader's store holds whole-model blocks: the
+            # geometry and the bytes are the model's.
             m = model_cfg
             self._kv_tier = KVTier(
                 page_size=page, host_pool_tokens=host_tokens,
-                bytes_per_token=self._kv_bytes_per_token(),
+                bytes_per_token=self._kv_bytes_per_token(local=False),
                 meta={"kv_quant": cfg.kv_quant, "num_layers": m.num_layers,
                       "num_kv_heads": m.num_kv_heads,
                       "head_dim": m.head_dim, "dtype": cfg.dtype},
@@ -814,6 +834,11 @@ class Engine:
         # what the fused-RAG programs added to the reserved memory.
         self._graph_pool = None
         self.rag_graph_bytes = 0
+        # A follower's slack during a prewarm attempt (``_hold_slack``),
+        # and the checkpoint load's report (``model_server``), gathered
+        # with the launch counts (``rank_reports``).
+        self._slack = None
+        self.load_report: dict = {}
         self._n_pages = 1 + self._resolve_pool_pages()
         # NCCL's communicator exists before any program captures on it.
         comm.warm_up(mesh, self.device)
@@ -921,12 +946,6 @@ class Engine:
                 f"divide tp={mesh.shape.get('tp', 1)}; the card refuses "
                 f"the plain gather path the reference falls back to")
 
-    def _refuse_sharded(self, feature: str) -> None:
-        """``ConfigError`` for a feature not served under tp > 1 yet."""
-        if self._sharded:
-            raise ConfigError(f"{feature} is not served at tp > 1 yet "
-                              f"(ROADMAP A21)")
-
     def _note_downgrade(self, feature: str, fallback: str,
                         reason: str) -> None:
         """Record a construction-time feature downgrade observably: one
@@ -949,7 +968,8 @@ class Engine:
                 "_chunk_extend_body": self._extend_graphs,
                 "_chunk_final_body": self._final_graphs,
                 "_round_body": self._round_graphs,
-                "_verify_body": self._verify_graphs}[body_name]
+                "_verify_body": self._verify_graphs,
+                "_rag_body": self._rag_graphs}[body_name]
 
     def _state_name(self, dst: torch.Tensor) -> str:
         """The name a follower finds ``dst`` under: a slot-state tensor's
@@ -960,11 +980,15 @@ class Engine:
         for key, t in self._state["admit"].items():
             if t is dst:
                 return f"admit/{key}"
+        if self._rag_in is not None and dst is self._rag_in[1]:
+            return "rag_in"
         raise EngineError("a host write to an unnamed device tensor")
 
     def _state_tensor(self, name: str) -> torch.Tensor:
         if name.startswith("admit/"):
             return self._state["admit"][name[len("admit/"):]]
+        if name == "rag_in":
+            return self._rag_in[1]
         return self._state[name]
 
     def _apply_op(self, op: tuple) -> None:
@@ -980,10 +1004,15 @@ class Engine:
             raise EngineError(f"unknown staged write {kind!r}")
 
     def follow(self) -> None:
-        """A follower's loop: take each header from the leader, apply its
-        staged writes and run its program, until the leader closes
-        (returns) or rebuilds (rebuilds too). An error propagates: the
-        caller ends the process, and the group with it."""
+        """A follower's loop: take each header from the leader and do what
+        it names, until the leader closes (returns): a program (its staged
+        writes, then its replay), a rebuild at the leader's page count, a
+        score, the tier's page gather or scatter, fused RAG's install,
+        corpus or capture, a prewarm's slack, a report. An error
+        propagates: the caller ends the process, and the group with it;
+        only a prewarm attempt's out-of-memory error that every rank
+        agreed on (``_AgreedOOM``) leaves the loop running, since the
+        leader then shrinks the pool and rebuilds."""
         if self.leader:
             raise EngineError("follow() runs on a follower rank")
         while True:
@@ -991,34 +1020,142 @@ class Engine:
             kind = header[0]
             if kind == "close":
                 return
-            if kind == "rebuild":
-                self._rebuild()
+            if kind == "run":
+                _, body_name, key, ops = header
+                for op in ops:
+                    self._apply_op(op)
+                self._replay(self._program_table(body_name),
+                             getattr(self, body_name), *key)
                 continue
-            if kind == "counts":
-                comm.gather_to_leader(graphs.launch_counts(), self.mesh)
-                continue
-            _, body_name, key, ops = header
-            for op in ops:
-                self._apply_op(op)
-            self._replay(self._program_table(body_name),
-                         getattr(self, body_name), *key)
+            try:
+                self._follow_control(kind, header[1:])
+            except _AgreedOOM:
+                # Every rank failed the step together; the leader shrinks
+                # the pool and sends the next rebuild.
+                self._slack = None
+                self._drop_device_state()
+
+    def _follow_control(self, kind: str, args: tuple) -> None:
+        """A follower's side of one non-program header."""
+        if kind == "rebuild":
+            self._n_pages = args[0]
+            self._rebuild()
+        elif kind == "report":
+            comm.gather_to_leader(self._report(), self.mesh)
+        elif kind == "score":
+            self._score(*args)
+        elif kind == "gather":
+            self._gather_pages(args[0])
+        elif kind == "scatter":
+            self._scatter_pages(args[0], None)
+        elif kind == "rag_enable":
+            enc_cfg, spec, leaves = args
+            self._install_rag(weight_cache.unflatten({
+                name: torch.empty(shape, dtype=dtype, device=self.device)
+                for name, shape, dtype in leaves}), enc_cfg, spec)
+        elif kind == "rag_corpus":
+            n, width = args
+            C = self._fused_rag.spec.chunk_tokens
+            self._set_corpus(np.zeros((n, width), np.float32),
+                             np.zeros((n, C), np.int32),
+                             np.zeros((n,), np.int32))
+        elif kind == "rag_capture":
+            self._capture_rag()
+        elif kind == "slack":
+            self._slack = self._agreed(self._alloc_slack)
+        elif kind == "slack_done":
+            self._slack = None
+        else:
+            raise EngineError(f"unknown header {kind!r}")
 
     def _broadcast(self, header: tuple) -> None:
         if self._recording:
             comm.broadcast_header(header, self.mesh)
 
-    def rank_launch_counts(self) -> list[dict]:
-        """Each rank's kernel launch counters (``engine/graphs.py``
-        ``launch_counts``), in rank order: this process's, and under tp
-        every follower's, gathered on the serve thread between two
-        programs."""
+    @contextlib.contextmanager
+    def _collective(self):
+        """Around work that holds collectives outside a captured program:
+        under tp a failure in it ends the engine (``_fatal``), since the
+        other ranks may be waiting inside a collective it never reached."""
+        try:
+            yield
+        except BaseException as exc:
+            if self._sharded:
+                self._fatal = exc
+            raise
+
+    def _agreed(self, step):
+        """Run the allocation ``step`` (no collective inside) and return
+        its result; under tp every rank runs it at the same point and
+        they agree on its outcome (``comm.agree``) before anything else,
+        so when one rank runs out of memory all of them raise
+        ``_AgreedOOM`` instead of one rank missing a collective the others
+        wait in."""
+        err = None
+        try:
+            out = step()
+        except torch.cuda.OutOfMemoryError as exc:
+            err, out = exc, None
+        if self._sharded:
+            if not comm.agree(err is None, self.mesh):
+                _drop_tracebacks(err)
+                raise _AgreedOOM(
+                    f"a tensor-parallel rank ran out of device memory: "
+                    f"{err or 'another rank'}")
+        elif err is not None:
+            raise err
+        return out
+
+    def _report(self) -> dict:
+        return {"launch_counts": graphs.launch_counts(),
+                "load": dict(self.load_report),
+                "pool_pages": self._n_pages - 1}
+
+    def rank_reports(self) -> list[dict]:
+        """Each rank's report in rank order: its kernel launch counters
+        (``engine/graphs.py`` ``launch_counts``), its checkpoint load
+        report (``load_report``) and its pool's pages; under tp every
+        follower's, gathered on the serve thread between two programs."""
         if not self._recording:
-            return [graphs.launch_counts()]
+            return [self._report()]
 
         def gather() -> list[dict]:
-            comm.broadcast_header(("counts",), self.mesh)
-            return comm.gather_to_leader(graphs.launch_counts(), self.mesh)
+            comm.broadcast_header(("report",), self.mesh)
+            return comm.gather_to_leader(self._report(), self.mesh)
         return self._on_serve_thread(gather)
+
+    # ------------------------------------------------------------ scoring
+
+    def score(self, token_ids: Sequence[int], chunk: int = 2048
+              ) -> np.ndarray:
+        """Per-token NLL of ``token_ids`` (``llama.score``) as float64 on
+        the host. On one card it runs on the calling thread, beside the
+        serve loop. Under tp every rank runs the tp forward with the same
+        tokens, so it runs on the serve thread between two programs, after
+        a header of its own to the followers; an out-of-memory error there
+        ends the engine (the followers may wait in a collective)."""
+        ids = [int(t) for t in token_ids]
+        if not self._sharded:
+            return self._score(ids, chunk)
+
+        def run() -> np.ndarray:
+            self._broadcast(("score", ids, chunk))
+            with self._collective():
+                return self._score(ids, chunk)
+        self._alive()
+        try:
+            return self._on_serve_thread(run)
+        except torch.cuda.OutOfMemoryError as exc:
+            raise EngineError(f"scoring ran out of device memory at "
+                              f"tp={self.mesh.tp}: the engine is down"
+                              ) from exc
+
+    @torch.no_grad()
+    def _score(self, ids: list, chunk: int) -> np.ndarray:
+        tokens = torch.tensor([ids], dtype=torch.int32, device=self.device)
+        nll = llama.score(self.params, self.model_cfg, tokens, chunk=chunk,
+                          mesh=self.mesh if self._sharded else None)
+        return nll[0].double().cpu().numpy()
 
     def _build_device(self) -> None:
         """Allocate the pool of ``_n_pages`` pages and the static state,
@@ -1029,7 +1166,7 @@ class Engine:
         self._free_pages = list(range(1, self._n_pages))
         self._prefix_cache = (PrefixCache(cfg.page_size) if cfg.prefix_cache
                               else None)
-        self._state = self._init_device_state()
+        self._state = self._agreed(self._init_device_state)
         (self._admit_arrays, self._admit_host,
          self._admit_in) = self._admission_views()
         self._step_counter = itertools.count()
@@ -1101,14 +1238,16 @@ class Engine:
 
     # -------------------------------------------------------------- sizing
 
-    def _kv_bytes_per_token(self, pooled: bool = True) -> int:
+    def _kv_bytes_per_token(self, pooled: bool = True,
+                            local: bool = True) -> int:
         """KV bytes per cached token. ``pooled``: bytes in the page pool
         (int8 rows plus one bf16 scale each under kv_quant); False: the
         dense bytes of a prefill bucket's KV, which stays in the compute
         dtype until the insert quantizes it (sizing the prefill reserve
         with pooled bytes would under-reserve by ~2x under kv_quant).
-        Under tp, this rank's kv heads."""
-        m = self._local_cfg
+        Under tp, this rank's kv heads (the whole model's without
+        ``local``)."""
+        m = self._local_cfg if local else self.model_cfg
         if pooled and self.cfg.kv_quant:
             return m.num_layers * m.num_kv_heads * 2 * (m.head_dim + 2)
         return (2 * m.num_layers * m.num_kv_heads * m.head_dim
@@ -1446,7 +1585,9 @@ class Engine:
         spec, a = fused.spec, self._admit_in
         Se, Sq = spec.enc_bucket, spec.q_bucket
         tokens, length, top_ids = fused.assemble(
-            x[:2 * Se].view(2, Se), x[2 * Se:2 * Se + Sq], x[-1:])
+            x[:2 * Se].view(2, Se), x[2 * Se:2 * Se + Sq], x[-1:],
+            share=(functools.partial(comm.broadcast_, mesh=self.mesh)
+                   if self._sharded else None))
         a["tokens"][:spec.bucket].copy_(tokens)
         a["length"].copy_(length)
         k, v, first, seen = self._prefill(spec.bucket, greedy)
@@ -1921,6 +2062,12 @@ class Engine:
         pool = self._graph_pool = torch.cuda.graph_pool_handle()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
+        if self._sharded and self._pool_reserve is not None:
+            # The captures' warm-ups hold collectives: every rank first
+            # shows that the reserve the programs fit in is free.
+            self._agreed(lambda: torch.empty(
+                (self._pool_reserve,), dtype=torch.int8, device=dev))
+            torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         for table, key, body, gen in self._programs():
             table[key] = graphs.capture(
@@ -2031,23 +2178,31 @@ class Engine:
         ``int((pages - 1) * 0.8) + 1`` pages with the trash page (never
         below one request's pages), and the engine is rebuilt at that
         size, up to ``PREWARM_RETRIES`` times. The engine must be
-        stopped."""
+        stopped.
+
+        Under tp the leader runs this while its followers follow: each
+        attempt's slack is allocated on every rank and its outcome agreed
+        before the serve (``_agreed``), as is each rebuild's pool, so an
+        out-of-memory error on any one rank shrinks every rank's pool to
+        the same page count (the ``"rebuild"`` header carries it). An
+        out-of-memory error inside a program is not agreed on: it ends the
+        engine."""
         if self._thread is not None:
             raise EngineError("prewarm() requires a stopped engine")
+        oom = _AgreedOOM if self._sharded else torch.cuda.OutOfMemoryError
         for attempt in range(self.PREWARM_RETRIES + 1):
             try:
                 if attempt:
                     # Inside the try: the rebuild's own allocations can
                     # run out too, and that shrinks the pool again.
+                    self._broadcast(("rebuild", self._n_pages))
                     self._rebuild()
                 self._verify_alloc()
                 return
-            except torch.cuda.OutOfMemoryError as exc:
+            except oom as exc:
                 new_pages = max(self._pmax + 1,
                                 int((self._n_pages - 1) * 0.8) + 1)
-                # Under tp every rank would have to shrink alike: a
-                # sharded engine is sized by kv_pool_tokens instead.
-                if (attempt == self.PREWARM_RETRIES or self._sharded
+                if (attempt == self.PREWARM_RETRIES
                         or new_pages >= self._n_pages):
                     raise
                 # The failed serve's frames (its device tensors) hang off
@@ -2060,14 +2215,20 @@ class Engine:
                           retry_pages=new_pages - 1)
                 self._n_pages = new_pages
 
+    def _alloc_slack(self) -> Optional[torch.Tensor]:
+        """The 256 MiB ``prewarm`` holds spare on the card (None on the
+        CPU)."""
+        return (torch.empty((256 << 20,), dtype=torch.int8,
+                            device=self.device)
+                if self.device.type == "cuda" else None)
+
     def _verify_alloc(self) -> None:
         """``prewarm``'s serve: the two short streams, then, once they are
         done, the worst-case request, through the started loop, holding
         256 MiB spare on the card so the accepted size has headroom past
-        the serve's peak."""
-        slack = (torch.empty((256 << 20,), dtype=torch.int8,
-                             device=self.device)
-                 if self.device.type == "cuda" else None)
+        the serve's peak (under tp on every rank, agreed)."""
+        self._broadcast(("slack",))
+        slack = self._agreed(self._alloc_slack)
         ids = [min(3, self.model_cfg.vocab_size - 1)] * \
             self.cfg.max_input_length
         streams = []
@@ -2107,6 +2268,7 @@ class Engine:
             except Exception:  # noqa: BLE001 - cleanup after a failure
                 pass
             del slack
+            self._broadcast(("slack_done",))
 
     def _rebuild(self) -> None:
         """Drop the pool, the state and every captured program, and build
@@ -2125,9 +2287,11 @@ class Engine:
         self._ring.reset()
         self._ops = []
         recording, self._recording = self._recording, False
-        self._drop_device_state()
-        self._build_device()
-        self._recording = recording
+        try:
+            self._drop_device_state()
+            self._build_device()
+        finally:
+            self._recording = recording
         with self._stats_lock:
             self._stats["sched_round_budget_tokens"] = \
                 self._sched.round_budget_tokens
@@ -2220,7 +2384,7 @@ class Engine:
             if not req.done:
                 req.stream._fail(exc)
         self.stop()
-        self._broadcast(("rebuild",))
+        self._broadcast(("rebuild", self._n_pages))
         self._rebuild()
 
     def _fail_control_ops(self, reason: str) -> None:
@@ -2622,8 +2786,9 @@ class Engine:
         card captures the program. A new spec drops the old one's
         programs. Refused: a bucket that is not a page multiple or leaves
         the cache no room (the reference's refusals), and encoder
-        parameters on another device, and tp > 1 (ROADMAP A21)."""
-        self._refuse_sharded("fused RAG")
+        parameters on another device. Under tp the encoder's parameters
+        go from the leader to every follower by broadcasts (the followers
+        hold a replica each, as the reference's unsharded arrays are)."""
         if spec.bucket % self.cfg.page_size:
             raise EngineError("fused-RAG bucket must be a page multiple")
         if spec.bucket + 1 > self.cfg.max_cache_len:
@@ -2634,16 +2799,27 @@ class Engine:
                               f"the engine runs on {self.device}")
 
         def install() -> None:
-            self._drop_rag_programs()
-            n = 2 * spec.enc_bucket + spec.q_bucket + 1
-            self._fused_rag = FusedRag(enc_params, enc_cfg, spec,
-                                       self.device)
-            self._rag_in = (np.zeros((n,), np.int32),
-                            torch.zeros((n,), dtype=torch.int32,
-                                        device=self.device))
-            self._rag_aux = torch.zeros((spec.top_k + 2,),
-                                        dtype=torch.int32, device=self.device)
+            flat = weight_cache.flatten(enc_params)
+            self._broadcast(("rag_enable", enc_cfg, spec, [
+                (name, tuple(t.shape), t.dtype) for name, t in flat.items()]))
+            self._install_rag(enc_params, enc_cfg, spec)
         self._on_serve_thread(install)
+
+    def _install_rag(self, enc_params, enc_cfg, spec: FusedRagSpec) -> None:
+        """``enable_fused_rag``'s body, on every rank (a follower's
+        ``enc_params`` are empty tensors the leader's broadcasts fill)."""
+        self._drop_rag_programs()
+        if self._sharded:
+            with self._collective():
+                for t in weight_cache.flatten(enc_params).values():
+                    comm.broadcast_(t, self.mesh)
+        n = 2 * spec.enc_bucket + spec.q_bucket + 1
+        self._fused_rag = FusedRag(enc_params, enc_cfg, spec, self.device)
+        self._rag_in = (np.zeros((n,), np.int32),
+                        torch.zeros((n,), dtype=torch.int32,
+                                    device=self.device))
+        self._rag_aux = torch.zeros((spec.top_k + 2,), dtype=torch.int32,
+                                    device=self.device)
 
     @property
     def fused_rag_spec(self) -> Optional[FusedRagSpec]:
@@ -2660,16 +2836,32 @@ class Engine:
         flight: an admission dispatched before it reads the old corpus,
         one after it the new. On the card the fused programs are captured
         here when missing, and again when the corpus outgrew its
-        capacity (new buffers)."""
+        capacity (new buffers). Under tp the leader's rows then go to
+        every follower by broadcasts (NCCL on the card, never through the
+        pickled headers)."""
         if self._fused_rag is None:
             raise EngineError("enable_fused_rag() first")
 
         def upload() -> None:
-            if self._fused_rag.set_corpus(emb, toks, lens,
-                                          copy=self._host_to_device):
-                self._drop_rag_programs()
+            emb_np = np.asarray(emb, np.float32)
+            self._broadcast(("rag_corpus", emb_np.shape[0],
+                             emb_np.shape[1]))
+            self._set_corpus(emb_np, toks, lens)
             self._capture_rag()
         self._on_serve_thread(upload)
+
+    def _set_corpus(self, emb, toks, lens) -> None:
+        """``set_rag_corpus``'s upload, on every rank (a follower's arrays
+        are zeros of the leader's shapes, which the broadcasts fill)."""
+        fused = self._fused_rag
+        grew = fused.set_corpus(emb, toks, lens, copy=functools.partial(
+            self._host_to_device, record=False))
+        if self._sharded:
+            with self._collective():
+                for t in fused.corpus.values():
+                    comm.broadcast_(t, self.mesh)
+        if grew:
+            self._drop_rag_programs()
 
     # The slot state an admission writes (``_arm``).
     _SLOT_KEYS = ("table", "pos", "last_token", "active", "remaining",
@@ -2687,6 +2879,16 @@ class Engine:
         pool: running out raises ``EngineError``."""
         if not self._graphs_on or self._rag_graphs:
             return
+        # The warm-ups hold collectives under tp: the followers capture
+        # alongside, staging their own inputs (nothing is recorded).
+        self._broadcast(("rag_capture",))
+        recording, self._recording = self._recording, False
+        try:
+            self._capture_rag_programs()
+        finally:
+            self._recording = recording
+
+    def _capture_rag_programs(self) -> None:
         dev, st, spec = self.device, self._state, self._fused_rag.spec
         saved = {name: st[name].clone() for name in self._SLOT_KEYS}
         for arr in self._admit_arrays.values():
@@ -3403,14 +3605,79 @@ class Engine:
             src = src.pin_memory()
         return src.to(self.device, non_blocking=True)
 
+    def _gather_pages(self, pages: Sequence[int]) -> Optional[dict]:
+        """The whole model's KV of pool ``pages`` on the device, name ->
+        (L, n, KV, page, hd) (``(L, n, KV, page)`` for the int8 pool's
+        scales), gathered on the serve stream ahead of any later program.
+        Under tp every rank gathers its own heads and they meet on the
+        leader (a header first; None on a follower), each kv head taken
+        from a rank that holds it (``llama.kv_heads_held``)."""
+        idx = self._index_tensor(pages)
+        local = {k: v.index_select(1, idx)
+                 for k, v in self._state["cache"].items()}
+        if not self._sharded:
+            return local
+        self._broadcast(("gather", list(pages)))
+        tp, KV = self.mesh.tp, self.model_cfg.num_kv_heads
+        out = {}
+        with self._collective():
+            for name, t in local.items():
+                parts = comm.all_gather(t, self.mesh)   # (tp, L, n, KVl..)
+                if not self.leader:
+                    continue
+                whole = t.new_empty((t.shape[0], t.shape[1], KV)
+                                    + tuple(t.shape[3:]))
+                for r in range(tp):
+                    held = llama.kv_heads_held(self.model_cfg, tp, r)
+                    whole[:, :, list(held)] = parts[r]
+                out[name] = whole
+        return out if self.leader else None
+
+    def _scatter_pages(self, pages: Sequence[int],
+                       arrays: Optional[dict]) -> None:
+        """Write whole-model page KV (``arrays``: name -> (L, n, KV, ...)
+        host tensors, the leader's) into pool ``pages``; under tp the
+        leader sends a header, broadcasts the pages and each rank keeps
+        its own heads. On the card the copies come from pinned memory,
+        asynchronously."""
+        idx = self._index_tensor(pages)
+        cache = self._state["cache"]
+        cuda = self.device.type == "cuda"
+
+        def upload(name: str, pool: torch.Tensor) -> torch.Tensor:
+            src = arrays[name].to(pool.dtype)
+            if cuda:
+                src = src.pin_memory()
+            return src.to(self.device, non_blocking=True)
+
+        if not self._sharded:
+            for name, pool in cache.items():
+                pool.index_copy_(1, idx, upload(name, pool))
+            return
+        self._broadcast(("scatter", list(pages)))
+        KV = self.model_cfg.num_kv_heads
+        held = torch.tensor(llama.kv_heads_held(
+            self.model_cfg, self.mesh.tp, self.mesh.tp_rank),
+            device=self.device)
+        with self._collective():
+            for name, pool in cache.items():
+                buf = (upload(name, pool) if self.leader else torch.empty(
+                    (pool.shape[0], len(pages), KV) + tuple(pool.shape[3:]),
+                    dtype=pool.dtype, device=self.device))
+                comm.broadcast_(buf, self.mesh)
+                pool.index_copy_(1, idx, buf.index_select(2, held))
+
     def _offload_victims(self, victims: list, rec=None) -> None:
         """Offload evicted refcount-0 prefix pages to the host tier: one
         gather of the victims into device staging on the serve stream
-        (ordered before any later program overwrites the pages), then on
-        the card a copy into pinned host memory on a side stream under
+        (ordered before any later program overwrites the pages; under tp
+        every rank's heads, into whole-model blocks on the leader), then
+        on the card a copy into pinned host memory on a side stream under
         CUDA events; the harvest waits for it and files the records, off
-        the scheduling path. A failure (an injected ``kv.offload`` too)
-        drops the pages, as the engine without a tier does."""
+        the scheduling path. A failure before the gather (an injected
+        ``kv.offload`` too) or after it drops the pages, as the engine
+        without a tier does; a failure in the gather's collectives ends
+        the engine."""
         tier = self._kv_tier
         if tier is None or not victims:
             return
@@ -3418,11 +3685,13 @@ class Engine:
             faults.inject("kv.offload")
             fresh = [(h, par, pg) for h, par, pg in victims
                      if not tier.store.has(h)]
-            if not fresh:
-                return
-            idx = self._index_tensor([pg for _, _, pg in fresh])
-            staged = {k: v.index_select(1, idx)
-                      for k, v in self._state["cache"].items()}
+        except Exception:  # noqa: BLE001 - offload is best effort
+            logger.debug("kv offload failed; pages dropped", exc_info=True)
+            return
+        if not fresh:
+            return
+        staged = self._gather_pages([pg for _, _, pg in fresh])
+        try:
             events = None
             if self.device.type == "cuda":
                 if self._io_stream is None:
@@ -3445,8 +3714,9 @@ class Engine:
             self._post(("offload", [(h, par) for h, par, _ in fresh], host,
                         events, None))
             if rec is not None:
+                # The leader moves whole-model blocks (every rank's heads).
                 rec.hbm_bytes += (len(fresh) * self.cfg.page_size
-                                  * self._kv_bytes_per_token())
+                                  * self._kv_bytes_per_token(local=False))
         except Exception:  # noqa: BLE001 - offload is best effort
             logger.debug("kv offload failed; pages dropped", exc_info=True)
 
@@ -3511,30 +3781,24 @@ class Engine:
     def _restore_blocks(self, req: _Request, hashes: list, k_use: int,
                         recs: list, rec=None) -> int:
         """Copy host-tier blocks into the request's fresh pages: one copy
-        per pool leaf (from pinned memory on the card) and one scatter,
-        eagerly on the serve stream ahead of the prompt's chunk programs,
-        so the first chunk reads them in order. Their indices vary, so
-        this is not captured. The blocks enter the prefix cache as if
-        prefilled (one ref held by the request). Returns the pages
-        restored."""
+        per pool leaf (from pinned memory on the card) and one scatter
+        (``_scatter_pages``: under tp every rank's heads of the
+        whole-model blocks), eagerly on the serve stream ahead of the
+        prompt's chunk programs, so the first chunk reads them in order.
+        Their indices vary, so this is not captured. The blocks enter the
+        prefix cache as if prefilled (one ref held by the request).
+        Returns the pages restored."""
         page, r = self.cfg.page_size, len(recs)
         t0 = time.monotonic()
         faults.inject("kv.restore")
         arrays = KVTier.stack_blocks(recs)          # name -> (L, r, ...)
         pages = req.pages[k_use:k_use + r]
-        cache = self._state["cache"]
-        cuda = self.device.type == "cuda"
         events = None
-        if cuda:
+        if self.device.type == "cuda":
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
-        idx = self._index_tensor(pages)
-        for name, pool in cache.items():
-            src = arrays[name].to(pool.dtype)
-            if cuda:
-                src = src.pin_memory()
-            pool.index_copy_(1, idx, src.to(self.device, non_blocking=True))
+        self._scatter_pages(pages, arrays)
         dt = time.monotonic() - t0
         if events is not None:
             events[1].record()
@@ -3556,7 +3820,7 @@ class Engine:
             self._stats["kv_tier_restore_hits"] += 1
         if rec is not None:
             rec.kv_restore_pages += r
-            rec.hbm_bytes += r * page * self._kv_bytes_per_token()
+            rec.hbm_bytes += r * page * self._kv_bytes_per_token(local=False)
         return r
 
     def _collect_blocks(self, hashes: list, start: int, stop: int,
@@ -3583,9 +3847,8 @@ class Engine:
                                 pg))
             out.append(None)
         if gather_meta:
-            idx = self._index_tensor([pg for *_, pg in gather_meta])
-            host = {k: v.index_select(1, idx).cpu()
-                    for k, v in self._state["cache"].items()}
+            host = {k: v.cpu() for k, v in self._gather_pages(
+                [pg for *_, pg in gather_meta]).items()}
             records = KVTier.split_pages(
                 host, [(h, par) for _, h, par, _ in gather_meta])
             for (i, *_), record in zip(gather_meta, records):
@@ -3595,7 +3858,6 @@ class Engine:
         return [r for r in out if r is not None]
 
     def _require_tier(self) -> KVTier:
-        self._refuse_sharded("the host KV tier and the fleet handoff")
         if self._kv_tier is None:
             raise EngineError("KV tiering is disabled (KV_HOST_POOL_TOKENS=0)")
         return self._kv_tier
@@ -3737,6 +3999,8 @@ class Engine:
                 restored = self._restore_blocks(req, hashes, k_use,
                                                 restore_recs, rec)
             except Exception:  # noqa: BLE001 - falls back to recompute
+                if self._fatal is not None:
+                    raise     # a tp rank's collective failed
                 # The pages may hold part of the copy: the prefill
                 # recomputes over them from the pool-hit boundary.
                 logger.warning("kv restore failed; recomputing the prefix",
@@ -3883,6 +4147,8 @@ class Engine:
         host[-1] = q_len
         self._host_to_device(dev_in, host)
         self._admit_gen.manual_seed(pf["seed"])
+        if self._recording:
+            self._ops.append(("admit_seed", pf["seed"]))
         faults.inject("engine.dispatch")
         t0 = time.monotonic()
         self._replay(self._rag_graphs, self._rag_body, req.greedy)
@@ -3968,13 +4234,16 @@ class Engine:
         for name, arr in self._admit_arrays.items():
             self._host_to_device(self._state["admit"][name], arr)
 
-    def _host_to_device(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+    def _host_to_device(self, dst: torch.Tensor, arr: np.ndarray,
+                        record: bool = True) -> None:
         """Copy a host array into device state, in place. On the card it
         goes through a fresh pinned buffer, asynchronously (a copy from
         pageable memory would wait for every round in flight); the caching
         host allocator keeps that buffer until the copy has run, so each
-        program in flight keeps its own source."""
-        if self._recording:
+        program in flight keeps its own source. A tp leader stages the
+        write for its followers unless ``record`` is False (the caller
+        sends the data another way)."""
+        if self._recording and record:
             self._ops.append(("copy", self._state_name(dst), arr.copy()))
         src = torch.from_numpy(arr)
         if self.device.type == "cuda":

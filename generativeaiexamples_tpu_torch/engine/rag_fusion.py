@@ -146,13 +146,16 @@ class FusedRag:
         return grew
 
     def assemble(self, q_enc: torch.Tensor, q_llm: torch.Tensor,
-                 q_len: torch.Tensor):
+                 q_len: torch.Tensor, share=None):
         """On the device: embed the question, take the top-k chunks under
         the token budget and scatter template, chunks and question into
         one (bucket,) token row. ``q_enc`` (2, enc_bucket) int32 holds
         the encoder tokens and mask, ``q_llm`` (q_bucket,) the question
         in the LLM vocabulary and ``q_len`` (1,) its length. Returns
         (tokens (bucket,) int32, length (1,) int32, top_ids (K,) int32).
+        ``share``: applied in place to the chosen rows before assembly
+        (under tensor parallelism the leader's rows broadcast, so every
+        rank assembles the same prompt whatever its own search's ties).
         Nothing here reads a device value on the host, so the engine can
         capture it."""
         spec, corpus, dev = self.spec, self.corpus, self.device
@@ -167,6 +170,8 @@ class FusedRag:
         scores = scores.masked_fill(rows >= corpus["n"], float("-inf"))
         # Ties lowest id first, as lax.top_k orders them.
         _, top_ids = topk_lowest_id_first(scores, K)
+        if share is not None:
+            top_ids = share(top_ids.to(torch.int32))
         kk = torch.arange(K, device=dev)
         # Past a corpus shorter than K the top-k returns dead rows.
         dlens = torch.where(kk < corpus["n"], corpus["lens"][top_ids],

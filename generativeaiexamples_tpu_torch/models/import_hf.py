@@ -16,7 +16,17 @@ and NeMo archives to ``models/import_nemo.py``, as the reference's
 ``load_checkpoint`` sends them; a directory with no recognized files
 raises ``UnsupportedFormatError``. The format is read with the port's own
 safetensors reader (``models/safetensors.py``); no ``safetensors`` or
-``transformers`` package is needed. HF and Meta names are llama-2's, and
+``transformers`` package is needed.
+
+Under tensor parallelism (``mesh``) a rank reads only its own block of
+every leaf: the block ``shard_slices`` gives under ``llama_param_specs``,
+cut in the checkpoint's layout before any byte is read (rows of an
+``(out, in)`` matrix, or each row's span of ``in`` for a row-parallel
+weight). A safetensors block is read span by span (``StoredTensor``),
+so a rank reads about 1/tp of each sharded tensor and keeps none of the
+file's pages; Meta's model-parallel files are opened as its blocks need
+them. The result equals ``shard_params`` of the whole tree bit for
+bit. HF and Meta names are llama-2's, and
 HF's also Mixtral's (``block_sparse_moe.gate`` -> ``router``,
 ``block_sparse_moe.experts.{e}.w1/w3/w2`` -> the ``w_gate``/``w_up``/
 ``w_down`` expert stacks); a GPT-Next checkpoint comes as a ``.nemo``
@@ -25,6 +35,7 @@ archive.
 
 from __future__ import annotations
 
+import functools
 import os
 import re
 import zipfile
@@ -32,12 +43,14 @@ from typing import Any, Callable, Iterator, Optional, Union
 
 import torch
 
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import block_index, llama_param_specs, shard_shape
 from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, ModelLoadError, UnsupportedFormatError
 from . import llama
 from .configs import LlamaConfig
 from .convert import _expected_shapes, layer_keys
-from .safetensors import iter_file, tensor_names
+from .safetensors import iter_file, iter_stored, tensor_names
 
 _HF_LAYER_KEYS = {
     "input_layernorm.weight": ("attn_norm", False),
@@ -140,10 +153,14 @@ def detect_checkpoint_format(path: str) -> str:
         f"no recognized checkpoint files in {path}: {sorted(names)[:10]}")
 
 
-def _iter_safetensors(path: str) -> Iterator[tuple[str, torch.Tensor]]:
+def _iter_safetensors(path: str, read: Callable = iter_file
+                      ) -> Iterator[tuple[str, Any]]:
+    """Every tensor of a directory's safetensors files, as ``read`` gives
+    them (``iter_file``'s memory-mapped views, or ``iter_stored``'s
+    tensors read block by block, as checkpoints are)."""
     for fname in sorted(os.listdir(path)):
         if fname.endswith(".safetensors"):
-            yield from iter_file(os.path.join(path, fname))
+            yield from read(os.path.join(path, fname))
 
 
 def _iter_torch_bin(path: str) -> Iterator[tuple[str, torch.Tensor]]:
@@ -183,26 +200,70 @@ def _meta_shard_dim(key: str) -> Optional[int]:
     return _META_SHARD_DIM[suffix]
 
 
-def _iter_meta_pth(path: str) -> Iterator[tuple[str, torch.Tensor]]:
-    """Meta/fairscale checkpoints: merge the consolidated.*.pth TP shards
-    (every shard holds the same names, split along per-tensor axes). The
-    shards are memory-mapped, so only the tensor being merged is
-    resident; a single-file checkpoint passes through."""
+class _Concat:
+    """A tensor stored split over files along ``dim`` (Meta's
+    model-parallel shards), read part by part: ``take`` opens and reads
+    only the parts a block overlaps."""
+
+    def __init__(self, parts: list, dim: int, part_shape: tuple):
+        self.parts, self.dim = parts, dim
+        self.part = part_shape[dim]
+        shape = list(part_shape)
+        shape[dim] *= len(parts)
+        self.shape = torch.Size(shape)
+
+    def take(self, idx: tuple) -> torch.Tensor:
+        start, stop, _ = idx[self.dim].indices(self.shape[self.dim])
+        w, pieces = self.part, []
+        for i in range(start // w, -(-stop // w)):
+            sub = list(idx)
+            sub[self.dim] = slice(max(start, i * w) - i * w,
+                                  min(stop, (i + 1) * w) - i * w)
+            pieces.append(self.parts[i]()[tuple(sub)])
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces,
+                                                            self.dim)
+
+
+def _take(raw: Any, idx: tuple) -> torch.Tensor:
+    """``raw[idx]``: a view of a memory-mapped tensor (nothing read until
+    it is copied), the block of a ``StoredTensor`` read, or the
+    overlapping parts of a ``_Concat``."""
+    return raw.take(idx) if isinstance(raw, _Concat) else raw[idx]
+
+
+def _iter_meta_pth(path: str) -> Iterator[tuple[str, Any]]:
+    """Meta/fairscale checkpoints: the consolidated.*.pth TP shards
+    (every shard holds the same names, split along per-tensor axes) as
+    one ``_Concat`` per split tensor. The shards are memory-mapped and
+    opened when a read first needs them, so a rank whose blocks lie in
+    two of eight files opens those two for its layer weights; a
+    single-file checkpoint passes through."""
     files = sorted(f for f in os.listdir(path) if f.endswith((".pth", ".pt")))
-    shards = [torch.load(os.path.join(path, f), map_location="cpu",
-                         weights_only=True, mmap=True) for f in files]
-    for key in shards[0]:
+    opened: dict[int, dict] = {}
+
+    def shard(i: int) -> dict:
+        if i not in opened:
+            opened[i] = torch.load(os.path.join(path, files[i]),
+                                   map_location="cpu", weights_only=True,
+                                   mmap=True)
+        return opened[i]
+
+    for key, first in shard(0).items():
         if key == "rope.freqs":  # a precomputed buffer, not a weight
             continue
-        parts = [s[key] for s in shards]
-        dim = _meta_shard_dim(key) if len(parts) > 1 else None
-        yield key, parts[0] if dim is None else torch.cat(parts, dim=dim)
+        dim = _meta_shard_dim(key) if len(files) > 1 else None
+        if dim is None:
+            yield key, first
+            continue
+        yield key, _Concat([functools.partial(
+            lambda i, k: shard(i)[k], i, key) for i in range(len(files))],
+            dim, tuple(first.shape))
 
 
 # The formats read through ``params_from_named_tensors``, and the reader
 # of each (GPTQ, AWQ and NeMo have importers of their own).
 LOADABLE_FORMATS: dict[str, Callable[[str], Iterator[tuple[str, Any]]]] = {
-    "safetensors": _iter_safetensors,
+    "safetensors": functools.partial(_iter_safetensors, read=iter_stored),
     "pytorch_bin": _iter_torch_bin,
     "meta_pth": _iter_meta_pth,
 }
@@ -252,21 +313,45 @@ def _leaf_spec(key: str, cfg: LlamaConfig
     return None
 
 
+def leaf_specs(cfg: LlamaConfig, mesh: Optional[Mesh]) -> dict:
+    """The spec of every flat leaf (``layers/...`` for layer leaves) of
+    ``cfg``'s tree under ``mesh`` (all None without one), ``lm_head``'s
+    included where the config ties it."""
+    if mesh is None:
+        return {}
+    specs = llama_param_specs(cfg, mesh)
+    flat = {k: v for k, v in specs.items() if k != "layers"}
+    flat.update({f"layers/{k}": v for k, v in specs["layers"].items()})
+    flat.setdefault("lm_head", (None, "tp" if mesh.tp > 1 else None))
+    return flat
+
+
 def params_from_named_tensors(
         tensors: Iterator[tuple[str, Any]], cfg: LlamaConfig,
         dtype: torch.dtype = torch.bfloat16,
-        device: Union[str, torch.device] = "cuda") -> llama.Params:
+        device: Union[str, torch.device] = "cuda",
+        mesh: Optional[Mesh] = None) -> llama.Params:
     """Assemble the port's parameter tree from HF- or Meta-named tensors
     (with or without a leading ``model.``). Every leaf is allocated on
     ``device`` in ``dtype`` up front, at the shape ``cfg`` gives it, and
     each tensor is moved to the device in its own dtype and then
     transposed and cast into its slot there. A tensor whose shape does
     not fit the config raises ``ConfigError``; a missing one
-    ``ModelLoadError``."""
+    ``ModelLoadError``.
+
+    ``mesh``: the tree is this rank's shard (``parallel/sharding.py``),
+    equal bit for bit to ``shard_params`` of the whole tree. Each tensor's
+    block is cut in the checkpoint's own layout before anything is read:
+    rows of an ``(out, in)`` matrix for a column-parallel leaf, each
+    row's span of ``in`` for a row-parallel one (read span by span from a
+    safetensors file; a strided view of a ``.bin``/``.pth`` memory map,
+    never made contiguous first), whole heads of Meta's
+    rope-permuted q/k rows (so slicing and unpermuting commute)."""
     llama.check_supported(cfg)
     dev = resolve_device(device)
     shapes = _expected_shapes(cfg)
     shapes["lm_head"] = (cfg.hidden_size, cfg.vocab_size)
+    specs = leaf_specs(cfg, mesh)
     out: dict[str, torch.Tensor] = {}
     filled: dict[str, set] = {}
     for key, raw in tensors:
@@ -282,19 +367,22 @@ def params_from_named_tensors(
                               f"MLP has no such {flat}")
         n_idx = 0 if idx is None else 1 if isinstance(idx, int) else 2
         want = shapes[flat][n_idx:]
-        t = raw.detach().to(dev)
-        if kind == "q":
-            t = _unpermute_rope(t, cfg.num_heads, cfg.head_dim)
-        elif kind == "k":
-            t = _unpermute_rope(t, cfg.num_kv_heads, cfg.head_dim)
-        if kind != "plain":
-            t = t.T
-        if tuple(t.shape) != want:
+        stored = want if kind == "plain" else want[::-1]
+        if tuple(raw.shape) != stored:
             raise ConfigError(f"{key}: shape {tuple(raw.shape)} does not "
                               f"give the {want} that {flat} takes for "
                               f"this config")
+        block = block_index(want, specs.get(flat, ())[n_idx:], mesh)
+        t = _take(raw, block if kind == "plain" else block[::-1])
+        t = t.detach().to(dev)
+        if kind in ("q", "k"):
+            t = _unpermute_rope(t, t.shape[0] // cfg.head_dim, cfg.head_dim)
+        if kind != "plain":
+            t = t.T
         if flat not in out:
-            out[flat] = torch.empty(shapes[flat], dtype=dtype, device=dev)
+            out[flat] = torch.empty(
+                shard_shape(shapes[flat], specs.get(flat, ()), mesh),
+                dtype=dtype, device=dev)
         (out[flat] if idx is None else out[flat][idx]).copy_(t)
         filled.setdefault(flat, set()).add(idx)
         del t
@@ -322,21 +410,23 @@ def params_from_named_tensors(
 
 def load_checkpoint(path: str, cfg: LlamaConfig,
                     dtype: torch.dtype = torch.bfloat16,
-                    device: Union[str, torch.device] = "cuda"
-                    ) -> llama.Params:
+                    device: Union[str, torch.device] = "cuda",
+                    mesh: Optional[Mesh] = None) -> llama.Params:
     """Load a checkpoint directory (its format sniffed) onto ``device`` in
     ``dtype``: GPTQ and AWQ through ``import_quantized`` (group-wise int4
     leaves), a ``.nemo`` archive through ``import_nemo``, the rest by
-    name through ``params_from_named_tensors``."""
+    name through ``params_from_named_tensors``. ``mesh``: this rank's
+    shard only, read block by block (each importer's ``mesh``)."""
     fmt = detect_checkpoint_format(path)
     if fmt in ("gptq", "awq"):
         from .import_quantized import load_quantized_checkpoint
-        return load_quantized_checkpoint(path, cfg, dtype, device, fmt=fmt)
+        return load_quantized_checkpoint(path, cfg, dtype, device, fmt=fmt,
+                                         mesh=mesh)
     if fmt == "nemo":
         from .import_nemo import load_nemo_checkpoint
-        return load_nemo_checkpoint(path, cfg, dtype, device)
+        return load_nemo_checkpoint(path, cfg, dtype, device, mesh=mesh)
     return params_from_named_tensors(LOADABLE_FORMATS[fmt](path), cfg,
-                                     dtype, device)
+                                     dtype, device, mesh=mesh)
 
 
 def params_from_hf_model(model: Any, cfg: LlamaConfig,

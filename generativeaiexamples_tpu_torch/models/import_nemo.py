@@ -18,6 +18,14 @@ GPT-Next checkpoints carry layernorm1p offsets (``*_layernorm.bias``)
 and, where the config says, projection biases. NeMo's rotary embedding
 uses HF's rotate-half layout, so no RoPE permutation applies.
 
+The weights are read lazily: ``open_archive`` parses the state dict's
+pickle with a restricted unpickler (tensors, storages and ordered dicts
+only, as ``weights_only`` allows) that records where each tensor's bytes
+lie in the archive member's zip, and a tensor's storage is read when the
+importer takes it. So the host holds one leaf at a time, and under a
+mesh each leaf is cut to the rank's block before it goes to the device:
+a rank's peak host memory is one leaf, its device memory its shard.
+
 The config is read by ``read_flat_yaml``, a reader of the top-level
 ``key: scalar`` lines that the importer checks, not by PyYAML: PyYAML is
 not guaranteed to be installed where the port runs, and its YAML 1.1
@@ -26,12 +34,18 @@ reads ``1e-5`` as a string, so the geometry would depend on the machine.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import os
+import pickle
 import tarfile
-from typing import Any, Union
+import zipfile
+from typing import Any, Iterator, Optional, Union
 
 import torch
 
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import block_index, shard_shape
 from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, ModelLoadError
 from .configs import LlamaConfig
@@ -114,15 +128,85 @@ def read_archive_config(nemo_path: str) -> dict:
             return read_flat_yaml(f.read().decode("utf-8"))
 
 
-def read_archive(nemo_path: str) -> tuple[dict, dict[str, torch.Tensor]]:
-    """(model_config.yaml's mapping, the state dict on the CPU)."""
+class _LazyTensor:
+    """A tensor of an archived state dict whose bytes are read from the
+    zip when ``load`` is called."""
+
+    def __init__(self, read, key: str, dtype: torch.dtype, offset: int,
+                 size: tuple, stride: tuple):
+        self._read, self._key, self.dtype = read, key, dtype
+        self._offset, self.shape = offset, torch.Size(size)
+        self._stride = tuple(stride)
+
+    def load(self) -> torch.Tensor:
+        raw = self._read(self._key)
+        flat = (torch.frombuffer(bytearray(raw), dtype=self.dtype) if raw
+                else torch.empty((0,), dtype=self.dtype))
+        return torch.as_strided(flat, self.shape, self._stride,
+                                self._offset)
+
+
+# torch's legacy storage classes, by the name a pickle gives them.
+_STORAGE_DTYPES = {
+    "FloatStorage": torch.float32, "DoubleStorage": torch.float64,
+    "HalfStorage": torch.float16, "BFloat16Storage": torch.bfloat16,
+    "LongStorage": torch.int64, "IntStorage": torch.int32,
+    "ShortStorage": torch.int16, "CharStorage": torch.int8,
+    "ByteStorage": torch.uint8, "BoolStorage": torch.bool,
+}
+
+
+class _StateUnpickler(pickle.Unpickler):
+    """The state dict's pickle with every tensor left unread: storages
+    become (key, dtype) and tensors ``_LazyTensor``; any other class is
+    refused, as ``torch.load(weights_only=True)`` refuses it."""
+
+    def __init__(self, f, read):
+        super().__init__(f)
+        self._read = read
+
+    def find_class(self, module: str, name: str):
+        if (module, name) == ("torch._utils", "_rebuild_tensor_v2"):
+            return self._rebuild
+        if (module, name) == ("collections", "OrderedDict"):
+            return collections.OrderedDict
+        if module == "torch" and name in _STORAGE_DTYPES:
+            return _STORAGE_DTYPES[name]
+        raise pickle.UnpicklingError(f"{module}.{name} is not read from a "
+                                     f"checkpoint")
+
+    def persistent_load(self, pid):
+        _, dtype, key, _location, _numel = pid
+        return key, dtype
+
+    def _rebuild(self, storage, offset, size, stride, *_):
+        key, dtype = storage
+        return _LazyTensor(self._read, key, dtype, offset, size, stride)
+
+
+@contextlib.contextmanager
+def open_archive(nemo_path: str) -> Iterator[tuple[dict, dict]]:
+    """(model_config.yaml's mapping, the state dict with each tensor a
+    ``_LazyTensor``) while the archive stays open. A weights member in
+    torch's older non-zip format is read whole (``torch.load``)."""
     with tarfile.open(nemo_path) as tar:
         cfg_name, ckpt_name = _members(tar, nemo_path)
         with tar.extractfile(cfg_name) as f:  # type: ignore[union-attr]
             config = read_flat_yaml(f.read().decode("utf-8"))
         with tar.extractfile(ckpt_name) as f:  # type: ignore[union-attr]
-            state = torch.load(f, map_location="cpu", weights_only=True)
-    return config, state
+            if not zipfile.is_zipfile(f):
+                f.seek(0)
+                yield config, torch.load(f, map_location="cpu",
+                                         weights_only=True)
+                return
+            with zipfile.ZipFile(f) as zf:
+                pkl = next(n for n in zf.namelist()
+                           if n.endswith("data.pkl"))
+                root = pkl[:-len("data.pkl")]
+                with zf.open(pkl) as pf:
+                    state = _StateUnpickler(
+                        pf, lambda key: zf.read(f"{root}data/{key}")).load()
+                yield config, state
 
 
 def _split_qkv(fused: torch.Tensor, cfg: LlamaConfig
@@ -144,43 +228,59 @@ def _split_qkv(fused: torch.Tensor, cfg: LlamaConfig
 
 def load_nemo_checkpoint(path: str, cfg: LlamaConfig,
                          dtype: torch.dtype = torch.bfloat16,
-                         device: Union[str, torch.device] = "cuda"
-                         ) -> Params:
+                         device: Union[str, torch.device] = "cuda",
+                         mesh: Optional[Mesh] = None) -> Params:
     """A ``.nemo`` archive (or a directory holding one) as the port's
-    parameter tree on ``device`` in ``dtype``. A ``num_layers`` in
-    ``model_config.yaml`` other than the config's, a missing tensor or a
-    shape the config does not give raise ``ModelLoadError``."""
+    parameter tree on ``device`` in ``dtype``, read leaf by leaf
+    (``open_archive``). A ``num_layers`` in ``model_config.yaml`` other
+    than the config's, a missing tensor or a shape the config does not
+    give raise ``ModelLoadError``. ``mesh``: this rank's shard only, each
+    leaf cut on the host to its block (``shard_params``' bit for bit)."""
     if cfg.num_experts:
         # The reference's NeMo importer is dense-only too.
         raise ConfigError(f"{path}: a mixture-of-experts geometry "
                           f"({cfg.num_experts} experts) has no NeMo "
                           f"import; load an HF checkpoint")
     nemo_path = find_nemo(path)
-    config, tensors = read_archive(nemo_path)
+    with open_archive(nemo_path) as (config, tensors):
+        return _assemble(nemo_path, config, tensors, cfg, dtype,
+                         resolve_device(device), mesh)
+
+
+def _assemble(nemo_path: str, config: dict, tensors: dict,
+              cfg: LlamaConfig, dtype: torch.dtype, dev: torch.device,
+              mesh: Optional[Mesh]) -> Params:
+    """``load_nemo_checkpoint``'s body over an open archive's state."""
+    from .import_hf import leaf_specs
     declared = config.get("num_layers")
     if declared is not None and int(declared) != cfg.num_layers:
         raise ModelLoadError(
             f"{nemo_path}: model_config.yaml num_layers={declared} but "
             f"target config has {cfg.num_layers}")
-    dev = resolve_device(device)
 
     def get(name: str) -> torch.Tensor:
         for key in (_PREFIX + name, "model." + name, name):
             if key in tensors:
-                return tensors[key]
+                t = tensors[key]
+                return t.load() if isinstance(t, _LazyTensor) else t
         raise ModelLoadError(f"{nemo_path}: missing tensor {name!r}")
 
     shapes = _expected_shapes(cfg)
+    specs = leaf_specs(cfg, mesh)
     out: dict[str, torch.Tensor] = {}
 
     def put(flat: str, idx, t: torch.Tensor) -> None:
-        want = shapes[flat][1:] if idx is not None else shapes[flat]
+        n_idx = 0 if idx is None else 1
+        want = shapes[flat][n_idx:]
         if tuple(t.shape) != want:
             raise ModelLoadError(f"{nemo_path}: {flat} gets shape "
                                  f"{tuple(t.shape)}, the config needs {want}")
+        spec = specs.get(flat, ())
         if flat not in out:
-            out[flat] = torch.empty(shapes[flat], dtype=dtype, device=dev)
-        (out[flat] if idx is None else out[flat][idx]).copy_(t.to(dev))
+            out[flat] = torch.empty(shard_shape(shapes[flat], spec, mesh),
+                                    dtype=dtype, device=dev)
+        block = t[block_index(want, spec[n_idx:], mesh)]
+        (out[flat] if idx is None else out[flat][idx]).copy_(block.to(dev))
 
     F = cfg.intermediate_size
     gptnext = cfg.mlp == "squared_relu"
@@ -229,7 +329,6 @@ def load_nemo_checkpoint(path: str, cfg: LlamaConfig,
         put("final_norm_b", None, get("encoder.final_layernorm.bias"))
     if "lm_head" in shapes:
         put("lm_head", None, get("output_layer.weight").T)
-    del tensors
     params: Params = {
         "embed": out["embed"],
         "layers": {k: out[f"layers/{k}"] for k in layer_keys(cfg)},

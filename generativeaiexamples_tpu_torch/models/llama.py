@@ -316,6 +316,31 @@ class TPLayout:
     kv_select: Optional[tuple[int, ...]]
 
 
+def kv_heads_held(cfg: LlamaConfig, tp: int, rank: int) -> tuple[int, ...]:
+    """The model's kv heads that tp rank ``rank`` keeps in its pool, in
+    its pool's order (``tp_layout``'s split): a contiguous run of KV/tp
+    when the kv heads divide tp, else those its query heads read."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if tp == 1:
+        return tuple(range(KV))
+    if KV % tp == 0:
+        n = KV // tp
+        return tuple(range(rank * n, (rank + 1) * n))
+    # wk/wv replicated: keep the kv heads this rank's query heads read
+    # (one per group, in head order), so the local grouping is even.
+    q_sharded = H % tp == 0
+    heads = H // tp if q_sharded else H
+    G = H // KV
+    first = rank * heads if q_sharded else 0
+    need = sorted({(first + j) // G for j in range(heads)})
+    per = [sum(1 for j in range(heads) if (first + j) // G == k)
+           for k in need]
+    if len(set(per)) != 1:
+        # Uneven groups on this rank: one kv row per query head.
+        need = [(first + j) // G for j in range(heads)]
+    return tuple(need)
+
+
 def tp_layout(cfg: LlamaConfig, mesh: Optional[Mesh]) -> TPLayout:
     """This rank's ``TPLayout`` under ``mesh`` (the whole model without
     one, or at tp = 1). The splits are ``llama_param_specs``'."""
@@ -329,22 +354,9 @@ def tp_layout(cfg: LlamaConfig, mesh: Optional[Mesh]) -> TPLayout:
     H, KV = cfg.num_heads, cfg.num_kv_heads
     q_sharded = H % tp == 0
     heads = H // tp if q_sharded else H
-    select = None
-    if KV % tp == 0:
-        kv_heads = KV // tp
-    else:
-        # wk/wv replicated: keep the kv heads this rank's query heads read
-        # (one per group, in head order), so the local grouping is even.
-        G = H // KV
-        first = r * heads if q_sharded else 0
-        need = sorted({(first + j) // G for j in range(heads)})
-        per = [sum(1 for j in range(heads) if (first + j) // G == k)
-               for k in need]
-        if len(set(per)) != 1:
-            # Uneven groups on this rank: one kv row per query head.
-            need = [(first + j) // G for j in range(heads)]
-        select, kv_heads = tuple(need), len(need)
-    local = replace(cfg, num_heads=heads, num_kv_heads=kv_heads,
+    held = kv_heads_held(cfg, tp, r)
+    select = None if KV % tp == 0 else held
+    local = replace(cfg, num_heads=heads, num_kv_heads=len(held),
                     intermediate_size=cfg.intermediate_size // tp,
                     vocab_size=cfg.vocab_size // tp)
     return TPLayout(local, mesh, q_sharded, select)
@@ -606,21 +618,28 @@ def score(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
 
     tokens: (B, S) int on the parameters' device, S >= 2 (position 0 has
     no prediction). Returns (B, S-1) float32: the NLL of token t+1 given
-    tokens <= t. ``mesh`` (the reference's sequence-parallel path, ring
-    attention) is not ported: passing one raises ``ConfigError``."""
+    tokens <= t.
+
+    ``mesh``: as in the reference, a mesh without sequence parallelism
+    takes the tensor-parallel forward (``params`` this rank's shard, the
+    dense cache its kv heads; every rank of the group calls this with
+    the same tokens and gets the whole result). The reference's
+    sequence-parallel path (ring attention over sp > 1) is not ported:
+    such a mesh raises ``ConfigError``."""
     B, S = tokens.shape
     if S < 2:
         raise ValueError("score needs at least 2 tokens")
     if chunk < 16:
         raise ValueError(f"chunk must be >= 16, got {chunk}")
-    if mesh is not None:
+    if mesh is not None and mesh.shape.get("sp", 1) > 1:
         raise ConfigError("sequence-parallel scoring (ring attention over "
                           "an sp mesh) is not ported yet (ROADMAP.md A12)")
+    mesh = mesh if sharded(mesh) else None
     dev = tokens.device
     if S <= chunk:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=dev).expand(B, S)
-        logits, _ = apply(params, cfg, tokens, positions)
+        logits, _ = apply(params, cfg, tokens, positions, mesh=mesh)
         return _nll(logits[:, :-1], tokens[:, 1:])
     S_pad = -(-S // chunk) * chunk
     padded = torch.nn.functional.pad(tokens, (0, S_pad - S))
@@ -628,15 +647,15 @@ def score(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
     while cache_len < S_pad:
         cache_len *= 2
     # final_norm is never quantized: its dtype is the activations'.
-    cache = init_kv_cache(cfg, B, cache_len, params["final_norm"].dtype,
-                          device=dev)
+    cache = init_kv_cache(tp_layout(cfg, mesh).cfg, B, cache_len,
+                          params["final_norm"].dtype, device=dev)
     parts, prev_last = [], None
     for c0 in range(0, S_pad, chunk):
         tok_c = padded[:, c0:c0 + chunk]
         pos_c = torch.arange(c0, c0 + chunk, dtype=torch.int32,
                              device=dev).expand(B, chunk)
         logits, cache = apply(params, cfg, tok_c, pos_c, cache,
-                              kv_valid_len=pos_c[:, -1] + 1)
+                              kv_valid_len=pos_c[:, -1] + 1, mesh=mesh)
         if prev_last is not None:
             # The previous chunk's last position predicts this chunk's
             # first token.

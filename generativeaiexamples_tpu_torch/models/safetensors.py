@@ -13,6 +13,14 @@ so a 7B checkpoint is never read whole into host memory. A tensor whose
 byte offset is not a multiple of its element size is copied into an
 aligned buffer first (the format does not promise alignment).
 
+``iter_stored`` hands out ``StoredTensor``s instead: a block
+(``t[a:b, c:d]``) is read with ``os.preadv`` into a tensor of its own,
+one read per contiguous run, and no page of the file joins the process.
+A tensor-parallel rank reads its blocks this way. Through a memory map
+each row's span of a row-parallel weight would fault in the pages
+around it (the kernel maps a 64 KiB window around a fault), so the
+whole weight's pages would count as the rank's memory.
+
 ``save_file`` writes one file; ``save_sharded`` splits a state dict over
 several files beside a ``model.safetensors.index.json``, as HF releases
 ship large checkpoints.
@@ -20,6 +28,7 @@ ship large checkpoints.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import struct
@@ -58,14 +67,11 @@ def read_header(path: str) -> tuple[dict, int]:
     return header, 8 + n
 
 
-def iter_file(path: str) -> Iterator[tuple[str, torch.Tensor]]:
-    """Yield ``(name, tensor)`` for every tensor of one file, in the
-    order of their bytes. Each tensor views the file's memory map (a
-    copy when its offset is misaligned); F32, F16, BF16, I8, I32 and I64
-    are read."""
+def _entries(path: str) -> Iterator[tuple[str, torch.dtype, tuple, int]]:
+    """``(name, dtype, shape, absolute byte offset)`` of every tensor of
+    one file, in the order of their bytes, each checked against the
+    header's byte count."""
     header, base = read_header(path)
-    mm = np.memmap(path, dtype=np.uint8, mode="c") \
-        if os.path.getsize(path) > base else np.zeros((0,), np.uint8)
     for name, info in sorted(header.items(),
                              key=lambda kv: kv[1]["data_offsets"][0]):
         dtype = _DTYPES.get(info["dtype"])
@@ -74,14 +80,109 @@ def iter_file(path: str) -> Iterator[tuple[str, torch.Tensor]]:
                                  f"{info['dtype']}, which is not read")
         start, end = info["data_offsets"]
         shape = tuple(info["shape"])
-        size = dtype.itemsize
-        if end - start != size * int(np.prod(shape, dtype=np.int64)):
+        if end - start != dtype.itemsize * int(np.prod(shape,
+                                                       dtype=np.int64)):
             raise ModelLoadError(f"{path}: tensor {name!r} has "
                                  f"{end - start} bytes for shape {shape}")
-        raw = mm[base + start:base + end]
-        if (base + start) % size:
+        if base + end > os.path.getsize(path):
+            raise ModelLoadError(f"{path}: tensor {name!r} runs past the "
+                                 f"end of the file")
+        yield name, dtype, shape, base + start
+
+
+def iter_file(path: str) -> Iterator[tuple[str, torch.Tensor]]:
+    """Yield ``(name, tensor)`` for every tensor of one file, in the
+    order of their bytes. Each tensor views the file's memory map (a
+    copy when its offset is misaligned); F32, F16, BF16, I8, I32 and I64
+    are read."""
+    mm = None
+    for name, dtype, shape, at in _entries(path):
+        if mm is None:
+            mm = np.memmap(path, dtype=np.uint8, mode="c")
+        raw = mm[at:at + dtype.itemsize * int(np.prod(shape,
+                                                      dtype=np.int64))]
+        if at % dtype.itemsize:
             raw = np.array(raw)        # a fresh, aligned buffer
         yield name, torch.from_numpy(raw).view(dtype).reshape(shape)
+
+
+class StoredTensor:
+    """One tensor of a safetensors file, read when it is indexed: ``t[idx]``
+    (slices of step 1, one per leading axis) reads that block into a new
+    contiguous host tensor; ``read()`` the whole tensor."""
+
+    def __init__(self, path: str, offset: int, shape: tuple,
+                 dtype: torch.dtype):
+        self.path, self.offset, self.dtype = path, offset, dtype
+        self.shape = torch.Size(shape)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    def read(self) -> torch.Tensor:
+        return self[()]
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        if len(idx) > self.dim():
+            raise IndexError(f"{len(idx)} indices for a {self.dim()}-d "
+                             f"tensor")
+        ranges = []
+        for s, n in zip(idx + (slice(None),) * (self.dim() - len(idx)),
+                        self.shape):
+            if not isinstance(s, slice):
+                raise TypeError(f"a stored tensor is indexed by slices, "
+                                f"not {s!r}")
+            a, b, step = s.indices(n)
+            if step != 1:
+                raise ValueError("a stored tensor's slices have step 1")
+            ranges.append((a, max(a, b)))
+        out = torch.empty([b - a for a, b in ranges], dtype=self.dtype)
+        if out.numel() == 0:
+            return out
+        # Axes past ``j`` are whole, so each index of the axes before it
+        # names one contiguous run of the file.
+        j = self.dim() - 1
+        while j > 0 and ranges[j] == (0, self.shape[j]):
+            j -= 1
+        size = self.dtype.itemsize
+        strides = [int(np.prod(self.shape[i + 1:], dtype=np.int64))
+                   for i in range(self.dim())]
+        run = ((ranges[j][1] - ranges[j][0]) * strides[j] * size
+               if self.dim() else size)
+        buf = memoryview(out.reshape(-1).view(torch.uint8).numpy())
+        at = 0
+        with open(self.path, "rb", buffering=0) as f:
+            for outer in itertools.product(*(range(a, b)
+                                             for a, b in ranges[:j])):
+                elem = sum(i * st for i, st in zip(outer, strides))
+                if self.dim():
+                    elem += ranges[j][0] * strides[j]
+                _read_at(f.fileno(), buf[at:at + run],
+                         self.offset + elem * size, self.path)
+                at += run
+        return out
+
+
+def _read_at(fd: int, dst: memoryview, offset: int, path: str) -> None:
+    """Fill ``dst`` from the file's bytes at ``offset``."""
+    done = 0
+    while done < len(dst):
+        n = os.preadv(fd, [dst[done:]], offset + done)
+        if n <= 0:
+            raise ModelLoadError(f"{path}: short read at byte "
+                                 f"{offset + done}")
+        done += n
+
+
+def iter_stored(path: str) -> Iterator[tuple[str, StoredTensor]]:
+    """``iter_file``'s tensors as ``StoredTensor``s: nothing is read, or
+    mapped, until a block is asked for."""
+    for name, dtype, shape, at in _entries(path):
+        yield name, StoredTensor(path, at, shape, dtype)
 
 
 def load_file(path: str) -> dict[str, torch.Tensor]:

@@ -5,8 +5,10 @@ Loading a checkpoint is real work on every server start: parsing,
 renaming, transposing, casting and, when asked, quantizing. The cache
 keeps the FINAL served tree (after quantization) under an identity the
 model server builds from the model name, dtype, quantization mode and the
-checkpoint directory's content hash (``name-dtype-quant-hash``), so a
-restart reads the tensors straight back and skips the conversion.
+checkpoint directory's content hash (``name-dtype-quant-hash``; under
+tensor parallelism each rank keeps its own shard under
+``name-dtype-quant-tp{N}-r{rank}-hash``), so a restart reads the tensors
+straight back and skips the conversion.
 
 Layout: ``$GAIE_WEIGHT_CACHE_DIR`` (default
 ``~/.cache/generativeaiexamples_tpu_torch/weights``)
@@ -112,9 +114,11 @@ def save(identity: str, params: Any,
     """Best-effort write; True when the tree landed.
 
     ``prune_prefix``: after a successful save, sibling entries whose
-    identity starts with this prefix (same model, dtype and quantization,
-    an OLD content hash) are deleted: a converted tree is gigabytes, and
-    without eviction every checkpoint update would leave a copy behind."""
+    identity is this prefix and a content hash (same model, dtype,
+    quantization and rank, an OLD hash) are deleted: a converted tree is
+    gigabytes, and without eviction every checkpoint update would leave
+    a copy behind. An entry of another topology (``...-tp4-r1-hash``
+    beside ``...-hash``) is not this prefix's and stays."""
     if not enabled():
         return False
     entry = os.path.join(cache_root(), _entry(identity))
@@ -139,10 +143,12 @@ def save(identity: str, params: Any,
     if prune_prefix:
         keep = os.path.basename(entry)
         prefix = prune_prefix.replace("/", "_")
+        suffix = f"-{FRAMEWORK}"
         try:
             for name in os.listdir(cache_root()):
                 if (name.startswith(prefix) and name != keep
-                        and name.endswith(f"-{FRAMEWORK}")):
+                        and name.endswith(suffix)
+                        and "-" not in name[len(prefix):-len(suffix)]):
                     shutil.rmtree(os.path.join(cache_root(), name),
                                   ignore_errors=True)
                     logger.info("pruned stale weight cache %s", name)

@@ -20,7 +20,7 @@ product with the scale applied after it, as the reference left it to XLA.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
@@ -67,15 +67,20 @@ def _pack4(q: torch.Tensor) -> torch.Tensor:
     return (q[..., 0::2, :] & 0x0F) | (q[..., 1::2, :] << 4)
 
 
-def quantize_tensor(w: torch.Tensor, bits: int = 8) -> QTensor:
+def quantize_tensor(w: torch.Tensor, bits: int = 8,
+                    reduce_absmax: Optional[Callable] = None) -> QTensor:
     """Symmetric per-output-channel quantization over the reduction axis:
     w (..., K, N) -> q in [-127, 127] (int8) or [-7, 7] (int4) with
-    ``q * scale ~= w``."""
+    ``q * scale ~= w``. ``reduce_absmax``: applied in place to the
+    (..., N) absmax before the scale is taken (a row-parallel shard's
+    MAX all-reduce over the ranks holding the rest of K)."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     wf = w.float()
     qmax = 127.0 if bits == 8 else 7.0
     absmax = wf.abs().amax(dim=-2)                          # (..., N)
+    if reduce_absmax is not None:
+        reduce_absmax(absmax)
     scale = (absmax / qmax).clamp_min(1e-12)
     q = torch.clamp(torch.round(wf / scale[..., None, :]), -qmax, qmax
                     ).to(torch.int8)
@@ -255,17 +260,21 @@ def _grouped_matmul(x: torch.Tensor, q: torch.Tensor, w: QTensor,
     return y.reshape(*lead, N).to(out_dtype or x.dtype)
 
 
-def quantize_leaf(w: torch.Tensor, mode: str, group_size: int = 128
-                  ) -> QTensor:
+def quantize_leaf(w: torch.Tensor, mode: str, group_size: int = 128,
+                  reduce_absmax: Optional[Callable] = None) -> QTensor:
     """``w`` (..., K, N) quantized as ``quantize_params`` quantizes a
-    projection in ``mode`` (leading axes are independent weights)."""
+    projection in ``mode`` (leading axes are independent weights);
+    ``reduce_absmax`` as ``quantize_tensor`` takes it (per-channel modes
+    only: a group-wise scale never spans a rank's rows)."""
     if mode == "int4_awq":
         return quantize_tensor_grouped(w, group_size)
-    return quantize_tensor(w, 8 if mode == "int8" else 4)
+    return quantize_tensor(w, 8 if mode == "int8" else 4, reduce_absmax)
 
 
 def quantize_params(params: dict[str, Any], mode: str = "int8",
-                    group_size: int = 128) -> dict[str, Any]:
+                    group_size: int = 128, k_split: tuple = (),
+                    reduce_absmax: Optional[Callable] = None
+                    ) -> dict[str, Any]:
     """Quantize a llama parameter dict's projection weights in place of
     the raw tensors (``wq, wk, wv, wo, w_gate, w_up, w_down`` and
     ``lm_head``). ``mode``: int8 | int4 (per-channel) | int4_awq
@@ -273,24 +282,31 @@ def quantize_params(params: dict[str, Any], mode: str = "int8",
     a time on their own device, so the float32 transient is one layer's
     slice, never the stack (7B's stacked ``w_gate`` in float32 would be
     5.8 GB). Leaves of more than three dimensions (MoE expert stacks)
-    and the MoE router stay raw."""
+    and the MoE router stay raw.
+
+    ``k_split``: the keys of leaves that are a tensor-parallel shard split
+    along K (row-parallel); their per-channel absmax goes through
+    ``reduce_absmax`` (a MAX all-reduce over the ranks), so each rank's
+    scale is the whole weight's and its block equals the whole tree's
+    quantized block bit for bit."""
     if mode not in MODES:
         raise ValueError(f"unknown quantization mode {mode!r}")
 
-    def quant(w):
+    def quant(key, w):
+        red = reduce_absmax if key in k_split else None
         if w.dim() == 3:
-            parts = [quantize_leaf(w[i], mode, group_size)
+            parts = [quantize_leaf(w[i], mode, group_size, red)
                      for i in range(w.shape[0])]
             return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
-        return quantize_leaf(w, mode, group_size)
+        return quantize_leaf(w, mode, group_size, red)
 
     out = dict(params)
     layers = dict(params["layers"])
     for key in _QUANT_LAYER_KEYS:
         if (key in layers and not is_quantized(layers[key])
                 and quantizable(key, tuple(layers[key].shape))):
-            layers[key] = quant(layers[key])
+            layers[key] = quant(key, layers[key])
     out["layers"] = layers
     if "lm_head" in out and not is_quantized(out["lm_head"]):
-        out["lm_head"] = quant(out["lm_head"])
+        out["lm_head"] = quant("lm_head", out["lm_head"])
     return out

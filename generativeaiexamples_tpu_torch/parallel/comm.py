@@ -9,12 +9,18 @@ on the CPU), over the tensor-parallel group of a ``parallel.mesh.Mesh``:
 - ``all_reduce_`` sums a tensor over the group in place (after a
   row-parallel product, the vocab-sharded embedding, an MoE combine);
 - ``all_gather`` stacks each rank's tensor into a ``(n_shards, ...)``
-  tensor (the sampler's carries, the materialized tail's logit shards);
+  tensor (the sampler's carries, the materialized tail's logit shards,
+  the KV tier's pages gathered into whole-model blocks);
+- ``all_reduce_max_`` takes the elementwise maximum in place (a
+  row-parallel weight's per-channel absmax at quantization);
+- ``broadcast_`` copies the leader's tensor into every rank's, in place
+  (fused RAG's encoder, corpus and retrieved rows; restored KV pages);
 - ``broadcast_header`` / ``receive_header``: the serving leader's round
-  headers to its followers, and ``gather_to_leader`` their replies, on
-  the host-only gloo group.
+  headers to its followers, ``gather_to_leader`` their replies,
+  ``share_from_leader`` one object from the leader to all, and ``agree``
+  one verdict from every rank, on the host-only gloo group.
 
-The first two enqueue on the current stream without a host read, so a
+The device collectives enqueue on the current stream without a host read, so a
 CUDA graph can capture them (the communicator must exist first:
 ``warm_up``). Each is a no-op at tp = 1 or without a mesh.
 """
@@ -56,6 +62,21 @@ def all_gather(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return out.view(mesh.tp, *t.shape)
 
 
+def all_reduce_max_(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Elementwise maximum of ``t`` over the tp group, in place."""
+    if sharded(mesh):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.tp_group)
+    return t
+
+
+def broadcast_(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The tp leader's ``t`` into every rank's ``t``, in place (each
+    rank passes a tensor of the same shape and dtype)."""
+    if sharded(mesh):
+        dist.broadcast(t, src=_leader_rank(mesh), group=mesh.tp_group)
+    return t
+
+
 def warm_up(mesh: Optional[Mesh], device: torch.device) -> None:
     """One eager all-reduce on each group, so that NCCL's communicator
     exists before a CUDA graph captures a collective on it."""
@@ -91,6 +112,30 @@ def gather_to_leader(obj: Any, mesh: Mesh) -> Optional[list]:
     dist.gather_object(obj, out, dst=_leader_rank(mesh),
                        group=mesh.header_group)
     return out
+
+
+def share_from_leader(obj: Any, mesh: Optional[Mesh]) -> Any:
+    """The leader's ``obj`` on every rank of its group (every rank calls
+    this; a follower's own ``obj`` is ignored). ``obj`` itself without a
+    mesh."""
+    if not sharded(mesh):
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=_leader_rank(mesh),
+                               group=mesh.header_group)
+    return box[0]
+
+
+def agree(ok: bool, mesh: Optional[Mesh]) -> bool:
+    """Whether every rank of the group passed ``ok`` True: the leader
+    gathers the verdicts (``gather_to_leader``) and shares their
+    conjunction. Every rank calls this at the same point, outside any
+    device collective, so a step one rank failed is abandoned by all."""
+    if not sharded(mesh):
+        return ok
+    votes = gather_to_leader(bool(ok), mesh)
+    return share_from_leader(all(votes) if votes is not None else None,
+                             mesh)
 
 
 def _leader_rank(mesh: Mesh) -> int:

@@ -143,6 +143,22 @@ def shard_slices(shape: tuple, spec: Spec, mesh: Mesh) -> tuple:
     return tuple(idx)
 
 
+def shard_shape(shape: tuple, spec: Spec, mesh: Optional[Mesh]) -> tuple:
+    """The shape of this rank's block of an array of ``shape`` under
+    ``spec`` (``shape`` itself without a mesh)."""
+    if mesh is None:
+        return tuple(shape)
+    return tuple(len(range(*s.indices(n))) for s, n in
+                 zip(shard_slices(tuple(shape), spec, mesh), shape))
+
+
+def block_index(shape: tuple, spec: Spec, mesh: Optional[Mesh]) -> tuple:
+    """``shard_slices``, or the whole array without a mesh."""
+    if mesh is None:
+        return (slice(None),) * len(shape)
+    return shard_slices(tuple(shape), spec, mesh)
+
+
 def shard_array(x: Array, spec: Spec, mesh: Mesh) -> Array:
     """This rank's block of ``x`` under ``spec``: ``x`` itself when
     nothing splits it, else a contiguous copy (a view would keep the

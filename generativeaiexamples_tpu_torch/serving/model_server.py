@@ -28,16 +28,21 @@ tokenizer. ``nemotron-8b-chat`` serves the GPT-Next family
 (layernorm1p, squared-ReLU MLP).
 
 Tensor parallelism (``--world-size``, ``--tensor-parallelism``,
-``--pipeline-parallelism``, the reference's flags; one card unless
-they ask for more: ``cli_topology``): at a world of more than one the
-CLI spawns ``world - 1`` follower processes (``torch.multiprocessing``,
+``--pipeline-parallelism``, the reference's flags; the world defaults
+to every local card, as the reference's does, and ``--device cuda:N``
+names one card: ``cli_topology``): at a world of more than one the CLI
+spawns ``world - 1`` follower processes (``torch.multiprocessing``,
 spawn), one per card, joins them in an NCCL group (gloo with ``--device
-cpu``) and serves from rank 0; each rank makes its own shard of the
-random weights (``llama.init_params(..., mesh=)``) and runs its
-``Engine`` over it, the followers in ``Engine.follow``. A follower that
-dies takes the server down: ``/health`` answers 503 and the process
-exits. A checkpoint directory at tp > 1 is refused (each rank would load
-the whole tree; ROADMAP A22), as are pp > 1 and multi-host runs.
+cpu``) and serves from rank 0; each rank loads only its own block of
+every leaf of the checkpoint (``load_checkpoint(..., mesh=)``, every
+format; a quantization at load reduces a row-parallel weight's
+per-channel absmax over the ranks first), or makes its own shard of the
+random weights (``llama.init_params(..., mesh=)``), and runs its
+``Engine`` over it, the followers in ``Engine.follow``. The weight cache
+keeps one entry per rank (``...-tp{N}-r{rank}-hash``; the leader hashes
+the directory and shares the hash). A follower that dies takes the
+server down: ``/health`` answers 503 and the process exits. pp > 1 and
+multi-host runs are refused.
 
 The embedder behind ``/v1/embeddings`` (``build_embedder``) is the
 e5-large-v2 checkpoint in ``--embedder-path``, else ``encoder-tiny`` with
@@ -51,10 +56,13 @@ Triton generate extension of ``serving/triton_shim.py``
 (``/v2/models/{model}/generate[_stream]``, the ready endpoints); the job
 routes of ``serving/jobs_api.py`` (``/v1/jobs``, submit then poll);
 ``POST /v1/score`` (per-token NLL and perplexity of a text
-or token list, ``models/llama.py`` ``score``); ``/metrics`` (Prometheus
+or token list, ``models/llama.py`` ``score``; at tp > 1 run by every
+rank on the serve thread, ``Engine.score``); ``/metrics`` (Prometheus
 text: the engine's stats as ``engine_*`` gauges, the round metrics, the
 stage histograms, the request timers, the process gauges);
-``/debug/requests`` (flight-recorder timelines), ``/debug/rounds`` (round
+``/debug/requests`` (flight-recorder timelines), ``/debug/launches``
+and ``/debug/load`` (each rank's kernel launch counters and its load
+report: seconds, device peak, host RSS growth), ``/debug/rounds`` (round
 records), ``/debug/history``, ``/debug/alerts``, ``/debug/incidents`` and
 ``POST /control/incident`` (the retained telemetry, inert with
 ``HISTORY_INTERVAL_S=0``); ``POST /profiler/start`` (body ``{"dir": ...}``)
@@ -69,7 +77,9 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
+import functools
 import hashlib
 import os
 import socket
@@ -89,7 +99,8 @@ from ..engine.engine import _DTYPES, Engine, EngineConfig
 from ..models import llama, weight_cache
 from ..models.configs import (LlamaConfig, config_for_checkpoint,
                               get_model_config)
-from ..models.import_hf import detect_checkpoint_format, load_checkpoint
+from ..models.import_hf import (detect_checkpoint_format, leaf_specs,
+                                load_checkpoint)
 from ..models.tokenizer import Tokenizer, get_tokenizer
 from ..obs import alerts as obs_alerts
 from ..obs import flight as obs_flight
@@ -98,6 +109,7 @@ from ..obs import incidents as obs_incidents
 from ..obs import metrics as obs_metrics
 from ..obs import rounds as obs_rounds
 from ..ops.quant import MODES, quantize_params, weight_mode
+from ..parallel import comm
 from ..parallel.mesh import (Mesh, MeshPlan, make_mesh,
                              maybe_init_distributed)
 from ..utils.device import resolve_device
@@ -198,41 +210,30 @@ def resolve_topology(world_size: int = 0, tp: int = 0, pp: int = 1,
     return world, tp, pp
 
 
-# Why a checkpoint directory is refused at tp > 1.
-_CHECKPOINT_AT_TP = ("a checkpoint directory at tp > 1 is not served yet: "
-                     "each rank would load the whole tree (ROADMAP A22)")
-
-
 def cli_topology(args: argparse.Namespace,
                  available: Optional[int] = None) -> tuple[int, int, int]:
-    """The CLI's (world, tp, pp). One process unless ``--world-size`` or
-    ``--tensor-parallelism`` asks for more: the reference's world defaults
-    to every local device, but the port does not yet serve at tp > 1 all
-    that it serves on one card (a checkpoint directory, ROADMAP A22;
-    ``/v1/score``, A21). An explicit world (``--tensor-parallelism`` times
-    pp when ``--world-size`` is not given) follows ``resolve_topology``'s
-    rules; above one it is refused, before any process starts, with a
-    checkpoint directory (``--model-path``, ``$MODEL_PATH`` or AzureML's)
-    or with a ``--device`` that names one card (rank r runs on card r).
-    ``available``: the local cards by default, the world asked for with
-    ``--device cpu``."""
+    """The CLI's (world, tp, pp) by ``resolve_topology``'s rules: the
+    world defaults to every local card, as the reference's does (one
+    process with ``--device cpu`` unless ``--world-size`` or
+    ``--tensor-parallelism`` asks for more; ``--tensor-parallelism``
+    times pp when ``--world-size`` is not given). A ``--device`` that
+    names one card (``cuda:N``) serves on that card alone, and a world
+    above one with it is refused before any process starts (rank r runs
+    on card r). ``available``: the local cards by default, the world asked
+    for with ``--device cpu``."""
     pp = args.pipeline_parallelism
-    if not (args.world_size or args.tensor_parallelism):
-        return resolve_topology(1, 0, pp, available=1)
     asked = args.world_size or args.tensor_parallelism * pp
     dev = torch.device(args.device)
-    if available is None:
-        available = torch.cuda.device_count() if dev.type != "cpu" else asked
-    world, tp, pp = resolve_topology(asked, args.tensor_parallelism, pp,
-                                     available=available)
-    if world > 1:
-        if dev.index is not None:
+    if dev.index is not None or (dev.type == "cpu" and not asked):
+        if asked > 1:
             raise ConfigError(
                 f"--device {args.device} names one card, but a world of "
-                f"{world} runs rank r on card r: pass --device cuda")
-        if resolve_azureml_model_dir(args.model_path):
-            raise ConfigError(_CHECKPOINT_AT_TP)
-    return world, tp, pp
+                f"{asked} runs rank r on card r: pass --device cuda")
+        return resolve_topology(1, args.tensor_parallelism, pp, available=1)
+    if available is None:
+        available = torch.cuda.device_count() if dev.type != "cpu" else asked
+    return resolve_topology(asked, args.tensor_parallelism, pp,
+                            available=available)
 
 
 # The reference CLI's model types, each served as its default registry
@@ -279,8 +280,9 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
     topology (``resolve_topology``'s rules; the world defaults to the
     process group's, one process without one): at a world of more than
     one, every rank of the initialized process group calls this and gets
-    its engine over its tensor-parallel shard (random weights only: each
-    rank makes its own). Returns (engine, model name)."""
+    its engine over its tensor-parallel shard (each rank reads only its
+    block of the checkpoint, or makes its own shard of the random
+    weights). Returns (engine, model name)."""
     if quantization and quantization not in MODES:
         raise ValueError(f"quantization={quantization!r}: use one of "
                          f"{MODES} or ''")
@@ -299,8 +301,6 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
     cfg = get_model_config(model_name)
     dtype = _DTYPES[engine_cfg.dtype]
     model_path = resolve_azureml_model_dir(model_path)
-    if model_path and mesh is not None and mesh.tp > 1:
-        raise ConfigError(_CHECKPOINT_AT_TP)
     if model_path:
         # The format first: an unrecognised directory fails before
         # anything else is read.
@@ -310,7 +310,7 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
         tok = (tokenizer if not isinstance(tokenizer, str)
                else get_tokenizer(model_path))
         params = _load_served_tree(model_name, model_path, fmt, cfg,
-                                   engine_cfg.dtype, quantization, dev)
+                                   engine_cfg.dtype, quantization, dev, mesh)
     else:
         tok = (get_tokenizer(tokenizer) if isinstance(tokenizer, str)
                else tokenizer)
@@ -325,43 +325,140 @@ def build_services(model_name: str = "llama-2-7b-chat", *,
     engine = Engine(params, cfg, tok,
                     dataclasses.replace(engine_cfg, seed=seed), device=dev,
                     mesh=mesh)
+    if model_path:
+        engine.load_report = dict(last_load)
     return engine, model_name
 
 
-def _quantize(params: llama.Params, cfg: LlamaConfig,
-              quantization: str) -> llama.Params:
-    group = awq_group(cfg) if quantization == "int4_awq" else 128
-    return quantize_params(params, mode=quantization, group_size=group)
+def _quantize(params: llama.Params, cfg: LlamaConfig, quantization: str,
+              mesh: Optional[Mesh] = None) -> llama.Params:
+    """``quantize_params`` of a loaded tree; under ``mesh`` a shard whose
+    row-parallel weights' per-channel scales are the whole weights'
+    (their absmax reduced by MAX over the ranks) and whose int4_awq
+    groups tile each rank's rows (``awq_group``)."""
+    group = awq_group(cfg, mesh) if quantization == "int4_awq" else 128
+    k_split: tuple = ()
+    if comm.sharded(mesh):
+        specs = leaf_specs(cfg, mesh)
+        k_split = tuple(k.removeprefix("layers/") for k, v in specs.items()
+                        if len(v) >= 2 and v[-2] is not None)
+    return quantize_params(params, mode=quantization, group_size=group,
+                           k_split=k_split, reduce_absmax=functools.partial(
+                               comm.all_reduce_max_, mesh=mesh))
+
+
+def _rss() -> int:
+    """This process's resident bytes (``/proc/self/statm``; 0 where it is
+    not readable)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return 0
+
+
+class _RssPeak:
+    """The largest resident size seen while the block runs, sampled every
+    ``interval`` seconds on a thread (``getrusage``'s peak is the
+    process's whole life, reached before a load as often as in it)."""
+
+    def __init__(self, interval: float = 0.005):
+        self.interval, self.peak = interval, 0
+        self._done = threading.Event()
+
+    def _sample(self) -> None:
+        while not self._done.wait(self.interval):
+            self.peak = max(self.peak, _rss())
+
+    def __enter__(self) -> "_RssPeak":
+        self.before = self.peak = _rss()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._done.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss())
+
+
+def _agreed_cache_read(identity: str, dev: torch.device,
+                       mesh: Optional[Mesh]) -> Optional[llama.Params]:
+    """The weight cache's tree for ``identity``, or None. Under tp the
+    ranks agree first (``comm.agree``): a rank whose entry is missing or
+    unreadable sends every rank to the conversion, whose quantization
+    holds collectives that all ranks must reach together."""
+    params = weight_cache.load(identity, device=dev)
+    if comm.agree(params is not None, mesh):
+        return params
+    return None
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for v in tree.values() for t in llama.param_tensors(v))
 
 
 def _load_served_tree(model_name: str, model_path: str, fmt: str,
                       cfg: LlamaConfig, dtype: str, quantization: str,
-                      dev: torch.device) -> llama.Params:
+                      dev: torch.device,
+                      mesh: Optional[Mesh] = None) -> llama.Params:
     """The served tree of a checkpoint: loaded (and quantized) on the
     device, or read back from the weight cache when the directory's
-    content hash names an entry."""
+    content hash names an entry. Under ``mesh`` this rank's shard: read
+    block by block, cached in an entry of its own
+    (``name-dtype-quant-tp{N}-r{rank}-hash``), the hash computed by the
+    leader alone and shared, the ranks agreeing on reading it
+    (``_agreed_cache_read``). ``last_load`` records the seconds, the
+    device peak over the load (``max_memory_allocated``) and the served
+    tree's bytes; under tp also the growth of the host's resident memory
+    (its peak during the load, sampled every 5 ms, over its size
+    before)."""
     def convert() -> llama.Params:
         p = load_checkpoint(model_path, cfg, dtype=_DTYPES[dtype],
-                            device=dev)
-        return _quantize(p, cfg, quantization) if quantization else p
+                            device=dev, mesh=mesh)
+        return _quantize(p, cfg, quantization, mesh) if quantization else p
 
     t0 = time.monotonic()
+    if dev.type == "cuda":
+        # The caching allocator's peak can be reset only once it exists,
+        # and a load may be the process's first use of the card.
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats(dev)
     base = f"{model_name}-{dtype}-{quantization or 'raw'}"
+    if comm.sharded(mesh):
+        base += f"-tp{mesh.tp}-r{mesh.tp_rank}"
     identity, from_cache = None, False
-    if os.environ.get("GAIE_SKIP_HASH") or not weight_cache.enabled():
-        # Without the content hash an updated checkpoint at the same path
-        # would be served stale from the cache: skip both. With the cache
-        # off the hash names nothing: skip it too.
-        params = convert()
-    else:
-        identity = f"{base}-{fast_hash_dir(model_path)[:12]}"
-        params, from_cache = weight_cache.cached_or_convert(
-            identity, convert, prune_prefix=base + "-", device=dev)
+    with (_RssPeak() if comm.sharded(mesh)
+          else contextlib.nullcontext()) as rss:
+        if os.environ.get("GAIE_SKIP_HASH") or not weight_cache.enabled():
+            # Without the content hash an updated checkpoint at the same
+            # path would be served stale from the cache: skip both. With
+            # the cache off the hash names nothing: skip it too.
+            params = convert()
+        else:
+            digest = comm.share_from_leader(
+                fast_hash_dir(model_path)
+                if mesh is None or mesh.leader else None, mesh)
+            identity = f"{base}-{digest[:12]}"
+            params = _agreed_cache_read(identity, dev, mesh)
+            from_cache = params is not None
+            if not from_cache:
+                params = convert()
+                weight_cache.save(identity, params, prune_prefix=base + "-")
+    peak = 0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
     last_load.clear()
     last_load.update(format=fmt, identity=identity, from_cache=from_cache,
-                     seconds=time.monotonic() - t0)
+                     seconds=time.monotonic() - t0,
+                     rank=mesh.tp_rank if mesh is not None else 0,
+                     tree_bytes=_tree_bytes(params),
+                     max_memory_allocated=peak)
+    if rss is not None:
+        last_load.update(rss_before=rss.before, rss_peak=rss.peak,
+                         rss_growth=rss.peak - rss.before)
     logger.info("model %s (%s) loaded in %.1f s%s", model_path, fmt,
                 last_load["seconds"],
                 " from the weight cache" if from_cache else "")
@@ -398,7 +495,8 @@ def add_score_route(app: web.Application, engine: Engine,
     (default 32768) tokens, 503 when the device runs out of memory.
     One score runs at a time (each holds a dense cache of the whole
     document beside the engine's pool), in an executor, off the event
-    loop."""
+    loop; at tp > 1 ``Engine.score`` runs it on every rank between two
+    programs."""
     gate = asyncio.Semaphore(1)
 
     async def score(request: web.Request) -> web.Response:
@@ -437,20 +535,10 @@ def add_score_route(app: web.Application, engine: Engine,
         if len(ids) > max_score:
             raise web.HTTPRequestEntityTooLarge(max_size=max_score,
                                                 actual_size=len(ids))
-        if engine.mesh is not None and engine.mesh.tp > 1:
-            raise web.HTTPNotImplemented(
-                text="/v1/score is not served at tp > 1 yet (ROADMAP A21)")
-
-        def run() -> np.ndarray:
-            tokens = torch.tensor([ids], dtype=torch.int32,
-                                  device=engine.device)
-            nll = llama.score(engine.params, engine.model_cfg, tokens,
-                              chunk=chunk)
-            return nll[0].double().cpu().numpy()
-
         try:
             async with gate:
-                nll = await loop.run_in_executor(None, run)
+                nll = await loop.run_in_executor(
+                    None, functools.partial(engine.score, ids, chunk))
         except torch.cuda.OutOfMemoryError as exc:
             raise web.HTTPServiceUnavailable(
                 text="the scoring cache does not fit beside the serving "
@@ -592,10 +680,18 @@ def create_server_app(engine: Engine, embed_service=None,
 
     async def debug_launches(request: web.Request) -> web.Response:
         # Each rank's kernel launch counters, gathered between two
-        # programs (``Engine.rank_launch_counts``).
+        # programs (``Engine.rank_reports``).
         ranks = await asyncio.get_running_loop().run_in_executor(
-            None, engine.rank_launch_counts)
-        return web.json_response({"ranks": ranks})
+            None, engine.rank_reports)
+        return web.json_response(
+            {"ranks": [r["launch_counts"] for r in ranks]})
+
+    async def debug_load(request: web.Request) -> web.Response:
+        # Each rank's checkpoint load report (``last_load``; empty with
+        # random weights).
+        ranks = await asyncio.get_running_loop().run_in_executor(
+            None, engine.rank_reports)
+        return web.json_response({"ranks": [r["load"] for r in ranks]})
 
     def _mirror_engine_stats() -> None:
         obs_metrics.record_engine_stats(engine.stats)
@@ -652,6 +748,7 @@ def create_server_app(engine: Engine, embed_service=None,
     app.router.add_get("/metrics", metrics_endpoint)
     app.router.add_get("/debug/requests", debug_requests)
     app.router.add_get("/debug/launches", debug_launches)
+    app.router.add_get("/debug/load", debug_load)
     app.router.add_get("/debug/rounds", debug_rounds)
     app.router.add_get("/debug/history", debug_history)
     app.router.add_get("/debug/alerts", debug_alerts)

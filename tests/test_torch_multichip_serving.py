@@ -166,7 +166,7 @@ def ranks(pinned, tmp_path_factory):
     serve = [(ids, GREEDY) for ids in _prompts()]
     jobs = [
         dict(name="llama", drive="serve", cfg=LLAMA, tree=_tree(LLAMA, 9),
-             engine=ECFG, requests=serve, handoff=True),
+             engine=ECFG, requests=serve),
         dict(name="llama_int8", drive="serve", cfg=LLAMA,
              tree=_tree(LLAMA, 9), engine=dict(ECFG, kv_quant="int8"),
              requests=serve[:3]),
@@ -184,7 +184,8 @@ def ranks(pinned, tmp_path_factory):
         dict(name="unsplit", drive="serve", cfg=UNSPLIT,
              tree=_tree(UNSPLIT, 9), engine=ECFG, requests=serve[:2]),
         dict(name="tier", drive="serve", cfg=LLAMA, tree=_tree(LLAMA, 9),
-             engine=dict(ECFG, kv_host_pool_tokens=4096), requests=[]),
+             engine=dict(ECFG, kv_host_pool_tokens=4096),
+             requests=serve[:1], handoff=True),
         dict(name="tail", drive="tail", **tail),
     ]
     # Two groups of two ranks, each running half of the jobs at once.
@@ -376,13 +377,23 @@ def test_tp2_sharded_tails_match_the_reference_on_its_noise(ranks):
 
 
 def test_tp2_tier_and_handoff_are_refused(ranks):
-    """The host KV tier and the fleet handoff are not served at tp > 1:
-    ``ConfigError`` naming their ROADMAP item, at construction and at
-    ``export_handoff``."""
+    """Once refused at tp > 1, the host KV tier and the fleet handoff now
+    serve there: an engine with the tier constructs, serves the tierless
+    engine's tokens, and ``export_handoff`` gives a blob of the whole
+    model's blocks (its 2 kv heads, as a one-card engine writes them);
+    tests/test_torch_tp_features.py continues such blobs across
+    topologies."""
+    from generativeaiexamples_tpu_torch.engine.kv_tier import from_blob
     out = ranks.get()
-    assert "host KV tier" in out["tier"]["refused"]
-    assert "A21" in out["tier"]["refused"]
-    assert "A21" in out["llama"]["handoff_refused"]
+    assert "refused" not in out["tier"]
+    assert out["tier"]["tokens"] == out["llama"]["tokens"][:1]
+    blob, blocks = out["tier"]["handoff"]
+    meta, records = from_blob(blob)
+    assert blocks == len(records) > 0
+    assert meta["num_kv_heads"] == LLAMA["num_kv_heads"]
+    assert records[0].arrays["k"].shape == (
+        LLAMA["num_layers"], LLAMA["num_kv_heads"], ECFG["page_size"],
+        LLAMA["head_dim"])
 
 
 def _gate(kw, device, **axes):
@@ -445,27 +456,32 @@ def test_cli_topology_flags_have_the_references_defaults():
 
 
 @pytest.mark.parametrize("argv,env,available,want", [
-    ([], False, 4, (1, 1, 1)),
-    (["--model-path", "{ckpt}"], False, 4, (1, 1, 1)),
-    ([], True, 4, (1, 1, 1)),
+    ([], False, 4, (4, 4, 1)),
+    (["--model-path", "{ckpt}"], False, 4, (4, 4, 1)),
+    ([], True, 4, (4, 4, 1)),
     (["--tensor-parallelism", "4"], False, 4, (4, 4, 1)),
     (["--world-size", "4"], False, 4, (4, 4, 1)),
     (["--device", "cpu", "--world-size", "2"], False, None, (2, 2, 1)),
     (["--tensor-parallelism", "4", "--model-path", "{ckpt}"], False, 4,
-     "A22"),
-    (["--tensor-parallelism", "2"], True, 4, "A22"),
+     (4, 4, 1)),
+    (["--tensor-parallelism", "2"], True, 4, (2, 2, 1)),
     (["--world-size", "2", "--device", "cuda:1"], False, 4,
      "names one card"),
     (["--tensor-parallelism", "8"], False, 4, "exceeds available"),
     (["--pipeline-parallelism", "2"], False, 4, "pp == 1"),
+    (["--device", "cuda:1", "--model-path", "{ckpt}"], False, 4, (1, 1, 1)),
+    (["--device", "cpu"], False, None, (1, 1, 1)),
+    ([], False, 1, (1, 1, 1)),
 ])
 def test_cli_topology_serves_one_card_unless_asked(argv, env, available,
                                                    want, tmp_path,
                                                    monkeypatch):
-    """On a host of four cards the CLI serves on one unless
-    ``--world-size`` or ``--tensor-parallelism`` asks for more; a world
-    above one with a checkpoint directory (``--model-path`` or AzureML's)
-    or with one named card is refused before any process starts."""
+    """The CLI's world defaults to every local card, as the reference's
+    does, now that a checkpoint directory (``--model-path`` or AzureML's)
+    and ``/v1/score`` serve at tp > 1; ``--device cuda:N`` serves on that
+    one card, and a world above one with it is refused before any process
+    starts; ``--device cpu`` is one process unless a world is asked
+    for."""
     ckpt = tmp_path / "aml" / "llama"
     ckpt.mkdir(parents=True)
     monkeypatch.delenv("MODEL_PATH", raising=False)

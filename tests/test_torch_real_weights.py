@@ -125,8 +125,12 @@ def test_score_argument_checks(golden):
         llama.score(params, CFG, two[:, :1])
     with pytest.raises(ValueError, match="chunk"):
         llama.score(params, CFG, two, chunk=8)
+    # A sequence-parallel mesh (ring attention) is not ported; a tp mesh
+    # takes the tp forward (tests/test_torch_tp_features.py).
+    from generativeaiexamples_tpu_torch.parallel.mesh import Mesh
+    sp = Mesh(shape={"dp": 1, "pp": 1, "ep": 1, "sp": 2, "tp": 1}, world=2)
     with pytest.raises(ConfigError, match="A12"):
-        llama.score(params, CFG, two, mesh=object())
+        llama.score(params, CFG, two, mesh=sp)
 
 
 def test_quantization_preserves_quality(golden):

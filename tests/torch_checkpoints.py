@@ -4,9 +4,11 @@ the wire formats the importers read (the reference's test builders:
 ``qzeros`` with ``scales``; AMMO-AWQ weights with per-group
 ``weight_quantizer._amax`` and ``input_quantizer._pre_quant_scale``; a
 ``.nemo`` tar of ``model_config.yaml`` and a megatron-named
-``model_weights.ckpt``."""
+``model_weights.ckpt``; and HF safetensors directories of a numpy
+tree."""
 
 import io
+import json
 import os
 import tarfile
 
@@ -186,3 +188,60 @@ def nemo_yaml(cfg, **extra) -> str:
              "layernorm_epsilon: 1.0e-05"]
     lines += [f"{k}: {v}" for k, v in extra.items()]
     return "\n".join(lines) + "\n"
+
+
+_HF = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+       "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+       "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+       "w_down": "mlp.down_proj"}
+_MOE = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
+
+
+def hf_state(tree: dict, cfg) -> dict:
+    """A numpy tree of ``cfg`` (the port's and the reference's layout) as
+    an HF state dict: HF names, (out, in) weights, Mixtral's
+    ``block_sparse_moe`` experts and router."""
+    out = {"model.embed_tokens.weight": tree["embed"],
+           "model.norm.weight": tree["final_norm"],
+           "lm_head.weight": tree["lm_head"].T}
+    lay = tree["layers"]
+    for i in range(cfg.num_layers):
+        base = f"model.layers.{i}."
+        out[base + "input_layernorm.weight"] = lay["attn_norm"][i]
+        out[base + "post_attention_layernorm.weight"] = lay["mlp_norm"][i]
+        for k, name in _HF.items():
+            if cfg.num_experts and k in _MOE:
+                for e in range(cfg.num_experts):
+                    out[f"{base}block_sparse_moe.experts.{e}.{_MOE[k]}."
+                        f"weight"] = lay[k][i, e].T
+            else:
+                out[f"{base}{name}.weight"] = lay[k][i].T
+        if cfg.num_experts:
+            out[base + "block_sparse_moe.gate.weight"] = lay["router"][i].T
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in out.items()}
+
+
+def _config_json(d, cfg) -> None:
+    hf = {"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+          "intermediate_size": cfg.intermediate_size,
+          "num_hidden_layers": cfg.num_layers,
+          "num_attention_heads": cfg.num_heads,
+          "num_key_value_heads": cfg.num_kv_heads,
+          "max_position_embeddings": cfg.max_position_embeddings}
+    if cfg.num_experts:
+        hf.update(num_local_experts=cfg.num_experts,
+                  num_experts_per_tok=cfg.num_experts_per_tok)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf, f)
+
+
+def write_hf_dir(d: str, cfg, tree: dict, shards: int = 1) -> str:
+    """``tree`` as an HF safetensors directory at ``d``: ``shards`` files
+    and their index (the port's writer), and a ``config.json`` of
+    ``cfg``'s geometry."""
+    from generativeaiexamples_tpu_torch.models.safetensors import \
+        save_sharded
+    save_sharded(hf_state(tree, cfg), d, shards=shards)
+    _config_json(d, cfg)
+    return d
