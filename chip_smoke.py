@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 (``python3 chip_smoke.py --golden-readings`` builds the kernels and
 prints only the readings the golden gate's limits were set from.
-``python3 chip_smoke.py --tp 4`` runs only the tensor-parallel phases,
-phases 12 and 13 below, on a machine with four cards.)
+``python3 chip_smoke.py --tp 4`` runs only the multi-card phases,
+phases 12 to 14 below, on a machine with four cards; ``--tp 4 --only
+mesh`` the kernel checks and phase 14 alone.)
 
 Phases (each fails loudly: a failure exits non-zero and the final
 ``{"ok": true, ...}`` line is never printed):
@@ -252,7 +253,14 @@ Phases (each fails loudly: a failure exits non-zero and the final
 12. Tensor parallelism. The default run checks the three kernels at the
    shapes each rank gives them at tp = 4 (``check_tp_shards``: #1/#2 at
    Llama-2-70B's H 16 / KV 2, G = 8, and Mixtral's H 8 / KV 2; #3 at every
-   70B shard shape, M = 1, 8, 128, 1024), printed beside their bounds.
+   70B shard shape, M = 1, 8, 128, 1024), printed beside their bounds,
+   and at the shapes of the mesh phases (``check_mesh_shards``): the
+   ring's tiled block update at an sp = 4 rank's (Llama-2-7B's 32 heads,
+   8192 local queries against one 8192-row block) in float32 against
+   dense attention and timed in bf16; #1/#2 at one slot of 32768 rows
+   (G = 1, timed L2-cold beside their bound); #3 ``wg`` at M = 8192 on
+   Llama-2-7B's w_gate and w_down; the local expert products at ep = 4
+   (2 of Mixtral's 8 experts).
    ``--tp 4`` (four cards) runs only: the same kernel check, then
    ``tp_parity`` on four spawned ranks in one NCCL group (Llama-2-70B's
    width; 2 layers float32 with TF32 off: logits within 1e-4 x max|logit|
@@ -281,6 +289,28 @@ Phases (each fails loudly: a failure exits non-zero and the final
    shards read back from each rank's weight-cache entry), a tp = 4
    handoff continued on one card (tokens equal up to a near tie), and
    fused RAG over ``docs/*.md`` chunks equal to the host path.
+14. The rest of the serving mesh (``--tp 4``, ``mesh_phases``), after
+   ``check_mesh_shards``: ep parity on four spawned ranks (Mixtral's
+   width cut to 2 layers, float32, TF32 off, at ep = 4 and ep = 2 x tp
+   = 2: logits within 1e-4 x max|logit| of one card's on rank 0's card,
+   greedy tokens through ``Engine(mesh=)`` equal but at a near tie, #1
+   on every rank; int4_awq + int8 KV at ep = 4: #2 and #3 counted on
+   every rank); the ep serve (Mixtral-8x7B at all 32 layers, bf16,
+   through ``Engine(mesh=)`` at ep = 4 and, in the same run, tp = 4: the
+   decode step at 1 and 8 streams, the MoE layers' share, the combine
+   all-reduce's time, #1 once per layer per step on every rank); sp
+   parity (Llama-2-7B's width cut to 2 layers, float32, sp = 4, S 4096:
+   ``apply_prefill_sp``'s K/V and last logits and ``score`` within 1e-4
+   x max of each rank's one-card forward); multi-host (70B width at 2
+   layers written as a bf16 checkpoint, served in float32 at tp = 4 by
+   one CLI and by two CLIs on cards 0,1 and 2,3 joined by
+   ``--coordinator``/``--num-processes``/``--process-id``: equal texts,
+   #1 on every rank, both exit 0 on SIGTERM); the sp serve (LLaMA-2-7B-
+   32K's geometry at all 32 layers, seed 0, bf16 and int4_awq + int8 KV,
+   sp = 4: one 32768-token prompt in one ring admission, 64 greedy
+   tokens, #1/#2 on every rank, the TTFT beside the one-card chunked
+   admission's on card 0, tokens equal up to the first near tie, the 32k
+   score over sp).
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -367,13 +397,15 @@ def time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
 
 def check_paged_attention(torch, dev, dtype, quant: bool = False,
                           kv_heads: int = 32, heads: int = 32,
-                          label: str = ""):
+                          label: str = "", lengths: Optional[list] = None):
     """The paged decode kernel against its plain version at llama-2-7b
     decode shapes: B=8, H=KV=32, hd=128, page=128, layer 1 of an L=2
     pool, lengths covering 0, page-1, page, page+1 and long contexts, or
     with ``kv_heads`` 8 at Mixtral-8x7B's (H 32, KV 8: G = 4 query heads a
     kv head, the kernel's ``MAXG = 8`` instantiations), or with ``heads``
-    and ``kv_heads`` a tensor-parallel rank's shard (``label`` names it).
+    and ``kv_heads`` a tensor-parallel rank's shard (``label`` names it),
+    or at ``lengths`` (one slot each, then without the uniform 8 x 2048
+    timing).
     q and cur_k/cur_v are in ``dtype``; the pools too (#1), or, under
     ``quant`` (#2), int8 pools with bf16 scale pools made by
     ``quantize_rows`` from random rows.
@@ -394,8 +426,10 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False,
         paged_attention_decode, paged_attention_decode_plain,
         paged_attention_decode_quant_plain)
 
-    B, H, KV, hd, page, L = 8, heads, kv_heads, 128, 128, 2
-    lengths = [0, 1, 127, 128, 129, 1000, 2047, 3000]
+    own_lengths = lengths is not None
+    if not own_lengths:
+        lengths = [0, 1, 127, 128, 129, 1000, 2047, 3000]
+    B, H, KV, hd, page, L = len(lengths), heads, kv_heads, 128, 128, 2
     W = max(-(-(n + 1) // page) for n in lengths)
     N = 1 + B * W
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -521,12 +555,12 @@ def check_paged_attention(torch, dev, dtype, quant: bool = False,
         f"{bound / ms:.1%} of it) library_ms=null (no single PyTorch call "
         f"computes paged attention{' over int8 pages' if quant else ''} "
         f"with the in-place append)")
-    uni_ms, uni_bound, uni_by, uni_layers = time_attention(
-        torch, dev, dtype, quant, [2048] * B, KV, H)
-    say(f"kernel {name} {shape} uniform {B} x 2048 rows: ms={uni_ms} "
-        f"(L2-cold: "
-        f"{uni_layers} pool layers cycled) bound_ms={uni_bound} ({uni_by}; "
-        f"{uni_bound / uni_ms:.1%} of it)")
+    if not own_lengths:
+        uni_ms, uni_bound, uni_by, uni_layers = time_attention(
+            torch, dev, dtype, quant, [2048] * B, KV, H)
+        say(f"kernel {name} {shape} uniform {B} x 2048 rows: ms={uni_ms} "
+            f"(L2-cold: {uni_layers} pool layers cycled) bound_ms="
+            f"{uni_bound} ({uni_by}; {uni_bound / uni_ms:.1%} of it)")
     return {
         "name": name,
         "shape": shape,
@@ -2698,11 +2732,16 @@ def traced_profiles(torch, card: str, served: list) -> None:
         tile = engine._sampler_tile
         llama.lm_head_tile(engine.params, engine.model_cfg, hn, tile, tile)
         torch.cuda.synchronize()
-        with _profile() as prof:
-            llama.lm_head_tile(engine.params, engine.model_cfg, hn, tile,
-                               tile)
-            torch.cuda.synchronize()
-        head_kernels = sorted(_kernel_times(_device_events(prof)))
+        # The product always launches a kernel, so a trace without one
+        # lost its device events: trace it again, at most three times.
+        for _ in range(3):
+            with _profile() as prof:
+                llama.lm_head_tile(engine.params, engine.model_cfg, hn, tile,
+                                   tile)
+                torch.cuda.synchronize()
+            head_kernels = sorted(_kernel_times(_device_events(prof)))
+            if head_kernels:
+                break
         if not head_kernels or any("copy" in k.lower() for k in
                                    head_kernels):
             fail(f"traced [{mode}]: an lm_head tile product ran kernels "
@@ -6618,72 +6657,7 @@ def check_tp_shards(torch, dev) -> dict:
 
 def check_int4_shards(torch, dev) -> dict:
     """#3 at ``TP4_INT4_SHAPES`` x ``TP4_ROWS`` (``check_tp_shards``)."""
-    from generativeaiexamples_tpu_torch.ops import quant
-    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
-        _path, int4_matmul, int4_matmul_plain)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=dev).manual_seed(20)
-    rows = {}
-    for name, K, N in TP4_INT4_SHAPES:
-        w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
-        leaf = quant.quantize_tensor_grouped(w, 128)
-        del w
-        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
-        wbytes = leaf["q4"].numel() + 4 * leaf["gscale"].numel()
-        q4s = [leaf["q4"].clone() for _ in range(1 + (120 << 20) // wbytes)]
-        for M in TP4_ROWS:
-            x = torch.randn((M, K), generator=gen, device=dev).to(
-                torch.bfloat16)
-            path = "tc" if M <= 8 else "wg"
-            if _path(M, K, N, 128, x.dtype) != path:
-                fail(f"int4_matmul M={M} K={K} N={N} would not take the "
-                     f"{path!r} path")
-            before = int4_matmul.launches_by_path[path]
-            got = int4_matmul(x, leaf["q4"], leaf["gscale"],
-                              out_dtype=out_dtype)
-            if int4_matmul.launches_by_path[path] != before + 1:
-                fail(f"int4_matmul M={M} K={K} N={N} did not launch the "
-                     f"{path!r} path")
-            ref = int4_matmul_plain(x, leaf["q4"], leaf["gscale"],
-                                    out_dtype=out_dtype)
-            torch.cuda.synchronize()
-            peak = ref.float().abs().max().item()
-            err = (got.float() - ref.float()).abs().max().item()
-            rtol = 1e-4 if out_dtype == torch.float32 else 1e-2
-            if not (got.shape == (M, N) and torch.isfinite(got.float()).all()
-                    and torch.allclose(got.float(), ref.float(),
-                                       atol=1e-4 * peak, rtol=rtol)):
-                fail(f"int4_matmul [{path}] {name} shard M={M} K={K} N={N} "
-                     f"disagrees with its plain version: max abs err {err} "
-                     f"(max|ref| {peak})")
-            iters = 20 if M == 1024 else 200
-            ms = time_cuda(torch, [
-                (lambda q4=q4: int4_matmul(x, q4, leaf["gscale"],
-                                           out_dtype=out_dtype))
-                for q4 in q4s], iters=iters)
-            plain_ms = time_cuda(torch, lambda: int4_matmul_plain(
-                x, leaf["q4"], leaf["gscale"], out_dtype=out_dtype),
-                iters=3, warmup=1)
-            lib_ms, lib_note = int4_library_ms(torch, dev, M, K, N, 128,
-                                               iters)
-            e_out = 4 if out_dtype == torch.float32 else 2
-            nbytes = (K // 2 * N + 4 * (K // 128) * N + M * K * 2
-                      + M * N * e_out)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            flops_ms = 2 * M * K * N / BF16_FLOPS * 1e3
-            bound = max(bytes_ms, flops_ms)
-            by = "bytes" if bytes_ms >= flops_ms else "operations"
-            say(f"kernel int4_matmul [{path}] 70B tp=4 shard {name} M={M} "
-                f"K={K} N={N} group=128: max_abs_err={err} ms={ms} "
-                f"plain_ms={plain_ms} bound_ms={bound} ({by}; "
-                f"{bound / ms:.1%} of it) library_ms={lib_ms} ({lib_note})")
-            rows[f"int4_matmul {name} M={M}"] = int4_row(
-                f"70B tp=4 {name} M={M} K={K} N={N}", path, err, ms,
-                plain_ms, bound, by, lib_ms)
-        del q4s, leaf
-        torch.cuda.empty_cache()
-    return rows
+    return check_int4_rows(torch, dev, TP4_INT4_SHAPES, TP4_ROWS, "70B tp=4")
 
 
 # The tensor-parallel parity run (``--tp``): Llama-2-70B's width, cut in
@@ -6746,13 +6720,19 @@ def parting_index(a: list, b: list) -> Optional[int]:
 
 def logits_gap(torch, params, cfg, ids: list) -> float:
     """The top-2 logit gap of the token after ``ids`` (one-card model,
-    full forward)."""
+    full forward). A long prompt is padded to a multiple of 512 rows (the
+    pad, after the last row, is causally invisible to it), so attention
+    takes its chunked path."""
     from generativeaiexamples_tpu_torch.models import llama
     dev = params["embed"].device
+    n = len(ids)
+    padded = list(ids) + [0] * (-n % 512 if n > 512 else 0)
     with torch.no_grad():
-        t = torch.tensor([ids], dtype=torch.int32, device=dev)
-        pos = torch.arange(len(ids), dtype=torch.int32, device=dev)[None, :]
-        top = llama.apply(params, cfg, t, pos)[0][0, -1].float().topk(2)
+        t = torch.tensor([padded], dtype=torch.int32, device=dev)
+        pos = torch.arange(len(padded), dtype=torch.int32,
+                           device=dev)[None, :]
+        hn = llama.apply(params, cfg, t, pos, return_hidden=True)[0]
+        top = llama.project_logits(params, hn[:, n - 1])[0].float().topk(2)
     return float(top.values[0] - top.values[1])
 
 
@@ -6944,6 +6924,8 @@ def tp_rank_main(rank: int, world: int, init_method: str, queue,
             out = tp_parity(torch, dev, mesh)
         elif task == "ckpt":
             out = tp_ckpt_rank(torch, dev, mesh, arg)
+        elif task in MESH_TASKS:
+            out = MESH_TASKS[task](torch, dev, world, device, arg)
         else:
             raise ValueError(f"unknown task {task!r}")
         queue.put((rank, "ok", out))
@@ -7305,12 +7287,14 @@ def gptq_parts(torch, w, group: int = 128) -> tuple:
             s.half().cpu())
 
 
-def write_tp_checkpoints(torch, dev, cfg, root: str) -> dict:
+def write_tp_checkpoints(torch, dev, cfg, root: str,
+                         kinds: tuple = ("bf16", "gptq")) -> dict:
     """The seed-0 bf16 tree of ``cfg`` (made on ``dev``) written by the
     port's writer (``save_sharded``) as an HF safetensors directory and a
     GPTQ directory of group 128 (its projections through ``gptq_parts``),
-    each with a ``config.json`` and golden-tiny's tokenizer. Returns
-    {"bf16": dir, "gptq": dir, "bytes": {kind: tensor bytes}}."""
+    each with a ``config.json`` and golden-tiny's tokenizer (``kinds``:
+    which of the two). Returns {"bf16": dir, "gptq": dir, "bytes": {kind:
+    tensor bytes}}."""
     import shutil
 
     from generativeaiexamples_tpu_torch.models import llama
@@ -7329,7 +7313,7 @@ def write_tp_checkpoints(torch, dev, cfg, root: str) -> dict:
            "lm_head.weight": tree["lm_head"].T}
     lay = tree["layers"]
     out = {"bytes": {}}
-    for kind in ("bf16", "gptq"):
+    for kind in kinds:
         d = os.path.join(root, f"llama-2-70b-{kind}-{cfg.num_layers}l")
         os.makedirs(d, exist_ok=True)
         state = dict(top)
@@ -7529,14 +7513,18 @@ def tp_ckpt_rank(torch, dev, mesh, arg: dict) -> dict:
 
 
 def serve_tp_ckpt_cli(path: str, tp: int, dtype: str, prompts: list,
-                      new: int, score_text: str = "", device: str = "cuda"
-                      ) -> dict:
+                      new: int, score_text: str = "", device: str = "cuda",
+                      hosts: int = 1) -> dict:
     """A checkpoint directory served through the model server's CLI at
     ``--tensor-parallelism`` ``tp`` (``--world-size`` on the CPU):
     each rank's load report (``/debug/load``), greedy completions of
     ``prompts`` one after another with each rank's launch counts read
     just before and after (``/debug/launches``), ``/v1/score`` of
-    ``score_text`` per token, a clean SIGTERM exit."""
+    ``score_text`` per token, a clean SIGTERM exit. ``hosts`` > 1: that
+    many CLIs, one a host (``--coordinator``, ``--num-processes``,
+    ``--process-id``; on the card each sees its ``tp / hosts`` cards
+    through ``CUDA_VISIBLE_DEVICES``), only the first answering HTTP;
+    SIGTERM to every one, and each must exit 0."""
     import signal
     import tempfile
 
@@ -7547,22 +7535,36 @@ def serve_tp_ckpt_cli(path: str, tp: int, dtype: str, prompts: list,
            "--port", str(port), *TP_CKPT_CLI]
     cmd += (["--tensor-parallelism", str(tp)] if device == "cuda" else
             ["--world-size", str(tp)])
-    label = f"checkpoint {os.path.basename(path)} tp={tp} {dtype}"
-    log_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"),
-                            "server.log")
-    env = dict(os.environ, HISTORY_INTERVAL_S="0")
+    label = f"checkpoint {os.path.basename(path)} tp={tp} {dtype}" + (
+        f" over {hosts} hosts" if hosts > 1 else "")
+    logs = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"),
+                        "server{}.log")
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = []
     t0 = time.monotonic()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                env=env, start_new_session=True)
+    for h in range(hosts):
+        env = dict(os.environ, HISTORY_INTERVAL_S="0")
+        host_cmd = list(cmd)
+        if hosts > 1:
+            host_cmd += ["--coordinator", coordinator, "--num-processes",
+                         str(hosts), "--process-id", str(h)]
+            if device == "cuda":
+                per = tp // hosts
+                env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                    str(h * per + i) for i in range(per))
+        with open(logs.format(h), "w") as log:
+            procs.append(subprocess.Popen(
+                host_cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                start_new_session=True))
     base = f"http://127.0.0.1:{port}"
     out: dict = {"label": label}
     try:
         while True:
-            if proc.poll() is not None:
-                fail(f"{label}: the server exited with {proc.returncode} "
-                     f"before answering; log {log_path}:\n"
-                     + open(log_path).read()[-3000:])
+            for h, proc in enumerate(procs):
+                if proc.poll() is not None:
+                    fail(f"{label}: host {h}'s server exited with "
+                         f"{proc.returncode} before answering; log:\n"
+                         + open(logs.format(h)).read()[-3000:])
             try:
                 health = json.loads(call(base + "/health", timeout=10)[1])
                 break
@@ -7590,23 +7592,32 @@ def serve_tp_ckpt_cli(path: str, tp: int, dtype: str, prompts: list,
                                                  "prefill_dispatches")}
         out["launches"] = [{k: b[k] - a.get(k, 0) for k in b}
                            for a, b in zip(c0, c1)]
+        if len(out["launches"]) != tp:
+            fail(f"{label}: /debug/launches lists {len(out['launches'])} "
+                 f"ranks")
         if score_text:
             t = time.monotonic()
             out["score"] = json.loads(post(base + "/v1/score", {
                 "text": score_text, "per_token": True}))
             out["score_ms"] = (time.monotonic() - t) * 1e3
     finally:
-        if proc.poll() is None:
-            proc.send_signal(signal.SIGTERM)
-        try:
-            rc = proc.wait(timeout=180)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            fail(f"{label}: the server did not exit within 180 s of "
-                 f"SIGTERM")
-    if rc != 0:
-        fail(f"{label}: the server exited with {rc}; log {log_path}:\n"
-             + open(log_path).read()[-3000:])
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        rcs = []
+        for h, proc in enumerate(procs):
+            try:
+                rcs.append(proc.wait(timeout=180))
+            except subprocess.TimeoutExpired:
+                for p in procs:
+                    if p.poll() is None:
+                        os.killpg(p.pid, signal.SIGKILL)
+                fail(f"{label}: host {h}'s server did not exit within 180 "
+                     f"s of SIGTERM")
+    for h, rc in enumerate(rcs):
+        if rc != 0:
+            fail(f"{label}: host {h}'s server exited with {rc}; log:\n"
+                 + open(logs.format(h)).read()[-3000:])
     return out
 
 
@@ -7824,14 +7835,835 @@ def tp_checkpoint_phase(torch, tp: int, device: str = "cuda", base=None,
         shutil.rmtree(root, ignore_errors=True)
 
 
-def main_tp(torch, tp: int) -> int:
-    """``--tp N``: the multi-card phases only (see the module docstring,
-    phase 12). Fails on fewer than ``tp`` cards."""
+# ------------------------------------------- the rest of the serving mesh
+
+# The mesh phases' geometry: sp = 4 over a 32768-token prompt (8192 rows
+# a rank), Mixtral's 8 experts over ep = 4 (2 a rank).
+MESH_SP = 4
+SP_SEQ = 32768
+SP_NEW = 64
+# The sp parity run: Llama-2-7B's width cut to 2 layers, float32, S 4096.
+SP_PARITY_S = 4096
+MESH_PARITY_LAYERS = 2
+# Float32 logits, K/V and NLL of a mesh run against one card's: atol
+# relative to max|ref| (sums in another order).
+MESH_RTOL = 1e-4
+EP_PLANS = (("ep=4", {"ep": 4}), ("ep=2 x tp=2", {"ep": 2, "tp": 2}))
+# #3 at the sp prefill's local rows (M = 8192 a rank) on Llama-2-7B's
+# MLP shapes: (name, K, N).
+SP_INT4_SHAPES = (("w_gate", 4096, 11008), ("w_down", 11008, 4096))
+
+
+def llama_7b_32k():
+    """LLaMA-2-7B-32K's geometry (togethercomputer/LLaMA-2-7B-32K):
+    Llama-2-7B with linear rope scaling by 8 over 32768 positions."""
     import dataclasses
 
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    return dataclasses.replace(LLAMA2_7B, max_position_embeddings=SP_SEQ,
+                               rope_scaling_factor=8.0)
+
+
+def check_mesh_shards(torch, dev) -> dict:
+    """One card, the work each rank of the mesh phases does, at its
+    shapes: the ring's tiled block update at an sp = 4 rank's (Llama-2-7B:
+    32 heads, hd 128; 8192 local queries against one 8192-row visiting
+    block: the diagonal block, causal, and an earlier rank's, all keys
+    visible) in float32 (TF32 off) against dense ``gqa_attention`` (atol
+    1e-4 x max|ref|), then timed in bf16 beside its operation bound; #1
+    and #2 at one slot of 32768 rows, G = 1 (the sp serve's decode:
+    ``check_paged_attention`` at ``lengths=[32768]``, timed L2-cold); #3
+    ``wg`` at M = 8192 (a rank's prefill rows) on Llama-2-7B's w_gate and
+    w_down; the local expert products at ep = 4 (2 of Mixtral's 8
+    experts, bf16, on an 8-row decode step's capacity buffers) against a
+    float32 product of the same experts (rtol 1e-2), timed beside their
+    byte bound. Returns the kernels' rows, keyed."""
+    from generativeaiexamples_tpu_torch.ops.attention import gqa_attention
+    from generativeaiexamples_tpu_torch.parallel import moe
+    from generativeaiexamples_tpu_torch.parallel.mesh import Mesh
+    from generativeaiexamples_tpu_torch.parallel.ring_attention import (
+        Q_TILE, ring_gqa_attention)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(22)
+    one = Mesh(shape={"dp": 1, "pp": 1, "ep": 1, "sp": 1, "tp": 1},
+               device=dev)
+    S, H, hd = SP_SEQ // MESH_SP, 32, 128
+    q, k, v = (torch.randn((1, S, H, hd), generator=gen, device=dev)
+               for _ in range(3))
+    for label, q0 in (("diagonal block", 0), ("earlier rank's block", S)):
+        pos = (q0 + torch.arange(S, device=dev, dtype=torch.int32))[None]
+        got = ring_gqa_attention(q, k, v, pos, mesh=one)
+        ref = gqa_attention(q, k, v, pos)
+        peak = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        if not (torch.isfinite(got).all() and err <= 1e-4 * peak):
+            fail(f"ring block update ({label}, float32) disagrees with "
+                 f"dense attention: max abs err {err} (max|ref| {peak})")
+        say(f"ring block update float32 at an sp={MESH_SP} rank's shape "
+            f"({S} queries x {S} keys, H 32, hd 128, {label}): max abs "
+            f"err {err} against dense gqa_attention (max|ref| {peak})")
+        del got, ref
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    del q, k, v
+    pos = (S + torch.arange(S, device=dev, dtype=torch.int32))[None]
+    ms = time_cuda(torch, lambda: ring_gqa_attention(qb, kb, vb, pos,
+                                                     mesh=one),
+                   iters=3, warmup=1)
+    flops = 4 * S * S * hd * H
+    bound = flops / BF16_FLOPS * 1e3
+    say(f"ring block update bf16 (plain PyTorch, {Q_TILE}-query tiles), "
+        f"one rank's block a layer: {ms} ms against a {bound} ms operation "
+        f"bound ({bound / ms:.1%}); a layer of the sp={MESH_SP} prefill "
+        f"runs {MESH_SP} blocks")
+    del qb, kb, vb
+    torch.cuda.empty_cache()
+    rows = {}
+    for quant in (False, True):
+        check_paged_attention(torch, dev, torch.float32, quant=quant,
+                              lengths=[SP_SEQ], label="sp serve, one slot "
+                              f"of {SP_SEQ} rows")
+        row = check_paged_attention(torch, dev, torch.bfloat16, quant=quant,
+                                    lengths=[SP_SEQ], label="sp serve, one "
+                                    f"slot of {SP_SEQ} rows")
+        rows[f"{row['name']} sp"] = row
+        torch.cuda.empty_cache()
+    rows.update(check_int4_rows(torch, dev, SP_INT4_SHAPES, (S,),
+                                "7B sp prefill"))
+    # The local expert products at ep = 4.
+    E_local, D, F = 2, 4096, 14336
+    C = moe.expert_capacity(8, 8, 2, 2.0)
+    ws = [[torch.randn(shape, generator=gen, device=dev).mul_(
+        shape[1] ** -0.5).to(torch.bfloat16) for shape in
+        ((E_local, D, F), (E_local, D, F), (E_local, F, D))]
+        for _ in range(2)]
+    ei = torch.randn((E_local, C, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    got = moe._expert_ffn(ei, *ws[0]).float()
+    g, u, d = (w.float() for w in ws[0])
+    x = ei.float()
+    ref = torch.bmm(torch.nn.functional.silu(torch.bmm(x, g))
+                    * torch.bmm(x, u), d)
+    err = (got - ref).abs().max().item()
+    if not torch.allclose(got, ref, rtol=1e-2,
+                          atol=1e-2 * ref.abs().max().item()):
+        fail(f"ep=4 local expert products disagree with float32: {err}")
+    del g, u, d, x, ref
+    ms = time_cuda(torch, [(lambda w=w: moe._expert_ffn(ei, *w))
+                           for w in ws], iters=20)
+    nbytes = sum(w.numel() * 2 for w in ws[0])
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"ep=4 local expert products (2 of Mixtral's 8 experts, C {C} "
+        f"rows each, bf16, three cuBLAS bmm): max abs err {err} against "
+        f"float32; {ms} ms against a {bound} ms byte bound ({nbytes} "
+        f"bytes; {bound / ms:.1%})")
+    del ws, ei
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_int4_rows(torch, dev, shapes, Ms, label: str) -> dict:
+    """#3 (bf16 x, group 128, the int4_awq format) at ``shapes`` ((name,
+    K, N)) x ``Ms`` rows: each call checked to take the path ``_path``
+    names ("tc" at M <= 8, "wg" above), held to its plain version (bf16
+    out rtol 1e-2; float32 out for the head, "lm_head", rtol 1e-4; atol
+    1e-4 x max|ref|) and timed L2-cold (the calls cycle copies of the
+    weight, > 120 MB of them) beside its plain version, its bound and the
+    library yardstick. Returns the rows, keyed by shape; ``label`` names
+    the geometry."""
+    from generativeaiexamples_tpu_torch.ops import quant
+    from generativeaiexamples_tpu_torch.ops.int4_matmul import (
+        _path, int4_matmul, int4_matmul_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows = {}
+    for name, K, N in shapes:
+        w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        leaf = quant.quantize_tensor_grouped(w, 128)
+        del w
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        wbytes = leaf["q4"].numel() + 4 * leaf["gscale"].numel()
+        q4s = [leaf["q4"].clone() for _ in range(1 + (120 << 20) // wbytes)]
+        for M in Ms:
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            path = "tc" if M <= 8 else "wg"
+            if _path(M, K, N, 128, x.dtype) != path:
+                fail(f"int4_matmul M={M} K={K} N={N} would not take the "
+                     f"{path!r} path")
+            before = int4_matmul.launches_by_path[path]
+            got = int4_matmul(x, leaf["q4"], leaf["gscale"],
+                              out_dtype=out_dtype)
+            if int4_matmul.launches_by_path[path] != before + 1:
+                fail(f"int4_matmul M={M} K={K} N={N} did not launch the "
+                     f"{path!r} path")
+            ref = int4_matmul_plain(x, leaf["q4"], leaf["gscale"],
+                                    out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            peak = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            rtol = 1e-4 if out_dtype == torch.float32 else 1e-2
+            if not (got.shape == (M, N) and torch.isfinite(got.float()).all()
+                    and torch.allclose(got.float(), ref.float(),
+                                       atol=1e-4 * peak, rtol=rtol)):
+                fail(f"int4_matmul [{path}] {label} {name} M={M} K={K} "
+                     f"N={N} disagrees with its plain version: max abs err "
+                     f"{err} (max|ref| {peak})")
+            iters = 20 if M >= 1024 else 200
+            ms = time_cuda(torch, [
+                (lambda q4=q4: int4_matmul(x, q4, leaf["gscale"],
+                                           out_dtype=out_dtype))
+                for q4 in q4s], iters=iters)
+            plain_ms = time_cuda(torch, lambda: int4_matmul_plain(
+                x, leaf["q4"], leaf["gscale"], out_dtype=out_dtype),
+                iters=3, warmup=1)
+            lib_ms, lib_note = int4_library_ms(torch, dev, M, K, N, 128,
+                                               iters)
+            e_out = 4 if out_dtype == torch.float32 else 2
+            nbytes = (K // 2 * N + 4 * (K // 128) * N + M * K * 2
+                      + M * N * e_out)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            flops_ms = 2 * M * K * N / BF16_FLOPS * 1e3
+            bound = max(bytes_ms, flops_ms)
+            by = "bytes" if bytes_ms >= flops_ms else "operations"
+            say(f"kernel int4_matmul [{path}] {label} {name} M={M} K={K} "
+                f"N={N} group=128: max_abs_err={err} ms={ms} plain_ms="
+                f"{plain_ms} bound_ms={bound} ({by}; {bound / ms:.1%} of "
+                f"it) library_ms={lib_ms} ({lib_note})")
+            rows[f"int4_matmul {label} {name} M={M}"] = int4_row(
+                f"{label} {name} M={M} K={K} N={N}", path, err, ms,
+                plain_ms, bound, by, lib_ms)
+            del x, got, ref
+        del q4s, leaf
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rank_counts(reports0: list, reports1: list) -> list:
+    """Each rank's launch counts between two ``rank_reports``."""
+    return [{k: b["launch_counts"][k] - a["launch_counts"].get(k, 0)
+             for k in b["launch_counts"]}
+            for a, b in zip(reports0, reports1)]
+
+
+def check_rank_counts(label: str, counts: list, L: int, steps: int,
+                      kv_quant: str = "") -> None:
+    """#1 (or #2 under an int8 pool) once per layer per decode step on
+    every rank."""
+    attn = "paged_attention_decode_int8" if kv_quant else \
+        "paged_attention_decode"
+    for r, c in enumerate(counts):
+        if steps <= 0 or c.get(attn, 0) != L * steps:
+            fail(f"{label}: rank {r} launched {attn} {c.get(attn)} times "
+                 f"over {steps} decode steps of {L} layers")
+
+
+def ep_parity_rank(torch, dev, world: int, device: str, arg: dict) -> dict:
+    """The ep parity phase on one rank: Mixtral's width cut to
+    ``arg["layers"]`` (``arg["base"]``: the geometry) at ep = 4 and at
+    ep = 2 x tp = 2, float32 (TF32 off): the logits of a 64-token forward
+    (rank 0 also the one-card model's, on its card) and greedy tokens
+    through ``Engine(mesh=)`` (fresh engines, one request at a time, so
+    every engine has one slot history); each rank's launch counts. Then
+    int4_awq + int8 KV at ep = 4 (attention int4, experts bf16): #2 and
+    #3 counted on every rank."""
+    import dataclasses
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine import Engine, SamplingParams
+    from generativeaiexamples_tpu_torch.engine import graphs
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import MIXTRAL_8X7B
+    from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.parallel.mesh import (MeshPlan,
+                                                              make_mesh)
+
+    cfg = dataclasses.replace(arg.get("base") or MIXTRAL_8X7B,
+                              num_layers=arg["layers"])
+    tok = ByteTokenizer()
+    rank = torch.distributed.get_rank()
+    lead = rank == 0
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    greedy = SamplingParams(max_tokens=TP_NEW, top_k=1, ignore_eos=True)
+    prompts = [tok.encode(p) for p in TP_PROMPTS]
+    ids = np.random.default_rng(0).integers(3, 259, (1, 64))
+    t = torch.tensor(ids, dtype=torch.int32, device=dev)
+    pos = torch.arange(64, dtype=torch.int32, device=dev)[None, :]
+
+    def engine(params, dtype, mesh, **kw):
+        return Engine(params, cfg, tok,
+                      tp_engine_cfg(dtype, cfg.vocab_size, **kw),
+                      device=dev, mesh=mesh)
+
+    res: dict = {"rank": rank}
+    full = ref = None
+    if lead:
+        full = llama.init_params(cfg, 0, torch.float32, dev)
+        with torch.no_grad():
+            ref = llama.apply(full, cfg, t, pos)[0]
+        res["peak"] = ref.abs().max().item()
+        res["one"] = tp_serve(engine(full, "float32", None),
+                              [(p, greedy) for p in prompts])
+    for label, plan in EP_PLANS:
+        mesh = make_mesh(MeshPlan(**plan), device=device)
+        shard = llama.init_params(cfg, 0, torch.float32, dev, mesh=mesh)
+        with torch.no_grad():
+            logits = llama.apply(shard, cfg, t, pos, mesh=mesh)[0]
+        eng = engine(shard, "float32", mesh)
+        # After construction: its captures' warm-ups launch too.
+        before = graphs.launch_counts()
+        steps0 = eng.stats["decode_steps"]
+        out = tp_serve(eng, [(p, greedy) for p in prompts])
+        res[label] = {"counts": graphs.count_delta(before,
+                                                   graphs.launch_counts()),
+                      "steps": eng.stats["decode_steps"] - steps0}
+        if lead:
+            res[label]["tokens"] = out
+            res[label]["logit_err"] = (logits - ref).abs().max().item()
+            res[label]["gaps"] = [
+                logits_gap(torch, full, cfg, p + a[:i]) if i is not None
+                else None for p, a, b in zip(prompts, out, res["one"])
+                for i in [parting_index(a, b)]]
+        del shard, logits, eng
+    del full, ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mesh = make_mesh(MeshPlan(ep=world), device=device)
+    shard = llama.init_params(cfg, 0, torch.bfloat16, dev, mesh=mesh,
+                              quantization="int4_awq", group_size=128)
+    eng = engine(shard, "bfloat16", mesh, kv_quant="int8")
+    s0 = dict(eng.stats)
+    before = graphs.launch_counts()
+    out = tp_serve(eng, [(p, greedy) for p in prompts])
+    delta = graphs.count_delta(before, graphs.launch_counts())
+    run = {k: eng.stats[k] - s0[k] for k in ("decode_steps", "prefills",
+                                             "prefill_dispatches")}
+    res["int4"] = dict(run, tokens=out, n_tiles=head_tiles(eng), launches={
+        k: delta.get(k, 0) for k in ("paged_attention_decode",
+                                     "paged_attention_decode_int8",
+                                     "int4_matmul")},
+        by_path={p: delta.get(f"int4_matmul/{p}", 0)
+                 for p in ("tc", "gemv", "tile", "wg")})
+    return res
+
+
+def check_ep_parity(results: list, layers: int,
+                    check_launches: bool = True) -> None:
+    """The leader's comparisons of ``ep_parity_rank`` and every rank's
+    launch counts."""
+    lead = results[0]
+    for label, _ in EP_PLANS:
+        got = lead[label]
+        err, peak = got["logit_err"], lead["peak"]
+        say(f"ep parity float32, Mixtral width, {layers} layers, {label} "
+            f"(TF32 off): logits max abs err {err} against max|logit| "
+            f"{peak} (tolerance {MESH_RTOL} x max|logit|)")
+        if not err <= MESH_RTOL * peak:
+            fail(f"{label} float32 logits disagree with one card's: {err}")
+        for i, (a, b) in enumerate(zip(got["tokens"], lead["one"])):
+            at = parting_index(a, b)
+            gap = got["gaps"][i]
+            say(f"ep parity {label} prompt {i}: tokens {a}; one-card {b}; "
+                f"first parting {at}"
+                + (f" at a top-2 gap of {gap}" if at is not None else ""))
+            if at is not None and not (gap is not None
+                                       and gap < TP_TIE["float32"]):
+                fail(f"{label} greedy tokens part from one card's at token "
+                     f"{at} (top-2 gap {gap}, not a near tie)")
+        if check_launches:
+            # The leader's steps: every rank replays its programs.
+            steps = got["steps"]
+            for r in results:
+                n = r[label]["counts"].get("paged_attention_decode", 0)
+                if steps <= 0 or n != layers * steps:
+                    fail(f"{label} rank {r['rank']}: #1 launched {n} times "
+                         f"over {steps} decode steps")
+    run = lead["int4"]
+    say(f"ep=4 int4_awq + int8 KV, {layers} layers: tokens "
+        f"{run['tokens']}; rank 0 launches {run['launches']} "
+        f"({run['by_path']})")
+    for r in results:
+        for out in r["int4"]["tokens"] or []:
+            if len(out) != TP_NEW:
+                fail(f"ep=4 int4 tokens {out}")
+        if check_launches:
+            check_launch_counts(f"ep=4 int4 rank {r['rank']}", dict(
+                r["int4"], **{k: run[k] for k in (
+                    "decode_steps", "prefills", "prefill_dispatches")}),
+                layers, "int4_awq", "int8", n_tiles=run["n_tiles"],
+                per_layer=4)
+    if check_launches:
+        say(f"ep parity launches: #1 once per layer per decode step on "
+            f"every rank at {', '.join(p for p, _ in EP_PLANS)}; at ep=4 "
+            f"int4 #2 and #3 ('tc' per projection and head tile, 'wg' per "
+            f"prefill program) on every rank")
+
+
+def time_moe_all_reduce(torch, dev, mesh, D: int, rows: int = 8,
+                        n: int = 160) -> float:
+    """Device ms of one MoE combine all-reduce over the ``ep x tp`` ranks
+    at a decode step's shape (``rows`` x ``D`` bf16), from one CUDA graph
+    of ``n`` of them, on every rank at once."""
+    from generativeaiexamples_tpu_torch.parallel import comm
+    x = torch.zeros((rows, D), dtype=torch.bfloat16, device=dev)
+    for _ in range(3):
+        comm.all_reduce_(x, mesh, "moe")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            comm.all_reduce_(x, mesh, "moe")
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def step_ms_by_streams(engine, ids: list) -> dict:
+    """Host-clock decode step at 1 and 8 streams on a started engine: a
+    1-token request, then a 65-token one (64 steps after the first
+    token), ``n`` of each at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from generativeaiexamples_tpu_torch.engine import SamplingParams
+
+    def timed(n: int, new: int) -> float:
+        t = time.monotonic()
+        with ThreadPoolExecutor(n) as pool:
+            list(pool.map(lambda _: engine.submit(ids, SamplingParams(
+                max_tokens=new, top_k=1, ignore_eos=True)).text(),
+                range(n)))
+        return (time.monotonic() - t) * 1e3
+
+    out = {}
+    for n in (1, 8):
+        first = timed(n, 1)
+        out[f"step_ms_{n}"] = (timed(n, 65) - first) / 64
+    return out
+
+
+def ep_serve_rank(torch, dev, world: int, device: str, arg: dict) -> dict:
+    """The ep serve phase on one rank: Mixtral-8x7B at ``arg["layers"]``
+    layers (all 32 on the card), bf16, random weights from seed 0, through
+    ``Engine(mesh=)`` at ep = 4 and then at tp = 4 (the same run's
+    comparison): every rank times the MoE combine's all-reduce over its
+    group; the leader serves the timed requests (``step_ms_by_streams``)
+    while the others follow; every rank's launch counts between two
+    ``rank_reports``; the leader's MoE layers alone (this rank's experts,
+    the all-reduce off) at 8 rows."""
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.engine import Engine, EngineConfig
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import MIXTRAL_8X7B
+    from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.parallel.mesh import (MeshPlan,
+                                                              make_mesh)
+
+    cfg = dataclasses.replace(arg.get("base") or MIXTRAL_8X7B,
+                              num_layers=arg["layers"])
+    tok = ByteTokenizer()
+    ids = tok.encode(TP_PROMPTS[0])
+    res: dict = {"rank": torch.distributed.get_rank()}
+    for label, plan in (("ep=4", {"ep": world}), ("tp=4", {"tp": world})):
+        mesh = make_mesh(MeshPlan(**plan), device=device)
+        shard = llama.init_params(cfg, 0, torch.bfloat16, dev, mesh=mesh)
+        eng = Engine(shard, cfg, tok, EngineConfig(
+            max_slots=8, max_input_length=1024, max_output_length=80,
+            prefill_buckets=(1024,), page_size=128, dtype="bfloat16",
+            kv_pool_tokens=16384, seed=0), device=dev, mesh=mesh)
+        out: dict = {}
+        if dev.type == "cuda":
+            axis = "moe" if label.startswith("ep") else "tp"
+            out["all_reduce_ms"] = (
+                time_moe_all_reduce(torch, dev, mesh, cfg.hidden_size)
+                if axis == "moe" else
+                time_collectives(torch, dev, mesh, cfg.hidden_size)[
+                    "all_reduce_8_ms"])
+        if eng.leader:
+            r0 = eng.rank_reports()
+            s0 = dict(eng.stats)
+            eng.start()
+            out.update(step_ms_by_streams(eng, ids))
+            eng.stop()
+            out["counts"] = rank_counts(r0, eng.rank_reports())
+            out["steps"] = eng.stats["decode_steps"] - s0["decode_steps"]
+            eng.close()
+            if dev.type == "cuda":
+                local = dataclasses.replace(mesh, moe_group=None,
+                                            tp_group=None)
+                x = torch.zeros((8, 1, cfg.hidden_size), device=dev,
+                                dtype=torch.bfloat16)
+                layers = [llama.layer_params(shard, i)
+                          for i in range(cfg.num_layers)]
+                lcfg = llama.tp_layout(cfg, mesh).cfg
+                out["moe_ms"] = time_cuda(
+                    torch, [(lambda lp=lp: llama._moe_mlp(x, lp, lcfg,
+                                                          local))
+                            for lp in layers],
+                    iters=2 * cfg.num_layers, warmup=cfg.num_layers)
+        else:
+            eng.follow()
+            eng.close()
+        out["rank_bytes"] = sum(t.numel() * t.element_size()
+                                for t in llama.param_tensors(shard))
+        res[label] = out
+        del shard, eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def check_ep_serve(results: list, layers: int,
+                   check_launches: bool = True) -> None:
+    lead = results[0]
+    for label in ("ep=4", "tp=4"):
+        out = lead[label]
+        if check_launches:
+            check_rank_counts(f"Mixtral {label} serve", out["counts"],
+                              layers, out["steps"])
+        wbytes = max(r[label]["rank_bytes"] for r in results)
+        bound = wbytes / HBM_BYTES_PER_S * 1e3
+        line = (f"Mixtral-8x7B {layers} layers bf16 at {label} through "
+                f"Engine(mesh=): decode step (host clock, 64 steps after "
+                f"the first token) 1 stream {out['step_ms_1']:.3f} ms, 8 "
+                f"streams {out['step_ms_8']:.3f} ms against a per-card "
+                f"byte bound of {bound:.3f} ms ({wbytes} bytes a rank); "
+                f"#1 launches on every rank {[c.get('paged_attention_decode') for c in out['counts']]} "
+                f"over {out['steps']} steps ({layers} a step)")
+        if "moe_ms" in out:
+            n_ar = 2 * layers + 1 if label == "tp=4" else layers
+            line += (f"; MoE layers alone (this rank's experts) "
+                     f"{out['moe_ms']:.5f} ms x {layers} = "
+                     f"{layers * out['moe_ms'] / out['step_ms_8']:.1%} of "
+                     f"the 8-stream step; {n_ar} all-reduces a step at "
+                     f"{out['all_reduce_ms']:.5f} ms = "
+                     f"{n_ar * out['all_reduce_ms']:.3f} ms")
+        say(line)
+    say(f"Mixtral decode step at 8 streams: ep=4 "
+        f"{lead['ep=4']['step_ms_8']:.3f} ms beside tp=4 "
+        f"{lead['tp=4']['step_ms_8']:.3f} ms (same run)")
+
+
+def sp_parity_rank(torch, dev, world: int, device: str, arg: dict) -> dict:
+    """The sp parity phase on one rank (sp = 4): Llama-2-7B's width cut to
+    ``arg["layers"]`` (``arg["base"]``), float32 (TF32 off), a prompt of
+    ``arg["S"]`` tokens: ``apply_prefill_sp``'s K/V block and last logits
+    against this rank's own one-card forward over a dense cache (the
+    weights are replicated), and ``score`` over sp against the one-card
+    score. Returns the errors and peaks."""
+    import dataclasses
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.configs import LLAMA2_7B
+    from generativeaiexamples_tpu_torch.parallel.mesh import (MeshPlan,
+                                                              make_mesh)
+
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(arg.get("base") or LLAMA2_7B,
+                              num_layers=arg["layers"])
+    S = arg["S"]
+    mesh = make_mesh(MeshPlan(sp=world), device=device)
+    params = llama.init_params(cfg, 0, torch.float32, dev)
+    ids = np.random.default_rng(1).integers(3, cfg.vocab_size, (1, S))
+    tokens = torch.tensor(ids, dtype=torch.int32, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+    length = S - 5
+    k, v, last = llama.apply_prefill_sp(
+        params, cfg, tokens, pos, mesh,
+        torch.tensor([length], dtype=torch.int32, device=dev))
+    with torch.no_grad():
+        # Causal over every row, as the ring prefill is (rows past the
+        # length are the engine's padding, never attended).
+        cache = llama.init_kv_cache(cfg, 1, S, torch.float32, dev)
+        logits, cache = llama.apply(params, cfg, tokens, pos, cache)
+    per = S // world
+    r = mesh.coords["sp"]
+    rows = slice(r * per, (r + 1) * per)
+    res = {"rank": mesh.rank}
+    for name, got, want in (("k", k, cache["k"][:, :, rows]),
+                            ("v", v, cache["v"][:, :, rows]),
+                            ("last_logits", last, logits[:, length - 1])):
+        res[name] = ((got - want).abs().max().item(),
+                     want.abs().max().item())
+    del k, v, cache, logits
+    t0 = time.monotonic()
+    nll = llama.score(params, cfg, tokens, mesh=mesh)
+    res["score_s"] = time.monotonic() - t0
+    ref = llama.score(params, cfg, tokens)
+    res["score"] = ((nll - ref).abs().max().item(), ref.abs().max().item())
+    return res
+
+
+def check_sp_parity(results: list, layers: int, S: int) -> None:
+    for r in results:
+        for name in ("k", "v", "last_logits", "score"):
+            err, peak = r[name]
+            if not err <= MESH_RTOL * peak:
+                fail(f"sp parity rank {r['rank']}: {name} max abs err {err} "
+                     f"against max|ref| {peak}")
+    say(f"sp parity float32, Llama-2-7B width, {layers} layers, sp="
+        f"{len(results)}, S {S} (TF32 off), against each rank's one-card "
+        f"forward: " + "; ".join(
+            f"rank {r['rank']} " + ", ".join(
+                f"{n} {r[n][0]:.3g}/{r[n][1]:.3g}"
+                for n in ("k", "v", "last_logits", "score"))
+            for r in results)
+        + f" (max abs err / max|ref|, tolerance {MESH_RTOL} x); score "
+        f"over sp {results[0]['score_s']:.2f} s (host clock)")
+
+
+def sp_serve_rank(torch, dev, world: int, device: str, arg: dict) -> dict:
+    """The sp serve phase on one rank: LLaMA-2-7B-32K's geometry
+    (``arg["base"]``, at ``arg["layers"]``), random weights from seed 0,
+    at sp = 4 through ``Engine(mesh=)``, in bf16 and in int4_awq + int8
+    KV: one prompt of ``arg["S"]`` tokens admitted by one ring prefill,
+    then ``arg["new"]`` greedy tokens (TTFT on the engine's clock), every
+    rank's launch counts over it (``rank_reports``), then ``Engine.score``
+    of the prompt over sp (host clock). Then rank 0, on its card alone,
+    serves the same prompt on the same weights through the one-card
+    engine's chunked admission (chunks of ``arg["chunk"]``): its TTFT and
+    tokens, and the top-2 gap where the two part."""
+    import dataclasses
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.engine import (Engine, EngineConfig,
+                                                       SamplingParams)
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.models.tokenizer import ByteTokenizer
+    from generativeaiexamples_tpu_torch.parallel.mesh import (MeshPlan,
+                                                              make_mesh)
+
+    cfg = dataclasses.replace(arg.get("base") or llama_7b_32k(),
+                              num_layers=arg["layers"])
+    S, page, new = arg["S"], 128, arg["new"]
+    tok = ByteTokenizer()
+    ids = [1] + np.random.default_rng(2).integers(
+        3, cfg.vocab_size, S - 1).tolist()
+    greedy = SamplingParams(max_tokens=new, top_k=1, ignore_eos=True)
+    mesh = make_mesh(MeshPlan(sp=world), device=device)
+    pool = (-(-(S + new) // page)) * page
+    res: dict = {"rank": mesh.rank}
+    kept = {}
+    for mode, quant, kv in (("bf16", "", ""), ("int4", "int4_awq", "int8")):
+        params = llama.init_params(cfg, 0, torch.bfloat16, dev,
+                                   quantization=quant, group_size=128)
+        eng = Engine(params, cfg, tok, EngineConfig(
+            max_slots=2, max_input_length=S, max_output_length=new,
+            prefill_buckets=(S,), page_size=page, dtype="bfloat16",
+            kv_pool_tokens=pool, kv_quant=kv, sched_round_budget_tokens=S,
+            seed=0), device=dev, mesh=mesh)
+        out: dict = {}
+        if eng.leader:
+            r0 = eng.rank_reports()
+            s0 = dict(eng.stats)
+            eng.start()
+            stream = eng.submit(ids, greedy)
+            stream.text()
+            out["tokens"] = list(stream.token_ids)
+            out["ttft_ms"] = stream.ttft_ms
+            run = {k: eng.stats[k] - s0[k] for k in (
+                "decode_steps", "prefills", "prefill_dispatches",
+                "prefill_chunks")}
+            out["run"] = run
+            out["counts"] = rank_counts(r0, eng.rank_reports())
+            t0 = time.monotonic()
+            nll = eng.score(ids)
+            out["score_ms"] = (time.monotonic() - t0) * 1e3
+            out["score_finite"] = bool(np.isfinite(nll).all()) and len(
+                nll) == S - 1
+            eng.close()
+            kept[mode] = (params, kv)
+        else:
+            eng.follow()
+            eng.close()
+        res[mode] = out
+        del eng
+        if mode not in kept:
+            del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if mesh.rank != 0:
+        return res
+    for mode, (params, kv) in kept.items():
+        eng = Engine(params, cfg, tok, EngineConfig(
+            max_slots=2, max_input_length=S, max_output_length=new,
+            max_prefill_bucket=arg["chunk"], prefill_buckets=(arg["chunk"],),
+            page_size=page, dtype="bfloat16", kv_pool_tokens=pool,
+            kv_quant=kv, sched_round_budget_tokens=arg["chunk"],
+            sched_prefill_chunk_tokens=arg["chunk"], seed=0), device=dev)
+        s0 = dict(eng.stats)
+        eng.start()
+        stream = eng.submit(ids, greedy)
+        stream.text()
+        one = {"tokens": list(stream.token_ids), "ttft_ms": stream.ttft_ms,
+               "chunks": eng.stats["prefill_chunks"] - s0["prefill_chunks"]}
+        eng.close()
+        del eng
+        at = parting_index(res[mode]["tokens"], one["tokens"])
+        one["parting"] = at
+        if at is not None:
+            one["gap"] = logits_gap(torch, params, cfg,
+                                    ids + one["tokens"][:at])
+        res[mode]["one"] = one
+        del params
+        kept[mode] = None
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def check_sp_serve(results: list, layers: int, S: int, new: int,
+                   check_launches: bool = True) -> None:
+    lead = results[0]
+    for mode, kv in (("bf16", ""), ("int4", "int8")):
+        out, one = lead[mode], lead[mode]["one"]
+        run = out["run"]
+        if run["prefills"] != 1 or run["prefill_dispatches"] != 1 or \
+                run["prefill_chunks"]:
+            fail(f"sp serve {mode}: the {S}-token prompt was not one ring "
+                 f"admission ({run})")
+        if check_launches:
+            check_rank_counts(f"sp serve {mode}", out["counts"], layers,
+                              run["decode_steps"], kv)
+        if len(out["tokens"]) != new or not out["score_finite"]:
+            fail(f"sp serve {mode}: {len(out['tokens'])} tokens, score "
+                 f"finite {out['score_finite']}")
+        at = one["parting"]
+        gap = one.get("gap")
+        say(f"sp serve {mode}, LLaMA-2-7B-32K geometry, {layers} layers, "
+            f"sp={len(results)}: a {S}-token prompt in one ring admission, "
+            f"TTFT {out['ttft_ms']:.1f} ms against {one['ttft_ms']:.1f} ms "
+            f"through the one-card chunked admission ({one['chunks']} "
+            f"chunks) on card 0; tokens {out['tokens'][:16]}..., first "
+            f"parting from the one-card engine's {at}"
+            + (f" at a top-2 gap of {gap}" if at is not None else "")
+            + f"; the {S}-token score over sp {out['score_ms']:.1f} ms "
+            f"(host clock); #{'2' if kv else '1'} launches on every rank "
+            f"{[c.get('paged_attention_decode' + ('_int8' if kv else '')) for c in out['counts']]} "
+            f"over {run['decode_steps']} decode steps")
+        if at is not None and not (gap is not None
+                                   and gap < TP_TIE["bfloat16"]):
+            fail(f"sp serve {mode}: tokens part from the one-card engine's "
+                 f"at {at} (top-2 gap {gap}, not a near tie)")
+
+
+def tp_multihost_phase(torch, tp: int, device: str = "cuda", base=None,
+                       layers: int = 0, check_launches: bool = True) -> dict:
+    """Multi-host rendezvous: Llama-2-70B's width cut to
+    ``TP_CKPT_LAYERS`` written as a bf16 checkpoint, served in float32 at
+    tp = ``tp`` through the CLI once in one process (``--tensor-parallelism``)
+    and once as two hosts' CLIs (``--coordinator``, ``--num-processes 2``,
+    ``--process-id 0/1``; on the card ``CUDA_VISIBLE_DEVICES`` 0,1 and
+    2,3): equal greedy texts, #1 once per layer per decode step on every
+    rank, both exit 0 on SIGTERM."""
+    import shutil
+    import tempfile
+
+    dev = torch.device("cuda", 0) if device == "cuda" else \
+        torch.device("cpu")
+    cfg = tp_ckpt_cfg(layers, base)
+    root = tempfile.mkdtemp(prefix="chip_smoke_hosts_")
+    saved = os.environ.get("GAIE_SKIP_HASH")
+    os.environ["GAIE_SKIP_HASH"] = "1"
+    try:
+        path = write_tp_checkpoints(torch, dev, cfg, root,
+                                    kinds=("bf16",))["bf16"]
+        # float32: NCCL may reduce in another order over two hosts'
+        # transports; float32 sums agree far below any greedy tie.
+        runs = {h: serve_tp_ckpt_cli(path, tp, "float32", TP_PROMPTS,
+                                     TP_CKPT_NEW, device=device, hosts=h)
+                for h in (1, 2)}
+    finally:
+        if saved is None:
+            os.environ.pop("GAIE_SKIP_HASH", None)
+        else:
+            os.environ["GAIE_SKIP_HASH"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    one, two = runs[1], runs[2]
+    if one["texts"] != two["texts"]:
+        fail(f"two hosts' texts {two['texts']} != one process's "
+             f"{one['texts']}")
+    for label, run in runs.items():
+        if check_launches:
+            check_rank_counts(f"multi-host {label} host(s)", run["launches"],
+                              cfg.num_layers, run["run"]["decode_steps"])
+    say(f"multi-host: tp={tp} over two CLIs (--coordinator, "
+        f"--num-processes 2, --process-id 0/1) serves the one-process "
+        f"texts {[t[:24] for t in two['texts']]}; #1 on all {tp} ranks "
+        f"once per layer per decode step; both exited 0 on SIGTERM; up in "
+        f"{two['startup_s']:.1f} s against {one['startup_s']:.1f} s")
+    return {h: {"startup_s": r["startup_s"], "launches": r["launches"]}
+            for h, r in runs.items()}
+
+
+MESH_TASKS = {"ep_parity": ep_parity_rank, "ep_serve": ep_serve_rank,
+              "sp_parity": sp_parity_rank, "sp_serve": sp_serve_rank}
+
+
+def mesh_phases(torch, tp: int, device: str = "cuda", bases=None,
+                layers=None, check_launches: bool = True) -> dict:
+    """The mesh phases of ``--tp`` (after phase 13): ep parity and int4,
+    the ep serve beside tp, sp parity, multi-host, the sp serve. Returns
+    the launch counts and seconds for the kernels line. ``bases`` and
+    ``layers`` (dicts by phase) cut the geometry for a CPU rehearsal."""
+    bases, layers = bases or {}, layers or {}
+    took = {}
+    t0 = time.monotonic()
+
+    def lap(name):
+        nonlocal t0
+        took[name] = round(time.monotonic() - t0, 1)
+        t0 = time.monotonic()
+
+    L = layers.get("ep_parity", MESH_PARITY_LAYERS)
+    check_ep_parity(run_ranks(tp, "ep_parity", 900, dict(
+        base=bases.get("mixtral"), layers=L), device=device), L,
+        check_launches)
+    lap("ep_parity")
+    L = layers.get("ep_serve", 32)
+    serve = run_ranks(tp, "ep_serve", 1200, dict(
+        base=bases.get("mixtral"), layers=L), device=device)
+    check_ep_serve(serve, L, check_launches)
+    lap("ep_serve")
+    L, S = layers.get("sp_parity", MESH_PARITY_LAYERS), \
+        layers.get("sp_parity_S", SP_PARITY_S)
+    check_sp_parity(run_ranks(tp, "sp_parity", 600, dict(
+        base=bases.get("llama"), layers=L, S=S), device=device), L, S)
+    lap("sp_parity")
+    hosts = tp_multihost_phase(torch, tp, device, base=bases.get("70b"),
+                               layers=layers.get("multihost", 0),
+                               check_launches=check_launches)
+    lap("multihost")
+    L, S = layers.get("sp_serve", 32), layers.get("sp_serve_S", SP_SEQ)
+    new = layers.get("sp_new", SP_NEW)
+    sp = run_ranks(tp, "sp_serve", 1200, dict(
+        base=bases.get("llama32k"), layers=L, S=S, new=new,
+        chunk=layers.get("sp_chunk", 4096)), device=device)
+    check_sp_serve(sp, L, S, new, check_launches)
+    lap("sp_serve")
+    say(f"mesh phase seconds: {took}")
+    return {"sp": sp, "ep": serve, "hosts": hosts, "seconds": took}
+
+
+def main_tp(torch, tp: int, only: str = "") -> int:
+    """``--tp N``: the multi-card phases only (see the module docstring,
+    phases 12-14); ``only="mesh"``: the kernel checks and phase 14 alone.
+    Fails on fewer than ``tp`` cards."""
     from generativeaiexamples_tpu_torch.kernels import build
-    from generativeaiexamples_tpu_torch.models.configs import (LLAMA2_70B,
-                                                               MIXTRAL_8X7B)
     if torch.cuda.device_count() < tp:
         fail(f"--tp {tp} needs {tp} cards; this machine has "
              f"{torch.cuda.device_count()}")
@@ -7851,6 +8683,34 @@ def main_tp(torch, tp: int) -> int:
     took = build.build_all()
     say(f"kernel build: {', '.join(f'{k} {v:.1f} s' for k, v in took.items())}")
     lap("build")
+    mesh_rows = check_mesh_shards(torch, dev)
+    torch.cuda.empty_cache()
+    lap("mesh_shards")
+    kernels = [] if only else tp_phases(torch, tp, dev, lap)
+    mesh = mesh_phases(torch, tp)
+    lap("mesh")
+    # The mesh rows' launches: rank 0's over the sp serve's window (#1 in
+    # bf16, #2 and #3 "wg" at M = 8192 in int4_awq + int8 KV).
+    sp = mesh["sp"][0]
+    for key, row in mesh_rows.items():
+        counts = sp["bf16" if row["name"] == "paged_attention_decode"
+                    else "int4"]["counts"][0]
+        row["launches"] = counts.get(row["name"] if "path" not in row else
+                                     f"int4_matmul/{row['path']}", 0)
+        kernels.append(row)
+    say(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
+    say(json.dumps({"kernels": kernels}))
+    say(card)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def tp_phases(torch, tp: int, dev, lap) -> list:
+    """Phases 12 and 13 of ``--tp``; their rows of the kernels line."""
+    from generativeaiexamples_tpu_torch.models.configs import (LLAMA2_70B,
+                                                               MIXTRAL_8X7B)
     shard_rows = check_tp_shards(torch, dev)
     torch.cuda.empty_cache()
     lap("tp_shards")
@@ -7904,13 +8764,7 @@ def main_tp(torch, tp: int) -> int:
                 f"int4_matmul/{row['path']}"]
         kernels.append(row)
     say(f"tp checkpoints summary: {json.dumps(ckpt, default=str)}")
-    say(f"phase seconds: {phases}, total {sum(phases.values()):.1f}")
-    say(json.dumps({"kernels": kernels}))
-    say(card)
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 def main() -> int:
@@ -7924,9 +8778,11 @@ def main() -> int:
     except ImportError as exc:
         fail(f"the port package is not importable here: {exc}")
     if sys.argv[1:2] == ["--tp"]:
-        if len(sys.argv) != 3 or not sys.argv[2].isdigit():
-            fail("usage: chip_smoke.py --tp N")
-        return main_tp(torch, int(sys.argv[2]))
+        if not (len(sys.argv) == 3 or sys.argv[3:] == ["--only", "mesh"]) \
+                or not sys.argv[2].isdigit():
+            fail("usage: chip_smoke.py --tp N [--only mesh]")
+        return main_tp(torch, int(sys.argv[2]), "mesh" if sys.argv[3:]
+                       else "")
     dev = torch.device("cuda", 0)
     card = card_line()
     say(f"card: {card}")
@@ -7985,6 +8841,10 @@ def main() -> int:
     check_tp_shards(torch, dev)
     torch.cuda.empty_cache()
     lap("tp_shards")
+    # ... and at the shapes of the mesh phases (sp = 4, ep = 4).
+    check_mesh_shards(torch, dev)
+    torch.cuda.empty_cache()
+    lap("mesh_shards")
     kernels.extend(check_int4_matmul(torch, dev))
     lap("int4_matmul")
     gbias_rows = check_int4_gbias(torch, dev)

@@ -108,8 +108,8 @@ port of the reference's ``engine/engine.py``.
 
 - **Tensor parallelism** (``Engine(..., mesh=)``, ``parallel/``): one
   process per card, each an ``Engine`` over its tp shard of the weights
-  and of the pool (kv heads over tp). The tp leader (rank 0 of the
-  group) plans and serves; every program it runs goes first to its
+  and of the pool (kv heads over tp). The leader (global rank 0 of the
+  mesh) plans and serves; every program it runs goes first to its
   followers as a header (the program's key and the host writes staged
   since the last one: ``_replay``), and each follower's ``follow`` loop
   applies the writes and runs the same program, so the collectives inside
@@ -133,6 +133,22 @@ port of the reference's ``engine/engine.py``.
   shrink and rebuild to one page count). A failed collective or an
   out-of-memory error inside one ends the engine (``_fatal``): nothing
   carries on past it.
+- **The rest of the serving mesh** (``parallel/mesh.py``): global rank 0
+  leads every rank of the mesh, the ``dp``, ``ep`` and ``sp`` replicas
+  included, which replay its programs as tp followers do. Under ``ep``
+  each rank holds its ``E/ep`` experts (``parallel/moe.py``; attention,
+  the pool and the tail as at its tp); ``dp`` replicates. Under ``sp``
+  (dp x sp only, as the reference) every rank holds the whole model and
+  pool: a one-shot admission is the ring-attention prefill
+  (``llama.apply_prefill_sp``), each rank's K/V block gathered over sp
+  layer by layer into its pool, so every rank's pool equals one card's;
+  a longer prompt's chunks, a prefix hit's and every decode round run
+  replicated, as the reference's do. On an sp mesh the prefill programs
+  (ring or chunk) run eagerly on every rank, by design: they are the
+  long-context programs, whose launches are a vanishing share of their
+  time, and a capture would pin each bucket's transients (gigabytes at
+  32768 tokens) in the graph pool; the NCCL point-to-point passes of the
+  ring stay outside any graph. Decode rounds are captured as always.
 """
 
 from __future__ import annotations
@@ -663,9 +679,20 @@ def _mixed_float_leaves(params: llama.Params, dtype: torch.dtype
                   and v.is_floating_point() and v.dtype != dtype)
 
 
+def _whole_tree(params: llama.Params, cfg: LlamaConfig, mesh: Mesh) -> bool:
+    """Whether ``params`` is the whole model's tree where ``mesh`` splits
+    it: the embedding's every vocab row under tp, every expert under
+    ep."""
+    if comm.sharded(mesh) and params["embed"].shape[0] == cfg.vocab_size:
+        return True
+    if mesh.shape.get("ep", 1) > 1 and cfg.num_experts:
+        return params["layers"]["w_gate"].shape[1] == cfg.num_experts
+    return False
+
+
 class Engine:
     """Continuous-batching engine over one model on one device, or on one
-    rank of a tensor-parallel group (``mesh``: module docstring)."""
+    rank of a serving mesh (``mesh``: module docstring)."""
 
     # Device-side multi-token bad-words table: up to MAX_BAD_SEQS
     # sequences per request, each up to MAX_BAD_LEN tokens.
@@ -680,11 +707,14 @@ class Engine:
         self.device = resolve_device(device)
         self._dtype = _DTYPES[cfg.dtype]
         self.mesh = mesh
+        # tp splits the model; ``_multi``: other ranks follow this one.
         self._sharded = comm.sharded(mesh)
+        self._multi = comm.distributed(mesh)
+        self._sp = mesh is not None and mesh.shape.get("sp", 1) > 1
         # Construction-time feature downgrades, observable (``downgrades``).
         self._downgrades: list[dict] = []
         self._check_topology(model_cfg)
-        if self._sharded and params["embed"].shape[0] == model_cfg.vocab_size:
+        if mesh is not None and _whole_tree(params, model_cfg, mesh):
             # A whole tree: keep this rank's shard of it.
             params = shard_params(params, mesh,
                                   llama_param_specs(model_cfg, mesh))
@@ -723,6 +753,14 @@ class Engine:
         self._buckets = tuple(sorted(
             {page_up(min(b, cap)) for b in cfg.prefill_buckets}
             | {page_up(cap)}))
+        if self._sp:
+            # The ring prefill shards each bucket over sp: a bucket that
+            # does not split fails here, not at its first admission.
+            for b in self._buckets:
+                try:
+                    llama.validate_sp_mesh(mesh, b, "sp serving prefill")
+                except ValueError as exc:
+                    raise ConfigError(str(exc)) from exc
         # A chunk's padded span starts on a prompt page and runs at most
         # one largest bucket: the staged page row covers it (pages past
         # the extent map to the trash page 0). The prefix a chunk attends
@@ -905,7 +943,7 @@ class Engine:
             "ENGINE_WATCHDOG_STALL_S", "0") or 0)
         self._watchdog_thread: Optional[threading.Thread] = None
         self._stalled = False
-        self._recording = self._sharded and self.leader
+        self._recording = self._multi and self.leader
         self._closing = False
         with self._stats_lock:
             self._stats["downgrades"] = len(self._downgrades)
@@ -914,12 +952,13 @@ class Engine:
 
     def _check_topology(self, model_cfg: LlamaConfig) -> None:
         """The reference's topology gates, and the port's own: serving
-        shards over tp only (pp would idle each stage 1/pp of every
-        round); sp's ring-attention prefill and ep's expert parallelism
-        are not ported (ROADMAP A12); on the card the paged kernel runs on
-        each rank's heads, so head counts that do not divide tp are
-        refused (the reference falls back to its gather path there); the
-        mesh's device is the engine's."""
+        shards over dp, ep, sp and tp, never pp (pipeline stages would
+        idle 1/pp of every round); sp composes with dp only, with the
+        reference's message (each bucket's split is checked once the
+        buckets exist); experts must split over ep; on the card the paged
+        kernel runs on each rank's heads, so head counts that do not
+        divide tp are refused (the reference falls back to its gather
+        path there); the mesh's device is the engine's."""
         mesh = self.mesh
         if mesh is None:
             return
@@ -929,12 +968,17 @@ class Engine:
                 f"serving requires pp == 1 (mesh has pp={pp}): the decode "
                 f"engine dispatches all layers as one program per round, "
                 f"so pipeline stages would idle 1/pp of every round; shard "
-                f"serving over tp instead (pp is training-only)")
-        for axis in ("sp", "ep"):
-            if int(mesh.shape.get(axis, 1)) > 1:
-                raise ConfigError(
-                    f"serving over {axis}={mesh.shape[axis]} is not ported "
-                    f"yet (ROADMAP A12): shard serving over tp")
+                f"serving over tp/sp instead (pp is training-only)")
+        n_sp = int(mesh.shape.get("sp", 1))
+        if n_sp > 1:
+            try:
+                llama.validate_sp_mesh(mesh, n_sp, "sp serving prefill")
+            except ValueError as exc:
+                raise ConfigError(str(exc)) from exc
+        ep = int(mesh.shape.get("ep", 1))
+        if model_cfg.num_experts and model_cfg.num_experts % ep:
+            raise ConfigError(f"num_experts={model_cfg.num_experts} does "
+                              f"not split over ep={ep}")
         if mesh.device.type != self.device.type:
             raise ConfigError(f"the mesh runs on {mesh.device}, the engine "
                               f"on {self.device}")
@@ -962,8 +1006,12 @@ class Engine:
         reason}``."""
         return [dict(d) for d in self._downgrades]
 
-    def _program_table(self, body_name: str) -> dict:
-        """The captured programs a header names by their body."""
+    def _program_table(self, body_name: str) -> Optional[dict]:
+        """The captured programs a header names by their body (None: a
+        prefill program of an sp mesh, which runs eagerly: module
+        docstring)."""
+        if self._sp and body_name in self._PREFILL_BODIES:
+            return None
         return {"_admit_body": self._admit_graphs,
                 "_chunk_extend_body": self._extend_graphs,
                 "_chunk_final_body": self._final_graphs,
@@ -1068,6 +1116,10 @@ class Engine:
         else:
             raise EngineError(f"unknown header {kind!r}")
 
+    # The prefill programs: eager on an sp mesh (module docstring).
+    _PREFILL_BODIES = ("_admit_body", "_chunk_extend_body",
+                       "_chunk_final_body")
+
     def _broadcast(self, header: tuple) -> None:
         if self._recording:
             comm.broadcast_header(header, self.mesh)
@@ -1080,7 +1132,7 @@ class Engine:
         try:
             yield
         except BaseException as exc:
-            if self._sharded:
+            if self._multi:
                 self._fatal = exc
             raise
 
@@ -1096,7 +1148,7 @@ class Engine:
             out = step()
         except torch.cuda.OutOfMemoryError as exc:
             err, out = exc, None
-        if self._sharded:
+        if self._multi:
             if not comm.agree(err is None, self.mesh):
                 _drop_tracebacks(err)
                 raise _AgreedOOM(
@@ -1135,7 +1187,7 @@ class Engine:
         a header of its own to the followers; an out-of-memory error there
         ends the engine (the followers may wait in a collective)."""
         ids = [int(t) for t in token_ids]
-        if not self._sharded:
+        if not self._multi:
             return self._score(ids, chunk)
 
         def run() -> np.ndarray:
@@ -1146,15 +1198,15 @@ class Engine:
         try:
             return self._on_serve_thread(run)
         except torch.cuda.OutOfMemoryError as exc:
-            raise EngineError(f"scoring ran out of device memory at "
-                              f"tp={self.mesh.tp}: the engine is down"
-                              ) from exc
+            raise EngineError(f"scoring ran out of device memory on the "
+                              f"mesh {self.mesh.shape}: the engine is "
+                              f"down") from exc
 
     @torch.no_grad()
     def _score(self, ids: list, chunk: int) -> np.ndarray:
         tokens = torch.tensor([ids], dtype=torch.int32, device=self.device)
         nll = llama.score(self.params, self.model_cfg, tokens, chunk=chunk,
-                          mesh=self.mesh if self._sharded else None)
+                          mesh=self.mesh)
         return nll[0].double().cpu().numpy()
 
     def _build_device(self) -> None:
@@ -1281,12 +1333,11 @@ class Engine:
         self._pool_reserve = reserve
         pages = int(0.9 * (free - reserve)) // (
             cfg.page_size * self._kv_bytes_per_token())
-        if self._sharded:
+        if self._multi:
             # Every rank's pool has the same pages: the smallest fit.
             agreed = torch.tensor([pages], device=self.device)
             torch.distributed.all_reduce(
-                agreed, op=torch.distributed.ReduceOp.MIN,
-                group=self.mesh.tp_group)
+                agreed, op=torch.distributed.ReduceOp.MIN)
             pages = int(agreed.item())
         return min(full, max(self._pmax, pages))
 
@@ -1496,8 +1547,17 @@ class Engine:
         last = llama.project_logits(
             self.params, hn.index_select(1, (length - 1).long())[:, 0],
             self.mesh)
-        V = mcfg.vocab_size
-        seen = seen_mask(tokens, length, V)                           # (1, V)
+        return (cache["k"], cache["v"]) + self._first_token(last, tokens,
+                                                            greedy)
+
+    def _first_token(self, last: torch.Tensor, tokens: torch.Tensor,
+                     greedy: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        """The admission's first token from the last prompt row's logits
+        ``last`` (1, V) of the staged prompt ``tokens`` (1, S): penalized,
+        banned, sampled (or argmax). Returns it ((1,) int32) and the
+        prompt's seen mask with it set, as packed (Wn,) words."""
+        a, V = self._admit_in, self.model_cfg.vocab_size
+        seen = seen_mask(tokens, a["length"], V)                      # (1, V)
         last = apply_repetition_penalty(last, seen, a["rep_pen"])
         last = torch.where(unpack_mask(a["banned"], V)[None, :],
                            torch.full_like(last, NEG_INF), last)
@@ -1507,7 +1567,46 @@ class Engine:
             first = sample(last, a["temp"], a["top_k"], a["top_p"],
                            self._admit_gen)
         seen = seen[0].index_fill(0, first.long(), True)
-        return cache["k"], cache["v"], first, pack_mask(seen)
+        return first, pack_mask(seen)
+
+    @torch.no_grad()
+    def _prefill_sp(self, bucket: int, greedy: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The one-shot admission of an sp mesh (the reference's sp
+        branch of ``prefill``): the staged prompt padded to ``bucket``
+        through the ring-attention prefill (``llama.apply_prefill_sp``),
+        each layer's K/V blocks gathered over sp as the layers run and
+        written into the staged page row (quantized per row under an int8
+        pool, as ``_insert`` writes them), so no rank holds the bucket's
+        whole K/V of every layer at once; then the first token from the
+        last valid row's logits, equal on every rank. Returns the first
+        token and the seen mask, for ``_arm``."""
+        mcfg, dev, a = self.model_cfg, self.device, self._admit_in
+        tokens = a["tokens"][:bucket][None, :]
+        positions = torch.arange(bucket, dtype=torch.int32, device=dev)[None, :]
+        page = self.cfg.page_size
+        nb = bucket // page
+        dest = a["row"][:nb].long()
+        cache = self._state["cache"]
+        quant = llama.kv_cache_quantized(cache)
+        KV, hd = mcfg.num_kv_heads, mcfg.head_dim
+
+        def write(i: int, k: torch.Tensor, v: torch.Tensor) -> None:
+            for name, part in (("k", k), ("v", v)):
+                whole = comm.all_gather(part[0], self.mesh, "sp")
+                # (sp, S/sp, KV, hd) -> (nb, KV, page, hd): the pool's.
+                blocks = whole.reshape(nb, page, KV, hd).transpose(1, 2)
+                if quant:
+                    rows, scales = quantize_rows(blocks)
+                    cache[name][i, dest] = rows
+                    cache[name + "s"][i, dest] = scales
+                else:
+                    cache[name][i, dest] = blocks.to(cache[name].dtype)
+
+        _, _, last = llama.apply_prefill_sp(self.params, mcfg, tokens,
+                                            positions, self.mesh,
+                                            a["length"], kv_out=write)
+        return self._first_token(last, tokens, greedy)
 
     @torch.no_grad()
     def _insert(self, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -1570,7 +1669,11 @@ class Engine:
 
     def _admit_body(self, bucket: int, greedy: bool) -> None:
         """One admission: prefill, first token, insert (the reference's
-        ``prefill_insert``, one program on the TTFT path)."""
+        ``prefill_insert``, one program on the TTFT path); on an sp mesh
+        the ring prefill, which writes the pool itself."""
+        if self._sp:
+            self._arm(*self._prefill_sp(bucket, greedy))
+            return
         self._insert(*self._prefill(bucket, greedy))
 
     @torch.no_grad()
@@ -1587,7 +1690,7 @@ class Engine:
         tokens, length, top_ids = fused.assemble(
             x[:2 * Se].view(2, Se), x[2 * Se:2 * Se + Sq], x[-1:],
             share=(functools.partial(comm.broadcast_, mesh=self.mesh)
-                   if self._sharded else None))
+                   if self._multi else None))
         a["tokens"][:spec.bucket].copy_(tokens)
         a["length"].copy_(length)
         k, v, first, seen = self._prefill(spec.bucket, greedy)
@@ -2010,7 +2113,7 @@ class Engine:
         with speculative decoding on the verify rounds
         ``(window, greedy, ba)``, ``window`` over the page ladder. Sampled
         programs draw from a generator."""
-        for C in sorted(self._buckets, reverse=True):
+        for C in sorted(self._buckets, reverse=True) if not self._sp else ():
             for greedy in (True, False):
                 yield (self._admit_graphs, (C, greedy),
                        functools.partial(self._admit_body, C, greedy),
@@ -2062,7 +2165,7 @@ class Engine:
         pool = self._graph_pool = torch.cuda.graph_pool_handle()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
-        if self._sharded and self._pool_reserve is not None:
+        if self._multi and self._pool_reserve is not None:
             # The captures' warm-ups hold collectives: every rank first
             # shows that the reserve the programs fit in is free.
             self._agreed(lambda: torch.empty(
@@ -2096,13 +2199,13 @@ class Engine:
         bucket's admission ``prefill_ms_per_token`` (a bucket's prefill
         costs its full length whatever the prompt). The replays run on
         the staged warm-up inputs, into the trash page."""
-        def ms(program: graphs.Program) -> float:
-            program.replay()
+        def ms(run, replays: int = replays) -> float:
+            run()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(replays):
-                program.replay()
+                run()
             end.record()
             end.synchronize()
             return start.elapsed_time(end) / replays
@@ -2114,15 +2217,21 @@ class Engine:
             # The widest window: the gather's cost does not depend on
             # which slots are live, so this prices a full-table round.
             verify = ms(self._verify_graphs[
-                (self._windows[-1], True, self._ba_ladder[-1])]) / (
+                (self._windows[-1], True, self._ba_ladder[-1])].replay) / (
                     self._spec_S * B)
         d2h = h2d = 0.0
         if self._kv_tier is not None:
             d2h, h2d = self.measure_page_io(min(32, self._n_pages - 1))
+        if self._sp:
+            # The eager ring admission, at the warm-up's staged inputs.
+            prefill = ms(functools.partial(self._admit_body, bucket, True),
+                         replays=1)
+        else:
+            prefill = ms(self._admit_graphs[(bucket, True)].replay)
         return StepCostModel(
-            decode_step_ms=ms(self._round_graphs[(steps, True, B)]) / steps,
-            prefill_ms_per_token=ms(self._admit_graphs[(bucket, True)])
-            / bucket,
+            decode_step_ms=ms(self._round_graphs[(steps, True, B)].replay)
+            / steps,
+            prefill_ms_per_token=prefill / bucket,
             verify_ms_per_token=verify, d2h_ms_per_page=d2h,
             h2d_ms_per_page=h2d, slots=B, source="measured")
 
@@ -2189,7 +2298,7 @@ class Engine:
         engine."""
         if self._thread is not None:
             raise EngineError("prewarm() requires a stopped engine")
-        oom = _AgreedOOM if self._sharded else torch.cuda.OutOfMemoryError
+        oom = _AgreedOOM if self._multi else torch.cuda.OutOfMemoryError
         for attempt in range(self.PREWARM_RETRIES + 1):
             try:
                 if attempt:
@@ -2809,7 +2918,7 @@ class Engine:
         """``enable_fused_rag``'s body, on every rank (a follower's
         ``enc_params`` are empty tensors the leader's broadcasts fill)."""
         self._drop_rag_programs()
-        if self._sharded:
+        if self._multi:
             with self._collective():
                 for t in weight_cache.flatten(enc_params).values():
                     comm.broadcast_(t, self.mesh)
@@ -2856,7 +2965,7 @@ class Engine:
         fused = self._fused_rag
         grew = fused.set_corpus(emb, toks, lens, copy=functools.partial(
             self._host_to_device, record=False))
-        if self._sharded:
+        if self._multi:
             with self._collective():
                 for t in fused.corpus.values():
                     comm.broadcast_(t, self.mesh)
@@ -3650,7 +3759,7 @@ class Engine:
                 src = src.pin_memory()
             return src.to(self.device, non_blocking=True)
 
-        if not self._sharded:
+        if not self._multi:
             for name, pool in cache.items():
                 pool.index_copy_(1, idx, upload(name, pool))
             return
@@ -4109,16 +4218,17 @@ class Engine:
         faults.inject("engine.dispatch")
         t0 = time.monotonic()
         if final and req.pf_pos == 0:
-            self._replay(self._admit_graphs, self._admit_body, C, req.greedy)
+            self._replay(self._program_table("_admit_body"),
+                         self._admit_body, C, req.greedy)
         elif final:
-            self._replay(self._final_graphs, self._chunk_final_body, C,
-                         req.greedy, seeding)
+            self._replay(self._program_table("_chunk_final_body"),
+                         self._chunk_final_body, C, req.greedy, seeding)
             self._bump("prefill_chunks")
         else:
             mode = ("seed" if seeding else
                     "replace" if req.pf_pos == 0 else "accum")
-            self._replay(self._extend_graphs, self._chunk_extend_body, C,
-                         mode)
+            self._replay(self._program_table("_chunk_extend_body"),
+                         self._chunk_extend_body, C, mode)
             self._bump("prefill_chunks")
         pf["dispatch_s"] += time.monotonic() - t0
         self._bump("prefill_dispatches")
@@ -4170,7 +4280,8 @@ class Engine:
     def _replay(self, table: dict, body, *key) -> None:
         """Run one device program: with graphs on, the replay of the
         capture ``table`` keeps under ``key`` (a missing one raises), else
-        ``body(*key)`` eagerly. A tp leader first sends its followers the
+        ``body(*key)`` eagerly (also for ``table`` None: a program that
+        runs eagerly by design). A leader first sends its followers the
         program's header with the host writes staged since the last
         one."""
         if self._recording:
@@ -4181,7 +4292,7 @@ class Engine:
         if span is not None and span[0] is None:
             span[0] = torch.cuda.Event(enable_timing=True)
             span[0].record()
-        if self._graphs_on:
+        if self._graphs_on and table is not None:
             table[key].replay()
         else:
             body(*key)
@@ -4240,7 +4351,7 @@ class Engine:
         goes through a fresh pinned buffer, asynchronously (a copy from
         pageable memory would wait for every round in flight); the caching
         host allocator keeps that buffer until the copy has run, so each
-        program in flight keeps its own source. A tp leader stages the
+        program in flight keeps its own source. A leader stages the
         write for its followers unless ``record`` is False (the caller
         sends the data another way)."""
         if self._recording and record:

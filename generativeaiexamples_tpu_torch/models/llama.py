@@ -50,7 +50,9 @@ from ..ops.rmsnorm import layernorm1p, rmsnorm
 from ..ops.rope import apply_rope, rope_frequencies
 from ..parallel.comm import all_gather, all_reduce_, sharded
 from ..parallel.mesh import Mesh
-from ..parallel.moe import sparse_moe_ffn, topk_lowest_index_first
+from ..parallel.moe import (expert_block, sparse_moe_ffn,
+                             topk_lowest_index_first)
+from ..parallel.ring_attention import ring_gqa_attention
 from ..parallel.sharding import (llama_param_specs, quantized_leaf_specs,
                                  shard_array)
 from ..utils.errors import ConfigError, ShardingError
@@ -343,9 +345,10 @@ def kv_heads_held(cfg: LlamaConfig, tp: int, rank: int) -> tuple[int, ...]:
 
 def tp_layout(cfg: LlamaConfig, mesh: Optional[Mesh]) -> TPLayout:
     """This rank's ``TPLayout`` under ``mesh`` (the whole model without
-    one, or at tp = 1). The splits are ``llama_param_specs``'."""
+    one, or at tp = 1, where ``mesh`` still reaches the MoE layer's
+    expert-parallel combine). The splits are ``llama_param_specs``'."""
     if not sharded(mesh):
-        return TPLayout(cfg, None, False, None)
+        return TPLayout(cfg, mesh, False, None)
     tp, r = mesh.tp, mesh.tp_rank
     for name, n in (("intermediate_size", cfg.intermediate_size),
                     ("vocab_size", cfg.vocab_size)):
@@ -368,7 +371,7 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
     vocab: each rank looks up the ids of its own range (zeros for the
     others) and one all-reduce completes every row."""
     table = params["embed"]
-    if tpl is None or tpl.mesh is None:
+    if tpl is None or not sharded(tpl.mesh):
         return table[tokens.long()]
     Vl = table.shape[0]
     local = tokens.long() - tpl.mesh.tp_rank * Vl
@@ -405,7 +408,8 @@ def _moe_mlp(x: torch.Tensor, lp: dict[str, Any],
     ``moe_impl="dense"`` is the zero-gated all-experts formulation
     (O(tokens * E), no capacity drops), the parity oracle: router logits
     in the activations' dtype, as the reference's. Under a mesh each rank
-    runs its F/tp columns of every expert and one all-reduce completes the
+    runs its F/tp columns of its ep block of experts (every expert at ep
+    = 1) and one all-reduce over the ``ep x tp`` ranks completes the
     combined rows."""
     if cfg.moe_impl == "sparse":
         return sparse_moe_ffn(x, lp, cfg, mesh=mesh)
@@ -417,11 +421,14 @@ def _moe_mlp(x: torch.Tensor, lp: dict[str, Any],
                                            cfg.num_experts_per_tok)
     weights = torch.softmax(weights.float(), dim=-1).to(x.dtype)
     gates = torch.zeros_like(logits).scatter(-1, idx, weights)
+    e0, n = expert_block(cfg, mesh)
+    gates = gates[..., e0:e0 + n]
     gate = torch.nn.functional.silu(
         torch.einsum("bsd,edf->bsef", x, lp["w_gate"]))
     up = torch.einsum("bsd,edf->bsef", x, lp["w_up"])
     down = torch.einsum("bsef,efd->bsed", gate * up, lp["w_down"])
-    return all_reduce_(torch.einsum("bsed,bse->bsd", down, gates), mesh)
+    return all_reduce_(torch.einsum("bsed,bse->bsd", down, gates), mesh,
+                       "moe")
 
 
 def block_norm(x: torch.Tensor, lp: dict[str, Any], key: str,
@@ -620,21 +627,20 @@ def score(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
     no prediction). Returns (B, S-1) float32: the NLL of token t+1 given
     tokens <= t.
 
-    ``mesh``: as in the reference, a mesh without sequence parallelism
-    takes the tensor-parallel forward (``params`` this rank's shard, the
-    dense cache its kv heads; every rank of the group calls this with
-    the same tokens and gets the whole result). The reference's
-    sequence-parallel path (ring attention over sp > 1) is not ported:
-    such a mesh raises ``ConfigError``."""
+    ``mesh``: as in the reference, a mesh with sp > 1 takes one
+    ``apply_sp`` pass (ring attention; the sequence padded to an sp
+    multiple, the pad causally invisible): each rank's logits stay its
+    own sequence block's and only the NLL rows are gathered over sp.
+    Another mesh takes the tensor-parallel forward (``params`` this
+    rank's shard, the dense cache its kv heads). Every rank calls this
+    with the same tokens and gets the whole result."""
     B, S = tokens.shape
     if S < 2:
         raise ValueError("score needs at least 2 tokens")
     if chunk < 16:
         raise ValueError(f"chunk must be >= 16, got {chunk}")
     if mesh is not None and mesh.shape.get("sp", 1) > 1:
-        raise ConfigError("sequence-parallel scoring (ring attention over "
-                          "an sp mesh) is not ported yet (ROADMAP.md A12)")
-    mesh = mesh if sharded(mesh) else None
+        return _score_sp(params, cfg, tokens, mesh)
     dev = tokens.device
     if S <= chunk:
         positions = torch.arange(S, dtype=torch.int32,
@@ -663,6 +669,155 @@ def score(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
         parts.append(_nll(logits[:, :-1], tok_c[:, 1:]))
         prev_last = logits[:, -1:]
     return torch.cat(parts, dim=1)[:, :S - 1]
+
+
+def _score_sp(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+              mesh: Mesh) -> torch.Tensor:
+    """``score``'s sp path: the sequence padded to an sp multiple, this
+    rank's block of every row through ``_forward_sp``, its NLL rows
+    (each row's target is the next token, which every rank holds) and
+    one all-gather of them over sp. Every dp replica scores every row."""
+    B, S = tokens.shape
+    n_sp, r = mesh.shape["sp"], mesh.coords["sp"]
+    S_pad = -(-S // n_sp) * n_sp
+    validate_sp_mesh(mesh, S_pad, "score")
+    Sl = S_pad // n_sp
+    padded = torch.nn.functional.pad(tokens, (0, S_pad - S))
+    pos = torch.arange(r * Sl, (r + 1) * Sl, dtype=torch.int32,
+                       device=tokens.device).expand(B, Sl)
+    logits = _forward_sp(params, cfg, padded[:, r * Sl:(r + 1) * Sl], pos,
+                         mesh)                               # (B, Sl, V)
+    targets = torch.nn.functional.pad(padded, (0, 1))[:, r * Sl + 1:
+                                                       (r + 1) * Sl + 1]
+    nll = all_gather(_nll(logits, targets), mesh, "sp")       # (sp, B, Sl)
+    return torch.movedim(nll, 0, 1).reshape(B, S_pad)[:, :S - 1]
+
+
+def validate_sp_mesh(mesh: Mesh, S: int, fn_name: str = "sp") -> int:
+    """The sp mesh's geometry checks (``apply_sp``, ``apply_prefill_sp``,
+    the engine's construction), the reference's with its messages: sp >
+    1, no composed tp/ep/pp, the sequence divisible by sp. Returns the sp
+    size."""
+    n_sp = int(mesh.shape.get("sp", 1))
+    if n_sp <= 1:
+        raise ValueError(f"{fn_name} needs a mesh with sp > 1")
+    for ax in ("tp", "ep", "pp"):
+        if int(mesh.shape.get(ax, 1)) != 1:
+            raise ValueError(
+                f"{fn_name} shards only dp×sp; mesh has {ax}="
+                f"{mesh.shape[ax]} (composing sp with {ax} is not "
+                f"supported)")
+    if S % n_sp:
+        raise ValueError(
+            f"{fn_name}: sequence length {S} not divisible by sp={n_sp}")
+    return n_sp
+
+
+def _sp_block(tokens: torch.Tensor, positions: torch.Tensor, mesh: Mesh,
+              batch_over_dp: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's rows of (B, S) inputs: its sp block of the sequence
+    (contiguous), and its dp block of the batch when ``batch_over_dp``."""
+    n_sp, r = mesh.shape["sp"], mesh.coords["sp"]
+    Sl = tokens.shape[1] // n_sp
+    tokens, positions = (tokens[:, r * Sl:(r + 1) * Sl],
+                         positions[:, r * Sl:(r + 1) * Sl])
+    if batch_over_dp:
+        n_dp, d = mesh.shape["dp"], mesh.coords["dp"]
+        Bl = tokens.shape[0] // n_dp
+        tokens, positions = (tokens[d * Bl:(d + 1) * Bl],
+                             positions[d * Bl:(d + 1) * Bl])
+    return tokens, positions
+
+
+def _sp_layers(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+               positions: torch.Tensor, mesh: Mesh, kv_out=None
+               ) -> torch.Tensor:
+    """This rank's block through every layer, attention by the ring
+    (``parallel/ring_attention.py``); ``kv_out(i, k, v)`` gets each
+    layer's post-rope K/V block. Returns the hidden states before the
+    final norm."""
+    h = embed_tokens(params, tokens)
+    inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                cfg.rope_scaling_factor, device=h.device)
+    for i in range(cfg.num_layers):
+        def attend(q, k, v, i=i):
+            if kv_out is not None:
+                kv_out(i, k, v)
+            return ring_gqa_attention(q, k, v, positions, mesh=mesh)
+        h = decoder_layer(h, layer_params(params, i), cfg, positions,
+                          inv_freq, None, attend=attend)
+    return h
+
+
+def _forward_sp(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                positions: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Float32 logits of this rank's block (``_sp_layers``)."""
+    return unembed(params, cfg, _sp_layers(params, cfg, tokens, positions,
+                                           mesh))
+
+
+@torch.no_grad()
+def apply_sp(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+             positions: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Sequence-parallel long-context forward (the reference's
+    ``apply_sp``): activations sharded along the sequence over the
+    mesh's sp ranks, attention exact by the K/V ring, every other part of
+    the layer per token. Params are replicated over sp (and dp); the
+    mesh is dp x sp only (``validate_sp_mesh``).
+
+    tokens/positions: (B, S), the whole batch on every rank, S divisible
+    by sp (and B by dp). Returns this rank's float32 logits (B/dp, S/sp,
+    V): its dp block of the batch, its sp block of the sequence, as the
+    reference's output is sharded."""
+    validate_sp_mesh(mesh, tokens.shape[1], "apply_sp")
+    if tokens.shape[0] % mesh.shape["dp"]:
+        raise ValueError(f"apply_sp: batch {tokens.shape[0]} not divisible "
+                         f"by dp={mesh.shape['dp']}")
+    tok, pos = _sp_block(tokens, positions, mesh, batch_over_dp=True)
+    return _forward_sp(params, cfg, tok, pos, mesh)
+
+
+@torch.no_grad()
+def apply_prefill_sp(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                     positions: torch.Tensor, mesh: Mesh,
+                     length: torch.Tensor, *, kv_out=None):
+    """Sequence-parallel serving prefill (the reference's
+    ``apply_prefill_sp``): ring attention over the bucket's sequence
+    shards, returning every layer's K/V block and the last valid
+    position's logits; the (B, S, V) logits are never made.
+
+    tokens/positions: (B, S), S divisible by sp; ``length``: () or (B,)
+    valid tokens (the sample position is ``length - 1``). The batch
+    shards over dp only when it divides (serving's B = 1 is replicated).
+    Returns ``(k, v, last_logits)``: k/v (L, B', S/sp, KV, hd), this
+    rank's sequence block, and last_logits (B', V) float32 on every rank
+    (the last row's hidden state selected where it lives, summed over sp,
+    then one unembed). ``kv_out(i, k, v)``: each layer's block goes there
+    instead (the engine writes it into its pool as the layers run), and
+    k/v are None."""
+    B, S = tokens.shape
+    validate_sp_mesh(mesh, S, "apply_prefill_sp")
+    over_dp = mesh.shape["dp"] > 1 and B % mesh.shape["dp"] == 0
+    tok, pos = _sp_block(tokens, positions, mesh, over_dp)
+    length = torch.as_tensor(length, dtype=torch.int32,
+                             device=tokens.device).reshape(-1).expand(B)
+    if over_dp:
+        Bl, d = B // mesh.shape["dp"], mesh.coords["dp"]
+        length = length[d * Bl:(d + 1) * Bl]
+    ks, vs = [], []
+
+    def keep(i, k, v):
+        ks.append(k)
+        vs.append(v)
+    h = _sp_layers(params, cfg, tok, pos, mesh, kv_out or keep)
+    sel = pos == (length[:, None] - 1)
+    h_last = all_reduce_(torch.where(sel[..., None], h,
+                                     torch.zeros_like(h)).sum(dim=1),
+                         mesh, "sp")
+    logits = unembed(params, cfg, h_last[:, None])[:, 0]
+    if kv_out is not None:
+        return None, None, logits
+    return torch.stack(ks), torch.stack(vs), logits
 
 
 def apply_decode_paged(params: Params, cfg: LlamaConfig,

@@ -5,21 +5,32 @@ The reference is one controller over a ``jax.sharding.Mesh``; PyTorch's
 idiom is one process per card under ``torch.distributed``. Every rank
 builds the same ``Mesh`` from the same ``MeshPlan``: the axis sizes (the
 reference's ``mesh.shape``), this rank's place in them, and the process
-groups its collectives run on. The axis order is the reference's, ``tp``
-innermost, so a tensor-parallel group is ``tp`` consecutive ranks (on one
-host, the cards NVLink joins all to all).
+groups its collectives run on. Rank ``r`` is the reference's device
+``r`` of ``np.array(devices).reshape(dp, pp, ep, sp, tp)``: ``tp``
+innermost, so a tensor-parallel group is ``tp`` consecutive ranks (on
+one host, the cards NVLink joins all to all).
 
-Process groups: the collectives of the model (``parallel/comm.py``) run
-on the default backend, NCCL on the card and gloo on the CPU; the small
-host-side headers the serving leader sends its followers
-(``engine/engine.py``) run on a gloo group of their own, so a header never
-waits behind the card's queue.
+Process groups (``parallel/comm.py`` names them by axis): ``tp_group``
+(the row-parallel sums, the vocab shards), ``sp_group`` (the ring and
+the sequence shards' gathers), ``moe_group`` (the ``ep x tp`` ranks that
+hold one replica's experts: the MoE combine) and the default group over
+every rank (the leader's broadcasts), all on the default backend, NCCL
+on the card and gloo on the CPU. Global rank 0 serves; every other rank,
+the ``dp`` and ``sp`` replicas included, follows it, and the small
+host-side headers it sends (``engine/engine.py``) run on a gloo group
+over every rank (``header_group``), so a header never waits behind the
+card's queue.
+
+Several hosts (``maybe_init_distributed``): each host's process drives
+its local cards, one rank each, and global rank = process id x local
+cards + local index.
 """
 
 from __future__ import annotations
 
 import datetime
 import itertools
+import os
 from dataclasses import dataclass, field
 from typing import Any, Optional, Union
 
@@ -60,28 +71,59 @@ def parse_mesh_spec(spec: str) -> dict:
     return axes
 
 
-def maybe_init_distributed(coordinator: str, num_processes: int,
-                           process_id: int, *,
+def host_settings(coordinator: str = "", num_processes: int = 0,
+                  process_id: int = -1) -> tuple[str, int, int]:
+    """(coordinator, processes, this process's id): each argument that is
+    not given falls back to the reference's environment variable
+    (``GAIE_COORDINATOR``, ``GAIE_NUM_PROCESSES``, ``GAIE_PROCESS_ID``);
+    one process, id 0, when neither sets a count."""
+    coordinator = coordinator or os.environ.get("GAIE_COORDINATOR", "")
+    num_processes = num_processes or int(
+        os.environ.get("GAIE_NUM_PROCESSES", "0") or 0) or 1
+    if process_id < 0:
+        process_id = int(os.environ.get("GAIE_PROCESS_ID", "-1") or -1)
+    if num_processes == 1 and process_id < 0:
+        process_id = 0
+    return coordinator, num_processes, process_id
+
+
+def maybe_init_distributed(coordinator: str = "", num_processes: int = 0,
+                           process_id: int = -1, *, local_rank: int = 0,
+                           local_ranks: int = 1,
                            device: Union[str, torch.device] = "cuda",
                            timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
-    """The process group of a multi-process run on one host (the
+    """The process group of a run over several processes (the
     reference's ``maybe_init_distributed``, which wires hosts for
     ``jax.distributed``).
 
+    ``num_processes`` processes (hosts) take part, this one being
+    ``process_id``; each drives ``local_ranks`` ranks, of which the
+    calling one is ``local_rank``: global rank = ``process_id x
+    local_ranks + local_rank`` of ``num_processes x local_ranks``. The
+    arguments fall back to the reference's environment variables
+    (``GAIE_COORDINATOR``, ``GAIE_NUM_PROCESSES``, ``GAIE_PROCESS_ID``).
     ``coordinator`` is the group's ``init_method``: ``tcp://host:port``
-    (a bare ``host:port`` is taken as tcp), ``file:///path`` or
-    ``env://``. The backend is NCCL on the card, each rank on card
-    ``process_id % device_count``, and gloo on the CPU. Returns True if
-    the group is (already) initialized; a world of one process needs
-    none and returns False."""
+    (a bare ``host:port``, the reference's form, is taken as tcp; global
+    rank 0 hosts the store there), ``file:///path`` or ``env://``. The
+    backend is NCCL on the card, each rank on card ``global rank %
+    device_count`` (its local index when each host sees its own cards),
+    and gloo on the CPU. Returns True if the group is (already)
+    initialized; a world of one rank needs none and returns False."""
     if dist.is_initialized():
         return True
-    if num_processes <= 1:
+    coordinator, num_processes, process_id = host_settings(
+        coordinator, num_processes, process_id)
+    if not 0 <= local_rank < local_ranks:
+        raise ConfigError(f"local rank {local_rank} is not in "
+                          f"[0, {local_ranks})")
+    world = num_processes * local_ranks
+    if world <= 1:
         return False
     if not coordinator or not 0 <= process_id < num_processes:
         raise ConfigError(
             f"a process group needs a coordinator and this process's id "
             f"in [0, {num_processes}) (got {coordinator!r}, {process_id})")
+    rank = process_id * local_ranks + local_rank
     if "://" not in coordinator:
         coordinator = f"tcp://{coordinator}"
     dev = torch.device(device)
@@ -89,10 +131,10 @@ def maybe_init_distributed(coordinator: str, num_processes: int,
         if not torch.cuda.is_available():
             raise ConfigError("no CUDA device is available for an NCCL "
                               "process group; pass device='cpu' for gloo")
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
+        torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(
         "nccl" if dev.type == "cuda" else "gloo", init_method=coordinator,
-        world_size=num_processes, rank=process_id,
+        world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s))
     return True
 
@@ -128,16 +170,18 @@ class MeshPlan:
 class Mesh:
     """One rank's view of the mesh: ``shape`` (axis -> size, the
     reference's ``mesh.shape``), this rank's global ``rank`` in ``world``
-    ranks, its coordinates (``coords``), the device it runs on, and the
-    groups of its tensor-parallel ranks (``tp_group`` for the model's
-    collectives, ``header_group`` for the leader's headers; None at
-    tp = 1)."""
+    ranks, its coordinates (``coords``), the device it runs on, and its
+    process groups (module docstring): ``tp_group``, ``sp_group`` and
+    ``moe_group`` (None where the axis is 1), ``header_group`` (None in a
+    world of one)."""
     shape: dict
     rank: int = 0
     world: int = 1
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     tp_group: Any = None
     header_group: Any = None
+    sp_group: Any = None
+    moe_group: Any = None
 
     @property
     def coords(self) -> dict:
@@ -159,33 +203,62 @@ class Mesh:
 
     @property
     def leader(self) -> bool:
-        """Whether this rank leads its tensor-parallel group (tp index 0:
-        the rank that serves)."""
-        return self.tp_rank == 0
+        """Whether this rank serves: global rank 0 (at pure tp, the tp
+        group's index 0)."""
+        return self.rank == 0
+
+
+def axis_ranks(shape: dict, axes: tuple) -> list:
+    """The rank lists of the groups along ``axes``: one list for every
+    index of the other axes, its ranks ordered row-major over ``axes``
+    (the reference device array's ranks along those axes)."""
+    sizes = [shape[a] for a in AXES]
+    others = [a for a in AXES if a not in axes]
+    groups = []
+    for fixed in itertools.product(*(range(shape[a]) for a in others)):
+        at = dict(zip(others, fixed))
+        ranks = []
+        for free in itertools.product(*(range(shape[a]) for a in axes)):
+            at.update(zip(axes, free))
+            r = 0
+            for a, n in zip(AXES, sizes):
+                r = r * n + at[a]
+            ranks.append(r)
+        groups.append(ranks)
+    return groups
 
 
 def make_mesh(plan: Optional[MeshPlan] = None, *,
               device: Union[str, torch.device] = "cuda") -> Mesh:
     """Build this rank's mesh over the initialized process group (one
     rank when none is). Every rank must call it, in the same order as
-    its other group calls: it creates the tensor-parallel groups, each
-    ``tp`` consecutive ranks, and their gloo header groups."""
+    its other group calls: it creates every group of every axis over
+    one (``axis_ranks``), each rank keeping its own, and the gloo header
+    group over all ranks."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     plan = (plan or MeshPlan()).resolve(world)
     shape = {a: getattr(plan, a) for a in AXES}
     mesh = Mesh(shape=shape, rank=rank, world=world,
                 device=torch.device(device))
-    if world > 1 and plan.tp > 1:
-        outer = [range(shape[a]) for a in AXES[:-1]]
-        for idx in itertools.product(*outer):
-            base = 0
-            for a, i in zip(AXES[:-1], idx):
-                base = base * shape[a] + i
-            ranks = [base * plan.tp + t for t in range(plan.tp)]
-            group = dist.new_group(ranks)
-            header = dist.new_group(ranks, backend="gloo")
-            if rank in ranks:
-                mesh.tp_group, mesh.header_group = group, header
-    return mesh
+    if world == 1:
+        return mesh
 
+    def groups(axes: tuple):
+        mine = None
+        for ranks in axis_ranks(shape, axes):
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine = group
+        return mine
+
+    if plan.tp > 1:
+        mesh.tp_group = groups(("tp",))
+    if plan.sp > 1:
+        mesh.sp_group = groups(("sp",))
+    if plan.ep > 1:
+        mesh.moe_group = groups(("ep", "tp"))
+    else:
+        mesh.moe_group = mesh.tp_group
+    mesh.header_group = dist.new_group(list(range(world)), backend="gloo")
+    return mesh

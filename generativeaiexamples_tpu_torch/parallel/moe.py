@@ -1,5 +1,5 @@
 """Sparse mixture-of-experts: top-k routing with capacity-bounded dispatch
-(port of the reference's ``parallel/moe.py``, its single-device part).
+(port of the reference's ``parallel/moe.py``).
 
 The reference wrote this layer in plain ``jnp`` (XLA, no Pallas kernel),
 so it is plain PyTorch here: the routing is a handful of small integer
@@ -25,8 +25,17 @@ holds F/tp columns of each expert's ``w_gate``/``w_up`` and the matching
 rows of ``w_down`` (``parallel/sharding.py``); routing is replicated
 (the same float32 router logits on every rank), each rank's combine is a
 partial sum, and one all-reduce completes it: what the reference
-computes under GSPMD with the same specs. The expert-parallel functions
-(``ep_*``) are not ported yet (ROADMAP A12).
+computes under GSPMD with the same specs.
+
+Under expert parallelism (``ep_sparse_moe_ffn``, ``sparse_moe_ffn`` on a
+mesh with ep > 1) every rank holds ``E/ep`` experts (its ep block of the
+stacks, F/tp columns of each). x is replicated over ep, so every rank
+routes the same rows and dispatches them locally into the same ``(E, C,
+D)`` buffers, runs only its own experts (``ep_expert_ffn``), and its
+combine keeps only its own experts' claims; one all-reduce over the
+``ep x tp`` ranks completes the sum. The reference's GSPMD lowering moves
+the buffers with an all-to-all instead; with x already on every rank no
+all-to-all is needed, and the result is the same sum (in another order).
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from typing import Any, Optional
 import torch
 
 from ..models.configs import LlamaConfig
+from ..utils.errors import ShardingError
 from .comm import all_reduce_
 from .mesh import Mesh
 
@@ -119,23 +129,78 @@ def _expert_ffn(expert_in: torch.Tensor, w_gate: torch.Tensor,
     return torch.bmm(gate * up, w_down)
 
 
+def expert_block(cfg: LlamaConfig, mesh: Optional[Mesh]) -> tuple[int, int]:
+    """(first expert, count) of this rank's ep block: all ``E`` experts
+    without expert parallelism. ``E % ep`` must be 0."""
+    E = cfg.num_experts
+    ep = mesh.shape.get("ep", 1) if mesh is not None else 1
+    if ep == 1:
+        return 0, E
+    if E % ep:
+        raise ShardingError(f"num_experts={E} does not split over ep={ep}")
+    n = E // ep
+    return mesh.coords["ep"] * n, n
+
+
+def _route(x_flat: torch.Tensor, lp: dict[str, Any], cfg: LlamaConfig):
+    """Float32 router logits, capacity and top-k claims of (T, D) rows."""
+    T = x_flat.shape[0]
+    logits = x_flat.float() @ lp["router"].float()
+    C = expert_capacity(T, cfg.num_experts, cfg.num_experts_per_tok,
+                        cfg.moe_capacity_factor)
+    return C, route_topk(logits, cfg.num_experts_per_tok, C)
+
+
 def sparse_moe_ffn(x: torch.Tensor, lp: dict[str, Any],
                    cfg: LlamaConfig,
                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Sparse MoE layer: (B, S, D) -> (B, S, D), top-k experts per token.
     The router logits are float32 (the reference's), the experts run in
     the activations' dtype. ``mesh``: ``lp``'s experts are this rank's
-    F/tp shard and the combined rows are all-reduced."""
+    shard (its ep block, F/tp columns) and the combined rows are
+    all-reduced (``ep_sparse_moe_ffn`` under ep > 1)."""
+    if mesh is not None and mesh.shape.get("ep", 1) > 1:
+        return ep_sparse_moe_ffn(mesh, x, lp, cfg)
     B, S, D = x.shape
     T = B * S
     x_flat = x.reshape(T, D)
-    logits = x_flat.float() @ lp["router"].float()
-    C = expert_capacity(T, cfg.num_experts, cfg.num_experts_per_tok,
-                        cfg.moe_capacity_factor)
-    expert, slot, weight, keep = route_topk(logits,
-                                            cfg.num_experts_per_tok, C)
+    C, (expert, slot, weight, keep) = _route(x_flat, lp, cfg)
     expert_in = _dispatch(x_flat, expert, slot, keep, cfg.num_experts, C)
     expert_out = _expert_ffn(expert_in, lp["w_gate"], lp["w_up"],
                              lp["w_down"])
     out = _combine(expert_out, expert, slot, weight, keep, T)
     return all_reduce_(out, mesh).reshape(B, S, D)
+
+
+def ep_expert_ffn(mesh: Mesh, expert_in: torch.Tensor,
+                  w_gate: torch.Tensor, w_up: torch.Tensor,
+                  w_down: torch.Tensor) -> torch.Tensor:
+    """This rank's experts' SwiGLU (the reference's ``ep_expert_ffn``,
+    one device's block of it): ``expert_in`` (E/ep, C, D) holds the
+    buffers of this rank's ep block of experts, the weights its shards
+    ((E/ep, D, F/tp), (E/ep, F/tp, D)); the row-parallel down product is
+    summed over tp. Returns (E/ep, C, D)."""
+    return all_reduce_(_expert_ffn(expert_in, w_gate, w_up, w_down), mesh)
+
+
+def ep_sparse_moe_ffn(mesh: Mesh, x: torch.Tensor, lp: dict[str, Any],
+                      cfg: LlamaConfig) -> torch.Tensor:
+    """``sparse_moe_ffn`` with the experts over ``ep`` (the reference's
+    ``ep_sparse_moe_ffn``; module docstring): routing and dispatch of
+    every row on every rank, this rank's experts only, the combine of
+    their claims, one all-reduce over ``ep x tp``."""
+    B, S, D = x.shape
+    T = B * S
+    x_flat = x.reshape(T, D)
+    C, (expert, slot, weight, keep) = _route(x_flat, lp, cfg)
+    e0, n = expert_block(cfg, mesh)
+    mine = (expert >= e0) & (expert < e0 + n)
+    # Only this rank's experts' buffers are filled: another expert's
+    # claim goes to the trash row, as a dropped claim does.
+    expert_in = _dispatch(x_flat, (expert - e0).clamp(0, n - 1), slot,
+                          keep & mine, n, C)
+    expert_out = _expert_ffn(expert_in, lp["w_gate"], lp["w_up"],
+                             lp["w_down"])
+    out = _combine(expert_out, (expert - e0).clamp(0, n - 1), slot, weight,
+                   keep & mine, T)
+    return all_reduce_(out, mesh, "moe").reshape(B, S, D)

@@ -12,6 +12,7 @@ equals). The rules are the reference's:
   embed     (V, D)            V over tp (vocab-parallel)
   lm_head   (D, V)            V over tp
   MoE experts (L, E, ...)     E over ep, then tp on the inner dims
+  (dp and sp replicate every leaf)
 
 The reference hands the annotated tree to ``jax.device_put`` and GSPMD
 places it; in the port every rank holds its own slice
@@ -48,10 +49,15 @@ def _kv_tp(cfg: LlamaConfig, mesh: Mesh) -> Optional[str]:
 
 
 def llama_param_specs(cfg: LlamaConfig, mesh: Mesh) -> Specs:
-    """The spec of every leaf of ``cfg``'s tree on ``mesh``."""
+    """The spec of every leaf of ``cfg``'s tree on ``mesh``; experts that
+    do not split over ep are a ``ShardingError`` here, before any leaf is
+    made or read."""
     tp = _axis_on(mesh, "tp")
     pp = _axis_on(mesh, "pp")
     ep = _axis_on(mesh, "ep")
+    if ep and cfg.num_experts and cfg.num_experts % mesh.shape["ep"]:
+        raise ShardingError(f"num_experts={cfg.num_experts} does not split "
+                            f"over ep={mesh.shape['ep']}")
     kv_tp = _kv_tp(cfg, mesh)
     q_tp = tp if tp and cfg.num_heads % mesh.shape["tp"] == 0 else None
 

@@ -5,7 +5,8 @@
         [--kv-pool-tokens N] [--quantization {int8,int4,int4_awq}] \\
         [--kv-quant int8] [--embedder-path DIR | --no-embedder] \\
         [--grpc-port 8001] [--world-size N] [--tensor-parallelism TP] \\
-        [--pipeline-parallelism 1]
+        [--pipeline-parallelism 1] \\
+        [--coordinator HOST:PORT --num-processes P --process-id I]
 
 With ``--model-path`` (default ``$MODEL_PATH``, else the one model
 directory under ``$AZUREML_MODEL_DIR`` on an AzureML managed endpoint:
@@ -41,8 +42,20 @@ random weights (``llama.init_params(..., mesh=)``), and runs its
 ``Engine`` over it, the followers in ``Engine.follow``. The weight cache
 keeps one entry per rank (``...-tp{N}-r{rank}-hash``; the leader hashes
 the directory and shares the hash). A follower that dies takes the
-server down: ``/health`` answers 503 and the process exits. pp > 1 and
-multi-host runs are refused.
+server down: ``/health`` answers 503 and the process exits. pp > 1 is
+refused.
+
+Several hosts (``--coordinator``, ``--num-processes``, ``--process-id``,
+the reference's flags, with its ``GAIE_COORDINATOR``,
+``GAIE_NUM_PROCESSES`` and ``GAIE_PROCESS_ID`` fallbacks: ``cli_hosts``):
+every host runs the same command with its own process id; each host's
+CLI spawns its local ranks, one per local card (one with ``--device
+cpu``), and global rank = process id x local ranks + local index
+(``maybe_init_distributed``), the group's store on the coordinator's
+address (process 0's host). Only global rank 0 binds HTTP (and gRPC);
+another host's CLI follows it (``_follow_host``) and exits when the
+leader closes. ``--device cuda:N`` with more than one host is
+refused.
 
 The embedder behind ``/v1/embeddings`` (``build_embedder``) is the
 e5-large-v2 checkpoint in ``--embedder-path``, else ``encoder-tiny`` with
@@ -110,7 +123,7 @@ from ..obs import metrics as obs_metrics
 from ..obs import rounds as obs_rounds
 from ..ops.quant import MODES, quantize_params, weight_mode
 from ..parallel import comm
-from ..parallel.mesh import (Mesh, MeshPlan, make_mesh,
+from ..parallel.mesh import (Mesh, MeshPlan, host_settings, make_mesh,
                              maybe_init_distributed)
 from ..utils.device import resolve_device
 from ..utils.errors import ConfigError, EngineError
@@ -210,6 +223,24 @@ def resolve_topology(world_size: int = 0, tp: int = 0, pp: int = 1,
     return world, tp, pp
 
 
+def cli_hosts(args: argparse.Namespace) -> tuple[str, int, int]:
+    """(coordinator, hosts, this host's id) of the CLI: ``--coordinator``,
+    ``--num-processes`` and ``--process-id``, each falling back to the
+    reference's ``GAIE_COORDINATOR``, ``GAIE_NUM_PROCESSES`` and
+    ``GAIE_PROCESS_ID``; ``("", 1, 0)`` for one host. More than one host
+    needs the coordinator and an id in range."""
+    coordinator, hosts, host = host_settings(
+        args.coordinator, args.num_processes, args.process_id)
+    if hosts == 1:
+        return "", 1, 0
+    if not coordinator or not 0 <= host < hosts:
+        raise ConfigError(
+            f"a run over {hosts} hosts needs --coordinator and this "
+            f"host's --process-id in [0, {hosts}) (got {coordinator!r}, "
+            f"{host})")
+    return coordinator, hosts, host
+
+
 def cli_topology(args: argparse.Namespace,
                  available: Optional[int] = None) -> tuple[int, int, int]:
     """The CLI's (world, tp, pp) by ``resolve_topology``'s rules: the
@@ -219,21 +250,33 @@ def cli_topology(args: argparse.Namespace,
     times pp when ``--world-size`` is not given). A ``--device`` that
     names one card (``cuda:N``) serves on that card alone, and a world
     above one with it is refused before any process starts (rank r runs
-    on card r). ``available``: the local cards by default, the world asked
-    for with ``--device cpu``."""
+    on card r). Over several hosts (``cli_hosts``) the world is global:
+    each host's local cards (one rank a host with ``--device cpu``)
+    times the hosts, and must split evenly over them. ``available``: the
+    cards of every host by default, the world asked for with ``--device
+    cpu``."""
     pp = args.pipeline_parallelism
+    _, hosts, _ = cli_hosts(args)
     asked = args.world_size or args.tensor_parallelism * pp
     dev = torch.device(args.device)
-    if dev.index is not None or (dev.type == "cpu" and not asked):
-        if asked > 1:
+    if dev.index is not None or (dev.type == "cpu" and not asked
+                                 and hosts == 1):
+        if asked > 1 or hosts > 1:
             raise ConfigError(
                 f"--device {args.device} names one card, but a world of "
-                f"{asked} runs rank r on card r: pass --device cuda")
+                f"{max(asked, hosts)} runs rank r on card r: pass --device "
+                f"cuda")
         return resolve_topology(1, args.tensor_parallelism, pp, available=1)
     if available is None:
-        available = torch.cuda.device_count() if dev.type != "cpu" else asked
-    return resolve_topology(asked, args.tensor_parallelism, pp,
-                            available=available)
+        local = (torch.cuda.device_count() if dev.type != "cpu"
+                 else max(1, asked // hosts))
+        available = hosts * local
+    world, tp, pp = resolve_topology(asked, args.tensor_parallelism, pp,
+                                     available=available)
+    if world % hosts:
+        raise ConfigError(f"a world of {world} does not split over "
+                          f"{hosts} hosts")
+    return world, tp, pp
 
 
 # The reference CLI's model types, each served as its default registry
@@ -824,6 +867,15 @@ def _parser() -> argparse.ArgumentParser:
                         help="tp degree (default: world size / pp)")
     parser.add_argument("--pipeline-parallelism", type=int, default=1,
                         help="pp degree: serving refuses pp > 1")
+    # Several hosts: every host runs this command with its own id.
+    parser.add_argument("--coordinator", default="",
+                        help="host:port of process 0 for a run over "
+                             "several hosts (default $GAIE_COORDINATOR)")
+    parser.add_argument("--num-processes", type=int, default=0,
+                        help="hosts taking part, one CLI each (default "
+                             "$GAIE_NUM_PROCESSES, else 1)")
+    parser.add_argument("--process-id", type=int, default=-1,
+                        help="this host's index (default $GAIE_PROCESS_ID)")
     return parser
 
 
@@ -845,11 +897,12 @@ def _build_rank(args: argparse.Namespace, world: int, tp: int
                           tp=tp)
 
 
-def _follower_main(argv: list[str], rank: int, world: int, tp: int,
-                   init_method: str) -> None:
-    """A tensor-parallel follower process of the CLI: join the group,
-    build this rank's engine, replay the leader's programs until it
-    closes. It exits when the leader's process goes away."""
+def _follower_main(argv: list[str], local_rank: int, world: int, tp: int,
+                   init_method: str, hosts: int = 1, host: int = 0) -> None:
+    """A follower process the CLI spawned (local rank ``local_rank`` of
+    host ``host``): join the group, build this rank's engine, replay the
+    leader's programs until it closes. It exits when its host's CLI
+    process goes away."""
     import signal
 
     # The leader ends the group (its shutdown closes this loop); an
@@ -862,10 +915,11 @@ def _follower_main(argv: list[str], rank: int, world: int, tp: int,
     def watch_parent() -> None:
         while os.getppid() == parent:
             time.sleep(1.0)
-        logger.error("tp rank %d: the leader's process is gone", rank)
+        logger.error("local rank %d: the CLI's process is gone", local_rank)
         os._exit(1)
     threading.Thread(target=watch_parent, daemon=True).start()
-    maybe_init_distributed(init_method, world, rank, device=args.device)
+    maybe_init_distributed(init_method, hosts, host, local_rank=local_rank,
+                           local_ranks=world // hosts, device=args.device)
     engine, _ = _build_rank(args, world, tp)
     engine.follow()
     engine.close()
@@ -873,12 +927,16 @@ def _follower_main(argv: list[str], rank: int, world: int, tp: int,
 
 
 def _spawn_followers(argv: list[str], world: int, tp: int,
-                     init_method: str) -> list:
+                     init_method: str, hosts: int = 1,
+                     host: int = 0) -> list:
+    """This host's local ranks 1.. (local rank 0 is the calling
+    process)."""
     ctx = torch.multiprocessing.get_context("spawn")
+    local = world // hosts
     procs = [ctx.Process(target=_follower_main,
-                         args=(argv, rank, world, tp, init_method),
-                         name=f"tp-rank-{rank}", daemon=True)
-             for rank in range(1, world)]
+                         args=(argv, i, world, tp, init_method, hosts, host),
+                         name=f"rank-{host * local + i}", daemon=True)
+             for i in range(1, local)]
     for proc in procs:
         proc.start()
     return procs
@@ -893,7 +951,7 @@ def _watch_followers(procs: list, engine: Engine) -> None:
             for proc in procs:
                 if not proc.is_alive() and not engine._closing:
                     engine._fatal = EngineError(
-                        f"tensor-parallel {proc.name} exited with code "
+                        f"follower {proc.name} exited with code "
                         f"{proc.exitcode}")
                     logger.error("%s", engine._fatal)
                     time.sleep(2.0)
@@ -901,6 +959,49 @@ def _watch_followers(procs: list, engine: Engine) -> None:
             time.sleep(0.5)
     threading.Thread(target=watch, daemon=True,
                      name="tp-followers-watch").start()
+
+
+def _follow_host(engine: Engine, followers: list) -> None:
+    """Another host's CLI (``--process-id`` > 0): its local rank 0
+    follows the leader as its spawned ranks do; no HTTP here. The
+    leader's close ends the loop, then the local ranks and the group. A
+    SIGTERM is taken as the run stopping: the leader's close is awaited,
+    for at most ``FOLLOW_TERM_S`` seconds."""
+    import signal
+
+    def on_term(signum, frame) -> None:
+        logger.info("SIGTERM: following until the leader closes (at most "
+                    "%.0f s)", FOLLOW_TERM_S)
+        timer = threading.Timer(FOLLOW_TERM_S, os._exit, args=(1,))
+        timer.daemon = True
+        timer.start()
+    signal.signal(signal.SIGTERM, on_term)
+    engine.follow()
+    engine.close()
+    _end_group(followers)
+
+
+# How long another host's CLI waits for the leader's close after a
+# SIGTERM before it exits on its own.
+FOLLOW_TERM_S = 60.0
+# How long a CLI process waits for the group's shutdown (every rank's)
+# before it exits on its own, non-zero.
+END_GROUP_S = 120.0
+
+
+def _end_group(followers: list) -> None:
+    """Shut the process group down, then join this host's spawned ranks.
+    NCCL's shutdown of a communicator may wait for every rank's, so no
+    rank waits for another's exit before its own; a rank that is gone
+    keeps it from completing, and the process then exits with code 1
+    after ``END_GROUP_S`` seconds."""
+    timer = threading.Timer(END_GROUP_S, os._exit, args=(1,))
+    timer.daemon = True
+    timer.start()
+    dist.destroy_process_group()
+    for proc in followers:
+        proc.join(timeout=60)
+    timer.cancel()
 
 
 def main(argv: Optional[list[str]] = None) -> None:
@@ -911,16 +1012,26 @@ def main(argv: Optional[list[str]] = None) -> None:
         from .grpc_server import require_grpc
         require_grpc()
     world, tp, _pp = cli_topology(args)
+    coordinator, hosts, host = cli_hosts(args)
     followers = []
     if world > 1:
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            init_method = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
-        followers = _spawn_followers(argv, world, tp, init_method)
-        maybe_init_distributed(init_method, world, 0, device=args.device)
+        if hosts > 1:
+            init_method = coordinator
+        else:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                init_method = f"tcp://127.0.0.1:{sock.getsockname()[1]}"
+        followers = _spawn_followers(argv, world, tp, init_method, hosts,
+                                     host)
+        maybe_init_distributed(init_method, hosts, host, local_rank=0,
+                               local_ranks=world // hosts,
+                               device=args.device)
     engine, name = _build_rank(args, world, tp)
     if followers:
         _watch_followers(followers, engine)
+    if not engine.leader:
+        _follow_host(engine, followers)
+        return
     embed_service = (None if args.no_embedder else
                      build_embedder(args.embedder_path, device=args.device))
     bootstrap_logging()
@@ -944,9 +1055,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     finally:
         if grpc_server is not None:
             grpc_server.stop(grace=1.0)
-        if followers:
+        if world > 1:
             # The app's cleanup closed the engine, which closed the
             # followers' loops.
-            for proc in followers:
-                proc.join(timeout=60)
-            dist.destroy_process_group()
+            _end_group(followers)

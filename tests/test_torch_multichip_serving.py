@@ -410,14 +410,15 @@ def _gate(kw, device, **axes):
     (LLAMA, "cuda", dict(tp=2, pp=2), "pp == 1"),
     (LLAMA, "cpu", dict(tp=2, pp=2), "pp == 1"),
     (LLAMA, "cuda", dict(tp=4), r"heads 4/2 must divide tp=4"),
-    (LLAMA, "cpu", dict(tp=2, sp=2), "A12"),
+    (LLAMA, "cpu", dict(tp=2, sp=2), "composing sp with tp"),
     (LLAMA, "cuda", dict(tp=2), None),
     (LLAMA, "cpu", dict(tp=4), None),
 ])
 def test_topology_gates(kw, device, axes, match):
-    """Serving refuses pp > 1 (the reference's message) and sp/ep; on the
-    card, head counts that do not divide tp (the reference falls back to
-    its gather path, the port refuses); the CPU serves them plainly."""
+    """Serving refuses pp > 1 and sp composed with tp (the reference's
+    messages); on the card, head counts that do not divide tp (the
+    reference falls back to its gather path, the port refuses); the CPU
+    serves them plainly."""
     gate = _gate(kw, device, **axes)
     if match is None:
         Engine._check_topology(gate, LlamaConfig(**kw))

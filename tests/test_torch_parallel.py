@@ -100,7 +100,7 @@ def test_mesh_coords_put_tp_innermost():
         m = _mesh(tmesh.MeshPlan(dp=2, tp=4), 8, r)
         at = tuple(int(i[0]) for i in np.nonzero(devs == jax.devices()[r]))
         assert tuple(m.coords.values()) == at
-        assert m.tp == 4 and m.tp_rank == at[-1] and m.leader == (at[-1] == 0)
+        assert m.tp == 4 and m.tp_rank == at[-1] and m.leader == (r == 0)
     # One process without a group: a one-rank mesh, no collective groups.
     single = tmesh.make_mesh(device="cpu")
     assert single.shape == {"dp": 1, "pp": 1, "ep": 1, "sp": 1, "tp": 1}

@@ -125,11 +125,12 @@ def test_score_argument_checks(golden):
         llama.score(params, CFG, two[:, :1])
     with pytest.raises(ValueError, match="chunk"):
         llama.score(params, CFG, two, chunk=8)
-    # A sequence-parallel mesh (ring attention) is not ported; a tp mesh
-    # takes the tp forward (tests/test_torch_tp_features.py).
+    # A sequence-parallel mesh takes the ring (tests/test_torch_mesh_
+    # serving.py), a tp mesh the tp forward (tests/test_torch_tp_features.
+    # py); sp composed with tp is refused with the reference's message.
     from generativeaiexamples_tpu_torch.parallel.mesh import Mesh
-    sp = Mesh(shape={"dp": 1, "pp": 1, "ep": 1, "sp": 2, "tp": 1}, world=2)
-    with pytest.raises(ConfigError, match="A12"):
+    sp = Mesh(shape={"dp": 1, "pp": 1, "ep": 1, "sp": 2, "tp": 2}, world=4)
+    with pytest.raises(ValueError, match="composing sp with tp"):
         llama.score(params, CFG, two, mesh=sp)
 
 
